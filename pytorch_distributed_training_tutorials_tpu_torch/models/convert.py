@@ -1,0 +1,154 @@
+"""The weight bridge: JAX ``TransformerLM`` param trees -> the port's
+parameters, and the seeded on-device builder of quantized weights.
+
+:func:`from_jax_params` takes the JAX tree as nested dicts of numpy arrays
+(a caller holding jax arrays converts them on its side, e.g.
+``jax.tree_util.tree_map(np.asarray, params)``; the port never sees a jax
+object) and returns a state dict for :class:`.transformer.TransformerLM`.
+Float trees and ``quantize_lm_params`` trees, unrolled (``block_i/...``)
+and stacked (``layers/block/...``, leading layer axis) layouts all give
+the same port weights. Int8 weights are converted once here to the layout
+the CUDA kernel reads: ``q`` (K, N) is stored as ``qt`` (N, K),
+K-contiguous.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+from pytorch_distributed_training_tutorials_tpu_torch._device import resolve_device
+from pytorch_distributed_training_tutorials_tpu_torch.models.transformer import (
+    _QUANTIZED_KERNELS,
+    TransformerConfig,
+    TransformerLM,
+    quantize_lm_params,
+)
+from pytorch_distributed_training_tutorials_tpu_torch.ops.quant import (
+    Int8Linear,
+    quantize_int8,
+)
+
+# port module path inside a block -> the JAX subtree path
+_BLOCK_LEAVES = {
+    "attn_norm": ("attn_norm",),
+    "attn.q_proj": ("attn", "q_proj"),
+    "attn.k_proj": ("attn", "k_proj"),
+    "attn.v_proj": ("attn", "v_proj"),
+    "attn.o_proj": ("attn", "o_proj"),
+    "mlp_norm": ("mlp_norm",),
+    "mlp.gate_proj": ("mlp", "gate_proj"),
+    "mlp.up_proj": ("mlp", "up_proj"),
+    "mlp.down_proj": ("mlp", "down_proj"),
+}
+
+
+def _to_torch(tree, device):
+    if isinstance(tree, Mapping):
+        return {k: _to_torch(v, device) for k, v in tree.items()}
+    return torch.tensor(np.asarray(tree), device=device)
+
+
+def _unstack(tree: dict, n_layers: int) -> dict:
+    """``layers/block/...`` (leading L axis) -> ``block_i/...``."""
+    if "layers" not in tree:
+        return tree
+    stacked = tree["layers"]["block"]
+
+    def take(sub, i):
+        if isinstance(sub, Mapping):
+            return {k: take(v, i) for k, v in sub.items()}
+        return sub[i]
+
+    out = {k: v for k, v in tree.items() if k != "layers"}
+    for i in range(n_layers):
+        out[f"block_{i}"] = take(stacked, i)
+    return out
+
+
+def _is_float_tree(tree) -> bool:
+    for name, sub in tree.items():
+        if isinstance(sub, Mapping):
+            if name in _QUANTIZED_KERNELS and "kernel" in sub:
+                return True
+            if _is_float_tree(sub):
+                return True
+    return False
+
+
+def _int8_leaves(prefix: str, sub: Mapping) -> dict:
+    return {
+        f"{prefix}.qt": sub["q"].t().contiguous(),
+        f"{prefix}.scale": sub["scale"].reshape(1, -1).float().contiguous(),
+    }
+
+
+def from_jax_params(tree, cfg: TransformerConfig, device=None) -> dict[str, torch.Tensor]:
+    """JAX param tree (nested dicts of numpy arrays) -> the port's state
+    dict on ``device`` (``cuda`` unless the caller passes another). A float
+    tree is quantized here, per layer, bitwise the JAX quantizer."""
+    dev = resolve_device(device)
+    t = _unstack(_to_torch(dict(tree), dev), cfg.n_layers)
+    if _is_float_tree(t):
+        t = quantize_lm_params(t)
+    out = {"tok_emb.weight": t["tok_emb"]["embedding"].float().contiguous()}
+    for i in range(cfg.n_layers):
+        blk = t[f"block_{i}"]
+        for port_name, path in _BLOCK_LEAVES.items():
+            sub = blk
+            for key in path:
+                sub = sub[key]
+            prefix = f"blocks.{i}.{port_name}"
+            if path[-1].endswith("_norm"):
+                out[f"{prefix}.scale"] = sub["scale"].float().contiguous()
+            else:
+                out.update(_int8_leaves(prefix, sub))
+    out["final_norm.scale"] = t["final_norm"]["scale"].float().contiguous()
+    out.update(_int8_leaves("lm_head", t["lm_head"]))
+    _check_schema(out, cfg)
+    return out
+
+
+def _check_schema(params: dict, cfg: TransformerConfig) -> None:
+    want = TransformerLM(cfg).state_dict()
+    if set(want) != set(params):
+        missing = sorted(set(want) - set(params))
+        extra = sorted(set(params) - set(want))
+        raise ValueError(f"param tree mismatch: missing {missing}, unexpected {extra}")
+    for name, ref in want.items():
+        got = params[name]
+        if tuple(got.shape) != tuple(ref.shape) or got.dtype != ref.dtype:
+            raise ValueError(
+                f"{name}: got {tuple(got.shape)} {got.dtype}, the config "
+                f"needs {tuple(ref.shape)} {ref.dtype}"
+            )
+
+
+def init_quantized_lm(cfg: TransformerConfig, seed: int = 0,
+                      device=None) -> dict[str, torch.Tensor]:
+    """Random int8 serving weights for ``cfg`` built on ``device`` (``cuda``
+    unless the caller passes another): every leaf drawn from one seeded
+    ``torch.Generator`` as ``standard_normal * 0.02`` (the recipe of the JAX
+    package's ``examples/serve_llm_int8.py`` synthetic checkpoint), each
+    matmul kernel quantized the moment it is drawn, so the float model is
+    never resident."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = TransformerLM(cfg)  # meta: the schema only
+    out: dict[str, torch.Tensor] = {}
+    for mod_name, mod in model.named_modules():
+        if isinstance(mod, Int8Linear):
+            n, k = mod.qt.shape
+            w = torch.randn((k, n), generator=gen, device=dev) * 0.02
+            qp = quantize_int8(w)
+            del w
+            out[f"{mod_name}.qt"] = qp.q.t().contiguous()
+            out[f"{mod_name}.scale"] = qp.scale.reshape(1, -1)
+        else:
+            for p_name, p in mod.named_parameters(recurse=False):
+                out[f"{mod_name}.{p_name}"] = (
+                    torch.randn(p.shape, generator=gen, device=dev) * 0.02
+                )
+    return out

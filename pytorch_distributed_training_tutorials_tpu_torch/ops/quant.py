@@ -1,0 +1,224 @@
+"""Int8 weight quantization and the int8 matmul kernel.
+
+Port of ``pytorch_distributed_training_tutorials_tpu/ops/quant.py``:
+
+- :func:`quantize_int8` — per-channel symmetric absmax/127 weight
+  quantization into an :class:`Int8Param`;
+- :func:`int8_matmul` — ``x @ (q * scale)`` with dynamic per-(row,
+  K-tile) activation quantization. On a CUDA tensor it launches the
+  hand-written Hopper kernel ``csrc/int8_matmul.cu`` (the port of the TPU
+  kernel ``_int8_matmul_kernel``); on a CPU tensor it runs
+  :func:`int8_matmul_reference`, the plain PyTorch version of the same
+  arithmetic. There is no fallback between the two: a CUDA tensor goes
+  through the kernel or the call raises;
+- :class:`Int8Linear` — the serving layer over an int8 weight (both of the
+  JAX package's ``Int8Dense`` and ``Int8DenseGeneral``: each flattens its
+  kernel to a 2-D ``q`` with per-column scales).
+
+Numerics follow the reference kernel as XLA executes it (the tests hold
+the port bitwise to JAX's ``int8_matmul``): the activation scale is
+``max(absmax, 1e-8) * float32(1/127)`` — XLA folds the reference's
+``/ 127.0`` into a multiply by the rounded reciprocal — and each K tile is
+folded in as one fused multiply-add ``acc = fma(part, sx, acc)``, the
+contraction XLA makes. Weight scales, computed eagerly by
+``quantize_int8``, keep the true division.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import math
+
+import torch
+from torch import nn
+
+from pytorch_distributed_training_tutorials_tpu_torch.ops import _build
+
+# float32(1 / 127): the constant XLA multiplies by in place of `/ 127.0`
+_RCP127 = float.fromhex("0x1.020408p-7")
+
+
+@dataclasses.dataclass
+class Int8Param:
+    """Per-channel symmetric int8 weight: ``w ~= q * scale``.
+
+    ``q``: int8 (K, N) — any strides (the serving layer keeps it
+    K-contiguous, a transposed view of an (N, K) tensor, which is the
+    layout the CUDA kernel takes). ``scale``: float32, broadcastable to
+    ``q`` (1 everywhere except the channel axis)."""
+
+    q: torch.Tensor
+    scale: torch.Tensor
+
+    @property
+    def shape(self):
+        return self.q.shape
+
+    def dequantize(self) -> torch.Tensor:
+        return self.q.float() * self.scale
+
+
+def quantize_int8(w: torch.Tensor, channel_axis: int = -1) -> Int8Param:
+    """absmax/127 per-channel symmetric quantization; ``channel_axis`` is
+    the output-feature axis that keeps its own scale (-1 for a (in, out)
+    kernel). Bitwise the JAX package's ``quantize_int8``."""
+    w = w.float()
+    axis = channel_axis % w.ndim
+    reduce_dims = [a for a in range(w.ndim) if a != axis]
+    absmax = w.abs().amax(dim=reduce_dims, keepdim=True)
+    scale = torch.clamp_min(absmax, 1e-8) / 127.0
+    q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+    return Int8Param(q=q, scale=scale)
+
+
+def block_k_for(k: int) -> int:
+    """The K-tile width the TPU kernel uses (at its default ``block_k`` of
+    512) for a K-long contraction: ``min(512, max(128, K))`` rounded up to
+    a multiple of 128. The tile is the activation-quantization group, so
+    it changes results, not just speed."""
+    bk = min(512, max(128, k))
+    return -(-bk // 128) * 128
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``fma(a, b, c)``: the product of a tile's integer dot (< 2^24)
+    and a float32 scale is exact in float64, so one float64 add and one
+    rounding to float32 give the fused result (a double rounding can differ
+    from it only when the float64 sum is inexact and lands on a float32
+    rounding midpoint)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def int8_matmul_reference(x: torch.Tensor, w: Int8Param) -> torch.Tensor:
+    """Plain PyTorch statement of the kernel's arithmetic, on any device:
+    per-(row, K-tile) activation quantization over :func:`block_k_for`
+    tiles, an exact integer dot per tile, float32 accumulation in tile
+    order, then the per-column weight scale.
+
+    Each tile's dot runs as a float32 matmul of integer values: a tile sum
+    is at most 512 * 127 * 127 < 2^24, so it is exact whatever the
+    summation order (and under TF32 too, whose 10-bit mantissa holds every
+    int8 value)."""
+    x = x.float()
+    m, k = x.shape
+    n = w.q.shape[1]
+    bk = block_k_for(k)
+    acc = torch.zeros((m, n), dtype=torch.float32, device=x.device)
+    for lo in range(0, k, bk):
+        hi = min(lo + bk, k)
+        xt = x[:, lo:hi]  # zero padding to bk changes neither absmax nor dot
+        sx = torch.clamp_min(xt.abs().amax(dim=1, keepdim=True), 1e-8) * _RCP127
+        xq = torch.clamp(torch.round(xt / sx), -127, 127)
+        part = xq @ w.q[lo:hi].float()
+        acc = _fma(part, sx, acc)
+    return acc * w.scale.reshape(1, -1).float()
+
+
+def _check_cuda_args(x: torch.Tensor, w: Int8Param) -> None:
+    if not (w.q.device == x.device == w.scale.device):
+        raise ValueError(
+            f"int8_matmul operands on different devices: x {x.device}, "
+            f"q {w.q.device}, scale {w.scale.device}"
+        )
+    if x.dtype != torch.float32:
+        raise TypeError(f"int8_matmul kernel takes float32 x, got {x.dtype}")
+    if w.q.dtype != torch.int8:
+        raise TypeError(f"int8_matmul kernel takes int8 q, got {w.q.dtype}")
+    if w.scale.dtype != torch.float32:
+        raise TypeError(
+            f"int8_matmul kernel takes float32 scale, got {w.scale.dtype}"
+        )
+    if not x.is_contiguous():
+        raise ValueError("int8_matmul kernel takes a contiguous (M, K) x")
+    if not w.q.t().is_contiguous():
+        raise ValueError(
+            "int8_matmul kernel takes q (K, N) K-contiguous — a transposed "
+            "view of an (N, K) contiguous tensor (Int8Linear stores it so)"
+        )
+    if not w.scale.is_contiguous():
+        raise ValueError("int8_matmul kernel takes a contiguous scale")
+    if x.numel() >= 2**31 or w.q.numel() >= 2**31:
+        raise ValueError("int8_matmul kernel indexes with 32-bit sizes")
+
+
+def int8_matmul(x: torch.Tensor, w: Int8Param) -> torch.Tensor:
+    """``x @ (q * scale)`` with dynamic per-(row, K-tile) int8 activation
+    quantization. ``x``: (M, K) float; ``w.q``: (K, N) int8 with
+    per-column ``w.scale`` (1, N) or (N,). Returns (M, N) float32.
+
+    A CPU ``x`` runs :func:`int8_matmul_reference`. A CUDA ``x`` launches
+    the kernel of ``csrc/int8_matmul.cu`` (built at first use) on the
+    current stream and adds one to ``int8_matmul.launches``; it raises on
+    operands the kernel does not take and when the launch fails."""
+    m, k = x.shape
+    kq, n = w.q.shape
+    if k != kq:
+        raise ValueError(f"int8_matmul: x {tuple(x.shape)} vs q {tuple(w.q.shape)}")
+    if tuple(w.scale.shape) not in ((1, n), (n,)):
+        raise ValueError(
+            f"int8_matmul needs per-output-column scales of size {n} "
+            f"(quantize with channel_axis=-1); got scale shape "
+            f"{tuple(w.scale.shape)}"
+        )
+    if x.device.type == "cpu":
+        return int8_matmul_reference(x, w)
+    if x.device.type != "cuda":
+        raise ValueError(f"int8_matmul runs on cpu or cuda, got {x.device}")
+    _check_cuda_args(x, w)
+    bk = block_k_for(k)
+    n_k = -(-k // bk)
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if m == 0 or n == 0:
+        return out
+    xq = torch.empty((m, n_k * bk), dtype=torch.int8, device=x.device)
+    sx = torch.empty((m, n_k), dtype=torch.float32, device=x.device)
+    lib = _build.library("int8_matmul")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.int8_matmul_launch(
+            x.data_ptr(), w.q.data_ptr(), w.scale.data_ptr(),
+            out.data_ptr(), xq.data_ptr(), sx.data_ptr(),
+            m, n, k, bk, ctypes.c_void_p(stream),
+        )
+    if rc != 0:
+        raise RuntimeError(f"int8_matmul kernel launch failed: CUDA error {rc}")
+    int8_matmul.launches += 1
+    return out
+
+
+int8_matmul.launches = 0  # kernel launches on the card (CPU calls add none)
+
+
+class Int8Linear(nn.Module):
+    """Serving layer over an int8 weight: contracts the last ``n_in`` axes
+    of ``x`` (``K`` = their product) into ``features`` (``N`` = their
+    product) through :func:`int8_matmul`.
+
+    One module for both of the JAX package's ``Int8Dense`` (``n_in=1``,
+    one feature axis) and ``Int8DenseGeneral`` (q/k/v: ``d_model -> (H,
+    D)``; o_proj: ``(H, D) -> d_model``, ``n_in=2``). Buffers: ``qt`` (N,
+    K) int8 — the (K, N) ``q`` stored transposed, K-contiguous, the layout
+    the kernel reads (the weight bridge converts once at load) — and
+    ``scale`` (1, N) float32. No bias: the transformer's projections have
+    none."""
+
+    def __init__(self, in_features, features, n_in: int = 1, device=None):
+        super().__init__()
+        feats = tuple(features) if isinstance(features, (tuple, list)) else (features,)
+        ins = tuple(in_features) if isinstance(in_features, (tuple, list)) else (in_features,)
+        self.features = feats
+        self.n_in = n_in
+        k, n = math.prod(ins), math.prod(feats)
+        self.register_buffer(
+            "qt", torch.zeros((n, k), dtype=torch.int8, device=device)
+        )
+        self.register_buffer(
+            "scale", torch.ones((1, n), dtype=torch.float32, device=device)
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead = x.shape[: x.ndim - self.n_in]
+        x2 = x.reshape(-1, self.qt.shape[1]).contiguous()
+        out = int8_matmul(x2, Int8Param(q=self.qt.t(), scale=self.scale))
+        return out.reshape(*lead, *self.features)
