@@ -1,0 +1,309 @@
+"""LM train-step MFU: the transformer training headline, on the card.
+
+Port of ``pytorch_distributed_training_tutorials_tpu/bench/lm_headline.py``
+(same flags and defaults): the 760m preset (vocab 32768, d_model 1536, 24
+layers, 16 heads of 96, d_ff 6144), seq 2048, batch 2, bfloat16 compute on
+float32 params, flash attention (the hand-written kernels of
+:mod:`..ops.flash_attention`), ``remat=True`` with ``remat_policy="dots"``,
+unrolled layers, ``adamw(3e-4, weight_decay=0.01)`` and cross entropy. The
+batch is drawn with numpy from ``PCG64(0)`` exactly as the JAX bench draws
+it, and repeats every step.
+
+A chain is ``--steps`` eager steps, timed with CUDA events and closed with
+one ``.item()`` of the last loss; the first chain is the warmup, then
+``--reps`` timed chains, min taken. MFU is the PaLM-convention model FLOPs
+(:func:`..models.utils.model_flops_per_token`) over the card's dense bf16
+peak, keyed by its ``nvidia-smi`` name (989 TFLOP/s for the H100 SXM data
+sheet; ``null`` for a card not in :data:`PEAK_BF16`). Peak memory is
+``torch.cuda.max_memory_allocated`` over the timed chains.
+
+Runs on ``cuda`` unless ``--device cpu`` is given (then every number is a
+host number: no MFU, no device memory). ``--fused`` (the logits-free loss
+and fused AdamW kernels) and ``--scan`` (the JAX ``nn.scan`` layout) are
+not in the port yet and raise.
+
+    python -m pytorch_distributed_training_tutorials_tpu_torch.bench.lm_headline [--json out.json]
+    python -m pytorch_distributed_training_tutorials_tpu_torch.bench.lm_headline \\
+        --device cpu --preset smoke --seq 64 --batch 2 --steps 2 --reps 1
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+PRESETS = {
+    # name: (d_model, n_layers, n_heads, vocab)
+    "smoke": (64, 2, 4, 256),
+    "125m": (768, 12, 12, 32768),
+    "350m": (1024, 24, 16, 32768),
+    "760m": (1536, 24, 16, 32768),
+}
+
+# dense bf16 tensor-core peak by nvidia-smi name (NVIDIA data sheets)
+PEAK_BF16 = {"NVIDIA H100 80GB HBM3": 989e12}
+
+BLOCK_NOTE = (
+    "the CUDA flash kernels tile by 64 x 64 whatever --block_q/--block_k "
+    "say; these set only the plain (CPU) version's blocks"
+)
+
+
+def gpu_line() -> str | None:
+    """``nvidia-smi --query-gpu=name,power.limit`` of the first card, or
+    None where there is no nvidia-smi."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60,
+        )
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return out.stdout.strip().splitlines()[0]
+
+
+def build(args, device):
+    import numpy as np
+    import torch
+
+    from pytorch_distributed_training_tutorials_tpu_torch.models import (
+        TransformerConfig,
+        TransformerLM,
+        bind_params,
+        init_lm,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.flash_attention import (
+        make_flash_attention,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.train.optim import adamw
+    from pytorch_distributed_training_tutorials_tpu_torch.train.trainer import (
+        TrainState,
+        _train_step_fn,
+    )
+
+    d_model, n_layers, n_heads, vocab = PRESETS[args.preset]
+    attention_fn = None
+    if args.attn == "flash":
+        attention_fn = make_flash_attention(args.block_q, args.block_k)
+    cfg = TransformerConfig(
+        vocab_size=vocab, d_model=d_model, n_layers=n_layers, n_heads=n_heads,
+        max_seq_len=args.seq, dtype=torch.bfloat16, remat=args.remat,
+        remat_policy=args.remat_policy, attention_fn=attention_fn,
+        quantized=False,
+    )
+    model = TransformerLM(cfg)
+    bind_params(model, init_lm(cfg, seed=0, device=device))
+    state = TrainState.create(model=model, tx=adamw(3e-4, weight_decay=0.01))
+    rng = np.random.Generator(np.random.PCG64(0))
+    toks = torch.as_tensor(
+        rng.integers(0, vocab, (args.batch, args.seq + 1)), dtype=torch.int64,
+        device=device,
+    )
+    batch = (toks[:, :-1], toks[:, 1:])
+    step_fn = _train_step_fn("cross_entropy")
+    n_params = sum(p.numel() for p in model.parameters())
+    n_embed = vocab * d_model  # tok_emb; lm_head is a matmul and counts
+    return model, state, batch, step_fn, n_params, n_embed
+
+
+def profile_step(run_step, torch) -> dict:
+    """``torch.profiler`` over one step: device busy and idle share of its
+    wall time, kernels per step, the top kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = {e.key: e.self_device_time_total for e in kernels}
+    busy_ms = sum(dev_us.values()) / 1e3
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]
+    return {
+        "wall_ms_profiled": wall_ms,
+        "device_busy_ms": busy_ms,
+        "device_busy_share": busy_ms / wall_ms,
+        "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "kernels_per_step": sum(e.count for e in kernels),
+        "top_kernels_ms": {k[:80]: v / 1e3 for k, v in top},
+    }
+
+
+def measure(args) -> dict:
+    import torch
+
+    from pytorch_distributed_training_tutorials_tpu_torch._device import resolve_device
+    from pytorch_distributed_training_tutorials_tpu_torch.models.utils import (
+        model_flops_per_token,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.obs import MinOfN
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.flash_attention import (
+        flash_attention,
+    )
+
+    if args.fused:
+        raise NotImplementedError(
+            "--fused is not supported by the PyTorch port yet; it arrives with "
+            "the fused-tail slice (fused cross entropy kernels 6-8 and fused "
+            "AdamW kernel 9)"
+        )
+    if not args.no_scan:
+        raise NotImplementedError(
+            "--scan is not supported by the PyTorch port: it holds one module "
+            "per layer (the nn.scan layout matters only in the weight bridge)"
+        )
+    dev = resolve_device(args.device)
+    on_card = dev.type == "cuda"
+    launches0 = dict(flash_attention.launches)
+    t0 = time.perf_counter()
+    model, state, batch, step_fn, n_params, n_embed = build(args, dev)
+    if on_card:
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    steps_run = 0
+
+    def one_step():
+        nonlocal state, steps_run
+        state, metrics = step_fn(state, batch)
+        steps_run += 1
+        return metrics["loss"]
+
+    def sync(loss):
+        return float(loss.item())  # the one real sync of a chain
+
+    d_model, n_layers, _, vocab = PRESETS[args.preset]
+    tokens_per_step = args.batch * args.seq
+    model_flops = model_flops_per_token(
+        n_params - n_embed, d_model, n_layers, args.seq
+    ) * tokens_per_step
+    peak = PEAK_BF16.get((gpu_line() or "").split(",")[0].strip()) if on_card else None
+    out = {
+        "preset": args.preset, "d_model": d_model, "n_layers": n_layers,
+        "vocab": vocab, "seq": args.seq, "batch": args.batch,
+        "loss": "cross_entropy", "optimizer": "adamw",
+        "attn": args.attn + (f"({args.block_q},{args.block_k})" if args.attn == "flash" else ""),
+        "block_note": BLOCK_NOTE if args.attn == "flash" else None,
+        "remat": bool(args.remat), "remat_policy": args.remat_policy,
+        "scan_layers": False, "n_params": n_params, "device": str(dev),
+        "init_s": init_s,
+    }
+    if args.mem_only:
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        sync(one_step())
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated() if on_card else None
+        out["flash_launches"] = _delta(flash_attention.launches, launches0)
+        out["steps_run"] = steps_run
+        return out
+
+    # warmup chain: first launches, kernel builds, allocator growth
+    losses = [one_step() for _ in range(args.steps)]
+    sync(losses[-1])
+    first_chain = [float(x) for x in torch.stack(losses).float().cpu()]
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    all_losses = list(losses)
+    chain_ms: list[float] = []
+
+    def run_chain():
+        ls = []
+        if on_card:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        t = time.perf_counter()
+        for _ in range(args.steps):
+            ls.append(one_step())
+        if on_card:
+            end.record()
+        sync(ls[-1])
+        chain_ms.append(start.elapsed_time(end) if on_card
+                        else (time.perf_counter() - t) * 1e3)
+        all_losses.extend(ls)
+
+    timing = MinOfN(n=args.reps, warmup=False).measure(run_chain)
+    step_s = min(chain_ms) / 1e3 / args.steps
+    finite = bool(torch.isfinite(torch.stack(all_losses).float()).all())
+    out.update({
+        "steps_chained": args.steps,
+        "wall_s_samples": [round(s, 4) for s in timing.samples_s],
+        "stalled_samples": timing.n_stalled,
+        "chain_ms_samples": chain_ms,
+        "step_ms": step_s * 1e3,
+        "step_clock": "CUDA events over the chain" if on_card else "host clock (CPU run)",
+        "tokens_per_s": tokens_per_step / step_s,
+        "model_tflops_per_step": model_flops / 1e12,
+        "peak_bf16_flops": peak,
+        "mfu": model_flops / step_s / peak if peak else None,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated() if on_card else None,
+        "losses_first_chain": first_chain,
+        "all_losses_finite": finite,
+    })
+    if args.trace:
+        if not on_card:
+            raise ValueError("--trace profiles the card; it needs --device cuda")
+        out["trace"] = profile_step(lambda: sync(one_step()), torch)
+    out["flash_launches"] = _delta(flash_attention.launches, launches0)
+    out["steps_run"] = steps_run
+    return out
+
+
+def _delta(now: dict, before: dict) -> dict:
+    return {k: now[k] - before[k] for k in now}
+
+
+def make_receipt(result: dict) -> dict:
+    """The result stamped with the torch and CUDA versions and the card
+    (``nvidia-smi`` name and power limit; null off the card)."""
+    import torch
+
+    return {
+        "bench": "lm_headline", "torch": torch.__version__,
+        "cuda": torch.version.cuda, "gpu": gpu_line() if result["device"] != "cpu" else None,
+        "result": result,
+    }
+
+
+def parse(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--preset", choices=sorted(PRESETS), default="760m")
+    p.add_argument("--seq", type=int, default=2048)
+    p.add_argument("--batch", type=int, default=2)
+    p.add_argument("--attn", choices=["dense", "flash"], default="flash")
+    p.add_argument("--block_q", type=int, default=1024)
+    p.add_argument("--block_k", type=int, default=1024)
+    p.add_argument("--remat", action="store_true", default=True)
+    p.add_argument("--no_remat", dest="remat", action="store_false")
+    p.add_argument("--remat_policy", choices=["dots", "dots_attn"], default="dots")
+    p.add_argument("--no_scan", action="store_true", default=True,
+                   help="unrolled layers (the only layout of the port)")
+    p.add_argument("--scan", dest="no_scan", action="store_false")
+    p.add_argument("--steps", type=int, default=12)
+    p.add_argument("--reps", type=int, default=3)
+    p.add_argument("--trace", action="store_true")
+    p.add_argument("--mem_only", action="store_true")
+    p.add_argument("--fused", action="store_true",
+                   help="the fused-tail arm (not in the port yet: raises)")
+    p.add_argument("--device", default=None,
+                   help="cuda (default) or cpu; no GPU and no --device cpu raises")
+    p.add_argument("--json", default=None)
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> None:
+    args = parse(argv)
+    r = make_receipt(measure(args))
+    print(json.dumps(r))
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(r, f, indent=1)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

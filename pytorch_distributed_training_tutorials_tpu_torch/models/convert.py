@@ -1,5 +1,7 @@
 """The weight bridge: JAX ``TransformerLM`` param trees -> the port's
-parameters, and the seeded on-device builder of quantized weights.
+parameters, and the seeded on-device builders of random weights
+(:func:`init_quantized_lm` for int8 serving, :func:`init_lm` for
+training).
 
 :func:`from_jax_params` takes the JAX tree as nested dicts of numpy arrays
 (a caller holding jax arrays converts them on its side, e.g.
@@ -7,14 +9,20 @@ parameters, and the seeded on-device builder of quantized weights.
 object) and returns a state dict for :class:`.transformer.TransformerLM`.
 Float trees and ``quantize_lm_params`` trees, unrolled (``block_i/...``)
 and stacked (``layers/block/...``, leading layer axis) layouts all give
-the same port weights. Int8 weights are converted once here to the layout
-the CUDA kernel reads: ``q`` (K, N) is stored as ``qt`` (N, K),
-K-contiguous.
+the same port weights. For ``cfg.quantized`` a float tree is quantized
+here, and int8 weights are converted once to the layout the CUDA kernel
+reads: ``q`` (K, N) is stored as ``qt`` (N, K), K-contiguous. For a float
+``cfg`` the tree stays float: each kernel — (in, out) for ``nn.Dense``,
+(d_model, H, D) for q/k/v, (H, D, d_model) for o_proj — becomes a
+``weight`` (K, N), its input axes flattened into K and its output axes
+into N.
 """
 
 from __future__ import annotations
 
 from collections.abc import Mapping
+
+import math
 
 import numpy as np
 import torch
@@ -22,6 +30,7 @@ import torch
 from pytorch_distributed_training_tutorials_tpu_torch._device import resolve_device
 from pytorch_distributed_training_tutorials_tpu_torch.models.transformer import (
     _QUANTIZED_KERNELS,
+    Dense,
     TransformerConfig,
     TransformerLM,
     quantize_lm_params,
@@ -78,21 +87,38 @@ def _is_float_tree(tree) -> bool:
     return False
 
 
-def _int8_leaves(prefix: str, sub: Mapping) -> dict:
+def _int8_leaves(prefix: str, name: str, sub: Mapping) -> dict:
     return {
         f"{prefix}.qt": sub["q"].t().contiguous(),
         f"{prefix}.scale": sub["scale"].reshape(1, -1).float().contiguous(),
     }
 
 
+def _float_leaves(prefix: str, name: str, sub: Mapping) -> dict:
+    kern = sub["kernel"].float()
+    if name == "o_proj":  # (H, D, d_model): both leading axes contract
+        w = kern.reshape(-1, kern.shape[-1])
+    else:  # (in, out...) : the first axis contracts
+        w = kern.reshape(kern.shape[0], -1)
+    return {f"{prefix}.weight": w.contiguous()}
+
+
 def from_jax_params(tree, cfg: TransformerConfig, device=None) -> dict[str, torch.Tensor]:
     """JAX param tree (nested dicts of numpy arrays) -> the port's state
-    dict on ``device`` (``cuda`` unless the caller passes another). A float
-    tree is quantized here, per layer, bitwise the JAX quantizer."""
+    dict on ``device`` (``cuda`` unless the caller passes another). For an
+    int8 ``cfg`` a float tree is quantized here, per layer, bitwise the JAX
+    quantizer; for a float ``cfg`` the tree must be float and stays so."""
     dev = resolve_device(device)
     t = _unstack(_to_torch(dict(tree), dev), cfg.n_layers)
-    if _is_float_tree(t):
+    is_float = _is_float_tree(t)
+    if cfg.quantized and is_float:
         t = quantize_lm_params(t)
+    elif not cfg.quantized and not is_float:
+        raise ValueError(
+            "a quantized param tree cannot load into a float "
+            "TransformerConfig(quantized=False)"
+        )
+    leaves = _int8_leaves if cfg.quantized else _float_leaves
     out = {"tok_emb.weight": t["tok_emb"]["embedding"].float().contiguous()}
     for i in range(cfg.n_layers):
         blk = t[f"block_{i}"]
@@ -104,9 +130,9 @@ def from_jax_params(tree, cfg: TransformerConfig, device=None) -> dict[str, torc
             if path[-1].endswith("_norm"):
                 out[f"{prefix}.scale"] = sub["scale"].float().contiguous()
             else:
-                out.update(_int8_leaves(prefix, sub))
+                out.update(leaves(prefix, path[-1], sub))
     out["final_norm.scale"] = t["final_norm"]["scale"].float().contiguous()
-    out.update(_int8_leaves("lm_head", t["lm_head"]))
+    out.update(leaves("lm_head", "lm_head", t["lm_head"]))
     _check_schema(out, cfg)
     return out
 
@@ -151,4 +177,40 @@ def init_quantized_lm(cfg: TransformerConfig, seed: int = 0,
                 out[f"{mod_name}.{p_name}"] = (
                     torch.randn(p.shape, generator=gen, device=dev) * 0.02
                 )
+    return out
+
+
+def _truncated_normal_(w: torch.Tensor, std: float, gen: torch.Generator) -> torch.Tensor:
+    """flax's ``truncated_normal`` variance scaling: a normal truncated to
+    two standard deviations, its scale divided by the truncated
+    distribution's std (0.8796...) so the variance is ``std ** 2``."""
+    s = std / 0.87962566103423978
+    return torch.nn.init.trunc_normal_(w, 0.0, s, -2.0 * s, 2.0 * s, generator=gen)
+
+
+def init_lm(cfg: TransformerConfig, seed: int = 0, device=None) -> dict[str, torch.Tensor]:
+    """Random float training weights for ``cfg`` built on ``device``
+    (``cuda`` unless the caller passes another), every leaf drawn from one
+    seeded ``torch.Generator`` with the distributions of the flax
+    initializers the JAX model uses: projections ``lecun_normal`` (a
+    truncated normal of variance 1 / fan_in; o_proj's fan_in is H * D),
+    the embedding normal with variance 1 / d_model, norm scales ones. The
+    draws differ from JAX's (another generator); the distributions are
+    the same."""
+    if cfg.quantized:
+        raise ValueError("init_lm builds float weights; use init_quantized_lm for int8")
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = TransformerLM(cfg)  # meta: the schema only
+    out: dict[str, torch.Tensor] = {}
+    for mod_name, mod in model.named_modules():
+        for p_name, p in mod.named_parameters(recurse=False):
+            w = torch.empty(p.shape, dtype=torch.float32, device=dev)
+            if isinstance(mod, Dense):
+                _truncated_normal_(w, math.sqrt(1.0 / p.shape[0]), gen)
+            elif isinstance(mod, torch.nn.Embedding):
+                w.normal_(0.0, math.sqrt(1.0 / cfg.d_model), generator=gen)
+            else:  # RMSNorm scale
+                w.fill_(1.0)
+            out[f"{mod_name}.{p_name}"] = w
     return out

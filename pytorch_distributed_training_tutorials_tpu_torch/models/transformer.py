@@ -1,11 +1,25 @@
-"""Decoder-only transformer LM: the serving forward, in PyTorch.
+"""Decoder-only transformer LM, in PyTorch: the int8 serving forward and
+the float training forward.
 
-Port of ``pytorch_distributed_training_tutorials_tpu/models/transformer.py``
-for int8 serving: RMSNorm, rotary positions (half-split), dense causal
-prefill, slot-indexed cached decode with per-row positions, SwiGLU, and the
-int8 projections of :class:`..ops.quant.Int8Linear`. Parameter names and
-the (in, out) weight meaning follow the JAX package so the weight bridge
-(:mod:`.convert`) maps one to one.
+Port of ``pytorch_distributed_training_tutorials_tpu/models/transformer.py``:
+RMSNorm, rotary positions (half-split), SwiGLU, GQA. Two weight kinds:
+
+- ``quantized=True`` (int8 serving): dense causal prefill, slot-indexed
+  cached decode with per-row positions, and the int8 projections of
+  :class:`..ops.quant.Int8Linear`, all under ``torch.no_grad``;
+- ``quantized=False`` (training): float32 parameters with flax's
+  ``dtype=`` semantics — each projection casts its input and its weight to
+  ``cfg.dtype`` (float32 or bfloat16) at use, the embedding casts the
+  looked-up rows, RMSNorm and rope compute in float32 and cast back, and
+  attention is ``cfg.attention_fn`` (e.g. the flash kernels of
+  :mod:`..ops.flash_attention`) or :func:`dense_causal_attention` with the
+  JAX ``masked_attention`` contract. ``remat`` checkpoints each block
+  (``torch.utils.checkpoint``); ``remat_policy="dots"`` saves the outputs
+  of the projections' matmuls and recomputes the rest, the flash forward
+  included. The float model runs the plain causal forward only.
+
+Parameter names and the (in, out) weight meaning follow the JAX package so
+the weight bridge (:mod:`.convert`) maps one to one.
 
 Where JAX keeps the KV cache in flax's mutable ``"cache"`` collection, the
 port passes an explicit :class:`KVCache` into the forward; prefill and
@@ -25,12 +39,19 @@ backend orders the sum.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from collections.abc import Callable, Mapping
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from pytorch_distributed_training_tutorials_tpu_torch.ops.quant import (
     Int8Linear,
@@ -46,20 +67,29 @@ _LATER_SLICES = {
     "lora_adapters": "the multi-tenant LoRA bank",
     "lora_rank": "the multi-tenant LoRA bank",
     "moe_experts": "mixture-of-experts blocks",
-    "attention_fn": "flash prefill and sequence-parallel attention",
     "int8_mesh": "tensor-parallel int8 serving",
-    "remat": "the LM train step",
 }
+# what the int8 serving model refuses, and the slice that brings it in
+_SERVING_LATER = {
+    "attention_fn": "flash prefill in the serving port",
+    "remat": "no later slice: remat is a training option and int8 weights "
+             "are not trained",
+    "remat_policy": "no later slice: remat is a training option and int8 "
+                    "weights are not trained",
+}
+_FLOAT_DTYPES = (torch.float32, torch.bfloat16)
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """The JAX package's ``TransformerConfig`` fields that this slice
-    serves or refuses. Unsupported values raise ``NotImplementedError`` at
-    construction, naming the slice that brings them in; so does
-    ``quantized=False`` (this slice serves int8 weights only). The JAX
-    ``scan_layers`` layout needs no field: the port holds one module per
-    layer and the weight bridge reads the layout from the tree."""
+    """The JAX package's ``TransformerConfig`` fields that the port runs
+    or refuses. Unsupported values raise ``NotImplementedError`` at
+    construction, naming the slice that brings them in. ``quantized=True``
+    serves int8 weights in float32; ``quantized=False`` trains float32
+    parameters computing in ``dtype`` (float32 or bfloat16), with
+    ``attention_fn``, ``remat`` and ``remat_policy`` (None or "dots"). The
+    JAX ``scan_layers`` layout needs no field: the port holds one module
+    per layer and the weight bridge reads the layout from the tree."""
 
     vocab_size: int = 256
     d_model: int = 128
@@ -72,6 +102,7 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
     remat: bool = False
+    remat_policy: str | None = None
     attention_fn: Callable | None = None
     moe_experts: int = 0
     quantized: bool = False
@@ -91,16 +122,37 @@ class TransformerConfig:
                     f"TransformerConfig.{name}={value!r} is not supported by "
                     f"the PyTorch port yet; it arrives with {later}"
                 )
-        if not self.quantized:
-            raise NotImplementedError(
-                "TransformerConfig(quantized=False) is not supported by the "
-                "PyTorch port yet; float weights arrive with the LM train "
-                "step (this slice serves int8 weights)"
-            )
-        if self.dtype != torch.float32:
+        if self.quantized:
+            for name, later in _SERVING_LATER.items():
+                value = getattr(self, name)
+                if value not in (None, 0, False):
+                    raise NotImplementedError(
+                        f"TransformerConfig.{name}={value!r} is not supported "
+                        f"with quantized=True in the PyTorch port ({later})"
+                    )
+            if self.dtype != torch.float32:
+                raise NotImplementedError(
+                    f"TransformerConfig.dtype={self.dtype} is not supported "
+                    "with quantized=True in the PyTorch port; int8 serving "
+                    "computes in float32"
+                )
+        elif self.dtype not in _FLOAT_DTYPES:
             raise NotImplementedError(
                 f"TransformerConfig.dtype={self.dtype} is not supported by "
-                "the PyTorch port yet; this slice computes in float32"
+                "the PyTorch port; the float path computes in float32 or "
+                "bfloat16"
+            )
+        if self.remat_policy == "dots_attn":
+            raise NotImplementedError(
+                "remat_policy='dots_attn' is not supported by the PyTorch "
+                "port yet; it arrives in a later PR, once the flash op is a "
+                "torch.library custom op that a selective-checkpoint policy "
+                "can name"
+            )
+        if self.remat_policy not in (None, "dots"):
+            raise ValueError(
+                f"unknown remat_policy {self.remat_policy!r} (None, 'dots', "
+                "or 'dots_attn')"
             )
         if self.d_model % self.n_heads:
             raise ValueError(
@@ -160,17 +212,28 @@ class KVCache:
 
 
 class RMSNorm(nn.Module):
-    """Root-mean-square norm (no mean subtraction); statistics in float64,
-    rounded once to float32 (the module docstring's invariance)."""
+    """Root-mean-square norm (no mean subtraction).
 
-    def __init__(self, dim: int, eps: float = 1e-6, device=None):
+    Serving (``train=False``): statistics in float64, rounded once to
+    float32 (the module docstring's invariance), frozen scale. Training
+    (``train=True``): the JAX package's arithmetic — float32 statistics,
+    ``y * scale`` in float32, cast back to x's dtype — and a trainable
+    scale."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, device=None,
+                 train: bool = False):
         super().__init__()
         self.eps = eps
+        self.train_mode = train
         self.scale = nn.Parameter(
-            torch.ones(dim, device=device), requires_grad=False
+            torch.ones(dim, device=device), requires_grad=train
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.train_mode:
+            x32 = x.float()
+            y = x32 * torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + self.eps)
+            return (y * self.scale).to(x.dtype)
         x64 = x.double()
         inv = torch.rsqrt((x64 * x64).mean(-1, keepdim=True) + self.eps)
         return (x64 * inv).float() * self.scale
@@ -180,7 +243,8 @@ def apply_rope(x: torch.Tensor, theta: float, offset=0) -> torch.Tensor:
     """Rotary position embedding over the last axis (half-split: the first
     and second halves of head_dim are the pair). ``x``: (B, S, H, D).
     ``offset`` is a scalar (every row at the same positions) or a (B,)
-    tensor (each row at its own depth — slot-indexed decode)."""
+    tensor (each row at its own depth — slot-indexed decode). Computes in
+    float32 and casts back to x's dtype."""
     seq_len, half = x.shape[1], x.shape[-1] // 2
     freqs = theta ** (
         -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
@@ -196,8 +260,10 @@ def apply_rope(x: torch.Tensor, theta: float, offset=0) -> torch.Tensor:
     else:
         cos = torch.cos(angles)[:, :, None, :]
         sin = torch.sin(angles)[:, :, None, :]
-    x1, x2 = x[..., :half], x[..., half:]
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    x32 = x.float()
+    x1, x2 = x32[..., :half], x32[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
 
 
 def masked_attention(q, k, v, mask):
@@ -249,6 +315,54 @@ def causal_attention(q, k, v):
     return masked_attention(q, k, v, mask[None, None])
 
 
+def dense_causal_attention(q, k, v):
+    """Dense causal attention of the float (training) path, the JAX
+    ``masked_attention`` contract: float32 scores and softmax, the weights
+    cast to v's dtype, float32 context accumulation, the output in q's
+    dtype. (B, S, H, D) in and out."""
+    s, d = q.shape[1], q.shape[-1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    scores = scores / math.sqrt(d)
+    mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=q.device))
+    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    weights = torch.softmax(scores, dim=-1).to(v.dtype)
+    ctx = torch.einsum("bhqk,bkhd->bqhd", weights.float(), v.float())
+    return ctx.to(q.dtype)
+
+
+class Dense(nn.Module):
+    """Float projection with flax's ``dtype=`` semantics: input and float32
+    weight cast to ``dtype`` at use, one 2-D matmul. Contracts the last
+    ``n_in`` axes of ``x`` into ``features`` (``nn.Dense``,
+    ``nn.DenseGeneral`` for q/k/v and o_proj). ``weight`` is (K, N): the
+    JAX kernel flattened to (in, out). No bias."""
+
+    def __init__(self, in_features, features, n_in: int = 1,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        feats = tuple(features) if isinstance(features, (tuple, list)) else (features,)
+        ins = tuple(in_features) if isinstance(in_features, (tuple, list)) else (in_features,)
+        self.features = feats
+        self.n_in = n_in
+        self.dtype = dtype
+        self.weight = nn.Parameter(
+            torch.empty((math.prod(ins), math.prod(feats)), device=device)
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead = x.shape[: x.ndim - self.n_in]
+        x2 = x.reshape(-1, self.weight.shape[0]).to(self.dtype)
+        out = torch.mm(x2, self.weight.to(self.dtype))
+        return out.reshape(*lead, *self.features)
+
+
+def _projection(cfg: TransformerConfig, in_features, features, n_in=1,
+                device=None) -> nn.Module:
+    if cfg.quantized:
+        return Int8Linear(in_features, features, n_in=n_in, device=device)
+    return Dense(in_features, features, n_in=n_in, dtype=cfg.dtype, device=device)
+
+
 def _store_decode_kv(buf, val, pos, window: int) -> None:
     """Write ``val`` (B, S, ...) into one layer's cache ``buf`` (B, W + 1,
     ...) at positions ``pos[r] + [0, S)`` per row, in place. Positions >=
@@ -266,10 +380,10 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         h, kv, d = cfg.n_heads, cfg.kv_heads, cfg.head_dim
-        self.q_proj = Int8Linear(cfg.d_model, (h, d), device=device)
-        self.k_proj = Int8Linear(cfg.d_model, (kv, d), device=device)
-        self.v_proj = Int8Linear(cfg.d_model, (kv, d), device=device)
-        self.o_proj = Int8Linear((h, d), cfg.d_model, n_in=2, device=device)
+        self.q_proj = _projection(cfg, cfg.d_model, (h, d), device=device)
+        self.k_proj = _projection(cfg, cfg.d_model, (kv, d), device=device)
+        self.v_proj = _projection(cfg, cfg.d_model, (kv, d), device=device)
+        self.o_proj = _projection(cfg, (h, d), cfg.d_model, n_in=2, device=device)
 
     def forward(self, x, cache: KVCache | None = None, layer: int = 0, *,
                 prefill: bool = False, decode: bool = False, rows=None):
@@ -310,16 +424,22 @@ class Attention(nn.Module):
                 kl[sel, s:] = 0
                 vl[sel, s:] = 0
             h = cfg.n_heads
-            out = causal_attention(q, _expand_kv(k, h), _expand_kv(v, h))
+            if cfg.quantized:
+                attn = causal_attention
+            else:
+                attn = cfg.attention_fn or dense_causal_attention
+            # GQA: attention_fns keep their (B, S, H, D) contract — K/V
+            # repeat up to the query head count here
+            out = attn(q, _expand_kv(k, h), _expand_kv(v, h))
         return self.o_proj(out)
 
 
 class SwiGLU(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
-        self.gate_proj = Int8Linear(cfg.d_model, cfg.ff_dim, device=device)
-        self.up_proj = Int8Linear(cfg.d_model, cfg.ff_dim, device=device)
-        self.down_proj = Int8Linear(cfg.ff_dim, cfg.d_model, device=device)
+        self.gate_proj = _projection(cfg, cfg.d_model, cfg.ff_dim, device=device)
+        self.up_proj = _projection(cfg, cfg.d_model, cfg.ff_dim, device=device)
+        self.down_proj = _projection(cfg, cfg.ff_dim, cfg.d_model, device=device)
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -328,9 +448,10 @@ class SwiGLU(nn.Module):
 class Block(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
-        self.attn_norm = RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
+        train = not cfg.quantized
+        self.attn_norm = RMSNorm(cfg.d_model, cfg.norm_eps, device=device, train=train)
         self.attn = Attention(cfg, device=device)
-        self.mlp_norm = RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
+        self.mlp_norm = RMSNorm(cfg.d_model, cfg.norm_eps, device=device, train=train)
         self.mlp = SwiGLU(cfg, device=device)
 
     def forward(self, x, cache=None, layer=0, *, prefill=False, decode=False,
@@ -346,9 +467,14 @@ class TransformerLM(nn.Module):
     """Causal LM: tokens (B, S) int -> logits (B, S', vocab).
 
     Built on the ``meta`` device by default — structure only; the weights
-    come from :func:`..models.convert.from_jax_params` or
-    :func:`..models.convert.init_quantized_lm` and are bound with
-    :func:`bind_params` (``ServeEngine`` and ``generate`` do it).
+    come from :func:`..models.convert.from_jax_params`,
+    :func:`..models.convert.init_quantized_lm` or
+    :func:`..models.convert.init_lm` and are bound with :func:`bind_params`
+    (``ServeEngine`` and ``generate`` do it for serving).
+
+    A float model (``quantized=False``) runs the plain mode only, with
+    gradients, each block under ``torch.utils.checkpoint`` when
+    ``cfg.remat``. An int8 model runs without gradients in every mode.
 
     Modes: plain (full causal forward, every position's logits);
     ``prefill=True`` (the causal forward that also writes ``cache`` rows
@@ -365,13 +491,50 @@ class TransformerLM(nn.Module):
         self.blocks = nn.ModuleList(
             Block(cfg, device=device) for _ in range(cfg.n_layers)
         )
-        self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
-        self.lm_head = Int8Linear(cfg.d_model, cfg.vocab_size, device=device)
+        self.final_norm = RMSNorm(
+            cfg.d_model, cfg.norm_eps, device=device, train=not cfg.quantized
+        )
+        self.lm_head = _projection(cfg, cfg.d_model, cfg.vocab_size, device=device)
 
-    @torch.no_grad()
     def forward(self, tokens, cache: KVCache | None = None, *,
                 prefill: bool = False, decode: bool = False, last_pos=None,
                 rows=None):
+        if self.cfg.quantized:
+            with torch.no_grad():
+                return self._serve(tokens, cache, prefill=prefill,
+                                   decode=decode, last_pos=last_pos, rows=rows)
+        if cache is not None or prefill or decode or last_pos is not None:
+            raise NotImplementedError(
+                "a float TransformerLM runs the plain causal forward only in "
+                "the PyTorch port; float-weight serving arrives with flash "
+                "prefill in the serving port"
+            )
+        return self._train_forward(tokens)
+
+    def _train_forward(self, tokens):
+        """The float forward: embedding rows cast to ``cfg.dtype``, the
+        blocks (checkpointed under ``cfg.remat``), final norm, lm_head;
+        logits (B, S, vocab) in ``cfg.dtype``."""
+        cfg = self.cfg
+        if tokens.shape[1] > cfg.max_seq_len:
+            raise ValueError(
+                f"sequence length {tokens.shape[1]} exceeds max_seq_len "
+                f"{cfg.max_seq_len}"
+            )
+        x = self.tok_emb(tokens).to(cfg.dtype)
+        for block in self.blocks:
+            if cfg.remat:
+                x = checkpoint(
+                    block, x, use_reentrant=False,
+                    context_fn=_remat_context(cfg.remat_policy),
+                )
+            else:
+                x = block(x)
+        return self.lm_head(self.final_norm(x))
+
+    def _serve(self, tokens, cache: KVCache | None = None, *,
+               prefill: bool = False, decode: bool = False, last_pos=None,
+               rows=None):
         cfg = self.cfg
         if prefill and decode:
             raise ValueError("decode and prefill are exclusive")
@@ -398,6 +561,25 @@ class TransformerLM(nn.Module):
                 lp = torch.as_tensor(last_pos, device=x.device).expand(b)
                 x = x[torch.arange(b, device=x.device), lp][:, None]
         return self.lm_head(self.final_norm(x))
+
+
+# matmuls without batch dims: what remat_policy="dots" saves (the JAX
+# package's dots_with_no_batch_dims_saveable); Dense runs one aten.mm
+_DOTS_SAVEABLE = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS_SAVEABLE:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_context(policy: str | None):
+    """``context_fn`` of a block's checkpoint: None recomputes everything
+    (the default contexts); "dots" is the selective policy above."""
+    if policy is None:
+        return noop_context_fn
+    return functools.partial(create_selective_checkpoint_contexts, _dots_policy)
 
 
 def bind_params(model: TransformerLM, params: Mapping[str, torch.Tensor]) -> None:

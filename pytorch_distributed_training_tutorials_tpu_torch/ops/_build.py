@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
 plain C interface, loaded through :mod:`ctypes` — no PyTorch headers, so a
 build takes seconds. Libraries land in ``build/torch_kernels/`` at the repo
-root (listed in ``.gitignore``), named by a hash of the source and the
-flags, so an edited source never loads a stale library. Nothing is built
+root (listed in ``.gitignore``), named by a hash of the source and its
+flags (each library has its own, :data:`_LIBRARIES`), so an edited source
+or flag never loads a stale library. A library may export several C entry
+points. Nothing is built
 at import: the first call of a kernel's wrapper on a CUDA tensor builds
 it, and :func:`build_all` builds every source at once (one ``nvcc`` each,
 all started together).
@@ -27,19 +29,53 @@ BUILD_DIR = PACKAGE.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    # no contraction beyond the __fmaf_rn the sources spell out: results
-    # must be bitwise those of the plain PyTorch versions
-    "-fmad=false",
     "-Xptxas", "-v",
 )
 
-# name -> (argtypes, restype) of each library's one C entry point
-_SIGNATURES = {
-    "int8_matmul": (
-        "int8_matmul_launch",
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-        ctypes.c_int,
-    ),
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+
+
+class Layout(ctypes.Structure):
+    """Element strides of a (B, S, H, D) tensor's first three axes (the
+    last axis is contiguous), passed by value to the flash kernels."""
+
+    _fields_ = [("sb", ctypes.c_longlong), ("ss", ctypes.c_longlong),
+                ("sh", ctypes.c_longlong)]
+
+
+# name -> the library's extra nvcc flags (part of its content hash) and
+# {C entry point: (argtypes, restype)}
+_LIBRARIES = {
+    "int8_matmul": {
+        # no contraction beyond the __fmaf_rn the source spells out: the
+        # kernel must be bitwise its plain PyTorch version
+        "flags": ("-fmad=false",),
+        "entry": {
+            "int8_matmul_launch": ([_PTR] * 6 + [_INT] * 4 + [_PTR], _INT),
+        },
+    },
+    "flash_attention": {
+        "flags": (),
+        "entry": {
+            # q k v o lse, their layouts, B S H D, dtype code, scale, stream
+            "flash_fwd_launch": (
+                [_PTR] * 5 + [Layout] * 4 + [_INT] * 5 + [ctypes.c_float, _PTR],
+                _INT,
+            ),
+            # q k v do lse delta dq, layouts of q k v do dq, B S H D, dtype,
+            # scale, stream
+            "flash_dq_launch": (
+                [_PTR] * 7 + [Layout] * 5 + [_INT] * 5 + [ctypes.c_float, _PTR],
+                _INT,
+            ),
+            # q k v do lse delta dk dv, layouts of q k v do dk dv, B S H D,
+            # dtype, scale, stream
+            "flash_dkv_launch": (
+                [_PTR] * 8 + [Layout] * 6 + [_INT] * 5 + [ctypes.c_float, _PTR],
+                _INT,
+            ),
+        },
+    },
 }
 
 _lock = threading.Lock()
@@ -60,9 +96,13 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
+def _flags(name: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + _LIBRARIES[name]["flags"]
+
+
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
@@ -73,7 +113,7 @@ def _start(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )
@@ -94,10 +134,10 @@ def _finish(name: str, started, t0: float) -> None:
 
 def _load(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(_target(name)))
-    fn_name, argtypes, restype = _SIGNATURES[name]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = restype
+    for fn_name, (argtypes, restype) in _LIBRARIES[name]["entry"].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = restype
     return lib
 
 
@@ -106,7 +146,7 @@ def build_all() -> dict[str, dict]:
     returns :data:`build_info`."""
     with _lock:
         t0 = time.perf_counter()
-        todo = [n for n in _SIGNATURES if n not in _libs]
+        todo = [n for n in _LIBRARIES if n not in _libs]
         started = {n: _start(n) for n in todo}
         for n in todo:
             _finish(n, started[n], t0)

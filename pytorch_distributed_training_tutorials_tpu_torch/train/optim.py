@@ -1,0 +1,87 @@
+"""AdamW in optax's order, as plain foreach torch ops.
+
+``adamw`` mirrors ``optax.adamw`` (the optimizer of the JAX package's
+``bench/lm_headline.py``): ``scale_by_adam`` — ``m = (1-b1) g + b1 m``,
+``v = (1-b2) g^2 + b2 v``, the bias corrections ``1 - b^t`` in float32,
+``m_hat / (sqrt(v_hat) + eps)`` — then ``+ weight_decay * p`` on every
+leaf, then ``* -lr``, then ``p += u``. It is not ``torch.optim.AdamW``,
+which decays ``p`` first and rounds differently. This is the plain twin
+that a fused AdamW kernel will be held to.
+
+The update is IN PLACE: parameters and moments are overwritten (JAX
+returns new trees). The step count is a host integer, so a step does no
+host sync.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+# leaves per foreach call: bounds the temporaries of one update (m / bias
+# correction, its denominator, the decay term) to a few leaves' worth. At
+# the 760m train step on an H100 one pass over all 219 leaves peaked at
+# 24.2 GB against 17.6 GB in chunks, at the same step time (PERF.md)
+_CHUNK = 16
+
+
+@dataclasses.dataclass
+class AdamWState:
+    count: int
+    mu: list[torch.Tensor]
+    nu: list[torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamW:
+    lr: float
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 1e-4
+
+    def init(self, params: list[torch.Tensor]) -> AdamWState:
+        return AdamWState(
+            count=0,
+            mu=[torch.zeros_like(p) for p in params],
+            nu=[torch.zeros_like(p) for p in params],
+        )
+
+    @torch.no_grad()
+    def update_(self, params: list[torch.Tensor], grads: list[torch.Tensor],
+                state: AdamWState) -> None:
+        """One AdamW step, parameters and moments updated in place."""
+        state.count += 1
+        f32 = np.float32
+        # optax: 1 - decay ** count, in float32
+        bc1 = float(f32(1.0) - f32(self.b1) ** f32(state.count))
+        bc2 = float(f32(1.0) - f32(self.b2) ** f32(state.count))
+        for lo in range(0, len(params), _CHUNK):
+            p = params[lo:lo + _CHUNK]
+            g = grads[lo:lo + _CHUNK]
+            mu = state.mu[lo:lo + _CHUNK]
+            nu = state.nu[lo:lo + _CHUNK]
+            torch._foreach_mul_(mu, self.b1)
+            torch._foreach_add_(mu, torch._foreach_mul(g, 1.0 - self.b1))
+            g2 = torch._foreach_mul(g, g)
+            torch._foreach_mul_(g2, 1.0 - self.b2)
+            torch._foreach_mul_(nu, self.b2)
+            torch._foreach_add_(nu, g2)
+            del g2
+            u = torch._foreach_div(mu, bc1)
+            den = torch._foreach_div(nu, bc2)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, self.eps)
+            torch._foreach_div_(u, den)
+            del den
+            torch._foreach_add_(u, torch._foreach_mul(p, self.weight_decay))
+            torch._foreach_mul_(u, -self.lr)
+            torch._foreach_add_(p, u)
+
+
+def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+          weight_decay: float = 1e-4) -> AdamW:
+    """``optax.adamw`` with its defaults (no mask, no nesterov)."""
+    return AdamW(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)

@@ -275,5 +275,13 @@ def test_decode_write_past_window_dropped():
     ],
 )
 def test_unsupported_config_fields_raise(field, value):
+    if field == "quantized":
+        # float weights train since the LM train-step slice; what the port
+        # still refuses is serving them (prefill / decode of a float model)
+        model = TransformerLM(TransformerConfig(**{**TOY, field: value}))
+        cache = KVCache.zeros(model.cfg, 1, device="cpu")
+        with pytest.raises(NotImplementedError, match="float"):
+            model(torch.zeros((1, 4), dtype=torch.int64), cache, prefill=True)
+        return
     with pytest.raises(NotImplementedError, match=field):
         TransformerConfig(**{**TOY, "quantized": True, field: value})
