@@ -18,8 +18,12 @@ Every phase prints JSON lines:
    time — ``int8_matmul`` (expected bitwise), then ``flash_fwd``,
    ``flash_dq`` and ``flash_dkv`` at the 760m train shape (B 2, S 2048, H
    16, D 96) in bf16 and f32, D 64 and 128, a ragged S 1000 (strided
-   inputs) and S 8, each output held element by element to the bound of
-   ``ops.flash_attention.KERNEL_TOLERANCE``;
+   inputs) and S 8, then ``fused_ce_fwd``, ``fused_ce_dh`` and
+   ``fused_ce_dw`` at the 760m loss shape (N 4096, D 1536, V 32768) in bf16
+   and f32, a ragged (1000, 1536, 32000) with a target out of range and a
+   tiny shape, each output held element by element to the bound of
+   ``ops._check.KERNEL_TOLERANCE`` (``kernel_error``); then ``fused_adamw``
+   over leaves of the 760m parameter shapes (expected bitwise);
 3. serving: a 2-layer model at the 1b preset's widths, on the card (kernel)
    against the CPU (plain version): logits and greedy tokens;
 4. the serving slice: the 1b preset at full depth serving the ``--server``
@@ -29,12 +33,17 @@ Every phase prints JSON lines:
    checked and two requests held against ``generate``;
 5. training: a 2-layer model at the 760m preset's widths, S 256, flash
    attention, in float32 and bfloat16, on the card (kernels) against the
-   CPU (plain versions): the loss and every gradient;
+   CPU (plain versions): the loss and every gradient, with cross entropy
+   and with the fused loss (then also one ``fused_adamw`` step);
 6. the train slice: the port's ``bench.lm_headline`` default arm (760m at
    full depth and width, seq 2048, batch 2, bf16, flash, remat "dots",
    AdamW) for a warmup chain and 2 timed chains of 6 steps and one
    profiled step: finite, falling loss, exactly 48 / 24 / 24 flash
-   forward / dq / dk-dv launches per step, step time, MFU, peak memory.
+   forward / dq / dk-dv launches per step, step time, MFU, peak memory;
+7. its fused arm (``--fused``: the fused loss and ``fused_adamw``), the
+   same chains in the same call: finite, falling loss, the first loss
+   within one bf16 ulp of phase 6's, exactly 48 / 24 / 24 flash, 1 / 1 / 1
+   fused-loss and 1 fused-AdamW launches per step.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Needs no network and one card. It
@@ -44,7 +53,9 @@ imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -85,6 +96,28 @@ FLASH_REPLACES = {
 }
 # products of B*H*S(S+1)/2*D multiply-adds each kernel runs (causal work)
 FLASH_PRODUCTS = {"fwd": 2, "dq": 3, "dkv": 4}
+
+# (N, D, V, dtype, a target out of range) of the fused loss checks; the
+# first is the loss of the 760m train step (B 2 x S 2048 rows)
+FUSED_CE_SHAPES = [
+    (4096, 1536, 32768, "bf16", False),
+    (4096, 1536, 32768, "f32", False),
+    (1000, 1536, 32000, "bf16", True),
+    (8, 64, 200, "bf16", True),
+]
+FUSED_CE_REPLACES = {
+    "fwd": "pytorch_distributed_training_tutorials_tpu/ops/fused_loss.py:89",
+    "dh": "pytorch_distributed_training_tutorials_tpu/ops/fused_loss.py:159",
+    "dw": "pytorch_distributed_training_tutorials_tpu/ops/fused_loss.py:190",
+}
+# score passes (2 N D V FLOPs each) per kernel: dh and dW recompute the
+# scores and run one gradient product
+FUSED_CE_PASSES = {"fwd": 1, "dh": 2, "dw": 2}
+# fused-loss and fused-AdamW launches per 760m train step (219 leaves: one
+# multi-tensor launch)
+FUSED_PER_STEP = {"fwd": 1, "dh": 1, "dw": 1}
+ADAMW_PER_STEP = 1
+ADAMW_REPLACES = "pytorch_distributed_training_tutorials_tpu/ops/fused_optim.py:50"
 
 # the 1b preset of examples/serve_llm_int8.py
 PRESET_1B = dict(
@@ -286,6 +319,171 @@ def phase_flash(torch, fa, gpu: str) -> dict:
             })
         del ql, kl, vl, sdpa_out
     return {"results": results, "max_abs_err": max_err, "worst_ratio": worst}
+
+
+def fused_ce_bound(kind: str, n: int, d: int, v: int, elem: int,
+                   flops_per_s: float) -> tuple[float, str]:
+    """(bound_ms, bound_by) of one fused-loss kernel call: its score
+    passes and gradient product (2 N D V FLOPs each) at the card's peak for
+    the input type, against its bytes — h and W read once, the int64
+    targets, the f32 per-row lse and cotangent (backward) and per-row
+    outputs (forward: lse and target logit), dh or dW written once."""
+    ops = FUSED_CE_PASSES[kind] * 2.0 * n * d * v
+    nbytes = n * d * elem + d * v * elem + 8 * n
+    nbytes += {"fwd": 8 * n, "dh": 8 * n + n * d * elem, "dw": 8 * n + d * v * elem}[kind]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / flops_per_s
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_fused_ce(torch, fl, gpu: str) -> dict:
+    """Phase 2 (fused loss): the forward, dh and dW kernels against their
+    plain versions on the same inputs, at every shape of FUSED_CE_SHAPES;
+    the yardstick is the materialized-logits path (cuBLAS h @ W, then
+    F.cross_entropy, and that pair's backward), which the port never
+    calls."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    results, max_err = {}, {"fwd": 0.0, "dh": 0.0, "dw": 0.0}
+    worst = dict(max_err)
+    for i, (n, d, v, dt, oor) in enumerate(FUSED_CE_SHAPES):
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        gen = torch.Generator(device=dev).manual_seed(20 + i)
+        h = torch.randn((n, d), generator=gen, device=dev).to(dtype)
+        w = (torch.randn((d, v), generator=gen, device=dev) * d ** -0.5).to(dtype)
+        y = torch.randint(0, v, (n,), generator=gen, device=dev)
+        if oor:
+            y[n // 2] = v + 7  # hits nothing: its loss is the lse
+        g = torch.full((n,), 1.0 / n, device=dev)  # the mean's cotangent
+        lse, tgt = fl.fused_ce_fwd(h, w, y)
+        dh = fl.fused_ce_dh(h, w, y, lse, g)
+        dw = fl.fused_ce_dw(h, w, y, lse, g)
+        lse_ref, tgt_ref = fl.fused_ce_fwd_reference(h, w, y)
+        dh_ref = fl.fused_ce_dh_reference(h, w, y, lse, g)
+        dw_ref = fl.fused_ce_dw_reference(h, w, y, lse, g)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, got, want in (("lse", lse, lse_ref), ("tgt", tgt, tgt_ref),
+                                ("dh", dh, dh_ref), ("dw", dw, dw_ref)):
+            errs[name] = fl.kernel_error(got, want)
+            if not errs[name]["worst_ratio"] <= 1.0:
+                raise AssertionError(
+                    f"fused loss {name} kernel != plain at N={n} D={d} V={v} {dt}: {errs[name]}")
+        if oor and float(tgt[n // 2]) != 0.0:
+            raise AssertionError("a target out of range hit a column")
+        for kind, names in (("fwd", ("lse", "tgt")), ("dh", ("dh",)), ("dw", ("dw",))):
+            max_err[kind] = max(max_err[kind], *(errs[x]["max_abs_err"] for x in names))
+            worst[kind] = max(worst[kind], *(errs[x]["worst_ratio"] for x in names))
+        # the yardstick: materialized logits (targets clamped into range,
+        # which F.cross_entropy requires)
+        yc = y.clamp(0, v - 1)
+        hl, wl = h.detach().requires_grad_(True), w.detach().requires_grad_(True)
+        lib_loss = F.cross_entropy((hl @ wl).float(), yc, reduction="none")
+        timed = {
+            "fwd": (lambda: fl.fused_ce_fwd(h, w, y),
+                    lambda: fl.fused_ce_fwd_reference(h, w, y),
+                    lambda: F.cross_entropy((h @ w).float(), yc, reduction="none")),
+            "dh": (lambda: fl.fused_ce_dh(h, w, y, lse, g),
+                   lambda: fl.fused_ce_dh_reference(h, w, y, lse, g),
+                   lambda: torch.autograd.grad(lib_loss, (hl, wl), g, retain_graph=True)),
+            "dw": (lambda: fl.fused_ce_dw(h, w, y, lse, g),
+                   lambda: fl.fused_ce_dw_reference(h, w, y, lse, g),
+                   None),
+        }
+        flops = BF16_FLOPS if dt == "bf16" else F32_FLOPS
+        for kind, (kern, plain, lib) in timed.items():
+            ms = time_ms(kern, torch, flush, warmup=1)
+            plain_ms = time_ms(plain, torch, flush, warmup=1)
+            lib_ms = (time_ms(lib, torch, flush, warmup=1) if lib is not None
+                      else results[(i, "dh")]["library_ms"])
+            b_ms, b_by = fused_ce_bound(kind, n, d, v, h.element_size(), flops)
+            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=lib_ms)
+            results[(i, kind)] = row
+            emit({
+                "phase": "kernel_vs_plain", "kernel": f"fused_ce_{kind}",
+                "N": n, "D": d, "V": v, "dtype": dt, "target_out_of_range": oor,
+                "errors": {x: errs[x] for x in {"fwd": ("lse", "tgt"), "dh": ("dh",),
+                                                "dw": ("dw",)}[kind]},
+                **row, "roofline_share": b_ms / ms,
+                "library": "materialized logits: cuBLAS h @ W + F.cross_entropy"
+                           + (" forward" if kind == "fwd" else
+                              ", that pair's backward (dh and dW in one call; the same "
+                              "number stands for fused_ce_dh and fused_ce_dw)"),
+                "gpu": gpu,
+            })
+        del hl, wl, lib_loss, timed
+    return {"results": results, "max_abs_err": max_err, "worst_ratio": worst}
+
+
+def phase_adamw(torch, gpu: str) -> dict:
+    """Phase 2 (fused AdamW): the kernel against the plain foreach AdamW
+    over leaves of the 760m parameter shapes (219 leaves, 1,006,708,224
+    elements), bitwise, at the 10th step (bias corrections != 1);
+    yardstick ``torch._fused_adamw_``, whose decay order differs."""
+    from pytorch_distributed_training_tutorials_tpu_torch.models import (
+        TransformerConfig,
+        TransformerLM,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.fused_optim import fused_adamw
+    from pytorch_distributed_training_tutorials_tpu_torch.train.optim import adamw
+
+    dev = torch.device("cuda")
+    cfg = TransformerConfig(**PRESET_760M, max_seq_len=2048, dtype=torch.bfloat16,
+                            quantized=False)
+    shapes = [p.shape for p in TransformerLM(cfg).parameters()]  # meta: no memory
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def draw(scale=1.0, positive=False):
+        out = []
+        for s in shapes:
+            x = torch.randn(s, generator=gen, device=dev) * scale
+            out.append(x.abs_() if positive else x)
+        return out
+
+    params, grads = draw(), draw(1e-3)
+    mu, nu = draw(1e-3), draw(1e-6, positive=True)
+    n_el = sum(p.numel() for p in params)
+    tx, plain = fused_adamw(3e-4, weight_decay=0.01), adamw(3e-4, weight_decay=0.01)
+    state = tx.init([torch.empty(0, device=dev)])  # moments replaced below
+    state.count, state.mu, state.nu = 9, mu, nu
+    p_plain = [p.clone() for p in params]
+    s_plain = plain.init([torch.empty(0, device=dev)])
+    s_plain.count = 9
+    s_plain.mu, s_plain.nu = [m.clone() for m in mu], [x.clone() for x in nu]
+    tx.update_(params, grads, state)
+    plain.update_(p_plain, grads, s_plain)
+    torch.cuda.synchronize()
+    err, n_bad = 0.0, 0
+    for a, b in zip(params + state.mu + state.nu, p_plain + s_plain.mu + s_plain.nu):
+        err = max(err, float((a - b).abs().max()))
+        n_bad += int((a != b).sum())
+    del p_plain, s_plain
+    if n_bad:
+        raise AssertionError(f"fused_adamw kernel != plain: {n_bad} elements differ, max {err}")
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    ms = time_ms(lambda: tx.update_(params, grads, state), torch, flush, warmup=1)
+    plain_ms = time_ms(lambda: plain.update_(params, grads, state), torch, flush, warmup=1)
+    steps = [torch.tensor(10.0, device=dev) for _ in params]
+    lib_ms = time_ms(lambda: torch._fused_adamw_(
+        params, grads, state.mu, state.nu, [], steps, lr=3e-4, beta1=0.9, beta2=0.999,
+        weight_decay=0.01, eps=1e-8, amsgrad=False, maximize=False), torch, flush, warmup=1)
+    nbytes = 28.0 * n_el  # g, m, v, p read; m, v, p written: f32
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by="bytes", library_ms=lib_ms,
+               max_abs_err=err, n_mismatch=n_bad)
+    emit({
+        "phase": "kernel_vs_plain", "kernel": "fused_adamw", "leaves": len(params),
+        "elements": n_el, **row, "roofline_share": b_ms / ms,
+        "achieved_GBps": nbytes / (ms * 1e-3) / 1e9,
+        "library": "torch._fused_adamw_ (decays p by (1 - lr wd) first: the nearest "
+                   "PyTorch call, not the same function)",
+        "gpu": gpu,
+    })
+    del params, grads, state, mu, nu, steps
+    torch.cuda.empty_cache()
+    return row
 
 
 def phase_model(torch, gpu: str) -> None:
@@ -495,11 +693,16 @@ def phase_serve(torch, quant, gpu: str) -> int:
     return launches
 
 
+LOSSES = ("cross_entropy", "fused_cross_entropy")
+
+
 def phase_train_card_vs_cpu(torch, gpu: str) -> None:
     """Phase 5: a 2-layer model at the 760m widths, S 256, flash attention,
-    in float32 and in bfloat16 (the train step's compute type): the loss
-    and every gradient on the card (kernels, TF32 off) against the CPU
-    (plain versions), on the same weights and tokens."""
+    in float32 and in bfloat16 (the train step's compute type), with cross
+    entropy and with the fused loss: the loss and every gradient on the
+    card (kernels, TF32 off) against the CPU (plain versions), on the same
+    weights and tokens; with the fused loss, then one train step with the
+    fused AdamW on both sides and the parameters compared."""
     import numpy as np
 
     from pytorch_distributed_training_tutorials_tpu_torch.models import (
@@ -512,7 +715,15 @@ def phase_train_card_vs_cpu(torch, gpu: str) -> None:
         flash_attention,
         make_flash_attention,
     )
-    from pytorch_distributed_training_tutorials_tpu_torch.train.trainer import _compute_loss
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.fused_loss import (
+        fused_cross_entropy,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.fused_optim import fused_adamw
+    from pytorch_distributed_training_tutorials_tpu_torch.train.trainer import (
+        TrainState,
+        _make_loss_fn,
+        _train_step_fn,
+    )
 
     seq = 256
     rng = np.random.Generator(np.random.PCG64(6))
@@ -529,24 +740,43 @@ def phase_train_card_vs_cpu(torch, gpu: str) -> None:
         torch.float32: {"loss_rel": 1e-5, "grad_rel_to_max": 1e-3},
         torch.bfloat16: {"loss_rel": 2.0 ** -10, "grad_rel_norm": 2.0 ** -5},
     }
-    for dtype, tol in tols.items():
+    lr = 3e-4
+    for (dtype, tol), loss_name in itertools.product(tols.items(), LOSSES):
+        fused = loss_name == "fused_cross_entropy"
         cfg = TransformerConfig(**{**PRESET_760M, "n_layers": 2}, max_seq_len=seq, dtype=dtype,
                                 attention_fn=make_flash_attention(1024, 1024), quantized=False)
         params = init_lm(cfg, seed=5, device="cpu")
-        out = {}
+        loss_fn = _make_loss_fn(loss_name)
+        out, stepped = {}, {}
         before = dict(flash_attention.launches)
+        loss_before = dict(fused_cross_entropy.launches)
+        adamw_before = fused_adamw.launches
         for dev in ("cuda", "cpu"):
             model = TransformerLM(cfg)
             bind_params(model, {k: v.to(dev) for k, v in params.items()})
-            x, y = toks[:, :-1].to(dev), toks[:, 1:].to(dev)
+            batch = (toks[:, :-1].to(dev), toks[:, 1:].to(dev))
             named = list(model.named_parameters())
-            loss = _compute_loss("cross_entropy", model(x), y)
+            loss = loss_fn(model, batch)
             grads = torch.autograd.grad(loss, [p for _, p in named])
             out[dev] = (float(loss.detach()),
                         {n: g.double().cpu() for (n, _), g in zip(named, grads)})
+            if fused:  # then one train step with the fused AdamW
+                p0 = {n: p.detach().double().cpu() for n, p in named}
+                state = TrainState.create(model=model, tx=fused_adamw(lr, weight_decay=0.01))
+                _train_step_fn(loss_name)(state, batch)
+                stepped[dev] = (p0, {n: p.detach().double().cpu() for n, p in named})
         launched = {k: flash_attention.launches[k] - before[k] for k in before}
-        if launched != {"fwd": 2, "dq": 2, "dkv": 2}:
-            raise AssertionError(f"card side launched {launched}, want 2 of each")
+        loss_launched = {k: fused_cross_entropy.launches[k] - loss_before[k] for k in loss_before}
+        adamw_launched = fused_adamw.launches - adamw_before
+        # the card side: one loss-and-gradient pass, plus the train step when fused
+        passes = 2 if fused else 1
+        if launched != {"fwd": 2 * passes, "dq": 2 * passes, "dkv": 2 * passes}:
+            raise AssertionError(f"card side launched {launched}, want {2 * passes} of each")
+        want_loss = {k: passes if fused else 0 for k in FUSED_PER_STEP}
+        if loss_launched != want_loss or adamw_launched != (1 if fused else 0):
+            raise AssertionError(
+                f"card side launched {loss_launched} fused-loss and {adamw_launched} "
+                f"fused-AdamW kernels, want {want_loss} and {1 if fused else 0}")
         loss_err = abs(out["cuda"][0] - out["cpu"][0])
         worst_max, worst_norm = (0.0, ""), (0.0, "")
         for name, g_cpu in out["cpu"][1].items():
@@ -556,17 +786,45 @@ def phase_train_card_vs_cpu(torch, gpu: str) -> None:
         grad_err = worst_max[0] if "grad_rel_to_max" in tol else worst_norm[0]
         ok = (loss_err <= tol["loss_rel"] * abs(out["cpu"][0])
               and grad_err <= tol.get("grad_rel_to_max", tol.get("grad_rel_norm")))
+        step = {}
+        if fused:
+            # AdamW's first step is u = -lr (g / (|g| + eps) + wd p) (m_hat =
+            # g, v_hat = g^2): each side's step is held to it from its own
+            # gradients, within the f32 rounding of p + u (2^-22 |p|) and
+            # 1e-8 for the f32 arithmetic of u; the gradients themselves
+            # are held card against CPU above. An element whose gradient
+            # changes sign between the two sides steps the other way, so
+            # the parameters agree only to 2.5 lr
+            ratio, diff = {}, []
+            for dev in ("cuda", "cpu"):
+                start, after = stepped[dev]
+                worst = 0.0
+                for n, p0 in start.items():
+                    g = out[dev][1][n]
+                    u = -lr * (g / (g.abs() + 1e-8) + 0.01 * p0)
+                    bound = 2.0 ** -22 * p0.abs() + 1e-8
+                    worst = max(worst, float(((after[n] - p0 - u).abs() / bound).max()))
+                ratio[dev] = worst
+            for n in stepped["cpu"][1]:
+                diff.append(float((stepped["cuda"][1][n] - stepped["cpu"][1][n]).abs().max()))
+            step = {"adamw_step_worst_ratio": ratio, "param_max_abs_diff": max(diff),
+                    "param_tolerance": {"step": "2^-22 |p| + 1e-8", "card_vs_cpu": 2.5 * lr}}
+            ok = (ok and max(ratio.values()) <= 1.0
+                  and step["param_max_abs_diff"] <= 2.5 * lr)
         emit({
             "phase": "train_card_vs_cpu", "layers": 2, "widths": "760m", "seq": seq,
             "batch": 2, "dtype": str(dtype).removeprefix("torch."), "attention": "flash",
-            "loss_cuda": out["cuda"][0], "loss_cpu": out["cpu"][0], "loss_abs_err": loss_err,
+            "loss": loss_name, "loss_cuda": out["cuda"][0], "loss_cpu": out["cpu"][0],
+            "loss_abs_err": loss_err,
             "grad_worst_rel_to_max": worst_max[0], "grad_worst_rel_to_max_param": worst_max[1],
             "grad_worst_rel_norm": worst_norm[0], "grad_worst_rel_norm_param": worst_norm[1],
-            "tolerance": tol, "flash_launches": launched, "ok": ok, "gpu": gpu,
+            "tolerance": tol, "flash_launches": launched,
+            "fused_loss_launches": loss_launched, "fused_adamw_launches": adamw_launched,
+            **step, "ok": ok, "gpu": gpu,
         })
         if not ok:
             raise AssertionError(
-                f"{dtype} training loss or gradients on the card disagree with the CPU")
+                f"{dtype} {loss_name} training on the card disagrees with the CPU")
 
 
 def phase_train(torch, gpu: str) -> dict:
@@ -596,7 +854,7 @@ def phase_train(torch, gpu: str) -> dict:
     if r["n_params"] != N_PARAMS_760M:
         problems.append(f"n_params {r['n_params']} != {N_PARAMS_760M}")
     emit({
-        "phase": "train_760m", "argv": argv,
+        "phase": "train_760m", "arm": "baseline", "argv": argv,
         "note": "6 chained steps and 2 timed chains (the bench default is 12 and 3) "
                 "to fit the smoke's time",
         "flash_launches": launches, "launches_per_step": {
@@ -606,6 +864,71 @@ def phase_train(torch, gpu: str) -> dict:
             "n_params", "steps_run", "losses_first_chain", "step_ms", "chain_ms_samples",
             "wall_s_samples", "tokens_per_s", "model_tflops_per_step", "mfu",
             "peak_memory_bytes", "init_s", "trace")},
+        "ok": not problems, "problems": problems, "gpu": gpu,
+    })
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"flash": launches, "first_loss": losses[0]}
+
+
+def phase_train_fused(torch, gpu: str, baseline_first_loss: float) -> dict:
+    """Phase 7: the fused arm of the 760m train step (``--fused``: the
+    fused loss kernels and fused AdamW) through the port's bench entry
+    point, the chains of phase 6, with the launch counts of exactly this
+    run."""
+    from pytorch_distributed_training_tutorials_tpu_torch.bench import lm_headline
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.flash_attention import (
+        flash_attention,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.fused_loss import (
+        fused_cross_entropy,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.fused_optim import fused_adamw
+
+    argv = ["--steps", "6", "--reps", "2", "--trace", "--fused"]
+    args = lm_headline.parse(argv)
+    for counts in (flash_attention.launches, fused_cross_entropy.launches):
+        for k in counts:
+            counts[k] = 0
+    fused_adamw.launches = 0
+    r = lm_headline.measure(args)
+    launches = {"flash": dict(flash_attention.launches),
+                "fused_loss": dict(fused_cross_entropy.launches),
+                "fused_adamw": fused_adamw.launches}
+    steps = r["steps_run"]
+    losses = r["losses_first_chain"]
+    problems = []
+    if not r["all_losses_finite"]:
+        problems.append("a loss is not finite")
+    if not losses[-1] < losses[0]:
+        problems.append(f"loss did not fall over the first chain: {losses}")
+    want = {"flash": {k: n * steps for k, n in FLASH_PER_STEP.items()},
+            "fused_loss": {k: n * steps for k, n in FUSED_PER_STEP.items()},
+            "fused_adamw": ADAMW_PER_STEP * steps}
+    if launches != want:
+        problems.append(f"launches {launches} != {want} ({steps} steps)")
+    # the same weights and batch: the baseline's loss is a bf16 value, one
+    # bf16 ulp (2^-7 of the power of two below it) away at most
+    ulp = 2.0 ** (math.floor(math.log2(abs(baseline_first_loss))) - 7)
+    if not abs(losses[0] - baseline_first_loss) <= ulp:
+        problems.append(f"first loss {losses[0]} vs the baseline's {baseline_first_loss}: "
+                        f"more than one bf16 ulp ({ulp}) apart")
+    if r["n_params"] != N_PARAMS_760M:
+        problems.append(f"n_params {r['n_params']} != {N_PARAMS_760M}")
+    emit({
+        "phase": "train_760m", "arm": "fused", "argv": argv,
+        "note": "6 chained steps and 2 timed chains (the bench default is 12 and 3) "
+                "to fit the smoke's time",
+        "launches": launches, "launches_per_step": {
+            "flash": {k: v / steps for k, v in launches["flash"].items()},
+            "fused_loss": {k: v / steps for k, v in launches["fused_loss"].items()},
+            "fused_adamw": launches["fused_adamw"] / steps},
+        "baseline_first_loss": baseline_first_loss, "first_loss_tolerance": ulp,
+        **{k: r[k] for k in (
+            "preset", "n_layers", "d_model", "seq", "batch", "attn", "remat_policy",
+            "loss", "optimizer", "n_params", "steps_run", "losses_first_chain", "step_ms",
+            "chain_ms_samples", "wall_s_samples", "tokens_per_s", "model_tflops_per_step",
+            "mfu", "peak_memory_bytes", "init_s", "trace")},
         "ok": not problems, "problems": problems, "gpu": gpu,
     })
     if problems:
@@ -633,6 +956,7 @@ def main(argv=None) -> int:
     from pytorch_distributed_training_tutorials_tpu_torch.ops import (
         flash_attention as fa,
     )
+    from pytorch_distributed_training_tutorials_tpu_torch.ops import fused_loss as fl
 
     # plain float32 matmuls stay float32 on the card (TF32 off, stated)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -660,12 +984,16 @@ def main(argv=None) -> int:
 
     kern = phase_kernels(torch, quant, gpu)
     flash = phase_flash(torch, fa, gpu)
+    fused = phase_fused_ce(torch, fl, gpu)
+    adamw_row = phase_adamw(torch, gpu)
     if args.kernel_only:
         return 0
     phase_model(torch, gpu)
     launches = phase_serve(torch, quant, gpu)
     phase_train_card_vs_cpu(torch, gpu)
-    train_launches = phase_train(torch, gpu)
+    base = phase_train(torch, gpu)
+    train_launches = base["flash"]
+    fused_launches = phase_train_fused(torch, gpu, base["first_loss"])
 
     # the kernels line: one decode forward's 113 int8 matmuls at M = 4
     # (the slot count) — time, plain time and bound summed over the mix
@@ -705,6 +1033,38 @@ def main(argv=None) -> int:
                                "backward, one number for flash_dq and flash_dkv "
                                "together (it computes dq, dk and dv in one call)"),
         })
+    # the fused tail: one 760m train step's launches at the main shape
+    # (FUSED_CE_SHAPES[0]); AdamW over the 760m leaves
+    for kind, per_step in FUSED_PER_STEP.items():
+        row = fused["results"][(0, kind)]
+        kernels.append({
+            "name": f"fused_ce_{kind}", "route": "cuda",
+            "source": f"{PKG}/csrc/fused_loss.cu",
+            "replaces": FUSED_CE_REPLACES[kind],
+            "launches": fused_launches["fused_loss"][kind],
+            "max_abs_err": fused["max_abs_err"][kind],
+            "worst_ratio": fused["worst_ratio"][kind],
+            "ms": row["ms"] * per_step, "plain_ms": row["plain_ms"] * per_step,
+            "bound_ms": row["bound_ms"] * per_step, "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"] * per_step,
+            "work": f"one 760m train step: {per_step} call at N=4096 D=1536 V=32768 bf16",
+            "library_note": "materialized logits: cuBLAS h @ W + F.cross_entropy, "
+                            + ("forward" if kind == "fwd" else
+                               "backward, one number for fused_ce_dh and fused_ce_dw "
+                               "together (the pair's backward computes dh and dW in one "
+                               "call)"),
+        })
+    kernels.append({
+        "name": "fused_adamw", "route": "cuda",
+        "source": f"{PKG}/csrc/fused_adamw.cu", "replaces": ADAMW_REPLACES,
+        "launches": fused_launches["fused_adamw"], "max_abs_err": adamw_row["max_abs_err"],
+        "ms": adamw_row["ms"] * ADAMW_PER_STEP, "plain_ms": adamw_row["plain_ms"],
+        "bound_ms": adamw_row["bound_ms"], "bound_by": adamw_row["bound_by"],
+        "library_ms": adamw_row["library_ms"],
+        "work": "one 760m train step: 1 launch over 219 leaves, 1,006,708,224 elements",
+        "library_note": "torch._fused_adamw_: decays p by (1 - lr wd) first, the nearest "
+                        "PyTorch call, not the same function",
+    })
     emit({"kernels": kernels})
     print(gpu, flush=True)
     emit({"ok": True, "device": {

@@ -17,12 +17,19 @@ peak, keyed by its ``nvidia-smi`` name (989 TFLOP/s for the H100 SXM data
 sheet; ``null`` for a card not in :data:`PEAK_BF16`). Peak memory is
 ``torch.cuda.max_memory_allocated`` over the timed chains.
 
-Runs on ``cuda`` unless ``--device cpu`` is given (then every number is a
-host number: no MFU, no device memory). ``--fused`` (the logits-free loss
-and fused AdamW kernels) and ``--scan`` (the JAX ``nn.scan`` layout) are
-not in the port yet and raise.
+``--fused`` also runs the fused-tail arm — the logits-free loss
+(``loss="fused_cross_entropy"``: the model returns its hidden states and
+the kernels of :mod:`..ops.fused_loss` stream them against the lm_head
+weight) and ``fused_adamw`` (the one-pass kernel of
+:mod:`..ops.fused_optim`) — on the same model, batch and chains, and
+prints both arms, ``{"baseline": ..., "fused": ...}``, as the JAX bench
+does. Each arm records its kernels' launches.
 
-    python -m pytorch_distributed_training_tutorials_tpu_torch.bench.lm_headline [--json out.json]
+Runs on ``cuda`` unless ``--device cpu`` is given (then every number is a
+host number: no MFU, no device memory). ``--scan`` (the JAX ``nn.scan``
+layout) is not in the port and raises.
+
+    python -m pytorch_distributed_training_tutorials_tpu_torch.bench.lm_headline [--fused] [--json out.json]
     python -m pytorch_distributed_training_tutorials_tpu_torch.bench.lm_headline \\
         --device cpu --preset smoke --seq 64 --batch 2 --steps 2 --reps 1
 """
@@ -78,6 +85,7 @@ def build(args, device):
     from pytorch_distributed_training_tutorials_tpu_torch.ops.flash_attention import (
         make_flash_attention,
     )
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.fused_optim import fused_adamw
     from pytorch_distributed_training_tutorials_tpu_torch.train.optim import adamw
     from pytorch_distributed_training_tutorials_tpu_torch.train.trainer import (
         TrainState,
@@ -96,14 +104,15 @@ def build(args, device):
     )
     model = TransformerLM(cfg)
     bind_params(model, init_lm(cfg, seed=0, device=device))
-    state = TrainState.create(model=model, tx=adamw(3e-4, weight_decay=0.01))
+    tx = (fused_adamw if args.fused else adamw)(3e-4, weight_decay=0.01)
+    state = TrainState.create(model=model, tx=tx)
     rng = np.random.Generator(np.random.PCG64(0))
     toks = torch.as_tensor(
         rng.integers(0, vocab, (args.batch, args.seq + 1)), dtype=torch.int64,
         device=device,
     )
     batch = (toks[:, :-1], toks[:, 1:])
-    step_fn = _train_step_fn("cross_entropy")
+    step_fn = _train_step_fn("fused_cross_entropy" if args.fused else "cross_entropy")
     n_params = sum(p.numel() for p in model.parameters())
     n_embed = vocab * d_model  # tok_emb; lm_head is a matmul and counts
     return model, state, batch, step_fn, n_params, n_embed
@@ -146,13 +155,11 @@ def measure(args) -> dict:
     from pytorch_distributed_training_tutorials_tpu_torch.ops.flash_attention import (
         flash_attention,
     )
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.fused_loss import (
+        fused_cross_entropy,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.fused_optim import fused_adamw
 
-    if args.fused:
-        raise NotImplementedError(
-            "--fused is not supported by the PyTorch port yet; it arrives with "
-            "the fused-tail slice (fused cross entropy kernels 6-8 and fused "
-            "AdamW kernel 9)"
-        )
     if not args.no_scan:
         raise NotImplementedError(
             "--scan is not supported by the PyTorch port: it holds one module "
@@ -161,6 +168,15 @@ def measure(args) -> dict:
     dev = resolve_device(args.device)
     on_card = dev.type == "cuda"
     launches0 = dict(flash_attention.launches)
+    loss_launches0 = dict(fused_cross_entropy.launches)
+    adamw_launches0 = fused_adamw.launches
+
+    def kernel_launches() -> dict:
+        return {
+            "flash_launches": _delta(flash_attention.launches, launches0),
+            "fused_loss_launches": _delta(fused_cross_entropy.launches, loss_launches0),
+            "fused_adamw_launches": fused_adamw.launches - adamw_launches0,
+        }
     t0 = time.perf_counter()
     model, state, batch, step_fn, n_params, n_embed = build(args, dev)
     if on_card:
@@ -186,7 +202,8 @@ def measure(args) -> dict:
     out = {
         "preset": args.preset, "d_model": d_model, "n_layers": n_layers,
         "vocab": vocab, "seq": args.seq, "batch": args.batch,
-        "loss": "cross_entropy", "optimizer": "adamw",
+        "loss": "fused_cross_entropy" if args.fused else "cross_entropy",
+        "optimizer": "fused_adamw" if args.fused else "adamw",
         "attn": args.attn + (f"({args.block_q},{args.block_k})" if args.attn == "flash" else ""),
         "block_note": BLOCK_NOTE if args.attn == "flash" else None,
         "remat": bool(args.remat), "remat_policy": args.remat_policy,
@@ -198,7 +215,7 @@ def measure(args) -> dict:
             torch.cuda.reset_peak_memory_stats()
         sync(one_step())
         out["peak_memory_bytes"] = torch.cuda.max_memory_allocated() if on_card else None
-        out["flash_launches"] = _delta(flash_attention.launches, launches0)
+        out.update(kernel_launches())
         out["steps_run"] = steps_run
         return out
 
@@ -249,7 +266,7 @@ def measure(args) -> dict:
         if not on_card:
             raise ValueError("--trace profiles the card; it needs --device cuda")
         out["trace"] = profile_step(lambda: sync(one_step()), torch)
-    out["flash_launches"] = _delta(flash_attention.launches, launches0)
+    out.update(kernel_launches())
     out["steps_run"] = steps_run
     return out
 
@@ -259,13 +276,16 @@ def _delta(now: dict, before: dict) -> dict:
 
 
 def make_receipt(result: dict) -> dict:
-    """The result stamped with the torch and CUDA versions and the card
-    (``nvidia-smi`` name and power limit; null off the card)."""
+    """The result (one arm, or ``{"baseline": ..., "fused": ...}``)
+    stamped with the torch and CUDA versions and the card (``nvidia-smi``
+    name and power limit; null off the card)."""
     import torch
 
+    arms = [result[k] for k in ("baseline", "fused") if k in result] or [result]
+    on_card = any(arm["device"] != "cpu" for arm in arms)
     return {
         "bench": "lm_headline", "torch": torch.__version__,
-        "cuda": torch.version.cuda, "gpu": gpu_line() if result["device"] != "cpu" else None,
+        "cuda": torch.version.cuda, "gpu": gpu_line() if on_card else None,
         "result": result,
     }
 
@@ -289,7 +309,8 @@ def parse(argv=None):
     p.add_argument("--trace", action="store_true")
     p.add_argument("--mem_only", action="store_true")
     p.add_argument("--fused", action="store_true",
-                   help="the fused-tail arm (not in the port yet: raises)")
+                   help="also run the fused-tail arm (logits-free fused cross "
+                   "entropy + fused AdamW kernels) and emit both arms")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu; no GPU and no --device cpu raises")
     p.add_argument("--json", default=None)
@@ -298,7 +319,13 @@ def parse(argv=None):
 
 def main(argv=None) -> None:
     args = parse(argv)
-    r = make_receipt(measure(args))
+    if args.fused:
+        # side by side: the same model, batch and chains; only the loss and
+        # optimizer tail differ between the arms
+        base = argparse.Namespace(**{**vars(args), "fused": False})
+        r = make_receipt({"baseline": measure(base), "fused": measure(args)})
+    else:
+        r = make_receipt(measure(args))
     print(json.dumps(r))
     if args.json:
         with open(args.json, "w") as f:

@@ -498,8 +498,11 @@ class TransformerLM(nn.Module):
 
     def forward(self, tokens, cache: KVCache | None = None, *,
                 prefill: bool = False, decode: bool = False, last_pos=None,
-                rows=None):
+                rows=None, return_hidden: bool = False):
         if self.cfg.quantized:
+            if return_hidden:
+                raise NotImplementedError(
+                    "return_hidden is the float train path's (the fused loss)")
             with torch.no_grad():
                 return self._serve(tokens, cache, prefill=prefill,
                                    decode=decode, last_pos=last_pos, rows=rows)
@@ -509,12 +512,17 @@ class TransformerLM(nn.Module):
                 "the PyTorch port; float-weight serving arrives with flash "
                 "prefill in the serving port"
             )
-        return self._train_forward(tokens)
+        return self._train_forward(tokens, return_hidden)
 
-    def _train_forward(self, tokens):
+    def _train_forward(self, tokens, return_hidden: bool = False):
         """The float forward: embedding rows cast to ``cfg.dtype``, the
         blocks (checkpointed under ``cfg.remat``), final norm, lm_head;
-        logits (B, S, vocab) in ``cfg.dtype``."""
+        logits (B, S, vocab) in ``cfg.dtype``. ``return_hidden=True`` stops
+        at the final norm and returns the hidden states (B, S, d_model):
+        the fused loss's seam (``train.trainer`` ``loss="fused_cross_entropy"``
+        streams them against ``lm_head.weight`` blockwise, so the logits
+        never exist). The lm_head parameter stays; its gradient comes
+        through the fused loss."""
         cfg = self.cfg
         if tokens.shape[1] > cfg.max_seq_len:
             raise ValueError(
@@ -530,7 +538,8 @@ class TransformerLM(nn.Module):
                 )
             else:
                 x = block(x)
-        return self.lm_head(self.final_norm(x))
+        x = self.final_norm(x)
+        return x if return_hidden else self.lm_head(x)
 
     def _serve(self, tokens, cache: KVCache | None = None, *,
                prefill: bool = False, decode: bool = False, last_pos=None,

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
 plain C interface, loaded through :mod:`ctypes` — no PyTorch headers, so a
 build takes seconds. Libraries land in ``build/torch_kernels/`` at the repo
-root (listed in ``.gitignore``), named by a hash of the source and its
-flags (each library has its own, :data:`_LIBRARIES`), so an edited source
-or flag never loads a stale library. A library may export several C entry
+root (listed in ``.gitignore``), named by a hash of the source, the shared
+headers (``csrc/*.cuh``) and its flags (each library has its own,
+:data:`_LIBRARIES`), so an edited source, header or flag never loads a
+stale library. A library may export several C entry
 points. Nothing is built
 at import: the first call of a kernel's wrapper on a CUDA tensor builds
 it, and :func:`build_all` builds every source at once (one ``nvcc`` each,
@@ -33,6 +34,7 @@ NVCC_FLAGS = (
 )
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_PTR_ARRAY = ctypes.POINTER(ctypes.c_void_p)
 
 
 class Layout(ctypes.Structure):
@@ -52,6 +54,32 @@ _LIBRARIES = {
         "flags": ("-fmad=false",),
         "entry": {
             "int8_matmul_launch": ([_PTR] * 6 + [_INT] * 4 + [_PTR], _INT),
+        },
+    },
+    "fused_adamw": {
+        # no contraction: the kernel must be bitwise its plain foreach version
+        "flags": ("-fmad=false",),
+        "entry": {
+            # g m v p (arrays of leaf pointers), sizes, count, b1, 1 - b1, b2,
+            # 1 - b2, eps, weight decay, -lr, the bias corrections'
+            # reciprocals, stream, launches (out)
+            "fused_adamw_launch": (
+                [_PTR_ARRAY] * 4 + [ctypes.POINTER(ctypes.c_longlong), _INT]
+                + [ctypes.c_float] * 9 + [_PTR, ctypes.POINTER(_INT)],
+                _INT,
+            ),
+        },
+    },
+    "fused_loss": {
+        "flags": (),
+        "entry": {
+            # h w y part_lse part_tgt, N D V, splits, tiles per split, dtype,
+            # stream
+            "fused_ce_fwd_launch": ([_PTR] * 5 + [_INT] * 6 + [_PTR], _INT),
+            # h w y lse g part, N D V, splits, tiles per split, dtype, stream
+            "fused_ce_dh_launch": ([_PTR] * 6 + [_INT] * 6 + [_PTR], _INT),
+            # h w y lse g part out, N D V, dtype, stream
+            "fused_ce_dw_launch": ([_PTR] * 7 + [_INT] * 4 + [_PTR], _INT),
         },
     },
     "flash_attention": {
@@ -101,7 +129,9 @@ def _flags(name: str) -> tuple[str, ...]:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the source, every shared header under csrc/ (an edited header must
+    # not load a stale library) and the flags
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 

@@ -23,8 +23,9 @@ Each wrapper runs the plain version on a CPU tensor and launches its
 kernel on a CUDA tensor (bf16 or f32, head dim a multiple of 8 up to 128,
 last axis contiguous), on the current stream; it raises on anything else
 and when a launch fails, and never falls back. ``flash_attention.launches``
-counts kernel launches; CPU calls add none. :func:`kernel_error` is the
-check that holds a kernel's output to its plain version's.
+counts kernel launches; CPU calls add none. :func:`kernel_error` (from
+:mod:`._check`, shared with the fused loss) is the check that holds a
+kernel's output to its plain version's.
 
 Numerics, as in the TPU kernels: scores, softmax and every accumulator in
 f32 (f64 for f64 inputs, which only the plain versions take); ``p`` is cast
@@ -42,45 +43,12 @@ import ctypes
 import torch
 
 from pytorch_distributed_training_tutorials_tpu_torch.ops import _build
+from pytorch_distributed_training_tutorials_tpu_torch.ops._check import (  # noqa: F401
+    KERNEL_TOLERANCE,
+    kernel_error,
+)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
-# How far a kernel's output may lie from its plain version's on the same
-# inputs, element by element, by the output's type:
-#     |got - ref| <= rtol |ref| + row_tol rms_row(ref) + floor_tol rms(ref)
-# rms_row is taken over the last axis (one query's or one key's head dim),
-# so a late row, whose values are small, is held at its own scale; the
-# floor covers rows whose exact value is 0 (dq of row 0: ds = p (dp -
-# delta) with dp = delta), where both sides keep f32 noise. bf16: both
-# sides round p, ds and the output to bf16 from f32 values that differ
-# (sums in another order; in the forward, p relative to another running
-# max), about 2^-8 of each term, which adds up over a row to a few
-# thousandths of its rms, and one output rounding may flip (one ulp, at
-# most 2^-7 of the value). f32 and the f32 lse: sums in another order.
-KERNEL_TOLERANCE = {
-    torch.bfloat16: (2.0 ** -7, 2.0 ** -5, 2.0 ** -10),
-    torch.float32: (2.0 ** -16, 2.0 ** -16, 2.0 ** -14),
-}
-
-
-def kernel_error(got: torch.Tensor, ref: torch.Tensor) -> dict:
-    """A kernel's output against its plain version's, in the bound of
-    :data:`KERNEL_TOLERANCE` for ``ref``'s type: the max abs error, the
-    worst ratio of an element's error to its bound (<= 1 passes) and the
-    relative error norm ``|got - ref| / |ref|``."""
-    rtol, row_tol, floor_tol = KERNEL_TOLERANCE[ref.dtype]
-    g, r = got.double(), ref.double()
-    err = (g - r).abs()
-    sq = r.square()
-    bound = (rtol * r.abs() + row_tol * sq.mean(-1, keepdim=True).sqrt()
-             + floor_tol * sq.mean().sqrt())
-    tiny = torch.finfo(torch.float64).tiny
-    return {
-        "max_abs_err": float(err.max()),
-        "worst_ratio": float((err / bound.clamp_min(tiny)).max()),
-        "rel_norm_err": float(err.norm() / r.norm().clamp_min(tiny)),
-        "tolerance": {"rtol": rtol, "row_rms_tol": row_tol, "rms_tol": floor_tol},
-    }
 
 
 def _block_sizes(s: int, block_q: int, block_k: int) -> tuple[int, int]:

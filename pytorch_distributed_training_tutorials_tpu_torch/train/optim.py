@@ -4,9 +4,12 @@
 ``bench/lm_headline.py``): ``scale_by_adam`` — ``m = (1-b1) g + b1 m``,
 ``v = (1-b2) g^2 + b2 v``, the bias corrections ``1 - b^t`` in float32,
 ``m_hat / (sqrt(v_hat) + eps)`` — then ``+ weight_decay * p`` on every
-leaf, then ``* -lr``, then ``p += u``. It is not ``torch.optim.AdamW``,
+leaf, then ``* -lr``, then ``p += u``. ``m_hat`` and ``v_hat`` multiply by
+the float32 reciprocal of the bias correction (what PyTorch's CUDA
+``_foreach_div`` by a scalar computes; optax divides, which differs in the
+last bit), so the update is the same on every device. It is not ``torch.optim.AdamW``,
 which decays ``p`` first and rounds differently. This is the plain twin
-that a fused AdamW kernel will be held to.
+that the fused AdamW kernel (:mod:`..ops.fused_optim`) is held to, bitwise.
 
 The update is IN PLACE: parameters and moments are overwritten (JAX
 returns new trees). The step count is a host integer, so a step does no
@@ -49,15 +52,19 @@ class AdamW:
             nu=[torch.zeros_like(p) for p in params],
         )
 
+    def inverse_bias_corrections(self, count: int) -> tuple[float, float]:
+        """``1 / (1 - decay ** count)`` for both moments: optax's bias
+        correction in float32, then its float32 reciprocal."""
+        f32 = np.float32
+        return (float(f32(1.0) / (f32(1.0) - f32(self.b1) ** f32(count))),
+                float(f32(1.0) / (f32(1.0) - f32(self.b2) ** f32(count))))
+
     @torch.no_grad()
     def update_(self, params: list[torch.Tensor], grads: list[torch.Tensor],
                 state: AdamWState) -> None:
         """One AdamW step, parameters and moments updated in place."""
         state.count += 1
-        f32 = np.float32
-        # optax: 1 - decay ** count, in float32
-        bc1 = float(f32(1.0) - f32(self.b1) ** f32(state.count))
-        bc2 = float(f32(1.0) - f32(self.b2) ** f32(state.count))
+        inv1, inv2 = self.inverse_bias_corrections(state.count)
         for lo in range(0, len(params), _CHUNK):
             p = params[lo:lo + _CHUNK]
             g = grads[lo:lo + _CHUNK]
@@ -70,8 +77,8 @@ class AdamW:
             torch._foreach_mul_(nu, self.b2)
             torch._foreach_add_(nu, g2)
             del g2
-            u = torch._foreach_div(mu, bc1)
-            den = torch._foreach_div(nu, bc2)
+            u = torch._foreach_mul(mu, inv1)
+            den = torch._foreach_mul(nu, inv2)
             torch._foreach_sqrt_(den)
             torch._foreach_add_(den, self.eps)
             torch._foreach_div_(u, den)

@@ -11,10 +11,13 @@ step counter — and returns the same state object (the JAX step returns a
 new, donated state). The loss stays a device tensor, so a step does no
 host sync.
 
-``skip_nonfinite``, ``chaos``, ``aux_loss_weight``, ``model_kwargs``,
-``has_batch_stats``, gradient accumulation and the ``Trainer`` class arrive
-with the DDP slice; ``loss="fused_cross_entropy"`` with the fused-tail
-slice. Asking for them raises ``NotImplementedError``.
+``loss="fused_cross_entropy"`` is the logits-free loss: the model returns
+its final hidden states (``return_hidden=True``) and
+:func:`..ops.fused_loss.fused_cross_entropy` streams them against the
+lm_head weight. ``skip_nonfinite``, ``chaos``, ``aux_loss_weight``,
+``model_kwargs``, ``has_batch_stats``, gradient accumulation and the
+``Trainer`` class arrive with the DDP slice; asking for them raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,10 +27,10 @@ import dataclasses
 import torch
 from torch import nn
 
+from pytorch_distributed_training_tutorials_tpu_torch.ops.fused_loss import fused_cross_entropy
 from pytorch_distributed_training_tutorials_tpu_torch.train.optim import AdamW, AdamWState
 
 _DDP_SLICE = "the DDP trainer slice"
-_FUSED_SLICE = "the fused-tail slice (fused cross entropy and fused AdamW kernels)"
 
 
 def _later(what: str, slice_name: str) -> NotImplementedError:
@@ -77,6 +80,19 @@ def _compute_loss(loss: str, logits: torch.Tensor, targets: torch.Tensor) -> tor
     raise ValueError(f"unknown loss {loss!r}")
 
 
+def _fused_ce_loss(model: nn.Module, hidden: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean logits-free cross entropy: the final hidden states streamed
+    against the model's own lm_head weight, cast to the activations' type
+    (the cast its ``Dense`` applies before the matmul)."""
+    head = getattr(model, "lm_head", None)
+    if head is None:
+        raise ValueError(
+            'loss="fused_cross_entropy" needs a model with an lm_head whose '
+            "forward supports return_hidden=True (models.transformer.TransformerLM)"
+        )
+    return fused_cross_entropy(hidden, head.weight.to(hidden.dtype), targets).mean()
+
+
 def _make_loss_fn(loss: str, has_batch_stats: bool = False,
                   aux_loss_weight: float = 0.0, model_kwargs: dict | None = None):
     """The training objective: ``loss_fn(model, batch) -> loss``."""
@@ -87,7 +103,11 @@ def _make_loss_fn(loss: str, has_batch_stats: bool = False,
     if model_kwargs:
         raise _later("model_kwargs", _DDP_SLICE)
     if loss == "fused_cross_entropy":
-        raise _later('loss="fused_cross_entropy"', _FUSED_SLICE)
+        def fused_loss_fn(model: nn.Module, batch) -> torch.Tensor:
+            x, y = batch
+            return _fused_ce_loss(model, model(x, return_hidden=True), y)
+
+        return fused_loss_fn
 
     def loss_fn(model: nn.Module, batch) -> torch.Tensor:
         x, y = batch

@@ -123,3 +123,118 @@ def test_flash_attention_trains_through_the_kernels():
     got = {n: fa.flash_attention.launches[n] - before[n] for n in before}
     assert got == {"fwd": 4 * steps, "dq": 2 * steps, "dkv": 2 * steps}
     assert r["all_losses_finite"]
+
+
+FUSED_CE_CASES = [
+    # (N, D, V, dtype, a target out of range)
+    (300, 256, 1000, torch.bfloat16, True),  # ragged rows and vocab tail
+    (128, 1536, 4096, torch.bfloat16, False),  # the 760m hidden width
+    (200, 96, 520, torch.float32, True),  # f32 through the same kernels
+    (70, 20, 50, torch.bfloat16, True),  # D, V not multiples of 8: element loads
+    (600, 64, 300, torch.float32, False),  # several 256-row dW groups
+]
+
+
+@pytest.mark.parametrize("n,d,v,dtype,oor", FUSED_CE_CASES)
+def test_fused_loss_kernels_match_plain_versions(n, d, v, dtype, oor):
+    """The forward, dh and dW kernels against their plain versions on the
+    same inputs; one launch counted per call. Each output is held element
+    by element to ``fl.KERNEL_TOLERANCE`` (bf16 on the tensor cores,
+    f32 through the same kernels on the CUDA cores)."""
+    _need_cuda()
+    from pytorch_distributed_training_tutorials_tpu_torch.ops import fused_loss as fl
+
+    gen = torch.Generator(device="cuda").manual_seed(n + d + v)
+    h = torch.randn((n, d), generator=gen, device="cuda").to(dtype)
+    w = (torch.randn((d, v), generator=gen, device="cuda") * d ** -0.5).to(dtype)
+    y = torch.randint(0, v, (n,), generator=gen, device="cuda")
+    if oor:
+        y[1] = v + 3  # hits nothing: its loss is the lse
+    g = torch.rand((n,), generator=gen, device="cuda") / n
+    before = dict(fl.fused_cross_entropy.launches)
+    lse, tgt = fl.fused_ce_fwd(h, w, y)
+    dh = fl.fused_ce_dh(h, w, y, lse, g)
+    dw = fl.fused_ce_dw(h, w, y, lse, g)
+    assert fl.fused_cross_entropy.launches == {k: before[k] + 1 for k in before}
+    want = [*fl.fused_ce_fwd_reference(h, w, y, 64, 128),
+            fl.fused_ce_dh_reference(h, w, y, lse, g, 64, 128),
+            fl.fused_ce_dw_reference(h, w, y, lse, g, 64, 128)]
+    for name, got, ref in zip(("lse", "tgt", "dh", "dw"), (lse, tgt, dh, dw), want):
+        assert got.dtype == ref.dtype and got.shape == ref.shape, name
+        err = fl.kernel_error(got, ref)
+        assert err["worst_ratio"] <= 1.0, (name, err)
+    if oor:
+        assert float(tgt[1]) == 0.0
+
+
+def test_fused_loss_kernels_refuse_what_they_do_not_take():
+    _need_cuda()
+    from pytorch_distributed_training_tutorials_tpu_torch.ops import fused_loss as fl
+
+    h = torch.randn((8, 16), device="cuda", dtype=torch.float16)
+    y = torch.zeros((8,), dtype=torch.int64, device="cuda")
+    with pytest.raises(TypeError, match="bfloat16 or both"):
+        fl.fused_ce_fwd(h, torch.randn((16, 32), device="cuda", dtype=torch.float16), y)
+    w = torch.randn((32, 16), device="cuda").t()
+    with pytest.raises(ValueError, match="contiguous"):
+        fl.fused_ce_fwd(torch.randn((8, 16), device="cuda"), w, y)
+
+
+def _adamw_leaves(shapes, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    leaves = []
+    for s in shapes:
+        if s == "misaligned":  # a contiguous view 4 bytes past an aligned base
+            leaves.append(torch.randn((1001,), generator=gen, device="cuda")[1:])
+        else:
+            leaves.append(torch.randn(s, generator=gen, device="cuda"))
+    return leaves
+
+
+@pytest.mark.parametrize("shapes,launches", [
+    ([(1000, 37), (13,), (1536, 1536), (3,), (2, 2, 2), "misaligned"], 1),
+    ([(7,)] * 600, 2),  # more leaves than one launch takes
+])
+def test_fused_adamw_kernel_is_bitwise_its_plain_version(shapes, launches):
+    _need_cuda()
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.fused_optim import fused_adamw
+    from pytorch_distributed_training_tutorials_tpu_torch.train.optim import adamw
+
+    params = _adamw_leaves(shapes, 1)
+    plain_params = [p.clone() for p in params]
+    tx, plain = fused_adamw(3e-4, weight_decay=0.01), adamw(3e-4, weight_decay=0.01)
+    state, plain_state = tx.init(params), plain.init(plain_params)
+    before = fused_adamw.launches
+    for step in range(3):
+        grads = [g * 10.0 ** (step - 2) for g in _adamw_leaves(shapes, 10 + step)]
+        tx.update_(params, grads, state)
+        plain.update_(plain_params, grads, plain_state)
+        for a, b in zip(params + state.mu + state.nu,
+                        plain_params + plain_state.mu + plain_state.nu):
+            assert torch.equal(a, b)
+    assert fused_adamw.launches == before + 3 * launches
+
+
+def test_fused_adamw_refuses_other_types():
+    _need_cuda()
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.fused_optim import fused_adamw
+
+    p = [torch.zeros((4,), device="cuda", dtype=torch.bfloat16)]
+    tx = fused_adamw(1e-3)
+    with pytest.raises(TypeError, match="float32"):
+        tx.update_(p, [torch.zeros_like(p[0])], tx.init(p))
+
+
+def test_fused_tail_trains_through_the_kernels():
+    """A toy float LM step on the card with the fused tail: one forward,
+    dh and dW launch and one AdamW launch per step, loss finite."""
+    _need_cuda()
+    from pytorch_distributed_training_tutorials_tpu_torch.bench import lm_headline
+
+    r = lm_headline.measure(lm_headline.parse(
+        ["--preset", "smoke", "--seq", "128", "--steps", "2", "--reps", "1", "--fused"]))
+    steps = r["steps_run"]
+    assert r["fused_loss_launches"] == {"fwd": steps, "dh": steps, "dw": steps}
+    assert r["fused_adamw_launches"] == steps
+    assert r["flash_launches"] == {"fwd": 4 * steps, "dq": 2 * steps, "dkv": 2 * steps}
+    assert r["all_losses_finite"]

@@ -17,7 +17,9 @@ Tolerances and why:
   flax ``dtype=`` semantics at different places (the JAX flash test's own
   bf16 tolerance is 0.05);
 - 5 train steps (float32): losses ``rtol 1e-5``; final params within
-  ``2e-6`` for 99.9% of the elements and within ``2 * lr * 5`` for all.
+  ``2e-6`` for 99.9% of the elements and within ``2 * lr * 5`` for all
+  (3 fused steps — the fused loss and fused AdamW against the JAX fused
+  step — the same, with ``2 * lr * 3``).
   AdamW's first steps move every parameter by about ``lr`` = 3e-4
   whatever the gradient's size, so an element whose gradient nearly
   cancels (a few ulps of float32 summation order then decide its sign)
@@ -25,7 +27,8 @@ Tolerances and why:
   row, off by 5.6e-5;
 - ``adamw`` alone against optax over 20 steps: ``atol 1e-7`` (the same
   float32 operations in the same order; only the float32 ``pow`` of the
-  bias correction may round differently).
+  bias correction, and the port's multiply by its reciprocal where optax
+  divides, may round differently).
 """
 
 import dataclasses
@@ -42,6 +45,9 @@ from pytorch_distributed_training_tutorials_tpu.models import transformer as jt
 from pytorch_distributed_training_tutorials_tpu.ops.flash_attention import (
     make_flash_attention as jax_make_flash,
 )
+from pytorch_distributed_training_tutorials_tpu.ops.fused_optim import (
+    fused_adamw as jax_fused_adamw,
+)
 from pytorch_distributed_training_tutorials_tpu.train import trainer as jtrainer
 from pytorch_distributed_training_tutorials_tpu_torch.bench import lm_headline
 from pytorch_distributed_training_tutorials_tpu_torch.models import (
@@ -54,6 +60,7 @@ from pytorch_distributed_training_tutorials_tpu_torch.models import (
 from pytorch_distributed_training_tutorials_tpu_torch.ops.flash_attention import (
     make_flash_attention,
 )
+from pytorch_distributed_training_tutorials_tpu_torch.ops.fused_optim import fused_adamw
 from pytorch_distributed_training_tutorials_tpu_torch.train import trainer as ttrainer
 from pytorch_distributed_training_tutorials_tpu_torch.train.optim import adamw
 from helpers import requires_pallas_interpret
@@ -308,11 +315,12 @@ def test_compute_loss_mse_and_one_hot_match_jax():
 def test_train_step_refuses_later_slice_options():
     for kw, slice_name in (
         ({"skip_nonfinite": True}, "DDP"), ({"aux_loss_weight": 0.1}, "DDP"),
-        ({"model_kwargs": {"adapter_ids": 1}}, "DDP"), ({"loss": "fused_cross_entropy"}, "fused"),
-        ({"grad_accum_steps": 2}, "DDP"),
+        ({"model_kwargs": {"adapter_ids": 1}}, "DDP"), ({"grad_accum_steps": 2}, "DDP"),
     ):
         with pytest.raises(NotImplementedError, match=slice_name):
             ttrainer.make_train_step(**kw)
+    with pytest.raises(NotImplementedError, match="LoRA-bank"):
+        fused_adamw(3e-4, mask={"lm_head": True})
 
 
 def test_init_lm_distributions():
@@ -359,9 +367,95 @@ def test_bench_cpu_smoke_prints_one_json_line(capsys):
 
 
 def test_bench_refuses_cpu_unless_asked_and_fused():
+    """Without a GPU the bench raises unless ``--device cpu`` is given;
+    ``--fused`` runs now (see the smoke below), ``--scan`` still raises."""
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour without a GPU")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         lm_headline.main(["--preset", "smoke", "--steps", "1", "--reps", "1"])
-    with pytest.raises(NotImplementedError, match="fused-tail"):
-        lm_headline.main(["--device", "cpu", "--preset", "smoke", "--fused"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm_headline.main(["--preset", "smoke", "--steps", "1", "--reps", "1", "--fused"])
+    with pytest.raises(NotImplementedError, match="--scan"):
+        lm_headline.main(["--device", "cpu", "--preset", "smoke", "--scan"])
+
+
+def test_bench_fused_cpu_smoke_prints_both_arms(capsys):
+    lm_headline.main(["--device", "cpu", "--preset", "smoke", "--seq", "64",
+                      "--batch", "2", "--steps", "2", "--reps", "1", "--fused"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    r = json.loads(lines[0])
+    assert r["gpu"] is None and set(r["result"]) == {"baseline", "fused"}
+    base, fused = r["result"]["baseline"], r["result"]["fused"]
+    assert (base["loss"], base["optimizer"]) == ("cross_entropy", "adamw")
+    assert (fused["loss"], fused["optimizer"]) == ("fused_cross_entropy", "fused_adamw")
+    for arm in (base, fused):
+        assert arm["steps_run"] == 4 and arm["all_losses_finite"]
+        # CPU: the plain versions, no kernel launched
+        assert arm["fused_loss_launches"] == {"fwd": 0, "dh": 0, "dw": 0}
+        assert arm["fused_adamw_launches"] == 0
+    # the same weights and batch: the first losses agree to a bf16 ulp
+    # (the baseline's loss is a bf16 value, the fused loss f32)
+    assert abs(fused["losses_first_chain"][0] - base["losses_first_chain"][0]) <= 2.0 ** -5
+    assert fused["losses_first_chain"][-1] < fused["losses_first_chain"][0]
+
+
+def _jax_fused_state_and_step(jcfg, tree):
+    model = jt.TransformerLM(jcfg)
+    state = jtrainer.TrainState.create(
+        apply_fn=model.apply, params=tree,
+        tx=jax_fused_adamw(3e-4, weight_decay=0.01, interpret=True),
+    )
+    return state, jax.jit(jtrainer._train_step_fn("fused_cross_entropy"))
+
+
+@pytest.mark.parametrize("attn", ["dense", "flash"])
+def test_fused_train_steps_match_jax(attn):
+    """Three train steps with the fused loss and fused AdamW against the
+    JAX package's fused step (Pallas kernels in interpret mode) on the same
+    weights: the losses and the parameters, at the tolerances of
+    ``test_five_train_steps_match_jax``."""
+    jcfg, cfg = configs("f32", attn)
+    tree = jax_float_tree(jcfg)
+    x, y = batch_np()
+    jstate, jstep = _jax_fused_state_and_step(jcfg, tree)
+    model = port_model(cfg, tree)
+    state = ttrainer.TrainState.create(model=model, tx=fused_adamw(3e-4, weight_decay=0.01))
+    step = ttrainer._train_step_fn("fused_cross_entropy")
+    jbatch = (jnp.asarray(x, jnp.int32), jnp.asarray(y, jnp.int32))
+    tbatch = (torch.tensor(x), torch.tensor(y))
+    for i in range(3):
+        jstate, jm = jstep(jstate, jbatch)
+        state, m = step(state, tbatch)
+        assert m["loss"].dtype == torch.float32
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=1e-5,
+                                   err_msg=f"step {i}")
+    assert int(state.step) == int(jstate.step) == 3
+    want = from_jax_params(to_np(jstate.params), cfg, device="cpu")
+    diffs = np.concatenate([
+        np.abs(p.detach().numpy() - want[name].numpy()).ravel()
+        for name, p in model.named_parameters()
+    ])
+    assert diffs.max() <= 2 * 3e-4 * 3, diffs.max()
+    assert np.mean(diffs <= 2e-6) >= 0.999, np.sort(diffs)[-20:]
+
+
+def test_fused_loss_equals_cross_entropy_through_the_model():
+    """``return_hidden`` and the fused loss give the logits path's loss and
+    gradients (f32, the same weights): the logits-free seam is exact up to
+    summation order."""
+    jcfg, cfg = configs("f32", "dense")
+    tree = jax_float_tree(jcfg)
+    x, y = batch_np()
+    batch = (torch.tensor(x), torch.tensor(y))
+    out = {}
+    for loss in ("cross_entropy", "fused_cross_entropy"):
+        model = port_model(cfg, tree)
+        value = ttrainer._make_loss_fn(loss)(model, batch)
+        names = [n for n, _ in model.named_parameters()]
+        grads = torch.autograd.grad(value, [p for _, p in model.named_parameters()])
+        out[loss] = (float(value.detach()), dict(zip(names, grads)))
+    np.testing.assert_allclose(out["fused_cross_entropy"][0], out["cross_entropy"][0], rtol=1e-6)
+    assert_grads_close(out["fused_cross_entropy"][1], out["cross_entropy"][1], 2e-5)
+    hidden = port_model(cfg, tree)(batch[0], return_hidden=True)
+    assert hidden.shape == (BATCH, SEQ, TOY["d_model"])
