@@ -23,7 +23,11 @@ Every phase prints JSON lines:
    and f32, a ragged (1000, 1536, 32000) with a target out of range and a
    tiny shape, each output held element by element to the bound of
    ``ops._check.KERNEL_TOLERANCE`` (``kernel_error``); then ``fused_adamw``
-   over leaves of the 760m parameter shapes (expected bitwise);
+   over leaves of the 760m parameter shapes (expected bitwise); then
+   ``paged_attention`` at the 1b and 1b-gqa decode geometry (B 4, H 16, KV
+   16 or 4, D 128, pages of 64, a 4096-token window, ragged depths, an S 4
+   chunk, a parked row, the paged stream's depths) over f32, bf16, int8 and
+   int4 pools, a parked row exactly 0;
 3. serving: a 2-layer model at the 1b preset's widths, on the card (kernel)
    against the CPU (plain version): logits and greedy tokens;
 4. the serving slice: the 1b preset at full depth serving the ``--server``
@@ -45,6 +49,19 @@ Every phase prints JSON lines:
    within one bf16 ulp of phase 6's, exactly 48 / 24 / 24 flash, 1 / 1 / 1
    fused-loss and 1 fused-AdamW launches per step.
 
+Between phases 4 and 5, ``serve_1b_paged``: the 1b-gqa preset at full
+depth, window 4096, serving 12 requests (prompts {16, 480, 1500}, 32 new
+tokens) through 4 slots over a pool of 48 pages of 64 tokens, arm by arm —
+(a) whole-slot, (b) paged gather f32 (tokens equal to (a)), (c) paged
+kernel f32, (d) kernel int8, (e) kernel int4 — each with its launch, sync,
+page and shed gates. Then each kernel arm is held teacher-forced against a
+gather engine at its KV storage on (b)'s tokens (``teacher_forced_logits``:
+logits within 4% of their scale, the same argmax where the top-2 gap is
+wider): (c) on every request, (d) and (e) on one request of each prompt
+length; (d) and (e) against the f32 gather are read as a lower-precision
+control, and two planted faults (the first page of each table swapped for
+another request's page, or dropped) must trip the gate.
+
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Needs no network and one card. It
 imports nothing of JAX.
@@ -53,6 +70,7 @@ imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import math
@@ -119,6 +137,29 @@ FUSED_PER_STEP = {"fwd": 1, "dh": 1, "dw": 1}
 ADAMW_PER_STEP = 1
 ADAMW_REPLACES = "pytorch_distributed_training_tutorials_tpu/ops/fused_optim.py:50"
 
+PAGED_REPLACES = "pytorch_distributed_training_tutorials_tpu/ops/paged_attention.py:123"
+# (name, B, S, H, KV, D, page_size, pages per row, depths, parked rows) of
+# the paged-attention checks: the 1b and 1b-gqa decode geometry over a
+# 4096-token window, ragged depths, distinct pages and sentinel tails; an S
+# 4 chunk; a parked row; and the serve stream's mid-decode depths (prompts
+# {16, 480, 1500} + 16), the shape of the kernels line
+PAGED_SHAPES = [
+    ("1b", 4, 1, 16, 16, 128, 64, 64, (0, 1000, 2500, 4095), ()),
+    ("1b-gqa", 4, 1, 16, 4, 128, 64, 64, (0, 1000, 2500, 4095), ()),
+    ("1b-gqa-chunk4", 4, 4, 16, 4, 128, 64, 64, (0, 1000, 2500, 4092), ()),
+    ("1b-gqa-parked", 4, 1, 16, 4, 128, 64, 64, (0, 1000, 2500, 4095), (2,)),
+    ("1b-gqa-stream", 4, 1, 16, 4, 128, 64, 64, (32, 496, 1516, 32), ()),
+]
+PAGED_STORES = ("f32", "bf16", "int8", "int4")
+# bf16 queries (the JAX kernel's sweep), on the 1b-gqa shape
+PAGED_BF16_Q = ("bf16", "int8")
+PAGED_MAIN = ("1b-gqa-stream", "f32", "f32")  # (shape, storage, q) of the kernels line
+PAGED_LIBRARY_NOTE = (
+    "no single PyTorch call walks a page table: the nearest is two calls, a "
+    "gather of the pages (index_select) and F.scaled_dot_product_attention "
+    "over the gathered window, timed as gather_sdpa_ms (exact pools only)"
+)
+
 # the 1b preset of examples/serve_llm_int8.py
 PRESET_1B = dict(
     vocab_size=32000, d_model=2048, n_layers=16, n_heads=16, d_ff=8192,
@@ -128,6 +169,40 @@ PRESET_1B = dict(
 # q/k/v/o (16 layers x 4), gate/up (x 2), down, and the lm_head
 DECODE_MIX = [((2048, 2048), 64), ((2048, 8192), 32), ((8192, 2048), 16),
               ((2048, 32000), 1)]
+# the 1b-gqa preset of examples/serve_llm_int8.py at the real-chip window
+# of its --paged recipe, and the paged stream: 4 slots, 12 requests with
+# prompts cycling {16, 480, 1500} and 32 new tokens, a pool of 48 pages of
+# 64 tokens against the 256 that 4 whole slots would take
+PRESET_1B_GQA = dict(
+    vocab_size=32000, d_model=2048, n_layers=16, n_heads=16, n_kv_heads=4,
+    d_ff=8192, max_seq_len=4096,
+)
+PAGED_STREAM = dict(n_slots=4, tokens_per_launch=8, requests=12, prompts=(16, 480, 1500),
+                    new=32, page_size=64, pool_pages=48, shed_prompt=3500)
+# arm -> engine options: (a) whole-slot, (b) paged gather f32, (c) paged
+# kernel f32, (d) paged kernel int8, (e) paged kernel int4
+PAGED_ARMS = {
+    "a": {},
+    "b": dict(paged=True),
+    "c": dict(paged=True, paged_kernel=True),
+    "d": dict(paged=True, paged_kernel=True, kv_bits=8),
+    "e": dict(paged=True, paged_kernel=True, kv_bits=4),
+}
+# a kernel arm against the gather at the same KV storage, teacher-forced:
+# logits within this share of the request's largest |logit|. On an H100 the
+# sound pairs differ by at most 1.9% (an int8 activation code step,
+# ROADMAP.md section C) and the planted faults by 8.2% (dropped page) and
+# 16.7% (wrong page); 4% is near the geometric middle (PERF.md section 6)
+TF_LOGIT_BOUND = 0.04
+# kernel arm -> (its gather reference, requests held: None = all, 3 = one
+# of each prompt length); "b8"/"b4" are gather engines at kv_bits 8/4
+TF_PAIRS = {"c": ("b", None), "d": ("b8", 3), "e": ("b4", 3)}
+TF_GATHER = {"b8": dict(paged=True, kv_bits=8), "b4": dict(paged=True, kv_bits=4)}
+# planted faults arm (c) must fail the gate with, on request 1 (8 pages)
+TF_FAULTS = ("wrong_page", "dropped_page")
+# one page across the 16 layers' K, V (and scales): 64 tokens x 4 kv heads
+# x (2 x 128 x 4 bytes | 2 x (128 + 4) | 2 x (64 + 2))
+PAGE_BYTES = {0: 4_194_304, 8: 1_081_344, 4: 540_672}
 LIBRARY_NOTE = (
     "no single PyTorch call computes an int8 matmul with dynamic "
     "per-(row, 512-column tile) activation quantization and f32 "
@@ -486,6 +561,131 @@ def phase_adamw(torch, gpu: str) -> dict:
     return row
 
 
+def paged_operands(torch, shape, store: str, q_type: str, seed: int):
+    """Paged-attention operands on the card for one PAGED_SHAPES row: a pool
+    of the live pages plus 8 spare, shuffled, the sentinel past each row's
+    pages and on parked rows; pools stored as ``store`` (quantized by the
+    port's KV quantizers)."""
+    from pytorch_distributed_training_tutorials_tpu_torch.models.transformer import (
+        _quantize_kv,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.quant import quantize_kv_int4
+
+    _, b, s, h, kv, d, ps, p_cap, depths, parked = shape
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    live = [0 if r in parked else -(-(p + s) // ps) for r, p in enumerate(depths)]
+    n_pages = sum(live) + 8
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}
+    q = torch.randn((b, s, h, d), generator=gen, device=dev).to(dt[q_type])
+    kf, vf = (torch.randn((n_pages, ps, kv, d), generator=gen, device=dev) for _ in range(2))
+    kw = {}
+    if store == "int8":
+        (k, ks), (v, vs) = _quantize_kv(kf), _quantize_kv(vf)
+        kw = dict(k_scale=ks, v_scale=vs, quant="int8")
+    elif store == "int4":
+        (k, ks), (v, vs) = quantize_kv_int4(kf), quantize_kv_int4(vf)
+        kw = dict(k_scale=ks, v_scale=vs, quant="int4")
+    else:
+        k, v = kf.to(dt[store]), vf.to(dt[store])
+    perm = torch.randperm(n_pages, generator=gen, device=dev).tolist()
+    table = torch.full((b, p_cap), n_pages, dtype=torch.int32)
+    for r, n in enumerate(live):
+        table[r, :n] = torch.tensor([perm.pop() for _ in range(n)], dtype=torch.int32)
+    pos = torch.tensor(depths, dtype=torch.int64, device=dev)
+    return q, k, v, table.to(dev), pos, kw, live
+
+
+def paged_bound(shape, q, k, kw) -> tuple[float, str]:
+    """(bound_ms, bound_by) of one paged-attention call, counting what this
+    call's depths need: the K/V (and scales) of every kv head at each row's
+    positions [0, min(pos + S, window)) read once (a parked row none; the
+    masked tail of a row's last page not at all), q read and the output
+    written once; against the score and PV products (4 flops per query
+    head, head dim and position its query row sees) at the card's float32
+    peak."""
+    _, b, s, h, kv, d, ps, p_cap, depths, parked = shape
+    cap = p_cap * ps
+    per_pos = 2 * kv * k.shape[-1] * k.element_size()
+    if kw:
+        per_pos += 2 * kv * kw["k_scale"].element_size()
+    rows = [p for r, p in enumerate(depths) if r not in parked]
+    positions = sum(min(p + s, cap) for p in rows)
+    seen = sum(min(p + j + 1, cap) for p in rows for j in range(s))
+    nbytes = positions * per_pos + 2 * q.numel() * q.element_size()
+    ops = 4.0 * seen * h * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_paged(torch, pa, gpu: str) -> dict:
+    """Phase 2 (paged attention): the kernel against its plain version on
+    the same operands at every PAGED_SHAPES row and pool storage (and bf16
+    queries on the 1b-gqa shape), each output element within the bound of
+    ``pa.KERNEL_TOLERANCE`` for ``pa.tolerance_type`` (bf16 where p rounds
+    to bf16, else q's type), every parked row exactly 0; CUDA
+    event times beside the byte bound, and the gather + SDPA pair as a
+    note."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    runs = [(shape, store, "f32") for shape in PAGED_SHAPES for store in PAGED_STORES]
+    runs += [(PAGED_SHAPES[1], store, "bf16") for store in PAGED_BF16_Q]
+    results, max_err, worst = {}, 0.0, 0.0
+    for i, (shape, store, q_type) in enumerate(runs):
+        name, b, s, h, kv, d, ps, p_cap, depths, parked = shape
+        q, k, v, table, pos, kw, live = paged_operands(torch, shape, store, q_type, 40 + i)
+        got = pa.paged_attention(q, k, v, table, pos, **kw)
+        want = pa.paged_attention_plain(q, k, v, table, pos, **kw)
+        torch.cuda.synchronize()
+        tol_type = pa.tolerance_type(q, v, kw.get("quant"))
+        err = pa.kernel_error(got, want, tol_type)
+        if not err["worst_ratio"] <= 1.0:
+            raise AssertionError(f"paged_attention kernel != plain at {name} {store} "
+                                 f"q {q_type}: {err}")
+        for r in parked:
+            if got[r].any():
+                raise AssertionError(f"paged_attention: parked row {r} is not 0 at {name}")
+        max_err, worst = max(max_err, err["max_abs_err"]), max(worst, err["worst_ratio"])
+        ms = time_ms(lambda: pa.paged_attention(q, k, v, table, pos, **kw), torch, flush)
+        plain_ms = time_ms(lambda: pa.paged_attention_plain(q, k, v, table, pos, **kw),
+                           torch, flush, reps=10, warmup=1)
+        note_ms = None
+        if not kw and not parked:
+            # the grp query heads of a kv head as one (S * grp)-row query:
+            # row r is query r // grp, its mask t <= pos + r // grp
+            grp = h // kv
+            ids = table.long().clamp(max=k.shape[0] - 1).flatten()
+            qt = (q.reshape(b, s, kv, grp, d).permute(0, 2, 1, 3, 4)
+                  .reshape(b, kv, s * grp, d).to(k.dtype))
+            rows = pos[:, None] + torch.arange(s * grp, device=dev) // grp
+            mask = (torch.arange(p_cap * ps, device=dev) <= rows[..., None])[:, None]
+
+            def gather_sdpa():
+                kg, vg = (x.index_select(0, ids).view(b, p_cap * ps, kv, d).transpose(1, 2)
+                          for x in (k, v))
+                return F.scaled_dot_product_attention(qt, kg, vg, attn_mask=mask)
+
+            note_ms = time_ms(gather_sdpa, torch, flush)
+        b_ms, b_by = paged_bound(shape, q, k, kw)
+        row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   gather_sdpa_ms=note_ms)
+        results[(name, store, q_type)] = row
+        emit({
+            "phase": "kernel_vs_plain", "kernel": "paged_attention", "shape": name,
+            "B": b, "S": s, "H": h, "KV": kv, "D": d, "page_size": ps, "pages_per_row": p_cap,
+            "depths": list(depths), "parked_rows": list(parked), "live_pages": live,
+            "storage": store, "q": q_type, "errors": err,
+            "tolerance_type": str(tol_type).removeprefix("torch."), **row,
+            "roofline_share": b_ms / ms, "library_ms": None,
+            "library_note": PAGED_LIBRARY_NOTE,
+            "blocks": b * kv, "sms": torch.cuda.get_device_properties(0).multi_processor_count,
+            "gpu": gpu,
+        })
+    return {"results": results, "max_abs_err": max_err, "worst_ratio": worst}
+
+
 def phase_model(torch, gpu: str) -> None:
     """Phase 3: a 2-layer model at the 1b widths, card against CPU."""
     from pytorch_distributed_training_tutorials_tpu_torch.models import (
@@ -544,7 +744,7 @@ def percentile(vals, q: float) -> float:
     return s[min(len(s) - 1, int(round(q * (len(s) - 1))))]
 
 
-def profile_chain(torch, engine, mk_request, gpu: str) -> None:
+def profile_chain(torch, engine, mk_request, gpu: str, label: str = "serve_1b") -> None:
     """Where a decode chain's time goes: ``torch.profiler`` over one
     ``step()`` that runs a chain of ``tokens_per_launch`` decode steps on 4
     active slots (no prefill inside). Device time by kernel name, the
@@ -574,7 +774,8 @@ def profile_chain(torch, engine, mk_request, gpu: str) -> None:
         key=lambda e: -e.self_cpu_time_total,
     )[:10]
     emit({
-        "phase": "profile_decode_chain", "decode_steps": engine.tokens_per_launch,
+        "phase": "profile_decode_chain", "of": label,
+        "decode_steps": engine.tokens_per_launch,
         "slots_active": engine.n_slots, "wall_ms_profiled": wall_ms,
         "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / wall_ms,
@@ -691,6 +892,230 @@ def phase_serve(torch, quant, gpu: str) -> int:
         "gpu": gpu,
     })
     return launches
+
+
+def tf_compare(ref, got) -> dict:
+    """Teacher-forced logits ``got`` against ``ref`` (one row per step): the
+    worst step's max |difference| as a share of ``ref``'s largest |logit|,
+    held to TF_LOGIT_BOUND, and the same argmax wherever ``ref``'s top-2 gap
+    is wider than the bound."""
+    diff = (ref - got).abs().amax(-1)
+    scale = float(ref.abs().max())
+    top2 = ref.topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    agree = ref.argmax(-1) == got.argmax(-1)
+    clear = gap > TF_LOGIT_BOUND * scale
+    first = None if bool(agree.all()) else int((~agree).nonzero()[0])
+    share = float(diff.max()) / scale
+    return {
+        "per_step_max_abs_logit_diff": diff.tolist(),
+        "steps_bitwise_equal": int((diff == 0).sum()),
+        "max_abs_logit_diff": float(diff.max()), "logit_max_abs": scale,
+        "diff_share": share, "bound_share": TF_LOGIT_BOUND,
+        "argmax_agree_steps": int(agree.sum()), "first_argmax_disagreement": first,
+        "ref_top2_gap_there": None if first is None else float(gap[first]),
+        "ref_top2_gap_min": float(gap.min()), "clear_steps": int(clear.sum()),
+        "ok": share <= TF_LOGIT_BOUND and bool(agree[clear].all()),
+    }
+
+
+@contextlib.contextmanager
+def planted_fault(kind: str):
+    """A fault the teacher-forced gate must catch: every paged refill
+    installs its table with the first page replaced — by a page the request
+    does not own, holding another request's K/V (``wrong_page``), or by the
+    sentinel, so the read skips it (``dropped_page``)."""
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import engine as mod
+
+    real = mod.write_slot_paged
+
+    def faulty(state, flat, pages, slot, *rest):
+        real(state, flat, pages, slot, *rest)
+        n = state.cache.n_pages
+        state.cache.table[slot, 0] = (
+            n if kind == "dropped_page" else next(p for p in range(n) if p not in pages))
+
+    mod.write_slot_paged = faulty
+    try:
+        yield
+    finally:
+        mod.write_slot_paged = real
+
+
+def phase_serve_paged(torch, pa, gpu: str) -> dict:
+    """The paged serving slice: the 1b-gqa preset at full depth and width,
+    int8 weights, window 4096, through ``ServeEngine`` on the paged stream
+    (PAGED_STREAM), arm by arm (PAGED_ARMS), each with its gates; then
+    the kernel arms teacher-forced against the gather (TF_PAIRS), the
+    lower-precision controls and the planted faults (TF_FAULTS). Returns
+    the kernel launches of arm (c), the main path, and every arm's line."""
+    import numpy as np
+
+    from pytorch_distributed_training_tutorials_tpu_torch.models import (
+        TransformerConfig,
+        TransformerLM,
+        init_quantized_lm,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import (
+        PoolExhausted,
+        Request,
+        ServeEngine,
+    )
+
+    st = PAGED_STREAM
+    cfg = TransformerConfig(**PRESET_1B_GQA, quantized=True)
+    t0 = time.perf_counter()
+    params = init_quantized_lm(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    model = TransformerLM(cfg)
+    rng = np.random.Generator(np.random.PCG64(12))
+
+    def prompt(i: int) -> list[int]:
+        return rng.integers(0, cfg.vocab_size, (st["prompts"][i % 3],)).tolist()
+
+    prompts = [prompt(i) for i in range(st["requests"])]
+    shed_prompt = rng.integers(0, cfg.vocab_size, (st["shed_prompt"],)).tolist()
+
+    def mk_request(i: int) -> Request:
+        return Request(prompt=prompt(i), max_new_tokens=st["new"], seed=i)
+
+    def engine(options: dict):
+        kw = dict(options)
+        if kw.get("paged"):
+            kw.update(page_size=st["page_size"], pool_pages=st["pool_pages"])
+        return ServeEngine(model, params, n_slots=st["n_slots"],
+                           tokens_per_launch=st["tokens_per_launch"], max_queue=64,
+                           device="cuda", **kw)
+
+    for arm in ("a", "c"):  # warmup: first launches, cuBLAS handles
+        warm = engine(PAGED_ARMS[arm])
+        warm.submit(mk_request(99))
+        warm.run_until_idle()
+        del warm
+    torch.cuda.synchronize()
+    tokens, summary, kept, problems = {}, {}, {}, []
+    tpl = st["tokens_per_launch"]
+    for arm, options in PAGED_ARMS.items():
+        eng = engine(options)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        pa.paged_attention.launches = 0
+        t0 = time.perf_counter()
+        ids = [eng.submit(Request(prompt=p, max_new_tokens=st["new"], seed=i))
+               for i, p in enumerate(prompts)]
+        done = eng.run_until_idle()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = pa.paged_attention.launches
+        peak = torch.cuda.max_memory_allocated()
+        by_id = {c.request_id: c for c in done}
+        tokens[arm] = [by_id[i].tokens if i in by_id else None for i in ids]
+        bad = []
+        if len(done) != st["requests"] or any(
+                c.finish_reason != "length" or len(c.tokens) != st["new"] for c in done):
+            bad.append(f"not every request finished 'length' with {st['new']} tokens")
+        if eng.n_host_syncs != eng.n_chains + eng.n_prefills:
+            bad.append(f"{eng.n_host_syncs} host syncs != {eng.n_chains} chains + "
+                       f"{eng.n_prefills} prefills")
+        steps = eng.n_chains * tpl
+        want_launches = cfg.n_layers * steps if options.get("paged_kernel") else 0
+        if launches != want_launches:
+            bad.append(f"paged_attention launched {launches} times, want {want_launches}")
+        stats = eng.page_stats()
+        shed = None
+        if options:
+            if stats["pages_in_use"] != 0:
+                bad.append(f"{stats['pages_in_use']} pages leaked")
+            if stats["pages_high_water"] > st["pool_pages"]:
+                bad.append(f"high_water {stats['pages_high_water']} > {st['pool_pages']}")
+            if stats["page_bytes"] != PAGE_BYTES[stats["kv_bits"]]:
+                bad.append(f"page_bytes {stats['page_bytes']} != {PAGE_BYTES[stats['kv_bits']]}")
+            try:
+                eng.submit(Request(prompt=shed_prompt, max_new_tokens=st["new"]))
+                bad.append(f"a {st['shed_prompt']}-token prompt was admitted")
+            except PoolExhausted:
+                shed = True
+        if arm == "b" and tokens["b"] != tokens["a"]:
+            bad.append("gather tokens != whole-slot tokens")
+        toks = sum(len(c.tokens) for c in done)
+        lat, ttft = [c.latency_s for c in done], [c.ttft_s for c in done]
+        row = {
+            "phase": "serve_1b_paged", "arm": arm, "options": options,
+            "preset": "1b-gqa", "layers": cfg.n_layers, "max_seq_len": cfg.max_seq_len,
+            **{k: st[k] for k in ("n_slots", "tokens_per_launch", "requests", "new")},
+            "prompt_lengths": list(st["prompts"]), "completed": len(done),
+            "generated_tokens": toks, "prefills": eng.n_prefills, "chains": eng.n_chains,
+            "decode_steps": steps, "host_syncs": eng.n_host_syncs,
+            "paged_attention_launches": launches, "shed_ok": shed,
+            "wall_s": wall_s, "aggregate_tok_s": toks / wall_s,
+            "latency_p50_s": percentile(lat, 0.5), "latency_p95_s": percentile(lat, 0.95),
+            "ttft_p50_s": percentile(ttft, 0.5), "ttft_p95_s": percentile(ttft, 0.95),
+            "max_memory_allocated_bytes": peak, "page_stats": stats,
+            "weights_init_s": init_s, "ok": not bad, "problems": bad, "gpu": gpu,
+        }
+        emit(row)
+        problems += [f"arm {arm}: {x}" for x in bad]
+        summary[arm] = row
+        if arm == "c":
+            profile_chain(torch, eng, mk_request, gpu, label="serve_1b_paged arm c")
+        if arm != "a":
+            kept[arm] = eng
+        del eng
+    if problems:
+        raise AssertionError("; ".join(problems))
+    # each kernel arm against the gather at its KV storage, teacher-forced
+    # on (b)'s tokens: the f32 kernel and the float64 gather differ by
+    # float32 ulps, which the int8 activation quantization can turn into a
+    # code step (ROADMAP.md section C), and a token then flips on a near
+    # tie; so the gate holds logits, not tokens
+    kept.update({g: engine(o) for g, o in TF_GATHER.items()})
+    refs, shares = {}, {}
+
+    def held(kind: str, arm: str, ref: str, i: int, got) -> dict:
+        """Emit and return the teacher-forced record of ``got``, arm's
+        logits on request i, against the gather engine ``ref``'s."""
+        if (ref, i) not in refs:
+            refs[ref, i] = kept[ref].teacher_forced_logits(prompts[i], tokens["b"][i])
+        rec = {"phase": "serve_1b_paged_teacher_forced", "kind": kind, "arm": arm,
+               "ref": ref, "request": i, "prompt_len": len(prompts[i]),
+               "steps": len(tokens["b"][i]), **tf_compare(refs[ref, i], got), "gpu": gpu}
+        if arm == "c":
+            rec["first_divergent_token"] = next((j for j, (x, y) in enumerate(
+                zip(tokens["b"][i], tokens["c"][i])) if x != y), None)
+        emit(rec)
+        key = f"{kind} {arm} vs {ref}"
+        shares[key] = max(shares.get(key, 0.0), rec["diff_share"])
+        return rec
+
+    for arm, (ref, n_req) in TF_PAIRS.items():
+        for i in range(n_req or len(prompts)):
+            got = kept[arm].teacher_forced_logits(prompts[i], tokens["b"][i])
+            if not held("gate", arm, ref, i, got)["ok"]:
+                problems.append(f"arm {arm}: request {i}'s teacher-forced logits "
+                                f"outside the bound of the gather's ({ref})")
+            if arm != "c":  # lower-precision control: quantized KV against f32
+                held("control", arm, "b", i, got)
+    for kind in TF_FAULTS:
+        with planted_fault(kind):
+            got = kept["c"].teacher_forced_logits(prompts[1], tokens["b"][1])
+        if held(kind, "c", "b", 1, got)["ok"]:
+            problems.append(f"the teacher-forced gate passed a planted {kind}")
+    kept.clear()
+    refs.clear()
+    if problems:
+        raise AssertionError("; ".join(problems))
+    pb = {a: summary[a]["page_stats"]["page_bytes"] for a in ("c", "d", "e")}
+    emit({"phase": "serve_1b_paged_summary", "page_bytes": pb,
+          "int4_half_of_int8": 2 * pb["e"] == pb["d"],
+          "tokens_b_equal_a": tokens["b"] == tokens["a"],
+          "tokens_c_equal_b": tokens["c"] == tokens["b"],
+          "requests_with_tokens_c_equal_b": sum(x == y for x, y in zip(tokens["c"], tokens["b"])),
+          "requests_with_tokens_d_equal_c": sum(x == y for x, y in zip(tokens["d"], tokens["c"])),
+          "requests_with_tokens_e_equal_c": sum(x == y for x, y in zip(tokens["e"], tokens["c"])),
+          "teacher_forced_max_diff_share": shares, "bound_share": TF_LOGIT_BOUND,
+          "gpu": gpu})
+    return {"launches": summary["c"]["paged_attention_launches"], "arms": summary}
 
 
 LOSSES = ("cross_entropy", "fused_cross_entropy")
@@ -957,6 +1382,7 @@ def main(argv=None) -> int:
         flash_attention as fa,
     )
     from pytorch_distributed_training_tutorials_tpu_torch.ops import fused_loss as fl
+    from pytorch_distributed_training_tutorials_tpu_torch.ops import paged_attention as pa
 
     # plain float32 matmuls stay float32 on the card (TF32 off, stated)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -986,10 +1412,12 @@ def main(argv=None) -> int:
     flash = phase_flash(torch, fa, gpu)
     fused = phase_fused_ce(torch, fl, gpu)
     adamw_row = phase_adamw(torch, gpu)
+    paged = phase_paged(torch, pa, gpu)
     if args.kernel_only:
         return 0
     phase_model(torch, gpu)
     launches = phase_serve(torch, quant, gpu)
+    paged_serve = phase_serve_paged(torch, pa, gpu)
     phase_train_card_vs_cpu(torch, gpu)
     base = phase_train(torch, gpu)
     train_launches = base["flash"]
@@ -1064,6 +1492,22 @@ def main(argv=None) -> int:
         "work": "one 760m train step: 1 launch over 219 leaves, 1,006,708,224 elements",
         "library_note": "torch._fused_adamw_: decays p by (1 - lr wd) first, the nearest "
                         "PyTorch call, not the same function",
+    })
+    # paged attention: one 1b-gqa decode forward (16 layers) at the paged
+    # stream's mid-decode depths (PAGED_MAIN), f32 queries over an f32 pool
+    row = paged["results"][PAGED_MAIN]
+    kernels.append({
+        "name": "paged_attention", "route": "cuda",
+        "source": f"{PKG}/csrc/paged_attention.cu", "replaces": PAGED_REPLACES,
+        "launches": paged_serve["launches"], "max_abs_err": paged["max_abs_err"],
+        "worst_ratio": paged["worst_ratio"],
+        "ms": row["ms"] * 16, "plain_ms": row["plain_ms"] * 16,
+        "bound_ms": row["bound_ms"] * 16, "bound_by": row["bound_by"],
+        "library_ms": None,
+        "work": "one 1b-gqa decode forward: 16 calls at B=4 S=1 H=16 KV=4 D=128, "
+                "pages of 64, depths (32, 496, 1516, 32), f32",
+        "library_note": PAGED_LIBRARY_NOTE,
+        "gather_sdpa_ms": row["gather_sdpa_ms"] * 16,
     })
     emit({"kernels": kernels})
     print(gpu, flush=True)

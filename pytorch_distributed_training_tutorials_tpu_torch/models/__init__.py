@@ -10,6 +10,7 @@ from pytorch_distributed_training_tutorials_tpu_torch.models.convert import (
 from pytorch_distributed_training_tutorials_tpu_torch.models.generate import generate
 from pytorch_distributed_training_tutorials_tpu_torch.models.transformer import (
     KVCache,
+    PagedKVCache,
     TransformerConfig,
     TransformerLM,
     bind_params,
@@ -18,6 +19,7 @@ from pytorch_distributed_training_tutorials_tpu_torch.models.transformer import 
 
 __all__ = [
     "KVCache",
+    "PagedKVCache",
     "TransformerConfig",
     "TransformerLM",
     "bind_params",

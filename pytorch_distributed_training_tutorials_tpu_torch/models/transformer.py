@@ -24,6 +24,13 @@ the weight bridge (:mod:`.convert`) maps one to one.
 Where JAX keeps the KV cache in flax's mutable ``"cache"`` collection, the
 port passes an explicit :class:`KVCache` into the forward; prefill and
 decode write into it IN PLACE (the slot refill of the serving engine too).
+A model with ``cfg.kv_pages`` > 0 decodes over a :class:`PagedKVCache`
+instead: one page pool per layer shared by all rows, a per-row page table,
+and two read paths (the gather, bitwise the unpaged decode, or the
+paged-attention kernel). Either cache may store K/V quantized (int8 codes
+with f32 scales, int4 nibbles with bf16 scales): writes store the encoded
+K/V, decode attends over the decoded cache, and prefill attends over the
+raw K/V, as in the JAX package.
 
 Batch- and window-invariance. The serving engine's tokens must equal
 ``generate()``'s for the same request, though the engine decodes
@@ -53,17 +60,19 @@ from torch.utils.checkpoint import (
     noop_context_fn,
 )
 
+from pytorch_distributed_training_tutorials_tpu_torch.ops.paged_attention import (
+    paged_attention,
+)
 from pytorch_distributed_training_tutorials_tpu_torch.ops.quant import (
+    _RCP127,
     Int8Linear,
+    dequantize_kv_int4,
     quantize_int8,
+    quantize_kv_int4,
 )
 
 # config field -> the later slice of the port that brings it in
 _LATER_SLICES = {
-    "kv_cache_dtype": "quantized KV cache (int8/int4), with paged KV serving",
-    "kv_pages": "paged KV serving with the paged-attention kernel",
-    "kv_page_size": "paged KV serving with the paged-attention kernel",
-    "paged_kernel": "paged KV serving with the paged-attention kernel",
     "lora_adapters": "the multi-tenant LoRA bank",
     "lora_rank": "the multi-tenant LoRA bank",
     "moe_experts": "mixture-of-experts blocks",
@@ -89,7 +98,14 @@ class TransformerConfig:
     parameters computing in ``dtype`` (float32 or bfloat16), with
     ``attention_fn``, ``remat`` and ``remat_policy`` (None or "dots"). The
     JAX ``scan_layers`` layout needs no field: the port holds one module
-    per layer and the weight bridge reads the layout from the tree."""
+    per layer and the weight bridge reads the layout from the tree.
+
+    KV storage: ``kv_cache_dtype`` None (float32), ``torch.bfloat16``,
+    ``torch.int8`` (codes + f32 scales) or ``"int4"`` (packed nibbles +
+    bf16 scales), for :class:`KVCache` and :class:`PagedKVCache` alike.
+    ``kv_pages`` > 0 makes decode read and write a :class:`PagedKVCache`
+    of that many pages of ``kv_page_size`` tokens; ``paged_kernel``
+    selects its read path (the paged-attention kernel, or the gather)."""
 
     vocab_size: int = 256
     d_model: int = 128
@@ -142,6 +158,19 @@ class TransformerConfig:
                 "the PyTorch port; the float path computes in float32 or "
                 "bfloat16"
             )
+        _kv_dtype(self.kv_cache_dtype)  # raises on an unknown storage type
+        if self.kv_pages < 0:
+            raise ValueError(f"kv_pages must be >= 0, got {self.kv_pages}")
+        if self.kv_pages and (self.kv_page_size < 1
+                              or self.max_seq_len % self.kv_page_size):
+            raise ValueError(
+                f"kv_pages={self.kv_pages} needs a kv_page_size >= 1 that "
+                f"divides max_seq_len {self.max_seq_len}, got {self.kv_page_size}"
+            )
+        if self.paged_kernel and not self.kv_pages:
+            raise ValueError(
+                "paged_kernel=True needs kv_pages > 0: the kernel walks the page pool"
+            )
         if self.remat_policy == "dots_attn":
             raise NotImplementedError(
                 "remat_policy='dots_attn' is not supported by the PyTorch "
@@ -178,37 +207,197 @@ class TransformerConfig:
         return self.n_kv_heads if self.n_kv_heads is not None else self.n_heads
 
 
+_KV_DTYPES = (None, torch.float32, torch.bfloat16, torch.int8, "int4")
+
+
+def _kv_dtype(dtype):
+    """A ``kv_cache_dtype`` value, checked: None, ``torch.float32``,
+    ``torch.bfloat16``, ``torch.int8`` or the string ``"int4"``."""
+    if not any(dtype is t or dtype == t for t in _KV_DTYPES):
+        raise ValueError(f"unknown kv_cache_dtype {dtype!r} (one of {_KV_DTYPES})")
+    return dtype
+
+
+def _kv_quant_mode(dtype) -> str | None:
+    """Storage-quantization family of a ``kv_cache_dtype``: "int8"
+    (per-token-per-head absmax, f32 scales), "int4" (packed nibbles, bf16
+    scales) or None (exact storage)."""
+    dtype = _kv_dtype(dtype)
+    if isinstance(dtype, str):
+        return "int4"
+    return "int8" if dtype == torch.int8 else None
+
+
+def _kv_storage(dtype, d: int):
+    """``(storage dtype, stored head dim, scale dtype or None)`` of a
+    ``kv_cache_dtype`` at head dim ``d``: int4 packs two values per uint8
+    byte (``d // 2`` stored) and keeps bf16 scales, so a token-head costs
+    exactly half its int8 twin; exact storage follows the serving compute
+    type (float32) unless set."""
+    quant = _kv_quant_mode(dtype)
+    if quant == "int8":
+        return torch.int8, d, torch.float32
+    if quant == "int4":
+        if d % 2:
+            raise ValueError(f"int4 KV needs an even head_dim, got {d}")
+        return torch.uint8, d // 2, torch.bfloat16
+    dtype = _kv_dtype(dtype)
+    return (torch.float32 if dtype is None else dtype), d, None
+
+
+def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K/V ``(..., D)`` -> int8 codes and one f32 scale per token and head
+    (absmax over D). The scale is ``max(absmax, 1e-8) * float32(1/127)``:
+    what the JAX engine stores, whose quantizer runs inside a jit where XLA
+    folds ``/ 127.0`` into that multiply. Inverse: :func:`_dequantize_kv`."""
+    x32 = x.float()
+    scale = torch.clamp_min(x32.abs().amax(dim=-1), 1e-8) * _RCP127
+    q = torch.round(x32 / scale[..., None]).to(torch.int8)
+    return q, scale
+
+
+def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    return (q.float() * scale[..., None]).to(dtype)
+
+
+def _encode_kv(x: torch.Tensor, quant: str | None):
+    """Storage-encode one K/V chunk: ``(stored, scale)``, scale None for
+    exact storage. The one dispatch of every write site."""
+    if quant == "int8":
+        return _quantize_kv(x)
+    if quant == "int4":
+        return quantize_kv_int4(x)
+    return x, None
+
+
+def _decode_kv(stored: torch.Tensor, scale, quant: str | None, dtype):
+    """Inverse of :func:`_encode_kv` for the dense read paths; exact
+    storage is returned as stored."""
+    if quant == "int8":
+        return _dequantize_kv(stored, scale, dtype)
+    if quant == "int4":
+        return dequantize_kv_int4(stored, scale, dtype)
+    return stored
+
+
+def _check_storage(cache, cfg: TransformerConfig) -> None:
+    store, d_store, _ = _kv_storage(cfg.kv_cache_dtype, cfg.head_dim)
+    if cache.k.dtype != store or cache.k.shape[-1] != d_store:
+        raise ValueError(
+            f"the cache stores {cache.k.dtype} x {cache.k.shape[-1]}, the model's "
+            f"kv_cache_dtype={cfg.kv_cache_dtype!r} wants {store} x {d_store}"
+        )
+
+
 @dataclasses.dataclass
 class KVCache:
     """The decode cache, passed into :meth:`TransformerLM.forward` and
     written there in place.
 
-    ``k``/``v``: (L, B, W + 1, kv_heads, head_dim) float32 — W = the
-    attention window. Position W is a write sink: a decode write at a
-    position >= W (a parked slot that keeps stepping, or any row past its
-    window) lands there and is never read, so such writes are DROPPED, not
-    clamped onto the last real entry and not an index error. ``index``:
-    (B,) int64 — each row's next write position (the JAX package's
-    per-slot ``cache_index``)."""
+    ``k``/``v``: (L, B, W + 1, kv_heads, D_store) in the storage type of
+    ``cfg.kv_cache_dtype`` — W = the attention window. Position W is a
+    write sink: a decode write at a position >= W (a parked slot that keeps
+    stepping, or any row past its window) lands there and is never read,
+    so such writes are DROPPED, not clamped onto the last real entry and
+    not an index error. ``index``: (B,) int64 — each row's next write
+    position (the JAX package's per-slot ``cache_index``).
+    ``k_scale``/``v_scale``: (L, B, W + 1, kv_heads) for quantized storage
+    (``quant`` "int8" or "int4"), else None."""
 
     k: torch.Tensor
     v: torch.Tensor
     index: torch.Tensor
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
+    quant: str | None = None
 
     @classmethod
     def zeros(cls, cfg: TransformerConfig, batch: int, window: int | None = None,
               device=None) -> "KVCache":
         w = cfg.max_seq_len if window is None else window
-        shape = (cfg.n_layers, batch, w + 1, cfg.kv_heads, cfg.head_dim)
+        store, d_store, scale_dtype = _kv_storage(cfg.kv_cache_dtype, cfg.head_dim)
+        lead = (cfg.n_layers, batch, w + 1, cfg.kv_heads)
         return cls(
-            k=torch.zeros(shape, dtype=torch.float32, device=device),
-            v=torch.zeros(shape, dtype=torch.float32, device=device),
+            k=torch.zeros(lead + (d_store,), dtype=store, device=device),
+            v=torch.zeros(lead + (d_store,), dtype=store, device=device),
             index=torch.zeros((batch,), dtype=torch.int64, device=device),
+            **_scales(lead, scale_dtype, device),
+            quant=_kv_quant_mode(cfg.kv_cache_dtype),
         )
 
     @property
     def window(self) -> int:
         return self.k.shape[2] - 1
+
+
+def _scales(shape, dtype, device) -> dict:
+    if dtype is None:
+        return {}
+    return {"k_scale": torch.zeros(shape, dtype=dtype, device=device),
+            "v_scale": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    """The paged decode cache (``cfg.kv_pages`` > 0): K/V live in ONE pool
+    per layer shared by every row, and only the page table and the
+    position carry a batch axis.
+
+    - ``k``/``v``: (L, N + 1, page_size, kv_heads, D_store) — N =
+      ``cfg.kv_pages`` pool pages, in the storage type of
+      ``cfg.kv_cache_dtype``; ``k_scale``/``v_scale``: (L, N + 1,
+      page_size, kv_heads) for quantized storage. Page N is the write
+      sink: writes through a sentinel table entry or past the table land
+      there, so they drop, and it is never read by the kernel path nor
+      counted in :meth:`page_bytes`. (The gather path reads it for
+      sentinel entries; those positions are masked, so what it holds
+      contributes an exact zero.)
+    - ``table``: (B, P) int32, P = max_seq_len // page_size, the
+      sentinel N where a row holds no page;
+    - ``index``: (B,) int64, each row's next write position."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    table: torch.Tensor
+    index: torch.Tensor
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
+    quant: str | None = None
+
+    @classmethod
+    def zeros(cls, cfg: TransformerConfig, batch: int, device=None) -> "PagedKVCache":
+        n, ps = cfg.kv_pages, cfg.kv_page_size
+        if n < 1:
+            raise ValueError(f"a paged cache needs kv_pages >= 1, got {n}")
+        store, d_store, scale_dtype = _kv_storage(cfg.kv_cache_dtype, cfg.head_dim)
+        lead = (cfg.n_layers, n + 1, ps, cfg.kv_heads)
+        return cls(
+            k=torch.zeros(lead + (d_store,), dtype=store, device=device),
+            v=torch.zeros(lead + (d_store,), dtype=store, device=device),
+            table=torch.full((batch, cfg.max_seq_len // ps), n, dtype=torch.int32,
+                             device=device),
+            index=torch.zeros((batch,), dtype=torch.int64, device=device),
+            **_scales(lead, scale_dtype, device),
+            quant=_kv_quant_mode(cfg.kv_cache_dtype),
+        )
+
+    @property
+    def n_pages(self) -> int:
+        return self.k.shape[1] - 1
+
+    @property
+    def page_size(self) -> int:
+        return self.k.shape[2]
+
+    @property
+    def window(self) -> int:
+        return self.table.shape[1] * self.page_size
+
+    def page_bytes(self) -> int:
+        """Bytes one pool page holds across every layer's K, V and scales
+        (the sink excluded)."""
+        return sum(x[:, 0].numel() * x.element_size()
+                   for x in (self.k, self.v, self.k_scale, self.v_scale) if x is not None)
 
 
 class RMSNorm(nn.Module):
@@ -372,7 +561,40 @@ def _store_decode_kv(buf, val, pos, window: int) -> None:
     cols = pos[:, None] + torch.arange(s, device=pos.device)
     cols = torch.where(cols < window, cols, torch.full_like(cols, window))
     rows = torch.arange(b, device=pos.device)[:, None].expand(b, s)
-    buf[rows, cols] = val
+    buf[rows, cols] = val.to(buf.dtype)
+
+
+def _store_paged_kv(pool, table, val, pos) -> None:
+    """Paged twin of :func:`_store_decode_kv`: write row r's token s of
+    ``val`` (B, S, ...) into one layer's ``pool`` (N + 1, page_size, ...)
+    at the page and offset that the row's ``table`` (B, P) maps position
+    ``pos[r] + s`` to, in place. A position past the table, or one whose
+    table entry is the sentinel N (a parked or unbacked row), lands in the
+    sink page N: dropped. No host sync."""
+    n_pages, page_size = pool.shape[0] - 1, pool.shape[1]
+    p_cap = table.shape[1]
+    cols = pos[:, None] + torch.arange(val.shape[1], device=pos.device)
+    p_idx = cols // page_size
+    ids = torch.gather(table, 1, p_idx.clamp(max=p_cap - 1)).to(torch.int64)
+    ids = torch.where(p_idx < p_cap, ids, n_pages)
+    pool[ids, cols % page_size] = val.to(pool.dtype)
+
+
+def _gather_pages(pool, table) -> torch.Tensor:
+    """Each row's logical window out of one layer's page ``pool``: (B, P *
+    page_size, ...) — the array the unpaged decode reads, which is why the
+    gather path is bitwise the unpaged decode. Sentinel entries read the
+    sink page, at positions the validity mask excludes."""
+    out = pool[table.to(torch.int64)]
+    b, p = table.shape
+    return out.reshape((b, p * pool.shape[1]) + tuple(pool.shape[2:]))
+
+
+def _validity(pos, s: int, window: int) -> torch.Tensor:
+    """(B, S, W): query s of row b (at position pos[b] + s) attends the
+    cache positions t <= pos[b] + s."""
+    qpos = pos[:, None] + torch.arange(s, device=pos.device)
+    return torch.arange(window, device=pos.device) <= qpos[..., None]
 
 
 class Attention(nn.Module):
@@ -393,36 +615,56 @@ class Attention(nn.Module):
         v = self.v_proj(x)
         s = x.shape[1]
         if decode:
-            # incremental decoding: S tokens per row written at the row's
-            # own positions pos + [0, S), attention over the cache window
-            # with each query masking positions beyond its own
+            # incremental decoding: S tokens per row written (storage-
+            # encoded) at the row's own positions pos + [0, S), attention
+            # over the decoded cache window with each query masking
+            # positions beyond its own
             pos = cache.index
-            window = cache.window
+            quant = cache.quant
             q = apply_rope(q_raw, cfg.rope_theta, offset=pos)
             k = apply_rope(k_raw, cfg.rope_theta, offset=pos)
-            _store_decode_kv(cache.k[layer], k, pos, window)
-            _store_decode_kv(cache.v[layer], v, pos, window)
-            qpos = pos[:, None] + torch.arange(s, device=x.device)  # (B, S)
-            valid = (
-                torch.arange(window, device=x.device) <= qpos[..., None]
-            )  # (B, S, W): per-row depths
-            out = grouped_masked_attention(
-                q, cache.k[layer, :, :window], cache.v[layer, :, :window],
-                valid[:, None],
-            )
+            k_q, k_s = _encode_kv(k, quant)
+            v_q, v_s = _encode_kv(v, quant)
+            if cfg.kv_pages:
+                out = self._paged_decode(q, (k_q, v_q, k_s, v_s), cache, layer)
+            else:
+                window = cache.window
+                writes = [(cache.k, k_q), (cache.v, v_q)]
+                if quant:
+                    writes += [(cache.k_scale, k_s), (cache.v_scale, v_s)]
+                for buf, val in writes:
+                    _store_decode_kv(buf[layer], val, pos, window)
+                k_read = _decode_kv(
+                    cache.k[layer, :, :window],
+                    cache.k_scale[layer, :, :window] if quant else None,
+                    quant, k.dtype,
+                )
+                v_read = _decode_kv(
+                    cache.v[layer, :, :window],
+                    cache.v_scale[layer, :, :window] if quant else None,
+                    quant, v.dtype,
+                )
+                out = grouped_masked_attention(
+                    q, k_read, v_read, _validity(pos, s, window)[:, None]
+                )
         else:
             q = apply_rope(q_raw, cfg.rope_theta)
             k = apply_rope(k_raw, cfg.rope_theta)
             if prefill:
-                # batched prefill: the causal forward, and the cache of
-                # `rows` (all, or one slot) gets K/V [0, S) with [S, W]
-                # zeroed — the state a fresh cache would have
+                # batched prefill: the causal forward over the RAW K/V, and
+                # the cache of `rows` (all, or one slot) gets the encoded
+                # K/V [0, S) with [S, W] zeroed — the state a fresh cache
+                # would have
                 sel = slice(None) if rows is None else rows
-                kl, vl = cache.k[layer], cache.v[layer]
-                kl[sel, :s] = k if rows is None else k[0]
-                vl[sel, :s] = v if rows is None else v[0]
-                kl[sel, s:] = 0
-                vl[sel, s:] = 0
+                k_q, k_s = _encode_kv(k, cache.quant)
+                v_q, v_s = _encode_kv(v, cache.quant)
+                writes = [(cache.k, k_q), (cache.v, v_q)]
+                if cache.quant:
+                    writes += [(cache.k_scale, k_s), (cache.v_scale, v_s)]
+                for buf, val in writes:
+                    bl = buf[layer]
+                    bl[sel, :s] = (val if rows is None else val[0]).to(bl.dtype)
+                    bl[sel, s:] = 0
             h = cfg.n_heads
             if cfg.quantized:
                 attn = causal_attention
@@ -432,6 +674,41 @@ class Attention(nn.Module):
             # repeat up to the query head count here
             out = attn(q, _expand_kv(k, h), _expand_kv(v, h))
         return self.o_proj(out)
+
+    def _paged_decode(self, q, encoded, cache: PagedKVCache, layer: int):
+        """The paged decode of one layer: the encoded K/V (and scales)
+        land in the shared pools through the page table, then one of two
+        read paths, chosen by ``cfg.paged_kernel`` (a config bool):
+
+        - gather (the reference): materialize each row's window and run
+          the unpaged decode's attention over it — bitwise the unpaged
+          decode;
+        - kernel: :func:`..ops.paged_attention.paged_attention` walks the
+          table page by page; no dense window exists."""
+        pos, tbl, quant = cache.index, cache.table, cache.quant
+        k_q, v_q, k_s, v_s = encoded
+        writes = [(cache.k, k_q), (cache.v, v_q)]
+        if quant:
+            writes += [(cache.k_scale, k_s), (cache.v_scale, v_s)]
+        for pool, val in writes:
+            _store_paged_kv(pool[layer], tbl, val, pos)
+        if self.cfg.paged_kernel:
+            n = cache.n_pages  # the kernel never sees the sink page
+            return paged_attention(
+                q, cache.k[layer, :n], cache.v[layer, :n], tbl, pos,
+                k_scale=cache.k_scale[layer, :n] if quant else None,
+                v_scale=cache.v_scale[layer, :n] if quant else None,
+                quant=quant,
+            )
+        reads = []
+        for pool, scale in ((cache.k, cache.k_scale), (cache.v, cache.v_scale)):
+            reads.append(_decode_kv(
+                _gather_pages(pool[layer], tbl),
+                _gather_pages(scale[layer], tbl) if quant else None,
+                quant, q.dtype,
+            ))
+        valid = _validity(pos, q.shape[1], cache.window)
+        return grouped_masked_attention(q, *reads, valid[:, None])
 
 
 class SwiGLU(nn.Module):
@@ -549,6 +826,18 @@ class TransformerLM(nn.Module):
             raise ValueError("decode and prefill are exclusive")
         if (prefill or decode) and cache is None:
             raise ValueError("prefill/decode need a KVCache")
+        if cache is not None:
+            # paged caches serve decode only: prefill goes through a flat
+            # batch-1 KVCache, then its pages are copied into the pool
+            paged = decode and cfg.kv_pages
+            want = PagedKVCache if paged else KVCache
+            if not isinstance(cache, want):
+                raise ValueError(
+                    f"{'decode' if decode else 'prefill'} with kv_pages="
+                    f"{cfg.kv_pages} takes a {want.__name__}, got "
+                    f"{type(cache).__name__}"
+                )
+            _check_storage(cache, cfg)
         b, s = tokens.shape
         if s > cfg.max_seq_len:
             raise ValueError(

@@ -104,6 +104,17 @@ _LIBRARIES = {
             ),
         },
     },
+    "paged_attention": {
+        "flags": (),
+        "entry": {
+            # q k_pool v_pool k_scale v_scale table pos out, B S H KV D
+            # page_size P n_pages, q type, storage, pos is int64, scale,
+            # shared bytes, stream
+            "paged_attention_launch": (
+                [_PTR] * 8 + [_INT] * 11 + [ctypes.c_float, _INT, _PTR], _INT,
+            ),
+        },
+    },
 }
 
 _lock = threading.Lock()

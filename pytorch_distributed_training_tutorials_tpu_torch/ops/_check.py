@@ -1,9 +1,11 @@
 """How far a hand-written kernel's output may lie from its plain version's.
 
-Shared by :mod:`.flash_attention` and :mod:`.fused_loss`: the card check
-(``chip_smoke.py``, ``tests/test_torch_cuda.py``) holds every output of
-those kernels, element by element, to the bound of
-:data:`KERNEL_TOLERANCE` for the output's type:
+Shared by :mod:`.flash_attention`, :mod:`.fused_loss` and
+:mod:`.paged_attention`: the card check (``chip_smoke.py``,
+``tests/test_torch_cuda.py``) holds every output of those kernels, element
+by element, to the bound of :data:`KERNEL_TOLERANCE` for the output's type
+(or for the type the kernel rounds its intermediates to, where that is
+bf16 and the output f32):
 
     |got - ref| <= rtol |ref| + row_tol rms_row(ref) + floor_tol rms(ref)
 
@@ -30,12 +32,12 @@ KERNEL_TOLERANCE = {
 }
 
 
-def kernel_error(got: torch.Tensor, ref: torch.Tensor) -> dict:
+def kernel_error(got: torch.Tensor, ref: torch.Tensor, dtype=None) -> dict:
     """A kernel's output against its plain version's, in the bound of
-    :data:`KERNEL_TOLERANCE` for ``ref``'s type: the max abs error, the
-    worst ratio of an element's error to its bound (<= 1 passes) and the
-    relative error norm ``|got - ref| / |ref|``."""
-    rtol, row_tol, floor_tol = KERNEL_TOLERANCE[ref.dtype]
+    :data:`KERNEL_TOLERANCE` for ``dtype`` (default ``ref``'s type): the
+    max abs error, the worst ratio of an element's error to its bound (<= 1
+    passes) and the relative error norm ``|got - ref| / |ref|``."""
+    rtol, row_tol, floor_tol = KERNEL_TOLERANCE[ref.dtype if dtype is None else dtype]
     g, r = got.double(), ref.double()
     err = (g - r).abs()
     sq = r.square()

@@ -4,6 +4,9 @@ Port of ``pytorch_distributed_training_tutorials_tpu/ops/quant.py``:
 
 - :func:`quantize_int8` — per-channel symmetric absmax/127 weight
   quantization into an :class:`Int8Param`;
+- :func:`pack_int4`, :func:`unpack_int4`, :func:`quantize_kv_int4` and
+  :func:`dequantize_kv_int4` — int4 KV storage (half-split nibbles, bf16
+  scales), bitwise the JAX package's;
 - :func:`int8_matmul` — ``x @ (q * scale)`` with dynamic per-(row,
   K-tile) activation quantization. On a CUDA tensor it launches the
   hand-written Hopper kernel ``csrc/int8_matmul.cu`` (the port of the TPU
@@ -37,6 +40,8 @@ from pytorch_distributed_training_tutorials_tpu_torch.ops import _build
 
 # float32(1 / 127): the constant XLA multiplies by in place of `/ 127.0`
 _RCP127 = float.fromhex("0x1.020408p-7")
+# float32(1 / 7): the same fold of the int4 KV quantizer's `/ 7.0`
+_RCP7 = float.fromhex("0x1.24924ap-3")
 
 
 @dataclasses.dataclass
@@ -70,6 +75,50 @@ def quantize_int8(w: torch.Tensor, channel_axis: int = -1) -> Int8Param:
     scale = torch.clamp_min(absmax, 1e-8) / 127.0
     q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
     return Int8Param(q=q, scale=scale)
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """Pack int4 values (any int dtype, range [-8, 7]) two per byte along
+    the last axis, the HALF-SPLIT layout: uint8 byte ``j`` holds element
+    ``j`` in its low nibble and element ``j + D/2`` in its high nibble.
+    The last axis must be even; returns ``(..., D // 2)`` uint8. Bitwise
+    the JAX package's ``pack_int4``. Inverse: :func:`unpack_int4`."""
+    d = q.shape[-1]
+    if d % 2:
+        raise ValueError(f"pack_int4 needs an even last axis, got {d}")
+    u = q.to(torch.uint8) & 0xF  # the two's-complement nibble
+    return u[..., : d // 2] | (u[..., d // 2:] << 4)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_int4`: uint8 ``(..., D/2)`` -> int8 ``(...,
+    D)``; each nibble sign-extends by ``n >= 8 -> n - 16``."""
+    lo = (packed & 0xF).to(torch.int8)
+    hi = ((packed >> 4) & 0xF).to(torch.int8)
+    return torch.cat([torch.where(n >= 8, n - 16, n) for n in (lo, hi)], dim=-1)
+
+
+def quantize_kv_int4(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Quantize K/V ``(..., D)`` to packed int4 (:func:`pack_int4`) with a
+    bfloat16 scale per token and head: ``absmax * float32(1/7)`` rounded to
+    bf16, the form the JAX engine stores (its quantizer runs inside a jit,
+    where XLA turns ``/ 7.0`` into that multiply). Codes divide by the
+    ROUNDED scale and clip to [-7, 7], so dequantization with the stored
+    scale is exact. A bf16 scale makes an int4 token-head cost exactly half
+    its int8 twin: ``D/2 + 2`` bytes against ``D + 4``."""
+    x32 = x.float()
+    absmax = x32.abs().amax(dim=-1)
+    scale = (torch.clamp_min(absmax, 1e-8) * _RCP7).to(torch.bfloat16)
+    q = torch.clamp(torch.round(x32 / scale.float()[..., None]), -7, 7)
+    return pack_int4(q.to(torch.int8)), scale
+
+
+def dequantize_kv_int4(packed: torch.Tensor, scale: torch.Tensor,
+                       dtype: torch.dtype) -> torch.Tensor:
+    """Packed int4 codes and bf16 scales -> ``dtype``: ``code * scale`` in
+    float32, then cast. The paged-attention kernel runs the same nibble
+    math on each page tile."""
+    return (unpack_int4(packed).float() * scale.float()[..., None]).to(dtype)
 
 
 def block_k_for(k: int) -> int:

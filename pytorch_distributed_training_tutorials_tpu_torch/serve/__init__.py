@@ -1,7 +1,12 @@
 """Continuous-batching serving for the PyTorch port: :class:`ServeEngine`
-over a slot-indexed KV cache, with its own copy of the FIFO scheduler."""
+over a slot-indexed or paged KV cache, with its own copies of the FIFO
+scheduler and the page pool."""
 
 from pytorch_distributed_training_tutorials_tpu_torch.serve.engine import ServeEngine
+from pytorch_distributed_training_tutorials_tpu_torch.serve.pages import (
+    PagePool,
+    PoolExhausted,
+)
 from pytorch_distributed_training_tutorials_tpu_torch.serve.scheduler import (
     Completion,
     FifoScheduler,
@@ -13,12 +18,16 @@ from pytorch_distributed_training_tutorials_tpu_torch.serve.slots import (
     SlotState,
     bucket_len,
     init_slot_state,
+    park_slot_paged,
     write_slot,
+    write_slot_paged,
 )
 
 __all__ = [
     "Completion",
     "FifoScheduler",
+    "PagePool",
+    "PoolExhausted",
     "QueueClosed",
     "QueueFull",
     "Request",
@@ -26,5 +35,7 @@ __all__ = [
     "SlotState",
     "bucket_len",
     "init_slot_state",
+    "park_slot_paged",
     "write_slot",
+    "write_slot_paged",
 ]

@@ -123,6 +123,18 @@ class FifoScheduler:
         self._queue.append(request)
         return request.request_id
 
-    def pop(self) -> Request | None:
-        """Next request in arrival order, or None when idle."""
-        return self._queue.popleft() if self._queue else None
+    def pop(self, fits=None) -> Request | None:
+        """Next request in arrival order, or None when idle.
+
+        ``fits`` is an optional host predicate over a :class:`Request` (the
+        paged engine passes "enough free pages"): the first request in
+        arrival order that fits pops; one that does not stays queued in
+        its place and pops once pages free up. ``fits=None`` is the plain
+        FIFO pop."""
+        if fits is None:
+            return self._queue.popleft() if self._queue else None
+        for i, r in enumerate(self._queue):
+            if fits(r):
+                del self._queue[i]
+                return r
+        return None

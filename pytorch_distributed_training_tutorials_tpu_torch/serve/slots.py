@@ -8,7 +8,11 @@ into that slot and a per-slot position reset.
 - :func:`bucket_len` — prompt-length buckets (powers of two, floor 8,
   capped at the window);
 - :func:`init_slot_state` — the zeroed :class:`SlotState`;
-- :func:`write_slot` — reset one slot's counters after its prefill.
+- :func:`write_slot` — reset one slot's counters after its prefill;
+- :func:`write_slot_paged` and :func:`park_slot_paged` — the paged twins
+  (a :class:`..models.transformer.PagedKVCache`): copy a prefill's pages
+  into the pool and install the slot's page table; sentinel a finished
+  slot's table.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import torch
 
 from pytorch_distributed_training_tutorials_tpu_torch.models.transformer import (
     KVCache,
+    PagedKVCache,
     TransformerConfig,
 )
 
@@ -42,7 +47,9 @@ class SlotState:
     """The engine's device state, one row per slot:
 
     - ``cache`` — the :class:`..models.transformer.KVCache` over the whole
-      window, with a per-slot position ``cache.index``;
+      window (or, for ``cfg.kv_pages`` > 0, the
+      :class:`..models.transformer.PagedKVCache` of the shared pools and
+      per-slot page tables), with a per-slot position ``cache.index``;
     - ``last_tok`` (S,) int64 — each slot's most recent token, the next
       decode input;
     - ``remaining`` (S,) int64 — tokens still to generate; 0 = free or
@@ -50,7 +57,7 @@ class SlotState:
     - ``generators`` — one ``torch.Generator`` per slot, reseeded from
       ``Request.seed`` at refill."""
 
-    cache: KVCache
+    cache: KVCache | PagedKVCache
     last_tok: torch.Tensor
     remaining: torch.Tensor
     generators: list[torch.Generator]
@@ -58,11 +65,17 @@ class SlotState:
 
 def init_slot_state(cfg: TransformerConfig, n_slots: int, device) -> SlotState:
     """Zeroed state for ``n_slots`` concurrent requests of a model with
-    config ``cfg`` on ``device``."""
+    config ``cfg`` on ``device``; a paged model (``cfg.kv_pages`` > 0) gets
+    a :class:`..models.transformer.PagedKVCache` with every table entry
+    the sentinel."""
     if n_slots < 1:
         raise ValueError("n_slots must be >= 1")
+    if cfg.kv_pages:
+        cache = PagedKVCache.zeros(cfg, n_slots, device=device)
+    else:
+        cache = KVCache.zeros(cfg, n_slots, device=device)
     return SlotState(
-        cache=KVCache.zeros(cfg, n_slots, device=device),
+        cache=cache,
         last_tok=torch.zeros((n_slots,), dtype=torch.int64, device=device),
         remaining=torch.zeros((n_slots,), dtype=torch.int64, device=device),
         generators=[torch.Generator(device=device) for _ in range(n_slots)],
@@ -80,3 +93,37 @@ def write_slot(state: SlotState, slot: int, p_len: int, first: torch.Tensor,
     state.cache.index[slot] = p_len
     state.last_tok[slot] = first
     state.remaining[slot] = max_new - 1
+
+
+def write_slot_paged(state: SlotState, prefill_cache: KVCache, pages: list[int],
+                     slot: int, p_len: int, first: torch.Tensor, max_new: int) -> None:
+    """Paged refill of ``slot``, in place: copy a batch-1 prefilled
+    :class:`..models.transformer.KVCache` (K/V, and scales for quantized
+    storage) into the pool pages ``pages`` — each allocated page WHOLE,
+    the encoded zeros past the prompt's bucket included, which wipes
+    whatever a previous holder (or a parked slot's writes) left in a
+    recycled page — install the slot's page table (``pages``, then the
+    sentinel) and finish as :func:`write_slot` does. Device writes only (a
+    host-to-device copy of the page ids), no host sync."""
+    cache = state.cache
+    n, ps = len(pages), cache.page_size
+    row = pages + [cache.n_pages] * (cache.table.shape[1] - n)
+    ids = torch.tensor(pages, dtype=torch.int64, device=cache.k.device)
+    pairs = [(cache.k, prefill_cache.k), (cache.v, prefill_cache.v)]
+    if cache.quant:
+        pairs += [(cache.k_scale, prefill_cache.k_scale),
+                  (cache.v_scale, prefill_cache.v_scale)]
+    for pool, flat in pairs:
+        src = flat[:, 0, : n * ps]  # (L, n * ps, ...)
+        pool[:, ids] = src.reshape((src.shape[0], n, ps) + tuple(src.shape[2:]))
+    cache.table[slot] = torch.tensor(row, dtype=torch.int32, device=cache.k.device)
+    write_slot(state, slot, p_len, first, max_new)
+
+
+def park_slot_paged(state: SlotState, slot: int) -> None:
+    """Park ``slot`` of a paged state: its page table becomes all sentinel,
+    so the writes it keeps making each decode step land in the sink page
+    and never in pages that were released (and may already serve another
+    request), and its budget drops to 0. Device writes only."""
+    state.cache.table[slot] = state.cache.n_pages
+    state.remaining[slot] = 0

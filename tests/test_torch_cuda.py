@@ -238,3 +238,116 @@ def test_fused_tail_trains_through_the_kernels():
     assert r["fused_adamw_launches"] == steps
     assert r["flash_launches"] == {"fwd": 4 * steps, "dq": 2 * steps, "dkv": 2 * steps}
     assert r["all_losses_finite"]
+
+
+def _paged_inputs(b, s, h, kv, d, page_size, p_cap, store, q_dtype, seed, parked=()):
+    """Paged-attention operands on the card: ragged depths (row 0 at depth
+    0, the last at the window's end), distinct shuffled pages, sentinel
+    tails, ``parked`` rows all sentinel; pools stored as ``store``."""
+    from pytorch_distributed_training_tutorials_tpu_torch.models.transformer import (
+        _quantize_kv,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.quant import quantize_kv_int4
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    window = p_cap * page_size
+    pos = torch.linspace(0, window - s, b).round().to(torch.int64).cuda()
+    live = [-(-(int(p) + s) // page_size) for p in pos]
+    n_pages = sum(live) + 3
+    q = torch.randn((b, s, h, d), generator=gen, device="cuda").to(q_dtype)
+    kf, vf = (torch.randn((n_pages, page_size, kv, d), generator=gen, device="cuda")
+              for _ in range(2))
+    kw = {}
+    if store == "int8":
+        (k, ks), (v, vs) = _quantize_kv(kf), _quantize_kv(vf)
+        kw = dict(k_scale=ks, v_scale=vs, quant="int8")
+    elif store == "int4":
+        (k, ks), (v, vs) = quantize_kv_int4(kf), quantize_kv_int4(vf)
+        kw = dict(k_scale=ks, v_scale=vs, quant="int4")
+    else:
+        k, v = kf.to(store), vf.to(store)
+    perm = torch.randperm(n_pages, generator=gen, device="cuda").tolist()
+    table = torch.full((b, p_cap), n_pages, dtype=torch.int32)
+    for i, n in enumerate(live):
+        table[i, :n] = torch.tensor([perm.pop() for _ in range(n)], dtype=torch.int32)
+    for r in parked:
+        table[r] = n_pages
+    return q, k, v, table.cuda(), pos, kw
+
+
+PAGED_CASES = [
+    # (B, S, H, KV, D, page_size, P, pool storage, q dtype, parked rows)
+    (4, 1, 16, 4, 128, 64, 8, torch.float32, torch.float32, ()),  # the 1b-gqa decode
+    (4, 1, 16, 16, 128, 64, 8, torch.bfloat16, torch.float32, (2,)),  # 1b MHA, bf16 pool
+    (4, 1, 16, 4, 128, 64, 8, "int8", torch.float32, (1,)),
+    (4, 1, 16, 4, 128, 64, 8, "int4", torch.float32, ()),
+    (2, 4, 16, 4, 128, 64, 4, "int4", torch.float32, ()),  # an S 4 chunk: the staircase
+    (3, 2, 8, 2, 32, 8, 4, torch.bfloat16, torch.bfloat16, ()),  # the JAX sweep's bf16 case
+    (3, 3, 8, 2, 32, 16, 3, "int8", torch.bfloat16, (0,)),
+    (2, 1, 4, 4, 18, 8, 3, "int4", torch.float32, ()),  # D not a multiple of 4
+]
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,ps,p_cap,store,q_dtype,parked", PAGED_CASES)
+def test_paged_attention_kernel_matches_plain_version(b, s, h, kv, d, ps, p_cap, store,
+                                                      q_dtype, parked):
+    """The paged-attention kernel against its plain version on the same
+    operands (each element within ``pa.KERNEL_TOLERANCE`` of
+    ``pa.tolerance_type``: bf16 where p rounds to bf16, else q's type),
+    a parked row exactly 0, one launch counted per call, and the gather
+    oracle close as well."""
+    _need_cuda()
+    from pytorch_distributed_training_tutorials_tpu_torch.ops import paged_attention as pa
+
+    q, k, v, table, pos, kw = _paged_inputs(b, s, h, kv, d, ps, p_cap, store, q_dtype,
+                                            seed=b * 100 + d + s, parked=parked)
+    before = pa.paged_attention.launches
+    got = pa.paged_attention(q, k, v, table, pos, **kw)
+    assert pa.paged_attention.launches == before + 1
+    want = pa.paged_attention_plain(q, k, v, table, pos, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == q_dtype and torch.isfinite(got).all()
+    err = pa.kernel_error(got, want, pa.tolerance_type(q, v, kw.get("quant")))
+    assert err["worst_ratio"] <= 1.0, err
+    for r in parked:
+        assert not got[r].any()
+    ref = pa.paged_attention_reference(q, k, v, table, pos, **kw)
+    live = [r for r in range(b) if r not in parked]
+    tol = 2e-5 if pa.tolerance_type(q, v, kw.get("quant")) == torch.float32 else 3e-2
+    assert float((got[live].float() - ref[live].float()).abs().max()) <= tol
+
+
+def test_paged_attention_kernel_refuses_what_it_does_not_take():
+    _need_cuda()
+    from pytorch_distributed_training_tutorials_tpu_torch.ops import paged_attention as pa
+
+    q, k, v, table, pos, _ = _paged_inputs(2, 1, 4, 4, 136, 8, 2, torch.float32,
+                                           torch.float32, seed=1)
+    with pytest.raises(ValueError, match="even head dim up to 128"):
+        pa.paged_attention(q, k, v, table, pos)
+    q, k, v, table, pos, _ = _paged_inputs(2, 1, 4, 4, 15, 8, 2, torch.float32,
+                                           torch.float32, seed=1)
+    with pytest.raises(ValueError, match="even head dim up to 128"):
+        pa.paged_attention(q, k, v, table, pos)
+    q, k, v, table, pos, _ = _paged_inputs(2, 1, 4, 4, 16, 8, 2, torch.float32,
+                                           torch.float32, seed=1)
+    with pytest.raises(TypeError, match="int32 table"):
+        pa.paged_attention(q, k, v, table.long(), pos)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        pa.paged_attention(q.half(), k, v, table, pos)
+    with pytest.raises(ValueError, match="different devices"):
+        pa.paged_attention(q, k, v, table.cpu(), pos)
+
+
+@pytest.mark.parametrize("kv_bits", [None, 8, 4])
+def test_paged_serve_selftest_on_cuda(kv_bits):
+    """The toy paged stream on the card through the kernel: token-exact to
+    the whole-slot engine, sync budget held, no page leaked."""
+    _need_cuda()
+    from pytorch_distributed_training_tutorials_tpu_torch.ops import paged_attention as pa
+    from pytorch_distributed_training_tutorials_tpu_torch.serve.__main__ import selftest
+
+    before = pa.paged_attention.launches
+    receipt = selftest("cuda", paged=True, paged_kernel=True, kv_bits=kv_bits)
+    assert receipt["ok"], receipt["problems"]
+    assert pa.paged_attention.launches > before
