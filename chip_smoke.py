@@ -20,9 +20,14 @@ Every phase prints JSON lines:
    16, D 96) in bf16 and f32, D 64 and 128, a ragged S 1000 (strided
    inputs) and S 8, then ``fused_ce_fwd``, ``fused_ce_dh`` and
    ``fused_ce_dw`` at the 760m loss shape (N 4096, D 1536, V 32768) in bf16
-   and f32, a ragged (1000, 1536, 32000) with a target out of range and a
-   tiny shape, each output held element by element to the bound of
-   ``ops._check.KERNEL_TOLERANCE`` (``kernel_error``); then ``fused_adamw``
+   and f32, a ragged (1000, 1536, 32000) with a target out of range, an
+   odd vocab (1000, 1536, 32001) and a tiny shape — dh and dW through the
+   sm90 kernels (``fused_loss_sm90.cu``, wgmma and TMA) where the operands
+   are bf16 with D and V multiples of 8, else through ``fused_loss.cu``'s,
+   the route counted and two sm90 calls bitwise equal; at the main shape
+   the old dh and dW kernels too, checked and timed in turns with the sm90
+   ones (sm90, old, old, sm90) — each output held element by element to
+   the bound of ``ops._check.KERNEL_TOLERANCE`` (``kernel_error``); then ``fused_adamw``
    over leaves of the 760m parameter shapes (expected bitwise); then
    ``paged_attention`` at the 1b and 1b-gqa decode geometry (B 4, H 16, KV
    16 or 4, D 128, pages of 64, a 4096-token window, ragged depths, an S 4
@@ -47,7 +52,8 @@ Every phase prints JSON lines:
 7. its fused arm (``--fused``: the fused loss and ``fused_adamw``), the
    same chains in the same call: finite, falling loss, the first loss
    within one bf16 ulp of phase 6's, exactly 48 / 24 / 24 flash, 1 / 1 / 1
-   fused-loss and 1 fused-AdamW launches per step.
+   fused-loss and 1 fused-AdamW launches per step, every dh and dW launch
+   on the sm90 route.
 
 Between phases 4 and 5, ``serve_1b_paged``: the 1b-gqa preset at full
 depth, window 4096, serving 12 requests (prompts {16, 480, 1500}, 32 new
@@ -121,6 +127,7 @@ FUSED_CE_SHAPES = [
     (4096, 1536, 32768, "bf16", False),
     (4096, 1536, 32768, "f32", False),
     (1000, 1536, 32000, "bf16", True),
+    (1000, 1536, 32001, "bf16", True),  # an odd vocab: the old bf16 backward
     (8, 64, 200, "bf16", True),
 ]
 FUSED_CE_REPLACES = {
@@ -431,16 +438,31 @@ def phase_fused_ce(torch, fl, gpu: str) -> dict:
         if oor:
             y[n // 2] = v + 7  # hits nothing: its loss is the lse
         g = torch.full((n,), 1.0 / n, device=dev)  # the mean's cotangent
+        # the backward's route: sm90 for bf16 with D, V multiples of 8 (the
+        # operands here are fresh allocations, 16-byte aligned)
+        route = "sm90" if dt == "bf16" and d % 8 == 0 and v % 8 == 0 else "sm80"
+        routes0 = {k: dict(r) for k, r in fl.fused_cross_entropy.routes.items()}
         lse, tgt = fl.fused_ce_fwd(h, w, y)
         dh = fl.fused_ce_dh(h, w, y, lse, g)
         dw = fl.fused_ce_dw(h, w, y, lse, g)
+        for k in ("dh", "dw"):
+            if fl.fused_cross_entropy.routes[k][route] != routes0[k][route] + 1:
+                raise AssertionError(f"fused_ce_{k} at N={n} D={d} V={v} {dt} did not take "
+                                     f"the {route} route: {fl.fused_cross_entropy.routes}")
+        if route == "sm90" and not (torch.equal(dh, fl.fused_ce_dh(h, w, y, lse, g))
+                                    and torch.equal(dw, fl.fused_ce_dw(h, w, y, lse, g))):
+            raise AssertionError(f"two sm90 calls differ at N={n} D={d} V={v}")
         lse_ref, tgt_ref = fl.fused_ce_fwd_reference(h, w, y)
         dh_ref = fl.fused_ce_dh_reference(h, w, y, lse, g)
         dw_ref = fl.fused_ce_dw_reference(h, w, y, lse, g)
+        checks = [("lse", lse, lse_ref), ("tgt", tgt, tgt_ref), ("dh", dh, dh_ref),
+                  ("dw", dw, dw_ref)]
+        if i == 0:  # the old kernels on the main shape too, held the same way
+            checks += [("dh_v1", fl.fused_ce_dh(h, w, y, lse, g, route="sm80"), dh_ref),
+                       ("dw_v1", fl.fused_ce_dw(h, w, y, lse, g, route="sm80"), dw_ref)]
         torch.cuda.synchronize()
         errs = {}
-        for name, got, want in (("lse", lse, lse_ref), ("tgt", tgt, tgt_ref),
-                                ("dh", dh, dh_ref), ("dw", dw, dw_ref)):
+        for name, got, want in checks:
             errs[name] = fl.kernel_error(got, want)
             if not errs[name]["worst_ratio"] <= 1.0:
                 raise AssertionError(
@@ -468,17 +490,29 @@ def phase_fused_ce(torch, fl, gpu: str) -> dict:
         }
         flops = BF16_FLOPS if dt == "bf16" else F32_FLOPS
         for kind, (kern, plain, lib) in timed.items():
-            ms = time_ms(kern, torch, flush, warmup=1)
+            v1 = {}
+            if i == 0 and kind != "fwd":
+                # the redesign against the old kernel in turns: sm90, old,
+                # old, sm90
+                old = {"dh": lambda: fl.fused_ce_dh(h, w, y, lse, g, route="sm80"),
+                       "dw": lambda: fl.fused_ce_dw(h, w, y, lse, g, route="sm80")}[kind]
+                turns = [time_ms(fn, torch, flush, warmup=1) for fn in (kern, old, old, kern)]
+                ms, v1_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+                v1 = {"v1_ms": v1_ms, "turns_ms": turns, "speedup_vs_v1": v1_ms / ms,
+                      "errors_v1": errs[f"{kind}_v1"]}
+            else:
+                ms = time_ms(kern, torch, flush, warmup=1)
             plain_ms = time_ms(plain, torch, flush, warmup=1)
             lib_ms = (time_ms(lib, torch, flush, warmup=1) if lib is not None
                       else results[(i, "dh")]["library_ms"])
             b_ms, b_by = fused_ce_bound(kind, n, d, v, h.element_size(), flops)
             row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                       library_ms=lib_ms)
+                       library_ms=lib_ms, **v1)
             results[(i, kind)] = row
             emit({
                 "phase": "kernel_vs_plain", "kernel": f"fused_ce_{kind}",
                 "N": n, "D": d, "V": v, "dtype": dt, "target_out_of_range": oor,
+                "route": "sm80" if kind == "fwd" else route,
                 "errors": {x: errs[x] for x in {"fwd": ("lse", "tgt"), "dh": ("dh",),
                                                 "dw": ("dw",)}[kind]},
                 **row, "roofline_share": b_ms / ms,
@@ -1312,7 +1346,8 @@ def phase_train_fused(torch, gpu: str, baseline_first_loss: float) -> dict:
 
     argv = ["--steps", "6", "--reps", "2", "--trace", "--fused"]
     args = lm_headline.parse(argv)
-    for counts in (flash_attention.launches, fused_cross_entropy.launches):
+    for counts in (flash_attention.launches, fused_cross_entropy.launches,
+                   *fused_cross_entropy.routes.values()):
         for k in counts:
             counts[k] = 0
     fused_adamw.launches = 0
@@ -1320,6 +1355,7 @@ def phase_train_fused(torch, gpu: str, baseline_first_loss: float) -> dict:
     launches = {"flash": dict(flash_attention.launches),
                 "fused_loss": dict(fused_cross_entropy.launches),
                 "fused_adamw": fused_adamw.launches}
+    routes = {k: dict(c) for k, c in fused_cross_entropy.routes.items()}
     steps = r["steps_run"]
     losses = r["losses_first_chain"]
     problems = []
@@ -1332,6 +1368,10 @@ def phase_train_fused(torch, gpu: str, baseline_first_loss: float) -> dict:
             "fused_adamw": ADAMW_PER_STEP * steps}
     if launches != want:
         problems.append(f"launches {launches} != {want} ({steps} steps)")
+    # every backward launch of the bf16 760m step takes the sm90 route
+    want_routes = {k: {"sm90": launches["fused_loss"][k], "sm80": 0} for k in routes}
+    if routes != want_routes:
+        problems.append(f"backward routes {routes} != {want_routes}")
     # the same weights and batch: the baseline's loss is a bf16 value, one
     # bf16 ulp (2^-7 of the power of two below it) away at most
     ulp = 2.0 ** (math.floor(math.log2(abs(baseline_first_loss))) - 7)
@@ -1344,7 +1384,7 @@ def phase_train_fused(torch, gpu: str, baseline_first_loss: float) -> dict:
         "phase": "train_760m", "arm": "fused", "argv": argv,
         "note": "6 chained steps and 2 timed chains (the bench default is 12 and 3) "
                 "to fit the smoke's time",
-        "launches": launches, "launches_per_step": {
+        "launches": launches, "routes": routes, "launches_per_step": {
             "flash": {k: v / steps for k, v in launches["flash"].items()},
             "fused_loss": {k: v / steps for k, v in launches["fused_loss"].items()},
             "fused_adamw": launches["fused_adamw"] / steps},
@@ -1358,7 +1398,7 @@ def phase_train_fused(torch, gpu: str, baseline_first_loss: float) -> dict:
     })
     if problems:
         raise AssertionError("; ".join(problems))
-    return launches
+    return {**launches, "routes": routes}
 
 
 def main(argv=None) -> int:
@@ -1465,10 +1505,15 @@ def main(argv=None) -> int:
     # (FUSED_CE_SHAPES[0]); AdamW over the 760m leaves
     for kind, per_step in FUSED_PER_STEP.items():
         row = fused["results"][(0, kind)]
+        redesign = {} if kind == "fwd" else {
+            "design": "wgmma+tma", "route_counts": fused_launches["routes"][kind],
+            "v1_ms": row["v1_ms"] * per_step,
+            "v1_source": f"{PKG}/csrc/fused_loss.cu"}
         kernels.append({
             "name": f"fused_ce_{kind}", "route": "cuda",
-            "source": f"{PKG}/csrc/fused_loss.cu",
-            "replaces": FUSED_CE_REPLACES[kind],
+            "source": f"{PKG}/csrc/" + ("fused_loss.cu" if kind == "fwd"
+                                        else "fused_loss_sm90.cu"),
+            "replaces": FUSED_CE_REPLACES[kind], **redesign,
             "launches": fused_launches["fused_loss"][kind],
             "max_abs_err": fused["max_abs_err"][kind],
             "worst_ratio": fused["worst_ratio"][kind],

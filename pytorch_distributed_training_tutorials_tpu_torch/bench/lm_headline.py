@@ -141,6 +141,10 @@ def profile_step(run_step, torch) -> dict:
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "kernels_per_step": sum(e.count for e in kernels),
         "top_kernels_ms": {k[:80]: v / 1e3 for k, v in top},
+        # the port's hand-written kernels (csrc/, each in an anonymous
+        # namespace), whatever their rank
+        "port_kernels_ms": {k[:80]: v / 1e3 for k, v in dev_us.items()
+                            if "anonymous namespace" in k},
     }
 
 

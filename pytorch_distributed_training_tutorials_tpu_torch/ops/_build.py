@@ -82,6 +82,15 @@ _LIBRARIES = {
             "fused_ce_dw_launch": ([_PTR] * 7 + [_INT] * 4 + [_PTR], _INT),
         },
     },
+    "fused_loss_sm90": {
+        "flags": (),
+        "entry": {
+            # h w y lse g part, N D V, splits, groups per split, stream
+            "fused_ce_dh_sm90_launch": ([_PTR] * 6 + [_INT] * 5 + [_PTR], _INT),
+            # h w y lse g part out, N D V, stream
+            "fused_ce_dw_sm90_launch": ([_PTR] * 7 + [_INT] * 3 + [_PTR], _INT),
+        },
+    },
     "flash_attention": {
         "flags": (),
         "entry": {

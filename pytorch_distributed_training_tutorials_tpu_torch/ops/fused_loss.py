@@ -23,9 +23,19 @@ Each wrapper runs the plain version on a CPU tensor and launches its
 kernel on a CUDA tensor (h and W contiguous, both bf16 or both f32), on
 the current stream; it raises on anything else and when a launch fails,
 and never falls back. ``fused_cross_entropy.launches`` counts kernel
-launches; CPU calls add none. :func:`kernel_error` (from :mod:`._check`,
-shared with flash attention) holds a kernel's output to its plain
-version's.
+launches; CPU calls add none.
+
+The backward has two routes on the card, chosen by :func:`_sm90_route`
+before the launch: a bf16 call with 16-byte aligned h and W and D, V
+multiples of 8 (what TMA takes) runs ``csrc/fused_loss_sm90.cu`` (TMA,
+mbarrier ring, wgmma; dS kept on chip for 1024 vocab columns of 64 rows
+in dh and 512 rows of 128 columns in dW); every other call runs
+``fused_loss.cu``'s ``dh_kernel`` and ``dw_kernel`` (mma.sync; f32, and
+bf16 with D or V not a multiple of 8). Both compute the same function;
+``fused_cross_entropy.routes`` counts the launches of each route. A
+failed sm90 build or launch raises. :func:`kernel_error` (from
+:mod:`._check`, shared with flash attention) holds a kernel's output to
+its plain version's.
 
 Numerics, as in the TPU kernels: scores, softmax and every accumulator in
 f32 (f64 for f64 inputs, which only the plain versions take), the scores
@@ -187,14 +197,73 @@ def _splits(n: int, v: int, device: torch.device) -> tuple[int, int]:
     return -(-n_vt // per), per
 
 
-def _launch(name: str, fn_name: str, device, *args) -> None:
-    lib = _build.library("fused_loss")
+# the sm90 kernels' work units (csrc/fused_loss_sm90.cu): dh keeps dS for
+# kDhGroup x kBV vocab columns per 64-row block, dW for kDwGroup x 128
+# rows per 128-column block; both pass over D in 128 columns
+_SM90_DH_ROWS = _TILE_ROWS
+_SM90_DH_GROUP = 8 * _TILE_COLS
+_SM90_DW_GROUP = 4 * 128
+_SM90_D_PASS = 128
+
+
+def _sm90_route(dtype: torch.dtype, d: int, v: int, h_ptr: int, w_ptr: int) -> bool:
+    """True when a CUDA backward call goes to the sm90 kernels: bf16, h and
+    W based on 16-byte boundaries, rows of h and W (D, V elements) whole
+    multiples of 16 bytes — what a TMA map of each takes. False sends it to
+    ``fused_loss.cu``'s kernels."""
+    return (dtype == torch.bfloat16 and h_ptr % 16 == 0 and w_ptr % 16 == 0
+            and (2 * d) % 16 == 0 and (2 * v) % 16 == 0)
+
+
+def _dh_plan(n: int, d: int, v: int, sms: int) -> dict:
+    """The sm90 dh kernel's grid: 64-row blocks x vocab splits, a split a
+    run of 1024-column groups. One block per SM (224 KB of shared memory),
+    so the splits are the SMs over the row tiles, rounded down (one wave
+    where the rows allow it), at most one per group."""
+    n_rt = -(-n // _SM90_DH_ROWS)
+    n_groups = -(-v // _SM90_DH_GROUP)
+    want = max(1, min(n_groups, sms // n_rt))
+    per = -(-n_groups // want)
+    splits = -(-n_groups // per)
+    return {"row_tiles": n_rt, "splits": splits, "groups_per_split": per,
+            "groups": n_groups, "d_passes": -(-d // _SM90_D_PASS),
+            "waves": n_rt * splits / sms}
+
+
+def _dh_blocks(n: int, v: int, plan: dict):
+    """Each dh block's rows [r0, r1) and its groups' vocab columns [c0, c1),
+    cut at N and V, in the order the kernel walks them."""
+    for rt in range(plan["row_tiles"]):
+        for split in range(plan["splits"]):
+            g0 = split * plan["groups_per_split"]
+            g1 = min(plan["groups"], g0 + plan["groups_per_split"])
+            yield ((rt * _SM90_DH_ROWS, min(n, (rt + 1) * _SM90_DH_ROWS)),
+                   [(g * _SM90_DH_GROUP, min(v, (g + 1) * _SM90_DH_GROUP))
+                    for g in range(g0, g1)])
+
+
+def _dw_plan(n: int, d: int, v: int, sms: int) -> dict:
+    """The sm90 dW kernel's grid: one block per 128 vocab columns, each
+    walking every 512-row group; ``columns`` and ``row_groups`` cut at V
+    and N."""
+    blocks = -(-v // _TILE_COLS)
+    return {"columns": [(c, min(v, c + _TILE_COLS)) for c in range(0, v, _TILE_COLS)],
+            "row_groups": [(r, min(n, r + _SM90_DW_GROUP))
+                           for r in range(0, n, _SM90_DW_GROUP)],
+            "d_passes": -(-d // _SM90_D_PASS), "waves": blocks / sms}
+
+
+def _launch(name: str, fn_name: str, device, *args, lib_name: str = "fused_loss",
+            route: str | None = None) -> None:
+    lib = _build.library(lib_name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, fn_name)(*args, ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError(f"fused_ce_{name} kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"fused_ce_{name} kernel launch failed ({fn_name}): CUDA error {rc}")
     fused_cross_entropy.launches[name] += 1
+    if route is not None:
+        fused_cross_entropy.routes[name][route] += 1
 
 
 def fused_ce_fwd(h, w, y, block_n: int = DEFAULT_BLOCK_N,
@@ -221,39 +290,70 @@ def fused_ce_fwd(h, w, y, block_n: int = DEFAULT_BLOCK_N,
     return torch.where(mx == float("-inf"), mx, lse), part_tgt.sum(0)
 
 
+def _use_sm90(h, w, route: str | None) -> bool:
+    """Whether a CUDA backward call launches the sm90 kernel: by
+    :func:`_sm90_route` when ``route`` is None; ``route="sm80"`` asks for
+    ``fused_loss.cu``'s kernel whatever the shape (the card check times
+    both on one input)."""
+    if route not in (None, "sm80"):
+        raise ValueError(f"backward route must be None or 'sm80', got {route!r}")
+    d, v = w.shape
+    return route is None and _sm90_route(h.dtype, d, v, h.data_ptr(), w.data_ptr())
+
+
 def fused_ce_dh(h, w, y, lse, g, block_n: int = DEFAULT_BLOCK_N,
-                block_v: int = DEFAULT_BLOCK_V):
+                block_v: int = DEFAULT_BLOCK_V, *, route: str | None = None):
     """dh (N, D) in h's type from the saved lse and the loss's cotangent
     ``g`` (both (N,) f32). A CPU tensor runs :func:`fused_ce_dh_reference`;
-    a CUDA tensor launches ``dh_kernel`` (vocab splits summed here)."""
+    a CUDA tensor launches the sm90 dh kernel where :func:`_sm90_route`
+    takes it, else ``dh_kernel`` (vocab splits summed here); ``route``:
+    see :func:`_use_sm90`."""
     if not _route(h, w, y, lse, g):
         return fused_ce_dh_reference(h, w, y, lse, g, block_n, block_v)
     (n, d), v = h.shape, w.shape[1]
-    nsplit, per = _splits(n, v, h.device)
-    part = torch.empty((nsplit, n, d), dtype=torch.float32, device=h.device)
     y64 = y.long().contiguous()
-    _launch("dh", "fused_ce_dh_launch", h.device, h.data_ptr(), w.data_ptr(),
-            y64.data_ptr(), lse.data_ptr(), g.data_ptr(), part.data_ptr(),
-            n, d, v, nsplit, per, _DTYPE_CODES[h.dtype])
+    if _use_sm90(h, w, route):
+        sms = torch.cuda.get_device_properties(h.device).multi_processor_count
+        plan = _dh_plan(n, d, v, sms)
+        part = torch.empty((plan["splits"], n, d), dtype=torch.float32, device=h.device)
+        _launch("dh", "fused_ce_dh_sm90_launch", h.device, h.data_ptr(), w.data_ptr(),
+                y64.data_ptr(), lse.data_ptr(), g.data_ptr(), part.data_ptr(),
+                n, d, v, plan["splits"], plan["groups_per_split"],
+                lib_name="fused_loss_sm90", route="sm90")
+    else:
+        nsplit, per = _splits(n, v, h.device)
+        part = torch.empty((nsplit, n, d), dtype=torch.float32, device=h.device)
+        _launch("dh", "fused_ce_dh_launch", h.device, h.data_ptr(), w.data_ptr(),
+                y64.data_ptr(), lse.data_ptr(), g.data_ptr(), part.data_ptr(),
+                n, d, v, nsplit, per, _DTYPE_CODES[h.dtype], route="sm80")
     return part.sum(0).to(h.dtype)
 
 
 def fused_ce_dw(h, w, y, lse, g, block_n: int = DEFAULT_BLOCK_N,
-                block_v: int = DEFAULT_BLOCK_V):
+                block_v: int = DEFAULT_BLOCK_V, *, route: str | None = None):
     """dW (D, V) in W's type from the saved lse and the cotangent. A CPU
-    tensor runs :func:`fused_ce_dw_reference`; a CUDA tensor launches
-    ``dw_kernel``."""
+    tensor runs :func:`fused_ce_dw_reference`; a CUDA tensor launches the
+    sm90 dW kernel where :func:`_sm90_route` takes it, else ``dw_kernel``;
+    ``route``: see :func:`_use_sm90`."""
     if not _route(h, w, y, lse, g):
         return fused_ce_dw_reference(h, w, y, lse, g, block_n, block_v)
     (n, d), v = h.shape, w.shape[1]
-    # f32 accumulator between 256-row groups: one group needs none
-    part = torch.empty((d, v) if n > 4 * _TILE_ROWS else (0,), dtype=torch.float32,
-                       device=h.device)
+    sm90 = _use_sm90(h, w, route)
+    # f32 accumulator between row groups (512 rows sm90, 256 otherwise):
+    # one group needs none
+    group = _SM90_DW_GROUP if sm90 else 4 * _TILE_ROWS
+    part = torch.empty((d, v) if n > group else (0,), dtype=torch.float32, device=h.device)
     dw = torch.empty((d, v), dtype=w.dtype, device=w.device)
     y64 = y.long().contiguous()
-    _launch("dw", "fused_ce_dw_launch", h.device, h.data_ptr(), w.data_ptr(),
-            y64.data_ptr(), lse.data_ptr(), g.data_ptr(),
-            part.data_ptr(), dw.data_ptr(), n, d, v, _DTYPE_CODES[h.dtype])
+    if sm90:
+        _launch("dw", "fused_ce_dw_sm90_launch", h.device, h.data_ptr(), w.data_ptr(),
+                y64.data_ptr(), lse.data_ptr(), g.data_ptr(), part.data_ptr(),
+                dw.data_ptr(), n, d, v, lib_name="fused_loss_sm90", route="sm90")
+    else:
+        _launch("dw", "fused_ce_dw_launch", h.device, h.data_ptr(), w.data_ptr(),
+                y64.data_ptr(), lse.data_ptr(), g.data_ptr(),
+                part.data_ptr(), dw.data_ptr(), n, d, v, _DTYPE_CODES[h.dtype],
+                route="sm80")
     return dw
 
 
@@ -295,6 +395,9 @@ def fused_cross_entropy(hidden, lm_head, targets, *, block_n: int = DEFAULT_BLOC
 
 # kernel launches on the card by kernel (CPU calls add none)
 fused_cross_entropy.launches = {"fwd": 0, "dh": 0, "dw": 0}
+# the backward's launches by route: "sm90" (fused_loss_sm90.cu) or "sm80"
+# (fused_loss.cu's mma.sync kernels)
+fused_cross_entropy.routes = {"dh": {"sm90": 0, "sm80": 0}, "dw": {"sm90": 0, "sm80": 0}}
 
 
 def fused_cross_entropy_reference(hidden, lm_head, targets):
