@@ -18,15 +18,20 @@ Every phase prints JSON lines:
    time — ``int8_matmul`` (expected bitwise), then ``flash_fwd``,
    ``flash_dq`` and ``flash_dkv`` at the 760m train shape (B 2, S 2048, H
    16, D 96) in bf16 and f32, D 64 and 128, a ragged S 1000 (strided
-   inputs) and S 8, then ``fused_ce_fwd``, ``fused_ce_dh`` and
-   ``fused_ce_dw`` at the 760m loss shape (N 4096, D 1536, V 32768) in bf16
-   and f32, a ragged (1000, 1536, 32000) with a target out of range, an
-   odd vocab (1000, 1536, 32001) and a tiny shape — dh and dW through the
-   sm90 kernels (``fused_loss_sm90.cu``, wgmma and TMA) where the operands
-   are bf16 with D and V multiples of 8, else through ``fused_loss.cu``'s,
-   the route counted and two sm90 calls bitwise equal; at the main shape
-   the old dh and dW kernels too, checked and timed in turns with the sm90
-   ones (sm90, old, old, sm90) — each output held element by element to
+   inputs) and S 8 — the forward through the sm90 kernel
+   (``flash_attention_sm90.cu``, wgmma and TMA) where the operands are
+   bf16, else through ``flash_attention.cu``'s, the route counted and two
+   sm90 calls bitwise equal; at the main shape the old forward too,
+   checked and timed in turns with the sm90 one (sm90, old, old, sm90) —
+   then ``fused_ce_fwd``, ``fused_ce_dh`` and ``fused_ce_dw`` at the 760m
+   loss shape (N 4096, D 1536, V 32768) in bf16 and f32, a ragged (1000,
+   1536, 32000) with a target out of range, an odd vocab (1000, 1536,
+   32001), D not a multiple of 64 (200, 200, 1000), D under 64 (64, 40,
+   1000) and a tiny shape — all three through the sm90 kernels
+   (``fused_loss_sm90.cu``) where the operands are bf16 with D and V
+   multiples of 8, else through ``fused_loss.cu``'s, the route counted and
+   two sm90 calls bitwise equal; at the main shape the old kernels too,
+   checked and timed in turns with the sm90 ones — each output held element by element to
    the bound of ``ops._check.KERNEL_TOLERANCE`` (``kernel_error``); then ``fused_adamw``
    over leaves of the 760m parameter shapes (expected bitwise); then
    ``paged_attention`` at the 1b and 1b-gqa decode geometry (B 4, H 16, KV
@@ -48,12 +53,13 @@ Every phase prints JSON lines:
    full depth and width, seq 2048, batch 2, bf16, flash, remat "dots",
    AdamW) for a warmup chain and 2 timed chains of 6 steps and one
    profiled step: finite, falling loss, exactly 48 / 24 / 24 flash
-   forward / dq / dk-dv launches per step, step time, MFU, peak memory;
+   forward / dq / dk-dv launches per step, every forward on the sm90
+   route, step time, MFU, peak memory;
 7. its fused arm (``--fused``: the fused loss and ``fused_adamw``), the
    same chains in the same call: finite, falling loss, the first loss
    within one bf16 ulp of phase 6's, exactly 48 / 24 / 24 flash, 1 / 1 / 1
-   fused-loss and 1 fused-AdamW launches per step, every dh and dW launch
-   on the sm90 route.
+   fused-loss and 1 fused-AdamW launches per step, every flash forward
+   and every fused-loss forward, dh and dW launch on the sm90 route.
 
 Between phases 4 and 5, ``serve_1b_paged``: the 1b-gqa preset at full
 depth, window 4096, serving 12 requests (prompts {16, 480, 1500}, 32 new
@@ -127,7 +133,9 @@ FUSED_CE_SHAPES = [
     (4096, 1536, 32768, "bf16", False),
     (4096, 1536, 32768, "f32", False),
     (1000, 1536, 32000, "bf16", True),
-    (1000, 1536, 32001, "bf16", True),  # an odd vocab: the old bf16 backward
+    (1000, 1536, 32001, "bf16", True),  # an odd vocab: the old bf16 kernels
+    (200, 200, 1000, "bf16", True),  # D not a multiple of 64: a partial last TMA box
+    (64, 40, 1000, "bf16", True),  # D under 64: one box, mostly past D
     (8, 64, 200, "bf16", True),
 ]
 FUSED_CE_REPLACES = {
@@ -341,18 +349,31 @@ def phase_flash(torch, fa, gpu: str) -> dict:
             return torch.randn((b, s, h, d), generator=gen, device=dev, dtype=dtype)
 
         q, k, v, do = draw(), draw(), draw(), draw()
+        # the forward's route: sm90 for bf16 (fresh allocations, or their
+        # transposed views: 16-byte aligned, strides of whole 16 bytes)
+        route = "sm90" if dt == "bf16" else "sm80"
+        routes0 = dict(fa.flash_attention.routes["fwd"])
         o, lse = fa.flash_fwd(q, k, v)
+        if fa.flash_attention.routes["fwd"][route] != routes0[route] + 1:
+            raise AssertionError(f"flash_fwd at B={b} S={s} H={h} D={d} {dt} did not take "
+                                 f"the {route} route: {fa.flash_attention.routes}")
+        if route == "sm90" and not all(map(torch.equal, (o, lse), fa.flash_fwd(q, k, v))):
+            raise AssertionError(f"two sm90 flash_fwd calls differ at B={b} S={s} D={d}")
         o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, *blocks)
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
         dq = fa.flash_dq(q, k, v, do, lse, delta)
         dq_ref = fa.flash_dq_reference(q, k, v, do, lse, delta, *blocks)
         dk, dv = fa.flash_dkv(q, k, v, do, lse, delta)
         dk_ref, dv_ref = fa.flash_dkv_reference(q, k, v, do, lse, delta, *blocks)
+        checks = [("O", o, o_ref), ("lse", lse, lse_ref), ("dq", dq, dq_ref),
+                  ("dk", dk, dk_ref), ("dv", dv, dv_ref)]
+        if i == 0:  # the old forward on the main shape too, held the same way
+            checks += zip(("O_v1", "lse_v1"), fa.flash_fwd(q, k, v, route="sm80"),
+                          (o_ref, lse_ref))
         torch.cuda.synchronize()
         # each output held element by element to fa.KERNEL_TOLERANCE
         errs = {}
-        for name, got, want in (("O", o, o_ref), ("lse", lse, lse_ref), ("dq", dq, dq_ref),
-                                ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
+        for name, got, want in checks:
             errs[name] = fa.kernel_error(got, want)
             if not errs[name]["worst_ratio"] <= 1.0:
                 raise AssertionError(
@@ -379,17 +400,28 @@ def phase_flash(torch, fa, gpu: str) -> dict:
         }
         flops = BF16_FLOPS if dt == "bf16" else F32_FLOPS
         for kind, (kern, plain, lib) in timed.items():
-            ms = time_ms(kern, torch, flush)
+            v1 = {}
+            if i == 0 and kind == "fwd":
+                # the redesign against the old kernel in turns: sm90, old,
+                # old, sm90
+                old = lambda: fa.flash_fwd(q, k, v, route="sm80")  # noqa: E731
+                turns = [time_ms(fn, torch, flush) for fn in (kern, old, old, kern)]
+                ms, v1_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+                v1 = {"v1_ms": v1_ms, "turns_ms": turns, "speedup_vs_v1": v1_ms / ms,
+                      "errors_v1": {n: errs[n] for n in ("O_v1", "lse_v1")}}
+            else:
+                ms = time_ms(kern, torch, flush)
             plain_ms = time_ms(plain, torch, flush)
             lib_ms = time_ms(lib, torch, flush) if lib is not None else results[
                 (i, "dq")]["library_ms"]
             b_ms, b_by = flash_bound(kind, b, s, h, d, q.element_size(), flops)
             row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                       library_ms=lib_ms)
+                       library_ms=lib_ms, **v1)
             results[(i, kind)] = row
             emit({
                 "phase": "kernel_vs_plain", "kernel": f"flash_{kind}",
                 "B": b, "S": s, "H": h, "D": d, "dtype": dt, "strided_inputs": strided,
+                "route": route if kind == "fwd" else "sm80",
                 "errors": {n: errs[n] for n in {"fwd": ("O", "lse"), "dq": ("dq",),
                                                 "dkv": ("dk", "dv")}[kind]},
                 **row, "roofline_share": b_ms / ms,
@@ -438,18 +470,19 @@ def phase_fused_ce(torch, fl, gpu: str) -> dict:
         if oor:
             y[n // 2] = v + 7  # hits nothing: its loss is the lse
         g = torch.full((n,), 1.0 / n, device=dev)  # the mean's cotangent
-        # the backward's route: sm90 for bf16 with D, V multiples of 8 (the
+        # the route of all three: sm90 for bf16 with D, V multiples of 8 (the
         # operands here are fresh allocations, 16-byte aligned)
         route = "sm90" if dt == "bf16" and d % 8 == 0 and v % 8 == 0 else "sm80"
         routes0 = {k: dict(r) for k, r in fl.fused_cross_entropy.routes.items()}
         lse, tgt = fl.fused_ce_fwd(h, w, y)
         dh = fl.fused_ce_dh(h, w, y, lse, g)
         dw = fl.fused_ce_dw(h, w, y, lse, g)
-        for k in ("dh", "dw"):
+        for k in ("fwd", "dh", "dw"):
             if fl.fused_cross_entropy.routes[k][route] != routes0[k][route] + 1:
                 raise AssertionError(f"fused_ce_{k} at N={n} D={d} V={v} {dt} did not take "
                                      f"the {route} route: {fl.fused_cross_entropy.routes}")
-        if route == "sm90" and not (torch.equal(dh, fl.fused_ce_dh(h, w, y, lse, g))
+        if route == "sm90" and not (all(map(torch.equal, (lse, tgt), fl.fused_ce_fwd(h, w, y)))
+                                    and torch.equal(dh, fl.fused_ce_dh(h, w, y, lse, g))
                                     and torch.equal(dw, fl.fused_ce_dw(h, w, y, lse, g))):
             raise AssertionError(f"two sm90 calls differ at N={n} D={d} V={v}")
         lse_ref, tgt_ref = fl.fused_ce_fwd_reference(h, w, y)
@@ -458,7 +491,9 @@ def phase_fused_ce(torch, fl, gpu: str) -> dict:
         checks = [("lse", lse, lse_ref), ("tgt", tgt, tgt_ref), ("dh", dh, dh_ref),
                   ("dw", dw, dw_ref)]
         if i == 0:  # the old kernels on the main shape too, held the same way
-            checks += [("dh_v1", fl.fused_ce_dh(h, w, y, lse, g, route="sm80"), dh_ref),
+            checks += [*zip(("lse_v1", "tgt_v1"), fl.fused_ce_fwd(h, w, y, route="sm80"),
+                            (lse_ref, tgt_ref)),
+                       ("dh_v1", fl.fused_ce_dh(h, w, y, lse, g, route="sm80"), dh_ref),
                        ("dw_v1", fl.fused_ce_dw(h, w, y, lse, g, route="sm80"), dw_ref)]
         torch.cuda.synchronize()
         errs = {}
@@ -491,15 +526,18 @@ def phase_fused_ce(torch, fl, gpu: str) -> dict:
         flops = BF16_FLOPS if dt == "bf16" else F32_FLOPS
         for kind, (kern, plain, lib) in timed.items():
             v1 = {}
-            if i == 0 and kind != "fwd":
+            if i == 0:
                 # the redesign against the old kernel in turns: sm90, old,
                 # old, sm90
-                old = {"dh": lambda: fl.fused_ce_dh(h, w, y, lse, g, route="sm80"),
+                old = {"fwd": lambda: fl.fused_ce_fwd(h, w, y, route="sm80"),
+                       "dh": lambda: fl.fused_ce_dh(h, w, y, lse, g, route="sm80"),
                        "dw": lambda: fl.fused_ce_dw(h, w, y, lse, g, route="sm80")}[kind]
                 turns = [time_ms(fn, torch, flush, warmup=1) for fn in (kern, old, old, kern)]
                 ms, v1_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
                 v1 = {"v1_ms": v1_ms, "turns_ms": turns, "speedup_vs_v1": v1_ms / ms,
-                      "errors_v1": errs[f"{kind}_v1"]}
+                      "errors_v1": {x: errs[x] for x in {"fwd": ("lse_v1", "tgt_v1"),
+                                                          "dh": ("dh_v1",),
+                                                          "dw": ("dw_v1",)}[kind]}}
             else:
                 ms = time_ms(kern, torch, flush, warmup=1)
             plain_ms = time_ms(plain, torch, flush, warmup=1)
@@ -512,7 +550,7 @@ def phase_fused_ce(torch, fl, gpu: str) -> dict:
             emit({
                 "phase": "kernel_vs_plain", "kernel": f"fused_ce_{kind}",
                 "N": n, "D": d, "V": v, "dtype": dt, "target_out_of_range": oor,
-                "route": "sm80" if kind == "fwd" else route,
+                "route": route,
                 "errors": {x: errs[x] for x in {"fwd": ("lse", "tgt"), "dh": ("dh",),
                                                 "dw": ("dw",)}[kind]},
                 **row, "roofline_share": b_ms / ms,
@@ -1296,10 +1334,12 @@ def phase_train(torch, gpu: str) -> dict:
 
     argv = ["--steps", "6", "--reps", "2", "--trace"]
     args = lm_headline.parse(argv)
-    for k in flash_attention.launches:
-        flash_attention.launches[k] = 0
+    for counts in (flash_attention.launches, *flash_attention.routes.values()):
+        for k in counts:
+            counts[k] = 0
     r = lm_headline.measure(args)
     launches = dict(flash_attention.launches)
+    routes = {k: dict(c) for k, c in flash_attention.routes.items()}
     steps = r["steps_run"]
     losses = r["losses_first_chain"]
     problems = []
@@ -1310,13 +1350,16 @@ def phase_train(torch, gpu: str) -> dict:
     want = {k: n * steps for k, n in FLASH_PER_STEP.items()}
     if launches != want:
         problems.append(f"flash launches {launches} != {want} ({steps} steps)")
+    # every forward launch of the bf16 760m step takes the sm90 route
+    if routes != {"fwd": {"sm90": launches["fwd"], "sm80": 0}}:
+        problems.append(f"flash forward routes {routes}: not all sm90")
     if r["n_params"] != N_PARAMS_760M:
         problems.append(f"n_params {r['n_params']} != {N_PARAMS_760M}")
     emit({
         "phase": "train_760m", "arm": "baseline", "argv": argv,
         "note": "6 chained steps and 2 timed chains (the bench default is 12 and 3) "
                 "to fit the smoke's time",
-        "flash_launches": launches, "launches_per_step": {
+        "flash_launches": launches, "flash_routes": routes, "launches_per_step": {
             k: v / steps for k, v in launches.items()},
         **{k: r[k] for k in (
             "preset", "n_layers", "d_model", "seq", "batch", "attn", "remat_policy",
@@ -1327,7 +1370,7 @@ def phase_train(torch, gpu: str) -> dict:
     })
     if problems:
         raise AssertionError("; ".join(problems))
-    return {"flash": launches, "first_loss": losses[0]}
+    return {"flash": launches, "flash_routes": routes, "first_loss": losses[0]}
 
 
 def phase_train_fused(torch, gpu: str, baseline_first_loss: float) -> dict:
@@ -1346,8 +1389,8 @@ def phase_train_fused(torch, gpu: str, baseline_first_loss: float) -> dict:
 
     argv = ["--steps", "6", "--reps", "2", "--trace", "--fused"]
     args = lm_headline.parse(argv)
-    for counts in (flash_attention.launches, fused_cross_entropy.launches,
-                   *fused_cross_entropy.routes.values()):
+    for counts in (flash_attention.launches, *flash_attention.routes.values(),
+                   fused_cross_entropy.launches, *fused_cross_entropy.routes.values()):
         for k in counts:
             counts[k] = 0
     fused_adamw.launches = 0
@@ -1356,6 +1399,7 @@ def phase_train_fused(torch, gpu: str, baseline_first_loss: float) -> dict:
                 "fused_loss": dict(fused_cross_entropy.launches),
                 "fused_adamw": fused_adamw.launches}
     routes = {k: dict(c) for k, c in fused_cross_entropy.routes.items()}
+    flash_routes = {k: dict(c) for k, c in flash_attention.routes.items()}
     steps = r["steps_run"]
     losses = r["losses_first_chain"]
     problems = []
@@ -1368,10 +1412,13 @@ def phase_train_fused(torch, gpu: str, baseline_first_loss: float) -> dict:
             "fused_adamw": ADAMW_PER_STEP * steps}
     if launches != want:
         problems.append(f"launches {launches} != {want} ({steps} steps)")
-    # every backward launch of the bf16 760m step takes the sm90 route
+    # every fused-loss launch and every flash forward of the bf16 760m step
+    # takes the sm90 route
     want_routes = {k: {"sm90": launches["fused_loss"][k], "sm80": 0} for k in routes}
     if routes != want_routes:
-        problems.append(f"backward routes {routes} != {want_routes}")
+        problems.append(f"fused-loss routes {routes} != {want_routes}")
+    if flash_routes != {"fwd": {"sm90": launches["flash"]["fwd"], "sm80": 0}}:
+        problems.append(f"flash forward routes {flash_routes}: not all sm90")
     # the same weights and batch: the baseline's loss is a bf16 value, one
     # bf16 ulp (2^-7 of the power of two below it) away at most
     ulp = 2.0 ** (math.floor(math.log2(abs(baseline_first_loss))) - 7)
@@ -1384,7 +1431,8 @@ def phase_train_fused(torch, gpu: str, baseline_first_loss: float) -> dict:
         "phase": "train_760m", "arm": "fused", "argv": argv,
         "note": "6 chained steps and 2 timed chains (the bench default is 12 and 3) "
                 "to fit the smoke's time",
-        "launches": launches, "routes": routes, "launches_per_step": {
+        "launches": launches, "routes": routes, "flash_routes": flash_routes,
+        "launches_per_step": {
             "flash": {k: v / steps for k, v in launches["flash"].items()},
             "fused_loss": {k: v / steps for k, v in launches["fused_loss"].items()},
             "fused_adamw": launches["fused_adamw"] / steps},
@@ -1398,7 +1446,7 @@ def phase_train_fused(torch, gpu: str, baseline_first_loss: float) -> dict:
     })
     if problems:
         raise AssertionError("; ".join(problems))
-    return {**launches, "routes": routes}
+    return {**launches, "routes": routes, "flash_routes": flash_routes}
 
 
 def main(argv=None) -> int:
@@ -1442,7 +1490,7 @@ def main(argv=None) -> int:
             name: {
                 "seconds": v["seconds"],
                 "ptxas": [ln.strip() for ln in v["log"].splitlines()
-                          if "registers" in ln or "spill" in ln],
+                          if "entry function" in ln or "registers" in ln or "spill" in ln],
             }
             for name, v in info.items()
         },
@@ -1486,10 +1534,15 @@ def main(argv=None) -> int:
     # (FLASH_SHAPES[0]), times, bound and library time summed over them
     for kind, per_step in FLASH_PER_STEP.items():
         row = flash["results"][(0, kind)]
+        redesign = {} if kind != "fwd" else {
+            "design": "wgmma+tma", "route_counts": base["flash_routes"]["fwd"],
+            "v1_ms": row["v1_ms"] * per_step,
+            "v1_source": f"{PKG}/csrc/flash_attention.cu"}
         kernels.append({
             "name": f"flash_{kind}", "route": "cuda",
-            "source": f"{PKG}/csrc/flash_attention.cu",
-            "replaces": FLASH_REPLACES[kind],
+            "source": f"{PKG}/csrc/" + ("flash_attention_sm90.cu" if kind == "fwd"
+                                        else "flash_attention.cu"),
+            "replaces": FLASH_REPLACES[kind], **redesign,
             "launches": train_launches[kind], "max_abs_err": flash["max_abs_err"][kind],
             "worst_ratio": flash["worst_ratio"][kind],
             "ms": row["ms"] * per_step, "plain_ms": row["plain_ms"] * per_step,
@@ -1505,14 +1558,13 @@ def main(argv=None) -> int:
     # (FUSED_CE_SHAPES[0]); AdamW over the 760m leaves
     for kind, per_step in FUSED_PER_STEP.items():
         row = fused["results"][(0, kind)]
-        redesign = {} if kind == "fwd" else {
+        redesign = {
             "design": "wgmma+tma", "route_counts": fused_launches["routes"][kind],
             "v1_ms": row["v1_ms"] * per_step,
             "v1_source": f"{PKG}/csrc/fused_loss.cu"}
         kernels.append({
             "name": f"fused_ce_{kind}", "route": "cuda",
-            "source": f"{PKG}/csrc/" + ("fused_loss.cu" if kind == "fwd"
-                                        else "fused_loss_sm90.cu"),
+            "source": f"{PKG}/csrc/fused_loss_sm90.cu",
             "replaces": FUSED_CE_REPLACES[kind], **redesign,
             "launches": fused_launches["fused_loss"][kind],
             "max_abs_err": fused["max_abs_err"][kind],

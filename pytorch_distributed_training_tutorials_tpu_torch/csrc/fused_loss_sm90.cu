@@ -1,15 +1,22 @@
-// The fused cross entropy's backward, dh and dW, for Hopper (sm_90a) in
-// bf16: TMA loads in a ring of shared-memory stages, one producer warp,
-// wgmma on the consumer warpgroups. ops/fused_loss.py routes a bf16 call
-// here when both operands are 16-byte aligned and D and V are multiples of
-// 8 (what TMA needs); every other call runs fused_loss.cu's kernels.
+// The fused cross entropy for Hopper (sm_90a) in bf16, its forward and its
+// backward (dh and dW): TMA loads in a ring of shared-memory stages, one
+// producer warp, wgmma on the consumer warpgroups. ops/fused_loss.py routes
+// a bf16 call here when both operands are 16-byte aligned and D and V are
+// multiples of 8 (what TMA needs); every other call runs fused_loss.cu's
+// kernels.
 //
-// Replaces, as fused_loss.cu's dh_kernel and dw_kernel do, the TPU kernels
-// of pytorch_distributed_training_tutorials_tpu/ops/fused_loss.py:
-//   dh <- _dh_kernel (:159, pl.pallas_call at :289)
-//   dW <- _dw_kernel (:190, pl.pallas_call at :311)
+// Replaces, as fused_loss.cu's fwd_kernel, dh_kernel and dw_kernel do, the
+// TPU kernels of pytorch_distributed_training_tutorials_tpu/ops/fused_loss.py:
+//   forward <- _fwd_kernel (:89, pl.pallas_call at :255)
+//   dh      <- _dh_kernel  (:159, pl.pallas_call at :289)
+//   dW      <- _dw_kernel  (:190, pl.pallas_call at :311)
 // and computes what they compute:
 //   s  = h . W in f32 from bf16 operands;
+//   forward: columns at or past V score -inf; per row an online max and
+//        sum (the -inf shift guarded) and the target logit, picked where
+//        col == y and col < V (a target out of [0, V) hits nothing); one
+//        (lse, target) f32 pair per row and vocab split, combined by the
+//        wrapper;
 //   dS = g * (exp(s - lse) - onehot(y)), lse the forward's (-inf guarded),
 //        columns at or past V contribute nothing, a target out of [0, V)
 //        hits nothing;
@@ -18,9 +25,10 @@
 // Every sum is f32 and runs in a fixed order (no float atomics): two calls
 // give bitwise the same result.
 //
-// What bounds it on an H100: operations, two passes of 2 N D V each (the
-// score product and the gradient product): 0.834 ms per kernel at N 4096,
-// D 1536, V 32768 at 989 TFLOP/s. So the design keeps the tensor cores fed:
+// What bounds it on an H100: operations, one pass of 2 N D V (forward) or
+// two (dh, dW: the score product and the gradient product): 0.417 and 0.834
+// ms per kernel at N 4096, D 1536, V 32768 at 989 TFLOP/s. So the design
+// keeps the tensor cores fed:
 //
 // - wgmma m64n128k16 (bf16 in, f32 out) from shared memory, 64 rows per
 //   consumer warpgroup; operands are read as they lie in device memory
@@ -38,6 +46,18 @@
 //   shared memory that the gradient wgmma reads. TMA fills W columns past
 //   V with zeros, which score 0, not -inf: the col < V mask zeroes their
 //   dS; rows past N carry g = 0.
+// - forward: a block (two consumer warpgroups of 64 rows and the producer
+//   warp, 288 threads) owns 128 rows and a vocab split, and walks the
+//   split's 128-column score tiles. With no f32 partials to round-trip,
+//   128 rows a block halve the L2 re-reads of W against dh's 64: each 128
+//   x 128 score tile reads (128 + 128) x D x 2 bytes for 2 x 128 x 128 x D
+//   FLOPs, 64 FLOP per byte (43 at 64 rows). Each thread keeps its own
+//   running max, sum and target over its 32 columns of each of its two
+//   rows in registers (no shuffles per tile); the four lanes of a row meet
+//   once, at the end. The splits fill the card at one block per SM (six
+//   32 KB stages): splits = SMs / row tiles, rounded down, so 4096 rows
+//   give 32 x 4 = 128 blocks on 132 SMs, one wave (ops/fused_loss.py
+//   _fwd_plan).
 // - dh: a block (one consumer warpgroup and the producer warp, 160
 //   threads, 255 registers each) owns 64 rows and a vocab split. Per group
 //   of 8 score tiles (1024 vocab columns) it keeps dS (64 x 1024 bf16, 128
@@ -89,6 +109,10 @@ constexpr int kTile = 64 * 64 * 2;  // one 64 x 64 bf16 box, 8 KB
 constexpr int kBV = 128;            // vocab columns of a score tile
 constexpr int kKC = 64;             // depth of a loaded chunk
 
+// forward
+constexpr int kFwdStages = 6;
+constexpr int kFwdStage = 4 * kTile;        // two h boxes (one per warpgroup) + two W boxes
+constexpr int kFwdThreads = 288;            // two consumer warpgroups + the producer warp
 // dh
 constexpr int kDhGroup = 8;                 // score tiles whose dS stays on chip (1024 columns)
 constexpr int kDhStages = 4;
@@ -116,28 +140,13 @@ struct Args {
   const long long* y;  // (N,) targets
   const float* lse;    // (N,) saved by the forward
   const float* g;      // (N,) the loss's cotangent
-  float* part;         // dh: (splits, N, D) f32; dW: (D, V) f32 between row groups
+  float* part;         // forward: (splits, N) lse; dh: (splits, N, D) f32; dW: (D, V)
+                       // f32 between row groups
+  float* tgt;          // forward: (splits, N) target logits
   bf16* out;           // dW (D, V), written by the last row group
   int N, D, V;
-  int groups_per_split;  // dh: 1024-column groups per vocab split
+  int groups_per_split;  // forward: 128-column tiles, dh: 1024-column groups per split
 };
-
-// the ring's position: stage and the parity of its current use
-struct Ring {
-  int stage = 0;
-  uint32_t phase = 0;
-  template <int kStages>
-  __device__ __forceinline__ void next() {
-    if (++stage == kStages) {
-      stage = 0;
-      phase ^= 1;
-    }
-  }
-};
-
-__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
-  return raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
-}
 
 // what dS needs of one of this thread's two rows (16 (warp % 4) + lane / 4
 // + 8 h of its warpgroup's 64): rows past N get no target and g = 0
@@ -151,7 +160,7 @@ __device__ __forceinline__ Row load_row(const Args& a, int row) {
   if (row < a.N) {
     const float x = a.lse[row];
     r.y = a.y[row];
-    r.lse = x == __int_as_float(0xff800000) ? 0.f : x;  // the forward's -inf guard
+    r.lse = x == neg_inf() ? 0.f : x;  // the forward's -inf guard
     r.g = a.g[row];
   }
   return r;
@@ -161,11 +170,6 @@ __device__ __forceinline__ float dlogit(float s, int col, const Row& r, int V) {
   const float p = col < V ? expf(s - r.lse) : 0.f;
   const float hit = (col < V && col == r.y) ? 1.f : 0.f;
   return (p - hit) * r.g;
-}
-
-__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // this thread's part of a 64 x 128 f32 tile (the accumulator layout of
@@ -206,6 +210,123 @@ __device__ __forceinline__ void consume(float (&acc)[64], Ring& ring, uint64_t* 
     fence_operand(acc);
     if (lane == 0) mbar_arrive(&empty[ring.stage]);
     ring.next<kStages>();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward
+
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    fwd_sm90_kernel(const __grid_constant__ CUtensorMap hmap,
+                    const __grid_constant__ CUtensorMap wmap,
+                    const Args a) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kFwdStages * kFwdStage);
+  uint64_t* empty = full + kFwdStages;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int r0 = blockIdx.x * 128, split = blockIdx.y;
+  const int n_vt = (a.V + kBV - 1) / kBV;
+  const int vt0 = split * a.groups_per_split, vt1 = min(n_vt, vt0 + a.groups_per_split);
+  const int chunks = (a.D + kKC - 1) / kKC;
+  if (tid == 0) {
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  Ring ring;
+  if (warp == 8) {
+    // the producer: per score tile and 64-deep chunk, both warpgroups' h
+    // boxes and the tile's two W boxes
+    if (lane != 0) return;
+    for (int vt = vt0; vt < vt1; ++vt) {
+      const int c0 = vt * kBV;
+      for (int k0 = 0; k0 < a.D; k0 += kKC) {
+        uint8_t* st = smem + ring.stage * kFwdStage;
+        mbar_wait(&empty[ring.stage], ring.phase ^ 1);
+        mbar_expect_tx(&full[ring.stage], 4 * kTile);
+        tma_load(st, &hmap, &full[ring.stage], k0, r0);
+        tma_load(st + kTile, &hmap, &full[ring.stage], k0, r0 + 64);
+        tma_load(st + 2 * kTile, &wmap, &full[ring.stage], c0, k0);
+        tma_load(st + 3 * kTile, &wmap, &full[ring.stage], c0 + 64, k0);
+        ring.next<kFwdStages>();
+      }
+    }
+    return;
+  }
+  // two consumer warpgroups: wg takes rows 64 wg .. 64 wg + 63 of the block;
+  // this thread's rows r0 + 64 wg + 16 wq + g + 8 hh, its columns of a tile
+  // c0 + 8 jj + 2 q + e
+  const int wg = warp >> 2, wq = warp & 3, g = lane >> 2, q = lane & 3;
+  const uint32_t stages = smem_addr(smem);
+  int y[2];
+  float m[2], l[2], tg[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = r0 + 64 * wg + 16 * wq + g + 8 * hh;
+    const long long t = row < a.N ? a.y[row] : -1;
+    y[hh] = (t >= 0 && t < a.V) ? (int)t : -1;  // out of [0, V): hits nothing
+    m[hh] = neg_inf();
+    l[hh] = tg[hh] = 0.f;
+  }
+  float acc[64];
+  for (int vt = vt0; vt < vt1; ++vt) {
+    const int c0 = vt * kBV;
+    // s = h[64 rows, :] . W[:, c0 .. c0 + 128): A K-major, B MN-major
+    consume<kFwdStages, kFwdStage>(acc, ring, full, empty, stages, chunks, lane, true,
+                                   [wg](float(&d)[64], uint32_t st, int, uint32_t keep) {
+#pragma unroll
+                                     for (int kk = 0; kk < 4; ++kk)
+                                       wgmma128<0, 1>(d, desc(st + wg * kTile + 32 * kk, 16, 1024),
+                                                      desc(st + 2 * kTile + 2048 * kk, kTile, 1024),
+                                                      kk == 0 ? keep : 1u);
+                                   });
+    // TMA's zero columns past V score 0: mask them to -inf
+    const bool tail = c0 + kBV > a.V;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float mx = m[hh];
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * jj + 2 * hh + e, col = c0 + 8 * jj + 2 * q + e;
+          if (tail && col >= a.V) acc[i] = neg_inf();
+          if (col == y[hh]) tg[hh] += acc[i];
+          mx = fmaxf(mx, acc[i]);
+        }
+      // a row that has seen only masked columns keeps m = -inf: shift by 0
+      const float shift = mx == neg_inf() ? 0.f : mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) sum += expf(acc[4 * jj + 2 * hh + e] - shift);
+      l[hh] = l[hh] * expf(m[hh] - shift) + sum;
+      m[hh] = mx;
+    }
+  }
+  // the four lanes of each row meet: max, rescaled sums, the one target
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float mm = fmaxf(m[hh], __shfl_xor_sync(0xffffffffu, m[hh], 1));
+    mm = fmaxf(mm, __shfl_xor_sync(0xffffffffu, mm, 2));
+    const float shift = mm == neg_inf() ? 0.f : mm;
+    float ll = l[hh] * expf(m[hh] - shift);
+    ll += __shfl_xor_sync(0xffffffffu, ll, 1);
+    ll += __shfl_xor_sync(0xffffffffu, ll, 2);
+    float tt = tg[hh] + __shfl_xor_sync(0xffffffffu, tg[hh], 1);
+    tt += __shfl_xor_sync(0xffffffffu, tt, 2);
+    const int row = r0 + 64 * wg + 16 * wq + g + 8 * hh;
+    if (q == 0 && row < a.N) {
+      const float safe_l = ll == 0.f ? 1.f : ll;
+      a.part[(long long)split * a.N + row] =
+          mm == neg_inf() ? mm : mm + logf(safe_l);
+      a.tgt[(long long)split * a.N + row] = tt;
+    }
   }
 }
 
@@ -494,9 +615,31 @@ int launch(Kernel kernel, dim3 grid, int threads, int smem, const void* h, const
 // cudaGetLastError() (or cudaErrorInvalidValue for operands it does not
 // take). h is (N, D) and w (D, V), both contiguous bf16 with 16-byte
 // aligned bases and D, V multiples of 8; y is (N,) int64; lse and g are
-// (N,) f32. dh: part is (nsplit, N, D) f32, the vocab cut into nsplit
-// splits of groups_per_split 1024-column groups (ops/fused_loss.py
-// _dh_plan). dW: part is (D, V) f32 (unused when N <= 512), out (D, V) bf16.
+// (N,) f32. Forward: part_lse and part_tgt are (nsplit, N) f32, the vocab
+// cut into nsplit splits of tiles_per_split 128-column tiles
+// (ops/fused_loss.py _fwd_plan). dh: part is (nsplit, N, D) f32, the vocab
+// cut into nsplit splits of groups_per_split 1024-column groups (_dh_plan).
+// dW: part is (D, V) f32 (unused when N <= 512), out (D, V) bf16.
+
+extern "C" int fused_ce_fwd_sm90_launch(const void* h, const void* w, const void* y,
+                                        void* part_lse, void* part_tgt, int N, int D, int V,
+                                        int nsplit, int tiles_per_split, void* stream) {
+  const int e = check(h, w, N, D, V);
+  if (e != 0) return e;
+  if (nsplit <= 0 || nsplit > 65535 || tiles_per_split <= 0 ||
+      (long long)nsplit * tiles_per_split < (V + kBV - 1) / kBV)
+    return (int)cudaErrorInvalidValue;
+  Args a{};
+  a.y = static_cast<const long long*>(y);
+  a.part = static_cast<float*>(part_lse);
+  a.tgt = static_cast<float*>(part_tgt);
+  a.N = N;
+  a.D = D;
+  a.V = V;
+  a.groups_per_split = tiles_per_split;
+  return launch(fwd_sm90_kernel, dim3((N + 127) / 128, nsplit), kFwdThreads,
+                smem_bytes<kFwdStages, kFwdStage, 0>(), h, w, a, stream);
+}
 
 extern "C" int fused_ce_dh_sm90_launch(const void* h, const void* w, const void* y,
                                        const void* lse, const void* g, void* part, int N, int D,

@@ -85,6 +85,8 @@ _LIBRARIES = {
     "fused_loss_sm90": {
         "flags": (),
         "entry": {
+            # h w y part_lse part_tgt, N D V, splits, tiles per split, stream
+            "fused_ce_fwd_sm90_launch": ([_PTR] * 5 + [_INT] * 5 + [_PTR], _INT),
             # h w y lse g part, N D V, splits, groups per split, stream
             "fused_ce_dh_sm90_launch": ([_PTR] * 6 + [_INT] * 5 + [_PTR], _INT),
             # h w y lse g part out, N D V, stream
@@ -109,6 +111,16 @@ _LIBRARIES = {
             # dtype, scale, stream
             "flash_dkv_launch": (
                 [_PTR] * 8 + [Layout] * 6 + [_INT] * 5 + [ctypes.c_float, _PTR],
+                _INT,
+            ),
+        },
+    },
+    "flash_attention_sm90": {
+        "flags": (),
+        "entry": {
+            # as flash_fwd_launch (dtype code 1, bf16, only)
+            "flash_fwd_sm90_launch": (
+                [_PTR] * 5 + [Layout] * 4 + [_INT] * 5 + [ctypes.c_float, _PTR],
                 _INT,
             ),
         },

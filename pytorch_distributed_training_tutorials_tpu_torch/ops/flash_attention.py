@@ -5,8 +5,10 @@ Three kernels, each with a plain PyTorch version beside it that follows
 its arithmetic:
 
 - :func:`flash_fwd` — the online-softmax forward, O and the per-row f32
-  logsumexp (kernel ``fwd_kernel`` of ``csrc/flash_attention.cu``,
-  the port of the TPU ``_fwd_kernel``); plain: :func:`flash_fwd_reference`;
+  logsumexp (the port of the TPU ``_fwd_kernel``: ``fwd_sm90_kernel`` of
+  ``csrc/flash_attention_sm90.cu`` or ``fwd_kernel`` of
+  ``csrc/flash_attention.cu``, see below); plain:
+  :func:`flash_fwd_reference`;
 - :func:`flash_dq` — dq accumulated over key blocks (``_dq_kernel``);
   plain: :func:`flash_dq_reference`;
 - :func:`flash_dkv` — dk and dv accumulated over query blocks
@@ -23,7 +25,16 @@ Each wrapper runs the plain version on a CPU tensor and launches its
 kernel on a CUDA tensor (bf16 or f32, head dim a multiple of 8 up to 128,
 last axis contiguous), on the current stream; it raises on anything else
 and when a launch fails, and never falls back. ``flash_attention.launches``
-counts kernel launches; CPU calls add none. :func:`kernel_error` (from
+counts kernel launches; CPU calls add none.
+
+The forward has two routes on the card, chosen by :func:`_sm90_route`
+before the launch: a bf16 call whose q, k and v have 16-byte aligned bases
+and B, S, H strides that are positive multiples of 16 bytes (what a TMA
+map takes) runs ``csrc/flash_attention_sm90.cu`` (TMA, mbarrier ring,
+wgmma; 128 query rows a block); every other call (f32, misaligned views)
+runs ``flash_attention.cu``'s ``fwd_kernel``. Both compute the same
+function; ``flash_attention.routes`` counts the launches of each route. A
+failed sm90 build or launch raises. :func:`kernel_error` (from
 :mod:`._check`, shared with the fused loss) is the check that holds a
 kernel's output to its plain version's.
 
@@ -200,9 +211,10 @@ def _layout(x: torch.Tensor) -> _build.Layout:
     return _build.Layout(x.stride(0), x.stride(1), x.stride(2))
 
 
-def _launch(name: str, fn_name: str, q: torch.Tensor, ptrs, layouts) -> None:
+def _launch(name: str, fn_name: str, q: torch.Tensor, ptrs, layouts, *,
+            lib_name: str = "flash_attention", route: str | None = None) -> None:
     b, s, h, d = q.shape
-    lib = _build.library("flash_attention")
+    lib = _build.library(lib_name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = getattr(lib, fn_name)(
@@ -211,21 +223,53 @@ def _launch(name: str, fn_name: str, q: torch.Tensor, ptrs, layouts) -> None:
             ctypes.c_void_p(stream),
         )
     if rc != 0:
-        raise RuntimeError(f"flash_{name} kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"flash_{name} kernel launch failed ({fn_name}): CUDA error {rc}")
     flash_attention.launches[name] += 1
+    if route is not None:
+        flash_attention.routes[name][route] += 1
 
 
-def flash_fwd(q, k, v, block_q: int = 512, block_k: int = 512):
+def _sm90_route(dtype: torch.dtype, d: int, ptrs, strides) -> bool:
+    """True when a CUDA forward call goes to the sm90 kernel: bf16, D a
+    multiple of 8 from 8 to 128 (padded to 64, 96 or 128), every operand's
+    base (``ptrs``) 16-byte aligned and every B, S, H element stride
+    (``strides``) positive and a whole multiple of 16 bytes — what a TMA map
+    of each takes. False sends it to ``flash_attention.cu``'s
+    ``fwd_kernel``."""
+    return (dtype == torch.bfloat16 and d % 8 == 0 and 8 <= d <= 128
+            and all(p % 16 == 0 for p in ptrs)
+            and all(st > 0 and (2 * st) % 16 == 0 for st in strides))
+
+
+def _use_sm90(q, k, v, route: str | None) -> bool:
+    """Whether a CUDA forward call launches the sm90 kernel: by
+    :func:`_sm90_route` when ``route`` is None; ``route="sm80"`` asks for
+    ``flash_attention.cu``'s kernel whatever the operands (the card check
+    times both on one input)."""
+    if route not in (None, "sm80"):
+        raise ValueError(f"forward route must be None or 'sm80', got {route!r}")
+    return route is None and _sm90_route(
+        q.dtype, q.shape[-1], [x.data_ptr() for x in (q, k, v)],
+        [st for x in (q, k, v) for st in x.stride()[:3]])
+
+
+def flash_fwd(q, k, v, block_q: int = 512, block_k: int = 512, *,
+              route: str | None = None):
     """Causal attention forward: (O (B, S, H, D) in q's type, lse (B, H,
     S) f32). A CPU tensor runs :func:`flash_fwd_reference`; a CUDA tensor
-    launches ``fwd_kernel``."""
+    launches the sm90 kernel where :func:`_sm90_route` takes it, else
+    ``fwd_kernel``; ``route``: see :func:`_use_sm90`."""
     _check_shapes(q, k, v)
     if not _route(q, k, v):
         return flash_fwd_reference(q, k, v, block_q, block_k)
     b, s, h, d = q.shape
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    _launch("fwd", "flash_fwd_launch", q, (q, k, v, o, lse), (q, k, v, o))
+    if _use_sm90(q, k, v, route):
+        _launch("fwd", "flash_fwd_sm90_launch", q, (q, k, v, o, lse), (q, k, v, o),
+                lib_name="flash_attention_sm90", route="sm90")
+    else:
+        _launch("fwd", "flash_fwd_launch", q, (q, k, v, o, lse), (q, k, v, o), route="sm80")
     return o, lse
 
 
@@ -287,6 +331,9 @@ def flash_attention(q, k, v, block_q: int = 512, block_k: int = 512):
 
 # kernel launches on the card by kernel (CPU calls add none)
 flash_attention.launches = {"fwd": 0, "dq": 0, "dkv": 0}
+# the forward's launches by route: "sm90" (flash_attention_sm90.cu) or
+# "sm80" (flash_attention.cu's mma.sync fwd_kernel)
+flash_attention.routes = {"fwd": {"sm90": 0, "sm80": 0}}
 
 
 def make_flash_attention(block_q: int = 512, block_k: int = 512):

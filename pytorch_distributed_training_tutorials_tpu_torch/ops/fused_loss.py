@@ -5,9 +5,8 @@ Three kernels, each with a plain PyTorch version beside it that follows its
 arithmetic:
 
 - :func:`fused_ce_fwd` — per row the logsumexp and the target logit, f32,
-  from an online logsumexp over vocab blocks of ``h @ W`` (kernel
-  ``fwd_kernel`` of ``csrc/fused_loss.cu``, the port of the TPU
-  ``_fwd_kernel``); plain: :func:`fused_ce_fwd_reference`;
+  from an online logsumexp over vocab blocks of ``h @ W`` (the port of
+  the TPU ``_fwd_kernel``); plain: :func:`fused_ce_fwd_reference`;
 - :func:`fused_ce_dh` — ``dh = sum over vocab blocks of dS . W^T``
   (``_dh_kernel``); plain: :func:`fused_ce_dh_reference`;
 - :func:`fused_ce_dw` — ``dW = sum over row blocks of h^T . dS``
@@ -25,13 +24,14 @@ the current stream; it raises on anything else and when a launch fails,
 and never falls back. ``fused_cross_entropy.launches`` counts kernel
 launches; CPU calls add none.
 
-The backward has two routes on the card, chosen by :func:`_sm90_route`
+Each kernel has two routes on the card, chosen by :func:`_sm90_route`
 before the launch: a bf16 call with 16-byte aligned h and W and D, V
 multiples of 8 (what TMA takes) runs ``csrc/fused_loss_sm90.cu`` (TMA,
-mbarrier ring, wgmma; dS kept on chip for 1024 vocab columns of 64 rows
-in dh and 512 rows of 128 columns in dW); every other call runs
-``fused_loss.cu``'s ``dh_kernel`` and ``dw_kernel`` (mma.sync; f32, and
-bf16 with D or V not a multiple of 8). Both compute the same function;
+mbarrier ring, wgmma; the forward on 128 rows a block, dS kept on chip
+for 1024 vocab columns of 64 rows in dh and 512 rows of 128 columns in
+dW); every other call runs ``fused_loss.cu``'s ``fwd_kernel``,
+``dh_kernel`` and ``dw_kernel`` (mma.sync; f32, and bf16 with D or V not
+a multiple of 8 or misaligned operands). Both compute the same function;
 ``fused_cross_entropy.routes`` counts the launches of each route. A
 failed sm90 build or launch raises. :func:`kernel_error` (from
 :mod:`._check`, shared with flash attention) holds a kernel's output to
@@ -197,9 +197,11 @@ def _splits(n: int, v: int, device: torch.device) -> tuple[int, int]:
     return -(-n_vt // per), per
 
 
-# the sm90 kernels' work units (csrc/fused_loss_sm90.cu): dh keeps dS for
-# kDhGroup x kBV vocab columns per 64-row block, dW for kDwGroup x 128
-# rows per 128-column block; both pass over D in 128 columns
+# the sm90 kernels' work units (csrc/fused_loss_sm90.cu): the forward
+# takes 128-column score tiles on 128-row blocks; dh keeps dS for kDhGroup
+# x kBV vocab columns per 64-row block, dW for kDwGroup x 128 rows per
+# 128-column block; both pass over D in 128 columns
+_SM90_FWD_ROWS = 128
 _SM90_DH_ROWS = _TILE_ROWS
 _SM90_DH_GROUP = 8 * _TILE_COLS
 _SM90_DW_GROUP = 4 * 128
@@ -207,12 +209,39 @@ _SM90_D_PASS = 128
 
 
 def _sm90_route(dtype: torch.dtype, d: int, v: int, h_ptr: int, w_ptr: int) -> bool:
-    """True when a CUDA backward call goes to the sm90 kernels: bf16, h and
+    """True when a CUDA call goes to the sm90 kernels: bf16, h and
     W based on 16-byte boundaries, rows of h and W (D, V elements) whole
     multiples of 16 bytes — what a TMA map of each takes. False sends it to
     ``fused_loss.cu``'s kernels."""
     return (dtype == torch.bfloat16 and h_ptr % 16 == 0 and w_ptr % 16 == 0
             and (2 * d) % 16 == 0 and (2 * v) % 16 == 0)
+
+
+def _fwd_plan(n: int, d: int, v: int, sms: int) -> dict:
+    """The sm90 forward's grid: 128-row blocks x vocab splits, a split a
+    run of 128-column score tiles. One block per SM (192 KB of shared
+    memory), so the splits are the SMs over the row tiles, rounded down (one
+    wave where the rows allow it: 32 x 4 = 128 blocks at N 4096, V 32768 on
+    132 SMs), at most one per tile."""
+    n_rt = -(-n // _SM90_FWD_ROWS)
+    n_vt = -(-v // _TILE_COLS)
+    want = max(1, min(n_vt, sms // n_rt))
+    per = -(-n_vt // want)
+    splits = -(-n_vt // per)
+    return {"row_tiles": n_rt, "splits": splits, "tiles_per_split": per,
+            "tiles": n_vt, "d_chunks": -(-d // 64), "waves": n_rt * splits / sms}
+
+
+def _fwd_blocks(n: int, v: int, plan: dict):
+    """Each forward block's rows [r0, r1) and its split's score tiles'
+    vocab columns [c0, c1), cut at N and V, in the order the kernel walks
+    them."""
+    for rt in range(plan["row_tiles"]):
+        for split in range(plan["splits"]):
+            t0 = split * plan["tiles_per_split"]
+            t1 = min(plan["tiles"], t0 + plan["tiles_per_split"])
+            yield ((rt * _SM90_FWD_ROWS, min(n, (rt + 1) * _SM90_FWD_ROWS)),
+                   [(t * _TILE_COLS, min(v, (t + 1) * _TILE_COLS)) for t in range(t0, t1)])
 
 
 def _dh_plan(n: int, d: int, v: int, sms: int) -> dict:
@@ -267,20 +296,33 @@ def _launch(name: str, fn_name: str, device, *args, lib_name: str = "fused_loss"
 
 
 def fused_ce_fwd(h, w, y, block_n: int = DEFAULT_BLOCK_N,
-                 block_v: int = DEFAULT_BLOCK_V):
+                 block_v: int = DEFAULT_BLOCK_V, *, route: str | None = None):
     """(lse, target logit) per row, (N,) f32. A CPU tensor runs
-    :func:`fused_ce_fwd_reference`; a CUDA tensor launches ``fwd_kernel``
-    over the vocab splits and combines their logsumexps."""
+    :func:`fused_ce_fwd_reference`; a CUDA tensor launches the sm90
+    forward where :func:`_sm90_route` takes it, else ``fwd_kernel``, over
+    the vocab splits, and combines their logsumexps; ``route``: see
+    :func:`_use_sm90`."""
     if not _route(h, w, y):
         return fused_ce_fwd_reference(h, w, y, block_n, block_v)
     (n, d), v = h.shape, w.shape[1]
-    nsplit, per = _splits(n, v, h.device)
+    y64 = y.long().contiguous()
+    sm90 = _use_sm90(h, w, route)
+    if sm90:
+        sms = torch.cuda.get_device_properties(h.device).multi_processor_count
+        plan = _fwd_plan(n, d, v, sms)
+        nsplit, per = plan["splits"], plan["tiles_per_split"]
+    else:
+        nsplit, per = _splits(n, v, h.device)
     part_lse = torch.empty((nsplit, n), dtype=torch.float32, device=h.device)
     part_tgt = torch.empty((nsplit, n), dtype=torch.float32, device=h.device)
-    y64 = y.long().contiguous()
-    _launch("fwd", "fused_ce_fwd_launch", h.device, h.data_ptr(), w.data_ptr(),
-            y64.data_ptr(), part_lse.data_ptr(), part_tgt.data_ptr(),
-            n, d, v, nsplit, per, _DTYPE_CODES[h.dtype])
+    ptrs = (h.data_ptr(), w.data_ptr(), y64.data_ptr(), part_lse.data_ptr(),
+            part_tgt.data_ptr())
+    if sm90:
+        _launch("fwd", "fused_ce_fwd_sm90_launch", h.device, *ptrs, n, d, v, nsplit, per,
+                lib_name="fused_loss_sm90", route="sm90")
+    else:
+        _launch("fwd", "fused_ce_fwd_launch", h.device, *ptrs, n, d, v, nsplit, per,
+                _DTYPE_CODES[h.dtype], route="sm80")
     # one split's columns hold the target (the others add 0); the lse of
     # the splits' lse (exact for one split), with the -inf guard of an
     # all-masked row
@@ -291,12 +333,12 @@ def fused_ce_fwd(h, w, y, block_n: int = DEFAULT_BLOCK_N,
 
 
 def _use_sm90(h, w, route: str | None) -> bool:
-    """Whether a CUDA backward call launches the sm90 kernel: by
+    """Whether a CUDA call launches the sm90 kernel: by
     :func:`_sm90_route` when ``route`` is None; ``route="sm80"`` asks for
     ``fused_loss.cu``'s kernel whatever the shape (the card check times
     both on one input)."""
     if route not in (None, "sm80"):
-        raise ValueError(f"backward route must be None or 'sm80', got {route!r}")
+        raise ValueError(f"route must be None or 'sm80', got {route!r}")
     d, v = w.shape
     return route is None and _sm90_route(h.dtype, d, v, h.data_ptr(), w.data_ptr())
 
@@ -312,7 +354,8 @@ def fused_ce_dh(h, w, y, lse, g, block_n: int = DEFAULT_BLOCK_N,
         return fused_ce_dh_reference(h, w, y, lse, g, block_n, block_v)
     (n, d), v = h.shape, w.shape[1]
     y64 = y.long().contiguous()
-    if _use_sm90(h, w, route):
+    sm90 = _use_sm90(h, w, route)
+    if sm90:
         sms = torch.cuda.get_device_properties(h.device).multi_processor_count
         plan = _dh_plan(n, d, v, sms)
         part = torch.empty((plan["splits"], n, d), dtype=torch.float32, device=h.device)
@@ -395,9 +438,9 @@ def fused_cross_entropy(hidden, lm_head, targets, *, block_n: int = DEFAULT_BLOC
 
 # kernel launches on the card by kernel (CPU calls add none)
 fused_cross_entropy.launches = {"fwd": 0, "dh": 0, "dw": 0}
-# the backward's launches by route: "sm90" (fused_loss_sm90.cu) or "sm80"
-# (fused_loss.cu's mma.sync kernels)
-fused_cross_entropy.routes = {"dh": {"sm90": 0, "sm80": 0}, "dw": {"sm90": 0, "sm80": 0}}
+# launches by route: "sm90" (fused_loss_sm90.cu) or "sm80" (fused_loss.cu's
+# mma.sync kernels)
+fused_cross_entropy.routes = {k: {"sm90": 0, "sm80": 0} for k in ("fwd", "dh", "dw")}
 
 
 def fused_cross_entropy_reference(hidden, lm_head, targets):

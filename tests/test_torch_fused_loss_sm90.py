@@ -1,10 +1,11 @@
-"""The fused cross entropy's backward routes: the sm90 kernels
-(``csrc/fused_loss_sm90.cu``: TMA, wgmma) and ``fused_loss.cu``'s.
+"""The fused cross entropy's routes: the sm90 kernels
+(``csrc/fused_loss_sm90.cu``: TMA, wgmma; forward, dh and dW) and
+``fused_loss.cu``'s.
 
 On the CPU these tests cover the pure functions around the kernels: the
-route decision (:func:`_sm90_route`) and the grids of the sm90 dh and dW
-kernels (every row tile and vocab tile covered exactly once, ragged tails
-included). The ``requires_cuda`` tests hold the sm90 kernels to their plain
+route decision (:func:`_sm90_route`) and the grids of the sm90 forward, dh
+and dW kernels (every row tile and vocab tile covered exactly once, ragged
+tails included). The ``requires_cuda`` tests hold the sm90 kernels to their plain
 versions on the card under ``KERNEL_TOLERANCE[bfloat16]``, count their
 routes, check that two calls are bitwise equal and that the calls the sm90
 kernels do not take still go to the old ones. Whether a card is present is
@@ -119,6 +120,35 @@ def _partition(ranges, total, step=None):
 
 
 @pytest.mark.parametrize("n,d,v,sms", PLAN_SHAPES)
+def test_fwd_plan_covers_every_tile_once(n, d, v, sms):
+    plan = fl._fwd_plan(n, d, v, sms)
+    blocks = list(fl._fwd_blocks(n, v, plan))
+    assert len(blocks) == plan["row_tiles"] * plan["splits"]
+    assert plan["splits"] <= 65535
+    by_rows = {}
+    for rows, tiles in blocks:
+        assert tiles, "an empty split"
+        by_rows.setdefault(rows, []).extend(tiles)
+    _partition(sorted(by_rows), n, fl._SM90_FWD_ROWS)
+    for tiles in by_rows.values():
+        _partition(tiles, v, fl._TILE_COLS)
+    # one block per SM: one wave where the row tiles allow it
+    if plan["row_tiles"] <= sms:
+        assert plan["waves"] <= 1.0
+    else:
+        assert plan["splits"] == 1
+    assert plan["d_chunks"] * 64 >= d > (plan["d_chunks"] - 1) * 64
+
+
+def test_fwd_plan_at_the_main_shape():
+    """32 row tiles x 4 splits of 64 score tiles: 128 blocks, one wave on
+    132 SMs."""
+    plan = fl._fwd_plan(*MAIN, 132)
+    assert (plan["row_tiles"], plan["splits"], plan["tiles_per_split"]) == (32, 4, 64)
+    assert plan["waves"] == 128 / 132
+
+
+@pytest.mark.parametrize("n,d,v,sms", PLAN_SHAPES)
 def test_dh_plan_covers_every_tile_once(n, d, v, sms):
     plan = fl._dh_plan(n, d, v, sms)
     blocks = list(fl._dh_blocks(n, v, plan))
@@ -168,6 +198,8 @@ SM90_CASES = [
     (300, 256, 1000, True),
     (128, 1536, 4096, False),
     (1100, 1536, 5000, False),  # several dh and dW groups, tails in both
+    (200, 200, 1000, True),     # D not a multiple of 64: a partial last box
+    (64, 40, 1000, True),       # D < 64: one box, mostly past D
 ]
 
 
@@ -211,33 +243,62 @@ def test_sm90_kernels_match_plain_versions(n, d, v, oor):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("n,d,v,oor", SM90_CASES)
+def test_sm90_forward_matches_plain_version(n, d, v, oor):
+    """lse and the target logit through the sm90 forward, each held element
+    by element to the plain version under KERNEL_TOLERANCE[float32]; one
+    sm90 launch counted per call; a second call bitwise equal; a target out
+    of range hits nothing."""
+    _need_cuda()
+    h, w, y, _, _ = _operands(n, d, v, oor)
+    before = _routes()
+    lse, tgt = fl.fused_ce_fwd(h, w, y)
+    got = _routes()
+    assert got["fwd"] == {"sm90": before["fwd"]["sm90"] + 1, "sm80": before["fwd"]["sm80"]}
+    for name, out, ref in zip(("lse", "tgt"), (lse, tgt),
+                              fl.fused_ce_fwd_reference(h, w, y, 64, 128)):
+        assert out.dtype == ref.dtype and out.shape == ref.shape, name
+        err = fl.kernel_error(out, ref)
+        assert err["worst_ratio"] <= 1.0, (name, err)
+    lse2, tgt2 = fl.fused_ce_fwd(h, w, y)
+    assert torch.equal(lse, lse2) and torch.equal(tgt, tgt2)
+    if oor:
+        assert float(tgt[1]) == 0.0
+
+
+@pytest.mark.requires_cuda
 @pytest.mark.parametrize(
     "n,d,v,dtype,oor",
     [c for c in FUSED_CE_CASES if c[3] != torch.bfloat16 or c[1] % 8 or c[2] % 8])
 def test_old_cases_keep_the_old_route(n, d, v, dtype, oor):
     """f32, and bf16 with D or V not a multiple of 8, still launch
-    fused_loss.cu's kernels."""
+    fused_loss.cu's kernels: forward, dh and dW."""
     _need_cuda()
     h, w, y, lse, g = _operands(n, d, v, oor, dtype)
     before = _routes()
+    fl.fused_ce_fwd(h, w, y)
     fl.fused_ce_dh(h, w, y, lse, g)
     fl.fused_ce_dw(h, w, y, lse, g)
     got = _routes()
-    for k in ("dh", "dw"):
+    for k in ("fwd", "dh", "dw"):
         assert got[k] == {"sm90": before[k]["sm90"], "sm80": before[k]["sm80"] + 1}
 
 
 @pytest.mark.requires_cuda
 def test_sm90_route_on_a_misaligned_view_takes_the_old_kernels():
-    """A bf16 h two bytes past an aligned base: the old kernels, the same
-    function."""
+    """A bf16 h two bytes past an aligned base: the old forward and dh
+    kernels, the same function."""
     _need_cuda()
     n, d, v = 128, 256, 1000
     _, w, y, lse, g = _operands(n, d, v, False)
     buf = torch.randn((n * d + 8,), device="cuda").bfloat16()
     h = buf[1:1 + n * d].view(n, d)
     before = _routes()
+    lse1, tgt1 = fl.fused_ce_fwd(h, w, y)
     dh = fl.fused_ce_dh(h, w, y, lse, g)
-    assert fl.fused_cross_entropy.routes["dh"]["sm80"] == before["dh"]["sm80"] + 1
+    for k in ("fwd", "dh"):
+        assert fl.fused_cross_entropy.routes[k]["sm80"] == before[k]["sm80"] + 1
     err = fl.kernel_error(dh, fl.fused_ce_dh_reference(h, w, y, lse, g, 64, 128))
     assert err["worst_ratio"] <= 1.0, err
+    for out, ref in zip((lse1, tgt1), fl.fused_ce_fwd_reference(h, w, y, 64, 128)):
+        assert fl.kernel_error(out, ref)["worst_ratio"] <= 1.0
