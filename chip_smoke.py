@@ -18,11 +18,11 @@ Every phase prints JSON lines:
    time — ``int8_matmul`` (expected bitwise), then ``flash_fwd``,
    ``flash_dq`` and ``flash_dkv`` at the 760m train shape (B 2, S 2048, H
    16, D 96) in bf16 and f32, D 64 and 128, a ragged S 1000 (strided
-   inputs) and S 8 — the forward through the sm90 kernel
+   inputs) and S 8 — all three through the sm90 kernels
    (``flash_attention_sm90.cu``, wgmma and TMA) where the operands are
    bf16, else through ``flash_attention.cu``'s, the route counted and two
-   sm90 calls bitwise equal; at the main shape the old forward too,
-   checked and timed in turns with the sm90 one (sm90, old, old, sm90) —
+   sm90 calls bitwise equal; at the main shape the old kernels too,
+   checked and timed in turns with the sm90 ones (sm90, old, old, sm90) —
    then ``fused_ce_fwd``, ``fused_ce_dh`` and ``fused_ce_dw`` at the 760m
    loss shape (N 4096, D 1536, V 32768) in bf16 and f32, a ragged (1000,
    1536, 32000) with a target out of range, an odd vocab (1000, 1536,
@@ -53,13 +53,14 @@ Every phase prints JSON lines:
    full depth and width, seq 2048, batch 2, bf16, flash, remat "dots",
    AdamW) for a warmup chain and 2 timed chains of 6 steps and one
    profiled step: finite, falling loss, exactly 48 / 24 / 24 flash
-   forward / dq / dk-dv launches per step, every forward on the sm90
-   route, step time, MFU, peak memory;
+   forward / dq / dk-dv launches per step, every one on the sm90 route,
+   step time, MFU, peak memory;
 7. its fused arm (``--fused``: the fused loss and ``fused_adamw``), the
    same chains in the same call: finite, falling loss, the first loss
    within one bf16 ulp of phase 6's, exactly 48 / 24 / 24 flash, 1 / 1 / 1
-   fused-loss and 1 fused-AdamW launches per step, every flash forward
-   and every fused-loss forward, dh and dW launch on the sm90 route.
+   fused-loss and 1 fused-AdamW launches per step, every flash forward,
+   dq and dk/dv and every fused-loss forward, dh and dW launch on the sm90
+   route.
 
 Between phases 4 and 5, ``serve_1b_paged``: the 1b-gqa preset at full
 depth, window 4096, serving 12 requests (prompts {16, 480, 1500}, 32 new
@@ -349,27 +350,35 @@ def phase_flash(torch, fa, gpu: str) -> dict:
             return torch.randn((b, s, h, d), generator=gen, device=dev, dtype=dtype)
 
         q, k, v, do = draw(), draw(), draw(), draw()
-        # the forward's route: sm90 for bf16 (fresh allocations, or their
-        # transposed views: 16-byte aligned, strides of whole 16 bytes)
+        # the route of all three: sm90 for bf16 (fresh allocations, or
+        # their transposed views: 16-byte aligned, strides of whole 16 bytes)
         route = "sm90" if dt == "bf16" else "sm80"
-        routes0 = dict(fa.flash_attention.routes["fwd"])
+        routes0 = {kd: dict(r) for kd, r in fa.flash_attention.routes.items()}
         o, lse = fa.flash_fwd(q, k, v)
-        if fa.flash_attention.routes["fwd"][route] != routes0[route] + 1:
-            raise AssertionError(f"flash_fwd at B={b} S={s} H={h} D={d} {dt} did not take "
-                                 f"the {route} route: {fa.flash_attention.routes}")
-        if route == "sm90" and not all(map(torch.equal, (o, lse), fa.flash_fwd(q, k, v))):
-            raise AssertionError(f"two sm90 flash_fwd calls differ at B={b} S={s} D={d}")
-        o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, *blocks)
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
         dq = fa.flash_dq(q, k, v, do, lse, delta)
-        dq_ref = fa.flash_dq_reference(q, k, v, do, lse, delta, *blocks)
         dk, dv = fa.flash_dkv(q, k, v, do, lse, delta)
+        for kd in ("fwd", "dq", "dkv"):
+            if fa.flash_attention.routes[kd][route] != routes0[kd][route] + 1:
+                raise AssertionError(f"flash_{kd} at B={b} S={s} H={h} D={d} {dt} did not take "
+                                     f"the {route} route: {fa.flash_attention.routes}")
+        if route == "sm90" and not (
+                all(map(torch.equal, (o, lse), fa.flash_fwd(q, k, v)))
+                and torch.equal(dq, fa.flash_dq(q, k, v, do, lse, delta))
+                and all(map(torch.equal, (dk, dv), fa.flash_dkv(q, k, v, do, lse, delta)))):
+            raise AssertionError(f"two sm90 flash calls differ at B={b} S={s} D={d}")
+        o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, *blocks)
+        dq_ref = fa.flash_dq_reference(q, k, v, do, lse, delta, *blocks)
         dk_ref, dv_ref = fa.flash_dkv_reference(q, k, v, do, lse, delta, *blocks)
         checks = [("O", o, o_ref), ("lse", lse, lse_ref), ("dq", dq, dq_ref),
                   ("dk", dk, dk_ref), ("dv", dv, dv_ref)]
-        if i == 0:  # the old forward on the main shape too, held the same way
-            checks += zip(("O_v1", "lse_v1"), fa.flash_fwd(q, k, v, route="sm80"),
-                          (o_ref, lse_ref))
+        if i == 0:  # the old kernels on the main shape too, held the same way
+            checks += [*zip(("O_v1", "lse_v1"), fa.flash_fwd(q, k, v, route="sm80"),
+                            (o_ref, lse_ref)),
+                       ("dq_v1", fa.flash_dq(q, k, v, do, lse, delta, route="sm80"), dq_ref),
+                       *zip(("dk_v1", "dv_v1"),
+                            fa.flash_dkv(q, k, v, do, lse, delta, route="sm80"),
+                            (dk_ref, dv_ref))]
         torch.cuda.synchronize()
         # each output held element by element to fa.KERNEL_TOLERANCE
         errs = {}
@@ -401,14 +410,18 @@ def phase_flash(torch, fa, gpu: str) -> dict:
         flops = BF16_FLOPS if dt == "bf16" else F32_FLOPS
         for kind, (kern, plain, lib) in timed.items():
             v1 = {}
-            if i == 0 and kind == "fwd":
+            if i == 0:
                 # the redesign against the old kernel in turns: sm90, old,
                 # old, sm90
-                old = lambda: fa.flash_fwd(q, k, v, route="sm80")  # noqa: E731
+                old = {"fwd": lambda: fa.flash_fwd(q, k, v, route="sm80"),
+                       "dq": lambda: fa.flash_dq(q, k, v, do, lse, delta, route="sm80"),
+                       "dkv": lambda: fa.flash_dkv(q, k, v, do, lse, delta, route="sm80")}[kind]
                 turns = [time_ms(fn, torch, flush) for fn in (kern, old, old, kern)]
                 ms, v1_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
                 v1 = {"v1_ms": v1_ms, "turns_ms": turns, "speedup_vs_v1": v1_ms / ms,
-                      "errors_v1": {n: errs[n] for n in ("O_v1", "lse_v1")}}
+                      "errors_v1": {n: errs[n] for n in {"fwd": ("O_v1", "lse_v1"),
+                                                         "dq": ("dq_v1",),
+                                                         "dkv": ("dk_v1", "dv_v1")}[kind]}}
             else:
                 ms = time_ms(kern, torch, flush)
             plain_ms = time_ms(plain, torch, flush)
@@ -421,7 +434,7 @@ def phase_flash(torch, fa, gpu: str) -> dict:
             emit({
                 "phase": "kernel_vs_plain", "kernel": f"flash_{kind}",
                 "B": b, "S": s, "H": h, "D": d, "dtype": dt, "strided_inputs": strided,
-                "route": route if kind == "fwd" else "sm80",
+                "route": route,
                 "errors": {n: errs[n] for n in {"fwd": ("O", "lse"), "dq": ("dq",),
                                                 "dkv": ("dk", "dv")}[kind]},
                 **row, "roofline_share": b_ms / ms,
@@ -1350,9 +1363,9 @@ def phase_train(torch, gpu: str) -> dict:
     want = {k: n * steps for k, n in FLASH_PER_STEP.items()}
     if launches != want:
         problems.append(f"flash launches {launches} != {want} ({steps} steps)")
-    # every forward launch of the bf16 760m step takes the sm90 route
-    if routes != {"fwd": {"sm90": launches["fwd"], "sm80": 0}}:
-        problems.append(f"flash forward routes {routes}: not all sm90")
+    # every flash launch of the bf16 760m step takes the sm90 route
+    if routes != {k: {"sm90": n, "sm80": 0} for k, n in launches.items()}:
+        problems.append(f"flash routes {routes}: not all sm90")
     if r["n_params"] != N_PARAMS_760M:
         problems.append(f"n_params {r['n_params']} != {N_PARAMS_760M}")
     emit({
@@ -1412,13 +1425,13 @@ def phase_train_fused(torch, gpu: str, baseline_first_loss: float) -> dict:
             "fused_adamw": ADAMW_PER_STEP * steps}
     if launches != want:
         problems.append(f"launches {launches} != {want} ({steps} steps)")
-    # every fused-loss launch and every flash forward of the bf16 760m step
-    # takes the sm90 route
+    # every fused-loss and flash launch of the bf16 760m step takes the sm90
+    # route
     want_routes = {k: {"sm90": launches["fused_loss"][k], "sm80": 0} for k in routes}
     if routes != want_routes:
         problems.append(f"fused-loss routes {routes} != {want_routes}")
-    if flash_routes != {"fwd": {"sm90": launches["flash"]["fwd"], "sm80": 0}}:
-        problems.append(f"flash forward routes {flash_routes}: not all sm90")
+    if flash_routes != {k: {"sm90": n, "sm80": 0} for k, n in launches["flash"].items()}:
+        problems.append(f"flash routes {flash_routes}: not all sm90")
     # the same weights and batch: the baseline's loss is a bf16 value, one
     # bf16 ulp (2^-7 of the power of two below it) away at most
     ulp = 2.0 ** (math.floor(math.log2(abs(baseline_first_loss))) - 7)
@@ -1534,14 +1547,13 @@ def main(argv=None) -> int:
     # (FLASH_SHAPES[0]), times, bound and library time summed over them
     for kind, per_step in FLASH_PER_STEP.items():
         row = flash["results"][(0, kind)]
-        redesign = {} if kind != "fwd" else {
-            "design": "wgmma+tma", "route_counts": base["flash_routes"]["fwd"],
+        redesign = {
+            "design": "wgmma+tma", "route_counts": base["flash_routes"][kind],
             "v1_ms": row["v1_ms"] * per_step,
             "v1_source": f"{PKG}/csrc/flash_attention.cu"}
         kernels.append({
             "name": f"flash_{kind}", "route": "cuda",
-            "source": f"{PKG}/csrc/" + ("flash_attention_sm90.cu" if kind == "fwd"
-                                        else "flash_attention.cu"),
+            "source": f"{PKG}/csrc/flash_attention_sm90.cu",
             "replaces": FLASH_REPLACES[kind], **redesign,
             "launches": train_launches[kind], "max_abs_err": flash["max_abs_err"][kind],
             "worst_ratio": flash["worst_ratio"][kind],

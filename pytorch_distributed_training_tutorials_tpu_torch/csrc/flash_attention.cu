@@ -63,8 +63,8 @@
 // D 96) the work is operations-bound against the bf16 tensor cores (0.026
 // ms of tensor-core time against 0.008 ms of bytes for the forward). The
 // kernels use mma.sync without TMA, wgmma or pipelining of the tile loads.
-// The bf16 forward's route on Hopper is flash_attention_sm90.cu (TMA,
-// wgmma); fwd_kernel here keeps f32 and the views a TMA map cannot take
+// The bf16 route of all three on Hopper is flash_attention_sm90.cu (TMA,
+// wgmma); the kernels here keep f32 and the views a TMA map cannot take
 // (ops/flash_attention.py _sm90_route).
 
 #include <cuda_bf16.h>

@@ -4,7 +4,8 @@
 // loads, mbarriers, wgmma shared-memory descriptors, the m64n128k16 bf16
 // product with both operands in shared memory and the m64n{64,96,128}k16
 // products with A in registers, and the 128-byte swizzle the loads and the
-// descriptors agree on.
+// descriptors agree on. The m64n64k16 shared-shared product (wgmma64)
+// is the flash backward's score product over 64-wide tiles.
 //
 // Shared-memory tiles are 128-byte swizzled "atoms": rows of 64 bf16 (128
 // bytes), 8 rows to a 1024-byte atom, the 16-byte piece p of row r stored
@@ -272,6 +273,26 @@ __device__ __forceinline__ void wgmma128(float (&d)[64], uint64_t da, uint64_t d
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB));
+}
+
+// d[64 x 64] = A[64 x 16] . B[16 x 64] (+ d where scale_d is 1), both
+// operands in shared memory, kTA / kTB as wgmma128's; d laid out as
+// wgmma128's (i < 32)
+template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma64(float (&d)[32], uint64_t da, uint64_t db,
+                                        uint32_t scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB));
 }
 

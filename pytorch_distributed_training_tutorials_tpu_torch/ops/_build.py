@@ -118,9 +118,18 @@ _LIBRARIES = {
     "flash_attention_sm90": {
         "flags": (),
         "entry": {
-            # as flash_fwd_launch (dtype code 1, bf16, only)
+            # as flash_fwd_launch, flash_dq_launch and flash_dkv_launch
+            # (dtype code 1, bf16, only)
             "flash_fwd_sm90_launch": (
                 [_PTR] * 5 + [Layout] * 4 + [_INT] * 5 + [ctypes.c_float, _PTR],
+                _INT,
+            ),
+            "flash_dq_sm90_launch": (
+                [_PTR] * 7 + [Layout] * 5 + [_INT] * 5 + [ctypes.c_float, _PTR],
+                _INT,
+            ),
+            "flash_dkv_sm90_launch": (
+                [_PTR] * 8 + [Layout] * 6 + [_INT] * 5 + [ctypes.c_float, _PTR],
                 _INT,
             ),
         },

@@ -27,16 +27,20 @@ last axis contiguous), on the current stream; it raises on anything else
 and when a launch fails, and never falls back. ``flash_attention.launches``
 counts kernel launches; CPU calls add none.
 
-The forward has two routes on the card, chosen by :func:`_sm90_route`
-before the launch: a bf16 call whose q, k and v have 16-byte aligned bases
-and B, S, H strides that are positive multiples of 16 bytes (what a TMA
-map takes) runs ``csrc/flash_attention_sm90.cu`` (TMA, mbarrier ring,
-wgmma; 128 query rows a block); every other call (f32, misaligned views)
-runs ``flash_attention.cu``'s ``fwd_kernel``. Both compute the same
-function; ``flash_attention.routes`` counts the launches of each route. A
-failed sm90 build or launch raises. :func:`kernel_error` (from
-:mod:`._check`, shared with the fused loss) is the check that holds a
-kernel's output to its plain version's.
+Each kernel has two routes on the card, chosen by :func:`_sm90_route`
+before the launch: a bf16 call whose operands (q, k, v, and dO in the
+backward) have 16-byte aligned bases and B, S, H strides that are positive
+multiples of 16 bytes (what a TMA map takes) runs
+``csrc/flash_attention_sm90.cu`` (TMA, mbarrier ring, wgmma; 128 query
+rows, or 128 keys for dk/dv, a block): ``fwd_sm90_kernel``,
+``dq_sm90_kernel``, ``dkv_sm90_kernel``; every other call (f32,
+misaligned views) runs ``flash_attention.cu``'s ``fwd_kernel``,
+``dq_kernel``, ``dkv_kernel``. Both routes compute the same function;
+``flash_attention.routes`` counts the launches of each route by kernel,
+and ``route="sm80"`` asks for the old kernel by name. A failed sm90 build
+or launch raises. :func:`kernel_error` (from :mod:`._check`, shared with
+the fused loss) is the check that holds a kernel's output to its plain
+version's.
 
 Numerics, as in the TPU kernels: scores, softmax and every accumulator in
 f32 (f64 for f64 inputs, which only the plain versions take); ``p`` is cast
@@ -44,7 +48,7 @@ to v's type before P·V, ``ds`` to k's type before dS·K, and in the dk/dv
 pass ``p`` to dO's type and ``ds`` to q's type. ``block_q``/``block_k`` set
 the plain versions' blocks (clamped to the 8-aligned sequence length as
 the JAX package clamps them off the TPU); the CUDA kernels tile by 64
-whatever they are, and the plain versions do not pad S.
+or 128 whatever they are, and the plain versions do not pad S.
 """
 
 from __future__ import annotations
@@ -211,10 +215,14 @@ def _layout(x: torch.Tensor) -> _build.Layout:
     return _build.Layout(x.stride(0), x.stride(1), x.stride(2))
 
 
-def _launch(name: str, fn_name: str, q: torch.Tensor, ptrs, layouts, *,
-            lib_name: str = "flash_attention", route: str | None = None) -> None:
+def _launch(name: str, sm90: bool, q: torch.Tensor, ptrs, layouts) -> None:
+    """One launch of kernel ``name`` (fwd, dq or dkv) on the current stream:
+    ``flash_{name}_sm90_launch`` of ``flash_attention_sm90.cu`` when
+    ``sm90``, else ``flash_{name}_launch`` of ``flash_attention.cu``;
+    counted in ``flash_attention.launches`` and ``.routes``."""
     b, s, h, d = q.shape
-    lib = _build.library(lib_name)
+    fn_name = f"flash_{name}_sm90_launch" if sm90 else f"flash_{name}_launch"
+    lib = _build.library("flash_attention_sm90" if sm90 else "flash_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = getattr(lib, fn_name)(
@@ -225,32 +233,32 @@ def _launch(name: str, fn_name: str, q: torch.Tensor, ptrs, layouts, *,
     if rc != 0:
         raise RuntimeError(f"flash_{name} kernel launch failed ({fn_name}): CUDA error {rc}")
     flash_attention.launches[name] += 1
-    if route is not None:
-        flash_attention.routes[name][route] += 1
+    flash_attention.routes[name]["sm90" if sm90 else "sm80"] += 1
 
 
 def _sm90_route(dtype: torch.dtype, d: int, ptrs, strides) -> bool:
-    """True when a CUDA forward call goes to the sm90 kernel: bf16, D a
-    multiple of 8 from 8 to 128 (padded to 64, 96 or 128), every operand's
-    base (``ptrs``) 16-byte aligned and every B, S, H element stride
-    (``strides``) positive and a whole multiple of 16 bytes — what a TMA map
-    of each takes. False sends it to ``flash_attention.cu``'s
-    ``fwd_kernel``."""
+    """True when a CUDA call goes to the sm90 kernel: bf16, D a multiple of
+    8 from 8 to 128 (padded to 64, 96 or 128), every operand's base
+    (``ptrs``) 16-byte aligned and every B, S, H element stride
+    (``strides``) positive and a whole multiple of 16 bytes — what a TMA
+    map of each takes. False sends it to ``flash_attention.cu``'s
+    kernel."""
     return (dtype == torch.bfloat16 and d % 8 == 0 and 8 <= d <= 128
             and all(p % 16 == 0 for p in ptrs)
             and all(st > 0 and (2 * st) % 16 == 0 for st in strides))
 
 
-def _use_sm90(q, k, v, route: str | None) -> bool:
-    """Whether a CUDA forward call launches the sm90 kernel: by
-    :func:`_sm90_route` when ``route`` is None; ``route="sm80"`` asks for
-    ``flash_attention.cu``'s kernel whatever the operands (the card check
-    times both on one input)."""
+def _use_sm90(q, k, v, route: str | None, *more) -> bool:
+    """Whether a CUDA call launches the sm90 kernel: by :func:`_sm90_route`
+    over q, k, v and ``more`` (the backward's dO) when ``route`` is None;
+    ``route="sm80"`` asks for ``flash_attention.cu``'s kernel whatever the
+    operands (the card check times both on one input)."""
     if route not in (None, "sm80"):
-        raise ValueError(f"forward route must be None or 'sm80', got {route!r}")
+        raise ValueError(f"route must be None or 'sm80', got {route!r}")
+    xs = (q, k, v, *more)
     return route is None and _sm90_route(
-        q.dtype, q.shape[-1], [x.data_ptr() for x in (q, k, v)],
-        [st for x in (q, k, v) for st in x.stride()[:3]])
+        q.dtype, q.shape[-1], [x.data_ptr() for x in xs],
+        [st for x in xs for st in x.stride()[:3]])
 
 
 def flash_fwd(q, k, v, block_q: int = 512, block_k: int = 512, *,
@@ -265,37 +273,37 @@ def flash_fwd(q, k, v, block_q: int = 512, block_k: int = 512, *,
     b, s, h, d = q.shape
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    if _use_sm90(q, k, v, route):
-        _launch("fwd", "flash_fwd_sm90_launch", q, (q, k, v, o, lse), (q, k, v, o),
-                lib_name="flash_attention_sm90", route="sm90")
-    else:
-        _launch("fwd", "flash_fwd_launch", q, (q, k, v, o, lse), (q, k, v, o), route="sm80")
+    _launch("fwd", _use_sm90(q, k, v, route), q, (q, k, v, o, lse), (q, k, v, o))
     return o, lse
 
 
-def flash_dq(q, k, v, do, lse, delta, block_q: int = 512, block_k: int = 512):
+def flash_dq(q, k, v, do, lse, delta, block_q: int = 512, block_k: int = 512, *,
+             route: str | None = None):
     """dq from the saved lse and ``delta = rowsum(dO * O)`` (both (B, H,
     S) f32). A CPU tensor runs :func:`flash_dq_reference`; a CUDA tensor
-    launches ``dq_kernel``."""
+    launches ``dq_sm90_kernel`` where :func:`_sm90_route` takes q, k, v
+    and dO, else ``dq_kernel``; ``route``: see :func:`_use_sm90`."""
     _check_shapes(q, k, v, do)
     if not _route(q, k, v, do, lse, delta):
         return flash_dq_reference(q, k, v, do, lse, delta, block_q, block_k)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch("dq", "flash_dq_launch", q, (q, k, v, do, lse, delta, dq),
+    _launch("dq", _use_sm90(q, k, v, route, do), q, (q, k, v, do, lse, delta, dq),
             (q, k, v, do, dq))
     return dq
 
 
-def flash_dkv(q, k, v, do, lse, delta, block_q: int = 512, block_k: int = 512):
+def flash_dkv(q, k, v, do, lse, delta, block_q: int = 512, block_k: int = 512, *,
+              route: str | None = None):
     """(dk, dv) from the saved lse and delta. A CPU tensor runs
     :func:`flash_dkv_reference`; a CUDA tensor launches
-    ``dkv_kernel``."""
+    ``dkv_sm90_kernel`` where :func:`_sm90_route` takes q, k, v and dO,
+    else ``dkv_kernel``; ``route``: see :func:`_use_sm90`."""
     _check_shapes(q, k, v, do)
     if not _route(q, k, v, do, lse, delta):
         return flash_dkv_reference(q, k, v, do, lse, delta, block_q, block_k)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _launch("dkv", "flash_dkv_launch", q, (q, k, v, do, lse, delta, dk, dv),
+    _launch("dkv", _use_sm90(q, k, v, route, do), q, (q, k, v, do, lse, delta, dk, dv),
             (q, k, v, do, dk, dv))
     return dk, dv
 
@@ -331,9 +339,9 @@ def flash_attention(q, k, v, block_q: int = 512, block_k: int = 512):
 
 # kernel launches on the card by kernel (CPU calls add none)
 flash_attention.launches = {"fwd": 0, "dq": 0, "dkv": 0}
-# the forward's launches by route: "sm90" (flash_attention_sm90.cu) or
-# "sm80" (flash_attention.cu's mma.sync fwd_kernel)
-flash_attention.routes = {"fwd": {"sm90": 0, "sm80": 0}}
+# launches by kernel and route: "sm90" (flash_attention_sm90.cu) or "sm80"
+# (flash_attention.cu's mma.sync kernels)
+flash_attention.routes = {k: {"sm90": 0, "sm80": 0} for k in ("fwd", "dq", "dkv")}
 
 
 def make_flash_attention(block_q: int = 512, block_k: int = 512):
