@@ -10,12 +10,22 @@ Every phase prints JSON lines:
 
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 1. the build of every hand-written kernel from ``csrc/`` (one ``nvcc`` per
-   source, all started together; seconds, ptxas);
+   source, all started together; seconds, ptxas); then two seconds of bf16
+   matmuls, so that no timing below catches the card's clocks rising from
+   idle;
 2. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes: the max abs difference against a stated tolerance and
-   CUDA-event times (median of 25 launches, L2 flushed before each) beside
+   CUDA-event times (median of 25 launches, L2 flushed before each and the
+   card held while the host queues the call, ``quiesce``) beside
    the bound and, where one PyTorch call computes the same function, its
-   time — ``int8_matmul`` (expected bitwise), then ``flash_fwd``,
+   time — ``int8_matmul`` (expected bitwise) at every 1b (K, N) pair at M
+   1-64 and the prefill M 512 and 2048, through the sm90 kernel
+   (``int8_matmul_sm90.cu``: s8 wgmma, TMA, split K; the route counted, two
+   calls bitwise equal), the v1 kernel (``int8_matmul.cu``) checked and
+   timed in turns with it at M 4 and the prefill M (sm90, v1, v1, sm90
+   in every round, ``time_turns_ms``),
+   two ragged shapes through v1, and the host's cost of a TMA map; then
+   ``flash_fwd``,
    ``flash_dq`` and ``flash_dkv`` at the 760m train shape (B 2, S 2048, H
    16, D 96) in bf16 and f32, D 64 and 128, a ragged S 1000 (strided
    inputs) and S 8 — all three through the sm90 kernels
@@ -37,14 +47,20 @@ Every phase prints JSON lines:
    ``paged_attention`` at the 1b and 1b-gqa decode geometry (B 4, H 16, KV
    16 or 4, D 128, pages of 64, a 4096-token window, ragged depths, an S 4
    chunk, a parked row, the paged stream's depths) over f32, bf16, int8 and
-   int4 pools, a parked row exactly 0;
+   int4 pools, through the sm90 kernel (``paged_attention_sm90.cu``: pages
+   split across blocks, TMA, a merge in split order; the route counted, two
+   calls bitwise equal), held to the plain statement of its split and merge
+   and to the unsplit plain version, a parked row exactly 0, and at the
+   stream shape the v1 kernel (``paged_attention.cu``) checked and timed in
+   turns with it;
 3. serving: a 2-layer model at the 1b preset's widths, on the card (kernel)
    against the CPU (plain version): logits and greedy tokens;
 4. the serving slice: the 1b preset at full depth serving the ``--server``
    stream of ``examples/serve_llm_int8.py`` (12 requests, prompts {16, 32,
    48}, 32 new tokens, greedy) through ``ServeEngine(n_slots=4,
    tokens_per_launch=8)``, with the kernel-launch and host-sync counts
-   checked and two requests held against ``generate``;
+   checked, every int8 call on the sm90 route, and two requests held
+   against ``generate``;
 5. training: a 2-layer model at the 760m preset's widths, S 256, flash
    attention, in float32 and bfloat16, on the card (kernels) against the
    CPU (plain versions): the loss and every gradient, with cross entropy
@@ -67,7 +83,7 @@ depth, window 4096, serving 12 requests (prompts {16, 480, 1500}, 32 new
 tokens) through 4 slots over a pool of 48 pages of 64 tokens, arm by arm —
 (a) whole-slot, (b) paged gather f32 (tokens equal to (a)), (c) paged
 kernel f32, (d) kernel int8, (e) kernel int4 — each with its launch, sync,
-page and shed gates. Then each kernel arm is held teacher-forced against a
+page and shed gates, and every int8 and paged call on the sm90 route. Then each kernel arm is held teacher-forced against a
 gather engine at its KV storage on (b)'s tokens (``teacher_forced_logits``:
 logits within 4% of their scale, the same argmax where the top-2 gap is
 wider): (c) on every request, (d) and (e) on one request of each prompt
@@ -185,6 +201,10 @@ PRESET_1B = dict(
 # q/k/v/o (16 layers x 4), gate/up (x 2), down, and the lm_head
 DECODE_MIX = [((2048, 2048), 64), ((2048, 8192), 32), ((8192, 2048), 16),
               ((2048, 32000), 1)]
+# prefill M of the int8 checks: serve_1b's largest bucket and the paged
+# stream's (its 1500-token prompt)
+INT8_PREFILL_M = (512, 2048)
+INT8_REPLACES = "pytorch_distributed_training_tutorials_tpu/ops/quant.py:141"
 # the 1b-gqa preset of examples/serve_llm_int8.py at the real-chip window
 # of its --paged recipe, and the paged stream: 4 slots, 12 requests with
 # prompts cycling {16, 480, 1500} and 32 new tokens, a pool of 48 pages of
@@ -250,14 +270,29 @@ def bound(m: int, k: int, n: int) -> tuple[float, str, float, float]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
 
 
+# device cycles the card spins after each L2 flush and before a timed
+# call (~0.5 ms at 1.98 GHz): the host has queued the call under test
+# before the start event fires, so host time cannot leak into a kernel's
+# time (a wrapper's Python path can outlast the flush alone)
+HOLD_CYCLES = 1_000_000
+
+
+def quiesce(torch, flush) -> None:
+    """Before a timed call: flush the L2 cache (a 256 MB write), then hold
+    the card for HOLD_CYCLES."""
+    flush.zero_()
+    torch.cuda._sleep(HOLD_CYCLES)
+
+
 def time_ms(fn, torch, flush, reps: int = 25, warmup: int = 3) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` calls, the L2 cache
-    flushed (a 256 MB write) before each, outside the timed region."""
+    """Median CUDA-event time of ``fn`` over ``reps`` calls, each after
+    ``quiesce`` (the L2 flushed, the card held while the host queues the
+    call), outside the timed region."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
-        flush.zero_()
+        quiesce(torch, flush)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -268,49 +303,122 @@ def time_ms(fn, torch, flush, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def time_turns_ms(new, old, torch, flush, reps: int = 25, warmup: int = 3) -> list:
+    """A kernel against the one it replaces, in turns at the finest grain:
+    each of ``reps`` rounds times new, old, old, new (one call each,
+    ``quiesce`` before each), so both see the same clock and host state.
+    Returns the four positions' medians; new's time is the mean of the
+    first and last, old's of the middle two."""
+    for _ in range(warmup):
+        new()
+        old()
+    times = [[], [], [], []]
+    for _ in range(reps):
+        for i, fn in enumerate((new, old, old, new)):
+            quiesce(torch, flush)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times[i].append(start.elapsed_time(end))
+    return [statistics.median(t) for t in times]
+
+
+def warm_card(torch, seconds: float = 2.0) -> float:
+    """Bring the card's clocks up from idle before anything is timed: bf16
+    matmuls for ``seconds``; returns the seconds spent."""
+    a = torch.randn((8192, 8192), device="cuda", dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(8):
+            a @ a
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
 def phase_kernels(torch, quant, gpu: str) -> dict:
-    """Phase 2: the kernel against its plain version at every listed shape."""
+    """Phase 2: the kernel against its plain version at every listed shape:
+    every 1b (K, N) pair at decode M and at the prefill buckets, through the
+    sm90 kernel (two calls bitwise equal, the route counted); at M = 4 and
+    the prefill M the v1 kernel too, checked and timed in turns with the
+    sm90 one (sm90, v1, v1, sm90); two ragged shapes through v1."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
-    shapes = [(m, k, n) for m in (1, 4, 16, 32, 64)
-              for (k, n) in ((2048, 2048), (2048, 8192), (8192, 2048), (2048, 32000))]
-    shapes.append((3, 200, 130))  # ragged M and N, K padded to a 256 tile
-    shapes.append((5, 201, 67))  # K % 4 != 0: the kernel's byte-load path
+    pairs = ((2048, 2048), (2048, 8192), (8192, 2048), (2048, 32000))
+    shapes = [(m, k, n) for m in (1, 4, 16, 32, 64) + INT8_PREFILL_M for (k, n) in pairs]
+    shapes.append((3, 200, 130))  # ragged M and N, K padded to a 256 tile: v1
+    shapes.append((5, 201, 67))  # K % 4 != 0: v1's byte-load path
     results = {}
     max_err = 0.0
     for m, k, n in shapes:
         x = torch.randn((m, k), generator=gen, device=dev)
         wq = quant.quantize_int8(torch.randn((k, n), generator=gen, device=dev) * 0.02)
         w = quant.Int8Param(q=wq.q.t().contiguous().t(), scale=wq.scale)
+        route = "sm90" if k % 16 == 0 else "v1"
+        routes0 = dict(quant.int8_matmul.routes)
         got = quant.int8_matmul(x, w)
+        if quant.int8_matmul.routes[route] != routes0[route] + 1:
+            raise AssertionError(f"int8_matmul at M={m} K={k} N={n} did not take the "
+                                 f"{route} route: {quant.int8_matmul.routes}")
+        if route == "sm90" and not torch.equal(got, quant.int8_matmul(x, w)):
+            raise AssertionError(f"two sm90 int8_matmul calls differ at M={m} K={k} N={n}")
         want = quant.int8_matmul_reference(x, w)
+        in_turns = route == "sm90" and m in (4,) + INT8_PREFILL_M
+        checks = [("sm90" if route == "sm90" else "v1", got)]
+        if in_turns:
+            checks.append(("v1", quant.int8_matmul(x, w, route="v1")))
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        n_bad = int((got != want).sum())
         # expected bitwise; the only admissible difference is a double
         # rounding of the plain version's float64 fma (a few float32 ulps)
         tol = 4 * 2.0**-24 * float(want.abs().max())
-        if not err <= tol:
-            raise AssertionError(
-                f"int8_matmul kernel != plain at M={m} K={k} N={n}: max abs "
-                f"err {err} > {tol} ({n_bad} elements differ)"
-            )
+        errs = {}
+        for name, out in checks:
+            err = float((out - want).abs().max())
+            errs[name] = {"max_abs_err": err, "n_mismatch": int((out != want).sum())}
+            if not err <= tol:
+                raise AssertionError(
+                    f"int8_matmul {name} kernel != plain at M={m} K={k} N={n}: max abs "
+                    f"err {err} > {tol} ({errs[name]['n_mismatch']} elements differ)"
+                )
+        err = errs[route]["max_abs_err"]
         max_err = max(max_err, err)
-        ms = time_ms(lambda: quant.int8_matmul(x, w), torch, flush)
-        plain_ms = time_ms(lambda: quant.int8_matmul_reference(x, w), torch, flush)
+        v1 = {}
+        if in_turns:
+            turns = time_turns_ms(lambda: quant.int8_matmul(x, w),
+                                  lambda: quant.int8_matmul(x, w, route="v1"), torch, flush,
+                                  reps=25 if m <= 64 else 10)
+            ms, v1_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            v1 = {"v1_ms": v1_ms, "turns_ms": turns, "speedup_vs_v1": v1_ms / ms,
+                  "errors_v1": errs["v1"]}
+        else:
+            ms = time_ms(lambda: quant.int8_matmul(x, w), torch, flush)
+        plain_ms = time_ms(lambda: quant.int8_matmul_reference(x, w), torch, flush,
+                           reps=25 if m <= 64 else 5, warmup=3 if m <= 64 else 1)
         b_ms, b_by, nbytes, ops = bound(m, k, n)
-        results[(m, k, n)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms)
+        results[(m, k, n)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, **v1)
         emit({
-            "phase": "kernel_vs_plain", "kernel": "int8_matmul",
+            "phase": "kernel_vs_plain", "kernel": "int8_matmul", "route": route,
             "M": m, "K": k, "N": n, "block_k": quant.block_k_for(k),
-            "max_abs_err": err, "n_mismatch": n_bad, "tolerance": tol,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "plan": quant._sm90_plan(m, k, n, torch.cuda.get_device_properties(0)
+                                     .multi_processor_count) if route == "sm90" else None,
+            "max_abs_err": err, "n_mismatch": errs[route]["n_mismatch"], "tolerance": tol,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, **v1,
             "bound_by": b_by, "roofline_share": b_ms / ms,
             "achieved_GBps": nbytes / (ms * 1e-3) / 1e9,
             "library_ms": None, "library_note": LIBRARY_NOTE, "gpu": gpu,
         })
-    return {"results": results, "max_abs_err": max_err}
+    # the host's cost of one TMA map of a 1b weight, encoded afresh and
+    # through the map cache the sm90 wrapper uses
+    lib = quant._build.library("int8_matmul_sm90")
+    wq = torch.zeros((2048, 2048), dtype=torch.int8, device=dev)
+    encode_ns = {kind: lib.int8_matmul_sm90_encode_ns(wq.data_ptr(), 2048, 2048, 2000, cached)
+                 for kind, cached in (("fresh", 0), ("cached", 1))}
+    emit({"phase": "tma_map_encode", "kernel": "int8_matmul", "ns_per_map": encode_ns,
+          "gpu": gpu})
+    return {"results": results, "max_abs_err": max_err, "encode_ns": encode_ns}
 
 
 def flash_bound(kind: str, b: int, s: int, h: int, d: int, elem: int,
@@ -721,19 +829,47 @@ def phase_paged(torch, pa, gpu: str) -> dict:
     for i, (shape, store, q_type) in enumerate(runs):
         name, b, s, h, kv, d, ps, p_cap, depths, parked = shape
         q, k, v, table, pos, kw, live = paged_operands(torch, shape, store, q_type, 40 + i)
+        routes0 = dict(pa.paged_attention.routes)
         got = pa.paged_attention(q, k, v, table, pos, **kw)
-        want = pa.paged_attention_plain(q, k, v, table, pos, **kw)
+        if pa.paged_attention.routes["sm90"] != routes0["sm90"] + 1:
+            raise AssertionError(f"paged_attention at {name} {store} q {q_type} did not take "
+                                 f"the sm90 route: {pa.paged_attention.routes}")
+        if not torch.equal(got, pa.paged_attention(q, k, v, table, pos, **kw)):
+            raise AssertionError(f"two sm90 paged_attention calls differ at {name} {store}")
+        pps = pa._sm90_plan(b, kv, p_cap)[0]
+        # the plain statement of the kernel's split and merge, and the
+        # unsplit plain version: the kernel held to both
+        want = pa.paged_attention_plain(q, k, v, table, pos, **kw, pages_per_split=pps)
+        unsplit = pa.paged_attention_plain(q, k, v, table, pos, **kw)
+        main = (name, store, q_type) == PAGED_MAIN
+        old_out = pa.paged_attention(q, k, v, table, pos, **kw, route="v1") if main else None
         torch.cuda.synchronize()
         tol_type = pa.tolerance_type(q, v, kw.get("quant"))
         err = pa.kernel_error(got, want, tol_type)
-        if not err["worst_ratio"] <= 1.0:
-            raise AssertionError(f"paged_attention kernel != plain at {name} {store} "
-                                 f"q {q_type}: {err}")
+        err_unsplit = pa.kernel_error(got, unsplit, tol_type)
+        err_v1 = pa.kernel_error(old_out, unsplit, tol_type) if main else None
+        for what, e in (("split plain", err), ("unsplit plain", err_unsplit),
+                        ("v1 vs unsplit plain", err_v1)):
+            if e is not None and not e["worst_ratio"] <= 1.0:
+                raise AssertionError(f"paged_attention kernel != {what} at {name} {store} "
+                                     f"q {q_type}: {e}")
         for r in parked:
             if got[r].any():
                 raise AssertionError(f"paged_attention: parked row {r} is not 0 at {name}")
-        max_err, worst = max(max_err, err["max_abs_err"]), max(worst, err["worst_ratio"])
-        ms = time_ms(lambda: pa.paged_attention(q, k, v, table, pos, **kw), torch, flush)
+        max_err = max(max_err, err["max_abs_err"], err_unsplit["max_abs_err"])
+        worst = max(worst, err["worst_ratio"], err_unsplit["worst_ratio"])
+        v1 = {}
+        if main:
+            # the redesign against the v1 kernel in turns: sm90, v1, v1, sm90
+            turns = time_turns_ms(
+                lambda: pa.paged_attention(q, k, v, table, pos, **kw),
+                lambda: pa.paged_attention(q, k, v, table, pos, **kw, route="v1"),
+                torch, flush)
+            ms, v1_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            v1 = {"v1_ms": v1_ms, "turns_ms": turns, "speedup_vs_v1": v1_ms / ms,
+                  "errors_v1": err_v1}
+        else:
+            ms = time_ms(lambda: pa.paged_attention(q, k, v, table, pos, **kw), torch, flush)
         plain_ms = time_ms(lambda: pa.paged_attention_plain(q, k, v, table, pos, **kw),
                            torch, flush, reps=10, warmup=1)
         note_ms = None
@@ -755,17 +891,21 @@ def phase_paged(torch, pa, gpu: str) -> dict:
             note_ms = time_ms(gather_sdpa, torch, flush)
         b_ms, b_by = paged_bound(shape, q, k, kw)
         row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                   gather_sdpa_ms=note_ms)
+                   gather_sdpa_ms=note_ms, **v1)
         results[(name, store, q_type)] = row
+        pps, splits, stages = pa._sm90_plan(b, kv, p_cap)
         emit({
-            "phase": "kernel_vs_plain", "kernel": "paged_attention", "shape": name,
-            "B": b, "S": s, "H": h, "KV": kv, "D": d, "page_size": ps, "pages_per_row": p_cap,
-            "depths": list(depths), "parked_rows": list(parked), "live_pages": live,
-            "storage": store, "q": q_type, "errors": err,
+            "phase": "kernel_vs_plain", "kernel": "paged_attention", "route": "sm90",
+            "shape": name, "B": b, "S": s, "H": h, "KV": kv, "D": d, "page_size": ps,
+            "pages_per_row": p_cap, "depths": list(depths), "parked_rows": list(parked),
+            "live_pages": live, "storage": store, "q": q_type, "errors": err,
+            "errors_vs_unsplit": err_unsplit,
             "tolerance_type": str(tol_type).removeprefix("torch."), **row,
             "roofline_share": b_ms / ms, "library_ms": None,
             "library_note": PAGED_LIBRARY_NOTE,
-            "blocks": b * kv, "sms": torch.cuda.get_device_properties(0).multi_processor_count,
+            "pages_per_split": pps, "stages": stages, "blocks": splits * b * kv,
+            "blocks_with_live_pages": kv * sum(-(-n // pps) for n in live if n),
+            "sms": torch.cuda.get_device_properties(0).multi_processor_count,
             "gpu": gpu,
         })
     return {"results": results, "max_abs_err": max_err, "worst_ratio": worst}
@@ -913,6 +1053,7 @@ def phase_serve(torch, quant, gpu: str) -> int:
     torch.cuda.reset_peak_memory_stats()
     reqs = [mk_request(len(lengths) + i) for i in range(n_req)]
     quant.int8_matmul.launches = 0
+    quant.int8_matmul.routes = {"sm90": 0, "v1": 0}
     t0 = time.perf_counter()
     for r in reqs:
         engine.submit(r)
@@ -920,6 +1061,7 @@ def phase_serve(torch, quant, gpu: str) -> int:
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = quant.int8_matmul.launches
+    routes = dict(quant.int8_matmul.routes)
     prefills = engine.n_prefills - base[0]
     chains = engine.n_chains - base[1]
     syncs = engine.n_host_syncs - base[2]
@@ -940,6 +1082,9 @@ def phase_serve(torch, quant, gpu: str) -> int:
             f"({prefills} prefills + {chains} chains x {tpl}) = "
             f"{per_forward * forwards}"
         )
+    if routes != {"sm90": launches, "v1": 0}:
+        raise AssertionError(f"int8_matmul routes {routes}: every one of the {launches} "
+                             "calls must take the sm90 route")
     if syncs != chains + prefills:
         raise AssertionError(
             f"{syncs} host syncs != {chains} chains + {prefills} prefills"
@@ -965,7 +1110,7 @@ def phase_serve(torch, quant, gpu: str) -> int:
         "prompt_lengths": lengths, "new_tokens": new,
         "completed": len(done), "generated_tokens": toks,
         "prefills": prefills, "chains": chains, "decode_steps": chains * tpl,
-        "int8_matmul_launches": launches,
+        "int8_matmul_launches": launches, "int8_matmul_routes": routes,
         "launches_per_forward": per_forward, "host_syncs": syncs,
         "checked_vs_generate": checked,
         "wall_s": wall_s, "aggregate_tok_s": toks / wall_s,
@@ -976,7 +1121,7 @@ def phase_serve(torch, quant, gpu: str) -> int:
         "max_memory_allocated_bytes": peak, "weights_init_s": init_s,
         "gpu": gpu,
     })
-    return launches
+    return {"launches": launches, "routes": routes}
 
 
 def tf_compare(ref, got) -> dict:
@@ -1041,6 +1186,7 @@ def phase_serve_paged(torch, pa, gpu: str) -> dict:
         TransformerLM,
         init_quantized_lm,
     )
+    from pytorch_distributed_training_tutorials_tpu_torch.ops import quant
     from pytorch_distributed_training_tutorials_tpu_torch.serve import (
         PoolExhausted,
         Request,
@@ -1086,6 +1232,9 @@ def phase_serve_paged(torch, pa, gpu: str) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         pa.paged_attention.launches = 0
+        pa.paged_attention.routes = {"sm90": 0, "v1": 0}
+        quant.int8_matmul.launches = 0
+        quant.int8_matmul.routes = {"sm90": 0, "v1": 0}
         t0 = time.perf_counter()
         ids = [eng.submit(Request(prompt=p, max_new_tokens=st["new"], seed=i))
                for i, p in enumerate(prompts)]
@@ -1093,6 +1242,8 @@ def phase_serve_paged(torch, pa, gpu: str) -> dict:
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches = pa.paged_attention.launches
+        routes = {"paged_attention": dict(pa.paged_attention.routes),
+                  "int8_matmul": dict(quant.int8_matmul.routes)}
         peak = torch.cuda.max_memory_allocated()
         by_id = {c.request_id: c for c in done}
         tokens[arm] = [by_id[i].tokens if i in by_id else None for i in ids]
@@ -1107,6 +1258,11 @@ def phase_serve_paged(torch, pa, gpu: str) -> dict:
         want_launches = cfg.n_layers * steps if options.get("paged_kernel") else 0
         if launches != want_launches:
             bad.append(f"paged_attention launched {launches} times, want {want_launches}")
+        for kern, calls in (("paged_attention", launches),
+                            ("int8_matmul", quant.int8_matmul.launches)):
+            if routes[kern] != {"sm90": calls, "v1": 0}:
+                bad.append(f"{kern} routes {routes[kern]}: every one of its {calls} calls "
+                           "must take the sm90 route")
         stats = eng.page_stats()
         shed = None
         if options:
@@ -1132,7 +1288,7 @@ def phase_serve_paged(torch, pa, gpu: str) -> dict:
             "prompt_lengths": list(st["prompts"]), "completed": len(done),
             "generated_tokens": toks, "prefills": eng.n_prefills, "chains": eng.n_chains,
             "decode_steps": steps, "host_syncs": eng.n_host_syncs,
-            "paged_attention_launches": launches, "shed_ok": shed,
+            "paged_attention_launches": launches, "routes": routes, "shed_ok": shed,
             "wall_s": wall_s, "aggregate_tok_s": toks / wall_s,
             "latency_p50_s": percentile(lat, 0.5), "latency_p95_s": percentile(lat, 0.95),
             "ttft_p50_s": percentile(ttft, 0.5), "ttft_p95_s": percentile(ttft, 0.95),
@@ -1200,7 +1356,8 @@ def phase_serve_paged(torch, pa, gpu: str) -> dict:
           "requests_with_tokens_e_equal_c": sum(x == y for x, y in zip(tokens["e"], tokens["c"])),
           "teacher_forced_max_diff_share": shares, "bound_share": TF_LOGIT_BOUND,
           "gpu": gpu})
-    return {"launches": summary["c"]["paged_attention_launches"], "arms": summary}
+    return {"launches": summary["c"]["paged_attention_launches"],
+            "routes": summary["c"]["routes"]["paged_attention"], "arms": summary}
 
 
 LOSSES = ("cross_entropy", "fused_cross_entropy")
@@ -1509,6 +1666,7 @@ def main(argv=None) -> int:
         },
     })
 
+    emit({"phase": "warm_card", "seconds": warm_card(torch), "gpu": gpu})
     kern = phase_kernels(torch, quant, gpu)
     flash = phase_flash(torch, fa, gpu)
     fused = phase_fused_ce(torch, fl, gpu)
@@ -1517,7 +1675,7 @@ def main(argv=None) -> int:
     if args.kernel_only:
         return 0
     phase_model(torch, gpu)
-    launches = phase_serve(torch, quant, gpu)
+    serve = phase_serve(torch, quant, gpu)
     paged_serve = phase_serve_paged(torch, pa, gpu)
     phase_train_card_vs_cpu(torch, gpu)
     base = phase_train(torch, gpu)
@@ -1525,23 +1683,28 @@ def main(argv=None) -> int:
     fused_launches = phase_train_fused(torch, gpu, base["first_loss"])
 
     # the kernels line: one decode forward's 113 int8 matmuls at M = 4
-    # (the slot count) — time, plain time and bound summed over the mix
+    # (the slot count) — time, plain time, v1 in turns and bound summed
+    # over the mix
     res = kern["results"]
-    ms = sum(res[(4, k, n)]["ms"] * c for (k, n), c in DECODE_MIX)
-    plain_ms = sum(res[(4, k, n)]["plain_ms"] * c for (k, n), c in DECODE_MIX)
+    mix = {key: sum(res[(4, k, n)][key] * c for (k, n), c in DECODE_MIX)
+           for key in ("ms", "plain_ms", "v1_ms")}
     nbytes = sum(bound(4, k, n)[2] * c for (k, n), c in DECODE_MIX)
     ops = sum(bound(4, k, n)[3] * c for (k, n), c in DECODE_MIX)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
     kernels = [{
         "name": "int8_matmul", "route": "cuda",
-        "source": f"{PKG}/csrc/int8_matmul.cu",
-        "replaces": "pytorch_distributed_training_tutorials_tpu/ops/quant.py:141",
-        "launches": launches, "max_abs_err": kern["max_abs_err"],
-        "ms": ms, "plain_ms": plain_ms,
+        "source": f"{PKG}/csrc/int8_matmul_sm90.cu", "replaces": INT8_REPLACES,
+        "design": "wgmma-s8+tma", "route_counts": serve["routes"],
+        "v1_ms": mix["v1_ms"], "v1_source": f"{PKG}/csrc/int8_matmul.cu",
+        "launches": serve["launches"], "max_abs_err": kern["max_abs_err"],
+        "ms": mix["ms"], "plain_ms": mix["plain_ms"],
         "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,
         "work": "one 1b decode forward: 113 calls at M=4",
+        "prefill_ms": {f"M={m} K={k} N={n}": [res[(m, k, n)]["ms"], res[(m, k, n)]["v1_ms"]]
+                       for m in INT8_PREFILL_M for k, n in (kn for kn, _ in DECODE_MIX)},
+        "tma_encode_ns": kern["encode_ns"],
     }]
     # the flash kernels: one 760m train step's launches at the main shape
     # (FLASH_SHAPES[0]), times, bound and library time summed over them
@@ -1607,7 +1770,9 @@ def main(argv=None) -> int:
     row = paged["results"][PAGED_MAIN]
     kernels.append({
         "name": "paged_attention", "route": "cuda",
-        "source": f"{PKG}/csrc/paged_attention.cu", "replaces": PAGED_REPLACES,
+        "source": f"{PKG}/csrc/paged_attention_sm90.cu", "replaces": PAGED_REPLACES,
+        "design": "split-pages+tma", "route_counts": paged_serve["routes"],
+        "v1_ms": row["v1_ms"] * 16, "v1_source": f"{PKG}/csrc/paged_attention.cu",
         "launches": paged_serve["launches"], "max_abs_err": paged["max_abs_err"],
         "worst_ratio": paged["worst_ratio"],
         "ms": row["ms"] * 16, "plain_ms": row["plain_ms"] * 16,

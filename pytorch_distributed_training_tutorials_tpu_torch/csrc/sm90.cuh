@@ -5,7 +5,12 @@
 // product with both operands in shared memory and the m64n{64,96,128}k16
 // products with A in registers, and the 128-byte swizzle the loads and the
 // descriptors agree on. The m64n64k16 shared-shared product (wgmma64)
-// is the flash backward's score product over 64-wide tiles.
+// is the flash backward's score product over 64-wide tiles. For the
+// serving kernels (int8_matmul_sm90.cu, paged_attention_sm90.cu): int8
+// maps with the same swizzle (128 int8 to a 128-byte row), unswizzled
+// rank-3 maps of a page pool, a cache of encoded maps, and the s8 products
+// m64n{8,64}k32 into int32 (K-major operands only, as 8-bit wgmma takes
+// them; a k32 step is 32 bytes, as a bf16 k16 step is).
 //
 // Shared-memory tiles are 128-byte swizzled "atoms": rows of 64 bf16 (128
 // bytes), 8 rows to a 1024-byte atom, the 16-byte piece p of row r stored
@@ -29,6 +34,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cstring>
+#include <mutex>
 
 namespace sm90 {
 
@@ -98,6 +106,78 @@ inline int bf16_map4(CUtensorMap* map, const void* base, const uint64_t (&dims)[
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
+
+// 0 on success: a 2-D map of a row-major int8 matrix (rows x cols, cols
+// contiguous) read in boxes of box_rows x 128 columns (128 bytes), 128-byte
+// swizzle, zeros past the edges. The base must be 16-byte aligned and cols
+// a multiple of 16.
+inline int s8_map(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
+                  uint32_t box_rows) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols};
+  const cuuint32_t box[2] = {128, box_rows};
+  const cuuint32_t estride[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
+                        strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// 0 on success: a rank-3 map, no swizzle, of a tensor of `type` with dims
+// (inner first) d0 (contiguous) .. d2 and byte strides s1, s2, read in
+// boxes of d0 x 1 x box2 — a page pool (N * page_size, KV, D_store) read
+// one (page, kv head) tile a box. d0 * element bytes and both strides must
+// be multiples of 16, the base 16-byte aligned, d0 and box2 at most 256.
+inline int map3(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                const uint64_t (&dims)[3], const uint64_t (&strides)[2], uint32_t box2) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t d[3] = {dims[0], dims[1], dims[2]};
+  const cuuint64_t st[2] = {strides[0], strides[1]};
+  const cuuint32_t box[3] = {(cuuint32_t)dims[0], 1, box2};
+  const cuuint32_t estride[3] = {1, 1, 1};
+  const CUresult r = fn(map, type, 3, const_cast<void*>(base), d, st, box, estride,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Encoded maps by everything that defines them (a map is a pure function
+// of its base, type, dims, strides and box): a serving call's weights and
+// pools keep their pointers from call to call, so their maps are encoded
+// once and copied after. `Key` is a plain struct compared bytewise;
+// `encode(map)` runs on a miss. A small table, oldest entry replaced.
+template <typename Key>
+class MapCache {
+ public:
+  template <typename Encode>
+  int get(const Key& key, CUtensorMap* out, Encode encode) {
+    std::lock_guard<std::mutex> lock(mu_);
+    for (int i = 0; i < used_; ++i) {
+      if (std::memcmp(&keys_[i], &key, sizeof(Key)) == 0) {
+        *out = maps_[i];
+        return 0;
+      }
+    }
+    const int e = encode(out);
+    if (e != 0) return e;
+    const int slot = used_ < kSlots ? used_++ : (next_++ % kSlots);
+    keys_[slot] = key;
+    maps_[slot] = *out;
+    return 0;
+  }
+
+ private:
+  static constexpr int kSlots = 256;
+  std::mutex mu_;
+  Key keys_[kSlots];
+  CUtensorMap maps_[kSlots];
+  int used_ = 0;
+  unsigned next_ = 0;
+};
 
 // ---------------------------------------------------------------------------
 // device
@@ -193,6 +273,16 @@ __device__ __forceinline__ void tma_load4(void* dst, const CUtensorMap* map, uin
       : "memory");
 }
 
+// one box of a rank-3 `map` at coordinates (c0, c1, c2), inner first
+__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                          int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // threads' own shared-memory stores made visible to wgmma (the async proxy)
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -244,6 +334,46 @@ template <int N>
 __device__ __forceinline__ void fence_operand(uint32_t (&a)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_operand(int (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// d[64 x N] = A[64 x 32] . B[32 x N] (+ d where scale_d is 1), s8 in, s32
+// out, both operands in shared memory K-major (8-bit wgmma takes no other
+// layout); d laid out as wgmma128's (i < N / 2).
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t da, uint64_t db,
+                                         uint32_t scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_s8<8>(int (&d)[4], uint64_t da, uint64_t db,
+                                            uint32_t scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 "
+      "{%0, %1, %2, %3}, %4, %5, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<64>(int (&d)[32], uint64_t da, uint64_t db,
+                                             uint32_t scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // d[64 x 128] = A[64 x 16] . B[16 x 128] (+ d where scale_d is 1), bf16

@@ -56,6 +56,17 @@ _LIBRARIES = {
             "int8_matmul_launch": ([_PTR] * 6 + [_INT] * 4 + [_PTR], _INT),
         },
     },
+    "int8_matmul_sm90": {
+        # bitwise its plain version, as int8_matmul
+        "flags": ("-fmad=false",),
+        "entry": {
+            # x qt scale out xq sx part sx_part tickets, M N K block_k,
+            # tiles per split, splits, stream
+            "int8_matmul_sm90_launch": ([_PTR] * 9 + [_INT] * 6 + [_PTR], _INT),
+            # qt, N K, reps, cached -> host ns per TMA map
+            "int8_matmul_sm90_encode_ns": ([_PTR] + [_INT] * 4, ctypes.c_double),
+        },
+    },
     "fused_adamw": {
         # no contraction: the kernel must be bitwise its plain foreach version
         "flags": ("-fmad=false",),
@@ -145,6 +156,17 @@ _LIBRARIES = {
             ),
         },
     },
+    "paged_attention_sm90": {
+        "flags": (),
+        "entry": {
+            # q k_pool v_pool k_scale v_scale table pos out rec_ml rec_acc
+            # tickets, B S H KV D page_size P n_pages, q type, storage, pos
+            # is int64, scale, pages per split, splits, stages, stream
+            "paged_attention_sm90_launch": (
+                [_PTR] * 11 + [_INT] * 11 + [ctypes.c_float] + [_INT] * 3 + [_PTR], _INT,
+            ),
+        },
+    },
 }
 
 _lock = threading.Lock()
@@ -223,6 +245,29 @@ def build_all() -> dict[str, dict]:
             _finish(n, started[n], t0)
             _libs[n] = _load(n)
     return build_info
+
+
+_tickets: dict = {}
+
+
+def tickets(device, n: int, owner: str):
+    """A zeroed int32 buffer of at least ``n`` counters on ``device`` for
+    ``owner``'s kernel, kept from call to call: the split kernels' "last
+    block to arrive" tickets (``int8_matmul_sm90.cu``,
+    ``paged_attention_sm90.cu``). Each call leaves every counter at 0 (the
+    block that takes a counter's last ticket resets it), so the buffer is
+    never cleared again; calls of one owner run in stream order."""
+    import torch
+
+    key = (str(device), owner)
+    buf = _tickets.get(key)
+    if buf is None or buf.numel() < n:
+        with _lock:
+            buf = _tickets.get(key)
+            if buf is None or buf.numel() < n:
+                buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+                _tickets[key] = buf
+    return buf
 
 
 def library(name: str) -> ctypes.CDLL:

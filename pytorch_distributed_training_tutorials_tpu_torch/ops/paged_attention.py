@@ -8,16 +8,24 @@ to pool page ``table[b, p]``. :func:`paged_attention` reads the pool
 through the table one ``(page_size, D)`` tile at a time and folds each tile
 into an online softmax, so no dense ``(B, W, ...)`` window exists.
 
-- On a CUDA tensor it launches the hand-written Hopper kernel
-  ``csrc/paged_attention.cu`` (the port of the TPU kernel ``kernel`` of the
-  JAX ``paged_attention``) and adds one to ``paged_attention.launches``; it
-  raises on operands the kernel does not take and when the launch fails.
+- On a CUDA tensor it launches a hand-written Hopper kernel (a port of the
+  TPU kernel ``kernel`` of the JAX ``paged_attention``) and adds one to
+  ``paged_attention.launches``; it raises on operands the kernels do not
+  take and when the launch fails, and never falls back. Two routes, chosen
+  by :func:`_sm90_route` before the launch: pools whose stored rows are
+  whole 16-byte pieces, 16-byte aligned, run ``csrc/paged_attention_sm90.cu``
+  (the pages split across blocks, TMA tile loads into an mbarrier ring, a
+  last-block merge in split order; :func:`_sm90_plan`); every other call
+  runs ``csrc/paged_attention.cu`` (one block per row and KV head, v1).
+  ``paged_attention.routes`` counts the calls of each route, and
+  ``route="v1"`` asks for the old kernel by name.
 - On a CPU tensor it runs :func:`paged_attention_plain`, the plain PyTorch
   version of the kernel's arithmetic: a loop over logical pages with a
   vectorised update per page, f32 scores times ``1/sqrt(D)``, validity
   ``t <= pos + r // grp``, the shift guard, the probabilities cast to the V
   tile's type before the PV product, and ``acc / (l == 0 ? 1 : l)``, so a
-  parked row (its table all sentinel) gives exact zeros.
+  parked row (its table all sentinel) gives exact zeros. With
+  ``pages_per_split`` it states the sm90 kernel's split and merge.
 - :func:`paged_attention_reference` is the gather oracle: whole pages
   gathered dense (sentinel pages read as zeros), dequantized, and the
   grouped masked attention of the model, in float32.
@@ -122,30 +130,70 @@ def _dequant_tile(pool, scale, ids, quant, dtype) -> torch.Tensor:
 
 
 def paged_attention_plain(q, k_pool, v_pool, table, pos, *, k_scale=None,
-                          v_scale=None, quant=None) -> torch.Tensor:
+                          v_scale=None, quant=None, pages_per_split=None) -> torch.Tensor:
     """Plain PyTorch statement of the kernel's arithmetic, on any device:
     the (m, l, acc) recurrence over logical pages, vectorised over rows
     and heads within a page (module docstring). Returns (B, S, H, D) in
-    ``q``'s type."""
+    ``q``'s type.
+
+    ``pages_per_split`` (default None: one recurrence over every page)
+    states the sm90 kernel's order: the logical pages cut into splits of
+    that many, a fresh recurrence per split giving a record (m_j, l_j,
+    acc_j), then the records merged in split order: M = max_j m_j, w_j =
+    exp(m_j - M) (the shift 0 where M is -inf), L = sum_j l_j w_j, A =
+    sum_j acc_j w_j, out = A / (L == 0 ? 1 : L)."""
     grp = _check(q, k_pool, v_pool, table, pos, k_scale, v_scale, quant)
     b, s, h, d = q.shape
-    n_pages, page_size, kv = k_pool.shape[:3]
+    kv = k_pool.shape[2]
     sg = s * grp
-    # compute types follow the kernel: quantized pools dequantize to q's
-    # type; the probabilities round to the V tile's type before PV
-    k_dtype = q.dtype if quant else k_pool.dtype
-    v_dtype = q.dtype if quant else v_pool.dtype
-    sm_scale = 1.0 / d ** 0.5
-    dev = q.device
     # row r = s_row * grp + g of kv head c is query s_row of head c * grp + g
     qg = q.float().reshape(b, s, kv, grp, d).permute(0, 2, 1, 3, 4).reshape(b, kv, sg, d)
+    n_p = table.shape[1]
+    if pages_per_split is None:
+        m, l, acc = _recurrence(qg, k_pool, v_pool, table, pos, k_scale, v_scale, quant,
+                                q.dtype, grp, 0, n_p)
+        out = acc / torch.where(l == 0.0, 1.0, l)
+    else:
+        if pages_per_split < 1:
+            raise ValueError(f"pages_per_split must be >= 1, got {pages_per_split}")
+        recs = [_recurrence(qg, k_pool, v_pool, table, pos, k_scale, v_scale, quant,
+                            q.dtype, grp, lo, min(lo + pages_per_split, n_p))
+                for lo in range(0, max(n_p, 1), pages_per_split)]
+        m_all = torch.stack([r[0] for r in recs])
+        top = m_all.amax(dim=0)
+        shift = torch.where(top == -math.inf, 0.0, top)
+        l = torch.zeros_like(recs[0][1])
+        a = torch.zeros_like(recs[0][2])
+        for m_j, l_j, acc_j in recs:
+            w = torch.where(m_j == -math.inf, 0.0, torch.exp(m_j - shift))
+            l = l + l_j * w
+            a = a + acc_j * w
+        out = a / torch.where(l == 0.0, 1.0, l)
+    out = out.reshape(b, kv, s, grp, d).permute(0, 2, 1, 3, 4)
+    return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def _recurrence(qg, k_pool, v_pool, table, pos, k_scale, v_scale, quant, q_dtype,
+                grp, p_lo, p_hi):
+    """The (m, l, acc) recurrence of :func:`paged_attention_plain` over
+    logical pages [p_lo, p_hi), from m = -inf, l = 0, acc = 0; qg is the
+    (B, KV, S * grp, D) f32 query."""
+    b, kv, sg, d = qg.shape
+    n_pages, page_size = k_pool.shape[:2]
+    s = sg // grp
+    # compute types follow the kernel: quantized pools dequantize to q's
+    # type; the probabilities round to the V tile's type before PV
+    k_dtype = q_dtype if quant else k_pool.dtype
+    v_dtype = q_dtype if quant else v_pool.dtype
+    sm_scale = 1.0 / d ** 0.5
+    dev = qg.device
     acc = torch.zeros((b, kv, sg, d), dtype=torch.float32, device=dev)
     m = torch.full((b, kv, sg, 1), -math.inf, dtype=torch.float32, device=dev)
     l = torch.zeros((b, kv, sg, 1), dtype=torch.float32, device=dev)
     depth = pos.to(torch.int64)
     srow = torch.arange(sg, device=dev) // grp
     offs = torch.arange(page_size, device=dev)
-    for p in range(table.shape[1]):
+    for p in range(p_lo, p_hi):
         pid = table[:, p].to(torch.int64)
         live = (pid < n_pages) & (pid >= 0) & (p * page_size <= depth + (s - 1))
         ids = pid.clamp(0, n_pages - 1)
@@ -164,9 +212,7 @@ def paged_attention_plain(q, k_pool, v_pool, table, pos, *, k_scale=None,
         acc = torch.where(upd, acc * corr + pv, acc)
         l = torch.where(upd, l_new, l)
         m = torch.where(upd, m_new, m)
-    out = acc / torch.where(l == 0.0, 1.0, l)
-    out = out.reshape(b, kv, s, grp, d).permute(0, 2, 1, 3, 4)
-    return out.reshape(b, s, h, d).to(q.dtype)
+    return m, l, acc
 
 
 def paged_attention_reference(q, k_pool, v_pool, table, pos, *, k_scale=None,
@@ -212,9 +258,53 @@ def _shared_bytes(sg: int, page_size: int, d: int) -> int:
     return 4 * (2 * sg * d + page_size * (2 * d + 1) + sg * page_size + 3 * sg)
 
 
+def _sm90_plan(b: int, kv: int, p: int) -> tuple[int, int, int]:
+    """(pages per split, splits, ring stages) of the sm90 kernel for a (B,
+    P) table and KV heads: from the table's width alone, never from pos
+    (the grid stays fixed and no host sync is needed). One page a split up
+    to 2048 (row, head, page) triples — the paged stream's (4, 4, 64) gives
+    1024 blocks, its 34 live pages x 4 heads 136 working ones on 132 SMs
+    — more pages a split beyond, so the grid stays near 2048 blocks."""
+    pps = max(1, -(-b * kv * p // 2048))
+    return pps, max(1, -(-p // pps)), min(2, pps)
+
+
+def _row_bytes(quant, pool, d: int) -> int:
+    """Bytes of one stored (token, head) row of a pool."""
+    return d // 2 if quant == "int4" else d * pool.element_size()
+
+
+def _sm90_shared_bytes(sg: int, page_size: int, d: int, row_bytes: int, stages: int,
+                       splits: int) -> int:
+    """The sm90 kernel's dynamic shared memory (its ``Layout``): per stage
+    the K and V tiles (each rounded up to 128 bytes) and their f32 scales;
+    64 bytes of mbarriers (3 a stage) and a flag; q, the scores, four warps' partial
+    accumulators, m, l, the correction and L per row; the merge's weights
+    and products per row and split; 128 bytes of alignment."""
+    tile = -(-page_size * row_bytes // 128) * 128
+    stage = -(-(2 * tile + 8 * page_size) // 128) * 128
+    return 128 + stages * stage + 64 + 4 * sg * (5 * d + page_size + 4 + 2 * splits)
+
+
+def _sm90_route(q, k_pool, v_pool, quant, grp: int, p: int) -> bool:
+    """True when a CUDA call goes to the sm90 kernel: every stored K/V row a
+    whole number of 16-byte pieces (D % 4 for f32, D % 8 for bf16, D % 16
+    for int8, D % 32 for int4), both pools 16-byte aligned, pages of at
+    most 256 positions (what a TMA box of one (page, head) tile takes), and
+    the kernel's shared memory within the card's. False sends it to
+    ``csrc/paged_attention.cu``."""
+    b, s, h, d = q.shape
+    page_size = k_pool.shape[1]
+    row = _row_bytes(quant, k_pool, d)
+    pps, splits, stages = _sm90_plan(b, k_pool.shape[2], p)
+    return (row % 16 == 0 and d % 4 == 0 and page_size <= 256
+            and k_pool.data_ptr() % 16 == 0 and v_pool.data_ptr() % 16 == 0
+            and _sm90_shared_bytes(s * grp, page_size, d, row, stages, splits) <= _MAX_SHARED)
+
+
 def _route(q, k_pool, v_pool, table, pos, k_scale, v_scale, quant, grp) -> bool:
-    """True to launch the kernel (CUDA), False to run the plain version
-    (CPU); raises on any other device or on operands it cannot take."""
+    """True to launch a kernel (CUDA), False to run the plain version
+    (CPU); raises on any other device or on operands no kernel takes."""
     tensors = [q, k_pool, v_pool, table, pos] + ([k_scale, v_scale] if quant else [])
     devices = {x.device for x in tensors}
     if len(devices) != 1:
@@ -245,6 +335,14 @@ def _route(q, k_pool, v_pool, table, pos, k_scale, v_scale, quant, grp) -> bool:
         raise TypeError(f"paged attention kernel takes int32 or int64 pos, got {pos.dtype}")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("paged attention kernel takes contiguous operands")
+    if max(x.numel() for x in tensors) >= 2**31:
+        raise ValueError("paged attention kernel indexes pages with 32-bit ids")
+    return True
+
+
+def _check_v1_shared(q, k_pool, grp) -> None:
+    """Raise when the v1 kernel's shared memory exceeds the card's."""
+    b, s, h, d = q.shape
     smem = _shared_bytes(s * grp, k_pool.shape[1], d)
     if smem > _MAX_SHARED:
         raise ValueError(
@@ -252,13 +350,50 @@ def _route(q, k_pool, v_pool, table, pos, k_scale, v_scale, quant, grp) -> bool:
             f"{s * grp} query rows and pages of {k_pool.shape[1]} at D={d} "
             f"(> {_MAX_SHARED})"
         )
-    if max(x.numel() for x in tensors) >= 2**31:
-        raise ValueError("paged attention kernel indexes pages with 32-bit ids")
-    return True
+
+
+def _launch(sm90: bool, q, k_pool, v_pool, table, pos, k_scale, v_scale, quant, grp,
+            out) -> None:
+    """One launch on the current stream: ``paged_attention_sm90_launch``
+    when ``sm90``, else ``paged_attention_launch`` (v1); counted in
+    ``paged_attention.launches`` and ``.routes``."""
+    b, s, h, d = q.shape
+    n_pages, page_size, kv = k_pool.shape[:3]
+    p = table.shape[1]
+    null = ctypes.c_void_p(0)
+    scales = (k_scale.data_ptr() if quant else null, v_scale.data_ptr() if quant else null)
+    common = (b, s, h, kv, d, page_size, p, n_pages, _Q_CODES[q.dtype],
+              _STORE_CODES[quant or k_pool.dtype], int(pos.dtype == torch.int64),
+              ctypes.c_float(1.0 / d ** 0.5))
+    with torch.cuda.device(q.device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
+        if sm90:
+            pps, splits, stages = _sm90_plan(b, kv, p)
+            rec_ml = torch.empty((b, kv, splits, s * grp, 2), dtype=torch.float32,
+                                 device=q.device)
+            rec_acc = torch.empty((b, kv, splits, s * grp, d), dtype=torch.float32,
+                                  device=q.device)
+            tickets = _build.tickets(q.device, b * kv, "paged_attention")
+            rc = _build.library("paged_attention_sm90").paged_attention_sm90_launch(
+                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *scales,
+                table.data_ptr(), pos.data_ptr(), out.data_ptr(), rec_ml.data_ptr(),
+                rec_acc.data_ptr(), tickets.data_ptr(), *common, pps, splits, stages, stream,
+            )
+        else:
+            rc = _build.library("paged_attention").paged_attention_launch(
+                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *scales,
+                table.data_ptr(), pos.data_ptr(), out.data_ptr(), *common,
+                _shared_bytes(s * grp, page_size, d), stream,
+            )
+    route = "sm90" if sm90 else "v1"
+    if rc != 0:
+        raise RuntimeError(f"paged_attention kernel launch failed ({route}): CUDA error {rc}")
+    paged_attention.launches += 1
+    paged_attention.routes[route] += 1
 
 
 def paged_attention(q, k_pool, v_pool, table, pos, *, k_scale=None,
-                    v_scale=None, quant=None) -> torch.Tensor:
+                    v_scale=None, quant=None, route: str | None = None) -> torch.Tensor:
     """Paged decode attention straight off the page pools.
 
     ``q``: (B, S, H, D) queries (rope applied; S >= 1, query row s sits at
@@ -270,36 +405,27 @@ def paged_attention(q, k_pool, v_pool, table, pos, *, k_scale=None,
     or "int4" (bf16). Returns (B, S, H, D) in ``q``'s type.
 
     A CPU ``q`` runs :func:`paged_attention_plain`. A CUDA ``q`` launches
-    the kernel of ``csrc/paged_attention.cu`` (built at first use) on the
-    current stream, reading ``table`` and ``pos`` on the card (no host
-    sync), and adds one to ``paged_attention.launches``."""
+    a kernel (built at first use) on the current stream, reading ``table``
+    and ``pos`` on the card (no host sync): ``csrc/paged_attention_sm90.cu``
+    where :func:`_sm90_route` takes the operands, else
+    ``csrc/paged_attention.cu``; ``route="v1"`` asks for the latter
+    whatever the operands. Adds one to ``paged_attention.launches``."""
     grp = _check(q, k_pool, v_pool, table, pos, k_scale, v_scale, quant)
+    if route not in (None, "v1"):
+        raise ValueError(f"route must be None or 'v1', got {route!r}")
     if not _route(q, k_pool, v_pool, table, pos, k_scale, v_scale, quant, grp):
         return paged_attention_plain(q, k_pool, v_pool, table, pos,
                                      k_scale=k_scale, v_scale=v_scale, quant=quant)
-    b, s, h, d = q.shape
-    n_pages, page_size, kv = k_pool.shape[:3]
-    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    sm90 = route is None and _sm90_route(q, k_pool, v_pool, quant, grp, table.shape[1])
+    if not sm90:
+        _check_v1_shared(q, k_pool, grp)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    null = ctypes.c_void_p(0)
-    lib = _build.library("paged_attention")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.paged_attention_launch(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            k_scale.data_ptr() if quant else null,
-            v_scale.data_ptr() if quant else null,
-            table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            b, s, h, kv, d, page_size, table.shape[1], n_pages,
-            _Q_CODES[q.dtype], _STORE_CODES[quant or k_pool.dtype],
-            int(pos.dtype == torch.int64), ctypes.c_float(1.0 / d ** 0.5),
-            _shared_bytes(s * grp, page_size, d), ctypes.c_void_p(stream),
-        )
-    if rc != 0:
-        raise RuntimeError(f"paged_attention kernel launch failed: CUDA error {rc}")
-    paged_attention.launches += 1
+    _launch(sm90, q, k_pool, v_pool, table, pos, k_scale, v_scale, quant, grp, out)
     return out
 
 
-paged_attention.launches = 0  # kernel launches on the card (CPU calls add none)
+paged_attention.launches = 0  # calls that launched a kernel (CPU calls add none)
+# of those, by route: "sm90" (paged_attention_sm90.cu) or "v1" (paged_attention.cu)
+paged_attention.routes = {"sm90": 0, "v1": 0}

@@ -8,12 +8,17 @@ Port of ``pytorch_distributed_training_tutorials_tpu/ops/quant.py``:
   :func:`dequantize_kv_int4` — int4 KV storage (half-split nibbles, bf16
   scales), bitwise the JAX package's;
 - :func:`int8_matmul` — ``x @ (q * scale)`` with dynamic per-(row,
-  K-tile) activation quantization. On a CUDA tensor it launches the
-  hand-written Hopper kernel ``csrc/int8_matmul.cu`` (the port of the TPU
-  kernel ``_int8_matmul_kernel``); on a CPU tensor it runs
-  :func:`int8_matmul_reference`, the plain PyTorch version of the same
-  arithmetic. There is no fallback between the two: a CUDA tensor goes
-  through the kernel or the call raises;
+  K-tile) activation quantization. On a CUDA tensor it launches a
+  hand-written Hopper kernel (a port of the TPU kernel
+  ``_int8_matmul_kernel``): ``csrc/int8_matmul_sm90.cu`` (s8 wgmma, TMA
+  weight ring, split K folded in tile order by the last block) where
+  :func:`_sm90_route` takes the operands (K a multiple of 16, 16-byte
+  aligned bases), else ``csrc/int8_matmul.cu`` (v1); ``route="v1"`` asks
+  for the latter by name and ``int8_matmul.routes`` counts both. On a CPU
+  tensor it runs :func:`int8_matmul_reference`, the plain PyTorch version
+  of the same arithmetic; :func:`int8_matmul_split_reference` states the
+  sm90 kernel's split-K order. There is no fallback between the two: a
+  CUDA tensor goes through a kernel or the call raises;
 - :class:`Int8Linear` — the serving layer over an int8 weight (both of the
   JAX package's ``Int8Dense`` and ``Int8DenseGeneral``: each flattens its
   kernel to a 2-D ``q`` with per-column scales).
@@ -164,6 +169,131 @@ def int8_matmul_reference(x: torch.Tensor, w: Int8Param) -> torch.Tensor:
     return acc * w.scale.reshape(1, -1).float()
 
 
+def int8_matmul_split_reference(x: torch.Tensor, w: Int8Param,
+                                tiles_per_split: int) -> torch.Tensor:
+    """Plain statement of the sm90 kernel's split-K order, on any device:
+    the K tiles cut into runs of ``tiles_per_split``, each tile's exact
+    integer dot and its activation scale kept apart (what a split's block
+    writes to scratch), then every tile folded in tile order, ``acc =
+    fma(part_t, sx_t, acc)``, and the column scale applied — the same
+    fold as :func:`int8_matmul_reference`, so bitwise equal to it."""
+    if tiles_per_split < 1:
+        raise ValueError(f"tiles_per_split must be >= 1, got {tiles_per_split}")
+    x = x.float()
+    m, k = x.shape
+    bk = block_k_for(k)
+    n_k = -(-k // bk)
+    parts, scales = [], []
+    for t0 in range(0, n_k, tiles_per_split):  # one split's tiles
+        for t in range(t0, min(t0 + tiles_per_split, n_k)):
+            xt = x[:, t * bk:min(t * bk + bk, k)]
+            sx = torch.clamp_min(xt.abs().amax(dim=1, keepdim=True), 1e-8) * _RCP127
+            xq = torch.clamp(torch.round(xt / sx), -127, 127)
+            parts.append(xq @ w.q[t * bk:t * bk + xt.shape[1]].float())
+            scales.append(sx)
+    acc = torch.zeros((m, w.q.shape[1]), dtype=torch.float32, device=x.device)
+    for part, sx in zip(parts, scales):  # the last block's fold, in tile order
+        acc = _fma(part, sx, acc)
+    return acc * w.scale.reshape(1, -1).float()
+
+
+_SLAB = 64  # output columns per block of the sm90 kernel
+_FUSED_MAX_M = 64  # at or below, the sm90 kernel quantizes x inside the GEMM
+
+
+def _sm90_route(k: int, x_ptr: int, q_ptr: int) -> bool:
+    """True when a CUDA call goes to the sm90 kernel: K a multiple of 16
+    (qt's row stride in whole 16 bytes, as a TMA map takes it) and x and
+    qt 16-byte aligned. Every 1b / 1b-gqa projection qualifies; the
+    tests' K 200 and 201 go to ``csrc/int8_matmul.cu``."""
+    return k % 16 == 0 and x_ptr % 16 == 0 and q_ptr % 16 == 0
+
+
+def _sm90_plan(m: int, k: int, n: int, sms: int) -> tuple[int, int]:
+    """(tiles per split, splits) of the sm90 kernel: the K tiles split
+    across blocks until the grid of (64-column slabs x 64-row tiles x
+    splits) comes near one block per SM — (4, 2048, 2048) on 132 SMs: 32
+    slabs x 4 splits of 1 tile; (4, 8192, 2048): 32 x 4 of 4 tiles;
+    (4, 2048, 8192) and wider, and M 512 and up: no split."""
+    n_k = -(-k // block_k_for(k))
+    slabs = -(-n // _SLAB)
+    row_tiles = 1 if m <= _FUSED_MAX_M else -(-m // _SLAB)
+    splits = max(1, min(n_k, sms // (slabs * row_tiles)))
+    tps = -(-n_k // splits)
+    return tps, -(-n_k // tps)
+
+
+_SMS: dict = {}  # device index -> its SM count, read once
+
+
+def _sm_count(device) -> int:
+    idx = torch.device(device).index
+    count = _SMS.get(idx)
+    if count is None:
+        count = _SMS[idx] = torch.cuda.get_device_properties(device).multi_processor_count
+    return count
+
+
+def _launch(sm90: bool, x: torch.Tensor, w: Int8Param, out: torch.Tensor) -> None:
+    """One call on the current stream: ``int8_matmul_sm90_launch`` (one
+    launch at M <= 64, a quantize pre-pass and the GEMM above) when
+    ``sm90``, else ``int8_matmul_launch`` (v1: a quantize pass and the
+    GEMM); counted in ``int8_matmul.launches`` and ``.routes``."""
+    m, k = x.shape
+    n = w.q.shape[1]
+    bk = block_k_for(k)
+    n_k = -(-k // bk)
+    dev = x.device
+    null = ctypes.c_void_p(0)
+    with torch.cuda.device(dev):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        if sm90:
+            tps, splits = _sm90_plan(m, k, n, _sm_count(dev))
+            fused = m <= _FUSED_MAX_M
+            slabs = -(-n // _SLAB)
+            row_tiles = 1 if fused else -(-m // _SLAB)
+            keep = []  # scratch alive until the launch is queued
+
+            def scratch(shape, dtype, needed):
+                if not needed:
+                    return null
+                keep.append(torch.empty(shape, dtype=dtype, device=dev))
+                return keep[-1].data_ptr()
+
+            rc = _build.library("int8_matmul_sm90").int8_matmul_sm90_launch(
+                x.data_ptr(), w.q.data_ptr(), w.scale.data_ptr(), out.data_ptr(),
+                scratch((m, n_k * bk), torch.int8, not fused),
+                scratch((n_k, m), torch.float32, not fused),
+                scratch((slabs, n_k, m, _SLAB), torch.float32, splits > 1),
+                scratch((slabs, n_k, m), torch.float32, splits > 1 and fused),
+                _build.tickets(dev, slabs * row_tiles, "int8_matmul").data_ptr(),
+                m, n, k, bk, tps, splits, stream,
+            )
+        else:
+            xq = torch.empty((m, n_k * bk), dtype=torch.int8, device=dev)
+            sx = torch.empty((m, n_k), dtype=torch.float32, device=dev)
+            rc = _build.library("int8_matmul").int8_matmul_launch(
+                x.data_ptr(), w.q.data_ptr(), w.scale.data_ptr(),
+                out.data_ptr(), xq.data_ptr(), sx.data_ptr(),
+                m, n, k, bk, stream,
+            )
+    route = "sm90" if sm90 else "v1"
+    if rc != 0:
+        raise RuntimeError(f"int8_matmul kernel launch failed ({route}): CUDA error {rc}")
+    int8_matmul.launches += 1
+    int8_matmul.routes[route] += 1
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    """True to launch a kernel (CUDA), False to run the plain version (CPU);
+    raises on any other device."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"int8_matmul runs on cpu or cuda, got {x.device}")
+    return True
+
+
 def _check_cuda_args(x: torch.Tensor, w: Int8Param) -> None:
     if not (w.q.device == x.device == w.scale.device):
         raise ValueError(
@@ -191,15 +321,20 @@ def _check_cuda_args(x: torch.Tensor, w: Int8Param) -> None:
         raise ValueError("int8_matmul kernel indexes with 32-bit sizes")
 
 
-def int8_matmul(x: torch.Tensor, w: Int8Param) -> torch.Tensor:
+def int8_matmul(x: torch.Tensor, w: Int8Param, *, route: str | None = None) -> torch.Tensor:
     """``x @ (q * scale)`` with dynamic per-(row, K-tile) int8 activation
     quantization. ``x``: (M, K) float; ``w.q``: (K, N) int8 with
     per-column ``w.scale`` (1, N) or (N,). Returns (M, N) float32.
 
     A CPU ``x`` runs :func:`int8_matmul_reference`. A CUDA ``x`` launches
-    the kernel of ``csrc/int8_matmul.cu`` (built at first use) on the
-    current stream and adds one to ``int8_matmul.launches``; it raises on
-    operands the kernel does not take and when the launch fails."""
+    a kernel (built at first use) on the current stream —
+    ``csrc/int8_matmul_sm90.cu`` where :func:`_sm90_route` takes the
+    operands, else ``csrc/int8_matmul.cu``; ``route="v1"`` asks for the
+    latter whatever the operands — and adds one to
+    ``int8_matmul.launches``; it raises on operands the kernels do not
+    take and when the launch fails."""
+    if route not in (None, "v1"):
+        raise ValueError(f"route must be None or 'v1', got {route!r}")
     m, k = x.shape
     kq, n = w.q.shape
     if k != kq:
@@ -210,33 +345,20 @@ def int8_matmul(x: torch.Tensor, w: Int8Param) -> torch.Tensor:
             f"(quantize with channel_axis=-1); got scale shape "
             f"{tuple(w.scale.shape)}"
         )
-    if x.device.type == "cpu":
+    if not _on_card(x):
         return int8_matmul_reference(x, w)
-    if x.device.type != "cuda":
-        raise ValueError(f"int8_matmul runs on cpu or cuda, got {x.device}")
     _check_cuda_args(x, w)
-    bk = block_k_for(k)
-    n_k = -(-k // bk)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return out
-    xq = torch.empty((m, n_k * bk), dtype=torch.int8, device=x.device)
-    sx = torch.empty((m, n_k), dtype=torch.float32, device=x.device)
-    lib = _build.library("int8_matmul")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.int8_matmul_launch(
-            x.data_ptr(), w.q.data_ptr(), w.scale.data_ptr(),
-            out.data_ptr(), xq.data_ptr(), sx.data_ptr(),
-            m, n, k, bk, ctypes.c_void_p(stream),
-        )
-    if rc != 0:
-        raise RuntimeError(f"int8_matmul kernel launch failed: CUDA error {rc}")
-    int8_matmul.launches += 1
+    sm90 = route is None and _sm90_route(k, x.data_ptr(), w.q.data_ptr())
+    _launch(sm90, x, w, out)
     return out
 
 
-int8_matmul.launches = 0  # kernel launches on the card (CPU calls add none)
+int8_matmul.launches = 0  # calls that launched a kernel (CPU calls add none)
+# of those, by route: "sm90" (int8_matmul_sm90.cu) or "v1" (int8_matmul.cu)
+int8_matmul.routes = {"sm90": 0, "v1": 0}
 
 
 class Int8Linear(nn.Module):
