@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # every phase, from the repo root
     python3 chip_smoke.py --kernel-only   # phases 0-2: build, check, time
+    python3 chip_smoke.py --ddp-only      # phases 0, 1, 8 and 9
 
 It drives the port (``pytorch_distributed_training_tutorials_tpu_torch``)
 on the card and fails — non-zero exit, no result line — if a phase fails.
@@ -76,7 +77,26 @@ Every phase prints JSON lines:
    within one bf16 ulp of phase 6's, exactly 48 / 24 / 24 flash, 1 / 1 / 1
    fused-loss and 1 fused-AdamW launches per step, every flash forward,
    dq and dk/dv and every fused-loss forward, dh and dW launch on the sm90
-   route.
+   route;
+8. ``resnet_card_vs_cpu``: one train step of ``resnet18(stem="cifar")`` at
+   batch 16, 28x28x1, in float32 (TF32 off) and bfloat16, on the card and
+   on the CPU from the same weights — the loss, every gradient, the
+   BatchNorm running statistics, the eval-mode logits — each no farther
+   from the CPU's float64 run than 1.5x the CPU's own plus a floor; the
+   float32 step with TF32 on must break that bound (the control);
+9. ``train_resnet_ddp``, the DDP slice: an NCCL world of one formed
+   through the spawn contract on 127.0.0.1 (backend and an all-reduce on
+   the card checked), the ResNet-18 MNIST headline of ``bench.headline``
+   (512 images per device, uint8 surrogate resident on the card, bf16,
+   SGD momentum) for 2 epochs through ``Trainer.train``: finite losses,
+   epoch 2's mean below epoch 1's, eval accuracy on the test surrogate
+   above ``RESNET_ACC_FLOOR``, at most one host sync an epoch (sync debug
+   mode); one step with BatchNorm synced and the gradients all-reduced on
+   NCCL bitwise equal to the unsynced step; images/sec/GPU, step ms, peak
+   memory, idle share and the top device ops; then its fused-AdamW arm
+   for one epoch: one ``fused_adamw`` launch a step, loss falling, the
+   kernel bitwise the plain AdamW at the arm's own leaves, its time on
+   this path beside its bound.
 
 Between phases 4 and 5, ``serve_1b_paged``: the 1b-gqa preset at full
 depth, window 4096, serving 12 requests (prompts {16, 480, 1500}, 32 new
@@ -1619,10 +1639,429 @@ def phase_train_fused(torch, gpu: str, baseline_first_loss: float) -> dict:
     return {**launches, "routes": routes, "flash_routes": flash_routes}
 
 
+# the DDP main path: ResNet-18 (cifar stem) on the MNIST surrogate, 512
+# images per device, 2 epochs, then the fused-AdamW arm for 1 epoch
+RESNET_EPOCHS = 2
+RESNET_BATCH = 512
+ADAMW_ARM = dict(learning_rate=1e-3, weight_decay=1e-4)
+# the eval-accuracy floor of the headline arm on the test surrogate after
+# its 2 epochs: measured 0.9948 on an H100 80GB HBM3 (700 W), the same
+# in three runs; the floor sits well below it
+RESNET_ACC_FLOOR = 0.9
+# resnet_card_vs_cpu: the card's distance to the CPU's float64 run may be
+# at most 1.5x the CPU's own at the same dtype, plus this share of the
+# quantity's own largest entry. float32, TF32 off, needs 0.0713 (a conv
+# weight gradient of the last block): against float64, cuDNN's rounding
+# flips the block-output ReLUs of one element each in blocks 2.1, 3.0 and
+# 3.1, PyTorch's own CUDA convolutions only the one in 3.0, and a flip
+# moves one whole term of the weight-gradient sums; the same step with
+# TF32 on (the control, which must fail) flips 92-167 a block and needs
+# 0.403. The floor sits between (both measured on an H100 80GB HBM3 at
+# 700 W). bf16: the CPU's own bf16 error covers the card's.
+CARD_FLOOR = {"f32": 0.15, "bf16": 0.02}
+
+
+@contextlib.contextmanager
+def tf32(torch, on: bool):
+    """cuDNN and cuBLAS float32 with TF32 ``on`` or off inside the block
+    (the flags restored after it)."""
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def precision_flags(torch) -> dict:
+    return {"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+            "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn.conv.fp32_precision": getattr(
+                getattr(torch.backends.cudnn, "conv", None), "fp32_precision", None)}
+
+
+def phase_resnet_card_vs_cpu(torch, gpu: str) -> None:
+    """One train step of ``resnet18(stem="cifar")`` at batch 16, 28x28x1,
+    in float32 and bfloat16, on the card and on the CPU from the same
+    weights: the loss, every gradient, the BatchNorm running mean and
+    variance after the step, then the eval-mode logits. Each is held
+    against the CPU's float64 run: the card may be at most 1.5x as far
+    from it as the CPU at the same dtype, plus ``CARD_FLOOR`` times the
+    quantity's largest entry (BatchNorm nets amplify rounding, so the
+    CPU's own error sets the scale). float32 runs with TF32 off; the same
+    float32 step with TF32 on is the control and must break the float32
+    bound. Printed, not gated: the float32 step without cuDNN, the CPU's
+    float32 step, the direct card-to-CPU difference, and how many block
+    output ReLUs flip against float64 in each."""
+    import numpy as np
+
+    from pytorch_distributed_training_tutorials_tpu_torch.models import init_params, resnet18
+    from pytorch_distributed_training_tutorials_tpu_torch.models.resnet import (
+        BasicBlock,
+        BatchNorm,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.train.trainer import _compute_loss
+
+    rng = np.random.Generator(np.random.PCG64(0))
+    x = rng.integers(0, 256, (16, 28, 28, 1)).astype(np.uint8)
+    y = rng.integers(0, 10, 16).astype(np.int64)
+    weights = init_params(resnet18(num_classes=10, stem="cifar", in_channels=1), 0, "cpu")
+
+    def run(device: str, dtype) -> tuple[dict, dict]:
+        model = resnet18(num_classes=10, stem="cifar", in_channels=1, dtype=dtype)
+        model.load_state_dict({k: v.to(device, copy=True) for k, v in weights.items()},
+                              assign=True)
+        # where each block's output ReLU passes its input, in the train
+        # forward (the first call)
+        passes = {}
+
+        def record(name: str):
+            def hook(module, args, out) -> None:
+                if name not in passes:
+                    passes[name] = (out > 0).cpu()
+            return hook
+
+        for n, m in model.named_modules():
+            if isinstance(m, BasicBlock):
+                m.register_forward_hook(record(n))
+        if dtype == torch.float64:
+            for m in model.modules():
+                if isinstance(m, BatchNorm):
+                    m.mean, m.var = m.mean.double(), m.var.double()
+        xb = torch.from_numpy(x).to(device).to(dtype) / 255
+        loss = _compute_loss("cross_entropy", model(xb, train=True),
+                             torch.from_numpy(y).to(device))
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        out = {"loss": loss.detach()}
+        out.update({f"grad:{n}": g for (n, _), g in zip(model.named_parameters(), grads)})
+        out.update({f"stat:{k}": v for k, v in model.state_dict().items()
+                    if k.endswith((".mean", ".var"))})
+        with torch.no_grad():
+            out["eval_logits"] = model(xb, train=False)
+        return {k: v.detach().double().cpu() for k, v in out.items()}, passes
+
+    def floor_needed(got: dict, cpu: dict) -> tuple[float, str]:
+        """The least floor that holds ``got``: over the quantities, the
+        largest (card error - 1.5 x the CPU's) / the quantity's largest
+        entry; and the quantity that sets it."""
+        need = []
+        for k, want in ref.items():
+            scale = float(want.abs().max())
+            excess = (float((got[k] - want).abs().max())
+                      - 1.5 * float((cpu[k] - want).abs().max()))
+            need.append((excess / scale if scale else (math.inf if excess > 0 else 0.0), k))
+        return max(need, key=lambda t: t[0])
+
+    def direct(got: dict, cpu: dict) -> float:
+        return max(float((got[k] - cpu[k]).abs().max()) / max(float(want.abs().max()), 1e-30)
+                   for k, want in ref.items())
+
+    problems, results = [], {}
+    with tf32(torch, False):
+        ref, ref_passes = run("cpu", torch.float64)
+        cpu = {"f32": run("cpu", torch.float32), "bf16": run("cpu", torch.bfloat16)}
+        arms = {"cpu_f32": ("f32", *cpu["f32"], {})}
+        cpu = {k: v[0] for k, v in cpu.items()}
+        for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            arms[name] = (name, *run("cuda", dtype), precision_flags(torch))
+        with torch.backends.cudnn.flags(enabled=False, allow_tf32=False):
+            arms["f32_without_cudnn"] = ("f32", *run("cuda", torch.float32),
+                                         precision_flags(torch))
+        with tf32(torch, True):
+            arms["f32_tf32_control"] = ("f32", *run("cuda", torch.float32),
+                                        precision_flags(torch))
+    for arm, (dtype, card, passes, flags) in arms.items():
+        need, at = floor_needed(card, cpu[dtype])
+        flips = {n: int((p != ref_passes[n]).sum()) for n, p in passes.items()}
+        results[arm] = {"floor_needed": need, "at": at, "floor": CARD_FLOOR[dtype],
+                        "relu_flips_vs_float64": {n: v for n, v in flips.items() if v},
+                        "max_card_vs_cpu_over_scale": direct(card, cpu[dtype]),
+                        "loss": [float(card["loss"]), float(cpu[dtype]["loss"]),
+                                 float(ref["loss"])],
+                        "precision_flags": flags}
+        if arm in ("f32", "bf16") and not need <= CARD_FLOOR[dtype]:
+            problems.append(f"{arm}: {at} needs a floor of {need} > {CARD_FLOOR[dtype]}")
+        if arm == "f32_tf32_control" and not need > CARD_FLOOR[dtype]:
+            problems.append(f"the TF32 control passes the float32 bound (needs {need} <= "
+                            f"{CARD_FLOOR[dtype]} at {at}): the gate cannot see TF32")
+    emit({"phase": "resnet_card_vs_cpu", "model": "resnet18 cifar stem", "batch": 16,
+          "image": [28, 28, 1], "quantities": len(ref),
+          "bound": "card error vs the CPU float64 run <= 1.5 x the CPU's own + "
+                   "floor x the quantity's largest entry",
+          "gated": {"f32": "passes", "bf16": "passes", "f32_tf32_control": "fails"},
+          "results": results, "ok": not problems, "problems": problems, "gpu": gpu})
+    if problems:
+        raise AssertionError("; ".join(problems))
+
+
+def nccl_sync_check(torch, setup) -> dict:
+    """The data-parallel collectives on NCCL and CUDA tensors in the world
+    of one: one headline step's loss, gradients (in their parameters'
+    layout, as the step lays them out) and BatchNorm statistics with every
+    BatchNorm synced over the world (``all_reduce_sum``, forward and
+    backward) and the gradients and loss through the bucketed
+    ``all_reduce_mean_``, against the same step unsynced before and after
+    it. A sum over one rank is its input, so all three must be bitwise
+    equal (cuDNN deterministic inside). The all-reduces are counted."""
+    import torch.distributed as dist
+
+    from pytorch_distributed_training_tutorials_tpu_torch.models.resnet import BatchNorm
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel import collective
+    from pytorch_distributed_training_tutorials_tpu_torch.train.trainer import (
+        _laid_out_like,
+        _make_loss_fn,
+        batch_stats,
+    )
+
+    model, batch = setup.trainer.state.model, setup.batch
+    params = setup.trainer.state.params
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    stats0 = [b.clone() for b in batch_stats(model)]
+    loss_fn = _make_loss_fn("cross_entropy", has_batch_stats=True)
+    world = dist.group.WORLD
+    calls = [0]
+    all_reduce = dist.all_reduce
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return all_reduce(*a, **kw)
+
+    def step(group) -> list:
+        with torch.no_grad():
+            for b, b0 in zip(batch_stats(model), stats0):
+                b.copy_(b0)
+        for m in norms:
+            m.sync_group = group
+        loss = loss_fn(model, batch)
+        grads = _laid_out_like(torch.autograd.grad(loss, params), params)
+        loss = loss.detach().clone()
+        if group is not None:
+            collective.all_reduce_mean_([*grads, loss], group, dist.get_world_size(group))
+        return [loss, *grads, *(b.clone() for b in batch_stats(model))]
+
+    dist.all_reduce = counted
+    try:
+        with torch.backends.cudnn.flags(enabled=True, deterministic=True, allow_tf32=False):
+            before = step(None)
+            n_unsynced = calls[0]
+            synced = step(world)
+            n_synced = calls[0] - n_unsynced
+            after = step(None)
+    finally:
+        dist.all_reduce = all_reduce
+        for m in norms:
+            m.sync_group = None
+        with torch.no_grad():
+            for b, b0 in zip(batch_stats(model), stats0):
+                b.copy_(b0)
+    differ = sum(int((a != b).sum()) for a, b in zip(synced, before))
+    differ_unsynced = sum(int((a != b).sum()) for a, b in zip(after, before))
+    err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(synced, before))
+    return {"norms": len(norms), "gradient_leaves": len(params),
+            "all_reduces_synced_step": n_synced, "all_reduces_unsynced_step": n_unsynced,
+            "elements_differ": differ, "elements_differ_unsynced_repeat": differ_unsynced,
+            "max_abs_err": err, "tensors_compared": len(before)}
+
+
+def adamw_check(torch, arm) -> dict:
+    """Kernel 9 at this path's shapes: one more step of the fused arm with
+    the optimizer swapped for a recorder takes the step's real parameters
+    and gradients (laid out by ``_laid_out_like``); these and a copy of
+    the arm's optimizer state (its count past 1) go through
+    ``fused_adamw`` and the plain ``train.optim.adamw`` on the card. The
+    parameters and both moments must be bitwise equal. The recorder's
+    step and these launches come after the path's launches were read."""
+    import dataclasses
+
+    from pytorch_distributed_training_tutorials_tpu_torch.train.optim import adamw
+
+    state = arm.trainer.state
+    fused, opt_state = state.tx, state.opt_state
+    seen = []
+
+    class Recorder:
+        def update_(self, params, grads, _state):
+            seen.append(([p.detach().clone() for p in params], [g.clone() for g in grads]))
+
+    state.tx = Recorder()
+    try:
+        arm.step_fn(state, arm.batch)
+    finally:
+        state.tx = fused
+    (p_fused, grads), = seen
+    p_plain = [p.clone() for p in p_fused]
+
+    def copy_state():
+        return dataclasses.replace(opt_state, mu=[m.clone() for m in opt_state.mu],
+                                   nu=[v.clone() for v in opt_state.nu])
+
+    s_fused, s_plain = copy_state(), copy_state()
+    count = s_fused.count + 1
+    fused.update_(p_fused, grads, s_fused)
+    adamw(fused.lr, fused.b1, fused.b2, fused.eps, fused.weight_decay).update_(
+        p_plain, grads, s_plain)
+    torch.cuda.synchronize()
+    got = p_fused + s_fused.mu + s_fused.nu
+    want = p_plain + s_plain.mu + s_plain.nu
+    return {"leaves": len(grads), "count": count,
+            "conv_leaves": sum(g.dim() == 4 for g in grads),
+            "smallest_leaf": min(g.numel() for g in grads),
+            "elements_differ": sum(int((a != b).sum()) for a, b in zip(got, want)),
+            "max_abs_err": max(float((a - b).abs().max()) for a, b in zip(got, want))}
+
+
+def phase_train_resnet_ddp(torch, gpu: str) -> dict:
+    """The DDP slice in an NCCL world of one, formed through the spawn
+    contract on 127.0.0.1 and torn down whatever happens in it."""
+    from pytorch_distributed_training_tutorials_tpu_torch.launch import pick_unused_port
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel import distributed
+
+    distributed.init(f"127.0.0.1:{pick_unused_port()}", num_processes=1, process_id=0)
+    try:
+        return resnet_ddp_arms(torch, gpu)
+    finally:
+        distributed.shutdown()
+
+
+def resnet_ddp_arms(torch, gpu: str) -> dict:
+    """The NCCL group checked (backend, an all-reduce on the card), the
+    headline workload (``bench.headline``:
+    ResNet-18, bf16 on f32 params, 512 images per device, uint8 MNIST
+    surrogate resident on the card, SGD 0.05 momentum 0.9) for 2 epochs
+    through ``Trainer.train``, ``evaluate`` on the test surrogate, a
+    profiled chain of steps, ``nccl_sync_check``; then the fused-AdamW arm
+    (the same model and data, ``fused_adamw``) for one epoch and
+    ``adamw_check``. Returns the fused arm's ``fused_adamw`` launches,
+    the kernel's time and bound on this path and its error."""
+    import torch.distributed as dist
+
+    from pytorch_distributed_training_tutorials_tpu_torch.bench import headline
+    from pytorch_distributed_training_tutorials_tpu_torch.bench.harness import (
+        count_host_syncs,
+        profile_step,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.data import DeviceResidentLoader, mnist
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.fused_optim import fused_adamw
+
+    problems = []
+    backend, world = dist.get_backend(), dist.get_world_size()
+    probe = torch.arange(4, dtype=torch.float32, device="cuda")
+    summed = probe.clone()
+    dist.all_reduce(summed)
+    if backend != "nccl":
+        problems.append(f"backend {backend}, want nccl")
+    if not torch.equal(summed, probe * world):
+        problems.append(f"all_reduce gave {summed.tolist()} for {probe.tolist()} x {world}")
+
+    t0 = time.perf_counter()
+    setup = headline.make_headline_setup(RESNET_BATCH, quiet=True)
+    setup_s = time.perf_counter() - t0
+    trainer = setup.trainer
+    epochs = []
+    for e in range(RESNET_EPOCHS):
+        fetches = trainer.host_syncs
+        if e == RESNET_EPOCHS - 1:
+            torch.cuda.reset_peak_memory_stats()
+        with count_host_syncs(torch) as syncs:
+            r = headline.time_epoch(setup)
+        r["host_syncs"], r["sync_sites"] = syncs[0], syncs[1:]
+        r["trainer_fetches"] = trainer.host_syncs - fetches
+        epochs.append(r)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [ev["loss"] for ev in trainer.metrics.step_events()]
+    test = DeviceResidentLoader(mnist("test", raw=True), RESNET_BATCH, setup.mesh,
+                                transform=headline.normalize)
+    ev = trainer.evaluate(test)
+    if not all(math.isfinite(v) for v in losses):
+        problems.append("a loss is not finite")
+    if not epochs[1]["mean_loss"] < epochs[0]["mean_loss"]:
+        problems.append(f"epoch mean loss did not fall: {[r['mean_loss'] for r in epochs]}")
+    if not ev["accuracy"] > RESNET_ACC_FLOOR:
+        problems.append(f"eval accuracy {ev['accuracy']} <= floor {RESNET_ACC_FLOOR}")
+    for r in epochs:
+        if r["host_syncs"] > 1 or r["trainer_fetches"] != 1:
+            problems.append(f"epoch {r['epoch']}: {r['host_syncs']} host syncs counted, "
+                            f"{r['trainer_fetches']} trainer fetches (want at most 1, 1)")
+    # step time: chains of eager steps on one cached batch, closed by one
+    # fetch, CUDA events, min of 3; then one profiled chain
+    chain = headline.time_chain(setup, chain_len=20, reps=3)
+    prof_steps = 5
+    trace = profile_step(headline.make_step_chain(setup, prof_steps), torch)
+    trace.pop("port_kernels_ms")  # no hand-written kernel on this arm
+    sync = nccl_sync_check(torch, setup)
+    if sync["elements_differ"] or sync["elements_differ_unsynced_repeat"]:
+        problems.append(f"the NCCL-synced step differs from the unsynced one: {sync}")
+    if not sync["all_reduces_synced_step"] > 2 * sync["norms"] or sync[
+            "all_reduces_unsynced_step"]:
+        problems.append(f"all-reduces: {sync['all_reduces_synced_step']} in the synced step "
+                        f"(want more than 2 x {sync['norms']} norms), "
+                        f"{sync['all_reduces_unsynced_step']} unsynced (want 0)")
+    trace["kernels_per_step"] = trace["kernels_per_step"] / prof_steps
+    trace["device_busy_ms_per_step"] = trace["device_busy_ms"] / prof_steps
+    n_dev = trainer.strategy.num_devices
+    emit({"phase": "train_resnet_ddp", "arm": "headline", "backend": backend, "world": world,
+          "allreduce_probe": summed.tolist(), "nccl_sync_check": sync, "model": "resnet18 cifar stem, bf16 on f32 params",
+          "per_device_batch": RESNET_BATCH, "global_batch": setup.loader.global_batch,
+          "dataset": {"rows": len(setup.dataset), "synthetic": setup.dataset.synthetic},
+          "optimizer": "sgd(0.05, momentum=0.9)", "steps_per_epoch": len(setup.loader),
+          "epochs": epochs, "images_per_sec_per_gpu": epochs[-1]["images_per_sec"] / n_dev,
+          **chain,
+          "peak_memory_bytes": peak, "eval": ev, "accuracy_floor": RESNET_ACC_FLOOR,
+          "setup_s": setup_s, "trace": trace, "ok": not problems, "problems": problems,
+          "gpu": gpu})
+    headline_problems, problems = problems, []
+    dataset = setup.dataset
+    del setup, trainer, test
+
+    # the fused-AdamW arm: the same model, data and loop
+    opt = fused_adamw(**ADAMW_ARM)
+    arm = headline.make_headline_setup(RESNET_BATCH, quiet=True, optimizer=opt, dataset=dataset)
+    fused_adamw.launches = 0
+    with count_host_syncs(torch) as syncs:
+        r = headline.time_epoch(arm)
+    launches = fused_adamw.launches
+    losses = [ev["loss"] for ev in arm.trainer.metrics.step_events()]
+    # the kernel's device time on this path, from a profiled chain, beside
+    # its byte bound: p, g, m, v read and p, m, v written, 4 bytes each
+    arm_trace = profile_step(headline.make_step_chain(arm, prof_steps), torch)
+    adamw_ms = sum(v for k, v in arm_trace["port_kernels_ms"].items()
+                   if "adamw_kernel" in k) / prof_steps
+    elements = sum(p.numel() for p in arm.trainer.state.params)
+    adamw_bound_ms = elements * 28 / HBM_BYTES_PER_S * 1e3
+    steps = r["steps"]
+    head, tail = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
+    check = adamw_check(torch, arm)
+    if check["elements_differ"]:
+        problems.append(f"fused_adamw != plain adamw at the ResNet-18 leaves: {check}")
+    if launches != steps:
+        problems.append(f"fused_adamw launched {launches} times in {steps} steps")
+    if not all(math.isfinite(v) for v in losses):
+        problems.append("a loss is not finite")
+    if not tail < head:
+        problems.append(f"loss did not fall: first 10 steps {head}, last 10 {tail}")
+    emit({"phase": "train_resnet_ddp", "arm": "fused_adamw", "optimizer": "fused_adamw",
+          "hyper": ADAMW_ARM, "epoch": r, "host_syncs": syncs[0], "sync_sites": syncs[1:],
+          "fused_adamw_launches": launches, "launches_per_step": launches / steps,
+          "kernel_vs_plain": check,
+          "mean_loss_first_10": head, "mean_loss_last_10": tail,
+          "adamw_kernel_ms_per_step": adamw_ms, "adamw_bound_ms": adamw_bound_ms,
+          "adamw_leaves": len(arm.trainer.state.params), "adamw_elements": elements,
+          "trace_idle_share": arm_trace["device_idle_share"],
+          "images_per_sec_per_gpu": r["images_per_sec"] / n_dev, "ok": not problems,
+          "problems": problems, "gpu": gpu})
+    # both arms run and print before either fails the phase
+    if headline_problems or problems:
+        raise AssertionError("; ".join(headline_problems + problems))
+    return {"fused_adamw": launches, "adamw_ms": adamw_ms, "adamw_bound_ms": adamw_bound_ms,
+            "adamw_max_abs_err": check["max_abs_err"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel-only", action="store_true",
                     help="stop after phase 2 (build, check and time the kernels)")
+    ap.add_argument("--ddp-only", action="store_true",
+                    help="after the build, run phases 8 and 9 (the DDP slice) only")
     args = ap.parse_args(argv)
 
     import torch
@@ -1667,6 +2106,10 @@ def main(argv=None) -> int:
     })
 
     emit({"phase": "warm_card", "seconds": warm_card(torch), "gpu": gpu})
+    if args.ddp_only:
+        phase_resnet_card_vs_cpu(torch, gpu)
+        phase_train_resnet_ddp(torch, gpu)
+        return 0
     kern = phase_kernels(torch, quant, gpu)
     flash = phase_flash(torch, fa, gpu)
     fused = phase_fused_ce(torch, fl, gpu)
@@ -1681,6 +2124,8 @@ def main(argv=None) -> int:
     base = phase_train(torch, gpu)
     train_launches = base["flash"]
     fused_launches = phase_train_fused(torch, gpu, base["first_loss"])
+    phase_resnet_card_vs_cpu(torch, gpu)
+    ddp = phase_train_resnet_ddp(torch, gpu)
 
     # the kernels line: one decode forward's 113 int8 matmuls at M = 4
     # (the slot count) — time, plain time, v1 in turns and bound summed
@@ -1757,7 +2202,13 @@ def main(argv=None) -> int:
     kernels.append({
         "name": "fused_adamw", "route": "cuda",
         "source": f"{PKG}/csrc/fused_adamw.cu", "replaces": ADAMW_REPLACES,
-        "launches": fused_launches["fused_adamw"], "max_abs_err": adamw_row["max_abs_err"],
+        "launches": fused_launches["fused_adamw"],
+        "launches_by_path": {"train_760m_fused": fused_launches["fused_adamw"],
+                             "train_resnet_ddp_fused_adamw": ddp["fused_adamw"]},
+        "resnet18_step": {"ms": ddp["adamw_ms"], "bound_ms": ddp["adamw_bound_ms"],
+                          "max_abs_err": ddp["adamw_max_abs_err"],
+                          "work": "one ResNet-18 step: 1 launch over 62 leaves"},
+        "max_abs_err": adamw_row["max_abs_err"],
         "ms": adamw_row["ms"] * ADAMW_PER_STEP, "plain_ms": adamw_row["plain_ms"],
         "bound_ms": adamw_row["bound_ms"], "bound_by": adamw_row["bound_by"],
         "library_ms": adamw_row["library_ms"],

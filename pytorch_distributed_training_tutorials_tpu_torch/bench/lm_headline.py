@@ -42,6 +42,8 @@ import subprocess
 import sys
 import time
 
+from pytorch_distributed_training_tutorials_tpu_torch.bench.harness import profile_step
+
 PRESETS = {
     # name: (d_model, n_layers, n_heads, vocab)
     "smoke": (64, 2, 4, 256),
@@ -116,36 +118,6 @@ def build(args, device):
     n_params = sum(p.numel() for p in model.parameters())
     n_embed = vocab * d_model  # tok_emb; lm_head is a matmul and counts
     return model, state, batch, step_fn, n_params, n_embed
-
-
-def profile_step(run_step, torch) -> dict:
-    """``torch.profiler`` over one step: device busy and idle share of its
-    wall time, kernels per step, the top kernels by device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = {e.key: e.self_device_time_total for e in kernels}
-    busy_ms = sum(dev_us.values()) / 1e3
-    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]
-    return {
-        "wall_ms_profiled": wall_ms,
-        "device_busy_ms": busy_ms,
-        "device_busy_share": busy_ms / wall_ms,
-        "device_idle_share": 1.0 - busy_ms / wall_ms,
-        "kernels_per_step": sum(e.count for e in kernels),
-        "top_kernels_ms": {k[:80]: v / 1e3 for k, v in top},
-        # the port's hand-written kernels (csrc/, each in an anonymous
-        # namespace), whatever their rank
-        "port_kernels_ms": {k[:80]: v / 1e3 for k, v in dev_us.items()
-                            if "anonymous namespace" in k},
-    }
 
 
 def measure(args) -> dict:

@@ -1,7 +1,16 @@
-"""The weight bridge: JAX ``TransformerLM`` param trees -> the port's
-parameters, and the seeded on-device builders of random weights
-(:func:`init_quantized_lm` for int8 serving, :func:`init_lm` for
-training).
+"""The weight bridge: JAX param trees -> the port's parameters, and the
+seeded on-device builders of random weights (:func:`init_quantized_lm`
+for int8 serving, :func:`init_lm` for training, :func:`init_params` for
+the ResNets and MLPs).
+
+Given a ``torch.nn.Module`` (a ResNet or an MLP of :mod:`.resnet` /
+:mod:`.mlp`) in place of a ``TransformerConfig``, :func:`from_jax_params`
+takes the Conv and NHWC leg: a Conv kernel HWIO becomes OIHW, a Dense
+kernel (in, out) becomes (out, in), BatchNorm ``scale`` and ``bias`` are
+parameters and the ``batch_stats`` collection's ``mean`` and ``var`` the
+norms' buffers; flax's module names map to the port's nesting
+(``layer_groups_i_j`` -> ``layer_groups.i.j``, ``Conv_k`` / ``BatchNorm_k``
+/ ``Dense_k`` -> ``convs.k`` / ``norms.k`` / ``denses.k``).
 
 :func:`from_jax_params` takes the JAX tree as nested dicts of numpy arrays
 (a caller holding jax arrays converts them on its side, e.g.
@@ -103,12 +112,17 @@ def _float_leaves(prefix: str, name: str, sub: Mapping) -> dict:
     return {f"{prefix}.weight": w.contiguous()}
 
 
-def from_jax_params(tree, cfg: TransformerConfig, device=None) -> dict[str, torch.Tensor]:
+def from_jax_params(tree, cfg: TransformerConfig | torch.nn.Module, device=None, *,
+                    batch_stats=None) -> dict[str, torch.Tensor]:
     """JAX param tree (nested dicts of numpy arrays) -> the port's state
     dict on ``device`` (``cuda`` unless the caller passes another). For an
     int8 ``cfg`` a float tree is quantized here, per layer, bitwise the JAX
-    quantizer; for a float ``cfg`` the tree must be float and stays so."""
+    quantizer; for a float ``cfg`` the tree must be float and stays so.
+    With a module in place of ``cfg``, the Conv/Dense leg (module
+    docstring); ``batch_stats`` is the JAX ``batch_stats`` collection."""
     dev = resolve_device(device)
+    if isinstance(cfg, torch.nn.Module):
+        return _module_state_dict(tree, batch_stats, cfg, dev)
     t = _unstack(_to_torch(dict(tree), dev), cfg.n_layers)
     is_float = _is_float_tree(t)
     if cfg.quantized and is_float:
@@ -213,4 +227,74 @@ def init_lm(cfg: TransformerConfig, seed: int = 0, device=None) -> dict[str, tor
             else:  # RMSNorm scale
                 w.fill_(1.0)
             out[f"{mod_name}.{p_name}"] = w
+    return out
+
+
+# port container name -> the flax auto-name prefix of its children
+_FLAX_LISTS = {"convs": "Conv", "norms": "BatchNorm", "denses": "Dense"}
+
+
+def _flax_path(module_path: list[str]) -> list[str]:
+    """The port's module path (state-dict key parts) -> the flax one."""
+    out, i = [], 0
+    while i < len(module_path):
+        part = module_path[i]
+        if part == "layer_groups":
+            out.append(f"layer_groups_{module_path[i + 1]}_{module_path[i + 2]}")
+            i += 3
+        elif part in _FLAX_LISTS:
+            out.append(f"{_FLAX_LISTS[part]}_{module_path[i + 1]}")
+            i += 2
+        else:
+            out.append(part)
+            i += 1
+    return out
+
+
+def _module_state_dict(params, batch_stats, model: torch.nn.Module,
+                       dev: torch.device) -> dict[str, torch.Tensor]:
+    want = model.state_dict()
+    out = {}
+    for key, ref in want.items():
+        *mods, leaf = key.split(".")
+        path = _flax_path(mods)
+        tree = batch_stats if leaf in ("mean", "var") else params
+        if tree is None:
+            raise ValueError(f"{key}: the JAX batch_stats collection is needed")
+        sub = tree
+        for name in path:
+            sub = sub[name]
+        x = np.asarray(sub["kernel" if leaf == "weight" else leaf], dtype=np.float32)
+        if leaf == "weight" and x.ndim == 4:  # conv HWIO -> OIHW
+            x = x.transpose(3, 2, 0, 1)
+        elif leaf == "weight":  # dense (in, out) -> (out, in)
+            x = x.T
+        if tuple(x.shape) != tuple(ref.shape):
+            raise ValueError(f"{key}: got {tuple(x.shape)}, the model needs {tuple(ref.shape)}")
+        out[key] = torch.tensor(np.ascontiguousarray(x), device=dev)
+    return out
+
+
+def init_params(model: torch.nn.Module, seed: int = 0, device=None) -> dict[str, torch.Tensor]:
+    """Random weights for a ResNet or MLP of the port, as a state dict on
+    ``device`` (``cuda`` unless the caller passes another), drawn from one
+    seeded ``torch.Generator`` with the distributions of the flax
+    initializers the JAX models use: conv and dense kernels
+    ``lecun_normal`` (a truncated normal of variance 1 / fan_in, fan_in
+    the kernel's input width times its window), biases zeros, BatchNorm
+    scale ones, bias zeros, running mean zeros and variance ones. The
+    draws differ from JAX's; the distributions are the same."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out: dict[str, torch.Tensor] = {}
+    for key, ref in model.state_dict().items():
+        leaf = key.rsplit(".", 1)[-1]
+        w = torch.empty(ref.shape, dtype=torch.float32, device=dev)
+        if leaf == "weight":
+            _truncated_normal_(w, math.sqrt(1.0 / (ref[0].numel())), gen)
+        elif leaf in ("scale", "var"):
+            w.fill_(1.0)
+        else:  # bias, mean
+            w.zero_()
+        out[key] = w
     return out

@@ -1,7 +1,20 @@
-"""Model utilities: the MFU numerator (an own copy of the JAX package's
-``models/utils.py:model_flops_per_token``)."""
+"""Model utilities: parameter counting and the MFU numerator (own copies
+of the JAX package's ``models/utils.py``)."""
 
 from __future__ import annotations
+
+import torch
+
+
+def model_size(params) -> int:
+    """Total parameter count: of a module's ``parameters()`` (buffers, the
+    BatchNorm running statistics, excluded), or of a dict or list of
+    tensors. ResNet-50 counts 25,557,032."""
+    if isinstance(params, torch.nn.Module):
+        params = params.parameters()
+    elif isinstance(params, dict):
+        params = params.values()
+    return sum(p.numel() for p in params)
 
 
 def model_flops_per_token(n_params_nonembed: int, d_model: int,

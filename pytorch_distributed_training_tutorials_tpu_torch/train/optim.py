@@ -1,4 +1,4 @@
-"""AdamW in optax's order, as plain foreach torch ops.
+"""AdamW and SGD in optax's order, as plain foreach torch ops.
 
 ``adamw`` mirrors ``optax.adamw`` (the optimizer of the JAX package's
 ``bench/lm_headline.py``): ``scale_by_adam`` — ``m = (1-b1) g + b1 m``,
@@ -92,3 +92,42 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
           weight_decay: float = 1e-4) -> AdamW:
     """``optax.adamw`` with its defaults (no mask, no nesterov)."""
     return AdamW(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+
+
+@dataclasses.dataclass
+class SGDState:
+    count: int
+    trace: list[torch.Tensor] | None
+
+
+@dataclasses.dataclass(frozen=True)
+class SGD:
+    """``optax.sgd``: with ``momentum``, optax's ``trace`` — ``trace = g +
+    momentum * trace``, the update the trace itself — then ``* -lr`` and
+    ``p += u``, in place."""
+
+    lr: float
+    momentum: float | None = None
+
+    def init(self, params: list[torch.Tensor]) -> SGDState:
+        trace = None if self.momentum is None else [torch.zeros_like(p) for p in params]
+        return SGDState(count=0, trace=trace)
+
+    @torch.no_grad()
+    def update_(self, params: list[torch.Tensor], grads: list[torch.Tensor],
+                state: SGDState) -> None:
+        """One SGD step, parameters and the trace updated in place."""
+        state.count += 1
+        u = list(grads)
+        if state.trace is not None:
+            torch._foreach_mul_(state.trace, self.momentum)
+            torch._foreach_add_(state.trace, grads)
+            u = state.trace
+        torch._foreach_add_(params, torch._foreach_mul(u, -self.lr))
+
+
+def sgd(learning_rate: float, momentum: float | None = None) -> SGD:
+    """``optax.sgd`` without nesterov or a schedule."""
+    if callable(learning_rate):
+        raise TypeError("sgd takes a static float learning rate")
+    return SGD(lr=float(learning_rate), momentum=momentum)

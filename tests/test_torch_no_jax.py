@@ -34,6 +34,13 @@ def _port_modules() -> list[str]:
 def test_port_modules_import_no_jax():
     mods = _port_modules()
     assert f"{PORT}.serve.engine" in mods and f"{PORT}.ops.quant" in mods
+    # the DDP main path's modules, each imported below
+    ddp = ("data.sampler", "data.datasets", "data.native", "data.loader", "data.resident",
+           "models.mlp", "models.resnet", "models.utils", "parallel.distributed",
+           "parallel.mesh", "parallel.collective", "parallel.data_parallel", "utils.logging", "obs.metrics",
+           "train.trainer", "train.optim", "launch._spawn", "launch.train_ddp",
+           "launch.train_ddp_env", "bench.harness", "bench.headline")
+    assert {f"{PORT}.{m}" for m in ddp} <= set(mods)
     code = (
         "import sys\n"
         + "".join(f"import {m}\n" for m in mods)

@@ -314,11 +314,14 @@ def test_compute_loss_mse_and_one_hot_match_jax():
 
 def test_train_step_refuses_later_slice_options():
     for kw, slice_name in (
-        ({"skip_nonfinite": True}, "DDP"), ({"aux_loss_weight": 0.1}, "DDP"),
-        ({"model_kwargs": {"adapter_ids": 1}}, "DDP"), ({"grad_accum_steps": 2}, "DDP"),
+        ({"skip_nonfinite": True}, "A10"), ({"chaos": object()}, "A10"),
+        ({"aux_loss_weight": 0.1}, "A14"), ({"model_kwargs": {"adapter_ids": 1}}, "A13"),
+        ({"grad_accum_steps": 2, "skip_nonfinite": True}, "A10"),
     ):
         with pytest.raises(NotImplementedError, match=slice_name):
             ttrainer.make_train_step(**kw)
+    # the DDP slice brought gradient accumulation and BatchNorm statistics
+    assert callable(ttrainer.make_train_step(grad_accum_steps=2, has_batch_stats=True))
     with pytest.raises(NotImplementedError, match="LoRA-bank"):
         fused_adamw(3e-4, mask={"lm_head": True})
 
