@@ -53,7 +53,11 @@ Every phase prints JSON lines:
    calls bitwise equal), held to the plain statement of its split and merge
    and to the unsplit plain version, a parked row exactly 0, and at the
    stream shape the v1 kernel (``paged_attention.cu``) checked and timed in
-   turns with it;
+   turns with it; then ``flash_fwd`` at the serving shapes (one prefill's
+   attention of one layer: B 1, S 128/256/512, H 16, D 128) in f32 through
+   ``fwd_kernel`` (the int8 model's route) and bf16 through
+   ``fwd_sm90_kernel`` (the float model's), each held to its plain version
+   and timed beside SDPA;
 3. serving: a 2-layer model at the 1b preset's widths, on the card (kernel)
    against the CPU (plain version): logits and greedy tokens;
 4. the serving slice: the 1b preset at full depth serving the ``--server``
@@ -110,6 +114,29 @@ wider): (c) on every request, (d) and (e) on one request of each prompt
 length; (d) and (e) against the f32 gather are read as a lower-precision
 control, and two planted faults (the first page of each table swapped for
 another request's page, or dropped) must trip the gate.
+
+Then ``serve_1b_prefill``, the prefill slice: the 1b preset at full width
+and depth, int8 weights, serving 12 requests (prompts {128, 256, 384},
+three quarters of each from one shared family, 32 new tokens) through 4
+slots, arm by arm (PREFILL_ARMS): (a) dense prefill, (b) flash prefill,
+(c) flash with a 512 MiB prefix cache, (d) dense with the cache, (e)
+flash with the cache and chunks of 128 (the first 128-token prompt
+prefills whole through flash, longer misses stream in chunks). Gates:
+every request completes;
+flash forward launches = 16 x the whole prefills, all on the f32 route
+(none in a splice or a chunk); every int8 call on the sm90 route; host
+syncs = chains + whole prefills + splices + final chunks; hits and
+splices in (c)-(e), fewer whole-prompt prefills than (a), chunks in (e);
+(d) token-identical to (a); (b), (c), (e) teacher-forced against (a),
+(d), (d) within 4% of the logit scale on one request of each length.
+``generate`` with flash prefill launches 16. One prefill per bucket,
+dense against flash, in turns (events and the profiler's device time).
+(f) the 1b-gqa preset over serve_1b_paged's pool with the paged kernel,
+the cache and flash prefill (6 requests): pages shared, paged calls all
+sm90, a spliced request teacher-forced against a cache-off gather twin,
+no page in use after the drain and the index clear. (g) ``init_lm`` 1b in
+bf16 with flash prefill (4 requests): every flash launch on the sm90
+route, teacher-forced against the same weights with dense prefill.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Needs no network and one card. It
@@ -201,6 +228,9 @@ PAGED_SHAPES = [
     ("1b-gqa-chunk4", 4, 4, 16, 4, 128, 64, 64, (0, 1000, 2500, 4092), ()),
     ("1b-gqa-parked", 4, 1, 16, 4, 128, 64, 64, (0, 1000, 2500, 4095), (2,)),
     ("1b-gqa-stream", 4, 1, 16, 4, 128, 64, 64, (32, 496, 1516, 32), ()),
+    # a paged splice's suffix forward in serve_1b_prefill (f): one row, a
+    # 256-token suffix bucket from depth 96, in row blocks
+    ("1b-gqa-splice", 1, 256, 16, 4, 128, 64, 64, (96,), ()),
 ]
 PAGED_STORES = ("f32", "bf16", "int8", "int4")
 # bf16 queries (the JAX kernel's sweep), on the 1b-gqa shape
@@ -259,6 +289,32 @@ TF_FAULTS = ("wrong_page", "dropped_page")
 # one page across the 16 layers' K, V (and scales): 64 tokens x 4 kv heads
 # x (2 x 128 x 4 bytes | 2 x (128 + 4) | 2 x (64 + 2))
 PAGE_BYTES = {0: 4_194_304, 8: 1_081_344, 4: 540_672}
+# the flash forward on the serving path: one prefill at B 1, H 16, D 128
+# per bucket of serve_1b_prefill's prompts, in f32 (the int8 model) and
+# bf16 (the float model)
+FLASH_SERVE_SHAPES = [(1, s, 16, 128, dt) for dt in ("f32", "bf16") for s in (128, 256, 512)]
+# serve_1b_prefill: the 1b preset at full width and depth, int8 weights
+# from init_quantized_lm(seed=0); 4 slots, 12 timed requests of 32 new
+# tokens, prompts {128, 256, 384} made as examples/serve_llm_int8.py makes
+# them (one shared family: prompt = shared[:round(0.75 p_len)] + tail)
+PREFILL_STREAM = dict(n_slots=4, tokens_per_launch=8, requests=12, prompts=(128, 256, 384),
+                      new=32, overlap=0.75, seed=11)
+PREFIX_BYTES = 512 * 2**20
+# the chunk of arm (e): 128, so a 128-token miss prefills whole (through
+# flash) and only longer uncached suffixes stream in chunks
+PREFILL_CHUNK = 128
+# arm -> (flash prefill, engine options): (a) today's dense prefill, (b)
+# flash, (c) flash + prefix cache, (d) dense + prefix cache, (e) flash +
+# prefix cache + chunks of PREFILL_CHUNK
+PREFILL_ARMS = {
+    "a": (False, {}),
+    "b": (True, {}),
+    "c": (True, dict(prefix_cache_bytes=PREFIX_BYTES)),
+    "d": (False, dict(prefix_cache_bytes=PREFIX_BYTES)),
+    "e": (True, dict(prefix_cache_bytes=PREFIX_BYTES, prefill_chunk=PREFILL_CHUNK)),
+}
+# flash arm -> its dense twin, teacher-forced on one request of each length
+PREFILL_TF = {"b": "a", "c": "d", "e": "d"}
 LIBRARY_NOTE = (
     "no single PyTorch call computes an int8 matmul with dynamic "
     "per-(row, 512-column tile) activation quantization and f32 "
@@ -576,6 +632,53 @@ def phase_flash(torch, fa, gpu: str) -> dict:
     return {"results": results, "max_abs_err": max_err, "worst_ratio": worst}
 
 
+def phase_flash_serving(torch, fa, gpu: str) -> dict:
+    """Phase 2 (flash, serving shapes): the forward kernel against its
+    plain version at FLASH_SERVE_SHAPES, one prefill's attention per
+    bucket — f32 through ``fwd_kernel`` (the int8 model's route), bf16
+    through ``fwd_sm90_kernel`` (the float model's) — each output held
+    element by element to ``KERNEL_TOLERANCE``; times beside the bound and
+    SDPA's."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    results = {}
+    for i, (b, s, h, d, dt) in enumerate(FLASH_SERVE_SHAPES):
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        gen = torch.Generator(device=dev).manual_seed(40 + i)
+        q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev, dtype=dtype)
+                   for _ in range(3))
+        route = "sm90" if dt == "bf16" else "sm80"
+        before = fa.flash_attention.routes["fwd"][route]
+        o, lse = fa.flash_fwd(q, k, v)
+        if fa.flash_attention.routes["fwd"][route] != before + 1:
+            raise AssertionError(f"flash_fwd at S={s} {dt} did not take the {route} route")
+        o_ref, lse_ref = fa.flash_fwd_reference(q, k, v)
+        torch.cuda.synchronize()
+        errs = {"O": fa.kernel_error(o, o_ref), "lse": fa.kernel_error(lse, lse_ref)}
+        for name, e in errs.items():
+            if not e["worst_ratio"] <= 1.0:
+                raise AssertionError(f"flash_fwd {name} kernel != plain at S={s} {dt}: {e}")
+        ql, kl, vl = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        ms = time_ms(lambda: fa.flash_fwd(q, k, v), torch, flush)
+        plain_ms = time_ms(lambda: fa.flash_fwd_reference(q, k, v), torch, flush)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=True),
+                         torch, flush)
+        b_ms, b_by = flash_bound("fwd", b, s, h, d, q.element_size(),
+                                 BF16_FLOPS if dt == "bf16" else F32_FLOPS)
+        row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                   max_abs_err=max(e["max_abs_err"] for e in errs.values()),
+                   worst_ratio=max(e["worst_ratio"] for e in errs.values()), route=route)
+        results[(s, dt)] = row
+        emit({"phase": "kernel_vs_plain", "kernel": "flash_fwd", "path": "serve_prefill",
+              "B": b, "S": s, "H": h, "D": d, "dtype": dt, "errors": errs, **row,
+              "roofline_share": b_ms / ms,
+              "library": "F.scaled_dot_product_attention(is_causal=True) forward",
+              "gpu": gpu})
+    return results
+
+
 def fused_ce_bound(kind: str, n: int, d: int, v: int, elem: int,
                    flops_per_s: float) -> tuple[float, str]:
     """(bound_ms, bound_by) of one fused-loss kernel call: its score
@@ -851,9 +954,13 @@ def phase_paged(torch, pa, gpu: str) -> dict:
         q, k, v, table, pos, kw, live = paged_operands(torch, shape, store, q_type, 40 + i)
         routes0 = dict(pa.paged_attention.routes)
         got = pa.paged_attention(q, k, v, table, pos, **kw)
-        if pa.paged_attention.routes["sm90"] != routes0["sm90"] + 1:
+        n_launch = pa.paged_attention.routes["sm90"] - routes0["sm90"]
+        rows_per = pa._rows_per_launch(True, q, k, kw.get("quant"), h // kv, p_cap)
+        if (pa.paged_attention.routes["v1"] != routes0["v1"]
+                or n_launch != -(-s // rows_per)):
             raise AssertionError(f"paged_attention at {name} {store} q {q_type} did not take "
-                                 f"the sm90 route: {pa.paged_attention.routes}")
+                                 f"the sm90 route in {-(-s // rows_per)} row blocks: "
+                                 f"{pa.paged_attention.routes}")
         if not torch.equal(got, pa.paged_attention(q, k, v, table, pos, **kw)):
             raise AssertionError(f"two sm90 paged_attention calls differ at {name} {store}")
         pps = pa._sm90_plan(b, kv, p_cap)[0]
@@ -919,6 +1026,7 @@ def phase_paged(torch, pa, gpu: str) -> dict:
             "shape": name, "B": b, "S": s, "H": h, "KV": kv, "D": d, "page_size": ps,
             "pages_per_row": p_cap, "depths": list(depths), "parked_rows": list(parked),
             "live_pages": live, "storage": store, "q": q_type, "errors": err,
+            "launches_per_call": n_launch, "query_rows_per_launch": rows_per,
             "errors_vs_unsplit": err_unsplit,
             "tolerance_type": str(tol_type).removeprefix("torch."), **row,
             "roofline_share": b_ms / ms, "library_ms": None,
@@ -1378,6 +1486,348 @@ def phase_serve_paged(torch, pa, gpu: str) -> dict:
           "gpu": gpu})
     return {"launches": summary["c"]["paged_attention_launches"],
             "routes": summary["c"]["routes"]["paged_attention"], "arms": summary}
+
+
+def prefill_prompts(vocab: int, n: int) -> list:
+    """The stream's prompts, as ``examples/serve_llm_int8.py`` makes them:
+    PCG64(seed), one shared family of the longest prompt's length, request
+    i's prompt = shared[:round(overlap * p_len)] + its own tail."""
+    import numpy as np
+
+    st = PREFILL_STREAM
+    rng = np.random.Generator(np.random.PCG64(st["seed"]))
+    shared = rng.integers(0, vocab, (max(st["prompts"]),)).tolist()
+    out = []
+    for i in range(n):
+        p_len = st["prompts"][i % len(st["prompts"])]
+        k = min(p_len, int(round(st["overlap"] * p_len)))
+        out.append(shared[:k] + rng.integers(0, vocab, (p_len - k,)).tolist())
+    return out
+
+
+def profile_device_ms(torch, fn) -> tuple[float, int]:
+    """Device busy ms and kernel count of one call of ``fn``
+    (``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.self_device_time_total for e in kernels) / 1e3, sum(e.count for e in kernels)
+
+
+def phase_serve_prefill(torch, fa, gpu: str) -> dict:
+    """The prefill slice: the 1b preset at full width and depth through
+    ``ServeEngine`` on PREFILL_STREAM, arm by arm (PREFILL_ARMS), each with
+    its launch, route, counter and sync gates; (d) token-identical to
+    (a), the flash arms teacher-forced against their dense twins
+    (PREFILL_TF); (f) the paged leg on the 1b-gqa preset (the paged
+    kernel, the prefix cache, serve_1b_paged's pool); (g) the float arm
+    (``init_lm`` 1b in bf16, flash prefill on the sm90 route, against the
+    same model with dense prefill). Then one prefill per bucket, dense
+    against flash, in turns. Returns the flash launches per arm."""
+    import dataclasses
+
+    from pytorch_distributed_training_tutorials_tpu_torch.models import (
+        KVCache,
+        TransformerConfig,
+        TransformerLM,
+        bind_params,
+        generate,
+        init_lm,
+        init_quantized_lm,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.ops import paged_attention as pa
+    from pytorch_distributed_training_tutorials_tpu_torch.ops import quant
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import Request, ServeEngine
+
+    st = PREFILL_STREAM
+    cfg = TransformerConfig(**PRESET_1B, quantized=True)
+    t0 = time.perf_counter()
+    params = init_quantized_lm(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    models = {False: TransformerLM(cfg),
+              True: TransformerLM(dataclasses.replace(cfg, attention_fn=fa.flash_attention))}
+    n_lens = len(st["prompts"])
+    prompts = prefill_prompts(cfg.vocab_size, n_lens + st["requests"])
+    warm, timed = prompts[:n_lens], prompts[n_lens:]
+    tpl, layers = st["tokens_per_launch"], cfg.n_layers
+
+    for m in models.values():
+        bind_params(m, params)  # both models hold the same weight tensors
+
+    def engine(model, **kw):
+        return ServeEngine(model, None, n_slots=st["n_slots"], tokens_per_launch=tpl,
+                           max_queue=64, device="cuda", **kw)
+    # warmup, outside the timed streams: one request per bucket on each
+    # model through every refill path (prefill, splice, chunks)
+    for flash in (False, True):
+        w = engine(models[flash], prefix_cache_bytes=PREFIX_BYTES, prefill_chunk=PREFILL_CHUNK)
+        for i, p in enumerate(warm + warm[:1]):
+            w.submit(Request(prompt=p, max_new_tokens=st["new"], seed=100 + i))
+        w.run_until_idle()
+        del w
+    torch.cuda.synchronize()
+
+    def counters():
+        fa.flash_attention.launches["fwd"] = 0
+        fa.flash_attention.routes["fwd"] = {"sm90": 0, "sm80": 0}
+        quant.int8_matmul.launches = 0
+        quant.int8_matmul.routes = {"sm90": 0, "v1": 0}
+        pa.paged_attention.launches = 0
+        pa.paged_attention.routes = {"sm90": 0, "v1": 0}
+
+    def serve(eng, reqs, seed0=0):
+        """Submit, drain, time; the stream's numbers and gates' inputs."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        counters()
+        t0 = time.perf_counter()
+        ids = [eng.submit(Request(prompt=p, max_new_tokens=st["new"], seed=seed0 + i))
+               for i, p in enumerate(reqs)]
+        done = eng.run_until_idle()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        by_id = {c.request_id: c for c in done}
+        toks = sum(len(c.tokens) for c in done)
+        lat, ttft = [c.latency_s for c in done], [c.ttft_s for c in done]
+        return {
+            "tokens": [by_id[i].tokens if i in by_id else None for i in ids],
+            "completed": len(done),
+            "all_length": all(c.finish_reason == "length" and len(c.tokens) == st["new"]
+                              for c in done),
+            "flash_fwd_launches": fa.flash_attention.launches["fwd"],
+            "flash_fwd_routes": dict(fa.flash_attention.routes["fwd"]),
+            "int8_matmul_launches": quant.int8_matmul.launches,
+            "int8_matmul_routes": dict(quant.int8_matmul.routes),
+            "paged_attention_launches": pa.paged_attention.launches,
+            "paged_attention_routes": dict(pa.paged_attention.routes),
+            "refills": dict(eng.refills), "prefills": eng.n_prefills,
+            "splices": eng.n_splices, "chunks": eng.n_chunks, "chains": eng.n_chains,
+            "host_syncs": eng.n_host_syncs, "prefix_stats": eng.prefix_stats(),
+            "wall_s": wall_s, "generated_tokens": toks, "aggregate_tok_s": toks / wall_s,
+            "latency_p50_s": percentile(lat, 0.5), "latency_p95_s": percentile(lat, 0.95),
+            "ttft_p50_s": percentile(ttft, 0.5), "ttft_p95_s": percentile(ttft, 0.95),
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        }
+
+    def gates(row, flash: bool, n_req: int, f32: bool = True) -> list:
+        bad = []
+        rf = row["refills"]
+        if row["completed"] != n_req or not row["all_length"]:
+            bad.append(f"not every request finished 'length' with {st['new']} tokens")
+        want = layers * rf["prefill"] if flash else 0
+        if row["flash_fwd_launches"] != want:
+            bad.append(f"flash_fwd launched {row['flash_fwd_launches']} times, want {layers} "
+                       f"x {rf['prefill']} whole prefills = {want}" if flash else
+                       f"flash_fwd launched {row['flash_fwd_launches']} times in a dense arm")
+        route = "sm80" if f32 else "sm90"
+        if row["flash_fwd_routes"][route] != row["flash_fwd_launches"]:
+            bad.append(f"flash_fwd routes {row['flash_fwd_routes']}: every launch must take "
+                       f"the {route} route")
+        calls = row["int8_matmul_launches"]
+        if f32 and row["int8_matmul_routes"] != {"sm90": calls, "v1": 0}:
+            bad.append(f"int8_matmul routes {row['int8_matmul_routes']}: every call sm90")
+        sync_budget = (row["chains"] + rf["prefill"] + rf["splice"] + rf["chunked"]
+                       + rf["chunked_splice"])
+        if row["host_syncs"] != sync_budget:
+            bad.append(f"{row['host_syncs']} host syncs != {row['chains']} chains + "
+                       f"{rf['prefill']} prefills + {rf['splice']} splices + "
+                       f"{rf['chunked'] + rf['chunked_splice']} final chunks")
+        return bad
+
+    rows, kept, problems = {}, {}, []
+    for arm, (flash, options) in PREFILL_ARMS.items():
+        eng = engine(models[flash], **options)
+        row = serve(eng, timed)
+        bad = gates(row, flash, len(timed))
+        if options.get("prefix_cache_bytes"):
+            ps = row["prefix_stats"]
+            if not (ps["prefix_hit_rate"] > 0 and row["splices"] >= 1):
+                bad.append(f"no prefix hits: {ps}")
+        if options.get("prefill_chunk") and row["chunks"] < 1:
+            bad.append("no chunk ran")
+        rows[arm] = row
+        kept[arm] = eng
+        problems += [f"arm {arm}: {x}" for x in bad]
+        emit({"phase": "serve_1b_prefill", "arm": arm, "flash_prefill": flash,
+              "options": options, "preset": "1b", "layers": layers,
+              **{k: st[k] for k in ("n_slots", "tokens_per_launch", "requests", "new")},
+              "prompt_lengths": list(st["prompts"]),
+              **{k: v for k, v in row.items() if k != "tokens"},
+              "weights_init_s": init_s, "ok": not bad, "problems": bad, "gpu": gpu})
+    for arm in ("c", "d", "e"):
+        if not rows[arm]["prefills"] < rows["a"]["prefills"]:
+            problems.append(f"arm {arm}: {rows[arm]['prefills']} prefills, not fewer than "
+                            f"(a)'s {rows['a']['prefills']}")
+    if rows["d"]["tokens"] != rows["a"]["tokens"]:
+        problems.append("arm d (dense, prefix cache) is not token-identical to arm a")
+    # the flash arms against their dense twins, teacher-forced on (a)'s
+    # tokens, one request of each prompt length
+    shares = {}
+    for arm, twin in PREFILL_TF.items():
+        for i in range(n_lens):
+            ref = kept[twin].teacher_forced_logits(timed[i], rows["a"]["tokens"][i])
+            got = kept[arm].teacher_forced_logits(timed[i], rows["a"]["tokens"][i])
+            rec = tf_compare(ref, got)
+            emit({"phase": "serve_1b_prefill_teacher_forced", "arm": arm, "ref": twin,
+                  "request": i, "prompt_len": len(timed[i]), **rec, "gpu": gpu})
+            shares[f"{arm} vs {twin}"] = max(shares.get(f"{arm} vs {twin}", 0.0),
+                                              rec["diff_share"])
+            if not rec["ok"]:
+                problems.append(f"arm {arm}: request {i}'s teacher-forced logits outside "
+                                f"the bound of arm {twin}'s")
+    segment_bytes = {a: rows[a]["prefix_stats"].get("prefix_used_bytes") for a in "cde"}
+    kept.clear()
+    # generate() with attention_fn=flash_attention prefills through the
+    # kernel too: one launch a layer for the whole prompt
+    counters()
+    gen = generate(models[True], None, [timed[2]], st["new"], device="cuda")
+    gen_launches = fa.flash_attention.launches["fwd"]
+    if gen_launches != layers:
+        problems.append(f"generate with flash launched flash_fwd {gen_launches} times, "
+                        f"want {layers}")
+    emit({"phase": "serve_1b_prefill_generate", "prompt_len": len(timed[2]),
+          "flash_fwd_launches": gen_launches,
+          "flash_fwd_routes": dict(fa.flash_attention.routes["fwd"]),
+          "tokens_equal_arm_b": gen[0, len(timed[2]):].tolist() == rows["b"]["tokens"][2],
+          "gpu": gpu})
+    if problems:
+        raise AssertionError("; ".join(problems))
+
+    # one prefill per bucket, dense against flash in turns (events: the
+    # time on the card's clock, host starvation included; profiler: the
+    # device's busy time)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    prefill_ms = {}
+    for p in warm:
+        bucket = 1 << max(3, (len(p) - 1).bit_length())
+        tokens = torch.tensor([p + [0] * (bucket - len(p))], device="cuda")
+        cache = KVCache.zeros(cfg, 1, device="cuda")
+
+        def run(flash, tokens=tokens, cache=cache, last=len(p) - 1):
+            return models[flash](tokens, cache, prefill=True, last_pos=last)
+
+        turns = time_turns_ms(lambda: run(True), lambda: run(False), torch, flush, reps=5,
+                              warmup=1)
+        busy = {name: profile_device_ms(torch, lambda f=f: run(f))
+                for name, f in (("flash", True), ("dense", False))}
+        prefill_ms[bucket] = {
+            "flash_ms": (turns[0] + turns[3]) / 2, "dense_ms": (turns[1] + turns[2]) / 2,
+            "turns_ms": turns, "flash_device_busy_ms": busy["flash"][0],
+            "dense_device_busy_ms": busy["dense"][0],
+            "flash_kernels": busy["flash"][1], "dense_kernels": busy["dense"][1]}
+    emit({"phase": "serve_1b_prefill_bucket_ms", "prompt_lengths": [len(p) for p in warm],
+          "by_bucket": prefill_ms, "gpu": gpu})
+    del models, params
+
+    # (f) the paged leg: 1b-gqa, paged kernel, prefix cache, flash prefill
+    gcfg = TransformerConfig(**PRESET_1B_GQA, quantized=True)
+    gparams = init_quantized_lm(gcfg, seed=0, device="cuda")
+    gmodel = TransformerLM(dataclasses.replace(gcfg, attention_fn=fa.flash_attention))
+    geo = dict(paged=True, page_size=PAGED_STREAM["page_size"],
+               pool_pages=PAGED_STREAM["pool_pages"])
+    feng = ServeEngine(gmodel, gparams, n_slots=st["n_slots"], tokens_per_launch=tpl,
+                       device="cuda", paged_kernel=True, prefix_cache_bytes=PREFIX_BYTES, **geo)
+    freqs = timed[:6]
+    frow = serve(feng, freqs)
+    bad = gates(frow, True, len(freqs))
+    # decode: one launch a layer and step; each splice's suffix forward
+    # reads the pool through the kernel too, in row blocks (at least one
+    # launch a layer)
+    decode_launches = layers * frow["chains"] * tpl
+    launches_f = launches = frow["paged_attention_launches"]
+    splice_launches = launches - decode_launches
+    if (splice_launches < layers * frow["refills"]["splice"] or splice_launches % layers
+            or frow["paged_attention_routes"] != {"sm90": launches, "v1": 0}):
+        bad.append(f"paged_attention launched {launches} times "
+                   f"({frow['paged_attention_routes']}): want {decode_launches} decode "
+                   f"launches and at least {layers} a splice for "
+                   f"{frow['refills']['splice']} splices, all sm90")
+    if frow["splices"] < 1:
+        bad.append("no splice in the paged leg")
+    pstats = feng.page_stats()
+    if pstats["pages_shares"] <= 0:
+        bad.append(f"no page shared: {pstats}")
+    # teacher-forced: the last spliced request against a paged gather twin
+    # with dense prefill and no cache
+    twin = ServeEngine(TransformerLM(gcfg), gparams, n_slots=st["n_slots"],
+                       tokens_per_launch=tpl, device="cuda", **geo)
+    i = len(freqs) - 1
+    rec = tf_compare(twin.teacher_forced_logits(freqs[i], frow["tokens"][i]),
+                     feng.teacher_forced_logits(freqs[i], frow["tokens"][i]))
+    if not rec["ok"]:
+        bad.append(f"request {i}'s teacher-forced logits outside the bound")
+    while feng.prefix.evict_coldest():
+        pass
+    in_use = feng.page_stats()["pages_in_use"]
+    if in_use:
+        bad.append(f"{in_use} pages in use after the drain and the index clear")
+    emit({"phase": "serve_1b_prefill", "arm": "f", "preset": "1b-gqa",
+          "max_seq_len": gcfg.max_seq_len, "flash_prefill": True,
+          "options": dict(paged_kernel=True, prefix_cache_bytes=PREFIX_BYTES, **geo),
+          "requests": len(freqs), **{k: v for k, v in frow.items() if k != "tokens"},
+          "paged_attention_decode_launches": decode_launches,
+          "paged_attention_splice_launches": splice_launches,
+          "page_stats": pstats, "pages_in_use_after_clear": in_use,
+          "teacher_forced": {k: rec[k] for k in ("diff_share", "bound_share", "ok")},
+          "ok": not bad, "problems": bad, "gpu": gpu})
+    problems += [f"arm f: {x}" for x in bad]
+    del feng, twin, gparams, gmodel
+
+    # (g) the float arm: init_lm 1b in bf16, flash prefill (sm90) against
+    # dense prefill
+    fcfg = TransformerConfig(**PRESET_1B, dtype=torch.bfloat16)
+    fparams = init_lm(fcfg, seed=0, device="cuda")
+    dense_f = ServeEngine(TransformerLM(fcfg), fparams, n_slots=st["n_slots"],
+                          tokens_per_launch=tpl, device="cuda")
+    flash_f = ServeEngine(TransformerLM(dataclasses.replace(fcfg, attention_fn=fa.flash_attention)),
+                          fparams, n_slots=st["n_slots"], tokens_per_launch=tpl, device="cuda")
+    greqs = timed[:4]
+    float_row = serve(flash_f, greqs)
+    bad = gates(float_row, True, len(greqs), f32=False)
+    gshare = 0.0
+    for i in range(2):
+        rec = tf_compare(dense_f.teacher_forced_logits(greqs[i], float_row["tokens"][i]),
+                         flash_f.teacher_forced_logits(greqs[i], float_row["tokens"][i]))
+        emit({"phase": "serve_1b_prefill_teacher_forced", "arm": "g", "ref": "g-dense",
+              "request": i, "prompt_len": len(greqs[i]), **rec, "gpu": gpu})
+        gshare = max(gshare, rec["diff_share"])
+        if not rec["ok"]:
+            bad.append(f"request {i}'s teacher-forced logits outside the bound")
+    emit({"phase": "serve_1b_prefill", "arm": "g", "preset": "1b", "dtype": "bfloat16",
+          "weights": "init_lm(seed=0), float32 parameters computing in bfloat16",
+          "flash_prefill": True, "requests": len(greqs),
+          **{k: v for k, v in float_row.items() if k != "tokens"},
+          "ok": not bad, "problems": bad, "gpu": gpu})
+    problems += [f"arm g: {x}" for x in bad]
+    shares["g vs g-dense"] = gshare
+    del dense_f, flash_f, fparams
+    if problems:
+        raise AssertionError("; ".join(problems))
+    summary = {
+        "phase": "serve_1b_prefill_summary",
+        "tokens_d_equal_a": True, "tokens_b_equal_a": rows["b"]["tokens"] == rows["a"]["tokens"],
+        "tokens_c_equal_a": rows["c"]["tokens"] == rows["a"]["tokens"],
+        "tokens_e_equal_a": rows["e"]["tokens"] == rows["a"]["tokens"],
+        "teacher_forced_max_diff_share": shares, "bound_share": TF_LOGIT_BOUND,
+        "prefix_used_bytes": segment_bytes,
+        "ttft_p50_s": {a: r["ttft_p50_s"] for a, r in rows.items()},
+        "ttft_p95_s": {a: r["ttft_p95_s"] for a, r in rows.items()},
+        "prefill_ms_by_bucket": prefill_ms, "gpu": gpu}
+    emit(summary)
+    launches = {a: r["flash_fwd_launches"] for a, r in rows.items()}
+    launches["f"] = frow["flash_fwd_launches"]
+    paged_f = {"launches": launches_f, "decode": decode_launches, "splices": splice_launches,
+               "routes": frow["paged_attention_routes"]}
+    launches["g"] = float_row["flash_fwd_launches"]
+    return {"launches": launches, "paged_f": paged_f,
+            "prefills": {a: r["refills"]["prefill"] for a, r in rows.items()},
+            "routes_g": float_row["flash_fwd_routes"], "routes_b": rows["b"]["flash_fwd_routes"]}
 
 
 LOSSES = ("cross_entropy", "fused_cross_entropy")
@@ -2115,11 +2565,13 @@ def main(argv=None) -> int:
     fused = phase_fused_ce(torch, fl, gpu)
     adamw_row = phase_adamw(torch, gpu)
     paged = phase_paged(torch, pa, gpu)
+    flash_serving = phase_flash_serving(torch, fa, gpu)
     if args.kernel_only:
         return 0
     phase_model(torch, gpu)
     serve = phase_serve(torch, quant, gpu)
     paged_serve = phase_serve_paged(torch, pa, gpu)
+    prefill = phase_serve_prefill(torch, fa, gpu)
     phase_train_card_vs_cpu(torch, gpu)
     base = phase_train(torch, gpu)
     train_launches = base["flash"]
@@ -2174,6 +2626,20 @@ def main(argv=None) -> int:
                                "backward, one number for flash_dq and flash_dkv "
                                "together (it computes dq, dk and dv in one call)"),
         })
+        if kind == "fwd":
+            # the serving path: 16 launches (one a layer) per whole prefill
+            kernels[-1]["launches_by_path"] = {
+                "train_760m": train_launches["fwd"],
+                **{f"serve_1b_prefill_{a}": n for a, n in prefill["launches"].items()}}
+            kernels[-1]["serving"] = {
+                "launches_per_prefill": PRESET_1B["n_layers"],
+                "whole_prefills": prefill["prefills"],
+                "route_counts": {"b (f32, int8 model)": prefill["routes_b"],
+                                 "g (bf16, float model)": prefill["routes_g"]},
+                "work": "one prefill's attention of one layer: B=1 H=16 D=128",
+                "shapes": [{"S": s_, "dtype": dt, **row}
+                           for (s_, dt), row in flash_serving.items()],
+                "source_f32": f"{PKG}/csrc/flash_attention.cu"}
     # the fused tail: one 760m train step's launches at the main shape
     # (FUSED_CE_SHAPES[0]); AdamW over the 760m leaves
     for kind, per_step in FUSED_PER_STEP.items():
@@ -2233,6 +2699,12 @@ def main(argv=None) -> int:
                 "pages of 64, depths (32, 496, 1516, 32), f32",
         "library_note": PAGED_LIBRARY_NOTE,
         "gather_sdpa_ms": row["gather_sdpa_ms"] * 16,
+        "launches_by_path": {"serve_1b_paged": paged_serve["launches"],
+                             "serve_1b_prefill_f": prefill["paged_f"]},
+        "splice": {k: paged["results"][("1b-gqa-splice", "f32", "f32")][k]
+                   for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+        | {"work": "one call at B=1 S=256 H=16 KV=4 D=128 from depth 96, f32, in row "
+                   "blocks"},
     })
     emit({"kernels": kernels})
     print(gpu, flush=True)

@@ -1,9 +1,9 @@
 """ctypes bridge to the multithreaded host row gather.
 
-The source is the JAX package's ``csrc/fastgather.cpp``, read where it
-lies and never copied or written beside: the library is built with
-``g++`` into the gitignored ``build/host/`` at the repo root, named by a
-hash of the source, at the first gather (never at import). When ``g++``
+The source is the port's own ``csrc/fastgather.cpp`` (a copy of the JAX
+package's): the library is built with ``g++`` into the gitignored
+``build/host/`` at the repo root, named by a hash of the source, at the
+first gather (never at import). When ``g++``
 or the build is missing, :func:`gather_rows` uses numpy fancy indexing,
 as the JAX loader does: the native copy is a host throughput measure,
 never a correctness dependency.
@@ -22,7 +22,7 @@ from pathlib import Path
 import numpy as np
 
 _REPO = Path(__file__).resolve().parents[2]
-SOURCE = _REPO / "pytorch_distributed_training_tutorials_tpu" / "csrc" / "fastgather.cpp"
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fastgather.cpp"
 BUILD_DIR = _REPO / "build" / "host"
 
 _lock = threading.Lock()

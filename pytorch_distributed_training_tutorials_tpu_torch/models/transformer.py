@@ -1,14 +1,16 @@
 """Decoder-only transformer LM, in PyTorch: the int8 serving forward and
-the float training forward.
+the float forward (training, and serving in ``cfg.dtype``).
 
 Port of ``pytorch_distributed_training_tutorials_tpu/models/transformer.py``:
 RMSNorm, rotary positions (half-split), SwiGLU, GQA. Two weight kinds:
 
-- ``quantized=True`` (int8 serving): dense causal prefill, slot-indexed
-  cached decode with per-row positions, and the int8 projections of
-  :class:`..ops.quant.Int8Linear`, all under ``torch.no_grad``;
-- ``quantized=False`` (training): float32 parameters with flax's
-  ``dtype=`` semantics — each projection casts its input and its weight to
+- ``quantized=True`` (int8 serving): causal prefill through
+  ``cfg.attention_fn`` (e.g. the flash forward kernel) or, unset, the
+  dense float64 :func:`causal_attention`; slot-indexed cached decode with
+  per-row positions; the int8 projections of
+  :class:`..ops.quant.Int8Linear`; all under ``torch.no_grad``;
+- ``quantized=False`` (float): float32 parameters with flax's ``dtype=``
+  semantics — each projection casts its input and its weight to
   ``cfg.dtype`` (float32 or bfloat16) at use, the embedding casts the
   looked-up rows, RMSNorm and rope compute in float32 and cast back, and
   attention is ``cfg.attention_fn`` (e.g. the flash kernels of
@@ -16,7 +18,15 @@ RMSNorm, rotary positions (half-split), SwiGLU, GQA. Two weight kinds:
   JAX ``masked_attention`` contract. ``remat`` checkpoints each block
   (``torch.utils.checkpoint``); ``remat_policy="dots"`` saves the outputs
   of the projections' matmuls and recomputes the rest, the flash forward
-  included. The float model runs the plain causal forward only.
+  included. The float model also serves: prefill and decode over a
+  :class:`KVCache` or :class:`PagedKVCache` stored in ``cfg.dtype``, the
+  cached decode under the same ``masked_attention`` contract (float32
+  scores and softmax, weights cast to v's type).
+
+Both kinds run the same :meth:`Attention.forward`. Decode takes S >= 1
+tokens per row from the row's own position: S > 1 on a batch-1 cache is
+the suffix continuation that prefix-cache splices and chunked prefill
+run (``serve/engine.py``), as in the JAX package.
 
 Parameter names and the (in, out) weight meaning follow the JAX package so
 the weight bridge (:mod:`.convert`) maps one to one.
@@ -80,7 +90,6 @@ _LATER_SLICES = {
 }
 # what the int8 serving model refuses, and the slice that brings it in
 _SERVING_LATER = {
-    "attention_fn": "flash prefill in the serving port",
     "remat": "no later slice: remat is a training option and int8 weights "
              "are not trained",
     "remat_policy": "no later slice: remat is a training option and int8 "
@@ -94,13 +103,15 @@ class TransformerConfig:
     """The JAX package's ``TransformerConfig`` fields that the port runs
     or refuses. Unsupported values raise ``NotImplementedError`` at
     construction, naming the slice that brings them in. ``quantized=True``
-    serves int8 weights in float32; ``quantized=False`` trains float32
+    serves int8 weights in float32, prefilling through ``attention_fn``
+    when it is set; ``quantized=False`` trains and serves float32
     parameters computing in ``dtype`` (float32 or bfloat16), with
     ``attention_fn``, ``remat`` and ``remat_policy`` (None or "dots"). The
     JAX ``scan_layers`` layout needs no field: the port holds one module
     per layer and the weight bridge reads the layout from the tree.
 
-    KV storage: ``kv_cache_dtype`` None (float32), ``torch.bfloat16``,
+    KV storage: ``kv_cache_dtype`` None (float32 for int8 weights,
+    ``dtype`` for float weights), ``torch.float32``, ``torch.bfloat16``,
     ``torch.int8`` (codes + f32 scales) or ``"int4"`` (packed nibbles +
     bf16 scales), for :class:`KVCache` and :class:`PagedKVCache` alike.
     ``kv_pages`` > 0 makes decode read and write a :class:`PagedKVCache`
@@ -228,12 +239,12 @@ def _kv_quant_mode(dtype) -> str | None:
     return "int8" if dtype == torch.int8 else None
 
 
-def _kv_storage(dtype, d: int):
+def _kv_storage(dtype, d: int, exact: torch.dtype = torch.float32):
     """``(storage dtype, stored head dim, scale dtype or None)`` of a
     ``kv_cache_dtype`` at head dim ``d``: int4 packs two values per uint8
     byte (``d // 2`` stored) and keeps bf16 scales, so a token-head costs
     exactly half its int8 twin; exact storage follows the serving compute
-    type (float32) unless set."""
+    type ``exact`` unless set."""
     quant = _kv_quant_mode(dtype)
     if quant == "int8":
         return torch.int8, d, torch.float32
@@ -242,7 +253,15 @@ def _kv_storage(dtype, d: int):
             raise ValueError(f"int4 KV needs an even head_dim, got {d}")
         return torch.uint8, d // 2, torch.bfloat16
     dtype = _kv_dtype(dtype)
-    return (torch.float32 if dtype is None else dtype), d, None
+    return (exact if dtype is None else dtype), d, None
+
+
+def _cache_storage(cfg: TransformerConfig):
+    """:func:`_kv_storage` of a model: unset exact storage is float32 for
+    int8 weights (they compute in float32) and ``cfg.dtype`` for float
+    weights (the JAX cache stores K/V in the projections' type)."""
+    exact = torch.float32 if cfg.quantized else cfg.dtype
+    return _kv_storage(cfg.kv_cache_dtype, cfg.head_dim, exact)
 
 
 def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -281,7 +300,7 @@ def _decode_kv(stored: torch.Tensor, scale, quant: str | None, dtype):
 
 
 def _check_storage(cache, cfg: TransformerConfig) -> None:
-    store, d_store, _ = _kv_storage(cfg.kv_cache_dtype, cfg.head_dim)
+    store, d_store, _ = _cache_storage(cfg)
     if cache.k.dtype != store or cache.k.shape[-1] != d_store:
         raise ValueError(
             f"the cache stores {cache.k.dtype} x {cache.k.shape[-1]}, the model's "
@@ -315,7 +334,7 @@ class KVCache:
     def zeros(cls, cfg: TransformerConfig, batch: int, window: int | None = None,
               device=None) -> "KVCache":
         w = cfg.max_seq_len if window is None else window
-        store, d_store, scale_dtype = _kv_storage(cfg.kv_cache_dtype, cfg.head_dim)
+        store, d_store, scale_dtype = _cache_storage(cfg)
         lead = (cfg.n_layers, batch, w + 1, cfg.kv_heads)
         return cls(
             k=torch.zeros(lead + (d_store,), dtype=store, device=device),
@@ -369,7 +388,7 @@ class PagedKVCache:
         n, ps = cfg.kv_pages, cfg.kv_page_size
         if n < 1:
             raise ValueError(f"a paged cache needs kv_pages >= 1, got {n}")
-        store, d_store, scale_dtype = _kv_storage(cfg.kv_cache_dtype, cfg.head_dim)
+        store, d_store, scale_dtype = _cache_storage(cfg)
         lead = (cfg.n_layers, n + 1, ps, cfg.kv_heads)
         return cls(
             k=torch.zeros(lead + (d_store,), dtype=store, device=device),
@@ -455,38 +474,45 @@ def apply_rope(x: torch.Tensor, theta: float, offset=0) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-def masked_attention(q, k, v, mask):
+def _weights(scores, v, acc):
+    """Softmax weights of the context product: float64 kept whole (the
+    int8 path); float32 cast to v's type first (the JAX
+    ``masked_attention`` contract of the float path)."""
+    weights = torch.softmax(scores, dim=-1)
+    return weights if acc == torch.float64 else weights.to(v.dtype).to(acc)
+
+
+def masked_attention(q, k, v, mask, acc: torch.dtype = torch.float64):
     """Scaled-dot-product attention with an explicit boolean ``mask``
     broadcastable to the (B, H, Q, K) scores: q (B, Q, H, D), k/v (B, K, H,
-    D). Scores, softmax and context in float64 (module docstring), output
-    in q's dtype."""
+    D). Scores, softmax and context in ``acc``: float64 for int8 weights
+    (module docstring), float32 for float weights (with the weights cast
+    to v's type, :func:`_weights`); output in q's dtype."""
     d = q.shape[-1]
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double())
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc))
     scores = scores / math.sqrt(d)
     scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
-    weights = torch.softmax(scores, dim=-1)
-    ctx = torch.einsum("bhqk,bkhd->bqhd", weights, v.double())
+    ctx = torch.einsum("bhqk,bkhd->bqhd", _weights(scores, v, acc), v.to(acc))
     return ctx.to(q.dtype)
 
 
-def grouped_masked_attention(q, k, v, mask):
+def grouped_masked_attention(q, k, v, mask, acc: torch.dtype = torch.float64):
     """GQA attention over an UN-expanded K/V: q (B, Q, H, D) against k/v
     (B, L, KV, D), H a multiple of KV — the group axis folds into the
     einsums, so the cache is read at its stored size. ``mask``
-    broadcastable to (B, 1, Q, L). Falls through to
-    :func:`masked_attention` when H == KV."""
+    broadcastable to (B, 1, Q, L); ``acc`` as :func:`masked_attention`.
+    Falls through to :func:`masked_attention` when H == KV."""
     b, qlen, h, d = q.shape
     kvh = k.shape[2]
     if kvh == h:
-        return masked_attention(q, k, v, mask)
+        return masked_attention(q, k, v, mask, acc)
     grp = h // kvh
-    q5 = q.double().reshape(b, qlen, kvh, grp, d)
-    scores = torch.einsum("bqcgd,blcd->bcgql", q5, k.double()) / math.sqrt(d)
+    q5 = q.to(acc).reshape(b, qlen, kvh, grp, d)
+    scores = torch.einsum("bqcgd,blcd->bcgql", q5, k.to(acc)) / math.sqrt(d)
     scores = torch.where(
         mask[:, :, None], scores, torch.full_like(scores, -1e30)
     )
-    weights = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bcgql,blcd->bqcgd", weights, v.double())
+    out = torch.einsum("bcgql,blcd->bqcgd", _weights(scores, v, acc), v.to(acc))
     return out.to(q.dtype).reshape(b, qlen, h, d)
 
 
@@ -614,11 +640,14 @@ class Attention(nn.Module):
         k_raw = self.k_proj(x)  # GQA: only kv_heads projected and cached
         v = self.v_proj(x)
         s = x.shape[1]
+        acc = torch.float64 if cfg.quantized else torch.float32
         if decode:
             # incremental decoding: S tokens per row written (storage-
             # encoded) at the row's own positions pos + [0, S), attention
             # over the decoded cache window with each query masking
-            # positions beyond its own
+            # positions beyond its own. S > 1 from a nonzero position is
+            # the suffix continuation of a splice or a prefill chunk: the
+            # same rows of K/V as a whole prefill, the same unmasked terms
             pos = cache.index
             quant = cache.quant
             q = apply_rope(q_raw, cfg.rope_theta, offset=pos)
@@ -645,7 +674,7 @@ class Attention(nn.Module):
                     quant, v.dtype,
                 )
                 out = grouped_masked_attention(
-                    q, k_read, v_read, _validity(pos, s, window)[:, None]
+                    q, k_read, v_read, _validity(pos, s, window)[:, None], acc
                 )
         else:
             q = apply_rope(q_raw, cfg.rope_theta)
@@ -666,12 +695,14 @@ class Attention(nn.Module):
                     bl[sel, :s] = (val if rows is None else val[0]).to(bl.dtype)
                     bl[sel, s:] = 0
             h = cfg.n_heads
-            if cfg.quantized:
-                attn = causal_attention
-            else:
-                attn = cfg.attention_fn or dense_causal_attention
+            # int8 weights without an attention_fn attend in float64, the
+            # float model under the masked_attention contract; decode keeps
+            # the dense cached path whatever attention_fn is (as in JAX)
+            dense = causal_attention if cfg.quantized else dense_causal_attention
+            attn = cfg.attention_fn or dense
             # GQA: attention_fns keep their (B, S, H, D) contract — K/V
-            # repeat up to the query head count here
+            # repeat up to the query head count here (repeat_interleave:
+            # contiguous, so a flash kernel takes them at their own strides)
             out = attn(q, _expand_kv(k, h), _expand_kv(v, h))
         return self.o_proj(out)
 
@@ -708,7 +739,8 @@ class Attention(nn.Module):
                 quant, q.dtype,
             ))
         valid = _validity(pos, q.shape[1], cache.window)
-        return grouped_masked_attention(q, *reads, valid[:, None])
+        acc = torch.float64 if self.cfg.quantized else torch.float32
+        return grouped_masked_attention(q, *reads, valid[:, None], acc)
 
 
 class SwiGLU(nn.Module):
@@ -749,9 +781,11 @@ class TransformerLM(nn.Module):
     :func:`..models.convert.init_lm` and are bound with :func:`bind_params`
     (``ServeEngine`` and ``generate`` do it for serving).
 
-    A float model (``quantized=False``) runs the plain mode only, with
+    A float model (``quantized=False``) runs the plain mode with
     gradients, each block under ``torch.utils.checkpoint`` when
-    ``cfg.remat``. An int8 model runs without gradients in every mode.
+    ``cfg.remat``, and the cache modes in ``cfg.dtype`` (the caller turns
+    gradients off: ``ServeEngine`` and ``generate`` do). An int8 model
+    runs without gradients in every mode.
 
     Modes: plain (full causal forward, every position's logits);
     ``prefill=True`` (the causal forward that also writes ``cache`` rows
@@ -776,19 +810,14 @@ class TransformerLM(nn.Module):
     def forward(self, tokens, cache: KVCache | None = None, *,
                 prefill: bool = False, decode: bool = False, last_pos=None,
                 rows=None, return_hidden: bool = False):
-        if self.cfg.quantized:
+        serving = cache is not None or prefill or decode or last_pos is not None
+        if self.cfg.quantized or serving:
             if return_hidden:
                 raise NotImplementedError(
                     "return_hidden is the float train path's (the fused loss)")
             with torch.no_grad():
                 return self._serve(tokens, cache, prefill=prefill,
                                    decode=decode, last_pos=last_pos, rows=rows)
-        if cache is not None or prefill or decode or last_pos is not None:
-            raise NotImplementedError(
-                "a float TransformerLM runs the plain causal forward only in "
-                "the PyTorch port; float-weight serving arrives with flash "
-                "prefill in the serving port"
-            )
         return self._train_forward(tokens, return_hidden)
 
     def _train_forward(self, tokens, return_hidden: bool = False):
@@ -846,6 +875,8 @@ class TransformerLM(nn.Module):
         if prefill and s > cache.window:
             raise ValueError(f"prompt of {s} exceeds the cache window {cache.window}")
         x = self.tok_emb(tokens)
+        if not cfg.quantized:
+            x = x.to(cfg.dtype)
         for i, block in enumerate(self.blocks):
             x = block(x, cache, i, prefill=prefill, decode=decode, rows=rows)
         if prefill:

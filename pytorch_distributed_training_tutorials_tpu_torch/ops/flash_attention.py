@@ -19,7 +19,13 @@ JAX ``custom_vjp``): the forward saves q, k, v, O and the logsumexp, and
 the backward computes ``delta = rowsum(dO * O)`` in plain torch, then
 launches dq and dk/dv. It is a drop-in ``attention_fn`` for
 :class:`..models.transformer.TransformerConfig`: (B, S, H, D) in and out,
-causal, as ``causal_attention``.
+causal, as ``causal_attention``. Serving calls it too, under
+``torch.no_grad()``: every whole prefill of a model with this
+``attention_fn`` (int8 weights: f32 operands, the ``fwd_kernel`` route;
+bf16 float weights: the sm90 route) runs one forward launch a layer at
+B = 1 and the bucket-padded S, GQA K/V expanded by ``repeat_interleave``
+(contiguous, so the operands keep the strides the sm90 route takes);
+splices and chunks run the dense cached decode instead.
 
 Each wrapper runs the plain version on a CPU tensor and launches its
 kernel on a CUDA tensor (bf16 or f32, head dim a multiple of 8 up to 128,

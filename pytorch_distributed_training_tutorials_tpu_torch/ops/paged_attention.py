@@ -17,8 +17,12 @@ into an online softmax, so no dense ``(B, W, ...)`` window exists.
   (the pages split across blocks, TMA tile loads into an mbarrier ring, a
   last-block merge in split order; :func:`_sm90_plan`); every other call
   runs ``csrc/paged_attention.cu`` (one block per row and KV head, v1).
-  ``paged_attention.routes`` counts the calls of each route, and
-  ``route="v1"`` asks for the old kernel by name.
+  ``paged_attention.routes`` counts the launches of each route, and
+  ``route="v1"`` asks for the old kernel by name. Either kernel holds a
+  (KV head)'s S x group query rows in shared memory, so a call whose S
+  rows need more launches in row blocks of as many query rows as fit
+  (:func:`_rows_per_launch`), block j's first row at ``pos + s_j``: a
+  suffix prefill over a prefix (S up to a bucket) runs on the kernel too.
 - On a CPU tensor it runs :func:`paged_attention_plain`, the plain PyTorch
   version of the kernel's arithmetic: a loop over logical pages with a
   vectorised update per page, f32 scores times ``1/sqrt(D)``, validity
@@ -286,20 +290,39 @@ def _sm90_shared_bytes(sg: int, page_size: int, d: int, row_bytes: int, stages: 
     return 128 + stages * stage + 64 + 4 * sg * (5 * d + page_size + 4 + 2 * splits)
 
 
+def _rows_per_launch(sm90: bool, q, k_pool, quant, grp: int, p: int) -> int:
+    """The most query rows (each ``grp`` kernel rows) one launch of the
+    route takes within the card's shared memory: q's S when they all fit,
+    0 when not even one does. Both routes' bytes grow linearly in the
+    rows."""
+    b, s, h, d = q.shape
+    page_size = k_pool.shape[1]
+    if sm90:
+        row = _row_bytes(quant, k_pool, d)
+        pps, splits, stages = _sm90_plan(b, k_pool.shape[2], p)
+
+        def smem(n):
+            return _sm90_shared_bytes(n * grp, page_size, d, row, stages, splits)
+    else:
+        def smem(n):
+            return _shared_bytes(n * grp, page_size, d)
+    return max(0, min(s, (_MAX_SHARED - smem(0)) // (smem(1) - smem(0))))
+
+
 def _sm90_route(q, k_pool, v_pool, quant, grp: int, p: int) -> bool:
     """True when a CUDA call goes to the sm90 kernel: every stored K/V row a
     whole number of 16-byte pieces (D % 4 for f32, D % 8 for bf16, D % 16
     for int8, D % 32 for int4), both pools 16-byte aligned, pages of at
     most 256 positions (what a TMA box of one (page, head) tile takes), and
-    the kernel's shared memory within the card's. False sends it to
-    ``csrc/paged_attention.cu``."""
-    b, s, h, d = q.shape
+    the kernel's shared memory within the card's for one query row (more
+    rows launch in row blocks, :func:`_rows_per_launch`). False sends it
+    to ``csrc/paged_attention.cu``."""
+    d = q.shape[3]
     page_size = k_pool.shape[1]
     row = _row_bytes(quant, k_pool, d)
-    pps, splits, stages = _sm90_plan(b, k_pool.shape[2], p)
     return (row % 16 == 0 and d % 4 == 0 and page_size <= 256
             and k_pool.data_ptr() % 16 == 0 and v_pool.data_ptr() % 16 == 0
-            and _sm90_shared_bytes(s * grp, page_size, d, row, stages, splits) <= _MAX_SHARED)
+            and _rows_per_launch(True, q[:, :1], k_pool, quant, grp, p) == 1)
 
 
 def _route(q, k_pool, v_pool, table, pos, k_scale, v_scale, quant, grp) -> bool:
@@ -341,14 +364,15 @@ def _route(q, k_pool, v_pool, table, pos, k_scale, v_scale, quant, grp) -> bool:
 
 
 def _check_v1_shared(q, k_pool, grp) -> None:
-    """Raise when the v1 kernel's shared memory exceeds the card's."""
-    b, s, h, d = q.shape
-    smem = _shared_bytes(s * grp, k_pool.shape[1], d)
+    """Raise when the v1 kernel's shared memory for ONE query row (its
+    ``grp`` kernel rows) exceeds the card's."""
+    d = q.shape[3]
+    smem = _shared_bytes(grp, k_pool.shape[1], d)
     if smem > _MAX_SHARED:
         raise ValueError(
             f"paged attention kernel needs {smem} bytes of shared memory for "
-            f"{s * grp} query rows and pages of {k_pool.shape[1]} at D={d} "
-            f"(> {_MAX_SHARED})"
+            f"one query row of {grp} heads a KV head and pages of "
+            f"{k_pool.shape[1]} at D={d} (> {_MAX_SHARED})"
         )
 
 
@@ -409,7 +433,9 @@ def paged_attention(q, k_pool, v_pool, table, pos, *, k_scale=None,
     and ``pos`` on the card (no host sync): ``csrc/paged_attention_sm90.cu``
     where :func:`_sm90_route` takes the operands, else
     ``csrc/paged_attention.cu``; ``route="v1"`` asks for the latter
-    whatever the operands. Adds one to ``paged_attention.launches``."""
+    whatever the operands. Query rows past what one launch's shared memory
+    holds launch in row blocks (:func:`_rows_per_launch`), block j with
+    ``pos + s_j``; each launch adds one to ``paged_attention.launches``."""
     grp = _check(q, k_pool, v_pool, table, pos, k_scale, v_scale, quant)
     if route not in (None, "v1"):
         raise ValueError(f"route must be None or 'v1', got {route!r}")
@@ -422,10 +448,19 @@ def paged_attention(q, k_pool, v_pool, table, pos, *, k_scale=None,
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    _launch(sm90, q, k_pool, v_pool, table, pos, k_scale, v_scale, quant, grp, out)
+    s = q.shape[1]
+    rows = _rows_per_launch(sm90, q, k_pool, quant, grp, table.shape[1])
+    if rows == s:
+        _launch(sm90, q, k_pool, v_pool, table, pos, k_scale, v_scale, quant, grp, out)
+        return out
+    for s0 in range(0, s, rows):
+        qb = q[:, s0:s0 + rows].contiguous()
+        ob = torch.empty_like(qb)
+        _launch(sm90, qb, k_pool, v_pool, table, pos + s0, k_scale, v_scale, quant, grp, ob)
+        out[:, s0:s0 + rows] = ob
     return out
 
 
-paged_attention.launches = 0  # calls that launched a kernel (CPU calls add none)
+paged_attention.launches = 0  # kernel launches (CPU calls add none)
 # of those, by route: "sm90" (paged_attention_sm90.cu) or "v1" (paged_attention.cu)
 paged_attention.routes = {"sm90": 0, "v1": 0}

@@ -1,11 +1,15 @@
 """Continuous-batching serving for the PyTorch port: :class:`ServeEngine`
 over a slot-indexed or paged KV cache, with its own copies of the FIFO
-scheduler and the page pool."""
+scheduler, the page pool and the radix prefix index."""
 
 from pytorch_distributed_training_tutorials_tpu_torch.serve.engine import ServeEngine
 from pytorch_distributed_training_tutorials_tpu_torch.serve.pages import (
     PagePool,
     PoolExhausted,
+)
+from pytorch_distributed_training_tutorials_tpu_torch.serve.prefix import (
+    PrefixIndex,
+    Segment,
 )
 from pytorch_distributed_training_tutorials_tpu_torch.serve.scheduler import (
     Completion,
@@ -28,9 +32,11 @@ __all__ = [
     "FifoScheduler",
     "PagePool",
     "PoolExhausted",
+    "PrefixIndex",
     "QueueClosed",
     "QueueFull",
     "Request",
+    "Segment",
     "ServeEngine",
     "SlotState",
     "bucket_len",

@@ -1,6 +1,6 @@
 """``python -m pytorch_distributed_training_tutorials_tpu_torch.serve
---selftest [--paged [--paged-kernel] [--kv-bits 8|4]] [--device cpu]``:
-end-to-end smoke of the port's serving path.
+--selftest [--paged [--paged-kernel] [--kv-bits 8|4]] [--prefix] [--chunk]
+[--flash] [--device cpu]``: end-to-end smoke of the port's serving path.
 
 A toy int8 LM serves a staggered stream of mixed-length requests through
 :class:`.engine.ServeEngine` (2 slots, a queue bound of 2 so backpressure
@@ -18,6 +18,26 @@ the pool must shed at submit, and no page may leak. Then the paged-
 attention read path at f32 must be token-exact to the gather path, and an
 int4 pool's ``page_bytes`` exactly half an int8 pool's.
 
+``--prefix`` adds the prefix-cache arm (the JAX selftest's): six requests
+sharing a 16-token head with their own tails through 2 slots, with the
+cache off and on. The tokens must be byte-identical, the hit rate above 0,
+at least one splice, fewer prefills with the cache on, and the host syncs
+exactly chains + prefills + splices. With ``--paged`` it adds the paged
+leg: the same stream over a page pool with the cache on (through the
+paged-attention kernel, splices included, with ``--paged-kernel``) —
+token-exact to the whole-slot engine, donor pages shared (``pages_shares`` > 0), and no
+page left in use once the drained engine's index lets its segments go.
+
+``--chunk`` adds the chunked-prefill arm: ``prefill_chunk=8`` on a stream
+whose longest prompt is 12 tokens; at least one chunk, tokens equal to the
+unchunked run, and the host syncs still one per chain plus one per
+prefill (a chunked prompt's mid chunks make none).
+
+``--flash`` adds the flash-prefill arm: the same model with
+``attention_fn=flash_attention`` serves the stream, and each request's
+teacher-forced logits (``ServeEngine.teacher_forced_logits``) are held
+against the dense-prefill engine's within 4% of their logit scale.
+
 Prints one JSON line (``"ok": true`` when every check held) and exits 0,
 or 1 when a check failed. Runs on ``cuda`` unless ``--device`` names
 another device.
@@ -31,7 +51,8 @@ import sys
 
 
 def selftest(device=None, paged: bool = False, paged_kernel: bool = False,
-             kv_bits: int | None = None) -> dict:
+             kv_bits: int | None = None, prefix: bool = False, chunk: bool = False,
+             flash: bool = False) -> dict:
     import numpy as np
     import torch
 
@@ -100,6 +121,10 @@ def selftest(device=None, paged: bool = False, paged_kernel: bool = False,
             mismatches += 1
             problems.append(f"request {rid}: engine {got} != generate {ref}")
     paged_fields = paged_arm(model, params, dev, paged_kernel, kv_bits, problems) if paged else {}
+    prefix_fields = (prefix_arm(model, params, dev, paged, paged_kernel, problems)
+                     if prefix else {})
+    chunk_fields = chunk_arm(model, params, dev, problems) if chunk else {}
+    flash_fields = flash_arm(model, params, dev, problems) if flash else {}
     return {
         "selftest": "serve_torch",
         "ok": not problems,
@@ -116,6 +141,9 @@ def selftest(device=None, paged: bool = False, paged_kernel: bool = False,
         "backpressured": backpressured,
         "generated_tokens": engine.generated_tokens,
         **paged_fields,
+        **prefix_fields,
+        **chunk_fields,
+        **flash_fields,
         "problems": problems,
     }
 
@@ -185,6 +213,138 @@ def paged_arm(model, params, dev, paged_kernel: bool, kv_bits, problems: list) -
     }
 
 
+def _stream(engine, reqs) -> list:
+    """Submit ``reqs`` ((prompt, max_new) pairs), drain; tokens in submit
+    order."""
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import Request
+
+    ids = [engine.submit(Request(prompt=t, max_new_tokens=m)) for t, m in reqs]
+    done = {c.request_id: c.tokens for c in engine.run_until_idle()}
+    return [done.get(i) for i in ids]
+
+
+def _overlap_stream(vocab: int, seed: int, tails) -> list:
+    """(prompt, max_new) pairs: one shared 16-token head, then each
+    request's own tail of the given length."""
+    import numpy as np
+
+    rng = np.random.Generator(np.random.PCG64(seed))
+    shared = rng.integers(0, vocab, 16).tolist()
+    return [(shared + rng.integers(0, vocab, t).tolist(), m) for t, m in tails]
+
+
+def prefix_arm(model, params, dev, paged: bool, paged_kernel: bool, problems: list) -> dict:
+    """The ``--prefix`` checks (module docstring), and with ``paged`` the
+    paged leg; appends to ``problems`` and returns the arm's fields."""
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import ServeEngine
+
+    reqs = _overlap_stream(model.cfg.vocab_size, 3,
+                           [(3, 8), (5, 6), (2, 10), (4, 7), (3, 5), (6, 9)])
+
+    def run(**kw):
+        eng = ServeEngine(model, params, n_slots=2, tokens_per_launch=8, device=dev, **kw)
+        return eng, _stream(eng, reqs)
+
+    off, toks_off = run()
+    on, toks_on = run(prefix_cache_bytes=16 * 1024 * 1024)
+    stats = on.prefix_stats()
+    if toks_on != toks_off:
+        problems.append(f"prefix cache changed greedy tokens: {toks_on} != {toks_off}")
+    if stats["prefix_hit_rate"] <= 0 or on.n_splices < 1:
+        problems.append(f"no prefix hits on an overlapping stream: {stats}")
+    if on.n_prefills >= off.n_prefills:
+        problems.append(f"prefix cache saved no prefills: {on.n_prefills} on vs "
+                        f"{off.n_prefills} off")
+    budget = on.n_chains + on.n_prefills + on.n_splices
+    if on.n_host_syncs != budget:
+        problems.append(f"prefix arm: {on.n_host_syncs} host syncs != {budget} "
+                        f"({on.n_chains} chains + {on.n_prefills} prefills + "
+                        f"{on.n_splices} splices)")
+    out = {"prefix_token_exact": toks_on == toks_off, "prefix_n_splices": on.n_splices,
+           "prefix_n_prefills": [off.n_prefills, on.n_prefills],
+           "prefix_n_host_syncs": on.n_host_syncs, **stats}
+    if paged:
+        eng, toks = run(prefix_cache_bytes=16 * 1024 * 1024, paged=True, page_size=8,
+                        pool_pages=24, paged_kernel=paged_kernel)
+        pstats = eng.page_stats()
+        if toks != toks_off:
+            problems.append(f"paged prefix cache changed greedy tokens: {toks} != {toks_off}")
+        if pstats["pages_shares"] <= 0 or eng.n_splices < 1:
+            problems.append(f"paged prefix leg shared no pages: {pstats}")
+        while eng.prefix.evict_coldest():
+            pass
+        in_use = eng.page_stats()["pages_in_use"]
+        if in_use:
+            problems.append(f"paged prefix leg: {in_use} pages leaked")
+        out.update({"paged_prefix_token_exact": toks == toks_off,
+                    "paged_prefix_n_splices": eng.n_splices,
+                    "paged_prefix_pages_shares": pstats["pages_shares"],
+                    "paged_prefix_pages_in_use": in_use})
+    return out
+
+
+def chunk_arm(model, params, dev, problems: list) -> dict:
+    """The ``--chunk`` checks (module docstring)."""
+    import numpy as np
+
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import ServeEngine
+
+    rng = np.random.Generator(np.random.PCG64(4))
+    reqs = [(rng.integers(0, model.cfg.vocab_size, p).tolist(), m)
+            for p, m in [(12, 6), (3, 9), (10, 5), (7, 8), (12, 4)]]
+    runs = {}
+    for chunk in (0, 8):
+        eng = ServeEngine(model, params, n_slots=2, tokens_per_launch=8, device=dev,
+                          prefill_chunk=chunk)
+        runs[chunk] = (eng, _stream(eng, reqs))
+    eng, toks = runs[8]
+    if toks != runs[0][1]:
+        problems.append(f"chunked prefill changed greedy tokens: {toks} != {runs[0][1]}")
+    if eng.n_chunks < 1:
+        problems.append("no prompt was chunked")
+    if eng.n_host_syncs != eng.n_chains + eng.n_prefills:
+        problems.append(f"chunk arm: {eng.n_host_syncs} host syncs != {eng.n_chains} "
+                        f"chains + {eng.n_prefills} prefills")
+    return {"chunk_token_exact": toks == runs[0][1], "chunk_n_chunks": eng.n_chunks,
+            "chunk_n_host_syncs": eng.n_host_syncs}
+
+
+# teacher-forced logits of the flash arm within this share of the dense
+# engine's largest |logit| (chip_smoke.py's gate)
+FLASH_TF_BOUND = 0.04
+
+
+def flash_arm(model, params, dev, problems: list) -> dict:
+    """The ``--flash`` checks (module docstring)."""
+    import dataclasses
+
+    from pytorch_distributed_training_tutorials_tpu_torch.models import TransformerLM
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.flash_attention import (
+        flash_attention,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import ServeEngine
+
+    flash_model = TransformerLM(dataclasses.replace(model.cfg, attention_fn=flash_attention))
+    reqs = _overlap_stream(model.cfg.vocab_size, 5, [(3, 8), (9, 6), (20, 10), (30, 7)])
+    dense = ServeEngine(model, params, n_slots=2, tokens_per_launch=8, device=dev)
+    flash = ServeEngine(flash_model, params, n_slots=2, tokens_per_launch=8, device=dev)
+    toks = _stream(flash, reqs)
+    if any(t is None for t in toks):
+        problems.append("flash arm: not every request completed")
+        return {"flash_teacher_forced_ok": False}
+    worst = 0.0
+    for (prompt, _), got in zip(reqs, toks):
+        ref = dense.teacher_forced_logits(prompt, got)
+        out = flash.teacher_forced_logits(prompt, got)
+        worst = max(worst, float((ref - out).abs().max()) / float(ref.abs().max()))
+    ok = worst <= FLASH_TF_BOUND
+    if not ok:
+        problems.append(f"flash prefill's teacher-forced logits differ by {worst:.3g} of "
+                        f"the dense scale (> {FLASH_TF_BOUND})")
+    return {"flash_teacher_forced_ok": ok, "flash_teacher_forced_share": worst,
+            "flash_bound_share": FLASH_TF_BOUND}
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m pytorch_distributed_training_tutorials_tpu_torch.serve"
@@ -210,6 +370,18 @@ def main(argv: list[str] | None = None) -> int:
         "--kv-bits", type=int, choices=(8, 4), default=None,
         help="KV storage of the paged arm: int8 or int4 (default float32)",
     )
+    ap.add_argument(
+        "--prefix", action="store_true",
+        help="add the prefix-cache arm (with --paged, its paged leg too)",
+    )
+    ap.add_argument(
+        "--chunk", action="store_true",
+        help="add the chunked-prefill arm (prefill_chunk=8)",
+    )
+    ap.add_argument(
+        "--flash", action="store_true",
+        help="add the flash-prefill arm, teacher-forced against dense prefill",
+    )
     args = ap.parse_args(argv)
     if not args.selftest:
         ap.print_help()
@@ -217,7 +389,8 @@ def main(argv: list[str] | None = None) -> int:
     if (args.paged_kernel or args.kv_bits) and not args.paged:
         ap.error("--paged-kernel and --kv-bits need --paged")
     receipt = selftest(args.device, paged=args.paged,
-                       paged_kernel=args.paged_kernel, kv_bits=args.kv_bits)
+                       paged_kernel=args.paged_kernel, kv_bits=args.kv_bits,
+                       prefix=args.prefix, chunk=args.chunk, flash=args.flash)
     print(json.dumps(receipt))
     return 0 if receipt["ok"] else 1
 

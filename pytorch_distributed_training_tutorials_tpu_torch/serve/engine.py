@@ -7,13 +7,16 @@ Port of the core of the JAX package's ``serve/engine.py`` (Orca, OSDI
 own position and active mask (``remaining > 0``); a finished slot is
 refilled in place by a bucketed prefill into that slot. Host syncs are
 ONE per chain — a single ``.cpu()`` of the (n_slots, tokens_per_launch)
-token block — plus one per prefill for the first sampled token;
-``n_host_syncs`` counts them. Chains run eagerly (the JAX package compiles
-each chain into one program; capturing it as a CUDA graph is later work).
+token block — plus one per prefill, splice or final chunk for the first
+sampled token; ``n_host_syncs`` counts them. Chains run eagerly (the JAX
+package compiles each chain into one program; capturing it as a CUDA
+graph is later work).
 
 Greedy tokens equal :func:`..models.generate.generate`'s for the same
 request, whatever else shares the batch (``models/transformer.py`` says
-why the forward is batch- and window-invariant).
+why the int8 forward is batch- and window-invariant). The model may be
+int8 or float (``cfg.dtype``), and its ``cfg.attention_fn`` (the flash
+forward kernel) runs every whole prefill.
 
 Paged KV (``paged=True``, vLLM's PagedAttention, SOSP '23): decode reads
 and writes one shared pool of ``pool_pages`` pages of ``page_size``
@@ -27,7 +30,30 @@ copies its pages into the pool (:func:`.slots.write_slot_paged`); every
 completion parks the slot (its table all sentinel) and returns its pages.
 ``paged_kernel`` reads the pool through the paged-attention kernel instead
 of the gather. ``kv_bits`` (8 or 4) stores K/V as int8 or int4, paged or
-not. Host syncs stay one per chain plus one per prefill.
+not.
+
+Prefix cache (``prefix_cache_bytes`` > 0, the radix index of
+:mod:`.prefix`): every prefill retains its prompt's K/V as a segment (a
+batch-1 cache cut to the prompt's bucket; paged, the ids of its pages,
+held by refcount at no extra memory), and a request whose prompt shares
+at least ``min_hit_depth`` leading tokens with one is SPLICED: a batch-1
+side cache seeded from the segment at the matched depth, one suffix
+continuation (decode over the uncached suffix from that depth), the
+first token sampled at the last real suffix position and the side cache
+copied into the slot (:meth:`ServeEngine._splice`). Paged, the donor's
+whole pages are shared in place, the one partly shared boundary page is
+copied on write, and the suffix writes straight into the slot's pages.
+The donor segment is pinned until its request completes, so eviction
+(LRU under the byte budget, and paged under pool pressure) never takes
+a segment a slot decodes from.
+
+Chunked prefill (``prefill_chunk`` > 0, a power of two >= 8): a prompt
+whose uncached length exceeds the chunk streams in, one chunk a
+:meth:`ServeEngine.step`, into a batch-1 side cache (zeroed, or seeded
+from a prefix hit), so co-scheduled slots keep decoding; mid chunks make
+no host sync, the final chunk samples the first token and writes the
+slot. Paged, chunked prompts take fresh pages (the JAX package's
+documented trade: no sharing for them).
 """
 
 from __future__ import annotations
@@ -44,6 +70,7 @@ from pytorch_distributed_training_tutorials_tpu_torch.models.sampling import (
 )
 from pytorch_distributed_training_tutorials_tpu_torch.models.transformer import (
     KVCache,
+    PagedKVCache,
     TransformerLM,
     _kv_quant_mode,
     bind_params,
@@ -52,6 +79,10 @@ from pytorch_distributed_training_tutorials_tpu_torch.serve.pages import (
     PagePool,
     PoolExhausted,
 )
+from pytorch_distributed_training_tutorials_tpu_torch.serve.prefix import (
+    PrefixIndex,
+    Segment,
+)
 from pytorch_distributed_training_tutorials_tpu_torch.serve.scheduler import (
     Completion,
     FifoScheduler,
@@ -59,26 +90,64 @@ from pytorch_distributed_training_tutorials_tpu_torch.serve.scheduler import (
 )
 from pytorch_distributed_training_tutorials_tpu_torch.serve.slots import (
     bucket_len,
+    copy_page,
+    copy_slot,
+    extract_segment,
     init_slot_state,
     park_slot_paged,
+    seed_cache,
+    seed_cache_paged,
+    tree_nbytes,
     write_slot,
     write_slot_paged,
+    zero_cache,
 )
+
+# how a refill reached its first token: a whole prefill, a splice, or a
+# chunked prefill's final chunk without and with a prefix hit
+_REFILL_KINDS = ("prefill", "splice", "chunked", "chunked_splice")
 
 
 class _Active:
     """Host-side view of one occupied slot; ``ttft_s`` is
     submit-to-first-token wall time; ``pages`` (paged engines) the pool
-    pages the slot holds, released when it parks."""
+    pages the slot holds, released when it parks; ``segment`` the prefix
+    segment it was spliced from, released at completion."""
 
-    __slots__ = ("request", "tokens", "remaining", "ttft_s", "pages")
+    __slots__ = ("request", "tokens", "remaining", "ttft_s", "pages", "segment")
 
-    def __init__(self, request: Request, first_token: int, pages=None):
+    def __init__(self, request: Request, first_token: int, pages=None,
+                 segment: Segment | None = None):
         self.request = request
         self.tokens = [first_token]
         self.remaining = request.max_new_tokens - 1
         self.ttft_s = 0.0
         self.pages: list[int] = list(pages or [])
+        self.segment = segment
+
+
+class _PendingPrefill:
+    """A chunked prefill in progress: the request, its slot, the batch-1
+    side cache the chunks accumulate into, how many prompt tokens it holds
+    (``done``, a spliced ``depth`` included), the pinned donor segment of a
+    prefix hit, whether the prompt's own segment is inserted at the end
+    (``grow``) and, paged, the fresh pages allocated for the slot. The
+    slot's device budget stays 0 until the final chunk, so decode chains
+    treat it as inactive."""
+
+    __slots__ = ("request", "slot", "prompt", "cache1", "done", "depth",
+                 "segment", "grow", "pages")
+
+    def __init__(self, request: Request, slot: int, prompt: list[int]):
+        self.request = request
+        self.slot = slot
+        self.prompt = prompt
+        self.cache1: KVCache | None = None
+        self.done = 0
+        self.depth = 0
+        self.segment: Segment | None = None
+        self.grow = False
+        self.pages: list[int] = []
 
 
 def _variant(model: TransformerLM, **changes) -> TransformerLM:
@@ -92,22 +161,27 @@ def _variant(model: TransformerLM, **changes) -> TransformerLM:
 class ServeEngine:
     """Request-level LM serving over a slot-indexed KV cache.
 
-    ``model`` is a :class:`..models.transformer.TransformerLM`; its
-    ``cfg.max_seq_len`` is the window every slot gets. ``params`` (a state
-    dict from the weight bridge, or None when ``model`` already holds its
-    weights) is bound into ``model`` on ``device`` (``cuda`` unless the
-    caller passes another); the engine only reads it.
+    ``model`` is a :class:`..models.transformer.TransformerLM`, int8 or
+    float; its ``cfg.max_seq_len`` is the window every slot gets. ``params``
+    (a state dict from the weight bridge, or None when ``model`` already
+    holds its weights) is bound into ``model`` on ``device`` (``cuda``
+    unless the caller passes another); the engine only reads it.
 
     Drive it with :meth:`submit` + :meth:`step`, or :meth:`run_until_idle`.
-    ``step()`` does at most one prefill per free slot (each with one host
-    sync for the first sampled token), then ONE ``tokens_per_launch``-step
-    decode chain over all slots with ONE host sync.
+    ``step()`` advances every chunked prefill by one chunk, does at most
+    one refill per free slot (a prefill or a splice, each with one host
+    sync for the first sampled token, or the start of a chunked prefill),
+    then ONE ``tokens_per_launch``-step decode chain over all slots with
+    ONE host sync.
 
     ``kv_bits`` (None: the model's ``kv_cache_dtype``; 8: int8 codes + f32
     scales; 4: packed int4 + bf16 scales) sets the KV storage. ``paged``
     with ``page_size`` and ``pool_pages`` serves decode from a shared page
     pool (module docstring); ``paged_kernel`` reads it through the
-    paged-attention kernel."""
+    paged-attention kernel. ``prefix_cache_bytes`` (0: off) is the prefix
+    index's byte budget and ``min_hit_depth`` the shortest match it
+    splices; ``prefill_chunk`` (0: off, else a power of two >= 8) the
+    chunk of a chunked prefill (module docstring)."""
 
     def __init__(
         self,
@@ -120,6 +194,9 @@ class ServeEngine:
         temperature: float = 0.0,
         top_k: int = 0,
         top_p: float = 1.0,
+        prefix_cache_bytes: int = 0,
+        min_hit_depth: int = 1,
+        prefill_chunk: int = 0,
         device=None,
         kv_bits: int | None = None,
         paged: bool = False,
@@ -146,6 +223,13 @@ class ServeEngine:
                 "paged_kernel=True requires paged=True (the kernel walks the "
                 "page pool; whole-slot decode has no pages)"
             )
+        if prefill_chunk and (prefill_chunk < 8 or prefill_chunk & (prefill_chunk - 1)):
+            raise ValueError(
+                "prefill_chunk must be 0 (off) or a power of two >= 8 (chunk "
+                "lengths come from the power-of-two bucket set)"
+            )
+        if prefix_cache_bytes < 0:
+            raise ValueError("prefix_cache_bytes must be >= 0 (0 = off)")
         if top_k < 0:
             raise ValueError(f"top_k must be >= 0, got {top_k}")
         if not 0.0 < top_p <= 1.0:
@@ -195,11 +279,46 @@ class ServeEngine:
         self._temperature = float(temperature)
         self._top_k = int(top_k)
         self._top_p = float(top_p)
+        # prefix cache: 0 bytes = off. Paged engines hand the index an
+        # eviction hook so a dropped segment's page references return to
+        # the pool (the index stays handle-agnostic)
+        self.prefix = (
+            PrefixIndex(prefix_cache_bytes,
+                        on_evict=self._release_segment_pages if self._paged else None)
+            if prefix_cache_bytes > 0 else None
+        )
+        self._min_hit_depth = int(min_hit_depth)
+        self._chunk = int(prefill_chunk)
+        self._pending: dict[int, _PendingPrefill] = {}
+        # batch-1 side caches, each reused: the unpaged splice's, and the
+        # chunked prefill's (one at a time: while one is pending, only
+        # prompts of one chunk pop)
+        self._side = (
+            KVCache.zeros(model.cfg, 1, device=self.device)
+            if self.prefix is not None and not self._paged else None
+        )
+        self._chunk_side = (
+            KVCache.zeros(model.cfg, 1, device=self.device) if self._chunk else None
+        )
         # counters for receipts and the sync-budget checks
-        self.n_prefills = 0
+        self.refills = dict.fromkeys(_REFILL_KINDS, 0)
         self.n_chains = 0
+        self.n_chunks = 0
         self.n_host_syncs = 0
+        self.prefix_hit_tokens = 0
         self.generated_tokens = 0
+
+    @property
+    def n_prefills(self) -> int:
+        """Refills that prefilled the whole prompt: whole prefills and
+        chunked prefills without a prefix hit (the JAX engine's count)."""
+        return self.refills["prefill"] + self.refills["chunked"]
+
+    @property
+    def n_splices(self) -> int:
+        """Refills seeded from a prefix segment: whole splices and chunked
+        prefills that began with a hit (the JAX engine's count)."""
+        return self.refills["splice"] + self.refills["chunked_splice"]
 
     # ------------------------------------------------------------------
     # host-side driver
@@ -231,17 +350,23 @@ class ServeEngine:
 
     @property
     def idle(self) -> bool:
-        return self.active_slots == 0 and len(self.scheduler) == 0
+        return (self.active_slots == 0 and not self._pending
+                and len(self.scheduler) == 0)
 
+    @torch.no_grad()
     def step(self) -> list[Completion]:
-        """One scheduling round: refill free slots from the queue (one
-        prefill each), run one decode chain over all slots, hand out its
-        tokens. Returns the requests that finished this round (possibly
-        mid-chain — surplus chain tokens of a finished slot are
-        discarded)."""
+        """One scheduling round: advance each chunked prefill by one chunk,
+        refill free slots from the queue, run one decode chain over all
+        slots, hand out its tokens. Returns the requests that finished
+        this round (possibly mid-chain — surplus chain tokens of a finished
+        slot are discarded)."""
         done: list[Completion] = []
+        # pending prefills advance BEFORE refill, so a chunked prefill
+        # begun this round is not advanced twice
+        for slot in list(self._pending):
+            done.extend(self._advance_one(self._pending[slot]))
         for s in range(self.n_slots):
-            if self._slots[s] is not None:
+            if self._slots[s] is not None or s in self._pending:
                 continue
             req = self._pop_request()
             if req is None:
@@ -254,13 +379,28 @@ class ServeEngine:
         return done
 
     def _pop_request(self) -> Request | None:
-        """Queue pop; a paged engine pops the first request whose whole
-        prompt + budget fits the free pages (the rest stay queued)."""
-        if not self._paged:
-            return self.scheduler.pop()
-        pool = self._pool
-        return self.scheduler.pop(fits=lambda r: pool.available >= pool.pages_needed(
-            len(r.prompt) + r.max_new_tokens))
+        """Queue pop, chunk-aware when chunked prefill is on (with a
+        chunked prefill pending only prompts of one chunk pop). A paged
+        engine pops the first request whose whole prompt + budget fits the
+        free pages (the rest stay queued); when none fits but requests
+        wait, cold unpinned prefix segments are evicted one at a time
+        (each returns its pages) and the pop retried."""
+        fits = None
+        if self._paged:
+            pool = self._pool
+
+            def fits(r):
+                return pool.available >= pool.pages_needed(
+                    len(r.prompt) + r.max_new_tokens)
+
+        while True:
+            req = self.scheduler.pop(chunk=self._chunk,
+                                     pending_long=len(self._pending), fits=fits)
+            if req is not None or fits is None:
+                return req
+            if (len(self.scheduler) == 0 or self.prefix is None
+                    or not self.prefix.evict_coldest()):
+                return None
 
     def page_stats(self) -> dict[str, int]:
         """Paged-KV counters (the JAX engine's keys): the pool's geometry,
@@ -280,6 +420,22 @@ class ServeEngine:
             "paged_kernel": int(self._paged_kernel),
             "hbm_high_water_bytes": self._pool.high_water * self._page_bytes,
             **{f"pages_{k}": v for k, v in self._pool.stats().items()},
+        }
+
+    def prefix_stats(self) -> dict[str, int | float]:
+        """Prefix-cache counters (the JAX engine's keys): the index's
+        ``prefix_*`` stats (segments, used and evicted bytes, hits,
+        misses), the hit rate over lookups, the reused-token total and the
+        splice count. Host bookkeeping only."""
+        if self.prefix is None:
+            return {"prefix_cache": 0}
+        looked = self.prefix.hits + self.prefix.misses
+        return {
+            "prefix_cache": 1,
+            **{f"prefix_{k}": v for k, v in self.prefix.stats().items()},
+            "prefix_hit_rate": self.prefix.hits / max(1, looked),
+            "prefix_hit_tokens": self.prefix_hit_tokens,
+            "n_splices": self.n_splices,
         }
 
     def run_until_idle(self, max_steps: int = 10_000) -> list[Completion]:
@@ -313,87 +469,381 @@ class ServeEngine:
         return t.cpu()
 
     # ------------------------------------------------------------------
+    # refill: whole prefill, splice, chunked prefill
+    # ------------------------------------------------------------------
+
+    def _lookup(self, prompt: list[int]):
+        """``(hit, grow)`` for a prompt: the prefix index's longest match
+        ``(depth, segment)`` or None, and whether the prompt's own segment
+        is to be inserted (not resident yet). The port serves one adapter,
+        so a prompt is its own key."""
+        if self.prefix is None:
+            return None, False
+        return (self.prefix.lookup(prompt, self._min_hit_depth),
+                tuple(prompt) not in self.prefix)
+
+    @torch.no_grad()
+    def _refill(self, slot: int, req: Request) -> list[Completion]:
+        """Admit ``req`` into ``slot`` (:meth:`_admit`): a whole prefill or
+        a splice, one host sync each for the first token, or the start of
+        a chunked prefill (:meth:`_advance_one` runs its first chunk in
+        this same step)."""
+        prompt = [int(t) for t in req.prompt]
+        admitted = self._admit(slot, req, prompt)
+        if admitted is None:
+            return self._advance_one(self._pending[slot])
+        _, first, pages, segment, kind, depth = admitted
+        self.refills[kind] += 1
+        self.prefix_hit_tokens += depth
+        return self._activate(slot, req, first, pages, segment)
+
+    def _admit(self, slot: int, req: Request, prompt: list[int], first=None,
+               all_chunks: bool = False):
+        """The one admission choice of every refill: look ``prompt`` up in
+        the prefix index; when its uncached length exceeds
+        ``prefill_chunk``, start a chunked prefill (:meth:`_start_pending`)
+        — registered pending and left to :meth:`step` (returns None), or
+        with ``all_chunks`` run to its end here (:meth:`_mid_chunk` and
+        :meth:`_final_chunk`); else, on a hit, pin the donor segment FIRST
+        and splice (:meth:`_splice`), or prefill whole
+        (:meth:`_whole_prefill`). A first token sampled here is fetched
+        (one host sync); a given ``first`` (a (1,) device tensor) is used
+        as it is, with no fetch. If anything raises, the donor is
+        released, the slot parked (paged: its pages returned) and the
+        error re-raised. Returns ``(logits, first, pages, segment, kind,
+        depth)``: ``kind`` one of ``_REFILL_KINDS``, ``depth`` the reused
+        prefix length."""
+        hit, grow = self._lookup(prompt)
+        depth = hit[0] if hit is not None else 0
+        fetch = first is None
+        if self._chunk and len(prompt) - depth > self._chunk:
+            pend = self._start_pending(slot, req, prompt, hit, grow)
+            if not all_chunks:
+                self._pending[slot] = pend
+                return None
+            try:
+                while len(prompt) - pend.done > self._chunk:
+                    self._mid_chunk(pend)
+                logits, first, pages = self._final_chunk(pend, first)
+                if fetch:
+                    first = int(self._fetch(first)[0])
+            except Exception:
+                self._abandon_pending(pend)
+                self._park_failed(slot, [])
+                raise
+            kind = "chunked_splice" if pend.segment is not None else "chunked"
+            return logits, first, pages, pend.segment, kind, depth
+        segment, pages = None, None
+        try:
+            if hit is not None:
+                segment = hit[1]
+                self.prefix.acquire(segment)  # pin the donor FIRST
+                logits, first, pages = self._splice(slot, req, prompt, depth, segment,
+                                                    grow, first)
+                kind = "splice"
+            else:
+                logits, first, pages = self._whole_prefill(slot, req, prompt, grow, first)
+                kind = "prefill"
+            if fetch:
+                first = int(self._fetch(first)[0])
+        except Exception:
+            if segment is not None:
+                self.prefix.release(segment)
+            self._park_failed(slot, pages or [])
+            raise
+        return logits, first, pages, segment, kind, depth
+
+    def _park_failed(self, slot: int, pages: list[int]) -> None:
+        """A refill raised: park the slot (the device budget may already
+        be set) and return the pages it still holds."""
+        if self._paged:
+            park_slot_paged(self._state, slot)
+            self._pool.release_all(pages)
+        else:
+            self._state.remaining[slot] = 0
+
+    def _tokens(self, toks: list[int], bucket: int) -> torch.Tensor:
+        """(1, bucket) int64 device tensor: ``toks`` right-padded with 0."""
+        return torch.tensor([toks + [0] * (bucket - len(toks))], dtype=torch.int64,
+                            device=self.device)
+
+    def _whole_prefill(self, slot: int, req: Request, prompt: list[int],
+                       grow: bool, first=None):
+        """One forward over the bucket-padded prompt (``cfg.attention_fn``
+        runs here); the first token is sampled from the logits at the last
+        REAL prompt position with the slot's generator reseeded from
+        ``req.seed`` (unless ``first``, a (1,) device tensor, is given) and
+        the slot's counters reset. Unpaged, the forward writes the slot's
+        K/V in place (:func:`.slots.write_slot`). Paged, it allocates the
+        request's pages (``_pop_request`` checked that they are free),
+        prefills the unpaged batch-1 flat cache, copies the allocated
+        pages whole into the pool and installs the slot's table
+        (:func:`.slots.write_slot_paged`); if that raises, the pages go
+        back to the pool. With ``grow`` the prompt's segment is inserted
+        into the prefix index. Returns ``(logits, first, pages)``,
+        ``pages`` None unpaged. No host sync."""
+        p_len = len(prompt)
+        bucket = bucket_len(p_len, self.window)
+        tokens = self._tokens(prompt, bucket)
+        st = self._state
+        if not self._paged:
+            logits = self.model(tokens, st.cache, prefill=True, last_pos=p_len - 1,
+                                rows=slot)
+            if first is None:
+                first = self._first_token(slot, req, logits)
+            write_slot(st, slot, p_len, first[0], req.max_new_tokens)
+            if grow:
+                seg = extract_segment(st.cache, bucket, row=slot)
+                self.prefix.insert(prompt, seg, tree_nbytes(seg))
+            return logits, first, None
+        pages = self._pool.alloc(self._pool.pages_needed(p_len + req.max_new_tokens))
+        try:
+            logits = self.model(tokens, self._prefill_cache, prefill=True,
+                                last_pos=p_len - 1)
+            if first is None:
+                first = self._first_token(slot, req, logits)
+            write_slot_paged(st, self._prefill_cache, pages, slot, p_len,
+                             first[0], req.max_new_tokens)
+        except Exception:
+            self._pool.release_all(pages)
+            raise
+        if grow:
+            self._insert_paged_segment(prompt, pages, p_len)
+        return logits, first, pages
+
+    def _splice(self, slot: int, req: Request, prompt: list[int], depth: int,
+                segment: Segment, grow: bool, first=None):
+        """Prefix-hit refill (the JAX engine's ``_splice_fn`` and
+        ``_finish_prefill``): reuse ``segment``'s K/V on ``[0, depth)`` and
+        run ONE suffix continuation — decode over the bucket-padded suffix
+        from position ``depth`` — sampling the first token at the last
+        real suffix token (``last_pos = p_len - 1 - depth``).
+
+        Unpaged: the batch-1 side cache is seeded from the segment
+        (:func:`.slots.seed_cache`), continued, then copied whole into the
+        slot (:func:`.slots.copy_slot`); the other slots' rows and
+        positions do not move. With ``grow`` the full prompt's segment is
+        cut from the side cache and inserted.
+
+        Paged: the donor's whole pages below ``depth`` are shared in place
+        (a reference each); fresh pages cover the rest, and a partly shared
+        boundary page is copied on write into the first fresh one
+        (:func:`.slots.copy_page`). The suffix forward runs over a batch-1
+        view of the live pool (the slot's new table, position ``depth``),
+        so its K/V land straight in the slot's pages; it reads the pool
+        through the decode model's read path (on a ``paged_kernel`` engine
+        the paged-attention kernel, its query rows in row blocks). If that
+        raises, the page references go back.
+        Returns ``(logits, first, pages)``. No host sync."""
+        p_len = len(prompt)
+        suffix = prompt[depth:]
+        tokens = self._tokens(suffix, bucket_len(len(suffix), self.window))
+        last = p_len - 1 - depth
+        st = self._state
+        if not self._paged:
+            cache1 = seed_cache(self._side, segment.handle, depth)
+            logits = self.model(tokens, cache1, decode=True, last_pos=last)
+            if first is None:
+                first = self._first_token(slot, req, logits)
+            copy_slot(st, cache1, slot)
+            write_slot(st, slot, p_len, first[0], req.max_new_tokens)
+            if grow:
+                seg = extract_segment(cache1, bucket_len(p_len, self.window))
+                self.prefix.insert(prompt, seg, tree_nbytes(seg))
+            return logits, first, None
+        pool, ps = self._pool, self._page_size
+        n_alloc = pool.pages_needed(p_len + req.max_new_tokens)
+        shared = depth // ps
+        pages = pool.alloc(n_alloc - shared)  # before any retain: may raise
+        pages[:0] = segment.handle[:shared]
+        for pid in pages[:shared]:
+            pool.retain(pid)
+        cache = st.cache
+        try:
+            if depth % ps:
+                copy_page(cache, int(segment.handle[shared]), pages[shared])
+            row = pages + [cache.n_pages] * (cache.table.shape[1] - n_alloc)
+            table = torch.tensor([row], dtype=torch.int32, device=self.device)
+            view = PagedKVCache(
+                k=cache.k, v=cache.v, table=table,
+                index=torch.full((1,), depth, dtype=torch.int64, device=self.device),
+                k_scale=cache.k_scale, v_scale=cache.v_scale, quant=cache.quant,
+            )
+            logits = self._dec_model(tokens, view, decode=True, last_pos=last)
+            if first is None:
+                first = self._first_token(slot, req, logits)
+            cache.table[slot] = table[0]
+            write_slot(st, slot, p_len, first[0], req.max_new_tokens)
+        except Exception:
+            pool.release_all(pages)
+            raise
+        if grow:
+            self._insert_paged_segment(prompt, pages, p_len)
+        return logits, first, pages
+
+    def _start_pending(self, slot: int, req: Request, prompt: list[int], hit,
+                       grow: bool) -> _PendingPrefill:
+        """A chunked prefill's record and its batch-1 side cache (the
+        engine's one chunk side cache): zeroed (:func:`.slots.zero_cache`),
+        or on a prefix hit — the donor pinned first — seeded from its
+        segment (:func:`.slots.seed_cache`) or, paged, from its pages
+        (:func:`.slots.seed_cache_paged`). Paged, every page of the slot is
+        allocated fresh now. If this raises, the donor and the pages are
+        released and the error re-raised (the slot was free: nothing to
+        park)."""
+        pend = _PendingPrefill(req, slot, prompt)
+        pend.grow = grow
+        try:
+            if self._paged:
+                pend.pages = self._pool.alloc(
+                    self._pool.pages_needed(len(prompt) + req.max_new_tokens))
+            cache1 = self._chunk_side
+            if hit is not None:
+                pend.depth, pend.segment = hit
+                self.prefix.acquire(pend.segment)
+                if self._paged:
+                    n_seg = self._pool.pages_needed(pend.depth)
+                    pend.cache1 = seed_cache_paged(
+                        cache1, self._state.cache, list(pend.segment.handle[:n_seg]),
+                        pend.depth)
+                else:
+                    pend.cache1 = seed_cache(cache1, pend.segment.handle, pend.depth)
+            else:
+                pend.cache1 = zero_cache(cache1)
+        except Exception:
+            self._abandon_pending(pend)
+            raise
+        pend.done = pend.depth
+        return pend
+
+    @torch.no_grad()
+    def _advance_one(self, pend: _PendingPrefill) -> list[Completion]:
+        """One chunk of a pending prefill: a mid chunk (exactly
+        ``prefill_chunk`` tokens, no host sync) or the final one
+        (:meth:`_final_chunk`, one host sync for the first token), which
+        admits the request. If the device work raises, the pending
+        prefill is abandoned, the slot parked and the error re-raised."""
+        try:
+            self.n_chunks += 1
+            if len(pend.prompt) - pend.done > self._chunk:
+                self._mid_chunk(pend)
+                return []
+            _, first, pages = self._final_chunk(pend)
+            first = int(self._fetch(first)[0])
+        except Exception:
+            self._abandon_pending(pend)
+            self._park_failed(pend.slot, [])
+            raise
+        kind = "chunked_splice" if pend.segment is not None else "chunked"
+        self.refills[kind] += 1
+        self.prefix_hit_tokens += pend.depth
+        segment = pend.segment
+        pend.pages, pend.segment = [], None  # ownership moves to the slot
+        del self._pending[pend.slot]
+        return self._activate(pend.slot, pend.request, first, pages, segment)
+
+    def _mid_chunk(self, pend: _PendingPrefill) -> None:
+        """The next ``prefill_chunk`` prompt tokens into the side cache:
+        the suffix continuation over one chunk, its logits unused."""
+        toks = pend.prompt[pend.done:pend.done + self._chunk]
+        self.model(self._tokens(toks, self._chunk), pend.cache1, decode=True, last_pos=0)
+        pend.done += self._chunk
+
+    def _final_chunk(self, pend: _PendingPrefill, first=None):
+        """The rest of the prompt (at most one chunk, bucket-padded)
+        through the same continuation, the first token sampled at its last
+        real token, then the side cache written into the slot: copied
+        (:func:`.slots.copy_slot`), or paged, its pages copied whole into
+        the slot's fresh pages (:func:`.slots.write_slot_paged`). With
+        ``grow`` the prompt's segment is inserted. Returns ``(logits,
+        first, pages)``. No host sync."""
+        req, slot, prompt = pend.request, pend.slot, pend.prompt
+        p_len, rest = len(prompt), len(prompt) - pend.done
+        tokens = self._tokens(prompt[pend.done:], bucket_len(rest, self.window))
+        logits = self.model(tokens, pend.cache1, decode=True, last_pos=rest - 1)
+        if first is None:
+            first = self._first_token(slot, req, logits)
+        st = self._state
+        if self._paged:
+            write_slot_paged(st, pend.cache1, pend.pages, slot, p_len, first[0],
+                             req.max_new_tokens)
+            if pend.grow:
+                self._insert_paged_segment(prompt, pend.pages, p_len)
+            return logits, first, pend.pages
+        copy_slot(st, pend.cache1, slot)
+        write_slot(st, slot, p_len, first[0], req.max_new_tokens)
+        if pend.grow:
+            seg = extract_segment(pend.cache1, bucket_len(p_len, self.window))
+            self.prefix.insert(prompt, seg, tree_nbytes(seg))
+        return logits, first, None
+
+    def _abandon_pending(self, pend: _PendingPrefill) -> None:
+        """Drop a chunked prefill: unpin its donor, return its pages, free
+        its slot for the next refill."""
+        if pend.segment is not None:
+            self.prefix.release(pend.segment)
+            pend.segment = None
+        if pend.pages:
+            self._pool.release_all(pend.pages)
+            pend.pages = []
+        self._pending.pop(pend.slot, None)
+
+    def _insert_paged_segment(self, prompt: list[int], pages: list[int],
+                              p_len: int) -> None:
+        """Insert-on-prefill, paged: the segment is the tuple of page ids
+        covering the prompt's positions, each given one more reference
+        first (no device copy); a refused insert (already resident, or the
+        budget full of pinned segments) returns them. Priced as pages x
+        ``page_bytes``."""
+        seg_ids = tuple(pages[: self._pool.pages_needed(p_len)])
+        for pid in seg_ids:
+            self._pool.retain(pid)
+        if not self.prefix.insert(prompt, seg_ids, len(seg_ids) * self._page_bytes):
+            self._pool.release_all(seg_ids)
+
+    def _release_segment_pages(self, seg: Segment) -> None:
+        """The prefix index's eviction hook (paged engines): a dropped
+        segment returns its page references. Pinned segments are never
+        evicted, so no slot decodes through these pages when they free."""
+        self._pool.release_all(seg.handle)
+
+    # ------------------------------------------------------------------
     # device work
     # ------------------------------------------------------------------
 
     @torch.no_grad()
     def teacher_forced_logits(self, prompt, tokens) -> torch.Tensor:
         """The serving path's logits on GIVEN tokens, to hold one read path
-        against another: ``prompt`` is refilled into slot 0 as a request's
-        would be (:meth:`_prefill`: bucket padding, the prefill and, paged,
-        its pages allocated and copied in), then ``tokens[:-1]`` are fed to
-        the decode model one step at a time in place of sampled ones. Row
-        ``i`` of the (len(tokens), vocab) float32 result is the logits that
-        chose ``tokens[i]``. Needs an idle engine; the slot is released
-        afterwards and the request counters do not move."""
+        against another: ``prompt`` is admitted into slot 0 as a request's
+        would be, through :meth:`_admit` (spliced on a prefix hit, chunked
+        when its uncached length exceeds ``prefill_chunk`` — every chunk at
+        once — else prefilled whole; paged, with its pages) — then
+        ``tokens[:-1]`` are fed to the decode model one step at a time in
+        place of sampled ones. Row ``i`` of the (len(tokens), vocab)
+        float32 result is the logits that chose ``tokens[i]``. Needs an
+        idle engine; the slot, the donor segment and the pages are released
+        afterwards. The request counters do not move; the prefix index
+        sees the prompt's lookup (and insert) as a request's."""
         if not self.idle:
             raise RuntimeError("teacher_forced_logits needs an idle engine")
         if not tokens:
             raise ValueError("tokens must not be empty")
-        req = Request(prompt=list(prompt), max_new_tokens=len(tokens))
+        prompt = [int(t) for t in prompt]
+        req = Request(prompt=prompt, max_new_tokens=len(tokens))
         first = torch.tensor([int(tokens[0])], dtype=torch.int64, device=self.device)
-        logits, _, pages = self._prefill(0, req, first)
-        rows = [logits[:1, -1]]
-        tok = self._state.last_tok.clone()
+        logits, _, pages, segment, _, _ = self._admit(0, req, prompt, first,
+                                                      all_chunks=True)
+        act = _Active(req, int(tokens[0]), pages, segment)
         try:
+            rows = [logits[:1, -1]]
+            tok = self._state.last_tok.clone()
             for t in tokens[:-1]:
                 tok[0] = int(t)
                 rows.append(
                     self._dec_model(tok[:, None], self._state.cache, decode=True)[:1, -1])
         finally:
-            self._release(0, _Active(req, int(tokens[0]), pages))
+            self._release(0, act)
         return torch.cat(rows).float()
-
-    @torch.no_grad()
-    def _refill(self, slot: int, req: Request) -> list[Completion]:
-        """Prefill ``req`` into ``slot`` (:meth:`_prefill`) and admit it.
-        One host sync, for the first token."""
-        _, first, pages = self._prefill(slot, req)
-        self.n_prefills += 1
-        return self._activate(slot, req, int(self._fetch(first)[0]), pages)
-
-    def _prefill(self, slot: int, req: Request, first=None):
-        """One forward over the bucket-padded prompt; the first token is
-        sampled from the logits at the last REAL prompt position with the
-        slot's generator reseeded from ``req.seed`` (unless ``first``, a (1,)
-        device tensor, is given) and the slot's counters reset. Unpaged, the
-        forward writes the slot's K/V in place (:func:`.slots.write_slot`).
-        Paged, it allocates the request's pages (``_pop_request`` checked
-        that they are free), prefills the unpaged batch-1 flat cache, copies
-        the allocated pages whole into the pool and installs the slot's
-        table (:func:`.slots.write_slot_paged`); if that raises, the pages
-        go back to the pool and the slot stays parked. Returns ``(logits,
-        first, pages)``, ``pages`` None unpaged. No host sync."""
-        prompt = [int(t) for t in req.prompt]
-        p_len = len(prompt)
-        bucket = bucket_len(p_len, self.window)
-        tokens = torch.tensor(
-            [prompt + [0] * (bucket - p_len)], dtype=torch.int64,
-            device=self.device,
-        )
-        st = self._state
-        if not self._paged:
-            logits = self.model(
-                tokens, st.cache, prefill=True, last_pos=p_len - 1, rows=slot
-            )
-            if first is None:
-                first = self._first_token(slot, req, logits)
-            write_slot(st, slot, p_len, first[0], req.max_new_tokens)
-            return logits, first, None
-        pages = self._pool.alloc(self._pool.pages_needed(p_len + req.max_new_tokens))
-        try:
-            logits = self.model(
-                tokens, self._prefill_cache, prefill=True, last_pos=p_len - 1
-            )
-            if first is None:
-                first = self._first_token(slot, req, logits)
-            write_slot_paged(st, self._prefill_cache, pages, slot, p_len,
-                             first[0], req.max_new_tokens)
-        except Exception:
-            park_slot_paged(st, slot)
-            self._pool.release_all(pages)
-            raise
-        return logits, first, pages
 
     def _first_token(self, slot: int, req: Request, logits) -> torch.Tensor:
         """Sample a refill's first token with the slot's generator reseeded
@@ -431,29 +881,28 @@ class ServeEngine:
         st.last_tok, st.remaining = tok, remaining
         return out
 
-    def _park(self, slot: int) -> None:
-        """Zero a slot's device-side budget (EOS before it ran out): later
-        chains treat it as inactive. A device write, no sync."""
-        self._state.remaining[slot] = 0
-
     def _release(self, slot: int, act: _Active) -> None:
-        """A request left ``slot``. Paged engines park on EVERY completion
-        — the slot keeps writing K/V each chain step, and through its live
-        table those writes would land in pages handed back to the pool —
-        and return its pages; others park only when budget remains."""
+        """A request left ``slot``. Its donor segment (a splice's) is
+        unpinned. Paged engines park on EVERY completion — the slot keeps
+        writing K/V each chain step, and through its live table those
+        writes would land in pages handed back to the pool — and return
+        its pages; others park only when budget remains."""
+        if act.segment is not None:
+            self.prefix.release(act.segment)
+            act.segment = None
         if self._paged:
             park_slot_paged(self._state, slot)
             self._pool.release_all(act.pages)
             act.pages = []
         elif act.remaining > 0:
-            self._park(slot)
+            self._state.remaining[slot] = 0
 
-    def _activate(self, slot: int, req: Request, first: int,
-                  pages=None) -> list[Completion]:
+    def _activate(self, slot: int, req: Request, first: int, pages=None,
+                  segment: Segment | None = None) -> list[Completion]:
         """Admit a just-prefilled request into the decode phase; an EOS or
         ``max_new_tokens == 1`` first token completes it at once."""
         self.generated_tokens += 1
-        act = _Active(req, first, pages)
+        act = _Active(req, first, pages, segment)
         act.ttft_s = time.perf_counter() - req.submitted_s
         if req.max_new_tokens == 1 or first == req.eos_token:
             reason = "eos" if first == req.eos_token else "length"

@@ -123,14 +123,27 @@ class FifoScheduler:
         self._queue.append(request)
         return request.request_id
 
-    def pop(self, fits=None) -> Request | None:
+    def pop(self, chunk: int = 0, pending_long: int = 0,
+            fits=None) -> Request | None:
         """Next request in arrival order, or None when idle.
 
+        Chunk-aware admission: with ``chunk`` set (the engine's
+        ``prefill_chunk``) and a long prompt already mid chunked prefill
+        (``pending_long > 0``), only a request whose prompt fits one chunk
+        pops — short requests slip around the long one into free slots
+        instead of queueing a second multi-step prefill behind it.
+
         ``fits`` is an optional host predicate over a :class:`Request` (the
-        paged engine passes "enough free pages"): the first request in
-        arrival order that fits pops; one that does not stays queued in
-        its place and pops once pages free up. ``fits=None`` is the plain
-        FIFO pop."""
+        paged engine passes "enough free pages"), applied on top of the
+        chunk rule: the first request in arrival order that fits pops; one
+        that does not stays queued in its place and pops once pages free
+        up. The defaults are the plain FIFO pop."""
+        if chunk and pending_long:
+            for i, r in enumerate(self._queue):
+                if len(r.prompt) <= chunk and (fits is None or fits(r)):
+                    del self._queue[i]
+                    return r
+            return None
         if fits is None:
             return self._queue.popleft() if self._queue else None
         for i, r in enumerate(self._queue):

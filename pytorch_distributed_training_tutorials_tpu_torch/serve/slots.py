@@ -12,12 +12,23 @@ into that slot and a per-slot position reset.
 - :func:`write_slot_paged` and :func:`park_slot_paged` — the paged twins
   (a :class:`..models.transformer.PagedKVCache`): copy a prefill's pages
   into the pool and install the slot's page table; sentinel a finished
-  slot's table.
+  slot's table;
+- the prefix cache's and chunked prefill's surgery on batch-1 side caches
+  (:class:`..models.transformer.KVCache` with a leading layer axis, plus
+  the int8/int4 scale tensors): :func:`extract_segment` cuts a retained
+  segment out of a prefilled cache, :func:`seed_cache` starts a side cache
+  from one at a depth, :func:`zero_cache` starts one from nothing,
+  :func:`copy_slot` copies a finished side cache into a slot,
+  :func:`seed_cache_paged` gathers a paged donor's pages into a side
+  cache, :func:`copy_page` copies one pool page (a shared boundary page's
+  copy on write), and :func:`tree_nbytes` prices a segment from its shapes
+  and dtypes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -127,3 +138,94 @@ def park_slot_paged(state: SlotState, slot: int) -> None:
     request), and its budget drops to 0. Device writes only."""
     state.cache.table[slot] = state.cache.n_pages
     state.remaining[slot] = 0
+
+
+def _leaves(cache) -> list:
+    """The per-position tensors of a cache: K, V and, quantized, their
+    scales (each with a leading layer axis)."""
+    return [x for x in (cache.k, cache.v, cache.k_scale, cache.v_scale) if x is not None]
+
+
+def extract_segment(cache: KVCache, seg_len: int, row: int = 0) -> KVCache:
+    """Row ``row`` of a prefilled ``cache`` cut to its first ``seg_len``
+    positions, as a batch-1 :class:`..models.transformer.KVCache` that owns
+    its memory (a copy): the retained segment the prefix index keeps.
+    ``seg_len`` is a ``bucket_len`` of the prefix, so segments come in the
+    prefill buckets' sizes. Positions past the real prefix hold bucket
+    padding; a consumer reuses only ``[0, depth)``, depth at most the real
+    prefix, and overwrites or masks the rest (:mod:`.prefix`). The index
+    is copied through and overwritten by :func:`seed_cache`."""
+    k, v, *scales = (x[:, row:row + 1, :seg_len].clone() for x in _leaves(cache))
+    return KVCache(k=k, v=v, index=cache.index[row:row + 1].clone(),
+                   k_scale=scales[0] if scales else None,
+                   v_scale=scales[1] if scales else None, quant=cache.quant)
+
+
+def seed_cache(cache1: KVCache, segment: KVCache, depth: int) -> KVCache:
+    """Start the batch-1 side cache ``cache1`` from a retained ``segment``
+    at ``depth`` reused positions, in place: positions ``[0, seg_len)``
+    from the segment, the rest zero, the index ``depth`` — the state a
+    whole prefill of the first ``depth`` tokens would leave on ``[0,
+    depth)``, so the suffix continuation (decode over the suffix from
+    ``depth``) computes what the whole prefill would. Returns ``cache1``.
+    Device writes only."""
+    n = segment.k.shape[2]
+    for dst, src in zip(_leaves(cache1), _leaves(segment)):
+        dst[:, :, :n] = src
+        dst[:, :, n:] = 0
+    cache1.index.fill_(depth)
+    return cache1
+
+
+def zero_cache(cache1: KVCache) -> KVCache:
+    """Start the batch-1 side cache ``cache1`` from nothing, in place:
+    every position zero and the index 0, so a chunked prefill's first chunk
+    writes from position 0 as a whole prefill would. Returns ``cache1``."""
+    for x in _leaves(cache1):
+        x.zero_()
+    cache1.index.zero_()
+    return cache1
+
+
+def copy_slot(state: SlotState, cache1: KVCache, slot: int) -> None:
+    """Copy a finished batch-1 side cache (a splice's or a chunked
+    prefill's) into ``slot``'s rows of the whole-slot cache — the whole
+    window, so the slot holds exactly the side cache's state; the other
+    slots' rows and positions do not move. :func:`write_slot` then sets
+    the slot's counters. Device writes only."""
+    for dst, src in zip(_leaves(state.cache), _leaves(cache1)):
+        dst[:, slot] = src[:, 0]
+
+
+def seed_cache_paged(cache1: KVCache, pool: PagedKVCache, pages: list[int],
+                     depth: int) -> KVCache:
+    """The paged twin of :func:`seed_cache`: copy the donor's pool pages
+    ``pages`` (the ``ceil(depth / page_size)`` that cover ``[0, depth)``)
+    into the batch-1 side cache ``cache1``, in place, the rest zero, the
+    index ``depth``. A partly covered last page copies whole: its tail past
+    ``depth`` is the donor's, overwritten or masked as a segment's stale
+    tail is. Returns ``cache1``."""
+    n, ps = len(pages), pool.page_size
+    ids = torch.tensor(pages, dtype=torch.int64, device=pool.k.device)
+    for dst, src in zip(_leaves(cache1), _leaves(pool)):
+        got = src[:, ids]  # (L, n, page_size, ...)
+        dst[:, 0, : n * ps] = got.reshape((got.shape[0], n * ps) + tuple(got.shape[3:]))
+        dst[:, 0, n * ps:] = 0
+    cache1.index.fill_(depth)
+    return cache1
+
+
+def copy_page(pool: PagedKVCache, src: int, dst: int) -> None:
+    """Copy pool page ``src`` whole into page ``dst`` across every layer's
+    K, V and scales: the copy on write of a paged splice's boundary page
+    (the donor's page is shared only up to ``depth``). Device writes only."""
+    for x in _leaves(pool):
+        x[:, dst] = x[:, src]
+
+
+def tree_nbytes(cache) -> int:
+    """Bytes of a cache's tensors (K, V, scales and the index, or a page
+    table), from shapes and dtypes alone — never a device fetch; the prefix
+    index budgets segments with it."""
+    tensors = [*_leaves(cache), cache.index, getattr(cache, "table", None)]
+    return sum(math.prod(x.shape) * x.element_size() for x in tensors if x is not None)

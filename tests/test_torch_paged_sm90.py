@@ -6,8 +6,9 @@ the splits' records in split order) and ``csrc/paged_attention.cu`` (v1).
 On the CPU these tests cover what surrounds the kernels: ``_sm90_route``'s
 choice on the 1b-gqa main shape and on each case it refuses (a stored row
 that is not whole 16-byte pieces, a misaligned pool, pages past a TMA box,
-more shared memory than the card has), with the launch recorded and not
-run; that ``route="v1"`` reaches the old library; that CPU calls count no
+one query row needing more shared memory than the card has), with the
+launch recorded and not run; the row blocks of a call whose S rows need
+more than one launch; that ``route="v1"`` reaches the old library; that CPU calls count no
 launch; the split plan (``_sm90_plan``: from the table's width only); and
 the plain statement of the kernel's split and merge
 (``paged_attention_plain(..., pages_per_split=n)``) for several n, with
@@ -97,9 +98,12 @@ ROUTE_CASES = {
     "misaligned pool": (4, 1, 16, 4, 128, 64, 8, torch.float32, torch.float32, 2, "v1"),
     # refused: pages longer than a TMA box (256 positions)
     "pages of 512": (1, 1, 4, 4, 16, 512, 2, torch.float32, torch.float32, 0, "v1"),
-    # refused: 64 query rows a KV head need more shared memory than a block has
-    "S 64 x grp 4": (1, 16, 16, 4, 128, 64, 4, torch.float32, torch.float32, 0, "v1"),
+    # 64 kernel rows a KV head need more shared memory than a block has:
+    # row blocks of 14 query rows (56 kernel rows), two launches
+    "S 64 x grp 4": (1, 16, 16, 4, 128, 64, 4, torch.float32, torch.float32, 0, "sm90"),
 }
+# launches of a case that its shared memory splits into row blocks
+ROUTE_LAUNCHES = {"S 64 x grp 4": 2}
 
 
 @pytest.mark.parametrize("case", list(ROUTE_CASES))
@@ -109,7 +113,7 @@ def test_route(recorded, case):
     grp = h // kv
     assert pa._sm90_route(q, k, v, kw.get("quant"), grp, p_cap) is (want == "sm90")
     out = pa.paged_attention(q, k, v, table, pos, **kw)
-    assert recorded == [want]
+    assert recorded == [want] * ROUTE_LAUNCHES.get(case, 1)
     assert out.shape == q.shape and out.dtype == q.dtype
 
 
@@ -124,11 +128,40 @@ def test_route_v1_by_name(recorded):
 
 
 def test_v1_route_still_checks_its_shared_memory(recorded):
-    """What neither kernel takes raises before any launch."""
-    q, k, v, table, pos, kw = _operands(1, 64, 16, 4, 128, 64, 2, torch.float32)
+    """What neither kernel takes raises before any launch: 512 query heads
+    on one KV head, whose single query row (512 kernel rows) fits neither
+    kernel's shared memory."""
+    q, k, v, table, pos, kw = _operands(1, 1, 512, 1, 128, 64, 2, torch.float32)
     with pytest.raises(ValueError, match="shared memory"):
         pa.paged_attention(q, k, v, table, pos)
     assert recorded == []
+
+
+@pytest.mark.parametrize("sm90", [True, False], ids=["sm90", "v1"])
+def test_row_blocks_offset_pos_and_fill_the_output(monkeypatch, sm90):
+    """A call of more query rows than one launch takes (a suffix prefill,
+    S 256 at the 1b-gqa width) launches row blocks of at most
+    ``_rows_per_launch`` rows, block j's queries at ``pos + s_j``; with each
+    launch standing in as the plain version, the pieces put together equal
+    one plain call over all S rows, exactly."""
+    q, k, v, table, pos, kw = _operands(1, 256, 16, 4, 128, 64, 64, torch.float32)
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn(q.shape, generator=gen)
+    k, v = (torch.randn(k.shape, generator=gen) for _ in range(2))
+    pos = torch.tensor([96])
+    launches = []
+
+    def launch(route_sm90, qb, k_pool, v_pool, tbl, pb, ks, vs, quant, grp, out):
+        launches.append((route_sm90, qb.shape[1], int(pb[0])))
+        out.copy_(pa.paged_attention_plain(qb, k_pool, v_pool, tbl, pb))
+
+    monkeypatch.setattr(pa, "_route", lambda *args: True)
+    monkeypatch.setattr(pa, "_launch", launch)
+    got = pa.paged_attention(q, k, v, table, pos, route=None if sm90 else "v1")
+    rows = 12 if sm90 else 32
+    assert pa._rows_per_launch(sm90, q, k, None, 4, table.shape[1]) == rows
+    assert launches == [(sm90, min(rows, 256 - s0), 96 + s0) for s0 in range(0, 256, rows)]
+    assert torch.equal(got, pa.paged_attention_plain(q, k, v, table, pos))
 
 
 @pytest.mark.parametrize("sm90,lib,entry", [
@@ -321,6 +354,28 @@ def test_sm90_kernel_matches_plain_version(case):
     for r in parked:
         assert not got[r].any()
     assert torch.equal(got, again)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("store", [torch.float32, "int8"], ids=["f32", "int8"])
+def test_sm90_row_blocks_match_plain_version_at_a_splice(store):
+    """A paged splice's suffix forward at the 1b-gqa width (one row, S 256
+    query rows from depth 96): the sm90 kernel in row blocks against the
+    plain version over all rows at once, within ``KERNEL_TOLERANCE``; every
+    block on the sm90 route."""
+    _need_cuda()
+    q, k, v, table, pos, kw = _card_inputs(1, 256, 16, 4, 128, 64, 64, store, torch.float32,
+                                           (), (96,), seed=11)
+    rows = pa._rows_per_launch(True, q, k, kw.get("quant"), 4, 64)
+    assert 1 <= rows < 256
+    before = dict(pa.paged_attention.routes)
+    got = pa.paged_attention(q, k, v, table, pos, **kw)
+    assert pa.paged_attention.routes == {"sm90": before["sm90"] + -(-256 // rows),
+                                         "v1": before["v1"]}
+    want = pa.paged_attention_plain(q, k, v, table, pos, **kw)
+    torch.cuda.synchronize()
+    err = pa.kernel_error(got, want, pa.tolerance_type(q, v, kw.get("quant")))
+    assert err["worst_ratio"] <= 1.0, err
 
 
 @pytest.mark.requires_cuda

@@ -348,8 +348,12 @@ def test_config_refusals():
         TransformerConfig(quantized=False, remat_policy="everything")
     with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
         TransformerConfig(quantized=False, dtype=torch.float16)
-    with pytest.raises(NotImplementedError, match="flash prefill"):
-        TransformerConfig(quantized=True, attention_fn=make_flash_attention())
+    # int8 weights are not trained: remat stays refused with quantized=True,
+    # while attention_fn (flash prefill) is taken since the prefill slice
+    with pytest.raises(NotImplementedError, match="remat"):
+        TransformerConfig(quantized=True, remat=True)
+    assert TransformerConfig(quantized=True,
+                             attention_fn=make_flash_attention()).attention_fn is not None
 
 
 def test_bench_cpu_smoke_prints_one_json_line(capsys):

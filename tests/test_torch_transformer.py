@@ -40,6 +40,7 @@ from pytorch_distributed_training_tutorials_tpu_torch.models import (
     bind_params,
     from_jax_params,
     generate,
+    init_quantized_lm,
     quantize_lm_params,
 )
 from helpers import requires_pallas_interpret
@@ -283,12 +284,37 @@ def test_unsupported_config_fields_raise(field, value):
             TransformerConfig(**{**TOY, "quantized": True, field: value})
         return
     if field == "quantized":
-        # float weights train since the LM train-step slice; what the port
-        # still refuses is serving them (prefill / decode of a float model)
-        model = TransformerLM(TransformerConfig(**{**TOY, field: value}))
+        # float weights train since the LM train-step slice and serve since
+        # the prefill slice: prefill fills a cache stored in cfg.dtype;
+        # what a float model still refuses is the fused loss's hidden
+        # states on a serving call
+        model = TransformerLM(TransformerConfig(**{**TOY, field: value}), device="cpu")
         cache = KVCache.zeros(model.cfg, 1, device="cpu")
-        with pytest.raises(NotImplementedError, match="float"):
+        assert cache.k.dtype == model.cfg.dtype
+        with torch.no_grad():
             model(torch.zeros((1, 4), dtype=torch.int64), cache, prefill=True)
+        assert cache.index.tolist() == [4]
+        with pytest.raises(NotImplementedError, match="float"):
+            model(torch.zeros((1, 4), dtype=torch.int64), cache, prefill=True,
+                  return_hidden=True)
+        return
+    if field == "attention_fn":
+        # int8 prefill runs cfg.attention_fn since the prefill slice (the
+        # flash forward); decode keeps the dense cached path
+        calls = []
+
+        def spy(q, k, v):
+            calls.append(tuple(q.shape))
+            return v
+
+        cfg = TransformerConfig(**{**TOY, "quantized": True, field: spy})
+        params = init_quantized_lm(cfg, seed=0, device="cpu")
+        model = TransformerLM(cfg)
+        bind_params(model, params)
+        cache = KVCache.zeros(cfg, 1, device="cpu")
+        model(torch.zeros((1, 4), dtype=torch.int64), cache, prefill=True)
+        model(torch.zeros((1, 1), dtype=torch.int64), cache, decode=True)
+        assert calls == [(1, 4, cfg.n_heads, cfg.head_dim)] * cfg.n_layers
         return
     with pytest.raises(NotImplementedError, match=field):
         TransformerConfig(**{**TOY, "quantized": True, field: value})
