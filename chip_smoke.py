@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # every phase, from the repo root
     python3 chip_smoke.py --kernel-only   # phases 0-2: build, check, time
     python3 chip_smoke.py --ddp-only      # phases 0, 1, 8 and 9
+    python3 chip_smoke.py --serve-only    # phases 0, 1, 4 and the serving phases after it
 
 It drives the port (``pytorch_distributed_training_tutorials_tpu_torch``)
 on the card and fails — non-zero exit, no result line — if a phase fails.
@@ -20,7 +21,8 @@ Every phase prints JSON lines:
    card held while the host queues the call, ``quiesce``) beside
    the bound and, where one PyTorch call computes the same function, its
    time — ``int8_matmul`` (expected bitwise) at every 1b (K, N) pair at M
-   1-64 and the prefill M 512 and 2048, through the sm90 kernel
+   1-64 (M 12: a speculative verify forward) and the prefill M 512 and
+   2048, through the sm90 kernel
    (``int8_matmul_sm90.cu``: s8 wgmma, TMA, split K; the route counted, two
    calls bitwise equal), the v1 kernel (``int8_matmul.cu``) checked and
    timed in turns with it at M 4 and the prefill M (sm90, v1, v1, sm90
@@ -47,14 +49,15 @@ Every phase prints JSON lines:
    over leaves of the 760m parameter shapes (expected bitwise); then
    ``paged_attention`` at the 1b and 1b-gqa decode geometry (B 4, H 16, KV
    16 or 4, D 128, pages of 64, a 4096-token window, ragged depths, an S 4
-   chunk, a parked row, the paged stream's depths) over f32, bf16, int8 and
+   chunk, a parked row, the paged stream's depths, a 3-row verify forward
+   at ragged depths) over f32, bf16, int8 and
    int4 pools, through the sm90 kernel (``paged_attention_sm90.cu``: pages
    split across blocks, TMA, a merge in split order; the route counted, two
    calls bitwise equal), held to the plain statement of its split and merge
    and to the unsplit plain version, a parked row exactly 0, and at the
    stream shape the v1 kernel (``paged_attention.cu``) checked and timed in
    turns with it; then ``flash_fwd`` at the serving shapes (one prefill's
-   attention of one layer: B 1, S 128/256/512, H 16, D 128) in f32 through
+   attention of one layer: B 1, S 16 to 512, H 16, D 128) in f32 through
    ``fwd_kernel`` (the int8 model's route) and bf16 through
    ``fwd_sm90_kernel`` (the float model's), each held to its plain version
    and timed beside SDPA;
@@ -113,7 +116,15 @@ logits within 4% of their scale, the same argmax where the top-2 gap is
 wider): (c) on every request, (d) and (e) on one request of each prompt
 length; (d) and (e) against the f32 gather are read as a lower-precision
 control, and two planted faults (the first page of each table swapped for
-another request's page, or dropped) must trip the gate.
+another request's page, or dropped) must trip the gate. Then
+``serve_1b_gqa_paged_spec``: arm (c) with ``speculative_k=2`` and
+``pipeline_depth=2`` — one paged launch a layer a verify forward (3 query
+rows), 113 int8 calls a forward, all sm90; no page leaked; one request of
+each prompt length teacher-forced in verify-shaped forwards (3 rows) within
+4% of the f32 gather's logits; every request's speculative tokens the
+argmax of the same engine's teacher-forced logits on them wherever the
+top-2 gap is wider than 4% of the logit scale, and ``spec_stats()``
+within a host replay of the drafts over those tokens.
 
 Then ``serve_1b_prefill``, the prefill slice: the 1b preset at full width
 and depth, int8 weights, serving 12 requests (prompts {128, 256, 384},
@@ -138,6 +149,22 @@ no page in use after the drain and the index clear. (g) ``init_lm`` 1b in
 bf16 with flash prefill (4 requests): every flash launch on the sm90
 route, teacher-forced against the same weights with dense prefill.
 
+Then ``serve_1b_spec``: phase 4's cell (the 1b preset, 4 slots, 12
+requests, prompts {16, 32, 48}, 32 new tokens) with flash prefill, arm by
+arm (SPEC_ARMS): (a) plain, (s) ``speculative_k=2``, (p)
+``pipeline_depth=2``, (sp) both. Gates: (s), (p) and (sp) token-identical
+to (a); 113 int8 calls a forward (a verify forward at M = 12) and 16 flash
+launches a whole prefill, all on their routes; host syncs = chains +
+prefills; in a profiled window of (p) and (sp) each next chain's first
+kernel queued before the previous chain's collect returned, in (a) and (s)
+never; ``spec_stats()`` equal to a host replay of the drafts over (a)'s
+greedy tokens. Each arm's tok/s, latency, TTFT, verify forwards, acceptance
+and the device's busy and idle share.
+
+Every serving stream is also run under PyTorch's sync debug mode: its
+stream syncs (with their call sites) must not exceed the host syncs the
+engine budgets.
+
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Needs no network and one card. It
 imports nothing of JAX.
@@ -146,6 +173,7 @@ imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import itertools
 import json
@@ -231,6 +259,9 @@ PAGED_SHAPES = [
     # a paged splice's suffix forward in serve_1b_prefill (f): one row, a
     # 256-token suffix bucket from depth 96, in row blocks
     ("1b-gqa-splice", 1, 256, 16, 4, 128, 64, 64, (96,), ()),
+    # a speculative verify forward of the paged stream (k = 2): 3 query
+    # rows a slot at ragged mid-decode depths, one launch
+    ("1b-gqa-verify", 4, 3, 16, 4, 128, 64, 64, (34, 498, 1518, 40), ()),
 ]
 PAGED_STORES = ("f32", "bf16", "int8", "int4")
 # bf16 queries (the JAX kernel's sweep), on the 1b-gqa shape
@@ -241,6 +272,20 @@ PAGED_LIBRARY_NOTE = (
     "gather of the pages (index_select) and F.scaled_dot_product_attention "
     "over the gathered window, timed as gather_sdpa_ms (exact pools only)"
 )
+
+# serve_1b_spec: the 1b int8 cell of serve_1b (4 slots, 12 requests,
+# prompts {16, 32, 48}, 32 new tokens, greedy) with flash prefill, arm by
+# arm: (a) plain, (s) speculative_k=2, (p) pipeline_depth=2, (sp) both;
+# the verify forward is M = 4 x 3 = 12 rows of every int8 matmul
+SPEC_K, SPEC_NGRAM = 2, 3
+SPEC_ARMS = {
+    "a": {},
+    "s": dict(speculative_k=SPEC_K, spec_ngram=SPEC_NGRAM),
+    "p": dict(pipeline_depth=2),
+    "sp": dict(speculative_k=SPEC_K, spec_ngram=SPEC_NGRAM, pipeline_depth=2),
+}
+# steady steps of the profiled window of each serve_1b_spec arm
+SPEC_PROFILE_STEPS = 3
 
 # the 1b preset of examples/serve_llm_int8.py
 PRESET_1B = dict(
@@ -290,9 +335,11 @@ TF_FAULTS = ("wrong_page", "dropped_page")
 # x (2 x 128 x 4 bytes | 2 x (128 + 4) | 2 x (64 + 2))
 PAGE_BYTES = {0: 4_194_304, 8: 1_081_344, 4: 540_672}
 # the flash forward on the serving path: one prefill at B 1, H 16, D 128
-# per bucket of serve_1b_prefill's prompts, in f32 (the int8 model) and
-# bf16 (the float model)
-FLASH_SERVE_SHAPES = [(1, s, 16, 128, dt) for dt in ("f32", "bf16") for s in (128, 256, 512)]
+# per bucket of serve_1b_spec's prompts (16, 32, 64: partial tiles of the
+# f32 kernel's 64-row blocks) and of serve_1b_prefill's (128, 256, 512),
+# in f32 (the int8 model) and bf16 (the float model)
+FLASH_SERVE_SHAPES = [(1, s, 16, 128, dt) for dt in ("f32", "bf16")
+                      for s in (16, 32, 64, 128, 256, 512)]
 # serve_1b_prefill: the 1b preset at full width and depth, int8 weights
 # from init_quantized_lm(seed=0); 4 slots, 12 timed requests of 32 new
 # tokens, prompts {128, 256, 384} made as examples/serve_llm_int8.py makes
@@ -321,6 +368,48 @@ LIBRARY_NOTE = (
     "accumulation across tiles (torch._int_mm takes one whole-K int8 "
     "product with no per-tile scales)"
 )
+
+
+def draft_host(hist: list, k: int, ngram: int) -> list:
+    """``ngram_draft``'s statement on the host, for one history (a list of
+    ints, all valid): the latest candidate end ``i < len - 1`` with the
+    longest run of trailing-token matches (at most ``ngram``, at least 1)
+    drafts the ``k`` tokens after it, a missing one the last token."""
+    n = len(hist)
+    best, best_len = -1, 0
+    for i in range(n - 1):
+        m = 0
+        while m < ngram and m <= i and hist[i - m] == hist[n - 1 - m]:
+            m += 1
+        if m and m >= best_len:
+            best, best_len = i, m
+    return [hist[best + 1 + j] if best >= 0 and best + 1 + j <= n - 1 else hist[-1]
+            for j in range(k)]
+
+
+def replay_spec(prompt: list, tokens: list, new: int, k: int, ngram: int) -> tuple[int, int, int]:
+    """(verify steps consumed, least and most drafts accepted) that a
+    greedy speculative engine counts for one request of ``new`` tokens,
+    replayed on the host from its greedy continuation ``tokens``. Each step
+    drafts from the history (:func:`draft_host`), accepts while the draft
+    equals the greedy tokens, and appends the accepted drafts and the bonus
+    token. The last step may look past the budget: where ``tokens`` ends
+    before that step's first mismatch, its accepted drafts lie between the
+    matches seen and k. With ``tokens`` at least ``new + k`` long the two
+    counts are equal; the steps are exact either way."""
+    hist = list(prompt) + [tokens[0]]
+    got, steps, lo, hi = 1, 0, 0, 0
+    while got < new:
+        draft = draft_host(hist, k, ngram)
+        n = 0
+        while n < k and got + n < len(tokens) and draft[n] == tokens[got + n]:
+            n += 1
+        steps += 1
+        lo += n
+        hi += k if n < k and got + n == len(tokens) else n
+        hist += tokens[got:got + n + 1]
+        got += n + 1
+    return steps, lo, hi
 
 
 def emit(obj) -> None:
@@ -424,7 +513,8 @@ def phase_kernels(torch, quant, gpu: str) -> dict:
     gen = torch.Generator(device=dev).manual_seed(2)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     pairs = ((2048, 2048), (2048, 8192), (8192, 2048), (2048, 32000))
-    shapes = [(m, k, n) for m in (1, 4, 16, 32, 64) + INT8_PREFILL_M for (k, n) in pairs]
+    # M 12: serve_1b_spec's verify forward (4 slots x k + 1 = 3 rows)
+    shapes = [(m, k, n) for m in (1, 4, 12, 16, 32, 64) + INT8_PREFILL_M for (k, n) in pairs]
     shapes.append((3, 200, 130))  # ragged M and N, K padded to a 256 tile: v1
     shapes.append((5, 201, 67))  # K % 4 != 0: v1's byte-load path
     results = {}
@@ -1092,6 +1182,23 @@ def phase_model(torch, gpu: str) -> None:
         raise AssertionError("model logits on the card disagree with the CPU")
 
 
+@contextlib.contextmanager
+def real_syncs(torch):
+    """The synchronizing CUDA calls made inside the block, counted by
+    PyTorch's sync debug mode (``bench.harness.count_host_syncs``): yields
+    a dict that holds, when the block ends, ``count`` and ``sites`` (each
+    call site ``file:line`` with its count)."""
+    from pytorch_distributed_training_tutorials_tpu_torch.bench.harness import (
+        count_host_syncs,
+    )
+
+    out = {}
+    with count_host_syncs(torch) as got:
+        yield out
+    out["count"] = got[0]
+    out["sites"] = dict(collections.Counter(got[1:]))
+
+
 def percentile(vals, q: float) -> float:
     s = sorted(vals)
     return s[min(len(s) - 1, int(round(q * (len(s) - 1))))]
@@ -1183,9 +1290,10 @@ def phase_serve(torch, quant, gpu: str) -> int:
     quant.int8_matmul.launches = 0
     quant.int8_matmul.routes = {"sm90": 0, "v1": 0}
     t0 = time.perf_counter()
-    for r in reqs:
-        engine.submit(r)
-    done = engine.run_until_idle()
+    with real_syncs(torch) as real:
+        for r in reqs:
+            engine.submit(r)
+        done = engine.run_until_idle()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = quant.int8_matmul.launches
@@ -1217,6 +1325,9 @@ def phase_serve(torch, quant, gpu: str) -> int:
         raise AssertionError(
             f"{syncs} host syncs != {chains} chains + {prefills} prefills"
         )
+    if real["count"] > syncs:
+        raise AssertionError(f"{real['count']} stream syncs (sync debug mode) > the {syncs} "
+                             f"budgeted: {real['sites']}")
     by_id = {c.request_id: c for c in done}
     checked = []
     for r in reqs[:2]:
@@ -1240,6 +1351,7 @@ def phase_serve(torch, quant, gpu: str) -> int:
         "prefills": prefills, "chains": chains, "decode_steps": chains * tpl,
         "int8_matmul_launches": launches, "int8_matmul_routes": routes,
         "launches_per_forward": per_forward, "host_syncs": syncs,
+        "stream_syncs": real["count"], "stream_sync_sites": real["sites"],
         "checked_vs_generate": checked,
         "wall_s": wall_s, "aggregate_tok_s": toks / wall_s,
         "latency_p50_s": percentile(lat, 0.5),
@@ -1275,6 +1387,22 @@ def tf_compare(ref, got) -> dict:
         "ref_top2_gap_min": float(gap.min()), "clear_steps": int(clear.sum()),
         "ok": share <= TF_LOGIT_BOUND and bool(agree[clear].all()),
     }
+
+
+def greedy_held(logits, tokens: list) -> dict:
+    """A greedy stream's own ``tokens`` held to the teacher-forced
+    ``logits`` on them (row i the logits that chose ``tokens[i]``): each
+    token must be its row's argmax wherever the row's top-2 gap is wider
+    than TF_LOGIT_BOUND of the logits' largest |value| (``tf_compare``'s
+    near-tie rule)."""
+    scale = float(logits.abs().max())
+    top2 = logits.topk(2, dim=-1).values
+    clear = ((top2[:, 0] - top2[:, 1]) > TF_LOGIT_BOUND * scale).tolist()
+    agree = [a == int(t) for a, t in zip(logits.argmax(-1).tolist(), tokens)]
+    wrong = [i for i, (c, a) in enumerate(zip(clear, agree)) if c and not a]
+    return {"steps": len(tokens), "clear_steps": sum(clear),
+            "argmax_agree_steps": sum(agree),
+            "first_clear_disagreement": wrong[0] if wrong else None, "ok": not wrong}
 
 
 @contextlib.contextmanager
@@ -1364,9 +1492,10 @@ def phase_serve_paged(torch, pa, gpu: str) -> dict:
         quant.int8_matmul.launches = 0
         quant.int8_matmul.routes = {"sm90": 0, "v1": 0}
         t0 = time.perf_counter()
-        ids = [eng.submit(Request(prompt=p, max_new_tokens=st["new"], seed=i))
-               for i, p in enumerate(prompts)]
-        done = eng.run_until_idle()
+        with real_syncs(torch) as real:
+            ids = [eng.submit(Request(prompt=p, max_new_tokens=st["new"], seed=i))
+                   for i, p in enumerate(prompts)]
+            done = eng.run_until_idle()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches = pa.paged_attention.launches
@@ -1382,6 +1511,9 @@ def phase_serve_paged(torch, pa, gpu: str) -> dict:
         if eng.n_host_syncs != eng.n_chains + eng.n_prefills:
             bad.append(f"{eng.n_host_syncs} host syncs != {eng.n_chains} chains + "
                        f"{eng.n_prefills} prefills")
+        if real["count"] > eng.n_host_syncs:
+            bad.append(f"{real['count']} stream syncs > the {eng.n_host_syncs} budgeted: "
+                       f"{real['sites']}")
         steps = eng.n_chains * tpl
         want_launches = cfg.n_layers * steps if options.get("paged_kernel") else 0
         if launches != want_launches:
@@ -1416,6 +1548,7 @@ def phase_serve_paged(torch, pa, gpu: str) -> dict:
             "prompt_lengths": list(st["prompts"]), "completed": len(done),
             "generated_tokens": toks, "prefills": eng.n_prefills, "chains": eng.n_chains,
             "decode_steps": steps, "host_syncs": eng.n_host_syncs,
+            "stream_syncs": real["count"], "stream_sync_sites": real["sites"],
             "paged_attention_launches": launches, "routes": routes, "shed_ok": shed,
             "wall_s": wall_s, "aggregate_tok_s": toks / wall_s,
             "latency_p50_s": percentile(lat, 0.5), "latency_p95_s": percentile(lat, 0.95),
@@ -1470,6 +1603,8 @@ def phase_serve_paged(torch, pa, gpu: str) -> dict:
             got = kept["c"].teacher_forced_logits(prompts[1], tokens["b"][1])
         if held(kind, "c", "b", 1, got)["ok"]:
             problems.append(f"the teacher-forced gate passed a planted {kind}")
+    spec_row = paged_spec_arm(torch, pa, quant, engine, prompts, st, cfg, tokens, held, gpu)
+    problems += [f"serve_1b_gqa_paged_spec: {x}" for x in spec_row["problems"]]
     kept.clear()
     refs.clear()
     if problems:
@@ -1482,10 +1617,138 @@ def phase_serve_paged(torch, pa, gpu: str) -> dict:
           "requests_with_tokens_c_equal_b": sum(x == y for x, y in zip(tokens["c"], tokens["b"])),
           "requests_with_tokens_d_equal_c": sum(x == y for x, y in zip(tokens["d"], tokens["c"])),
           "requests_with_tokens_e_equal_c": sum(x == y for x, y in zip(tokens["e"], tokens["c"])),
+          "requests_with_tokens_spec_equal_c": sum(
+              x == y for x, y in zip(tokens["spec"], tokens["c"])),
           "teacher_forced_max_diff_share": shares, "bound_share": TF_LOGIT_BOUND,
           "gpu": gpu})
     return {"launches": summary["c"]["paged_attention_launches"],
-            "routes": summary["c"]["routes"]["paged_attention"], "arms": summary}
+            "routes": summary["c"]["routes"]["paged_attention"], "arms": summary,
+            "spec": {k: spec_row[k] for k in ("paged_attention_launches", "routes",
+                                                 "n_verify_forwards")},
+            "spec_int8": spec_row["int8_matmul_launches"]}
+
+
+def paged_spec_arm(torch, pa, quant, engine, prompts, st, cfg, tokens, held, gpu) -> dict:
+    """``serve_1b_gqa_paged_spec``: the paged stream through arm (c)'s
+    engine (paged kernel, f32 pool) with ``speculative_k=SPEC_K`` and
+    ``pipeline_depth=2``. Gates: every request finishes; one paged launch
+    a layer a verify forward (its k+1 query rows fit one launch) and 113
+    int8 calls a forward, all sm90; host syncs chains + prefills, stream
+    syncs no more; no page leaked; one request of each prompt length
+    teacher-forced in verify-shaped forwards (k+1 rows a forward) within
+    TF_LOGIT_BOUND of the f32 gather's logits on (b)'s tokens; every
+    request's own tokens greedy (``greedy_held``) under the same engine's
+    verify-shaped teacher-forced logits on them, and ``spec_stats()``
+    within the host replay (``replay_spec``) over those tokens. Returns its
+    line."""
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import Request
+
+    t_arm = time.perf_counter()
+    layers = cfg.n_layers
+    options = dict(PAGED_ARMS["c"], speculative_k=SPEC_K, spec_ngram=SPEC_NGRAM,
+                   pipeline_depth=2)
+    eng = engine(options)
+    warm = engine(options)  # the first verify-shaped launches, outside the timing
+    warm.submit(Request(prompt=prompts[0], max_new_tokens=st["new"], seed=99))
+    warm.run_until_idle()
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pa.paged_attention.launches = 0
+    pa.paged_attention.routes = {"sm90": 0, "v1": 0}
+    quant.int8_matmul.launches = 0
+    quant.int8_matmul.routes = {"sm90": 0, "v1": 0}
+    t0 = time.perf_counter()
+    with real_syncs(torch) as real:
+        ids = [eng.submit(Request(prompt=p, max_new_tokens=st["new"], seed=i))
+               for i, p in enumerate(prompts)]
+        done = eng.run_until_idle()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches, int8_calls = pa.paged_attention.launches, quant.int8_matmul.launches
+    routes = {"paged_attention": dict(pa.paged_attention.routes),
+              "int8_matmul": dict(quant.int8_matmul.routes)}
+    by_id = {c.request_id: c for c in done}
+    tokens["spec"] = [by_id[i].tokens if i in by_id else None for i in ids]
+    sstats, stats = eng.spec_stats(), eng.page_stats()
+    verify = sstats["n_verify_forwards"]
+    bad = []
+    if len(done) != st["requests"] or any(
+            c.finish_reason != "length" or len(c.tokens) != st["new"] for c in done):
+        bad.append(f"not every request finished 'length' with {st['new']} tokens")
+    if launches != layers * verify:
+        bad.append(f"paged_attention launched {launches} times, want {layers} x {verify} "
+                   "verify forwards (one launch of k+1 rows a layer)")
+    if int8_calls != (layers * 7 + 1) * (eng.n_prefills + verify):
+        bad.append(f"int8_matmul launched {int8_calls} times, want {layers * 7 + 1} x "
+                   f"({eng.n_prefills} prefills + {verify} verify forwards)")
+    for kern, calls in (("paged_attention", launches), ("int8_matmul", int8_calls)):
+        if routes[kern] != {"sm90": calls, "v1": 0}:
+            bad.append(f"{kern} routes {routes[kern]}: every one of its {calls} calls sm90")
+    if eng.n_host_syncs != eng.n_chains + eng.n_prefills:
+        bad.append(f"{eng.n_host_syncs} host syncs != {eng.n_chains} chains + "
+                   f"{eng.n_prefills} prefills")
+    if real["count"] > eng.n_host_syncs:
+        bad.append(f"{real['count']} stream syncs > the {eng.n_host_syncs} budgeted: "
+                   f"{real['sites']}")
+    if stats["pages_in_use"] != 0 or stats["pages_high_water"] > st["pool_pages"]:
+        bad.append(f"pages: {stats}")
+    shares = []
+    for i in range(len(st["prompts"])):
+        got = eng.teacher_forced_logits(prompts[i], tokens["b"][i], rows=SPEC_K + 1)
+        rec = held("gate", "spec", "b", i, got)
+        shares.append(rec["diff_share"])
+        if not rec["ok"]:
+            bad.append(f"request {i}'s verify-shaped teacher-forced logits outside the bound "
+                       "of the gather's")
+    # the speculative stream's own tokens, teacher-forced through the same
+    # engine in verify-shaped forwards, one request alone in a fresh slot:
+    # a fault of the stream (a wrong rewind, a corrupted history, a junk
+    # chain writing into pages handed on) emits tokens that are not greedy
+    # the drafts replayed on the host over the same tokens: the steps
+    # exact, the accepted drafts within the bounds the budget leaves
+    replay = [replay_spec(p, t, st["new"], SPEC_K, SPEC_NGRAM)
+              for p, t in zip(prompts, tokens["spec"])]
+    want = [sum(r[j] for r in replay) for j in range(3)]
+    if (sstats["spec_steps_consumed"] != want[0]
+            or not want[1] <= sstats["spec_drafts_accepted"] <= want[2]):
+        bad.append(f"spec_stats {sstats} outside the host replay's (steps, least and most "
+                   f"accepted) {want}")
+    greedy = []
+    for i in range(st["requests"]):
+        logits = eng.teacher_forced_logits(prompts[i], tokens["spec"][i], rows=SPEC_K + 1)
+        greedy.append(greedy_held(logits, tokens["spec"][i]))
+        if not greedy[-1]["ok"]:
+            bad.append(f"request {i}'s speculative tokens are not greedy under their own "
+                       f"teacher-forced logits: {greedy[-1]}")
+    toks = sum(len(c.tokens) for c in done)
+    lat, ttft = [c.latency_s for c in done], [c.ttft_s for c in done]
+    row = {
+        "phase": "serve_1b_gqa_paged_spec", "options": options, "preset": "1b-gqa",
+        "layers": layers, "max_seq_len": cfg.max_seq_len,
+        **{k: st[k] for k in ("n_slots", "tokens_per_launch", "requests", "new")},
+        "prompt_lengths": list(st["prompts"]), "completed": len(done),
+        "generated_tokens": toks, "prefills": eng.n_prefills, "chains": eng.n_chains,
+        "n_verify_forwards": verify, "spec_stats": sstats,
+        "pipeline_stats": eng.pipeline_stats(), "host_syncs": eng.n_host_syncs,
+        "stream_syncs": real["count"], "stream_sync_sites": real["sites"],
+        "paged_attention_launches": launches, "int8_matmul_launches": int8_calls,
+        "routes": routes, "teacher_forced_max_diff_share": max(shares),
+        "bound_share": TF_LOGIT_BOUND, "replay_steps_accepted_bounds": want,
+        "greedy_own_tokens": {"requests_ok": sum(g["ok"] for g in greedy),
+                              "steps": sum(g["steps"] for g in greedy),
+                              "clear_steps": sum(g["clear_steps"] for g in greedy),
+                              "argmax_agree_steps": sum(g["argmax_agree_steps"]
+                                                        for g in greedy)},
+        "wall_s": wall_s, "aggregate_tok_s": toks / wall_s,
+        "latency_p50_s": percentile(lat, 0.5), "latency_p95_s": percentile(lat, 0.95),
+        "ttft_p50_s": percentile(ttft, 0.5), "ttft_p95_s": percentile(ttft, 0.95),
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "page_stats": stats, "arm_seconds": time.perf_counter() - t_arm,
+        "ok": not bad, "problems": bad, "gpu": gpu,
+    }
+    emit(row)
+    return row
 
 
 def prefill_prompts(vocab: int, n: int) -> list:
@@ -1587,9 +1850,10 @@ def phase_serve_prefill(torch, fa, gpu: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         counters()
         t0 = time.perf_counter()
-        ids = [eng.submit(Request(prompt=p, max_new_tokens=st["new"], seed=seed0 + i))
-               for i, p in enumerate(reqs)]
-        done = eng.run_until_idle()
+        with real_syncs(torch) as real:
+            ids = [eng.submit(Request(prompt=p, max_new_tokens=st["new"], seed=seed0 + i))
+                   for i, p in enumerate(reqs)]
+            done = eng.run_until_idle()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         by_id = {c.request_id: c for c in done}
@@ -1609,6 +1873,7 @@ def phase_serve_prefill(torch, fa, gpu: str) -> dict:
             "refills": dict(eng.refills), "prefills": eng.n_prefills,
             "splices": eng.n_splices, "chunks": eng.n_chunks, "chains": eng.n_chains,
             "host_syncs": eng.n_host_syncs, "prefix_stats": eng.prefix_stats(),
+            "stream_syncs": real["count"], "stream_sync_sites": real["sites"],
             "wall_s": wall_s, "generated_tokens": toks, "aggregate_tok_s": toks / wall_s,
             "latency_p50_s": percentile(lat, 0.5), "latency_p95_s": percentile(lat, 0.95),
             "ttft_p50_s": percentile(ttft, 0.5), "ttft_p95_s": percentile(ttft, 0.95),
@@ -1638,6 +1903,9 @@ def phase_serve_prefill(torch, fa, gpu: str) -> dict:
             bad.append(f"{row['host_syncs']} host syncs != {row['chains']} chains + "
                        f"{rf['prefill']} prefills + {rf['splice']} splices + "
                        f"{rf['chunked'] + rf['chunked_splice']} final chunks")
+        if row["stream_syncs"] > sync_budget:
+            bad.append(f"{row['stream_syncs']} stream syncs > the {sync_budget} budgeted: "
+                       f"{row['stream_sync_sites']}")
         return bad
 
     rows, kept, problems = {}, {}, []
@@ -1828,6 +2096,244 @@ def phase_serve_prefill(torch, fa, gpu: str) -> dict:
     return {"launches": launches, "paged_f": paged_f,
             "prefills": {a: r["refills"]["prefill"] for a, r in rows.items()},
             "routes_g": float_row["flash_fwd_routes"], "routes_b": rows["b"]["flash_fwd_routes"]}
+
+
+def profile_steps(torch, engine, mk_request, n_steps: int) -> dict:
+    """``torch.profiler`` over ``n_steps`` steady ``step()`` calls of
+    ``engine`` with 4 fresh requests (their prefills and first two chains
+    outside the window), each chain's dispatch and collect marked
+    (``record_function``). Returns the device's busy and idle share of the
+    window's wall time, kernels per step and, for each chain i collected
+    in the window whose successor was dispatched in it, whether chain
+    i+1's first kernel launch (a ``cudaLaunch*`` runtime call inside its
+    dispatch) was queued before chain i's collect returned — the pipeline's
+    overlap at depth 2, the serial order at depth 1 — and how long the
+    collect took."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for i in range(engine.n_slots):
+        engine.submit(mk_request(i))
+    engine.step()
+    engine.step()
+    real_dispatch, real_collect = engine._dispatch, engine._collect_chain
+
+    def dispatch():
+        with record_function(f"chain_dispatch {engine.n_chains}"):
+            real_dispatch()
+
+    def collect():
+        with record_function(f"chain_collect {engine._inflight[0].chain_id}"):
+            return real_collect()
+
+    engine._dispatch, engine._collect_chain = dispatch, collect
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                engine.step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        del engine._dispatch, engine._collect_chain
+    engine.run_until_idle()
+    # host-side events only: a record_function range also shows on the
+    # device's timeline (a user annotation spanning its kernels)
+    cpu = torch.autograd.DeviceType.CPU
+    events = [e for e in prof.events() if e.device_type == cpu]
+    marks = {}
+    for e in events:
+        if e.name.startswith(("chain_dispatch ", "chain_collect ")):
+            kind, i = e.name.split()
+            marks[kind, int(i)] = (e.time_range.start, e.time_range.end)
+    launches = sorted(e.time_range.start for e in events
+                      if e.name.startswith(("cudaLaunch", "cuLaunch")))
+    pairs = []
+    for (kind, i), (c0, c1) in sorted(marks.items()):
+        if kind != "chain_collect" or ("chain_dispatch", i + 1) not in marks:
+            continue
+        d0, d1 = marks["chain_dispatch", i + 1]
+        first = next((t for t in launches if d0 <= t <= d1), None)
+        pairs.append({"chain": i, "collect_us": c1 - c0,
+                      "next_first_launch_minus_collect_end_us":
+                          None if first is None else first - c1,
+                      "next_queued_before_collect_returned": first is not None and first < c1})
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("chain_")]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    return {"steps": n_steps, "wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / wall_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "kernels_per_step": sum(e.count for e in kernels) / n_steps,
+            "launch_events": len(launches), "chain_pairs": pairs}
+
+
+def phase_serve_spec(torch, fa, gpu: str) -> dict:
+    """``serve_1b_spec``: the 1b int8 cell (PRESET_1B at full depth, 4
+    slots, 12 requests, prompts {16, 32, 48}, 32 new tokens, greedy), flash
+    prefill, arm by arm (SPEC_ARMS). Gates: every request finishes; (s),
+    (p) and (sp) token-identical to (a); 113 int8 calls a forward (a
+    verify forward: M = 12) and 16 flash launches a whole prefill, all on
+    their routes (int8 sm90, flash f32); host syncs = chains + prefills,
+    stream syncs (sync debug mode) no more, their sites printed; in the
+    profiled window of (p) and (sp) every next chain's first kernel queued
+    before the previous chain's collect returned, in (a) and (s) never
+    (the control); ``spec_stats()`` of (s) and (sp) equal to the host
+    replay (``replay_spec``) over (a)'s greedy tokens extended by k. Each
+    arm's tok/s, latency, TTFT, verify forwards, acceptance and busy/idle
+    share. Returns the launches by arm."""
+    import dataclasses
+
+    import numpy as np
+
+    from pytorch_distributed_training_tutorials_tpu_torch.models import (
+        TransformerConfig,
+        TransformerLM,
+        bind_params,
+        init_quantized_lm,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.ops import quant
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import Request, ServeEngine
+
+    cfg = TransformerConfig(**PRESET_1B, quantized=True)
+    params = init_quantized_lm(cfg, seed=0, device="cuda")
+    model = TransformerLM(dataclasses.replace(cfg, attention_fn=fa.flash_attention))
+    bind_params(model, params)
+    n_slots, tpl, new, n_req, layers = 4, 8, 32, 12, cfg.n_layers
+    lengths = (16, 32, 48)
+    rng = np.random.Generator(np.random.PCG64(11))
+    prompts = [rng.integers(0, cfg.vocab_size, (lengths[i % 3],)).tolist()
+               for i in range(n_req + 4)]
+    timed, spare = prompts[:n_req], prompts[n_req:]
+
+    def engine(**kw):
+        return ServeEngine(model, None, n_slots=n_slots, tokens_per_launch=tpl, max_queue=64,
+                           device="cuda", **kw)
+
+    def mk_request(i: int) -> Request:  # the profiled window's: 64 new tokens
+        return Request(prompt=spare[i % len(spare)], max_new_tokens=2 * new, seed=100 + i)
+
+    def serve(eng, max_new=new):
+        ids = [eng.submit(Request(prompt=p, max_new_tokens=max_new, seed=i))
+               for i, p in enumerate(timed)]
+        done = {c.request_id: c for c in eng.run_until_idle()}
+        return ids, done
+
+    for arm in ("a", "sp"):  # warmup: the decode and the verify chains' first launches
+        warm = engine(**SPEC_ARMS[arm])
+        warm.submit(Request(prompt=spare[0], max_new_tokens=16))
+        warm.run_until_idle()
+        del warm
+    torch.cuda.synchronize()
+    rows, problems = {}, []
+    for arm, options in SPEC_ARMS.items():
+        eng = engine(**options)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        quant.int8_matmul.launches = 0
+        quant.int8_matmul.routes = {"sm90": 0, "v1": 0}
+        fa.flash_attention.launches["fwd"] = 0
+        fa.flash_attention.routes["fwd"] = {"sm90": 0, "sm80": 0}
+        t0 = time.perf_counter()
+        with real_syncs(torch) as real:
+            ids, done = serve(eng)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        int8_calls, routes = quant.int8_matmul.launches, dict(quant.int8_matmul.routes)
+        flash_calls = fa.flash_attention.launches["fwd"]
+        flash_routes = dict(fa.flash_attention.routes["fwd"])
+        toks = [done[i].tokens if i in done else None for i in ids]
+        prefills, chains, syncs = eng.n_prefills, eng.n_chains, eng.n_host_syncs
+        sstats = eng.spec_stats()
+        forwards = prefills + chains * tpl
+        per_forward = layers * 7 + 1
+        bad = []
+        if len(done) != n_req or any(c.finish_reason != "length" or len(c.tokens) != new
+                                     for c in done.values()):
+            bad.append(f"not every request finished 'length' with {new} tokens")
+        if arm != "a" and toks != rows["a"]["tokens"]:
+            bad.append("greedy tokens differ from arm a's")
+        if int8_calls != per_forward * forwards or routes != {"sm90": int8_calls, "v1": 0}:
+            bad.append(f"int8_matmul launched {int8_calls} times ({routes}), want "
+                       f"{per_forward} x ({prefills} prefills + {chains} chains x {tpl}), "
+                       "all sm90")
+        if flash_calls != layers * prefills or flash_routes["sm80"] != flash_calls:
+            bad.append(f"flash_fwd launched {flash_calls} times ({flash_routes}), want "
+                       f"{layers} x {prefills} prefills on the f32 route")
+        if syncs != chains + prefills:
+            bad.append(f"{syncs} host syncs != {chains} chains + {prefills} prefills")
+        if real["count"] > syncs:
+            bad.append(f"{real['count']} stream syncs > the {syncs} budgeted: {real['sites']}")
+        t_prof = time.perf_counter()
+        prof = profile_steps(torch, eng, mk_request, SPEC_PROFILE_STEPS)
+        prof_s = time.perf_counter() - t_prof
+        piped = options.get("pipeline_depth", 1) > 1
+        overlap = [p["next_queued_before_collect_returned"] for p in prof["chain_pairs"]]
+        if not prof["launch_events"] or not overlap or any(x != piped for x in overlap):
+            bad.append(f"profiled chain pairs {prof['chain_pairs']}: want every next chain "
+                       f"queued {'before' if piped else 'after'} the previous collect returned")
+        lat = [c.latency_s for c in done.values()]
+        ttft = [c.ttft_s for c in done.values()]
+        n_tok = sum(len(t or []) for t in toks)
+        rows[arm] = {
+            "phase": "serve_1b_spec", "arm": arm, "options": options, "preset": "1b",
+            "layers": layers, "flash_prefill": True, "n_slots": n_slots,
+            "tokens_per_launch": tpl, "requests": n_req, "prompt_lengths": list(lengths),
+            "new_tokens": new, "completed": len(done), "generated_tokens": n_tok,
+            "prefills": prefills, "chains": chains, "forwards": forwards,
+            "spec_stats": sstats, "pipeline_stats": eng.pipeline_stats(),
+            "int8_matmul_launches": int8_calls, "int8_matmul_routes": routes,
+            "flash_fwd_launches": flash_calls, "flash_fwd_routes": flash_routes,
+            "host_syncs": syncs, "stream_syncs": real["count"],
+            "stream_sync_sites": real["sites"], "wall_s": wall_s,
+            "aggregate_tok_s": n_tok / wall_s,
+            "latency_p50_s": percentile(lat, 0.5), "latency_p95_s": percentile(lat, 0.95),
+            "ttft_p50_s": percentile(ttft, 0.5), "ttft_p95_s": percentile(ttft, 0.95),
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "profile": prof, "profile_s": prof_s, "ok": not bad, "problems": bad, "gpu": gpu,
+            "tokens": toks,
+        }
+        emit({k: v for k, v in rows[arm].items() if k != "tokens"})
+        problems += [f"arm {arm}: {x}" for x in bad]
+        del eng
+    # the host replay: (a)'s greedy tokens, extended by k past the budget
+    # by an untimed plain engine, give each request's verify steps and
+    # accepted drafts at greedy
+    t_ext = time.perf_counter()
+    ext_ids, ext_done = serve(engine(), new + SPEC_K)
+    ext_s = time.perf_counter() - t_ext
+    ext = [ext_done[i].tokens for i in ext_ids]
+    if [t[:new] for t in ext] != rows["a"]["tokens"]:
+        problems.append("the extended plain stream's first tokens differ from arm a's")
+    replay = [replay_spec(p, t, new, SPEC_K, SPEC_NGRAM) for p, t in zip(timed, ext)]
+    want = (sum(r[0] for r in replay), sum(r[1] for r in replay))
+    if want[1] != sum(r[2] for r in replay):
+        problems.append("the extended plain stream is too short for an exact replay")
+    for arm in ("s", "sp"):
+        st = rows[arm]["spec_stats"]
+        got = (st["spec_steps_consumed"], st["spec_drafts_accepted"])
+        if got != want:
+            problems.append(f"arm {arm}: spec_stats (steps, accepted) {got} != the host "
+                            f"replay's {want}")
+    emit({"phase": "serve_1b_spec_summary", "k": SPEC_K, "ngram": SPEC_NGRAM,
+          "replay_steps_consumed": want[0], "replay_drafts_accepted": want[1],
+          "replay_stream_s": ext_s,
+          "profile_s": {a: r["profile_s"] for a, r in rows.items()},
+          "spec_stats": {a: rows[a]["spec_stats"] for a in ("s", "sp")},
+          "aggregate_tok_s": {a: r["aggregate_tok_s"] for a, r in rows.items()},
+          "latency_p50_s": {a: r["latency_p50_s"] for a, r in rows.items()},
+          "ttft_p50_s": {a: r["ttft_p50_s"] for a, r in rows.items()},
+          "device_idle_share": {a: r["profile"]["device_idle_share"] for a, r in rows.items()},
+          "tokens_equal_a": {a: r["tokens"] == rows["a"]["tokens"] for a, r in rows.items()},
+          "ok": not problems, "gpu": gpu})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"int8": {a: r["int8_matmul_launches"] for a, r in rows.items()},
+            "int8_routes": {a: r["int8_matmul_routes"] for a, r in rows.items()},
+            "flash": {a: r["flash_fwd_launches"] for a, r in rows.items()},
+            "verify_forwards": {a: r["spec_stats"].get("n_verify_forwards", 0)
+                                for a, r in rows.items()}}
 
 
 LOSSES = ("cross_entropy", "fused_cross_entropy")
@@ -2512,6 +3018,9 @@ def main(argv=None) -> int:
                     help="stop after phase 2 (build, check and time the kernels)")
     ap.add_argument("--ddp-only", action="store_true",
                     help="after the build, run phases 8 and 9 (the DDP slice) only")
+    ap.add_argument("--serve-only", action="store_true",
+                    help="after the build, run the serving phases (4, serve_1b_paged, "
+                         "serve_1b_prefill, serve_1b_spec) only")
     args = ap.parse_args(argv)
 
     import torch
@@ -2556,28 +3065,48 @@ def main(argv=None) -> int:
     })
 
     emit({"phase": "warm_card", "seconds": warm_card(torch), "gpu": gpu})
+    seconds = {}
+
+    def run(phase, *a):
+        """``phase(*a)``, its wall seconds kept under its name."""
+        t = time.perf_counter()
+        out = phase(*a)
+        seconds[phase.__name__] = time.perf_counter() - t
+        return out
+
     if args.ddp_only:
-        phase_resnet_card_vs_cpu(torch, gpu)
-        phase_train_resnet_ddp(torch, gpu)
+        run(phase_resnet_card_vs_cpu, torch, gpu)
+        run(phase_train_resnet_ddp, torch, gpu)
+        emit({"phase": "phase_seconds", **seconds})
         return 0
-    kern = phase_kernels(torch, quant, gpu)
-    flash = phase_flash(torch, fa, gpu)
-    fused = phase_fused_ce(torch, fl, gpu)
-    adamw_row = phase_adamw(torch, gpu)
-    paged = phase_paged(torch, pa, gpu)
-    flash_serving = phase_flash_serving(torch, fa, gpu)
+    if args.serve_only:
+        run(phase_serve, torch, quant, gpu)
+        run(phase_serve_paged, torch, pa, gpu)
+        run(phase_serve_prefill, torch, fa, gpu)
+        run(phase_serve_spec, torch, fa, gpu)
+        emit({"phase": "phase_seconds", **seconds})
+        return 0
+    kern = run(phase_kernels, torch, quant, gpu)
+    flash = run(phase_flash, torch, fa, gpu)
+    fused = run(phase_fused_ce, torch, fl, gpu)
+    adamw_row = run(phase_adamw, torch, gpu)
+    paged = run(phase_paged, torch, pa, gpu)
+    flash_serving = run(phase_flash_serving, torch, fa, gpu)
     if args.kernel_only:
+        emit({"phase": "phase_seconds", **seconds})
         return 0
-    phase_model(torch, gpu)
-    serve = phase_serve(torch, quant, gpu)
-    paged_serve = phase_serve_paged(torch, pa, gpu)
-    prefill = phase_serve_prefill(torch, fa, gpu)
-    phase_train_card_vs_cpu(torch, gpu)
-    base = phase_train(torch, gpu)
+    run(phase_model, torch, gpu)
+    serve = run(phase_serve, torch, quant, gpu)
+    paged_serve = run(phase_serve_paged, torch, pa, gpu)
+    prefill = run(phase_serve_prefill, torch, fa, gpu)
+    spec = run(phase_serve_spec, torch, fa, gpu)
+    run(phase_train_card_vs_cpu, torch, gpu)
+    base = run(phase_train, torch, gpu)
     train_launches = base["flash"]
-    fused_launches = phase_train_fused(torch, gpu, base["first_loss"])
-    phase_resnet_card_vs_cpu(torch, gpu)
-    ddp = phase_train_resnet_ddp(torch, gpu)
+    fused_launches = run(phase_train_fused, torch, gpu, base["first_loss"])
+    run(phase_resnet_card_vs_cpu, torch, gpu)
+    ddp = run(phase_train_resnet_ddp, torch, gpu)
+    emit({"phase": "phase_seconds", **seconds})
 
     # the kernels line: one decode forward's 113 int8 matmuls at M = 4
     # (the slot count) — time, plain time, v1 in turns and bound summed
@@ -2602,6 +3131,16 @@ def main(argv=None) -> int:
         "prefill_ms": {f"M={m} K={k} N={n}": [res[(m, k, n)]["ms"], res[(m, k, n)]["v1_ms"]]
                        for m in INT8_PREFILL_M for k, n in (kn for kn, _ in DECODE_MIX)},
         "tma_encode_ns": kern["encode_ns"],
+        # the speculative verify forward: 113 calls at M = 4 slots x (k+1)
+        "verify": {key: sum(res[(4 * (SPEC_K + 1), k, n)][key] * c for (k, n), c in DECODE_MIX)
+                   for key in ("ms", "plain_ms", "bound_ms")}
+        | {"work": f"one 1b verify forward: 113 calls at M={4 * (SPEC_K + 1)}"},
+        "launches_by_path": {"serve_1b": serve["launches"],
+                             **{f"serve_1b_spec_{a}": n for a, n in spec["int8"].items()},
+                             "serve_1b_gqa_paged_spec": paged_serve["spec_int8"]},
+        "verify_forwards_by_path": {
+            **{f"serve_1b_spec_{a}": n for a, n in spec["verify_forwards"].items() if n},
+            "serve_1b_gqa_paged_spec": paged_serve["spec"]["n_verify_forwards"]},
     }]
     # the flash kernels: one 760m train step's launches at the main shape
     # (FLASH_SHAPES[0]), times, bound and library time summed over them
@@ -2630,7 +3169,8 @@ def main(argv=None) -> int:
             # the serving path: 16 launches (one a layer) per whole prefill
             kernels[-1]["launches_by_path"] = {
                 "train_760m": train_launches["fwd"],
-                **{f"serve_1b_prefill_{a}": n for a, n in prefill["launches"].items()}}
+                **{f"serve_1b_prefill_{a}": n for a, n in prefill["launches"].items()},
+                **{f"serve_1b_spec_{a}": n for a, n in spec["flash"].items()}}
             kernels[-1]["serving"] = {
                 "launches_per_prefill": PRESET_1B["n_layers"],
                 "whole_prefills": prefill["prefills"],
@@ -2700,7 +3240,13 @@ def main(argv=None) -> int:
         "library_note": PAGED_LIBRARY_NOTE,
         "gather_sdpa_ms": row["gather_sdpa_ms"] * 16,
         "launches_by_path": {"serve_1b_paged": paged_serve["launches"],
-                             "serve_1b_prefill_f": prefill["paged_f"]},
+                             "serve_1b_prefill_f": prefill["paged_f"],
+                             "serve_1b_gqa_paged_spec": paged_serve["spec"]},
+        "verify": {k: paged["results"][("1b-gqa-verify", "f32", "f32")][k] * 16
+                   for k in ("ms", "plain_ms", "bound_ms")}
+        | {"bound_by": paged["results"][("1b-gqa-verify", "f32", "f32")]["bound_by"],
+           "work": "one 1b-gqa verify forward: 16 calls at B=4 S=3 H=16 KV=4 D=128, depths "
+                   "(34, 498, 1518, 40), f32"},
         "splice": {k: paged["results"][("1b-gqa-splice", "f32", "f32")][k]
                    for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
         | {"work": "one call at B=1 S=256 H=16 KV=4 D=128 from depth 96, f32, in row "

@@ -419,6 +419,26 @@ class PagedKVCache:
                    for x in (self.k, self.v, self.k_scale, self.v_scale) if x is not None)
 
 
+def rewind_cache_index(cache: KVCache | PagedKVCache, steps) -> KVCache | PagedKVCache:
+    """Roll the cache's per-row positions back by ``steps`` ((B,) or a
+    scalar), in place; returns ``cache``. The speculative verify's rewind
+    (``serve/engine.py``, ``models/generate.py`` ``speculative_k``): a (B,
+    k+1) verify forward advances every position by k+1, but only ``1 +
+    n_accept`` of those K/V rows are real, so the positions step back by
+    ``k - n_accept``.
+
+    Only the positions move; the rejected rows stay as stale K/V. That is
+    safe: the next decode writes k+1 fresh positions from the rewound
+    position, covering every stale one (they sit at ``[new_pos, old_pos)``
+    and ``new_pos + k >= old_pos - 1``) before any query can attend to it,
+    and the validity mask bounds each query's reads at its own position
+    meanwhile. The port's positions are per row from the start
+    (``KVCache.index``, (B,)), so the JAX package's ``widen_cache_index``
+    (scalar counters to per-row vectors) has no counterpart here."""
+    cache.index -= steps
+    return cache
+
+
 class RMSNorm(nn.Module):
     """Root-mean-square norm (no mean subtraction).
 
@@ -457,12 +477,15 @@ def apply_rope(x: torch.Tensor, theta: float, offset=0) -> torch.Tensor:
     freqs = theta ** (
         -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
     )
-    off = torch.as_tensor(offset, device=x.device).to(torch.float32)
-    pos = off[..., None] + torch.arange(
-        seq_len, dtype=torch.float32, device=x.device
-    )
+    steps = torch.arange(seq_len, dtype=torch.float32, device=x.device)
+    if isinstance(offset, torch.Tensor):
+        pos = offset.to(torch.float32)[..., None] + steps
+    else:
+        # a host scalar is added on the device, never uploaded (an upload
+        # from pageable memory synchronizes the stream)
+        pos = steps + float(offset)
     angles = pos[..., :, None] * freqs  # (S, half) or (B, S, half)
-    if off.ndim == 0:
+    if pos.ndim == 1:
         cos = torch.cos(angles)[None, :, None, :]
         sin = torch.sin(angles)[None, :, None, :]
     else:
@@ -693,7 +716,7 @@ class Attention(nn.Module):
                 for buf, val in writes:
                     bl = buf[layer]
                     bl[sel, :s] = (val if rows is None else val[0]).to(bl.dtype)
-                    bl[sel, s:] = 0
+                    bl[sel, s:].zero_()
             h = cfg.n_heads
             # int8 weights without an attention_fn attend in float64, the
             # float model under the masked_attention contract; decode keeps
@@ -880,15 +903,18 @@ class TransformerLM(nn.Module):
         for i, block in enumerate(self.blocks):
             x = block(x, cache, i, prefill=prefill, decode=decode, rows=rows)
         if prefill:
-            cache.index[slice(None) if rows is None else rows] = s
+            # a fill: item assignment of a host number syncs the stream
+            cache.index[slice(None) if rows is None else rows].fill_(s)
         elif decode:
             cache.index += s
         if prefill or (decode and last_pos is not None):
             if last_pos is None:
                 x = x[:, -1:]
-            else:
-                lp = torch.as_tensor(last_pos, device=x.device).expand(b)
+            elif isinstance(last_pos, torch.Tensor):
+                lp = last_pos.to(x.device).expand(b)
                 x = x[torch.arange(b, device=x.device), lp][:, None]
+            else:  # a host int: a slice, no upload
+                x = x[:, int(last_pos):int(last_pos) + 1]
         return self.lm_head(self.final_norm(x))
 
 

@@ -23,6 +23,8 @@ from pytorch_distributed_training_tutorials_tpu_torch.serve.slots import (
     bucket_len,
     init_slot_state,
     park_slot_paged,
+    seed_history,
+    upload,
     write_slot,
     write_slot_paged,
 )
@@ -42,6 +44,8 @@ __all__ = [
     "bucket_len",
     "init_slot_state",
     "park_slot_paged",
+    "seed_history",
+    "upload",
     "write_slot",
     "write_slot_paged",
 ]

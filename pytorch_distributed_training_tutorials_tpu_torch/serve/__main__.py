@@ -1,6 +1,7 @@
 """``python -m pytorch_distributed_training_tutorials_tpu_torch.serve
 --selftest [--paged [--paged-kernel] [--kv-bits 8|4]] [--prefix] [--chunk]
-[--flash] [--device cpu]``: end-to-end smoke of the port's serving path.
+[--flash] [--spec-k K [--spec-ngram N]] [--pipeline-depth D] [--device
+cpu]``: end-to-end smoke of the port's serving path.
 
 A toy int8 LM serves a staggered stream of mixed-length requests through
 :class:`.engine.ServeEngine` (2 slots, a queue bound of 2 so backpressure
@@ -38,6 +39,19 @@ prefill (a chunked prompt's mid chunks make none).
 teacher-forced logits (``ServeEngine.teacher_forced_logits``) are held
 against the dense-prefill engine's within 4% of their logit scale.
 
+``--spec-k K`` adds the speculative arm (the JAX selftest's
+``run_spec_stream``): a templated stream (a 5-token template tiled 3-4
+times, the prompt-lookup workload) through a ``speculative_k=K`` engine
+and a plain one. The greedy tokens must be byte-identical, the host syncs
+one per chain plus one per prefill, the mean accepted length above 1 and
+the verify forwards fewer than the tokens emitted.
+
+``--pipeline-depth D`` (> 1) adds the pipelined arm (the JAX selftest's
+``--pipeline``): the staggered stream again through a ``pipeline_depth=D``
+engine with chunks of 8 (and ``speculative_k=K`` with ``--spec-k``). Its
+tokens must equal the serial engine's, the host syncs stay one per chain
+plus one per prefill, and the stream's 12-token prompt must be chunked.
+
 Prints one JSON line (``"ok": true`` when every check held) and exits 0,
 or 1 when a check failed. Runs on ``cuda`` unless ``--device`` names
 another device.
@@ -52,7 +66,8 @@ import sys
 
 def selftest(device=None, paged: bool = False, paged_kernel: bool = False,
              kv_bits: int | None = None, prefix: bool = False, chunk: bool = False,
-             flash: bool = False) -> dict:
+             flash: bool = False, spec_k: int = 0, spec_ngram: int = 3,
+             pipeline_depth: int = 1) -> dict:
     import numpy as np
     import torch
 
@@ -125,6 +140,12 @@ def selftest(device=None, paged: bool = False, paged_kernel: bool = False,
                      if prefix else {})
     chunk_fields = chunk_arm(model, params, dev, problems) if chunk else {}
     flash_fields = flash_arm(model, params, dev, problems) if flash else {}
+    spec_fields = spec_arm(model, params, dev, spec_k, spec_ngram, problems) if spec_k else {}
+    pipeline_fields = (
+        pipeline_arm(model, params, dev, prompts, completions, pipeline_depth, spec_k,
+                     spec_ngram, problems)
+        if pipeline_depth > 1 else {}
+    )
     return {
         "selftest": "serve_torch",
         "ok": not problems,
@@ -144,6 +165,8 @@ def selftest(device=None, paged: bool = False, paged_kernel: bool = False,
         **prefix_fields,
         **chunk_fields,
         **flash_fields,
+        **spec_fields,
+        **pipeline_fields,
         "problems": problems,
     }
 
@@ -345,6 +368,64 @@ def flash_arm(model, params, dev, problems: list) -> dict:
             "flash_bound_share": FLASH_TF_BOUND}
 
 
+def spec_arm(model, params, dev, k: int, ngram: int, problems: list) -> dict:
+    """The ``--spec-k`` checks (module docstring)."""
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import ServeEngine
+
+    template = [7, 8, 9, 10, 11]
+    reqs = [(template * reps + [20 + i], new)
+            for i, (reps, new) in enumerate([(4, 18), (3, 14), (4, 20), (3, 16)])]
+    runs = {}
+    for kk in (0, k):
+        eng = ServeEngine(model, params, n_slots=2, tokens_per_launch=8, device=dev,
+                          speculative_k=kk, spec_ngram=ngram)
+        runs[kk] = (eng, _stream(eng, reqs))
+    eng, toks = runs[k]
+    stats = eng.spec_stats()
+    exact = toks == runs[0][1]
+    if not exact:
+        problems.append(f"speculation changed greedy tokens: {toks} != {runs[0][1]}")
+    if eng.n_host_syncs != eng.n_chains + eng.n_prefills:
+        problems.append(f"spec arm: {eng.n_host_syncs} host syncs != {eng.n_chains} chains "
+                        f"+ {eng.n_prefills} prefills")
+    if stats["spec_mean_accepted_len"] <= 1.0:
+        problems.append(f"drafting never helped on a repetitive stream: {stats}")
+    if stats["n_verify_forwards"] >= eng.generated_tokens:
+        problems.append(f"{stats['n_verify_forwards']} verify forwards >= "
+                        f"{eng.generated_tokens} tokens emitted: speculation saved no step")
+    return {"spec_requests": len(reqs), "spec_token_exact": exact,
+            "spec_n_host_syncs": eng.n_host_syncs, "spec_generated_tokens": eng.generated_tokens,
+            **stats}
+
+
+def pipeline_arm(model, params, dev, prompts, completions, depth: int, spec_k: int,
+                 ngram: int, problems: list) -> dict:
+    """The ``--pipeline-depth`` checks (module docstring): ``prompts`` and
+    ``completions`` are the serial stream's."""
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import ServeEngine
+
+    eng = ServeEngine(model, params, n_slots=2, tokens_per_launch=8, device=dev,
+                      pipeline_depth=depth, prefill_chunk=8, speculative_k=spec_k,
+                      spec_ngram=ngram)
+    toks = _stream(eng, prompts)
+    serial = [completions[i].tokens if i in completions else None
+              for i in range(len(prompts))]
+    exact = toks == serial
+    if not exact:
+        problems.append(f"pipelined engine changed greedy tokens: {toks} != {serial}")
+    budget = eng.n_chains + eng.n_prefills + eng.n_splices
+    if eng.n_host_syncs != budget:
+        problems.append(f"pipeline arm: {eng.n_host_syncs} host syncs != {eng.n_chains} "
+                        f"chains + {eng.n_prefills} prefills + {eng.n_splices} splices "
+                        "(chunks must add none)")
+    stats = eng.pipeline_stats()
+    if stats["n_chunks"] < 1:
+        problems.append(f"chunked prefill never fired on a 12-token prompt: {stats}")
+    return {"pipeline_requests": len(prompts), "pipeline_token_exact": exact,
+            "pipeline_n_host_syncs": eng.n_host_syncs, "pipeline_n_chains": eng.n_chains,
+            "pipeline_speculative_k": spec_k, **stats}
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m pytorch_distributed_training_tutorials_tpu_torch.serve"
@@ -382,6 +463,18 @@ def main(argv: list[str] | None = None) -> int:
         "--flash", action="store_true",
         help="add the flash-prefill arm, teacher-forced against dense prefill",
     )
+    ap.add_argument(
+        "--spec-k", type=int, default=0,
+        help="add the speculative arm with this many draft tokens a verify step",
+    )
+    ap.add_argument(
+        "--spec-ngram", type=int, default=3,
+        help="n-gram of the speculative draft (default 3)",
+    )
+    ap.add_argument(
+        "--pipeline-depth", type=int, default=1,
+        help="add the pipelined arm at this depth (> 1), with chunks of 8",
+    )
     args = ap.parse_args(argv)
     if not args.selftest:
         ap.print_help()
@@ -390,7 +483,9 @@ def main(argv: list[str] | None = None) -> int:
         ap.error("--paged-kernel and --kv-bits need --paged")
     receipt = selftest(args.device, paged=args.paged,
                        paged_kernel=args.paged_kernel, kv_bits=args.kv_bits,
-                       prefix=args.prefix, chunk=args.chunk, flash=args.flash)
+                       prefix=args.prefix, chunk=args.chunk, flash=args.flash,
+                       spec_k=args.spec_k, spec_ngram=args.spec_ngram,
+                       pipeline_depth=args.pipeline_depth)
     print(json.dumps(receipt))
     return 0 if receipt["ok"] else 1
 

@@ -7,10 +7,14 @@ Port of the core of the JAX package's ``serve/engine.py`` (Orca, OSDI
 own position and active mask (``remaining > 0``); a finished slot is
 refilled in place by a bucketed prefill into that slot. Host syncs are
 ONE per chain — a single ``.cpu()`` of the (n_slots, tokens_per_launch)
-token block — plus one per prefill, splice or final chunk for the first
-sampled token; ``n_host_syncs`` counts them. Chains run eagerly (the JAX
-package compiles each chain into one program; capturing it as a CUDA
-graph is later work).
+token block, or at ``pipeline_depth`` >= 2 on a card the wait on the
+chain's event — plus one per prefill, splice or final chunk for the first
+sampled token; ``n_host_syncs`` counts them. Every host-to-device input
+(prompt tokens, page ids and tables) goes up through a pinned,
+non-blocking copy (:func:`.slots.upload`): a copy from pageable memory
+would synchronize the stream. Chains run eagerly (the JAX package
+compiles each chain into one program; capturing it as a CUDA graph is
+later work).
 
 Greedy tokens equal :func:`..models.generate.generate`'s for the same
 request, whatever else shares the batch (``models/transformer.py`` says
@@ -51,13 +55,40 @@ Chunked prefill (``prefill_chunk`` > 0, a power of two >= 8): a prompt
 whose uncached length exceeds the chunk streams in, one chunk a
 :meth:`ServeEngine.step`, into a batch-1 side cache (zeroed, or seeded
 from a prefix hit), so co-scheduled slots keep decoding; mid chunks make
-no host sync, the final chunk samples the first token and writes the
-slot. Paged, chunked prompts take fresh pages (the JAX package's
-documented trade: no sharing for them).
+no host sync (their tokens go up non-blocking), the final chunk samples
+the first token and writes the slot. Paged, chunked prompts take fresh
+pages (the JAX package's documented trade: no sharing for them).
+
+Self-speculative decoding (``speculative_k`` > 0; Leviathan et al. 2023
+verify, Saxena 2023 prompt-lookup draft, no second model): every chain
+iteration drafts ``k`` tokens a slot by an n-gram match over the slot's
+token history (``SlotState.hist``, on the device, seeded at every refill
+kind in :meth:`ServeEngine._activate`), verifies ``[last_tok, draft]``
+in ONE (n_slots, k+1) decode forward, accepts the longest matching
+prefix plus a bonus token (:func:`..models.sampling.speculative_accept`)
+and rewinds the rejected positions
+(:func:`..models.transformer.rewind_cache_index`). The accepted length
+is data: the chain returns an (n_slots, T, k+1) token block and (n_slots,
+T) emit counts in one tensor, still ONE host sync a chain. Greedy
+streams are token-identical to the plain engine's.
+
+Pipelining (``pipeline_depth`` = 2): chain i+1 is queued on the stream
+before chain i's tokens are fetched, so the host's round trip and
+bookkeeping overlap the device's work. Dispatch queues the chain, then a
+non-blocking copy of its token block into one of ``pipeline_depth``
+pinned host buffers, and records a CUDA event; collect waits on the
+oldest chain's event. Host bookkeeping runs one chain behind the device:
+a slot that finished in chain i junk-decodes chain i+1 (its rows are
+dropped by an identity check against the slot view taken at dispatch),
+which is safe because chains, parks and refills share one stream, so the
+extra chain runs before the park and before the next refill's writes.
+A refill's first-token fetch still drains the stream. Depth 1 is the
+serial loop.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
 
@@ -65,8 +96,10 @@ import torch
 
 from pytorch_distributed_training_tutorials_tpu_torch._device import resolve_device
 from pytorch_distributed_training_tutorials_tpu_torch.models.sampling import (
+    ngram_draft,
     sample_logits,
     sample_logits_per_slot,
+    speculative_accept,
 )
 from pytorch_distributed_training_tutorials_tpu_torch.models.transformer import (
     KVCache,
@@ -74,6 +107,7 @@ from pytorch_distributed_training_tutorials_tpu_torch.models.transformer import 
     TransformerLM,
     _kv_quant_mode,
     bind_params,
+    rewind_cache_index,
 )
 from pytorch_distributed_training_tutorials_tpu_torch.serve.pages import (
     PagePool,
@@ -97,7 +131,9 @@ from pytorch_distributed_training_tutorials_tpu_torch.serve.slots import (
     park_slot_paged,
     seed_cache,
     seed_cache_paged,
+    seed_history,
     tree_nbytes,
+    upload,
     write_slot,
     write_slot_paged,
     zero_cache,
@@ -124,6 +160,23 @@ class _Active:
         self.ttft_s = 0.0
         self.pages: list[int] = list(pages or [])
         self.segment = segment
+
+
+class _InFlight:
+    """One dispatched, not yet collected decode chain: its token block (on
+    the device, or the pinned host buffer its copy lands in), the CUDA
+    event recorded after that copy (None: the block is fetched with
+    ``.cpu()``), a shallow copy of the slot views at dispatch (a slot whose
+    ``_Active`` changed since ignores the chain's rows) and the chain's
+    number."""
+
+    __slots__ = ("block", "event", "view", "chain_id")
+
+    def __init__(self, block: torch.Tensor, event, view: list, chain_id: int):
+        self.block = block
+        self.event = event
+        self.view = view
+        self.chain_id = chain_id
 
 
 class _PendingPrefill:
@@ -171,8 +224,9 @@ class ServeEngine:
     ``step()`` advances every chunked prefill by one chunk, does at most
     one refill per free slot (a prefill or a splice, each with one host
     sync for the first sampled token, or the start of a chunked prefill),
-    then ONE ``tokens_per_launch``-step decode chain over all slots with
-    ONE host sync.
+    then dispatches ONE ``tokens_per_launch``-step decode chain over all
+    slots and collects the oldest in-flight chain with ONE host sync
+    (``pipeline_depth`` 1: the chain just dispatched).
 
     ``kv_bits`` (None: the model's ``kv_cache_dtype``; 8: int8 codes + f32
     scales; 4: packed int4 + bf16 scales) sets the KV storage. ``paged``
@@ -181,7 +235,10 @@ class ServeEngine:
     paged-attention kernel. ``prefix_cache_bytes`` (0: off) is the prefix
     index's byte budget and ``min_hit_depth`` the shortest match it
     splices; ``prefill_chunk`` (0: off, else a power of two >= 8) the
-    chunk of a chunked prefill (module docstring)."""
+    chunk of a chunked prefill (module docstring). ``speculative_k`` (0:
+    off) drafts that many tokens a verify step by ``spec_ngram``-gram
+    lookup; ``pipeline_depth`` (1: serial) is how many chains may be in
+    flight (module docstring)."""
 
     def __init__(
         self,
@@ -203,11 +260,18 @@ class ServeEngine:
         page_size: int = 0,
         pool_pages: int = 0,
         paged_kernel: bool = False,
+        speculative_k: int = 0,
+        spec_ngram: int = 3,
+        pipeline_depth: int = 1,
     ):
         if n_slots < 1:
             raise ValueError("n_slots must be >= 1")
         if tokens_per_launch < 1:
             raise ValueError("tokens_per_launch must be >= 1")
+        if speculative_k < 0:
+            raise ValueError("speculative_k must be >= 0")
+        if pipeline_depth < 1:
+            raise ValueError("pipeline_depth must be >= 1 (1 = serial)")
         if paged:
             if page_size < 1 or pool_pages < 1:
                 raise ValueError("paged=True needs page_size >= 1 and pool_pages >= 1")
@@ -274,7 +338,26 @@ class ServeEngine:
         else:
             self._pool = None
             self._dec_model = model
-        self._state = init_slot_state(self._dec_model.cfg, n_slots, self.device)
+        # speculation: 0 = off, and the state then has no history
+        self._spec = speculative_k > 0
+        self._spec_k = int(speculative_k)
+        self._spec_ngram = int(spec_ngram)
+        if self._spec and speculative_k + 1 > self.window:
+            raise ValueError("speculative_k + 1 must fit the window")
+        if self._spec and spec_ngram < 1:
+            raise ValueError("spec_ngram must be >= 1")
+        self._state = init_slot_state(self._dec_model.cfg, n_slots, self.device,
+                                      history=self.window if self._spec else 0)
+        # pipelining: the chains in flight, and at depth >= 2 on a card one
+        # pinned host buffer per chain in flight for its token block
+        self._depth = int(pipeline_depth)
+        self._inflight: collections.deque[_InFlight] = collections.deque()
+        block = (n_slots, tokens_per_launch) + ((self._spec_k + 2,) if self._spec else ())
+        self._ring = (
+            [torch.empty(block, dtype=torch.int64, pin_memory=True)
+             for _ in range(self._depth)]
+            if self._depth > 1 and self.device.type == "cuda" else None
+        )
         self._page_bytes = self._state.cache.page_bytes() if self._paged else 0
         self._temperature = float(temperature)
         self._top_k = int(top_k)
@@ -307,6 +390,12 @@ class ServeEngine:
         self.n_host_syncs = 0
         self.prefix_hit_tokens = 0
         self.generated_tokens = 0
+        # speculation: verify forwards dispatched, verify steps whose tokens
+        # an active slot consumed, and draft tokens accepted (the JAX
+        # engine's counters)
+        self.n_verify_forwards = 0
+        self.spec_steps_consumed = 0
+        self.spec_drafts_accepted = 0
 
     @property
     def n_prefills(self) -> int:
@@ -351,13 +440,16 @@ class ServeEngine:
     @property
     def idle(self) -> bool:
         return (self.active_slots == 0 and not self._pending
-                and len(self.scheduler) == 0)
+                and len(self.scheduler) == 0 and not self._inflight)
 
     @torch.no_grad()
     def step(self) -> list[Completion]:
         """One scheduling round: advance each chunked prefill by one chunk,
-        refill free slots from the queue, run one decode chain over all
-        slots, hand out its tokens. Returns the requests that finished
+        refill free slots from the queue, dispatch one decode chain over all
+        slots, then collect the oldest in-flight chain and hand out its
+        tokens while more than ``pipeline_depth - 1`` are in flight (all of
+        them once no slot is active). Depth 1 collects the chain it just
+        dispatched: the serial loop. Returns the requests that finished
         this round (possibly mid-chain — surplus chain tokens of a finished
         slot are discarded)."""
         done: list[Completion] = []
@@ -373,10 +465,51 @@ class ServeEngine:
                 break
             done.extend(self._refill(s, req))
         if self.active_slots:
-            toks = self._fetch(self._chain())
-            self.n_chains += 1
-            done.extend(self._distribute(toks))
+            self._dispatch()
+        target = self._depth - 1 if self.active_slots else 0
+        while len(self._inflight) > target:
+            done.extend(self._collect_chain())
         return done
+
+    def _dispatch(self) -> None:
+        """Queue one decode chain (:meth:`_chain`, or :meth:`_spec_chain`)
+        on the current stream; at depth >= 2 on a card, then a
+        non-blocking copy of its token block into the next pinned ring
+        buffer and an event after it. The chain joins the in-flight queue
+        with the slot views of this moment."""
+        chain_id = self.n_chains
+        block = self._spec_chain() if self._spec else self._chain()
+        self.n_chains += 1
+        if self._spec:
+            self.n_verify_forwards += self.tokens_per_launch
+        event = None
+        if self._ring is not None:
+            host = self._ring[chain_id % self._depth]
+            host.copy_(block, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            block = host
+        self._inflight.append(_InFlight(block, event, list(self._slots), chain_id))
+
+    def _collect_chain(self) -> list[Completion]:
+        """Land the OLDEST in-flight chain's token block (its one counted
+        host sync, :meth:`_land`) and hand it to the slot views taken at
+        its dispatch."""
+        fl = self._inflight.popleft()
+        block = self._land(fl)
+        if self._spec:
+            return self._distribute_spec(block, fl.view)
+        return self._distribute(block, fl.view)
+
+    def _land(self, fl: _InFlight) -> torch.Tensor:
+        """A chain's host sync, counted: the ``.cpu()`` of its block
+        (:meth:`_fetch`), or the wait on its event when the block's copy
+        to a pinned buffer was queued at dispatch. Host memory out."""
+        if fl.event is None:
+            return self._fetch(fl.block)
+        self.n_host_syncs += 1
+        fl.event.synchronize()
+        return fl.block
 
     def _pop_request(self) -> Request | None:
         """Queue pop, chunk-aware when chunked prefill is on (with a
@@ -437,6 +570,32 @@ class ServeEngine:
             "prefix_hit_tokens": self.prefix_hit_tokens,
             "n_splices": self.n_splices,
         }
+
+    def spec_stats(self) -> dict[str, int | float]:
+        """Speculation counters (the JAX engine's keys): ``k`` and the
+        n-gram, verify forwards dispatched, verify steps an active slot
+        consumed, drafts accepted; the mean accepted length per consumed
+        step (1.0: drafting never helped) and the share of offered drafts
+        accepted. Host bookkeeping only."""
+        if not self._spec:
+            return {"speculative": 0}
+        steps = max(1, self.spec_steps_consumed)
+        return {
+            "speculative": 1,
+            "spec_k": self._spec_k,
+            "spec_ngram": self._spec_ngram,
+            "n_verify_forwards": self.n_verify_forwards,
+            "spec_steps_consumed": self.spec_steps_consumed,
+            "spec_drafts_accepted": self.spec_drafts_accepted,
+            "spec_mean_accepted_len": 1.0 + self.spec_drafts_accepted / steps,
+            "spec_acceptance_rate": self.spec_drafts_accepted / (steps * self._spec_k),
+        }
+
+    def pipeline_stats(self) -> dict[str, int]:
+        """Pipelining counters (the JAX engine's keys): the depth, the
+        prefill chunk and the chunks run. Host bookkeeping only."""
+        return {"pipeline_depth": self._depth, "prefill_chunk": self._chunk,
+                "n_chunks": self.n_chunks}
 
     def run_until_idle(self, max_steps: int = 10_000) -> list[Completion]:
         """Drain queue + slots; returns completions in finish order."""
@@ -560,12 +719,12 @@ class ServeEngine:
             park_slot_paged(self._state, slot)
             self._pool.release_all(pages)
         else:
-            self._state.remaining[slot] = 0
+            self._state.remaining[slot].zero_()
 
     def _tokens(self, toks: list[int], bucket: int) -> torch.Tensor:
-        """(1, bucket) int64 device tensor: ``toks`` right-padded with 0."""
-        return torch.tensor([toks + [0] * (bucket - len(toks))], dtype=torch.int64,
-                            device=self.device)
+        """(1, bucket) int64 device tensor: ``toks`` right-padded with 0,
+        uploaded with no host sync (:func:`.slots.upload`)."""
+        return upload([toks + [0] * (bucket - len(toks))], torch.int64, self.device)
 
     def _whole_prefill(self, slot: int, req: Request, prompt: list[int],
                        grow: bool, first=None):
@@ -663,7 +822,7 @@ class ServeEngine:
             if depth % ps:
                 copy_page(cache, int(segment.handle[shared]), pages[shared])
             row = pages + [cache.n_pages] * (cache.table.shape[1] - n_alloc)
-            table = torch.tensor([row], dtype=torch.int32, device=self.device)
+            table = upload([row], torch.int32, self.device)
             view = PagedKVCache(
                 k=cache.k, v=cache.v, table=table,
                 index=torch.full((1,), depth, dtype=torch.int64, device=self.device),
@@ -812,38 +971,43 @@ class ServeEngine:
     # ------------------------------------------------------------------
 
     @torch.no_grad()
-    def teacher_forced_logits(self, prompt, tokens) -> torch.Tensor:
+    def teacher_forced_logits(self, prompt, tokens, rows: int = 1) -> torch.Tensor:
         """The serving path's logits on GIVEN tokens, to hold one read path
         against another: ``prompt`` is admitted into slot 0 as a request's
         would be, through :meth:`_admit` (spliced on a prefix hit, chunked
         when its uncached length exceeds ``prefill_chunk`` — every chunk at
         once — else prefilled whole; paged, with its pages) — then
-        ``tokens[:-1]`` are fed to the decode model one step at a time in
-        place of sampled ones. Row ``i`` of the (len(tokens), vocab)
-        float32 result is the logits that chose ``tokens[i]``. Needs an
-        idle engine; the slot, the donor segment and the pages are released
-        afterwards. The request counters do not move; the prefix index
-        sees the prompt's lookup (and insert) as a request's."""
+        ``tokens[:-1]`` are fed to the decode model in place of sampled
+        ones, ``rows`` a forward (1: one decode step at a time; k+1: the
+        shape of a speculative verify forward whose drafts are all
+        accepted). Row ``i`` of the (len(tokens), vocab) float32 result is
+        the logits that chose ``tokens[i]``. Needs an idle engine; the
+        slot, the donor segment and the pages are released afterwards. The
+        request counters do not move; the prefix index sees the prompt's
+        lookup (and insert) as a request's."""
         if not self.idle:
             raise RuntimeError("teacher_forced_logits needs an idle engine")
         if not tokens:
             raise ValueError("tokens must not be empty")
+        if rows < 1:
+            raise ValueError("rows must be >= 1")
         prompt = [int(t) for t in prompt]
         req = Request(prompt=prompt, max_new_tokens=len(tokens))
-        first = torch.tensor([int(tokens[0])], dtype=torch.int64, device=self.device)
+        first = upload([int(tokens[0])], torch.int64, self.device)
         logits, _, pages, segment, _, _ = self._admit(0, req, prompt, first,
                                                       all_chunks=True)
         act = _Active(req, int(tokens[0]), pages, segment)
         try:
-            rows = [logits[:1, -1]]
-            tok = self._state.last_tok.clone()
-            for t in tokens[:-1]:
-                tok[0] = int(t)
-                rows.append(
-                    self._dec_model(tok[:, None], self._state.cache, decode=True)[:1, -1])
+            out = [logits[:1, -1]]
+            feed = [int(t) for t in tokens[:-1]]
+            for i in range(0, len(feed), rows):
+                block = feed[i:i + rows]
+                x = self._state.last_tok[:, None].repeat(1, len(block))
+                x[0] = upload(block, torch.int64, self.device)
+                out.append(self._dec_model(x, self._state.cache, decode=True)[0])
         finally:
             self._release(0, act)
-        return torch.cat(rows).float()
+        return torch.cat(out).float()
 
     def _first_token(self, slot: int, req: Request, logits) -> torch.Tensor:
         """Sample a refill's first token with the slot's generator reseeded
@@ -861,7 +1025,7 @@ class ServeEngine:
         (n_slots, tokens_per_launch) token block, still on the device.
         Inactive slots re-emit their last token and keep stepping (their
         cache writes past the window, or through a parked slot's sentinel
-        table, drop)."""
+        table, drop). No host sync."""
         st = self._state
         out = torch.empty(
             (self.n_slots, self.tokens_per_launch), dtype=torch.int64,
@@ -881,6 +1045,54 @@ class ServeEngine:
         st.last_tok, st.remaining = tok, remaining
         return out
 
+    @torch.no_grad()
+    def _spec_chain(self) -> torch.Tensor:
+        """The speculative chain (the JAX engine's ``_spec_chain_impl``):
+        ``tokens_per_launch`` iterations over every slot of draft
+        (:func:`..models.sampling.ngram_draft` over the slot's history),
+        ONE (n_slots, k+1) verify forward of ``[last_tok, draft]`` through
+        the decode model (each position conditions on the drafts before it,
+        as sequential decode would), accept
+        (:func:`..models.sampling.speculative_accept`), rewind the k -
+        n_accept rejected positions
+        (:func:`..models.transformer.rewind_cache_index`; their stale K/V is
+        overwritten before any query reads it) and the history update
+        (emitted tokens appended; columns past the count or the window go
+        to the trash column). An inactive slot emits 0 tokens and keeps its
+        history. Returns one (n_slots, T, k+2) int64 block on the device:
+        ``[..., :k+1]`` the emitted tokens of each step, ``[..., k+1]`` how
+        many of them are real. No host sync."""
+        st = self._state
+        k, win, dev = self._spec_k, self.window, self.device
+        out = torch.empty((self.n_slots, self.tokens_per_launch, k + 2),
+                          dtype=torch.int64, device=dev)
+        rows = torch.arange(self.n_slots, device=dev)
+        offs = torch.arange(k + 1, device=dev)
+        tok, remaining, hist_len = st.last_tok, st.remaining, st.hist_len
+        for t in range(self.tokens_per_launch):
+            active = remaining > 0
+            draft = ngram_draft(st.hist[:, :win], hist_len, k, self._spec_ngram)
+            logits = self._dec_model(torch.cat([tok[:, None], draft], dim=1), st.cache,
+                                     decode=True)
+            emitted, n_acc = speculative_accept(
+                logits.float(), draft, st.generators, self._temperature, self._top_k,
+                self._top_p,
+            )
+            # the verify forward advanced every position by k+1; the slot
+            # produced 1 + n_acc tokens, so the rest step back
+            rewind_cache_index(st.cache, k - n_acc)
+            n_emit = torch.where(active, n_acc + 1, 0)
+            tok = torch.where(active, emitted[rows, n_acc], tok)
+            cols = hist_len[:, None] + offs[None, :]
+            cols = torch.where((offs[None, :] < n_emit[:, None]) & (cols < win), cols, win)
+            st.hist[rows[:, None], cols] = emitted
+            hist_len = torch.clamp(hist_len + n_emit, max=win)
+            remaining = torch.clamp(remaining - n_emit, min=0)
+            out[:, t, :k + 1] = emitted
+            out[:, t, k + 1] = n_emit
+        st.last_tok, st.remaining, st.hist_len = tok, remaining, hist_len
+        return out
+
     def _release(self, slot: int, act: _Active) -> None:
         """A request left ``slot``. Its donor segment (a splice's) is
         unpinned. Paged engines park on EVERY completion — the slot keeps
@@ -895,12 +1107,16 @@ class ServeEngine:
             self._pool.release_all(act.pages)
             act.pages = []
         elif act.remaining > 0:
-            self._state.remaining[slot] = 0
+            self._state.remaining[slot].zero_()
 
     def _activate(self, slot: int, req: Request, first: int, pages=None,
                   segment: Segment | None = None) -> list[Completion]:
         """Admit a just-prefilled request into the decode phase; an EOS or
-        ``max_new_tokens == 1`` first token completes it at once."""
+        ``max_new_tokens == 1`` first token completes it at once. Every
+        refill kind (whole prefill, splice, chunked, chunked with a splice;
+        paged or not) passes here, so this is where a speculative engine
+        seeds the slot's draft history (:func:`.slots.seed_history`: the
+        prompt, uploaded non-blocking, and the first token)."""
         self.generated_tokens += 1
         act = _Active(req, first, pages, segment)
         act.ttft_s = time.perf_counter() - req.submitted_s
@@ -908,17 +1124,24 @@ class ServeEngine:
             reason = "eos" if first == req.eos_token else "length"
             self._release(slot, act)
             return [self._complete(act, reason)]
+        if self._spec:
+            prompt = [int(t) for t in req.prompt]
+            seed_history(self._state, upload([prompt], torch.int64, self.device),
+                         len(prompt), slot, first)
         self._slots[slot] = act
         return []
 
-    def _distribute(self, toks: torch.Tensor) -> list[Completion]:
-        """Hand one fetched (S, T) chain block out to the slots; free every
-        slot that finished (budget spent or EOS mid-chain) and park
-        early-EOS slots whose device counter still shows budget."""
+    def _distribute(self, toks: torch.Tensor, view: list) -> list[Completion]:
+        """Hand one fetched (S, T) chain block out to the slots of ``view``
+        (the slot views at the chain's dispatch; a slot whose ``_Active``
+        is no longer the live one — finished or refilled since — ignores
+        the chain's rows); free every slot that finished (budget spent or
+        EOS mid-chain) and park early-EOS slots whose device counter still
+        shows budget."""
         done: list[Completion] = []
         rows = toks.tolist()
-        for s, act in enumerate(self._slots):
-            if act is None:
+        for s, act in enumerate(view):
+            if act is None or act is not self._slots[s]:
                 continue
             reason = None
             for tok in rows[s][: act.remaining]:
@@ -927,6 +1150,46 @@ class ServeEngine:
                 self.generated_tokens += 1
                 if tok == act.request.eos_token:
                     reason = "eos"
+                    break
+            if reason is None and act.remaining == 0:
+                reason = "length"
+            if reason is not None:
+                self._slots[s] = None
+                self._release(s, act)
+                done.append(self._complete(act, reason))
+        return done
+
+    def _distribute_spec(self, block: torch.Tensor, view: list) -> list[Completion]:
+        """The speculative twin of :meth:`_distribute` (the JAX engine's
+        ``_distribute_spec``) over one fetched (S, T, k+2) block: step t of
+        slot s contributed ``block[s, t, k+1]`` real tokens (the accepted
+        drafts and the bonus token); each counted step adds to
+        ``spec_steps_consumed`` and its n - 1 accepted drafts to
+        ``spec_drafts_accepted``. The host truncates at the request's
+        budget as ``generate`` does (the device may have verified past it;
+        those writes land in the slot's own window and the refill rewrites
+        the slot). ``view`` as in :meth:`_distribute`."""
+        done: list[Completion] = []
+        k1 = self._spec_k + 1
+        rows = block.tolist()
+        for s, act in enumerate(view):
+            if act is None or act is not self._slots[s]:
+                continue
+            reason = None
+            for step in rows[s]:
+                n = step[k1]
+                if n == 0:  # the slot went inactive on the device
+                    break
+                self.spec_steps_consumed += 1
+                self.spec_drafts_accepted += n - 1
+                for tok in step[: min(n, act.remaining)]:
+                    act.tokens.append(tok)
+                    act.remaining -= 1
+                    self.generated_tokens += 1
+                    if tok == act.request.eos_token:
+                        reason = "eos"
+                        break
+                if reason is not None or act.remaining == 0:
                     break
             if reason is None and act.remaining == 0:
                 reason = "length"

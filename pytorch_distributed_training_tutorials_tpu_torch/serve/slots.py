@@ -7,8 +7,13 @@ into that slot and a per-slot position reset.
 
 - :func:`bucket_len` — prompt-length buckets (powers of two, floor 8,
   capped at the window);
-- :func:`init_slot_state` — the zeroed :class:`SlotState`;
+- :func:`init_slot_state` — the zeroed :class:`SlotState` (with the
+  speculative draft history when asked);
 - :func:`write_slot` — reset one slot's counters after its prefill;
+- :func:`seed_history` — reset one slot's draft history to its prompt and
+  first token;
+- :func:`upload` — a host list to the device with no stream sync (pinned
+  memory, a non-blocking copy);
 - :func:`write_slot_paged` and :func:`park_slot_paged` — the paged twins
   (a :class:`..models.transformer.PagedKVCache`): copy a prefill's pages
   into the pool and install the slot's page table; sentinel a finished
@@ -66,19 +71,29 @@ class SlotState:
     - ``remaining`` (S,) int64 — tokens still to generate; 0 = free or
       parked (the active mask is ``remaining > 0``);
     - ``generators`` — one ``torch.Generator`` per slot, reseeded from
-      ``Request.seed`` at refill."""
+      ``Request.seed`` at refill;
+    - ``hist`` (S, W + 1) int64 and ``hist_len`` (S,) int64 — speculative
+      engines only (None otherwise): each slot's token history (prompt and
+      every emitted token) over the window W, the draft table of
+      :func:`..models.sampling.ngram_draft`, and its valid length. Column
+      W is a trash column: a history write past the window lands there and
+      is never read (PyTorch has no dropping scatter)."""
 
     cache: KVCache | PagedKVCache
     last_tok: torch.Tensor
     remaining: torch.Tensor
     generators: list[torch.Generator]
+    hist: torch.Tensor | None = None
+    hist_len: torch.Tensor | None = None
 
 
-def init_slot_state(cfg: TransformerConfig, n_slots: int, device) -> SlotState:
+def init_slot_state(cfg: TransformerConfig, n_slots: int, device,
+                    history: int = 0) -> SlotState:
     """Zeroed state for ``n_slots`` concurrent requests of a model with
     config ``cfg`` on ``device``; a paged model (``cfg.kv_pages`` > 0) gets
     a :class:`..models.transformer.PagedKVCache` with every table entry
-    the sentinel."""
+    the sentinel. ``history`` > 0 (a speculative engine: the window) adds
+    the draft history ``hist`` / ``hist_len``; 0 leaves them None."""
     if n_slots < 1:
         raise ValueError("n_slots must be >= 1")
     if cfg.kv_pages:
@@ -90,7 +105,24 @@ def init_slot_state(cfg: TransformerConfig, n_slots: int, device) -> SlotState:
         last_tok=torch.zeros((n_slots,), dtype=torch.int64, device=device),
         remaining=torch.zeros((n_slots,), dtype=torch.int64, device=device),
         generators=[torch.Generator(device=device) for _ in range(n_slots)],
+        hist=(torch.zeros((n_slots, history + 1), dtype=torch.int64, device=device)
+              if history else None),
+        hist_len=(torch.zeros((n_slots,), dtype=torch.int64, device=device)
+                  if history else None),
     )
+
+
+def upload(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """``values`` (a nested list of ints) as a ``dtype`` tensor on
+    ``device``, with no host sync: on a card the host tensor is pinned and
+    copied non-blocking, on the current stream (the caching host allocator
+    keeps the pinned buffer until the copy has run). A plain copy from
+    pageable memory would synchronize the stream, draining every chain
+    queued ahead of it."""
+    t = torch.tensor(values, dtype=dtype)
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def write_slot(state: SlotState, slot: int, p_len: int, first: torch.Tensor,
@@ -100,10 +132,12 @@ def write_slot(state: SlotState, slot: int, p_len: int, first: torch.Tensor,
     ``p_len`` (the bucket padding beyond it is masked until this request's
     own decode writes overwrite it), the first sampled token, and the
     remaining budget (the first token is already accounted for). Device
-    writes only — no host sync."""
-    state.cache.index[slot] = p_len
+    writes only — no host sync: host numbers go in through ``fill_`` (a
+    kernel argument), never by item assignment, which on a card copies a
+    host scalar and synchronizes the stream."""
+    state.cache.index[slot].fill_(p_len)
     state.last_tok[slot] = first
-    state.remaining[slot] = max_new - 1
+    state.remaining[slot].fill_(max_new - 1)
 
 
 def write_slot_paged(state: SlotState, prefill_cache: KVCache, pages: list[int],
@@ -114,12 +148,12 @@ def write_slot_paged(state: SlotState, prefill_cache: KVCache, pages: list[int],
     the encoded zeros past the prompt's bucket included, which wipes
     whatever a previous holder (or a parked slot's writes) left in a
     recycled page — install the slot's page table (``pages``, then the
-    sentinel) and finish as :func:`write_slot` does. Device writes only (a
-    host-to-device copy of the page ids), no host sync."""
+    sentinel) and finish as :func:`write_slot` does. Device writes and
+    non-blocking uploads of the page ids (:func:`upload`): no host sync."""
     cache = state.cache
     n, ps = len(pages), cache.page_size
     row = pages + [cache.n_pages] * (cache.table.shape[1] - n)
-    ids = torch.tensor(pages, dtype=torch.int64, device=cache.k.device)
+    ids = upload(pages, torch.int64, cache.k.device)
     pairs = [(cache.k, prefill_cache.k), (cache.v, prefill_cache.v)]
     if cache.quant:
         pairs += [(cache.k_scale, prefill_cache.k_scale),
@@ -127,17 +161,30 @@ def write_slot_paged(state: SlotState, prefill_cache: KVCache, pages: list[int],
     for pool, flat in pairs:
         src = flat[:, 0, : n * ps]  # (L, n * ps, ...)
         pool[:, ids] = src.reshape((src.shape[0], n, ps) + tuple(src.shape[2:]))
-    cache.table[slot] = torch.tensor(row, dtype=torch.int32, device=cache.k.device)
+    cache.table[slot] = upload(row, torch.int32, cache.k.device)
     write_slot(state, slot, p_len, first, max_new)
+
+
+def seed_history(state: SlotState, tokens: torch.Tensor, p_len: int, slot: int,
+                 first) -> None:
+    """Reset ``slot``'s draft history to [prompt, first token] (the JAX
+    engine's ``_seed_history``): ``tokens`` (1, n) holds the prompt in its
+    first ``p_len`` columns (padding past them is masked by ``hist_len``),
+    ``first`` (an int) lands at ``p_len``, and the valid length becomes
+    ``p_len + 1``. Device writes only (fills: no host sync)."""
+    state.hist[slot, : tokens.shape[1]] = tokens[0]
+    state.hist[slot, p_len].fill_(first)
+    state.hist_len[slot].fill_(p_len + 1)
 
 
 def park_slot_paged(state: SlotState, slot: int) -> None:
     """Park ``slot`` of a paged state: its page table becomes all sentinel,
     so the writes it keeps making each decode step land in the sink page
     and never in pages that were released (and may already serve another
-    request), and its budget drops to 0. Device writes only."""
-    state.cache.table[slot] = state.cache.n_pages
-    state.remaining[slot] = 0
+    request), and its budget drops to 0. Device writes only (fills: no
+    host sync)."""
+    state.cache.table[slot].fill_(state.cache.n_pages)
+    state.remaining[slot].zero_()
 
 
 def _leaves(cache) -> list:
@@ -172,7 +219,7 @@ def seed_cache(cache1: KVCache, segment: KVCache, depth: int) -> KVCache:
     n = segment.k.shape[2]
     for dst, src in zip(_leaves(cache1), _leaves(segment)):
         dst[:, :, :n] = src
-        dst[:, :, n:] = 0
+        dst[:, :, n:].zero_()
     cache1.index.fill_(depth)
     return cache1
 
@@ -204,13 +251,13 @@ def seed_cache_paged(cache1: KVCache, pool: PagedKVCache, pages: list[int],
     into the batch-1 side cache ``cache1``, in place, the rest zero, the
     index ``depth``. A partly covered last page copies whole: its tail past
     ``depth`` is the donor's, overwritten or masked as a segment's stale
-    tail is. Returns ``cache1``."""
+    tail is. Returns ``cache1``. No host sync."""
     n, ps = len(pages), pool.page_size
-    ids = torch.tensor(pages, dtype=torch.int64, device=pool.k.device)
+    ids = upload(pages, torch.int64, pool.k.device)
     for dst, src in zip(_leaves(cache1), _leaves(pool)):
         got = src[:, ids]  # (L, n, page_size, ...)
         dst[:, 0, : n * ps] = got.reshape((got.shape[0], n * ps) + tuple(got.shape[3:]))
-        dst[:, 0, n * ps:] = 0
+        dst[:, 0, n * ps:].zero_()
     cache1.index.fill_(depth)
     return cache1
 
