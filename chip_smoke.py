@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                 # every phase, from the repo root
     python3 chip_smoke.py --kernel-only   # phases 0-2: build, check, time
-    python3 chip_smoke.py --ddp-only      # phases 0, 1, 8 and 9
+    python3 chip_smoke.py --ddp-only      # the training path: fused AdamW's check, 8, 9 and 10-12
     python3 chip_smoke.py --serve-only    # phases 0, 1, 4 and the serving phases after it
 
 It drives the port (``pytorch_distributed_training_tutorials_tpu_torch``)
@@ -103,7 +103,34 @@ Every phase prints JSON lines:
    memory, idle share and the top device ops; then its fused-AdamW arm
    for one epoch: one ``fused_adamw`` launch a step, loss falling, the
    kernel bitwise the plain AdamW at the arm's own leaves, its time on
-   this path beside its bound.
+   this path beside its bound;
+10. ``train_resnet_streaming``: the headline in an NCCL world of one, one
+   epoch in each of three arms under deterministic cuDNN — resident,
+   ``ChunkedStreamingLoader`` (16 steps a chunk, 2 ahead) and
+   ``PrefetchLoader`` over ``ShardedLoader`` (2 ahead): every step's batch
+   the resident loader's (bit sums), every step's loss bitwise the
+   resident arm's, at most one host sync an epoch, an H2D copy overlapping
+   compute in a profiled window of the chunked arm; images/s of each arm
+   and the H2D ceiling (7 pinned chunk uploads) before and after the
+   chunked epoch (``DriftBracket``);
+11. ``train_guardrails``: (a) the headline over its first 12 steps with
+   ``skip_nonfinite`` and batch 3 poisoned, under SGD and ``fused_adamw``:
+   one step skipped, the state bitwise (``bit_checksum``) a clean run's
+   with that update elided, host syncs as the guard-off run's, one AdamW
+   launch a step; (b) the 760m fused step with the guard: a poisoned step
+   (``nan_grad_step``) leaves p, m, v, the count and ``step`` bitwise
+   unchanged, a clean guarded step is bitwise the guard-off step, step ms
+   guard on and off in turns; (c) rollback after a save under a chaos loss
+   spike: one rollback, the epoch kept, training on;
+12. ``bench_and_scaling``: the bench twin (``python -m ...bench``'s
+   ``main``, in this process): one JSON line, a receipt that validates,
+   stamped with this card; ``bench.scaling.sweep`` at every power-of-two
+   width up to the card count (NCCL worlds through spawn);
+   ``launch_overhead_fit`` over eager chains of 64 and 1024 ops.
+
+Phase 2's ``fused_adamw`` check also runs the kernel with its skip flag
+``ok`` at 1 and 0 (bitwise the plain version; with 0 the state's bit
+patterns unchanged) and times both.
 
 Between phases 4 and 5, ``serve_1b_paged``: the 1b-gqa preset at full
 depth, window 4096, serving 12 requests (prompts {16, 480, 1500}, 32 new
@@ -898,17 +925,64 @@ def phase_fused_ce(torch, fl, gpu: str) -> dict:
     return {"results": results, "max_abs_err": max_err, "worst_ratio": worst}
 
 
+def bit_checksum(torch, tensors) -> "torch.Tensor":
+    """(2,) int64 on the device: the sum and the sum of squares (mod 2^64)
+    of the tensors' 32-bit patterns; any changed bit moves the first. A
+    bitwise check of large state without holding a copy of it."""
+    sums = []
+    for t in tensors:
+        b = t.detach().reshape(-1).view(torch.int32).to(torch.int64)
+        sums.append(torch.stack([b.sum(), (b * b).sum()]))
+        del b
+    return torch.stack(sums).sum(0)
+
+
+def host_scalar_adamw(torch, tx, params, grads, mu, nu, count: int) -> None:
+    """One unguarded AdamW step with the bias corrections of ``count``
+    passed as host floats (``tx.inverse_bias_corrections``): the foreach
+    arithmetic of the trainer's AdamW before its count and corrections
+    moved to the device, 16 leaves a call. ``phase_adamw`` holds the
+    device-scalar step to it, bitwise."""
+    inv1, inv2 = tx.inverse_bias_corrections(count)
+    for lo in range(0, len(params), 16):
+        p, g = params[lo:lo + 16], grads[lo:lo + 16]
+        m, v = mu[lo:lo + 16], nu[lo:lo + 16]
+        torch._foreach_mul_(m, tx.b1)
+        torch._foreach_add_(m, torch._foreach_mul(g, 1.0 - tx.b1))
+        g2 = torch._foreach_mul(g, g)
+        torch._foreach_mul_(g2, 1.0 - tx.b2)
+        torch._foreach_mul_(v, tx.b2)
+        torch._foreach_add_(v, g2)
+        del g2
+        u = torch._foreach_mul(m, inv1)
+        den = torch._foreach_mul(v, inv2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, tx.eps)
+        torch._foreach_div_(u, den)
+        del den
+        torch._foreach_add_(u, torch._foreach_mul(p, tx.weight_decay))
+        torch._foreach_mul_(u, -tx.lr)
+        torch._foreach_add_(p, u)
+
+
 def phase_adamw(torch, gpu: str) -> dict:
     """Phase 2 (fused AdamW): the kernel against the plain foreach AdamW
     over leaves of the 760m parameter shapes (219 leaves, 1,006,708,224
-    elements), bitwise, at the 10th step (bias corrections != 1);
-    yardstick ``torch._fused_adamw_``, whose decay order differs."""
+    elements), bitwise, at the 10th step (bias corrections != 1), with the
+    skip flag ``ok`` absent, 1 and 0; with ``ok`` 0 the kernel's p, m, v
+    and count keep their bit patterns (``bit_checksum``). With no flag,
+    both the kernel and the plain version are also bitwise the host-scalar
+    step (``host_scalar_adamw``: the bias corrections as host floats, the
+    arithmetic guard-off training had before the count moved to the
+    device). Times for each flag; yardstick ``torch._fused_adamw_``, whose
+    decay order differs."""
     from pytorch_distributed_training_tutorials_tpu_torch.models import (
         TransformerConfig,
         TransformerLM,
     )
     from pytorch_distributed_training_tutorials_tpu_torch.ops.fused_optim import fused_adamw
     from pytorch_distributed_training_tutorials_tpu_torch.train.optim import adamw
+    from pytorch_distributed_training_tutorials_tpu_torch.train.trainer import finite_flag
 
     dev = torch.device("cuda")
     cfg = TransformerConfig(**PRESET_760M, max_seq_len=2048, dtype=torch.bfloat16,
@@ -928,24 +1002,57 @@ def phase_adamw(torch, gpu: str) -> dict:
     n_el = sum(p.numel() for p in params)
     tx, plain = fused_adamw(3e-4, weight_decay=0.01), adamw(3e-4, weight_decay=0.01)
     state = tx.init([torch.empty(0, device=dev)])  # moments replaced below
-    state.count, state.mu, state.nu = 9, mu, nu
-    p_plain = [p.clone() for p in params]
+    state.mu, state.nu = mu, nu
     s_plain = plain.init([torch.empty(0, device=dev)])
-    s_plain.count = 9
     s_plain.mu, s_plain.nu = [m.clone() for m in mu], [x.clone() for x in nu]
-    tx.update_(params, grads, state)
-    plain.update_(p_plain, grads, s_plain)
-    torch.cuda.synchronize()
-    err, n_bad = 0.0, 0
-    for a, b in zip(params + state.mu + state.nu, p_plain + s_plain.mu + s_plain.nu):
-        err = max(err, float((a - b).abs().max()))
-        n_bad += int((a != b).sum())
+    for st in (state, s_plain):
+        st.count.fill_(9)
+        st.calls = 9
+    p_plain = [p.clone() for p in params]
+    host = [[x.clone() for x in xs] for xs in (params, mu, nu)]
+    host_scalar_adamw(torch, plain, host[0], grads, host[1], host[2], count=10)
+    flags = {v: torch.tensor(v, dtype=torch.int32, device=dev) for v in (0, 1)}
+    checks = {}
+
+    def bits_differ(xs, ys) -> int:
+        return sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                   for a, b in zip(xs, ys, strict=True))
+
+    for name, ok in (("none", None), ("ok=1", flags[1]), ("ok=0", flags[0])):
+        kept = bit_checksum(torch, params + state.mu + state.nu + [state.count])
+        tx.update_(params, grads, state, ok=ok)
+        plain.update_(p_plain, grads, s_plain, ok=ok)
+        torch.cuda.synchronize()
+        err, n_bad = 0.0, 0
+        for a, b in zip(params + state.mu + state.nu + [state.count],
+                        p_plain + s_plain.mu + s_plain.nu + [s_plain.count]):
+            err = max(err, float((a.double() - b.double()).abs().max()))
+            n_bad += int((a.view(torch.int32) != b.view(torch.int32)).sum())
+        kept_bits = bool(torch.equal(
+            kept, bit_checksum(torch, params + state.mu + state.nu + [state.count])))
+        checks[name] = {"elements_differ": n_bad, "max_abs_err": err,
+                        "count": int(state.count), "state_bits_unchanged": kept_bits}
+        if name == "none":
+            flat = [x for xs in host for x in xs]
+            checks[name]["host_scalar_elements_differ"] = {
+                "kernel": bits_differ(params + state.mu + state.nu, flat),
+                "plain": bits_differ(p_plain + s_plain.mu + s_plain.nu, flat)}
+            del flat, host
+            if any(checks[name]["host_scalar_elements_differ"].values()):
+                raise AssertionError(f"fused_adamw vs the host-scalar step: {checks[name]}")
+        if n_bad or (name == "ok=0") != kept_bits:
+            raise AssertionError(f"fused_adamw kernel ({name}): {checks[name]}")
     del p_plain, s_plain
-    if n_bad:
-        raise AssertionError(f"fused_adamw kernel != plain: {n_bad} elements differ, max {err}")
+    err = max(c["max_abs_err"] for c in checks.values())
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     ms = time_ms(lambda: tx.update_(params, grads, state), torch, flush, warmup=1)
+    ms_flag = {name: time_ms(lambda: tx.update_(params, grads, state, ok=flags[v]), torch, flush,
+                             warmup=1) for name, v in (("ok=1", 1), ("ok=0", 0))}
     plain_ms = time_ms(lambda: plain.update_(params, grads, state), torch, flush, warmup=1)
+    # the skip-step guard's flag over the same gradients: each leaf's
+    # largest |g| read once (4 bytes an element)
+    loss = torch.tensor(1.0, device=dev)
+    finite_ms = time_ms(lambda: finite_flag(loss, grads), torch, flush, warmup=1)
     steps = [torch.tensor(10.0, device=dev) for _ in params]
     lib_ms = time_ms(lambda: torch._fused_adamw_(
         params, grads, state.mu, state.nu, [], steps, lr=3e-4, beta1=0.9, beta2=0.999,
@@ -953,7 +1060,8 @@ def phase_adamw(torch, gpu: str) -> dict:
     nbytes = 28.0 * n_el  # g, m, v, p read; m, v, p written: f32
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
     row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by="bytes", library_ms=lib_ms,
-               max_abs_err=err, n_mismatch=n_bad)
+               max_abs_err=err, n_mismatch=0, ms_by_flag=ms_flag, flag_checks=checks,
+               finite_flag_ms=finite_ms, finite_flag_bound_ms=4.0 * n_el / HBM_BYTES_PER_S * 1e3)
     emit({
         "phase": "kernel_vs_plain", "kernel": "fused_adamw", "leaves": len(params),
         "elements": n_el, **row, "roofline_share": b_ms / ms,
@@ -2849,10 +2957,11 @@ def adamw_check(torch, arm) -> dict:
 
     def copy_state():
         return dataclasses.replace(opt_state, mu=[m.clone() for m in opt_state.mu],
-                                   nu=[v.clone() for v in opt_state.nu])
+                                   nu=[v.clone() for v in opt_state.nu],
+                                   count=opt_state.count.clone())
 
     s_fused, s_plain = copy_state(), copy_state()
-    count = s_fused.count + 1
+    count = int(s_fused.count) + 1
     fused.update_(p_fused, grads, s_fused)
     adamw(fused.lr, fused.b1, fused.b2, fused.eps, fused.weight_decay).update_(
         p_plain, grads, s_plain)
@@ -3012,12 +3121,467 @@ def resnet_ddp_arms(torch, gpu: str) -> dict:
             "adamw_max_abs_err": check["max_abs_err"]}
 
 
+# train_resnet_streaming: the headline workload through the streaming
+# loaders, 16 steps a chunk, 2 chunks (or batches) ahead
+STREAM_CHUNK, STREAM_PREFETCH = 16, 2
+# the profiled window of the chunked arm: the first rows of MNIST, 48
+# steps, 3 whole chunks: chunks 2 and 3 upload (130 us each) while chunk
+# 1 trains. A first window of 20 steps (16 + 4) caught only the 4-step
+# chunk's two copies (63 us in all), both in idle gaps of the host-bound
+# steps
+STREAM_PROFILE_STEPS = 48
+# train_guardrails (a): the headline at full width over its first rows
+# (12 steps), batch 3 poisoned; (c): 4 steps an epoch, the spike at monitor
+# steps 6-8 after a save at the end of epoch 1
+GUARD_STEPS, GUARD_NAN_BATCH = 12, 3
+ROLLBACK_STEPS = 4
+ROLLBACK_SPIKE = dict(spike_loss_step=6, spike_loss_len=3, spike_loss_factor=1e6)
+# launch_overhead_fit's eager chains on the card
+LAUNCH_FIT_LENS = (64, 1024)
+
+
+def deterministic(torch):
+    """cuDNN in its deterministic algorithms (TF32 off): two runs of the
+    same steps give the same bits, so arms can be compared bitwise."""
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                      allow_tf32=False)
+
+
+def headline_rows(full, steps: int):
+    """The first ``steps`` global batches' rows of ``full``."""
+    from pytorch_distributed_training_tutorials_tpu_torch.data import ArrayDataset
+
+    return ArrayDataset(tuple(a[:steps * RESNET_BATCH] for a in full.arrays),
+                        synthetic=full.synthetic)
+
+
+def batch_checksums(torch, batches) -> "torch.Tensor":
+    """(steps, 2) int64 on the device: each batch's image and label bit
+    sums, with no host sync."""
+    out = []
+    for x, y in batches:
+        out.append(torch.stack([x.reshape(-1).view(torch.int16).to(torch.int64).sum(),
+                                y.to(torch.int64).sum()]))
+    return torch.stack(out)
+
+
+def h2d_overlap(trace_path: str) -> dict:
+    """From a ``torch.profiler`` chrome trace: the host-to-device copies,
+    and those that overlap a kernel on another stream in time."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel" and e.get("ph") == "X"]
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    t0 = min((e["ts"] for e in kernels + copies), default=0.0)
+    overlapped, overlap_us, listed = 0, 0.0, []
+    for c in copies:
+        c0, c1 = c["ts"], c["ts"] + c["dur"]
+        spans = [(max(c0, k["ts"]), min(c1, k["ts"] + k["dur"])) for k in kernels
+                 if k.get("args", {}).get("stream") != c.get("args", {}).get("stream")]
+        busy = sum(b - a for a, b in spans if b > a)
+        overlapped += busy > 0
+        overlap_us += busy
+        listed.append({"at_us": c0 - t0, "us": c["dur"], "bytes": c.get("args", {}).get("bytes"),
+                       "stream": c.get("args", {}).get("stream"), "kernel_us_during": busy})
+    return {"h2d_copies": len(copies), "h2d_copies_overlapping_compute": overlapped,
+            "h2d_us": sum(c["dur"] for c in copies), "kernel_us_during_copies": overlap_us,
+            "kernels": len(kernels),
+            "kernel_span_us": [min((k["ts"] for k in kernels), default=t0) - t0,
+                               max((k["ts"] + k["dur"] for k in kernels), default=t0) - t0],
+            "copies": listed}
+
+
+def phase_train_resnet_streaming(torch, gpu: str) -> dict:
+    """The headline (ResNet-18, 512 a device, bf16, SGD 0.05 momentum 0.9)
+    in an NCCL world of one, one epoch in each of three arms under
+    deterministic cuDNN: resident (``DeviceResidentLoader``), chunked
+    (``ChunkedStreamingLoader``, 16 steps a chunk, 2 ahead) and prefetched
+    (``PrefetchLoader`` over ``ShardedLoader``, 2 ahead). Gates: every
+    step's batch the resident loader's (bit sums), every step's loss
+    bitwise the resident arm's, at most one host sync an epoch (sync debug
+    mode), and in a profiled window of the chunked arm an H2D copy
+    overlapping compute. The chunked epoch is bracketed by an H2D ceiling
+    (``DriftBracket``)."""
+    from pytorch_distributed_training_tutorials_tpu_torch.launch import pick_unused_port
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel import distributed
+
+    distributed.init(f"127.0.0.1:{pick_unused_port()}", num_processes=1, process_id=0)
+    try:
+        with deterministic(torch):
+            return streaming_arms(torch, gpu)
+    finally:
+        distributed.shutdown()
+
+
+def streaming_arms(torch, gpu: str) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    from pytorch_distributed_training_tutorials_tpu_torch.bench import headline
+    from pytorch_distributed_training_tutorials_tpu_torch.bench.__main__ import h2d_ceiling
+    from pytorch_distributed_training_tutorials_tpu_torch.bench.harness import count_host_syncs
+    from pytorch_distributed_training_tutorials_tpu_torch.data import (
+        ChunkedStreamingLoader,
+        PrefetchLoader,
+        ShardedLoader,
+        mnist,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.obs import DriftBracket
+
+    def chunked(*a, **kw):
+        return ChunkedStreamingLoader(*a, steps_per_chunk=STREAM_CHUNK, prefetch=STREAM_PREFETCH,
+                                      **kw)
+
+    def prefetched(*a, **kw):
+        return PrefetchLoader(ShardedLoader(*a, **kw), prefetch=STREAM_PREFETCH)
+
+    problems = []
+    dataset = mnist("train", raw=True)
+    arms, sums, losses = {}, {}, {}
+    bracket = None
+    for name, loader_cls in (("resident", None), ("chunked", chunked), ("prefetch", prefetched)):
+        setup = headline.make_headline_setup(RESNET_BATCH, quiet=True, dataset=dataset,
+                                             loader_cls=loader_cls)
+        loader = setup.loader
+        loader.set_epoch(0)
+        if name == "chunked":
+            batches = (loader.chunk_step(c, i) for c in loader.iter_chunks()
+                       for i in range(c[0].shape[0]))
+        else:
+            batches = iter(loader)
+        sums[name] = batch_checksums(torch, batches)
+        fetches = setup.trainer.host_syncs
+
+        def counted_epoch():
+            with count_host_syncs(torch) as syncs:
+                r = headline.time_epoch(setup)
+            r["host_syncs"], r["sync_sites"] = syncs[0], syncs[1:]
+            return r
+
+        if name == "chunked":
+            chunk_bytes = STREAM_CHUNK * RESNET_BATCH * dataset.arrays[0][0].nbytes
+            ceiling, payload = h2d_ceiling(chunk_bytes, 7, setup.trainer.device)
+            ceiling()
+            bracket = DriftBracket(ceiling, payload_bytes=payload).around(counted_epoch)
+            r = bracket.result
+        else:
+            r = counted_epoch()
+        r["trainer_fetches"] = setup.trainer.host_syncs - fetches
+        losses[name] = [e["loss"] for e in setup.trainer.metrics.step_events()]
+        arms[name] = r
+        if r["host_syncs"] > 1 or r["trainer_fetches"] != 1:
+            problems.append(f"{name}: {r['host_syncs']} host syncs, {r['trainer_fetches']} "
+                            "trainer fetches in the epoch (want at most 1, 1)")
+        del setup, loader
+    for name in ("chunked", "prefetch"):
+        if not torch.equal(sums[name], sums["resident"]):
+            differ = int((sums[name] != sums["resident"]).any(1).sum())
+            problems.append(f"{name}: {differ} steps' batches differ from the resident loader's")
+        if losses[name] != losses["resident"]:
+            n = sum(a != b for a, b in zip(losses[name], losses["resident"]))
+            problems.append(f"{name}: {n} step losses differ from the resident arm's")
+
+    # the profiled window: a chunk's upload against the steps of the one before
+    window = headline.make_headline_setup(RESNET_BATCH, quiet=True,
+                                          dataset=headline_rows(dataset, STREAM_PROFILE_STEPS),
+                                          loader_cls=chunked)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        window.trainer.train(1)
+        torch.cuda.synchronize()
+    trace_path = os.path.join(REPO, "build", "streaming_trace.json")
+    os.makedirs(os.path.dirname(trace_path), exist_ok=True)
+    prof.export_chrome_trace(trace_path)
+    overlap = h2d_overlap(trace_path)
+    os.remove(trace_path)
+    if not overlap["h2d_copies_overlapping_compute"]:
+        problems.append(f"no H2D copy overlaps compute in the chunked window: {overlap}")
+    n_dev = 1
+    ceiling_images = 7 * STREAM_CHUNK * RESNET_BATCH / bracket.ceiling_s
+    emit({"phase": "train_resnet_streaming", "model": "resnet18 cifar stem, bf16 on f32 params",
+          "per_device_batch": RESNET_BATCH, "steps_per_chunk": STREAM_CHUNK,
+          "prefetch": STREAM_PREFETCH, "cudnn": "deterministic, TF32 off",
+          "arms": arms, "images_per_sec_per_gpu": {
+              k: v["images_per_sec"] / n_dev for k, v in arms.items()},
+          "loss_comparison": "bitwise, every step, against the resident arm",
+          "batches_compared": int(sums["resident"].shape[0]),
+          "h2d_ceiling": {**bracket.to_dict(), "images_per_sec": ceiling_images,
+                          "bytes": bracket.payload_bytes},
+          "chunked_fraction_of_h2d_ceiling": arms["chunked"]["images_per_sec"] / ceiling_images,
+          "profiled_window": {"steps": STREAM_PROFILE_STEPS, **overlap},
+          "ok": not problems, "problems": problems, "gpu": gpu})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"images_per_sec": {k: v["images_per_sec"] for k, v in arms.items()},
+            "h2d_drift": bracket.drift}
+
+
+def state_tensors(state) -> list:
+    """Every tensor a step may write: the model's parameters and buffers
+    (BatchNorm's statistics), the optimizer state, the step count."""
+    opt = state.opt_state
+    opt_t = [*opt.mu, *opt.nu, opt.count] if hasattr(opt, "mu") else list(opt.trace or [])
+    return [*state.model.state_dict().values(), *opt_t, state.step]
+
+
+def phase_train_guardrails(torch, gpu: str) -> dict:
+    """(a) the headline at full width over its first GUARD_STEPS steps with
+    ``skip_nonfinite=True`` and batch GUARD_NAN_BATCH poisoned, under SGD
+    and ``fused_adamw``: one step skipped, the final state bitwise
+    (``bit_checksum``) that of a clean run with that update elided, host
+    syncs an epoch as the guard-off run's, and one AdamW launch a step;
+    (b) the 760m fused step (flash, the fused loss, ``fused_adamw``) with
+    the guard: a poisoned step (``nan_grad_step``) leaves p, m, v, the
+    count and ``step`` bitwise unchanged, a clean guarded step is bitwise
+    the guard-off step, and step ms guard on against off, in turns;
+    (c) rollback after a save: one rollback, the epoch kept, training on."""
+    from pytorch_distributed_training_tutorials_tpu_torch.data import mnist
+
+    full = mnist("train", raw=True)
+    with deterministic(torch):
+        a = guard_resnet(torch, gpu, headline_rows(full, GUARD_STEPS))
+    b = guard_760m(torch, gpu)
+    c = guard_rollback(torch, gpu, headline_rows(full, ROLLBACK_STEPS))
+    return {**a, **b, "rollbacks": c}
+
+
+def guard_resnet(torch, gpu: str, dataset) -> dict:
+    from pytorch_distributed_training_tutorials_tpu_torch.bench import headline
+    from pytorch_distributed_training_tutorials_tpu_torch.bench.harness import count_host_syncs
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.fused_optim import fused_adamw
+    from pytorch_distributed_training_tutorials_tpu_torch.train import sgd
+    from pytorch_distributed_training_tutorials_tpu_torch.utils.chaos import ChaosConfig
+
+    problems, arms, launches = [], {}, 0
+    for opt_name, make_opt in (("sgd", lambda: sgd(headline.LR, headline.MOMENTUM)),
+                               ("fused_adamw", lambda: fused_adamw(**ADAMW_ARM))):
+        runs = {}
+        for run in ("guarded", "elided", "guard_off"):
+            kw = {"skip_nonfinite": True,
+                  "chaos": ChaosConfig(nan_batch_step=GUARD_NAN_BATCH)} if run == "guarded" else {}
+            setup = headline.make_headline_setup(RESNET_BATCH, quiet=True, dataset=dataset,
+                                                 optimizer=make_opt(), **kw)
+            trainer = setup.trainer
+            fused_adamw.launches = 0
+            with count_host_syncs(torch) as syncs:
+                if run == "elided":  # the clean run with the poisoned update left out
+                    trainer.loader.set_epoch(0)
+                    for i, batch in enumerate(trainer.loader, start=1):
+                        if i != GUARD_NAN_BATCH:
+                            trainer.state, _ = trainer.train_step(trainer.state, batch)
+                    torch.cuda.synchronize()
+                else:
+                    trainer.train(1)
+            runs[run] = {"checksum": bit_checksum(torch, state_tensors(trainer.state)).tolist(),
+                         "host_syncs": syncs[0], "adamw_launches": fused_adamw.launches,
+                         "step": int(trainer.state.step)}
+            if run == "guarded":
+                runs[run]["steps_skipped"] = trainer.steps_skipped
+                runs[run]["skipped_at"] = [e["step"] for e in trainer.metrics.step_events()
+                                           if e.get("skipped")]
+                launches += fused_adamw.launches
+            del setup, trainer
+        g = runs["guarded"]
+        if g["steps_skipped"] != 1 or g["step"] != GUARD_STEPS - 1:
+            problems.append(f"{opt_name}: steps_skipped {g['steps_skipped']}, step {g['step']}")
+        if g["checksum"] != runs["elided"]["checksum"]:
+            problems.append(f"{opt_name}: the guarded state is not the elided run's")
+        if g["host_syncs"] != runs["guard_off"]["host_syncs"] or g["host_syncs"] > 1:
+            problems.append(f"{opt_name}: host syncs guarded {g['host_syncs']}, guard off "
+                            f"{runs['guard_off']['host_syncs']}")
+        if opt_name == "fused_adamw" and g["adamw_launches"] != GUARD_STEPS:
+            problems.append(f"fused_adamw launched {g['adamw_launches']} times in "
+                            f"{GUARD_STEPS} steps")
+        arms[opt_name] = runs
+    emit({"phase": "train_guardrails", "arm": "a_resnet18", "steps": GUARD_STEPS,
+          "nan_batch_step": GUARD_NAN_BATCH, "cudnn": "deterministic, TF32 off",
+          "comparison": "bit_checksum of every parameter, buffer, optimizer tensor and step",
+          "arms": arms, "ok": not problems, "problems": problems, "gpu": gpu})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"resnet_guarded_adamw_launches": launches}
+
+
+def guard_760m(torch, gpu: str) -> dict:
+    from pytorch_distributed_training_tutorials_tpu_torch.bench import lm_headline
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.fused_optim import fused_adamw
+    from pytorch_distributed_training_tutorials_tpu_torch.train.trainer import _train_step_fn
+    from pytorch_distributed_training_tutorials_tpu_torch.utils.chaos import ChaosConfig
+
+    problems = []
+    dev = torch.device("cuda")
+    model, state, batch, off, n_params, _ = lm_headline.build(lm_headline.parse(["--fused"]), dev)
+    on = _train_step_fn("fused_cross_entropy", skip_nonfinite=True)
+    state, _ = off(state, batch)  # the moments and the count move off zero
+    opt = state.opt_state
+    live = [*state.params, *opt.mu, *opt.nu, opt.count, state.step]
+
+    def snapshot():
+        return [t.clone() for t in live]
+
+    def restore(saved):
+        with torch.no_grad():
+            for t, v in zip(live, saved):
+                t.copy_(v)
+
+    start = snapshot()
+    results = {}
+    for name, fn in (("guard_off", off), ("guard_on", on)):
+        restore(start)
+        fused_adamw.launches = 0
+        _, m = fn(state, batch)
+        results[name] = {"loss": float(m["loss"]),
+                         "checksum": bit_checksum(torch, live).tolist(),
+                         "adamw_launches": fused_adamw.launches,
+                         "skipped": int(m.get("skipped", 0))}
+    if results["guard_on"]["checksum"] != results["guard_off"]["checksum"] or \
+            results["guard_on"]["loss"] != results["guard_off"]["loss"]:
+        problems.append(f"the clean guarded step differs from the guard-off step: {results}")
+    poison = _train_step_fn("fused_cross_entropy", skip_nonfinite=True,
+                            chaos=ChaosConfig(nan_grad_step=int(state.step)))
+    kept = bit_checksum(torch, live).tolist()
+    count = int(opt.count)
+    fused_adamw.launches = 0
+    _, m = poison(state, batch)
+    poisoned = {"skipped": int(m["skipped"]), "loss": float(m["loss"]),
+                "state_bits_unchanged": bit_checksum(torch, live).tolist() == kept,
+                "count_before": count, "count_after": int(opt.count),
+                "adamw_launches": fused_adamw.launches}
+    if not (poisoned["skipped"] == 1 and poisoned["state_bits_unchanged"]
+            and poisoned["count_after"] == count and poisoned["adamw_launches"] == 1):
+        problems.append(f"the poisoned 760m step: {poisoned}")
+    del start
+    torch.cuda.empty_cache()
+
+    # step ms, guard off and on in turns (off, on, on, off), CUDA events
+    def timed(fn) -> float:
+        nonlocal state
+        begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        begin.record()
+        state, m = fn(state, batch)
+        end.record()
+        m["loss"].item()
+        return begin.elapsed_time(end)
+
+    timed(off)
+    turns = {"guard_off": [], "guard_on": []}
+    for _ in range(2):
+        for name, fn in (("guard_off", off), ("guard_on", on), ("guard_on", on),
+                         ("guard_off", off)):
+            turns[name].append(timed(fn))
+    step_ms = {k: statistics.median(v) for k, v in turns.items()}
+    emit({"phase": "train_guardrails", "arm": "b_760m_fused", "n_params": n_params,
+          "optimizer": "fused_adamw", "steps": results, "poisoned": poisoned,
+          "step_ms": step_ms, "step_ms_samples": turns,
+          "guard_cost_ms": step_ms["guard_on"] - step_ms["guard_off"],
+          "comparison": "bit_checksum of p, m, v, the count and step",
+          "ok": not problems, "problems": problems, "gpu": gpu})
+    del model, state, batch, live, opt
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"guard_760m_step_ms": step_ms, "guard_760m_adamw_launches":
+            results["guard_on"]["adamw_launches"] + poisoned["adamw_launches"]}
+
+
+def guard_rollback(torch, gpu: str, dataset) -> int:
+    from pytorch_distributed_training_tutorials_tpu_torch.bench import headline
+    from pytorch_distributed_training_tutorials_tpu_torch.utils.chaos import ChaosConfig
+
+    setup = headline.make_headline_setup(
+        RESNET_BATCH, quiet=True, dataset=dataset,
+        rollback_spike_factor=10.0, rollback_patience=2, chaos=ChaosConfig(**ROLLBACK_SPIKE))
+    trainer = setup.trainer
+    ckpt = os.path.join(REPO, "build", "rollback_ckpt")
+    trainer.train(1)  # monitor steps 1-4 seed the EMA
+    trainer.save(ckpt)
+    trainer.train(3)  # the spike at monitor steps 6-8: strikes at 6 and 7
+    losses = [e["loss"] for e in trainer.metrics.epoch_events()]
+    problems = []
+    if trainer.rollbacks != 1 or trainer.epoch != 3 or not all(map(math.isfinite, losses)):
+        problems.append(f"rollbacks {trainer.rollbacks}, epoch {trainer.epoch}, "
+                        f"epoch losses {losses}")
+    emit({"phase": "train_guardrails", "arm": "c_rollback", "steps_per_epoch": ROLLBACK_STEPS,
+          "spike": ROLLBACK_SPIKE, "rollbacks": trainer.rollbacks, "epoch": trainer.epoch,
+          "step": int(trainer.state.step), "epoch_losses": losses,
+          "host_syncs": trainer.host_syncs, "ok": not problems, "problems": problems,
+          "gpu": gpu})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return trainer.rollbacks
+
+
+def phase_bench_and_scaling(torch, gpu: str) -> dict:
+    """The bench twin (``python -m ...bench``, in this process): one JSON
+    line, a receipt that validates, stamped with this card; the scaling
+    sweep at every power-of-two width up to the card count (NCCL worlds
+    through spawn); ``launch_overhead_fit`` over eager op chains."""
+    import io
+
+    from pytorch_distributed_training_tutorials_tpu_torch.bench import scaling
+    from pytorch_distributed_training_tutorials_tpu_torch.bench.__main__ import main as bench
+    from pytorch_distributed_training_tutorials_tpu_torch.obs import (
+        MinOfN,
+        launch_overhead_fit,
+        validate_receipt,
+    )
+
+    problems = []
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        bench(["--quiet"])
+    lines = out.getvalue().splitlines()
+    r = json.loads(lines[-1]) if lines else {}
+    if len(lines) != 1:
+        problems.append(f"the bench printed {len(lines)} lines on stdout, want 1")
+    problems += [f"receipt: {p}" for p in validate_receipt(r, "bench_headline")]
+    env = r.get("env", {})
+    if env.get("nvidia_smi") != gpu or env.get("device_name") != torch.cuda.get_device_name(0):
+        problems.append(f"receipt stamp {env} is not this card ({gpu})")
+    if r.get("vs_baseline") is not None or not r.get("value", 0) > 0:
+        problems.append(f"bench value {r.get('value')}, vs_baseline {r.get('vs_baseline')}")
+    if not r.get("eval_accuracy", 0) > RESNET_ACC_FLOOR:
+        problems.append(f"bench eval accuracy {r.get('eval_accuracy')} <= {RESNET_ACC_FLOOR}")
+    if not all(v > 0 for k, v in r.get("breakdown", {}).items() if k.endswith("per_gpu")):
+        problems.append(f"bench breakdown {r.get('breakdown')}")
+    emit({"phase": "bench_and_scaling", "arm": "bench", "line": r, "gpu": gpu})
+
+    points = scaling.sweep()
+    rep = scaling.report(points)
+    widths = [p.num_chips for p in points]
+    if widths != [1 << i for i in range(len(widths))] or widths[-1] * 2 <= torch.cuda.device_count():
+        problems.append(f"sweep widths {widths} for {torch.cuda.device_count()} cards")
+    emit({"phase": "bench_and_scaling", "arm": "scaling", "report": rep,
+          "collectives": scaling.collective_footprint(scaling._model(64)), "gpu": gpu})
+
+    x = torch.zeros(16, device="cuda")
+
+    def time_chain(n: int) -> float:
+        def run():
+            for _ in range(n):
+                x.add_(1.0)
+            torch.cuda.synchronize()
+        return MinOfN(n=5).measure(run).best_s
+
+    fit = launch_overhead_fit(time_chain, LAUNCH_FIT_LENS)
+    emit({"phase": "bench_and_scaling", "arm": "launch_overhead_fit",
+          "op": "x.add_(1.0) on 16 floats, eager; chain closed by torch.cuda.synchronize()",
+          **fit.to_dict(), "gpu": gpu})
+    if not fit.per_op_us > 0:
+        problems.append(f"launch fit {fit.to_dict()}")
+    emit({"phase": "bench_and_scaling", "ok": not problems, "problems": problems, "gpu": gpu})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"bench_images_per_sec_per_gpu": r["value"], "per_launch_us": fit.per_op_us}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel-only", action="store_true",
                     help="stop after phase 2 (build, check and time the kernels)")
     ap.add_argument("--ddp-only", action="store_true",
-                    help="after the build, run phases 8 and 9 (the DDP slice) only")
+                    help="after the build, run the training path only: fused AdamW's "
+                         "kernel check, phases 8 and 9 and the streaming, guardrail and "
+                         "bench phases")
     ap.add_argument("--serve-only", action="store_true",
                     help="after the build, run the serving phases (4, serve_1b_paged, "
                          "serve_1b_prefill, serve_1b_spec) only")
@@ -3075,8 +3639,12 @@ def main(argv=None) -> int:
         return out
 
     if args.ddp_only:
+        run(phase_adamw, torch, gpu)
         run(phase_resnet_card_vs_cpu, torch, gpu)
         run(phase_train_resnet_ddp, torch, gpu)
+        run(phase_train_resnet_streaming, torch, gpu)
+        run(phase_train_guardrails, torch, gpu)
+        run(phase_bench_and_scaling, torch, gpu)
         emit({"phase": "phase_seconds", **seconds})
         return 0
     if args.serve_only:
@@ -3106,6 +3674,9 @@ def main(argv=None) -> int:
     fused_launches = run(phase_train_fused, torch, gpu, base["first_loss"])
     run(phase_resnet_card_vs_cpu, torch, gpu)
     ddp = run(phase_train_resnet_ddp, torch, gpu)
+    run(phase_train_resnet_streaming, torch, gpu)
+    guard = run(phase_train_guardrails, torch, gpu)
+    run(phase_bench_and_scaling, torch, gpu)
     emit({"phase": "phase_seconds", **seconds})
 
     # the kernels line: one decode forward's 113 int8 matmuls at M = 4
@@ -3210,7 +3781,13 @@ def main(argv=None) -> int:
         "source": f"{PKG}/csrc/fused_adamw.cu", "replaces": ADAMW_REPLACES,
         "launches": fused_launches["fused_adamw"],
         "launches_by_path": {"train_760m_fused": fused_launches["fused_adamw"],
-                             "train_resnet_ddp_fused_adamw": ddp["fused_adamw"]},
+                             "train_resnet_ddp_fused_adamw": ddp["fused_adamw"],
+                             "train_guardrails_resnet18": guard["resnet_guarded_adamw_launches"],
+                             "train_guardrails_760m": guard["guard_760m_adamw_launches"]},
+        "ms_by_flag": adamw_row["ms_by_flag"], "flag_checks": adamw_row["flag_checks"],
+        "finite_flag_ms": adamw_row["finite_flag_ms"],
+        "finite_flag_bound_ms": adamw_row["finite_flag_bound_ms"],
+        "guarded_760m_step_ms": guard["guard_760m_step_ms"],
         "resnet18_step": {"ms": ddp["adamw_ms"], "bound_ms": ddp["adamw_bound_ms"],
                           "max_abs_err": ddp["adamw_max_abs_err"],
                           "work": "one ResNet-18 step: 1 launch over 62 leaves"},

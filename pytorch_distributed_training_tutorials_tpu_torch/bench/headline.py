@@ -42,10 +42,14 @@ class HeadlineSetup:
 
 
 def make_headline_setup(per_device_batch: int = 512, quiet: bool = False, device=None,
-                        optimizer=None, dataset=None) -> HeadlineSetup:
+                        optimizer=None, dataset=None, loader_cls=None,
+                        **trainer_kw) -> HeadlineSetup:
     """The headline workload on ``device`` (``cuda`` unless the caller
     passes another) over the data mesh of the current world. ``dataset``
-    replaces the MNIST train split (a small one for CPU runs)."""
+    replaces the MNIST train split (a small one for CPU runs);
+    ``loader_cls(dataset, batch, mesh, seed=, transform=)`` replaces the
+    device-resident loader (a streaming one); ``trainer_kw`` go to the
+    ``Trainer`` (the guardrails)."""
     import torch
 
     from pytorch_distributed_training_tutorials_tpu_torch.data import DeviceResidentLoader, mnist
@@ -55,11 +59,12 @@ def make_headline_setup(per_device_batch: int = 512, quiet: bool = False, device
 
     mesh = create_mesh(device=device)
     ds = dataset if dataset is not None else mnist("train", raw=True)
-    loader = DeviceResidentLoader(ds, per_device_batch, mesh, seed=0, transform=normalize)
+    loader = (loader_cls or DeviceResidentLoader)(ds, per_device_batch, mesh, seed=0,
+                                                  transform=normalize)
     model = resnet18(num_classes=10, stem="cifar", dtype=torch.bfloat16,
                      in_channels=ds.arrays[0].shape[-1])
     trainer = Trainer(model, loader, optimizer if optimizer is not None else sgd(LR, MOMENTUM),
-                      loss="cross_entropy", quiet=quiet)
+                      loss="cross_entropy", quiet=quiet, **trainer_kw)
     return HeadlineSetup(mesh=mesh, loader=loader, trainer=trainer, batch=next(iter(loader)),
                          step_fn=trainer.train_step, dataset=ds)
 

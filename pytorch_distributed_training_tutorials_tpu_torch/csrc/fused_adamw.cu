@@ -12,7 +12,17 @@
 //   p = p + u
 //
 // with ibc1 = 1 / (1 - b1^t) and ibc2 = 1 / (1 - b2^t), the bias
-// corrections' float32 reciprocals, computed on the host.
+// corrections' float32 reciprocals. They are data, as the JAX kernel's
+// SMEM operand is: the kernel reads the step count t from device memory
+// and the pair from a device table of the host's float32 values indexed by
+// t (train/optim.py AdamWState), so a step needs no host number and the
+// corrections stay bitwise the host's.
+//
+// The skip-step guard: a device flag `ok` (null: apply). Where it is 0,
+// every block returns before any store, so p, m and v stay bitwise their
+// inputs with no copy and no host sync; the caller advances t by ok
+// before the launch. The branch is uniform across the grid.
+//
 // Every operation is one IEEE float32 rounding, spelled with the _rn
 // intrinsics and built with -fmad=false, so the kernel is bitwise the plain
 // foreach version on the same inputs. m, v and p are written in place:
@@ -59,6 +69,14 @@ struct Hyper {
   float b1, one_minus_b1, b2, one_minus_b2, eps, wd, neg_lr, ibc1, ibc2;
 };
 
+// the step's device scalars: the skip flag (null: apply), the step count
+// after this step, and the table of (ibc1, ibc2) rows indexed by it
+struct Scalars {
+  const int* ok;
+  const int* count;
+  const float* table;
+};
+
 __device__ __forceinline__ void adamw(float g, float& m, float& v, float& p, const Hyper& h) {
   m = __fadd_rn(__fmul_rn(m, h.b1), __fmul_rn(g, h.one_minus_b1));
   v = __fadd_rn(__fmul_rn(v, h.b2), __fmul_rn(__fmul_rn(g, g), h.one_minus_b2));
@@ -69,7 +87,11 @@ __device__ __forceinline__ void adamw(float g, float& m, float& v, float& p, con
 }
 
 __global__ void __launch_bounds__(kThreads)
-    adamw_kernel(const __grid_constant__ Table t, const Hyper h) {
+    adamw_kernel(const __grid_constant__ Table t, Hyper h, const Scalars s) {
+  if (s.ok != nullptr && *s.ok == 0) return;  // a skipped step: no store at all
+  const int c = *s.count;
+  h.ibc1 = s.table[2 * c];
+  h.ibc2 = s.table[2 * c + 1];
   const int blk = blockIdx.x;
   int lo = 0, hi = t.count - 1;  // the last leaf whose first block <= blk
   while (lo < hi) {
@@ -117,18 +139,24 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // One AdamW step over `count` float32 leaves, in place: g[i], m[i], v[i],
-// p[i] point at n[i] contiguous elements each. Launches one kernel per
-// kMaxLeaves leaves on `stream` and returns the first launch error (or
-// cudaErrorInvalidValue for a count or size it does not take); *launches
-// receives the number of kernels launched.
+// p[i] point at n[i] contiguous elements each. `ok` (int32, or null to
+// apply), `step_count` (int32: the count after this step) and
+// `corrections` ((rows, 2) float32, a row for every reachable count) are device
+// pointers. Launches one kernel per kMaxLeaves leaves on `stream` and
+// returns the first launch error (or cudaErrorInvalidValue for a count or
+// size it does not take); *launches receives the number of kernels
+// launched.
 extern "C" int fused_adamw_launch(const void* const* g, void* const* m, void* const* v,
                                   void* const* p, const long long* n, int count, float b1,
                                   float one_minus_b1, float b2, float one_minus_b2, float eps,
-                                  float wd, float neg_lr, float ibc1, float ibc2, void* stream,
-                                  int* launches) {
+                                  float wd, float neg_lr, const void* ok, const void* step_count,
+                                  const void* corrections, void* stream, int* launches) {
   *launches = 0;
-  if (count < 0) return (int)cudaErrorInvalidValue;
-  const Hyper h{b1, one_minus_b1, b2, one_minus_b2, eps, wd, neg_lr, ibc1, ibc2};
+  if (count < 0 || step_count == nullptr || corrections == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const Hyper h{b1, one_minus_b1, b2, one_minus_b2, eps, wd, neg_lr, 0.0f, 0.0f};
+  const Scalars s{static_cast<const int*>(ok), static_cast<const int*>(step_count),
+                  static_cast<const float*>(corrections)};
   // 22.5 KB, on the heap: copied into the launch's parameters at the launch
   const std::unique_ptr<Table> table(new Table);
   Table& t = *table;
@@ -153,7 +181,7 @@ extern "C" int fused_adamw_launch(const void* const* g, void* const* m, void* co
     }
     if (t.count == 0) continue;
     t.block0[t.count] = (int)blocks;
-    adamw_kernel<<<(unsigned)blocks, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(t, h);
+    adamw_kernel<<<(unsigned)blocks, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(t, h, s);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     ++*launches;

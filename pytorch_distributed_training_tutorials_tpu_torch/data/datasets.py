@@ -66,6 +66,25 @@ def random_dataset(size: int = 32, length: int = 1024, seed: int = 0) -> ArrayDa
     return ArrayDataset((x,))
 
 
+def synthetic_lm(size: int = 512, seq_len: int = 64, vocab_size: int = 64, seed: int = 0,
+                 peakedness: float = 3.0) -> ArrayDataset:
+    """Learnable causal-LM data: tokens drawn from a fixed random bigram
+    table (temperature set by ``peakedness``), so next-token cross
+    entropy can fall well below ``log(vocab_size)``. Returns ``(inputs,
+    targets)``, int32, the targets the inputs shifted left by one; byte
+    for byte the JAX package's for the same arguments."""
+    rng = np.random.Generator(np.random.PCG64(seed))
+    logits = rng.standard_normal((vocab_size, vocab_size)) * peakedness
+    probs = np.exp(logits - logits.max(axis=1, keepdims=True))
+    cdf = np.cumsum(probs / probs.sum(axis=1, keepdims=True), axis=1)
+    seqs = np.empty((size, seq_len + 1), np.int32)
+    seqs[:, 0] = rng.integers(0, vocab_size, size)
+    for t in range(seq_len):
+        u = rng.random(size)[:, None]
+        seqs[:, t + 1] = (u > cdf[seqs[:, t]]).sum(axis=1)
+    return ArrayDataset((seqs[:, :-1], np.ascontiguousarray(seqs[:, 1:])))
+
+
 def _synthetic_images(n: int, shape: tuple[int, ...], num_classes: int, template_seed: int,
                       noise_seed: int, raw: bool = False, modes: int = 4,
                       signal: float = 0.35) -> ArrayDataset:

@@ -132,11 +132,19 @@ class ShardedLoader:
             shards = np.tile(shards, (1, reps))[:, :need]
         return shards
 
-    def __iter__(self):
+    def host_batches(self):
+        """This rank's rows of each step of the epoch, gathered on the host:
+        one tuple of numpy arrays a step (what :meth:`__iter__` uploads)."""
         shards = self._epoch_index_matrix()
-        n_arrays = len(self.dataset.arrays)
         for step in range(self.steps_per_epoch):
             lo = step * self.per_device_batch
-            rows = shards[self.rank, lo:lo + self.per_device_batch]
-            batch = tuple(to_device(a, self.device) for a in self.dataset.gather(rows))
-            yield self._apply_transform(batch if n_arrays > 1 else batch[0])
+            yield self.dataset.gather(shards[self.rank, lo:lo + self.per_device_batch])
+
+    def finish(self, batch: tuple[torch.Tensor, ...]):
+        """A device batch as iteration yields it: unwrapped when the
+        dataset has one array, then transformed."""
+        return self._apply_transform(batch if len(batch) > 1 else batch[0])
+
+    def __iter__(self):
+        for arrays in self.host_batches():
+            yield self.finish(tuple(to_device(a, self.device) for a in arrays))

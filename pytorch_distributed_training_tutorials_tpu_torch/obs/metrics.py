@@ -1,7 +1,8 @@
 """MetricsLogger: per-step and per-epoch telemetry without per-step host
 syncs (port of the JAX package's ``obs/metrics.py``).
 
-``log_step`` keeps a step's loss as the device scalar it is; the pending
+``log_step`` keeps a step's loss, and any ``extra`` scalars (the guarded
+step's ``"skipped"`` flag), as the device scalars they are; the pending
 scalars are fetched in ONE batched copy (stacked on the device, one
 ``.tolist()``) when an epoch is logged or at :meth:`flush`. Every fetch is
 counted in ``host_fetches``. Events land in a ring buffer; console lines
@@ -25,7 +26,7 @@ class MetricsLogger:
 
     def __init__(self, *, quiet: bool = False):
         self.events: collections.deque[dict] = collections.deque(maxlen=CAPACITY)
-        self._pending: collections.deque[tuple[int, torch.Tensor | float]] = (
+        self._pending: collections.deque[tuple[int, torch.Tensor | float, dict | None]] = (
             collections.deque(maxlen=CAPACITY))
         self.quiet = quiet
         self.host_fetches = 0
@@ -35,9 +36,10 @@ class MetricsLogger:
         if not self.quiet:
             log0(msg)
 
-    def log_step(self, step: int, loss) -> None:
-        """Record a step's loss, un-fetched."""
-        self._pending.append((int(step), loss))
+    def log_step(self, step: int, loss, extra: dict | None = None) -> None:
+        """Record a step's loss and ``extra`` scalars, un-fetched: they ride
+        the next drain's one fetch."""
+        self._pending.append((int(step), loss, extra))
 
     def log_epoch(self, metrics: dict) -> dict:
         """Record an epoch event (draining pending steps first) and print
@@ -57,15 +59,21 @@ class MetricsLogger:
             return
         pending = list(self._pending)
         self._pending.clear()
-        on_device = [v for _, v in pending if isinstance(v, torch.Tensor)]
+        values = [v for _, loss, extra in pending for v in (loss, *(extra or {}).values())]
+        on_device = [v for v in values if isinstance(v, torch.Tensor)]
         fetched = iter([])
         if on_device:
             fetched = iter(torch.stack([v.detach().double().reshape(()) for v in on_device])
                            .tolist())
             self.host_fetches += 1
-        for step, v in pending:
-            loss = next(fetched) if isinstance(v, torch.Tensor) else float(v)
-            self.events.append({"kind": "step", "step": step, "loss": loss})
+
+        def host(v) -> float:
+            return next(fetched) if isinstance(v, torch.Tensor) else float(v)
+
+        for step, loss, extra in pending:
+            event = {"kind": "step", "step": step, "loss": host(loss)}
+            event.update({k: host(v) for k, v in (extra or {}).items()})
+            self.events.append(event)
 
     def step_events(self) -> list[dict]:
         return [e for e in self.events if e.get("kind") == "step"]

@@ -72,11 +72,12 @@ _LIBRARIES = {
         "flags": ("-fmad=false",),
         "entry": {
             # g m v p (arrays of leaf pointers), sizes, count, b1, 1 - b1, b2,
-            # 1 - b2, eps, weight decay, -lr, the bias corrections'
-            # reciprocals, stream, launches (out)
+            # 1 - b2, eps, weight decay, -lr, then device pointers: the skip
+            # flag (null: apply), the step count, the bias-correction
+            # table; stream, launches (out)
             "fused_adamw_launch": (
                 [_PTR_ARRAY] * 4 + [ctypes.POINTER(ctypes.c_longlong), _INT]
-                + [ctypes.c_float] * 9 + [_PTR, ctypes.POINTER(_INT)],
+                + [ctypes.c_float] * 7 + [_PTR] * 4 + [ctypes.POINTER(_INT)],
                 _INT,
             ),
         },

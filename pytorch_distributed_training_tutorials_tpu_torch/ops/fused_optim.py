@@ -10,7 +10,11 @@ a CPU tensor runs that plain version; CUDA tensors launch
 ``adamw_kernel`` of ``csrc/fused_adamw.cu`` — all leaves in one launch
 (up to 512 leaves per launch), m, v and p updated in place, u rounded to
 f32 before ``p + u`` as optax's ``update`` then ``apply_updates`` round
-it. Float32 contiguous leaves only; it raises on anything else and when
+it. The kernel reads the step count and the bias corrections from the
+state's device tensors, and the skip-step guard's flag ``ok`` (a 0-dim
+int32 device tensor): where it is 0 no block stores anything, so p, m, v
+and the count stay bitwise unchanged without a copy or a host sync.
+Float32 contiguous leaves only; it raises on anything else and when
 a launch fails, and never falls back. ``fused_adamw.launches`` counts
 kernel launches; CPU calls add none.
 
@@ -43,6 +47,11 @@ def _route(params, grads, state: AdamWState) -> bool:
         return False
     if next(iter(devices)).type != "cuda":
         raise ValueError(f"fused_adamw runs on cpu or cuda, got {devices}")
+    dev = next(iter(devices))
+    if (state.count.dtype, state.count.device, state.table.dtype, state.table.device) != (
+            torch.int32, dev, torch.float32, dev) or not state.table.is_contiguous():
+        raise ValueError("fused_adamw: the state's count (int32) and bias-correction table "
+                         "(float32, contiguous) must lie on the leaves' device")
     for p, g, m, v in zip(*groups):
         for x in (g, m, v):
             if x.shape != p.shape:
@@ -66,12 +75,15 @@ class FusedAdamW(AdamW):
 
     @torch.no_grad()
     def update_(self, params: list[torch.Tensor], grads: list[torch.Tensor],
-                state: AdamWState) -> None:
-        """One AdamW step, parameters and moments updated in place."""
+                state: AdamWState, ok: torch.Tensor | None = None) -> None:
+        """One AdamW step, parameters and moments updated in place; with
+        ``ok`` 0 everything stays bitwise as it was."""
         if not _route(params, grads, state):
-            return super().update_(params, grads, state)
-        state.count += 1
-        inv1, inv2 = self.inverse_bias_corrections(state.count)
+            return super().update_(params, grads, state, ok)
+        if ok is not None and (ok.dtype != torch.int32 or ok.numel() != 1
+                               or ok.device != params[0].device):
+            raise ValueError("fused_adamw: ok must be one int32 element on the leaves' device")
+        self.advance_(state, ok)  # the count by ok; the kernel reads its table row
         n = len(params)
         sizes = (ctypes.c_longlong * n)(*(p.numel() for p in params))
         launched = ctypes.c_int(0)
@@ -83,7 +95,10 @@ class FusedAdamW(AdamW):
                 _pointers(grads), _pointers(state.mu),
                 _pointers(state.nu), _pointers(params), sizes, n,
                 self.b1, 1.0 - self.b1, self.b2, 1.0 - self.b2, self.eps,
-                self.weight_decay, -self.lr, inv1, inv2,
+                self.weight_decay, -self.lr,
+                ctypes.c_void_p(None if ok is None else ok.data_ptr()),
+                ctypes.c_void_p(state.count.data_ptr()),
+                ctypes.c_void_p(state.table.data_ptr()),
                 ctypes.c_void_p(stream), ctypes.byref(launched),
             )
         fused_adamw.launches += launched.value

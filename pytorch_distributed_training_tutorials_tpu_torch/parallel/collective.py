@@ -36,23 +36,33 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     return _AllReduceSum.apply(x, group)
 
 
+def bucket_plan(tensors: list[torch.Tensor]) -> list[list[int]]:
+    """The all-reduce buckets of :func:`all_reduce_mean_`: indices into
+    ``tensors``, grouped by dtype in first-seen order, each bucket closed
+    once it holds :data:`BUCKET_BYTES` or more."""
+    by_dtype: dict[torch.dtype, list[int]] = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    plan = []
+    for indices in by_dtype.values():
+        bucket, nbytes = [], 0
+        for i in indices:
+            bucket.append(i)
+            nbytes += tensors[i].numel() * tensors[i].element_size()
+            if nbytes >= BUCKET_BYTES:
+                plan.append(bucket)
+                bucket, nbytes = [], 0
+        if bucket:
+            plan.append(bucket)
+    return plan
+
+
 @torch.no_grad()
 def all_reduce_mean_(tensors: list[torch.Tensor], group, world: int) -> None:
     """Average ``tensors`` over ``group`` (``world`` ranks) in place: one
-    all-reduce per bucket of up to :data:`BUCKET_BYTES` of one dtype."""
-    by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
-    for t in tensors:
-        by_dtype.setdefault(t.dtype, []).append(t)
-    for group_tensors in by_dtype.values():
-        bucket, nbytes = [], 0
-        for t in group_tensors:
-            bucket.append(t)
-            nbytes += t.numel() * t.element_size()
-            if nbytes >= BUCKET_BYTES:
-                _reduce_bucket(bucket, group, world)
-                bucket, nbytes = [], 0
-        if bucket:
-            _reduce_bucket(bucket, group, world)
+    all-reduce per bucket of :func:`bucket_plan`."""
+    for bucket in bucket_plan(tensors):
+        _reduce_bucket([tensors[i] for i in bucket], group, world)
 
 
 def _reduce_bucket(bucket: list[torch.Tensor], group, world: int) -> None:

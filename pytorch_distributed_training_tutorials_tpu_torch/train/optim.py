@@ -12,8 +12,16 @@ which decays ``p`` first and rounds differently. This is the plain twin
 that the fused AdamW kernel (:mod:`..ops.fused_optim`) is held to, bitwise.
 
 The update is IN PLACE: parameters and moments are overwritten (JAX
-returns new trees). The step count is a host integer, so a step does no
-host sync.
+returns new trees). The step count is a device tensor (optax's ``count``)
+and the bias corrections are read from a device table of the host's
+float32 values indexed by it (:class:`AdamWState`), so a step does no host
+sync and the corrections are bitwise what the host computes.
+
+``update_(..., ok=flag)`` is the skip-step guard's form (the trainer's
+``skip_nonfinite``): ``flag`` is a 0-dim int32 device tensor, and where it
+is 0 the parameters and the optimizer state come out bitwise unchanged,
+the count included. Without it (``ok=None``) the update is the unguarded
+one, bitwise the same arithmetic.
 """
 
 from __future__ import annotations
@@ -30,11 +38,32 @@ import torch
 _CHUNK = 16
 
 
+# rows of a new bias-correction table; it doubles when the step count
+# could reach its end
+_TABLE_ROWS = 1024
+
+
 @dataclasses.dataclass
 class AdamWState:
-    count: int
+    """optax's ``count``, ``mu`` and ``nu``, and the bias-correction table:
+    ``table[t]`` holds ``inverse_bias_corrections(t)`` (host float32 values)
+    for every count ``t`` the state can reach; ``calls`` (host) counts
+    updates so far, an upper bound of ``count``, and grows the table before
+    the count could pass its end."""
+
+    count: torch.Tensor  # int32, 0-dim, on the parameters' device
     mu: list[torch.Tensor]
     nu: list[torch.Tensor]
+    table: torch.Tensor  # (rows, 2) float32 on the same device
+    calls: int = 0
+
+
+def keep_where(ok: torch.Tensor, new: list[torch.Tensor], old: list[torch.Tensor]) -> None:
+    """``new[i] = old[i]`` where the 0-dim flag ``ok`` is 0, in place: a
+    select, so either side's bits pass through unchanged."""
+    flag = ok.bool()
+    for n, o in zip(new, old):
+        torch.where(flag, n, o, out=n)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,10 +75,12 @@ class AdamW:
     weight_decay: float = 1e-4
 
     def init(self, params: list[torch.Tensor]) -> AdamWState:
+        dev = params[0].device
         return AdamWState(
-            count=0,
+            count=torch.zeros((), dtype=torch.int32, device=dev),
             mu=[torch.zeros_like(p) for p in params],
             nu=[torch.zeros_like(p) for p in params],
+            table=self._table(_TABLE_ROWS, dev),
         )
 
     def inverse_bias_corrections(self, count: int) -> tuple[float, float]:
@@ -59,12 +90,36 @@ class AdamW:
         return (float(f32(1.0) / (f32(1.0) - f32(self.b1) ** f32(count))),
                 float(f32(1.0) / (f32(1.0) - f32(self.b2) ** f32(count))))
 
+    def _table(self, rows: int, device: torch.device) -> torch.Tensor:
+        """Rows 0 .. rows-1 of the device table (row 0, which no applied
+        update reads, holds 1.0)."""
+        host = np.ones((rows, 2), dtype=np.float32)
+        for t in range(1, rows):
+            host[t] = self.inverse_bias_corrections(t)
+        t = torch.from_numpy(host)
+        return t.to(device) if device.type != "cuda" else t.pin_memory().to(device, non_blocking=True)
+
+    def advance_(self, state: AdamWState, ok: torch.Tensor | None) -> None:
+        """The count advanced on the device (by ``ok``, else 1); the table
+        grows first, doubling, if the count could reach its end."""
+        state.calls += 1
+        rows = state.table.shape[0]
+        if state.calls >= rows:
+            while rows <= state.calls:
+                rows *= 2
+            state.table = self._table(rows, state.table.device)
+        state.count.add_(1 if ok is None else ok)
+
     @torch.no_grad()
     def update_(self, params: list[torch.Tensor], grads: list[torch.Tensor],
-                state: AdamWState) -> None:
-        """One AdamW step, parameters and moments updated in place."""
-        state.count += 1
-        inv1, inv2 = self.inverse_bias_corrections(state.count)
+                state: AdamWState, ok: torch.Tensor | None = None) -> None:
+        """One AdamW step, parameters and moments updated in place; with
+        ``ok`` 0 everything stays bitwise as it was."""
+        kept = None
+        if ok is not None:
+            kept = [x.clone() for x in (*params, *state.mu, *state.nu)]
+        self.advance_(state, ok)
+        inv1, inv2 = state.table.index_select(0, state.count.reshape(1))[0]  # 0-dim views
         for lo in range(0, len(params), _CHUNK):
             p = params[lo:lo + _CHUNK]
             g = grads[lo:lo + _CHUNK]
@@ -86,6 +141,8 @@ class AdamW:
             torch._foreach_add_(u, torch._foreach_mul(p, self.weight_decay))
             torch._foreach_mul_(u, -self.lr)
             torch._foreach_add_(p, u)
+        if kept is not None:
+            keep_where(ok, [*params, *state.mu, *state.nu], kept)
 
 
 def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -96,7 +153,8 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
 @dataclasses.dataclass
 class SGDState:
-    count: int
+    """optax's ``TraceState``: the momentum trace (None without momentum)."""
+
     trace: list[torch.Tensor] | None
 
 
@@ -111,19 +169,23 @@ class SGD:
 
     def init(self, params: list[torch.Tensor]) -> SGDState:
         trace = None if self.momentum is None else [torch.zeros_like(p) for p in params]
-        return SGDState(count=0, trace=trace)
+        return SGDState(trace=trace)
 
     @torch.no_grad()
     def update_(self, params: list[torch.Tensor], grads: list[torch.Tensor],
-                state: SGDState) -> None:
-        """One SGD step, parameters and the trace updated in place."""
-        state.count += 1
+                state: SGDState, ok: torch.Tensor | None = None) -> None:
+        """One SGD step, parameters and the trace updated in place; with
+        ``ok`` 0 both stay bitwise as they were."""
+        trace = state.trace or []
+        kept = None if ok is None else [x.clone() for x in (*params, *trace)]
         u = list(grads)
         if state.trace is not None:
             torch._foreach_mul_(state.trace, self.momentum)
             torch._foreach_add_(state.trace, grads)
             u = state.trace
         torch._foreach_add_(params, torch._foreach_mul(u, -self.lr))
+        if kept is not None:
+            keep_where(ok, [*params, *trace], kept)
 
 
 def sgd(learning_rate: float, momentum: float | None = None) -> SGD:

@@ -19,7 +19,21 @@ its final hidden states (``return_hidden=True``) and
 :func:`..ops.fused_loss.fused_cross_entropy` streams them against the
 lm_head weight. A model with BatchNorm (``has_batch_stats``) runs its
 forward with ``train=True`` in the step and ``train=False`` in eval.
-``skip_nonfinite``, ``chaos`` and loss-spike rollback (ROADMAP A10),
+
+The guardrails are the JAX trainer's. ``skip_nonfinite``: after the
+gradient average, a device flag says whether the loss and every gradient
+element are finite (each leaf's largest ``|g|``: a 2-norm of large finite
+gradients would overflow and skip a healthy step); the optimizer takes the
+flag (``update_(..., ok=)``), so a skipped step leaves the parameters, the
+optimizer state (AdamW's count included) and ``step`` bitwise unchanged,
+and BatchNorm's statistics, written in the forward, are selected back from
+a copy taken before it. The flag is data: no host sync, and the step's
+``"skipped"`` scalar rides the epoch's one batched drain. ``chaos``
+(:class:`..utils.chaos.ChaosConfig`) injects the faults the guard is tested
+against. ``rollback_spike_factor``: a host monitor of the loss restores the
+latest ``save()`` and continues when the loss spikes; it costs a loss fetch
+a step (a chunk on the chunked path).
+
 ``aux_loss_weight`` (A14) and ``model_kwargs`` (the LoRA bank, A13) raise
 ``NotImplementedError``.
 """
@@ -27,6 +41,7 @@ forward with ``train=True`` in the step and ``train=False`` in eval.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import shutil
 import time
@@ -48,9 +63,10 @@ from pytorch_distributed_training_tutorials_tpu_torch.obs.metrics import Metrics
 from pytorch_distributed_training_tutorials_tpu_torch.ops.fused_loss import fused_cross_entropy
 from pytorch_distributed_training_tutorials_tpu_torch.parallel.data_parallel import DataParallel
 from pytorch_distributed_training_tutorials_tpu_torch.parallel.distributed import is_primary
+from pytorch_distributed_training_tutorials_tpu_torch.train.optim import keep_where
+from pytorch_distributed_training_tutorials_tpu_torch.utils import chaos as chaos_lib
 from pytorch_distributed_training_tutorials_tpu_torch.utils.logging import epoch_line
 
-_GUARDRAILS = "the trainer guardrails slice (ROADMAP A10)"
 _MOE = "the MoE slice (ROADMAP A14)"
 _LORA = "the LoRA-bank slice (ROADMAP A13)"
 
@@ -165,16 +181,45 @@ def _laid_out_like(grads, params: list[torch.Tensor]) -> list[torch.Tensor]:
             for g, p in zip(grads, params)]
 
 
-def _apply_update(state: TrainState, grads: list[torch.Tensor], loss_val: torch.Tensor):
+def finite_flag(loss_val: torch.Tensor, grads: list[torch.Tensor]) -> torch.Tensor:
+    """1 (a 0-dim int32 device tensor) when the loss and every gradient
+    element are finite, else 0. Each leaf's largest ``|g|`` is exact and
+    carries NaN and inf; a 2-norm would overflow to inf on large finite
+    gradients."""
+    peaks = torch.stack(torch._foreach_norm(grads, ord=math.inf)).float()
+    return torch.isfinite(torch.cat([peaks, loss_val.float().reshape(1)])).all().to(torch.int32)
+
+
+def _apply_update(state: TrainState, grads: list[torch.Tensor], loss_val: torch.Tensor,
+                  skip_nonfinite: bool = False, chaos=None,
+                  stats_before: list[torch.Tensor] | None = None):
     """The optimizer tail: gradients and loss averaged over the data axis
-    (data parallel), the update in place, ``step += 1`` on the device."""
+    (data parallel), the update in place, ``step += 1`` on the device.
+
+    ``chaos`` poisons the averaged gradients at its ``nan_grad_step``.
+    ``skip_nonfinite`` computes the finite flag on the averaged values,
+    which every rank holds alike, so the ranks agree with no collective of
+    their own; the update takes the flag, BatchNorm's statistics go back
+    to ``stats_before`` where it is 0, ``step`` advances by it, and the
+    metrics gain ``"skipped"`` (a device scalar)."""
     loss_val = loss_val.detach()
     if state.grad_sync is not None:
         loss_val = loss_val.clone()
         state.grad_sync([*grads, loss_val])
-    state.tx.update_(state.params, grads, state.opt_state)
-    state.step += 1
-    return state, {"loss": loss_val}
+    if chaos is not None and chaos.poisons_grads:
+        grads = chaos_lib.poison_grads(grads, state.step, chaos.nan_grad_step)
+    metrics = {"loss": loss_val}
+    if not skip_nonfinite:
+        state.tx.update_(state.params, grads, state.opt_state)
+        state.step += 1
+        return state, metrics
+    ok = finite_flag(loss_val, grads)
+    state.tx.update_(state.params, grads, state.opt_state, ok=ok)
+    if stats_before:
+        keep_where(ok, batch_stats(state.model), stats_before)
+    state.step += ok
+    metrics["skipped"] = 1 - ok
+    return state, metrics
 
 
 def _train_step_fn(loss: str = "cross_entropy", has_batch_stats: bool = False,
@@ -184,27 +229,27 @@ def _train_step_fn(loss: str = "cross_entropy", has_batch_stats: bool = False,
     forward, backward (``torch.autograd.grad``), the gradient all-reduce
     where the state is data parallel, and the update, all in place."""
     loss_fn = _make_loss_fn(loss, has_batch_stats, aux_loss_weight, model_kwargs)
-    if skip_nonfinite:
-        raise _later("skip_nonfinite", _GUARDRAILS)
-    if chaos is not None:
-        raise _later("chaos", _GUARDRAILS)
+    keep_stats = skip_nonfinite and has_batch_stats
 
     def step_fn(state: TrainState, batch):
         params = state.params
+        stats_before = [s.clone() for s in batch_stats(state.model)] if keep_stats else None
         loss_val = loss_fn(state.model, batch)
         grads = _laid_out_like(torch.autograd.grad(loss_val, params), params)
-        return _apply_update(state, grads, loss_val)
+        return _apply_update(state, grads, loss_val, skip_nonfinite, chaos, stats_before)
 
     return step_fn
 
 
 def _accum_step_fn(n: int, loss: str, has_batch_stats: bool, aux_loss_weight: float,
-                   model_kwargs: dict | None):
+                   model_kwargs: dict | None, skip_nonfinite: bool = False, chaos=None):
     """Gradient accumulation over ``n`` strided microbatches (rows
     ``m::n``), as the JAX step's ``lax.scan``: the gradients and losses
     summed from zero and scaled by ``1 / n``; every microbatch's forward
     starts from the step's BatchNorm statistics, and the new statistics
-    are the mean of the microbatches' (float32, then cast back)."""
+    are the mean of the microbatches' (float32, then cast back). The guard
+    checks the averaged gradients: one poisoned microbatch skips the
+    step."""
     loss_fn = _make_loss_fn(loss, has_batch_stats, aux_loss_weight, model_kwargs)
 
     def step_fn(state: TrainState, batch):
@@ -231,7 +276,8 @@ def _accum_step_fn(n: int, loss: str, has_batch_stats: bool, aux_loss_weight: fl
         with torch.no_grad():
             for s, acc in zip(stats, s_sum):
                 s.copy_((acc * inv).to(s.dtype))
-        return _apply_update(state, torch._foreach_mul(g_sum, inv), l_sum * inv)
+        return _apply_update(state, torch._foreach_mul(g_sum, inv), l_sum * inv,
+                             skip_nonfinite, chaos, old if skip_nonfinite else None)
 
     return step_fn
 
@@ -242,18 +288,16 @@ def make_train_step(loss: str = "cross_entropy", has_batch_stats: bool = False,
                     chaos=None):
     """The train step (eager: no compile, no donation — the state is
     updated in place). ``grad_accum_steps > 1`` splits the batch into that
-    many strided microbatches before one optimizer update."""
+    many strided microbatches before one optimizer update.
+    ``skip_nonfinite`` turns on the skip-step guard and ``chaos`` injects
+    its faults (:func:`_apply_update`)."""
     if grad_accum_steps < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
     if grad_accum_steps == 1:
         return _train_step_fn(loss, has_batch_stats, aux_loss_weight, model_kwargs,
                               skip_nonfinite=skip_nonfinite, chaos=chaos)
-    if skip_nonfinite:
-        raise _later("skip_nonfinite", _GUARDRAILS)
-    if chaos is not None:
-        raise _later("chaos", _GUARDRAILS)
     return _accum_step_fn(grad_accum_steps, loss, has_batch_stats, aux_loss_weight,
-                          model_kwargs)
+                          model_kwargs, skip_nonfinite=skip_nonfinite, chaos=chaos)
 
 
 def make_eval_step(loss: str = "cross_entropy", has_batch_stats: bool = False):
@@ -299,7 +343,8 @@ def _init_weights(model: nn.Module, seed: int, device: torch.device) -> None:
 
 
 class Trainer:
-    """Epoch and batch loop over a sharded or device-resident loader::
+    """Epoch and batch loop over a sharded, chunked-streaming or
+    device-resident loader::
 
         trainer = Trainer(model, loader, sgd(0.05, momentum=0.9))
         trainer.train(max_epochs)
@@ -309,21 +354,35 @@ class Trainer:
     (``DataParallel`` over the loader's mesh by default) broadcasts them
     from rank 0. Each epoch fetches its losses once, in one batched copy
     at its end (``MetricsLogger``); nothing inside an epoch syncs with the
-    host. ``host_syncs`` counts the trainer's fetches."""
+    host, guard on or off, unless ``rollback_spike_factor`` asks for its
+    loss fetches. ``host_syncs`` counts the trainer's fetches.
+
+    A loader with ``iter_chunks`` (:class:`..data.ChunkedStreamingLoader`)
+    trains chunk by chunk (:meth:`_run_epoch_chunked`), the next chunk's
+    upload overlapping the steps.
+
+    Guardrails (the module docstring): ``skip_nonfinite``, ``chaos``, and
+    ``rollback_spike_factor`` with ``rollback_patience`` and
+    ``rollback_ema``: when the monitored loss exceeds factor x its EMA (or
+    is not finite) for ``rollback_patience`` consecutive observations,
+    the latest ``save()`` is restored and training continues from the
+    current data position."""
 
     def __init__(self, model: nn.Module, train_loader, optimizer, *, strategy=None,
                  loss: str = "cross_entropy", aux_loss_weight: float = 0.0,
                  grad_accum_steps: int = 1, seed: int = 0, quiet: bool = False,
                  skip_nonfinite: bool = False, chaos=None,
-                 rollback_spike_factor: float | None = None):
-        if skip_nonfinite:
-            raise _later("skip_nonfinite", _GUARDRAILS)
-        if chaos is not None:
-            raise _later("chaos", _GUARDRAILS)
-        if rollback_spike_factor is not None:
-            raise _later("loss-spike rollback", _GUARDRAILS)
+                 rollback_spike_factor: float | None = None, rollback_patience: int = 2,
+                 rollback_ema: float = 0.9):
         if aux_loss_weight:
             raise _later("aux_loss_weight", _MOE)
+        if rollback_spike_factor is not None and rollback_spike_factor <= 1:
+            raise ValueError(f"rollback_spike_factor must be > 1 (None = off), got "
+                             f"{rollback_spike_factor}")
+        if rollback_patience < 1:
+            raise ValueError(f"rollback_patience must be >= 1, got {rollback_patience}")
+        if not 0.0 <= rollback_ema < 1.0:
+            raise ValueError(f"rollback_ema must be in [0, 1), got {rollback_ema}")
         self.model = model
         self.loader = train_loader
         self.strategy = strategy if strategy is not None else DataParallel(train_loader.mesh)
@@ -347,44 +406,105 @@ class Trainer:
                 # per-device batch divides
                 raise ValueError(f"per-device batch ({train_loader.per_device_batch}) not "
                                  f"divisible by grad_accum_steps ({grad_accum_steps})")
+        self.grad_accum_steps = grad_accum_steps
+        self.chaos = chaos
         self.train_step = make_train_step(loss=loss, has_batch_stats=self.has_batch_stats,
-                                          grad_accum_steps=grad_accum_steps)
+                                          grad_accum_steps=grad_accum_steps,
+                                          skip_nonfinite=skip_nonfinite, chaos=chaos)
         self.metrics = MetricsLogger(quiet=quiet)
         self.loss_name = loss
         self.last_epoch_metrics: dict = {}
         self.epoch = 0  # next epoch to run; advanced by train(), restored
         self._own_syncs = 0
         self._eval_step = None
+        self._rb_factor = rollback_spike_factor
+        self._rb_patience = rollback_patience
+        self._rb_decay = rollback_ema
+        self._rb_ema = None  # EMA of healthy monitored losses
+        self._rb_strikes = 0  # consecutive spike observations
+        self._monitor_steps = 0  # monotonic host counter, never replays
+        self._dispatches = 0  # monotonic step-dispatch counter (batch chaos)
+        self.rollbacks = 0
+        self._last_ckpt = None  # latest save() target (rollback restores it)
 
     @property
     def host_syncs(self) -> int:
         """Host fetches so far: the metrics drains and the trainer's own
-        (evaluation, checkpoints)."""
+        (evaluation, checkpoints, the rollback monitor's loss fetches)."""
         return self.metrics.host_fetches + self._own_syncs
+
+    def _step(self, batch, steps: int) -> torch.Tensor:
+        """Dispatch one step (the batch poisoned first where ``chaos``
+        says) and log its loss and skip flag, un-fetched."""
+        if not isinstance(batch, tuple):
+            batch = (batch,)
+        self._dispatches += 1
+        if self.chaos is not None and self.chaos.poisons_batch:
+            batch = chaos_lib.maybe_poison_batch(self.chaos, self._dispatches, batch)
+        self.state, metrics = self.train_step(self.state, batch)
+        extra = {"skipped": metrics["skipped"]} if "skipped" in metrics else None
+        self.metrics.log_step(steps, metrics["loss"], extra=extra)
+        return metrics["loss"]
+
+    def _monitored(self, loss: torch.Tensor) -> bool:
+        """Rollback on: fetch ``loss`` (counted) and feed the monitor;
+        True when it rolled back."""
+        if self._rb_factor is None:
+            return False
+        self._own_syncs += 1
+        return self._monitor_loss(float(loss))
+
+    def _epoch_metrics(self, epoch: int, steps: int, t0: float) -> dict:
+        self.metrics.flush()  # the epoch's one fetch: every step's loss and flag
+        dt = time.perf_counter() - t0
+        loss = self.metrics.step_events()[-1]["loss"] if steps else float("nan")
+        m = {
+            "epoch": epoch, "loss": loss, "steps": steps,
+            "steps_per_sec": steps / dt if dt > 0 else float("inf"),
+            "samples_per_sec": steps * self.loader.global_batch / dt if dt > 0 else float("inf"),
+        }
+        self.metrics.log_epoch(m)
+        return m
 
     def _run_epoch(self, epoch: int) -> dict:
         loader = self.loader
+        if getattr(loader, "iter_chunks", None) is not None and self.grad_accum_steps == 1:
+            # gradient accumulation composes with the per-step path only
+            return self._run_epoch_chunked(epoch)
         loader.set_epoch(epoch)
         self.metrics.say(epoch_line(self.strategy.num_devices, epoch,
                                     loader.per_device_batch, len(loader)))
         t0 = time.perf_counter()
         steps = 0
         for batch in loader:
-            if not isinstance(batch, tuple):
-                batch = (batch,)
-            self.state, metrics = self.train_step(self.state, batch)
             steps += 1
-            self.metrics.log_step(steps, metrics["loss"])
-        self.metrics.flush()  # the epoch's one fetch: every step's loss
-        dt = time.perf_counter() - t0
-        loss = self.metrics.step_events()[-1]["loss"] if steps else float("nan")
-        m = {
-            "epoch": epoch, "loss": loss, "steps": steps,
-            "steps_per_sec": steps / dt if dt > 0 else float("inf"),
-            "samples_per_sec": steps * loader.global_batch / dt if dt > 0 else float("inf"),
-        }
-        self.metrics.log_epoch(m)
-        return m
+            self._monitored(self._step(batch, steps))
+        return self._epoch_metrics(epoch, steps, t0)
+
+    def _run_epoch_chunked(self, epoch: int) -> dict:
+        """The epoch from prefetched multi-step chunks
+        (:meth:`..data.ChunkedStreamingLoader.iter_chunks`): each chunk's
+        steps dispatch one by one, eagerly, while the next chunk's gather
+        and upload run in the loader's thread. The rollback monitor reads
+        each chunk's last loss and abandons the epoch's rest when it rolls
+        back."""
+        loader = self.loader
+        loader.set_epoch(epoch)
+        self.metrics.say(epoch_line(self.strategy.num_devices, epoch,
+                                    loader.per_device_batch, len(loader)))
+        t0 = time.perf_counter()
+        steps = 0
+        chunks = loader.iter_chunks()
+        try:
+            for chunk in chunks:
+                for i in range(chunk[0].shape[0]):
+                    steps += 1
+                    loss = self._step(loader.chunk_step(chunk, i), steps)
+                if self._monitored(loss):
+                    break  # rolled back: abandon the rest of this epoch
+        finally:
+            chunks.close()
+        return self._epoch_metrics(epoch, steps, t0)
 
     def train(self, max_epochs: int) -> dict:
         """Run up to epoch ``max_epochs``, starting from ``self.epoch`` (a
@@ -401,6 +521,61 @@ class Trainer:
             self.last_epoch_metrics = self._run_epoch(epoch)
             self.epoch = epoch + 1
         return self.last_epoch_metrics
+
+    # -- loss-spike rollback ---------------------------------------------
+    def _monitor_loss(self, loss_value: float) -> bool:
+        """Feed one host-float loss to the spike monitor; True when it
+        rolled back. A spike is a value above ``rollback_spike_factor`` x
+        the EMA of healthy observations, or a non-finite one;
+        ``rollback_patience`` consecutive spikes trigger. Spikes never
+        enter the EMA, and the monitor's host step counter is monotonic
+        across rollbacks, so a chaos spike keyed to it cannot fire
+        again after the restore."""
+        self._monitor_steps += 1
+        if self.chaos is not None:
+            loss_value = chaos_lib.host_spike_loss(loss_value, self._monitor_steps, self.chaos)
+        spike = not math.isfinite(loss_value) or (
+            self._rb_ema is not None and loss_value > self._rb_factor * self._rb_ema)
+        if spike:
+            self._rb_strikes += 1
+            if self._rb_strikes >= self._rb_patience:
+                self._do_rollback(loss_value)
+                return True
+            return False
+        self._rb_strikes = 0
+        d = self._rb_decay
+        self._rb_ema = loss_value if self._rb_ema is None else d * self._rb_ema + (1.0 - d) * loss_value
+        return False
+
+    def _do_rollback(self, loss_value: float) -> None:
+        """Restore the latest ``save()`` target and continue: the train
+        state rolls back, the data position (``self.epoch``) does not (the
+        batches behind the spike are skipped, not replayed); the monitor
+        resets."""
+        if self._last_ckpt is None:
+            raise RuntimeError(
+                "loss-spike rollback triggered but no checkpoint exists — "
+                "call save() at least once (e.g. per epoch) when "
+                "rollback_spike_factor is set"
+            )
+        epoch_now = self.epoch
+        self.restore(self._last_ckpt)
+        self.epoch = epoch_now  # keep the data position (skip, don't replay)
+        self.rollbacks += 1
+        self._rb_strikes = 0
+        self._rb_ema = None
+        self.metrics.say(
+            f"  rollback #{self.rollbacks}: loss {loss_value:.4g} spiked "
+            f">{self._rb_factor:g}x EMA for {self._rb_patience} obs — "
+            f"restored {self._last_ckpt}"
+        )
+
+    @property
+    def steps_skipped(self) -> int:
+        """Skip-step elisions so far (``skip_nonfinite``). Drains the
+        metrics logger (its one batched fetch, if anything is pending)."""
+        self.metrics.flush()
+        return int(sum(e.get("skipped", 0) for e in self.metrics.step_events()))
 
     # -- checkpoint / resume ----------------------------------------------
     def _state_tree(self) -> dict:
@@ -465,6 +640,7 @@ class Trainer:
                 shutil.rmtree(old)
         if dist.is_initialized():
             dist.barrier()
+        self._last_ckpt = path
 
     @staticmethod
     def _resolve_ckpt(path) -> str:
@@ -483,20 +659,35 @@ class Trainer:
     def restore(self, path) -> None:
         """Restore in place (the same tensors the optimizer holds): a plain
         checkpoint, a ``save(keep=K)`` rotation directory (newest child),
-        or a crash-windowed single path (``.old``)."""
+        or a crash-windowed single path (``.old``).
+
+        A checkpoint whose optimizer state kept its count on the host (an
+        int, and a ``count`` in SGD's state) loads too: the int fills the
+        device count, a field the current state lacks is dropped, and
+        AdamW's ``calls`` starts from that count, so the bias-correction
+        table grows to cover it on the next update."""
         tree = torch.load(os.path.join(self._resolve_ckpt(path), "state.pt"),
                           map_location=self.device, weights_only=True)
         self.state.model.load_state_dict(tree["model"])
         opt = self.state.opt_state
+        saved = tree["opt_state"]
         with torch.no_grad():
             self.state.step.copy_(tree["step"])
-            for name, value in tree["opt_state"].items():
+            for name, value in saved.items():
+                if not hasattr(opt, name):
+                    continue
                 current = getattr(opt, name)
                 if isinstance(current, list):
                     for dst, src in zip(current, value):
                         dst.copy_(src)
+                elif isinstance(current, torch.Tensor) and not isinstance(value, torch.Tensor):
+                    current.fill_(value)  # a host count into the device count
+                elif isinstance(current, torch.Tensor) and current.shape == value.shape:
+                    current.copy_(value)  # AdamW's count: the same tensor
                 else:
                     setattr(opt, name, value)
+            if hasattr(opt, "calls") and "calls" not in saved:
+                opt.calls = int(saved["count"])
         self.epoch = int(tree["epoch"])
 
     # -- evaluation -------------------------------------------------------

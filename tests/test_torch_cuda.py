@@ -351,3 +351,60 @@ def test_paged_serve_selftest_on_cuda(kv_bits):
     receipt = selftest("cuda", paged=True, paged_kernel=True, kv_bits=kv_bits)
     assert receipt["ok"], receipt["problems"]
     assert pa.paged_attention.launches > before
+
+
+def _bit_patterns(tensors):
+    return [t.contiguous().view(torch.int32).clone() for t in tensors]
+
+
+def test_fused_adamw_skip_flag_and_device_count():
+    """The guarded step: with ``ok`` 0 the kernel stores nothing (p, m, v
+    and the count keep their bit patterns) and still counts its launch;
+    with ``ok`` 1 it is bitwise the plain AdamW given the same flag."""
+    _need_cuda()
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.fused_optim import fused_adamw
+    from pytorch_distributed_training_tutorials_tpu_torch.train.optim import adamw
+
+    shapes = [(1000, 37), (13,), (1536, 1536), "misaligned"]
+    params = _adamw_leaves(shapes, 2)
+    plain_params = [p.clone() for p in params]
+    tx, plain = fused_adamw(3e-4, weight_decay=0.01), adamw(3e-4, weight_decay=0.01)
+    state, plain_state = tx.init(params), plain.init(plain_params)
+    flags = {v: torch.tensor(v, dtype=torch.int32, device="cuda") for v in (0, 1)}
+    before = fused_adamw.launches
+    for step, ok in enumerate((1, 0, 1, 0, 0, 1)):
+        grads = _adamw_leaves(shapes, 20 + step)
+        if not ok:
+            grads[0][3, 5] = float("nan")  # what the guard would have seen
+        kept = _bit_patterns(params + state.mu + state.nu) + [state.count.clone()]
+        tx.update_(params, grads, state, ok=flags[ok])
+        plain.update_(plain_params, grads, plain_state, ok=flags[ok])
+        got = _bit_patterns(params + state.mu + state.nu) + [state.count.clone()]
+        want = _bit_patterns(plain_params + plain_state.mu + plain_state.nu) + [
+            plain_state.count.clone()]
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        if not ok:
+            assert all(torch.equal(a, b) for a, b in zip(got, kept))
+    assert int(state.count) == 3
+    assert fused_adamw.launches == before + 6
+
+
+def test_finite_flag_on_the_card():
+    """The guard's flag from each leaf's largest |g| on CUDA tensors: one
+    NaN or inf anywhere in a large leaf clears it; huge finite gradients
+    (whose 2-norm overflows) keep it."""
+    _need_cuda()
+    from pytorch_distributed_training_tutorials_tpu_torch.train.trainer import finite_flag
+
+    grads = [torch.zeros((4096, 2048), device="cuda"), torch.zeros((7,), device="cuda")]
+    loss = torch.tensor(0.5, device="cuda")
+    assert int(finite_flag(loss, grads)) == 1
+    for leaf, where, value in ((0, (4000, 2047), float("nan")), (0, (5, 5), float("inf")),
+                               (1, (6,), float("-inf")), (1, (0,), float("nan"))):
+        bad = [g.clone() for g in grads]
+        bad[leaf][where] = value
+        assert int(finite_flag(loss, bad)) == 0
+    huge = [g + 1e30 for g in grads]
+    assert not torch.isfinite(torch.linalg.vector_norm(huge[0]))
+    assert int(finite_flag(loss, huge)) == 1
+    assert int(finite_flag(torch.tensor(float("nan"), device="cuda"), grads)) == 0

@@ -44,7 +44,10 @@ def test_port_modules_import_no_jax():
            "models.mlp", "models.resnet", "models.utils", "parallel.distributed",
            "parallel.mesh", "parallel.collective", "parallel.data_parallel", "utils.logging", "obs.metrics",
            "train.trainer", "train.optim", "launch._spawn", "launch.train_ddp",
-           "launch.train_ddp_env", "bench.harness", "bench.headline")
+           "launch.train_ddp_env", "bench.harness", "bench.headline",
+           # the rest of the training path: streaming input, guardrails, benches
+           "utils.chaos", "data.prefetch", "data.streaming", "obs.receipt", "obs.timing",
+           "bench.scaling", "bench.__main__", "launch.pod")
     assert {f"{PORT}.{m}" for m in ddp} <= set(mods)
     code = (
         "import sys\n"

@@ -63,6 +63,7 @@ from pytorch_distributed_training_tutorials_tpu_torch.ops.flash_attention import
 from pytorch_distributed_training_tutorials_tpu_torch.ops.fused_optim import fused_adamw
 from pytorch_distributed_training_tutorials_tpu_torch.train import trainer as ttrainer
 from pytorch_distributed_training_tutorials_tpu_torch.train.optim import adamw
+from pytorch_distributed_training_tutorials_tpu_torch.utils.chaos import ChaosConfig
 from helpers import requires_pallas_interpret
 
 pytestmark = requires_pallas_interpret
@@ -314,14 +315,15 @@ def test_compute_loss_mse_and_one_hot_match_jax():
 
 def test_train_step_refuses_later_slice_options():
     for kw, slice_name in (
-        ({"skip_nonfinite": True}, "A10"), ({"chaos": object()}, "A10"),
         ({"aux_loss_weight": 0.1}, "A14"), ({"model_kwargs": {"adapter_ids": 1}}, "A13"),
-        ({"grad_accum_steps": 2, "skip_nonfinite": True}, "A10"),
     ):
         with pytest.raises(NotImplementedError, match=slice_name):
             ttrainer.make_train_step(**kw)
-    # the DDP slice brought gradient accumulation and BatchNorm statistics
+    # the DDP slice brought gradient accumulation and BatchNorm statistics,
+    # the guardrails slice the skip-step guard and chaos (test_torch_guardrails.py)
     assert callable(ttrainer.make_train_step(grad_accum_steps=2, has_batch_stats=True))
+    assert callable(ttrainer.make_train_step(grad_accum_steps=2, skip_nonfinite=True,
+                                             chaos=ChaosConfig(nan_grad_step=0)))
     with pytest.raises(NotImplementedError, match="LoRA-bank"):
         fused_adamw(3e-4, mask={"lm_head": True})
 

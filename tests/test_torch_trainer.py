@@ -216,11 +216,10 @@ def test_trainer_refusals():
     model = resnet18(num_classes=10, stem="cifar", num_filters=8, in_channels=1)
     with pytest.raises(ValueError, match="grad_accum_steps applies to the per-step path"):
         Trainer(model, resident, sgd(0.1), grad_accum_steps=2)
-    for kw, slice_name in (({"skip_nonfinite": True}, "A10"), ({"chaos": object()}, "A10"),
-                           ({"rollback_spike_factor": 3.0}, "A10"),
-                           ({"aux_loss_weight": 0.1}, "A14")):
-        with pytest.raises(NotImplementedError, match=slice_name):
-            Trainer(model, resident, sgd(0.1), **kw)
+    with pytest.raises(NotImplementedError, match="A14"):
+        Trainer(model, resident, sgd(0.1), aux_loss_weight=0.1)
+    # the guardrails are ported (tests/test_torch_guardrails.py)
+    Trainer(model, resident, sgd(0.1), skip_nonfinite=True, rollback_spike_factor=3.0)
 
 
 def _small_trainer(ds, opt):

@@ -70,3 +70,37 @@ def crash_once_worker(rank: int, workdir: str) -> None:
     with open(os.path.join(workdir, f"ok{rank}"), "w") as f:
         f.write(str(float(t)))
     distributed.shutdown()
+
+
+def guard_worker(rank: int, world: int, coordinator: str, workdir: str) -> None:
+    """One guarded step of ``Linear(4, 1)`` data parallel over ``world``
+    gloo processes, rank 1's rows NaN: the averaged gradients are NaN on
+    every rank, so every rank skips. Writes the state before and after,
+    the step and the skip flag to ``workdir/guard{rank}.pt``."""
+    from pytorch_distributed_training_tutorials_tpu_torch.models import LinearRegressor
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel.data_parallel import (
+        DataParallel,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.train import TrainState, adamw
+    from pytorch_distributed_training_tutorials_tpu_torch.train.trainer import make_train_step
+
+    torch.set_num_threads(1)
+    distributed.init(coordinator, world, rank, device="cpu")
+    dp = DataParallel(create_mesh(device="cpu"))
+    model = LinearRegressor(in_dim=4)
+    with torch.no_grad():
+        model.denses[0].weight.copy_(torch.arange(4.0).reshape(1, 4) / 10)
+        model.denses[0].bias.fill_(0.5)
+    state = dp.shard_state(TrainState.create(model=model, tx=adamw(1e-2)))
+    x = torch.arange(8 * 4, dtype=torch.float32).reshape(8, 4) / 100
+    if rank == 1:
+        x[0, 0] = float("nan")
+    step = make_train_step(loss="mse", skip_nonfinite=True)
+    before = [t.clone() for t in (*state.params, *state.opt_state.mu, *state.opt_state.nu,
+                                  state.opt_state.count, state.step)]
+    _, m = step(state, (x, torch.ones(8, 1)))
+    after = [*state.params, *state.opt_state.mu, *state.opt_state.nu, state.opt_state.count,
+             state.step]
+    torch.save({"before": before, "after": after, "skipped": int(m["skipped"])},
+               os.path.join(workdir, f"guard{rank}.pt"))
+    distributed.shutdown()
