@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernel-only   # phases 0-2: build, check, time
     python3 chip_smoke.py --ddp-only      # the training path: fused AdamW's check, 8, 9 and 10-12
     python3 chip_smoke.py --serve-only    # phases 0, 1, 4 and the serving phases after it
+    python3 chip_smoke.py --lora-only     # phases 0, 1 and the LoRA / dots_attn phases
 
 It drives the port (``pytorch_distributed_training_tutorials_tpu_torch``)
 on the card and fails — non-zero exit, no result line — if a phase fails.
@@ -188,6 +189,40 @@ never; ``spec_stats()`` equal to a host replay of the drafts over (a)'s
 greedy tokens. Each arm's tok/s, latency, TTFT, verify forwards, acceptance
 and the device's busy and idle share.
 
+Then ``serve_1b_lora``, the multi-tenant slice: the 1b preset (int8
+weights, flash prefill) with ``ServeEngine(adapter_bank=AdapterBank(
+n_adapters=4, rank=8))`` — three synthetic tenants drawn N(0, 0.02^2)
+as ``examples/serve_llm_int8.py --adapters 4`` draws them — serving phase
+4's stream with ids i % 4, in turns with the bank-less engine (base,
+bank, bank, base). Gates: every tenant's tokens equal a dedicated
+single-tenant engine's, id 0's the bank-less engine's; each tenant's
+teacher-forced logits off the base model's by more than 1% of the logit
+scale, and a planted fault that ignores the ids failing that gate; host
+syncs equal the bank-less stream's; 113 int8 calls a forward, all sm90;
+a request queued behind an ``evict`` completes as ``"adapter_evicted"``
+with no launch; a ``register`` into a live engine served at the next
+step. Both engines' decode chains profiled (kernels a decode step, busy
+and idle share; this is phase 4's profile). Then its composed arm:
+``paged=True, paged_kernel=True``, a prefix cache and
+``speculative_k=2`` on serve_1b_prefill's overlapping prompts with ids
+i % 4, and the same arm on the gather: splices equal a host replay of
+the tenant-namespaced index (fewer than an un-namespaced replay's), the
+requests whose tokens differ from the gather's held teacher-forced,
+paged launches all sm90, flash forwards on the f32 route, no page left.
+
+After phase 7, ``train_760m`` arm ``dots_attn``: the 760m model's loss
+and gradients under remat "dots" and "dots_attn" in turns, bitwise
+equal, with device ms and peak memory of each; the bench's default arm
+with ``--remat_policy dots_attn``: 24 / 24 / 24 flash launches a step,
+all sm90, its first loss bitwise "dots"'. Then ``train_lora``: phase 5's
+model as a LoRA model fine-tuned on row 1 by ``Trainer(model_kwargs=
+{"adapter_ids": 1})`` with ``fused_adamw(mask=lora_param_mask)`` for 5
+steps: base parameters bitwise unchanged, one AdamW launch a step over
+the factors only (timed against 28 B an element), the factors bitwise
+the plain AdamW's run, flash and fused-loss launches sm90; the trained
+row registered into a bank and served, its teacher-forced logits within
+1e-4 of the merged model's in float32.
+
 Every serving stream is also run under PyTorch's sync debug mode: its
 stream syncs (with their call sites) must not exceed the host syncs the
 engine budgets.
@@ -202,6 +237,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import dataclasses
 import itertools
 import json
 import math
@@ -1447,7 +1483,6 @@ def phase_serve(torch, quant, gpu: str) -> int:
                 f"!= generate {ref}"
             )
         checked.append(r.request_id)
-    profile_chain(torch, engine, mk_request, gpu)
     toks = sum(len(c.tokens) for c in done)
     lat = [c.latency_s for c in done]
     ttft = [c.ttft_s for c in done]
@@ -3574,6 +3609,654 @@ def phase_bench_and_scaling(torch, gpu: str) -> dict:
     return {"bench_images_per_sec_per_gpu": r["value"], "per_launch_us": fit.per_op_us}
 
 
+# the multi-tenant LoRA slice: the adapter bank of examples/serve_llm_int8.py
+# (--adapters 4 --lora-rank 8: tenants 1-3 drawn N(0, 0.02^2) from
+# PCG64(13), row 0 the base model), phase 4's stream with ids i % 4
+LORA_BANK = dict(n_adapters=4, rank=8)
+LORA_FACTOR_STD = 0.02
+# a tenant's teacher-forced logits must differ from the base model's by
+# more than this share of the logit scale (the planted fault that ignores
+# the ids reads 0)
+LORA_TF_MIN_SHARE = 0.01
+# the composed arm: the paged kernel, the prefix cache and speculation over
+# the 1b preset's window (512 = 8 pages of 64); 128 pages (16.8 MB each at
+# f32) hold the 4 slots and every prompt's segment, and the 4 GiB budget
+# every segment, so nothing is evicted and a host replay of the index
+# predicts every splice
+LORA_COMPOSED = dict(paged=True, page_size=64, pool_pages=128, prefix_cache_bytes=4 << 30,
+                     speculative_k=2)
+# train_lora: phase 5's model (2 layers at the 760m widths, S 256, bf16,
+# flash) with a bank of 4 rows of rank 8, fine-tuned on row 1
+LORA_TRAIN = dict(steps=5, lr=5e-2, weight_decay=0.01, batch=2, tenant=1)
+# the served tenant against the merge_adapter'ed model, both in float32
+# (the same parameters): the merge reassociates x @ W + (x @ A) @ B into
+# x @ (W + A B), a float32 rounding of each merged weight, ~1e-6 of the
+# logits; in bfloat16 each side rounds to 2^-8 of a value and a logit of
+# 4.5 has an ulp of 2^-5, so the bf16 pair is reported, not gated
+LORA_MERGE_F32_SHARE = 1e-4
+# flash launches per 760m train step under each remat policy: "dots"
+# recomputes the flash forward in the backward, "dots_attn" keeps its
+# outputs (O and lse)
+FLASH_PER_STEP_BY_POLICY = {"dots": FLASH_PER_STEP, "dots_attn": {"fwd": 24, "dq": 24, "dkv": 24}}
+
+
+def lora_rows(bank, rng, std: float = LORA_FACTOR_STD) -> dict:
+    """One synthetic tenant: every factor of ``bank.row_zeros()`` drawn
+    N(0, std^2) from ``rng`` on the host (the bank uploads it pinned)."""
+    import numpy as np
+    import torch
+
+    return {k: torch.from_numpy((rng.standard_normal(tuple(v.shape)) * std).astype(np.float32))
+            for k, v in bank.row_zeros().items()}
+
+
+def lora_stream(torch, quant, fa, engine, reqs) -> dict:
+    """Serve ``reqs`` ((prompt, seed, adapter) tuples) through ``engine``
+    under sync debug mode; the kernel counts of exactly this stream and
+    its host-side numbers."""
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import Request
+
+    base = (engine.n_prefills, engine.n_splices, engine.n_chains, engine.n_host_syncs)
+    quant.int8_matmul.launches = 0
+    quant.int8_matmul.routes = {"sm90": 0, "v1": 0}
+    fwd0 = dict(fa.flash_attention.routes["fwd"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with real_syncs(torch) as real:
+        rids = [engine.submit(Request(prompt=p, max_new_tokens=32, seed=s, adapter=a))
+                for p, s, a in reqs]
+        done = {c.request_id: c for c in engine.run_until_idle()}
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    comps = [done[r] for r in rids]
+    toks = sum(len(c.tokens) for c in comps)
+    lat = [c.latency_s for c in comps]
+    return {
+        "tokens": [c.tokens for c in comps], "reasons": [c.finish_reason for c in comps],
+        "prefills": engine.n_prefills - base[0], "splices": engine.n_splices - base[1],
+        "chains": engine.n_chains - base[2], "host_syncs": engine.n_host_syncs - base[3],
+        "stream_syncs": real["count"], "stream_sync_sites": real["sites"],
+        "int8_launches": quant.int8_matmul.launches, "int8_routes": dict(quant.int8_matmul.routes),
+        "flash_fwd_routes": {k: v - fwd0[k] for k, v in fa.flash_attention.routes["fwd"].items()},
+        "wall_s": wall_s, "aggregate_tok_s": toks / wall_s,
+        "latency_p50_s": percentile(lat, 0.5), "latency_p95_s": percentile(lat, 0.95),
+    }
+
+
+@contextlib.contextmanager
+def ids_ignored():
+    """The planted fault of the LoRA gates: every forward's adapter ids
+    become 0 (the base row), whatever the caller passed."""
+    from pytorch_distributed_training_tutorials_tpu_torch.models import transformer as mod
+
+    real = mod._adapter_ids
+
+    def faulty(adapter_ids, batch, device):
+        return real(None, batch, device)
+
+    mod._adapter_ids = faulty
+    try:
+        yield
+    finally:
+        mod._adapter_ids = real
+
+
+def lora_tf_gate(torch, lora_eng, base_eng, prompt, tokens, aid: int) -> dict:
+    """Tenant ``aid``'s teacher-forced logits on its own stream's tokens
+    against the base model's: the largest difference as a share of the
+    base logits' scale, held above LORA_TF_MIN_SHARE; id 0 on the same
+    tokens bitwise the bank-less engine's."""
+    ref = base_eng.teacher_forced_logits(prompt, tokens)
+    got = lora_eng.teacher_forced_logits(prompt, tokens, adapter=aid)
+    zero = lora_eng.teacher_forced_logits(prompt, tokens, adapter=0)
+    share = float((got - ref).abs().max()) / float(ref.abs().max())
+    return {"adapter": aid, "diff_share": share, "min_share": LORA_TF_MIN_SHARE,
+            "id0_bitwise_base": bool(torch.equal(zero, ref)),
+            "ok": share > LORA_TF_MIN_SHARE and bool(torch.equal(zero, ref))}
+
+
+def replay_namespaced(prompts: list, ids: list, vocab: int, n_adapters: int, gens: dict,
+                      namespaced: bool = True) -> dict:
+    """A host replay of the prefix index over a stream admitted in order:
+    each prompt looked up and then inserted under its tenant's key
+    (``ServeEngine._prefix_key``: shifted by ``(generation * N + aid) *
+    vocab``), or under the raw prompt when not ``namespaced``. Splices and
+    reused tokens; the byte budget holds every segment."""
+    from pytorch_distributed_training_tutorials_tpu_torch.serve.prefix import PrefixIndex
+
+    index = PrefixIndex(1 << 60)
+    hits = tokens = 0
+    for p, a in zip(prompts, ids):
+        shift = (gens[a] * n_adapters + a) * vocab if (namespaced and a) else 0
+        key = [t + shift for t in p]
+        hit = index.lookup(key, 1)
+        if hit is not None:
+            hits += 1
+            tokens += hit[0]
+        if tuple(key) not in index:
+            index.insert(key, None, 1)
+    return {"splices": hits, "hit_tokens": tokens}
+
+
+def phase_serve_lora(torch, quant, fa, pa, gpu: str) -> dict:
+    """``serve_1b_lora``: the 1b preset (int8 weights, f32 compute, flash
+    prefill) at full width and depth serving phase 4's stream (12
+    requests, prompts {16, 32, 48}, 32 new tokens, 4 slots) with ids i % 4
+    through ``ServeEngine(adapter_bank=AdapterBank(n_adapters=4,
+    rank=8))``, and the bank-less engine in turns (base, bank, bank,
+    base). Gates: every request complete; each tenant's tokens those of a
+    dedicated single-tenant engine; id 0's the bank-less engine's; each
+    tenant's teacher-forced logits off the base model's by more than
+    LORA_TF_MIN_SHARE of the logit scale, and the planted fault that
+    ignores the ids failing that gate; host syncs equal the bank-less
+    stream's, stream syncs within them; 113 int8 calls a forward, all
+    sm90; a request queued behind an ``evict`` completes as
+    ``"adapter_evicted"`` with no launch; a ``register`` into a live
+    engine served at the next step. Then the composed arm
+    (``phase_serve_lora_composed``)."""
+    import numpy as np
+
+    from pytorch_distributed_training_tutorials_tpu_torch.adapters import AdapterBank
+    from pytorch_distributed_training_tutorials_tpu_torch.models import (
+        TransformerConfig,
+        TransformerLM,
+        init_quantized_lm,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import Request, ServeEngine
+
+    cfg = TransformerConfig(**PRESET_1B, quantized=True, attention_fn=fa.flash_attention)
+    params = init_quantized_lm(cfg, seed=0, device="cuda")
+    bank = AdapterBank(TransformerLM(cfg), device="cuda", **LORA_BANK)
+    frng = np.random.Generator(np.random.PCG64(13))
+    for aid in range(1, LORA_BANK["n_adapters"]):
+        bank.register(f"tenant-{aid}", lora_rows(bank, frng))
+    n_ad = LORA_BANK["n_adapters"]
+
+    def engine(with_bank: bool, **kw):
+        return ServeEngine(TransformerLM(cfg), params, n_slots=4, tokens_per_launch=8,
+                           device="cuda", adapter_bank=bank if with_bank else None, **kw)
+
+    lengths = (16, 32, 48)
+    rng = np.random.Generator(np.random.PCG64(11))
+    reqs = [(rng.integers(0, cfg.vocab_size, (lengths[i % 3],)).tolist(), i, i % n_ad)
+            for i in range(12)]
+    base_reqs = [(p, s, 0) for p, s, _ in reqs]
+    engines = {"base": engine(False), "bank": engine(True)}
+    for eng in engines.values():  # warmup: first launches, cuBLAS handles
+        eng.submit(Request(prompt=reqs[0][0], max_new_tokens=4))
+        eng.run_until_idle()
+    runs = {"base": [], "bank": []}
+    for arm in ("base", "bank", "bank", "base"):
+        runs[arm].append(lora_stream(torch, quant, fa, engines[arm],
+                                     reqs if arm == "bank" else base_reqs))
+    problems = []
+    per_forward = 16 * 7 + 1
+    for arm, rs in runs.items():
+        for r in rs:
+            if r["reasons"] != ["length"] * 12:
+                problems.append(f"{arm}: finish reasons {r['reasons']}")
+            forwards = r["prefills"] + r["chains"] * 8
+            if r["int8_launches"] != per_forward * forwards:
+                problems.append(f"{arm}: {r['int8_launches']} int8 calls != "
+                                f"{per_forward} x {forwards} forwards")
+            if r["int8_routes"] != {"sm90": r["int8_launches"], "v1": 0}:
+                problems.append(f"{arm}: int8 routes {r['int8_routes']}")
+            if r["host_syncs"] != r["chains"] + r["prefills"]:
+                problems.append(f"{arm}: {r['host_syncs']} host syncs != chains + prefills")
+            if r["stream_syncs"] > r["host_syncs"]:
+                problems.append(f"{arm}: {r['stream_syncs']} stream syncs > "
+                                f"{r['host_syncs']}: {r['stream_sync_sites']}")
+            if r["flash_fwd_routes"] != {"sm90": 0, "sm80": PRESET_1B["n_layers"] * 12}:
+                problems.append(f"{arm}: flash forward routes {r['flash_fwd_routes']}")
+    mixed, plain = runs["bank"][0]["tokens"], runs["base"][0]["tokens"]
+    if any(r["tokens"] != mixed for r in runs["bank"]) or any(
+            r["tokens"] != plain for r in runs["base"]):
+        problems.append("a stream's tokens changed between turns")
+    if [runs["bank"][0]["host_syncs"]] * 2 != [r["host_syncs"] for r in runs["base"]]:
+        problems.append("host syncs with the bank differ from the bank-less stream's")
+    dedicated = {}
+    for aid in range(n_ad):
+        idx = [i for i, r in enumerate(reqs) if r[2] == aid]
+        got = lora_stream(torch, quant, fa, engine(True), [reqs[i] for i in idx])["tokens"]
+        dedicated[aid] = got == [mixed[i] for i in idx]
+        if not dedicated[aid]:
+            problems.append(f"adapter {aid}: the mixed stream's tokens differ from a "
+                            "dedicated engine's")
+    id0_equal = all(mixed[i] == plain[i] for i, r in enumerate(reqs) if r[2] == 0)
+    if not id0_equal:
+        problems.append("id 0 through the bank differs from the bank-less engine")
+    tenants_differ = sum(mixed[i] != plain[i] for i, r in enumerate(reqs) if r[2])
+    lora_eng, base_eng = engines["bank"], engines["base"]
+    tf = []
+    for aid in range(1, n_ad):
+        i = next(i for i, r in enumerate(reqs) if r[2] == aid)
+        tf.append(lora_tf_gate(torch, lora_eng, base_eng, reqs[i][0], mixed[i][:16], aid))
+    with ids_ignored():
+        i = next(i for i, r in enumerate(reqs) if r[2] == 1)
+        fault = lora_tf_gate(torch, lora_eng, base_eng, reqs[i][0], mixed[i][:16], 1)
+    fault["kind"] = "ids_ignored"
+    if not all(g["ok"] for g in tf):
+        problems.append(f"teacher-forced tenant gate failed: {tf}")
+    if fault["ok"]:
+        problems.append(f"the planted fault (ids ignored) passed the gate: {fault}")
+    # an evict behind a queued request: completed with no device work
+    c0 = (quant.int8_matmul.launches, dict(fa.flash_attention.launches))
+    rid = lora_eng.submit(Request(prompt=reqs[3][0], max_new_tokens=8, adapter=3))
+    bank.evict("tenant-3")
+    bounced = lora_eng.step()
+    evict_ok = ([(c.request_id, c.finish_reason, c.tokens) for c in bounced]
+                == [(rid, "adapter_evicted", [])] and lora_eng.idle
+                and (quant.int8_matmul.launches, dict(fa.flash_attention.launches)) == c0)
+    if not evict_ok:
+        problems.append(f"queued request behind an evict: {bounced}")
+    # a register into a live engine: served at the next step, as a fresh
+    # engine with the same bank serves it
+    busy = [lora_eng.submit(Request(prompt=reqs[i][0], max_new_tokens=32, adapter=1))
+            for i in (0, 1)]
+    lora_eng.step()
+    live_before = lora_eng.active_slots
+    new_aid = bank.register("tenant-3b", lora_rows(bank, frng))
+    late = lora_eng.submit(Request(prompt=reqs[7][0], max_new_tokens=16, adapter=new_aid))
+    done = {c.request_id: c.tokens for c in lora_eng.run_until_idle()}
+    fresh = engine(True)
+    ref = fresh.submit(Request(prompt=reqs[7][0], max_new_tokens=16, adapter=new_aid))
+    ref_tokens = {c.request_id: c.tokens for c in fresh.run_until_idle()}[ref]
+    register_ok = (live_before == 2 and done[late] == ref_tokens and new_aid == 3
+                   and bank.generation(3) == 2 and all(b in done for b in busy))
+    if not register_ok:
+        problems.append(f"register into a live engine: {done.get(late)} != {ref_tokens}")
+    profile_chain(torch, base_eng, lambda i: Request(prompt=reqs[i % 12][0], max_new_tokens=32),
+                  gpu, label="serve_1b")
+    profile_chain(torch, lora_eng,
+                  lambda i: Request(prompt=reqs[i % 12][0], max_new_tokens=32, adapter=1 + i % 3),
+                  gpu, label="serve_1b_lora")
+    mean = lambda arm, k: statistics.mean(r[k] for r in runs[arm])  # noqa: E731
+    emit({
+        "phase": "serve_1b_lora", "preset": "1b", "layers": cfg.n_layers,
+        "bank": {**LORA_BANK, "factor_std": LORA_FACTOR_STD, **bank.stats()},
+        "requests": 12, "ids": [r[2] for r in reqs],
+        "turns": ["base", "bank", "bank", "base"],
+        "aggregate_tok_s": {a: [r["aggregate_tok_s"] for r in rs] for a, rs in runs.items()},
+        "latency_p50_s": {a: [r["latency_p50_s"] for r in rs] for a, rs in runs.items()},
+        "latency_p95_s": {a: [r["latency_p95_s"] for r in rs] for a, rs in runs.items()},
+        "tok_s_ratio_bank_over_base": mean("bank", "aggregate_tok_s") / mean("base",
+                                                                           "aggregate_tok_s"),
+        "host_syncs": {a: [r["host_syncs"] for r in rs] for a, rs in runs.items()},
+        "stream_syncs": {a: [r["stream_syncs"] for r in rs] for a, rs in runs.items()},
+        "int8_launches": runs["bank"][0]["int8_launches"],
+        "int8_routes": runs["bank"][0]["int8_routes"],
+        "dedicated_equal": dedicated, "id0_equal_base": id0_equal,
+        "tenant_requests_differing_from_base": tenants_differ,
+        "teacher_forced": tf, "planted_fault": fault,
+        "evicted_while_queued_ok": evict_ok, "register_live_ok": register_ok,
+        "adapter_stats": lora_eng.adapter_stats(),
+        "ok": not problems, "problems": problems, "gpu": gpu,
+    })
+    if problems:
+        raise AssertionError("; ".join(problems))
+    composed = phase_serve_lora_composed(torch, quant, fa, pa, gpu, cfg, params, bank)
+    return {"launches": runs["bank"][0]["int8_launches"] * 2 + composed["int8"],
+            "serve_1b_lora": 2 * runs["bank"][0]["int8_launches"], **composed}
+
+
+def phase_serve_lora_composed(torch, quant, fa, pa, gpu: str, cfg, params, bank) -> dict:
+    """The composed arm of ``serve_1b_lora``: the same model and bank
+    through ``paged=True, paged_kernel=True``, the prefix cache and
+    ``speculative_k=2`` on serve_1b_prefill's overlapping prompts (12,
+    {128, 256, 384}, three quarters shared) with ids i % 4, and the same
+    arm on the gather. Gates: every request complete; splices (and reused
+    tokens) equal a host replay of the namespaced index, fewer than the
+    un-namespaced replay's; every request whose tokens differ from the
+    gather arm's held teacher-forced on its own tokens (verify-shaped
+    forwards of k+1 rows, ``tf_compare`` against the gather engine, and
+    ``greedy_held`` under its own engine's logits: the paged kernel's f32
+    sums flip near-ties against the float64 gather, ROADMAP section C);
+    paged launches all sm90, flash forwards all on the f32 route (16 a
+    whole prefill); host syncs chains + refills; no page in use after the
+    drain."""
+    from pytorch_distributed_training_tutorials_tpu_torch.models import TransformerLM
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import ServeEngine
+
+    prompts = prefill_prompts(cfg.vocab_size, 12)
+    n_ad = LORA_BANK["n_adapters"]
+    ids = [i % n_ad for i in range(12)]
+    gens = {a: bank.generation(a) for a in range(n_ad)}
+    reqs = [(p, i, a) for i, (p, a) in enumerate(zip(prompts, ids))]
+    out, engines, problems = {}, {}, []
+    for arm, kernel in (("kernel", True), ("gather", False)):
+        eng = ServeEngine(TransformerLM(cfg), params, n_slots=4, tokens_per_launch=8,
+                          device="cuda", adapter_bank=bank, paged_kernel=kernel,
+                          **LORA_COMPOSED)
+        pa.paged_attention.launches = 0
+        pa.paged_attention.routes = {"sm90": 0, "v1": 0}
+        fwd0 = dict(fa.flash_attention.launches)
+        r = lora_stream(torch, quant, fa, eng, reqs)
+        r["paged_launches"] = pa.paged_attention.launches
+        r["paged_routes"] = dict(pa.paged_attention.routes)
+        r["flash_fwd"] = fa.flash_attention.launches["fwd"] - fwd0["fwd"]
+        r["refills"] = dict(eng.refills)
+        r["prefix_hit_tokens"] = eng.prefix_hit_tokens
+        r["spec_stats"] = eng.spec_stats()
+        r["adapter_stats"] = eng.adapter_stats()
+        r["prefix_stats"] = eng.prefix_stats()
+        out[arm], engines[arm] = r, eng
+    k = out["kernel"]
+    differ = [i for i, (a, b) in enumerate(zip(k["tokens"], out["gather"]["tokens"])) if a != b]
+    held = []
+    rows = LORA_COMPOSED["speculative_k"] + 1
+    for i in differ:
+        own = engines["kernel"].teacher_forced_logits(prompts[i], k["tokens"][i], rows=rows,
+                                                      adapter=ids[i])
+        ref = engines["gather"].teacher_forced_logits(prompts[i], k["tokens"][i], rows=rows,
+                                                      adapter=ids[i])
+        rec = {"request": i, "adapter": ids[i], **tf_compare(ref, own),
+               "greedy_held": greedy_held(own, k["tokens"][i])}
+        rec["ok"] = rec["ok"] and rec["greedy_held"]["ok"]
+        held.append(rec)
+        if not rec["ok"]:
+            problems.append(f"request {i}: kernel arm outside the teacher-forced bound: {rec}")
+    for arm, eng in engines.items():
+        while eng.prefix.evict_coldest():
+            pass
+        out[arm]["pages_in_use_after"] = eng.page_stats()["pages_in_use"]
+    replay = replay_namespaced(prompts, ids, cfg.vocab_size, n_ad, gens)
+    flat = replay_namespaced(prompts, ids, cfg.vocab_size, n_ad, gens, namespaced=False)
+    if k["reasons"] != ["length"] * 12:
+        problems.append(f"finish reasons {k['reasons']}")
+    for arm, r in out.items():
+        if (r["splices"], r["prefix_hit_tokens"]) != (replay["splices"], replay["hit_tokens"]):
+            problems.append(f"{arm}: splices {r['splices']} / hit tokens "
+                            f"{r['prefix_hit_tokens']} != the namespaced replay's {replay}")
+        if r["host_syncs"] != r["chains"] + sum(r["refills"].values()):
+            problems.append(f"{arm}: host syncs {r['host_syncs']} != chains + refills")
+        if r["stream_syncs"] > r["host_syncs"]:
+            problems.append(f"{arm}: {r['stream_syncs']} stream syncs > {r['host_syncs']}")
+        if r["flash_fwd"] != PRESET_1B["n_layers"] * r["refills"]["prefill"] or \
+                r["flash_fwd_routes"]["sm90"]:
+            problems.append(f"{arm}: flash forwards {r['flash_fwd']} / "
+                            f"{r['flash_fwd_routes']} for {r['refills']['prefill']} prefills")
+        if r["int8_routes"]["v1"]:
+            problems.append(f"{arm}: int8 routes {r['int8_routes']}")
+        if r["prefix_stats"]["prefix_evicted_bytes"]:
+            problems.append(f"{arm}: segments evicted {r['prefix_stats']}")
+        if r["pages_in_use_after"]:
+            problems.append(f"{arm}: {r['pages_in_use_after']} pages in use after the drain")
+    if not replay["splices"] or replay["splices"] >= flat["splices"]:
+        problems.append(f"namespaced replay {replay} vs un-namespaced {flat}: "
+                        "the stream does not show the namespaces")
+    if k["paged_launches"] == 0 or k["paged_routes"] != {"sm90": k["paged_launches"], "v1": 0}:
+        problems.append(f"paged kernel launches {k['paged_launches']}, routes {k['paged_routes']}")
+    emit({
+        "phase": "serve_1b_lora_composed", "preset": "1b", "ids": ids,
+        "geometry": {k_: v for k_, v in LORA_COMPOSED.items()},
+        "replay_namespaced": replay, "replay_unnamespaced": flat,
+        **{arm: {k_: v for k_, v in r.items() if k_ != "tokens"} for arm, r in out.items()},
+        "requests_tokens_differ_from_gather": differ, "teacher_forced_held": held,
+        "ok": not problems, "problems": problems, "gpu": gpu,
+    })
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"int8": k["int8_launches"], "composed_paged": k["paged_launches"],
+            "composed_paged_routes": k["paged_routes"], "composed_flash_fwd": k["flash_fwd"],
+            "composed_verify_forwards": k["spec_stats"]["n_verify_forwards"]}
+
+
+def phase_train_lora(torch, gpu: str) -> dict:
+    """``train_lora``: phase 5's model (2 layers at the 760m widths, S 256,
+    bf16, flash) as a LoRA model (4 rows of rank 8), fine-tuned on row 1
+    by ``Trainer(loss="fused_cross_entropy", model_kwargs={"adapter_ids":
+    1})`` with ``fused_adamw(5e-2, weight_decay=0.01,
+    mask=lora_param_mask)`` for 5 steps. Gates: a falling loss; every base
+    parameter bitwise unchanged; one AdamW launch a step over the factor
+    elements only; the factors within the plain AdamW's run of the same
+    steps on the card; flash and fused-loss launches all sm90. Kernel 9 at
+    the factor leaves timed against its 28 B/element bound. Then the
+    trained row through ``extract_adapter`` -> ``AdapterBank.register`` ->
+    a bank engine of the base model: its teacher-forced logits within
+    LORA_MERGE_F32_SHARE of the ``merge_adapter``ed model's, both served
+    in float32, the same argmax at every step; the bf16 pair reported."""
+    import numpy as np
+
+    from pytorch_distributed_training_tutorials_tpu_torch.adapters import (
+        AdapterBank,
+        extract_adapter,
+        lora_init,
+        lora_param_mask,
+        merge_adapter,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.data.datasets import ArrayDataset
+    from pytorch_distributed_training_tutorials_tpu_torch.data.loader import ShardedLoader
+    from pytorch_distributed_training_tutorials_tpu_torch.models import (
+        TransformerConfig,
+        TransformerLM,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        make_flash_attention,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.fused_loss import (
+        fused_cross_entropy,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.fused_optim import fused_adamw
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel.mesh import LocalMesh
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import ServeEngine
+    from pytorch_distributed_training_tutorials_tpu_torch.train.optim import AdamW
+    from pytorch_distributed_training_tutorials_tpu_torch.train.trainer import Trainer
+
+    lt = LORA_TRAIN
+    seq, tid = 256, lt["tenant"]
+    base_cfg = TransformerConfig(**{**PRESET_760M, "n_layers": 2}, max_seq_len=seq,
+                                 dtype=torch.bfloat16, attention_fn=make_flash_attention(1024, 1024),
+                                 quantized=False)
+    cfg = dataclasses.replace(base_cfg, lora_adapters=LORA_BANK["n_adapters"],
+                              lora_rank=LORA_BANK["rank"])
+    rng = np.random.Generator(np.random.PCG64(6))
+    toks = rng.integers(0, PRESET_760M["vocab_size"], (lt["batch"], seq + 1))
+    mesh = LocalMesh(torch.device("cuda"))
+
+    def run(tx):
+        loader = ShardedLoader(ArrayDataset((toks[:, :-1], toks[:, 1:])), lt["batch"], mesh,
+                               shuffle=False)
+        trainer = Trainer(TransformerLM(cfg), loader, tx, loss="fused_cross_entropy",
+                          model_kwargs={"adapter_ids": tid}, seed=5, quiet=True)
+        named = dict(trainer.model.named_parameters())
+        init = lora_init(named, seed=2)
+        with torch.no_grad():
+            for name, p in named.items():
+                if name.endswith(".lora_a"):
+                    p.copy_(init[name])
+        start = {n: p.detach().clone() for n, p in named.items() if not p.requires_grad}
+        trainer.train(lt["steps"])
+        torch.cuda.synchronize()
+        return trainer, start
+
+    for counts in (flash_attention.launches, *flash_attention.routes.values(),
+                   fused_cross_entropy.launches, *fused_cross_entropy.routes.values()):
+        for key in counts:
+            counts[key] = 0
+    fused_adamw.launches = 0
+    kw = dict(weight_decay=lt["weight_decay"], mask=lora_param_mask)
+    trainer, start = run(fused_adamw(lt["lr"], **kw))
+    adamw_launches = fused_adamw.launches
+    flash = {k: dict(v) for k, v in flash_attention.routes.items()}
+    loss_routes = {k: dict(v) for k, v in fused_cross_entropy.routes.items()}
+    plain, _ = run(AdamW(lr=lt["lr"], **kw))
+    problems = []
+    losses = [e["loss"] for e in trainer.metrics.step_events()]
+    if not losses[-1] < losses[0]:
+        problems.append(f"loss did not fall: {losses}")
+    named = dict(trainer.model.named_parameters())
+    base_bitwise = all(torch.equal(named[n], t) for n, t in start.items())
+    if not base_bitwise or any(named[n].requires_grad for n in start):
+        problems.append("a base parameter moved or trains")
+    factors = {n: p for n, p in named.items() if p.requires_grad}
+    n_elems = sum(p.numel() for p in factors.values())
+    plain_named = dict(plain.model.named_parameters())
+    diffs = {n: float((p.detach() - plain_named[n].detach()).abs().max())
+             for n, p in factors.items()}
+    scale = max(float(p.detach().abs().max()) for p in factors.values())
+    if max(diffs.values()) > 1e-6 * scale:
+        problems.append(f"factors differ from the plain AdamW run by {max(diffs.values())}")
+    steps = lt["steps"]
+    if adamw_launches != steps:
+        problems.append(f"{adamw_launches} fused AdamW launches in {steps} steps")
+    want_flash = {k: {"sm90": 2 * steps, "sm80": 0} for k in ("fwd", "dq", "dkv")}
+    if flash != want_flash:
+        problems.append(f"flash routes {flash} != {want_flash}")
+    if loss_routes != {k: {"sm90": steps, "sm80": 0} for k in ("fwd", "dh", "dw")}:
+        problems.append(f"fused-loss routes {loss_routes}")
+    # kernel 9 at the factor leaves: one launch over the trainable leaves
+    tx, state = trainer.state.tx, trainer.state.opt_state
+    grads = [torch.randn_like(p) * 1e-3 for p in factors.values()]
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    leaves = list(factors.values())
+    with torch.no_grad():
+        saved = [p.clone() for p in leaves]
+        ms = time_ms(lambda: tx.update_(leaves, grads, state), torch, flush)
+        plain_ms = time_ms(lambda: AdamW.update_(tx, leaves, grads, state), torch, flush)
+        for p, s in zip(leaves, saved):
+            p.copy_(s)
+    bound_ms = 28 * n_elems / HBM_BYTES_PER_S * 1e3
+    # extract -> register -> serve, against the merged model
+    trained = {n: p.detach() for n, p in named.items()}
+    row = extract_adapter(trained, tid)
+    prompt, follow = toks[0, :64].tolist(), toks[0, 64:80].tolist()
+    served = {}
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        scfg = dataclasses.replace(base_cfg, dtype=dtype)
+        bank = AdapterBank(TransformerLM(scfg), device="cuda", **LORA_BANK)
+        aid = bank.register("tuned", row)
+        eng = ServeEngine(TransformerLM(scfg), merge_adapter(trained, 0), n_slots=1,
+                          tokens_per_launch=8, device="cuda", adapter_bank=bank)
+        merged = ServeEngine(TransformerLM(scfg), merge_adapter(trained, tid), n_slots=1,
+                             tokens_per_launch=8, device="cuda")
+        got = eng.teacher_forced_logits(prompt, follow, adapter=aid)
+        ref = merged.teacher_forced_logits(prompt, follow)
+        base_logits = eng.teacher_forced_logits(prompt, follow, adapter=0)
+        scale = float(ref.abs().max())
+        served[name] = {
+            "adapter": aid, "max_abs_logit_diff": float((got - ref).abs().max()),
+            "logit_max_abs": scale,
+            "diff_share": float((got - ref).abs().max()) / scale,
+            "argmax_agree_steps": int((got.argmax(-1) == ref.argmax(-1)).sum()),
+            "steps": len(follow),
+            "tenant_vs_base_share": float((ref - base_logits).abs().max()) / scale}
+    f32 = served["float32"]
+    merge_ok = (f32["adapter"] == tid and f32["diff_share"] <= LORA_MERGE_F32_SHARE
+                and f32["argmax_agree_steps"] == f32["steps"])
+    if not merge_ok:
+        problems.append(f"served tenant vs the merged model (float32): {f32}")
+    emit({
+        "phase": "train_lora", "model": "760m widths, 2 layers, S 256, bf16, flash",
+        "bank": LORA_BANK, **lt, "losses": losses, "base_bitwise_unchanged": base_bitwise,
+        "trainable_leaves": len(factors), "trainable_elements": n_elems,
+        "factor_max_abs_diff_vs_plain_adamw": max(diffs.values()),
+        "factors_bitwise_plain_adamw": max(diffs.values()) == 0.0,
+        "fused_adamw_launches": adamw_launches, "flash_routes": flash,
+        "fused_loss_routes": loss_routes,
+        "adamw_factor_leaves": {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                "bound_by": "bytes", "bytes_per_element": 28},
+        "served_vs_merged": served, "served_vs_merged_bound_f32": LORA_MERGE_F32_SHARE,
+        "ok": not problems, "problems": problems, "gpu": gpu,
+    })
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"fused_adamw": adamw_launches, "adamw_ms": ms, "adamw_plain_ms": plain_ms,
+            "adamw_bound_ms": bound_ms, "elements": n_elems, "flash_fwd": flash["fwd"]["sm90"]}
+
+
+def phase_train_dots_attn(torch, gpu: str) -> dict:
+    """``train_760m`` arm ``dots_attn``: (a) one loss-and-gradient pass of
+    the bench's 760m model and batch under remat "dots" and "dots_attn" in
+    turns (dots, dots_attn, dots_attn, dots): the loss and every gradient
+    bitwise equal, device ms and peak memory of each; (b) the bench's
+    default arm with ``--remat_policy dots_attn`` (6-step chains, 2
+    timed): finite falling loss, its first loss bitwise (a)'s, exactly 24
+    / 24 / 24 flash forward / dq / dk-dv launches a step, all sm90."""
+    from pytorch_distributed_training_tutorials_tpu_torch.bench import lm_headline
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.flash_attention import (
+        flash_attention,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.train.trainer import _make_loss_fn
+
+    args = lm_headline.parse([])
+    model, _, batch, _, _, _ = lm_headline.build(args, torch.device("cuda"))
+    loss_fn = _make_loss_fn("cross_entropy")
+    params = [p for p in model.parameters()]
+    ref, turns = {}, []
+    for policy in ("dots", "dots_attn", "dots_attn", "dots"):
+        model.cfg = dataclasses.replace(model.cfg, remat_policy=policy)
+        for key in flash_attention.launches:
+            flash_attention.launches[key] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = loss_fn(model, batch)
+        grads = torch.autograd.grad(loss, params)
+        end.record()
+        end.synchronize()
+        turns.append({"policy": policy, "ms": start.elapsed_time(end),
+                      "peak_bytes": torch.cuda.max_memory_allocated() - base_mem,
+                      "flash": dict(flash_attention.launches)})
+        if policy not in ref:
+            ref[policy] = (loss.detach(), grads)
+        else:
+            del grads
+        del loss
+    l_d, g_d = ref["dots"]
+    l_a, g_a = ref["dots_attn"]
+    same = bool(torch.equal(l_d, l_a)) and all(torch.equal(a, b) for a, b in zip(g_d, g_a))
+    first_loss = float(l_d)
+    del ref, g_d, g_a, model, params
+    torch.cuda.empty_cache()
+    problems = []
+    if not same:
+        problems.append("dots_attn's loss or gradients differ from dots'")
+    for t in turns:
+        want = {"fwd": 24 if t["policy"] == "dots_attn" else 48, "dq": 24, "dkv": 24}
+        if t["flash"] != want:
+            problems.append(f"{t['policy']}: flash launches {t['flash']} != {want}")
+    argv = ["--steps", "6", "--reps", "2", "--remat_policy", "dots_attn"]
+    for counts in (flash_attention.launches, *flash_attention.routes.values()):
+        for key in counts:
+            counts[key] = 0
+    r = lm_headline.measure(lm_headline.parse(argv))
+    launches = dict(flash_attention.launches)
+    routes = {k: dict(c) for k, c in flash_attention.routes.items()}
+    steps = r["steps_run"]
+    losses = r["losses_first_chain"]
+    want = {k: n * steps for k, n in FLASH_PER_STEP_BY_POLICY["dots_attn"].items()}
+    if launches != want:
+        problems.append(f"flash launches {launches} != {want} ({steps} steps)")
+    if routes != {k: {"sm90": n, "sm80": 0} for k, n in launches.items()}:
+        problems.append(f"flash routes {routes}: not all sm90")
+    if not r["all_losses_finite"] or not losses[-1] < losses[0]:
+        problems.append(f"losses {losses}")
+    if losses[0] != first_loss:
+        problems.append(f"first loss {losses[0]} != the dots pass's {first_loss}")
+    mean = lambda p, k: statistics.mean(t[k] for t in turns if t["policy"] == p)  # noqa: E731
+    emit({
+        "phase": "train_760m", "arm": "dots_attn", "argv": argv,
+        "grad_pass_turns": turns, "loss_and_grads_bitwise_dots": same,
+        "grad_pass_ms": {p: mean(p, "ms") for p in ("dots", "dots_attn")},
+        "grad_pass_peak_bytes": {p: mean(p, "peak_bytes") for p in ("dots", "dots_attn")},
+        "peak_bytes_dots_attn_minus_dots": mean("dots_attn", "peak_bytes")
+        - mean("dots", "peak_bytes"),
+        "flash_launches": launches, "flash_routes": routes,
+        "launches_per_step": {k: v / steps for k, v in launches.items()},
+        **{k: r[k] for k in (
+            "preset", "n_layers", "d_model", "seq", "batch", "attn", "remat_policy",
+            "n_params", "steps_run", "losses_first_chain", "step_ms", "chain_ms_samples",
+            "tokens_per_s", "mfu", "peak_memory_bytes", "init_s")},
+        "ok": not problems, "problems": problems, "gpu": gpu,
+    })
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"flash": launches, "flash_routes": routes, "step_ms": r["step_ms"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel-only", action="store_true",
@@ -3584,7 +4267,11 @@ def main(argv=None) -> int:
                          "bench phases")
     ap.add_argument("--serve-only", action="store_true",
                     help="after the build, run the serving phases (4, serve_1b_paged, "
-                         "serve_1b_prefill, serve_1b_spec) only")
+                         "serve_1b_prefill, serve_1b_spec, serve_1b_lora) only")
+    ap.add_argument("--lora-only", action="store_true",
+                    help="after the build, run the LoRA slice's phases only "
+                         "(serve_1b_lora with its composed arm, train_760m dots_attn, "
+                         "train_lora)")
     args = ap.parse_args(argv)
 
     import torch
@@ -3652,6 +4339,13 @@ def main(argv=None) -> int:
         run(phase_serve_paged, torch, pa, gpu)
         run(phase_serve_prefill, torch, fa, gpu)
         run(phase_serve_spec, torch, fa, gpu)
+        run(phase_serve_lora, torch, quant, fa, pa, gpu)
+        emit({"phase": "phase_seconds", **seconds})
+        return 0
+    if args.lora_only:
+        run(phase_serve_lora, torch, quant, fa, pa, gpu)
+        run(phase_train_dots_attn, torch, gpu)
+        run(phase_train_lora, torch, gpu)
         emit({"phase": "phase_seconds", **seconds})
         return 0
     kern = run(phase_kernels, torch, quant, gpu)
@@ -3668,10 +4362,13 @@ def main(argv=None) -> int:
     paged_serve = run(phase_serve_paged, torch, pa, gpu)
     prefill = run(phase_serve_prefill, torch, fa, gpu)
     spec = run(phase_serve_spec, torch, fa, gpu)
+    lora = run(phase_serve_lora, torch, quant, fa, pa, gpu)
     run(phase_train_card_vs_cpu, torch, gpu)
     base = run(phase_train, torch, gpu)
     train_launches = base["flash"]
     fused_launches = run(phase_train_fused, torch, gpu, base["first_loss"])
+    dots_attn = run(phase_train_dots_attn, torch, gpu)
+    train_lora = run(phase_train_lora, torch, gpu)
     run(phase_resnet_card_vs_cpu, torch, gpu)
     ddp = run(phase_train_resnet_ddp, torch, gpu)
     run(phase_train_resnet_streaming, torch, gpu)
@@ -3708,7 +4405,9 @@ def main(argv=None) -> int:
         | {"work": f"one 1b verify forward: 113 calls at M={4 * (SPEC_K + 1)}"},
         "launches_by_path": {"serve_1b": serve["launches"],
                              **{f"serve_1b_spec_{a}": n for a, n in spec["int8"].items()},
-                             "serve_1b_gqa_paged_spec": paged_serve["spec_int8"]},
+                             "serve_1b_gqa_paged_spec": paged_serve["spec_int8"],
+                             "serve_1b_lora": lora["serve_1b_lora"],
+                             "serve_1b_lora_composed": lora["int8"]},
         "verify_forwards_by_path": {
             **{f"serve_1b_spec_{a}": n for a, n in spec["verify_forwards"].items() if n},
             "serve_1b_gqa_paged_spec": paged_serve["spec"]["n_verify_forwards"]},
@@ -3735,11 +4434,18 @@ def main(argv=None) -> int:
                             + ("forward" if kind == "fwd" else
                                "backward, one number for flash_dq and flash_dkv "
                                "together (it computes dq, dk and dv in one call)"),
+            # remat "dots_attn" keeps the flash op's outputs: one forward a
+            # layer a step
+            "per_step_by_policy": {p: n[kind] for p, n in FLASH_PER_STEP_BY_POLICY.items()},
+            "launches_train_760m_dots_attn": dots_attn["flash"][kind],
         })
         if kind == "fwd":
             # the serving path: 16 launches (one a layer) per whole prefill
             kernels[-1]["launches_by_path"] = {
                 "train_760m": train_launches["fwd"],
+                "train_760m_dots_attn": dots_attn["flash"]["fwd"],
+                "train_lora": train_lora["flash_fwd"],
+                "serve_1b_lora_composed": lora["composed_flash_fwd"],
                 **{f"serve_1b_prefill_{a}": n for a, n in prefill["launches"].items()},
                 **{f"serve_1b_spec_{a}": n for a, n in spec["flash"].items()}}
             kernels[-1]["serving"] = {
@@ -3783,7 +4489,14 @@ def main(argv=None) -> int:
         "launches_by_path": {"train_760m_fused": fused_launches["fused_adamw"],
                              "train_resnet_ddp_fused_adamw": ddp["fused_adamw"],
                              "train_guardrails_resnet18": guard["resnet_guarded_adamw_launches"],
-                             "train_guardrails_760m": guard["guard_760m_adamw_launches"]},
+                             "train_guardrails_760m": guard["guard_760m_adamw_launches"],
+                             "train_lora_masked": train_lora["fused_adamw"]},
+        "lora_factor_leaves": {
+            "ms": train_lora["adamw_ms"], "plain_ms": train_lora["adamw_plain_ms"],
+            "bound_ms": train_lora["adamw_bound_ms"], "bound_by": "bytes",
+            "elements": train_lora["elements"],
+            "work": "one masked fine-tune step: 1 launch over the 28 factor leaves of "
+                    "train_lora's 2-layer model"},
         "ms_by_flag": adamw_row["ms_by_flag"], "flag_checks": adamw_row["flag_checks"],
         "finite_flag_ms": adamw_row["finite_flag_ms"],
         "finite_flag_bound_ms": adamw_row["finite_flag_bound_ms"],
@@ -3818,7 +4531,8 @@ def main(argv=None) -> int:
         "gather_sdpa_ms": row["gather_sdpa_ms"] * 16,
         "launches_by_path": {"serve_1b_paged": paged_serve["launches"],
                              "serve_1b_prefill_f": prefill["paged_f"],
-                             "serve_1b_gqa_paged_spec": paged_serve["spec"]},
+                             "serve_1b_gqa_paged_spec": paged_serve["spec"],
+                             "serve_1b_lora_composed": lora["composed_paged"]},
         "verify": {k: paged["results"][("1b-gqa-verify", "f32", "f32")][k] * 16
                    for k in ("ms", "plain_ms", "bound_ms")}
         | {"bound_by": paged["results"][("1b-gqa-verify", "f32", "f32")]["bound_by"],

@@ -24,7 +24,11 @@ reads: ``q`` (K, N) is stored as ``qt`` (N, K), K-contiguous. For a float
 ``cfg`` the tree stays float: each kernel — (in, out) for ``nn.Dense``,
 (d_model, H, D) for q/k/v, (H, D, d_model) for o_proj — becomes a
 ``weight`` (K, N), its input axes flattened into K and its output axes
-into N.
+into N. A LoRA model's ``*_lora`` subtrees (``lora_a`` (N, d_in, r),
+``lora_b`` (N, r, d_out), a leading L axis when stacked) carry across in
+the JAX layout, float32 for int8 and float weights alike;
+:func:`adapter_from_jax` converts one adapter's rows (the JAX
+``extract_adapter`` output) for ``AdapterBank.register``.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from pytorch_distributed_training_tutorials_tpu_torch._device import resolve_dev
 from pytorch_distributed_training_tutorials_tpu_torch.models.transformer import (
     _QUANTIZED_KERNELS,
     Dense,
+    LoRADelta,
     TransformerConfig,
     TransformerLM,
     quantize_lm_params,
@@ -61,6 +66,9 @@ _BLOCK_LEAVES = {
     "mlp.up_proj": ("mlp", "up_proj"),
     "mlp.down_proj": ("mlp", "down_proj"),
 }
+# the LoRA siblings of a block (cfg.lora_adapters > 0), the same way
+_LORA_LEAVES = {f"{k}_lora": (*v[:-1], f"{v[-1]}_lora")
+                for k, v in _BLOCK_LEAVES.items() if not k.endswith("_norm")}
 
 
 def _to_torch(tree, device):
@@ -145,9 +153,36 @@ def from_jax_params(tree, cfg: TransformerConfig | torch.nn.Module, device=None,
                 out[f"{prefix}.scale"] = sub["scale"].float().contiguous()
             else:
                 out.update(leaves(prefix, path[-1], sub))
+        if cfg.lora_adapters:
+            out.update(_lora_rows(blk, i))
     out["final_norm.scale"] = t["final_norm"]["scale"].float().contiguous()
     out.update(leaves("lm_head", "lm_head", t["lm_head"]))
     _check_schema(out, cfg)
+    return out
+
+
+def _lora_rows(blk: Mapping, i: int) -> dict[str, torch.Tensor]:
+    """Block ``i``'s ``*_lora`` factor leaves under the port's names."""
+    out = {}
+    for port_name, path in _LORA_LEAVES.items():
+        sub = blk
+        for key in path:
+            sub = sub[key]
+        for leaf in ("lora_a", "lora_b"):
+            out[f"blocks.{i}.{port_name}.{leaf}"] = sub[leaf].float().contiguous()
+    return out
+
+
+def adapter_from_jax(row, cfg: TransformerConfig, device=None) -> dict[str, torch.Tensor]:
+    """One adapter's factor rows from the JAX package (``extract_adapter``:
+    nested dicts of numpy arrays, ``block_i/...`` or stacked
+    ``layers/block/...``, each leaf without the adapter axis) -> the
+    name -> tensor rows :meth:`..adapters.bank.AdapterBank.register`
+    takes, on ``device`` (``cuda`` unless the caller passes another)."""
+    t = _unstack(_to_torch(dict(row), resolve_device(device)), cfg.n_layers)
+    out = {}
+    for i in range(cfg.n_layers):
+        out.update(_lora_rows(t[f"block_{i}"], i))
     return out
 
 
@@ -179,7 +214,9 @@ def init_quantized_lm(cfg: TransformerConfig, seed: int = 0,
     model = TransformerLM(cfg)  # meta: the schema only
     out: dict[str, torch.Tensor] = {}
     for mod_name, mod in model.named_modules():
-        if isinstance(mod, Int8Linear):
+        if isinstance(mod, LoRADelta):  # zero factors, no draw
+            out.update(_zero_lora(mod_name, mod, dev))
+        elif isinstance(mod, Int8Linear):
             n, k = mod.qt.shape
             w = torch.randn((k, n), generator=gen, device=dev) * 0.02
             qp = quantize_int8(w)
@@ -192,6 +229,13 @@ def init_quantized_lm(cfg: TransformerConfig, seed: int = 0,
                     torch.randn(p.shape, generator=gen, device=dev) * 0.02
                 )
     return out
+
+
+def _zero_lora(mod_name: str, mod: LoRADelta, dev) -> dict[str, torch.Tensor]:
+    """A LoRA sibling's factors: zeros (row 0 is the base model, the rest
+    wait for a bank row or ``adapters.lora.lora_init``)."""
+    return {f"{mod_name}.{n}": torch.zeros(p.shape, dtype=torch.float32, device=dev)
+            for n, p in mod.named_parameters()}
 
 
 def _truncated_normal_(w: torch.Tensor, std: float, gen: torch.Generator) -> torch.Tensor:
@@ -218,6 +262,9 @@ def init_lm(cfg: TransformerConfig, seed: int = 0, device=None) -> dict[str, tor
     model = TransformerLM(cfg)  # meta: the schema only
     out: dict[str, torch.Tensor] = {}
     for mod_name, mod in model.named_modules():
+        if isinstance(mod, LoRADelta):  # zero factors, no draw
+            out.update(_zero_lora(mod_name, mod, dev))
+            continue
         for p_name, p in mod.named_parameters(recurse=False):
             w = torch.empty(p.shape, dtype=torch.float32, device=dev)
             if isinstance(mod, Dense):

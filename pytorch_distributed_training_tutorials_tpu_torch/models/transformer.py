@@ -18,8 +18,9 @@ RMSNorm, rotary positions (half-split), SwiGLU, GQA. Two weight kinds:
   JAX ``masked_attention`` contract. ``remat`` checkpoints each block
   (``torch.utils.checkpoint``); ``remat_policy="dots"`` saves the outputs
   of the projections' matmuls and recomputes the rest, the flash forward
-  included. The float model also serves: prefill and decode over a
-  :class:`KVCache` or :class:`PagedKVCache` stored in ``cfg.dtype``, the
+  included; ``"dots_attn"`` also saves the flash op's outputs. The float
+  model also serves: prefill and decode over a :class:`KVCache` or
+  :class:`PagedKVCache` stored in ``cfg.dtype``, the
   cached decode under the same ``masked_attention`` contract (float32
   scores and softmax, weights cast to v's type).
 
@@ -70,6 +71,8 @@ from torch.utils.checkpoint import (
     noop_context_fn,
 )
 
+from pytorch_distributed_training_tutorials_tpu_torch.adapters.bank import apply_lora
+from pytorch_distributed_training_tutorials_tpu_torch.ops import flash_attention as _flash
 from pytorch_distributed_training_tutorials_tpu_torch.ops.paged_attention import (
     paged_attention,
 )
@@ -83,8 +86,6 @@ from pytorch_distributed_training_tutorials_tpu_torch.ops.quant import (
 
 # config field -> the later slice of the port that brings it in
 _LATER_SLICES = {
-    "lora_adapters": "the multi-tenant LoRA bank",
-    "lora_rank": "the multi-tenant LoRA bank",
     "moe_experts": "mixture-of-experts blocks",
     "int8_mesh": "tensor-parallel int8 serving",
 }
@@ -96,6 +97,7 @@ _SERVING_LATER = {
                     "weights are not trained",
 }
 _FLOAT_DTYPES = (torch.float32, torch.bfloat16)
+_REMAT_POLICIES = (None, "dots", "dots_attn")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,9 +108,15 @@ class TransformerConfig:
     serves int8 weights in float32, prefilling through ``attention_fn``
     when it is set; ``quantized=False`` trains and serves float32
     parameters computing in ``dtype`` (float32 or bfloat16), with
-    ``attention_fn``, ``remat`` and ``remat_policy`` (None or "dots"). The
-    JAX ``scan_layers`` layout needs no field: the port holds one module
-    per layer and the weight bridge reads the layout from the tree.
+    ``attention_fn``, ``remat`` and ``remat_policy`` (None, "dots" or
+    "dots_attn"). The JAX ``scan_layers`` layout needs no field: the port
+    holds one module per layer and the weight bridge reads the layout from
+    the tree.
+
+    ``lora_adapters`` N > 0 with ``lora_rank`` r >= 1 gives every q/k/v/o
+    and gate/up/down projection a :class:`LoRADelta` sibling (``*_lora``)
+    holding N stacked rank-r factor pairs, gathered per batch row by the
+    forward's ``adapter_ids``; row 0 is the base model (zero factors).
 
     KV storage: ``kv_cache_dtype`` None (float32 for int8 weights,
     ``dtype`` for float weights), ``torch.float32``, ``torch.bfloat16``,
@@ -182,14 +190,14 @@ class TransformerConfig:
             raise ValueError(
                 "paged_kernel=True needs kv_pages > 0: the kernel walks the page pool"
             )
-        if self.remat_policy == "dots_attn":
-            raise NotImplementedError(
-                "remat_policy='dots_attn' is not supported by the PyTorch "
-                "port yet; it arrives in a later PR, once the flash op is a "
-                "torch.library custom op that a selective-checkpoint policy "
-                "can name"
+        if (bool(self.lora_adapters) != bool(self.lora_rank)
+                or (self.lora_adapters and (self.lora_adapters < 2 or self.lora_rank < 1))):
+            raise ValueError(
+                f"lora_adapters={self.lora_adapters}, lora_rank={self.lora_rank}: "
+                "LoRA needs lora_adapters >= 2 (row 0 is the base model) and "
+                "lora_rank >= 1, or lora_adapters 0 (off)"
             )
-        if self.remat_policy not in (None, "dots"):
+        if self.remat_policy not in _REMAT_POLICIES:
             raise ValueError(
                 f"unknown remat_policy {self.remat_policy!r} (None, 'dots', "
                 "or 'dots_attn')"
@@ -646,6 +654,43 @@ def _validity(pos, s: int, window: int) -> torch.Tensor:
     return torch.arange(window, device=pos.device) <= qpos[..., None]
 
 
+class LoRADelta(nn.Module):
+    """The stacked multi-tenant LoRA delta of ONE base projection (the JAX
+    package's ``LoRADelta``): ``lora_a`` (N, d_in, r) and ``lora_b`` (N, r,
+    d_out), float32 parameters, zero until a bank row or a fine-tune fills
+    them. The forward returns each batch row's ``(x @ A[id]) @ B[id]``
+    (:func:`..adapters.bank.apply_lora`) computed in ``cfg.dtype``, the
+    factors gathered by a device id vector — never a host branch on the
+    id. Row 0 is the base model: its factors stay zero, so its delta is an
+    exact 0.0."""
+
+    def __init__(self, cfg: TransformerConfig, d_in: int, d_out: int, device=None):
+        super().__init__()
+        n, r = cfg.lora_adapters, cfg.lora_rank
+        self.dtype = cfg.dtype
+        self.lora_a = nn.Parameter(torch.zeros((n, d_in, r), device=device),
+                                   requires_grad=not cfg.quantized)
+        self.lora_b = nn.Parameter(torch.zeros((n, r, d_out), device=device),
+                                   requires_grad=not cfg.quantized)
+
+    def forward(self, x: torch.Tensor, adapter_ids: torch.Tensor) -> torch.Tensor:
+        return apply_lora(x, self.lora_a, self.lora_b, adapter_ids, dtype=self.dtype)
+
+
+def _lora(cfg: TransformerConfig, d_in: int, d_out: int, device=None) -> LoRADelta | None:
+    return LoRADelta(cfg, d_in, d_out, device=device) if cfg.lora_adapters else None
+
+
+def _adapter_ids(adapter_ids, batch: int, device) -> torch.Tensor:
+    """A forward's ``adapter_ids`` as a (B,) int32 device vector: None is
+    the base row 0, a host int one row for every batch row (a fill, no
+    upload), a 0-dim or (B,) tensor taken as it is."""
+    if adapter_ids is None or isinstance(adapter_ids, int):
+        return torch.full((batch,), int(adapter_ids or 0), dtype=torch.int32, device=device)
+    ids = adapter_ids.to(device=device, dtype=torch.int32)
+    return ids.expand(batch) if ids.ndim == 0 else ids
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
@@ -655,13 +700,24 @@ class Attention(nn.Module):
         self.k_proj = _projection(cfg, cfg.d_model, (kv, d), device=device)
         self.v_proj = _projection(cfg, cfg.d_model, (kv, d), device=device)
         self.o_proj = _projection(cfg, (h, d), cfg.d_model, n_in=2, device=device)
+        # LoRA siblings (None when off: the module tree is the base one)
+        self.q_proj_lora = _lora(cfg, cfg.d_model, h * d, device)
+        self.k_proj_lora = _lora(cfg, cfg.d_model, kv * d, device)
+        self.v_proj_lora = _lora(cfg, cfg.d_model, kv * d, device)
+        self.o_proj_lora = _lora(cfg, h * d, cfg.d_model, device)
 
     def forward(self, x, cache: KVCache | None = None, layer: int = 0, *,
-                prefill: bool = False, decode: bool = False, rows=None):
+                prefill: bool = False, decode: bool = False, rows=None,
+                adapter_ids=None):
         cfg = self.cfg
         q_raw = self.q_proj(x)
         k_raw = self.k_proj(x)  # GQA: only kv_heads projected and cached
         v = self.v_proj(x)
+        if cfg.lora_adapters:
+            # per-row deltas on the raw projections (row 0: an exact 0.0)
+            q_raw = q_raw + self.q_proj_lora(x, adapter_ids).reshape(q_raw.shape)
+            k_raw = k_raw + self.k_proj_lora(x, adapter_ids).reshape(k_raw.shape)
+            v = v + self.v_proj_lora(x, adapter_ids).reshape(v.shape)
         s = x.shape[1]
         acc = torch.float64 if cfg.quantized else torch.float32
         if decode:
@@ -727,7 +783,12 @@ class Attention(nn.Module):
             # repeat up to the query head count here (repeat_interleave:
             # contiguous, so a flash kernel takes them at their own strides)
             out = attn(q, _expand_kv(k, h), _expand_kv(v, h))
-        return self.o_proj(out)
+        y = self.o_proj(out)
+        if cfg.lora_adapters:
+            # the o_proj delta reads the flattened attention context
+            flat = out.reshape(out.shape[0], out.shape[1], -1)
+            y = y + self.o_proj_lora(flat, adapter_ids)
+        return y
 
     def _paged_decode(self, q, encoded, cache: PagedKVCache, layer: int):
         """The paged decode of one layer: the encoded K/V (and scales)
@@ -772,9 +833,17 @@ class SwiGLU(nn.Module):
         self.gate_proj = _projection(cfg, cfg.d_model, cfg.ff_dim, device=device)
         self.up_proj = _projection(cfg, cfg.d_model, cfg.ff_dim, device=device)
         self.down_proj = _projection(cfg, cfg.ff_dim, cfg.d_model, device=device)
+        self.gate_proj_lora = _lora(cfg, cfg.d_model, cfg.ff_dim, device)
+        self.up_proj_lora = _lora(cfg, cfg.d_model, cfg.ff_dim, device)
+        self.down_proj_lora = _lora(cfg, cfg.ff_dim, cfg.d_model, device)
 
-    def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+    def forward(self, x, adapter_ids=None):
+        if self.gate_proj_lora is None:
+            return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        gate = self.gate_proj(x) + self.gate_proj_lora(x, adapter_ids)
+        up = self.up_proj(x) + self.up_proj_lora(x, adapter_ids)
+        hidden = F.silu(gate) * up
+        return self.down_proj(hidden) + self.down_proj_lora(hidden, adapter_ids)
 
 
 class Block(nn.Module):
@@ -787,12 +856,12 @@ class Block(nn.Module):
         self.mlp = SwiGLU(cfg, device=device)
 
     def forward(self, x, cache=None, layer=0, *, prefill=False, decode=False,
-                rows=None):
+                rows=None, adapter_ids=None):
         x = x + self.attn(
             self.attn_norm(x), cache, layer, prefill=prefill, decode=decode,
-            rows=rows,
+            rows=rows, adapter_ids=adapter_ids,
         )
-        return x + self.mlp(self.mlp_norm(x))
+        return x + self.mlp(self.mlp_norm(x), adapter_ids)
 
 
 class TransformerLM(nn.Module):
@@ -816,7 +885,11 @@ class TransformerLM(nn.Module):
     S); ``decode=True`` (S tokens per cache row at the row's own position,
     written into ``cache``, index += S). Prefill, and decode with
     ``last_pos``, return only the logits at ``last_pos`` (scalar or (B,)),
-    default the last position."""
+    default the last position.
+
+    ``adapter_ids`` (a model with ``cfg.lora_adapters``; every mode): each
+    batch row's LoRA bank row — None (row 0, the base model), a host int
+    for every row, or a 0-dim or (B,) int tensor on the model's device."""
 
     def __init__(self, cfg: TransformerConfig, device="meta"):
         super().__init__()
@@ -832,18 +905,25 @@ class TransformerLM(nn.Module):
 
     def forward(self, tokens, cache: KVCache | None = None, *,
                 prefill: bool = False, decode: bool = False, last_pos=None,
-                rows=None, return_hidden: bool = False):
+                rows=None, return_hidden: bool = False, adapter_ids=None):
+        if adapter_ids is not None and not self.cfg.lora_adapters:
+            raise ValueError(
+                "adapter_ids passed but cfg.lora_adapters == 0; build with "
+                "TransformerConfig(lora_adapters=N, lora_rank=r)"
+            )
+        ids = (_adapter_ids(adapter_ids, tokens.shape[0], tokens.device)
+               if self.cfg.lora_adapters else None)
         serving = cache is not None or prefill or decode or last_pos is not None
         if self.cfg.quantized or serving:
             if return_hidden:
                 raise NotImplementedError(
                     "return_hidden is the float train path's (the fused loss)")
             with torch.no_grad():
-                return self._serve(tokens, cache, prefill=prefill,
-                                   decode=decode, last_pos=last_pos, rows=rows)
-        return self._train_forward(tokens, return_hidden)
+                return self._serve(tokens, cache, prefill=prefill, decode=decode,
+                                   last_pos=last_pos, rows=rows, adapter_ids=ids)
+        return self._train_forward(tokens, return_hidden, ids)
 
-    def _train_forward(self, tokens, return_hidden: bool = False):
+    def _train_forward(self, tokens, return_hidden: bool = False, adapter_ids=None):
         """The float forward: embedding rows cast to ``cfg.dtype``, the
         blocks (checkpointed under ``cfg.remat``), final norm, lm_head;
         logits (B, S, vocab) in ``cfg.dtype``. ``return_hidden=True`` stops
@@ -862,17 +942,17 @@ class TransformerLM(nn.Module):
         for block in self.blocks:
             if cfg.remat:
                 x = checkpoint(
-                    block, x, use_reentrant=False,
+                    block, x, adapter_ids=adapter_ids, use_reentrant=False,
                     context_fn=_remat_context(cfg.remat_policy),
                 )
             else:
-                x = block(x)
+                x = block(x, adapter_ids=adapter_ids)
         x = self.final_norm(x)
         return x if return_hidden else self.lm_head(x)
 
     def _serve(self, tokens, cache: KVCache | None = None, *,
                prefill: bool = False, decode: bool = False, last_pos=None,
-               rows=None):
+               rows=None, adapter_ids=None):
         cfg = self.cfg
         if prefill and decode:
             raise ValueError("decode and prefill are exclusive")
@@ -901,7 +981,8 @@ class TransformerLM(nn.Module):
         if not cfg.quantized:
             x = x.to(cfg.dtype)
         for i, block in enumerate(self.blocks):
-            x = block(x, cache, i, prefill=prefill, decode=decode, rows=rows)
+            x = block(x, cache, i, prefill=prefill, decode=decode, rows=rows,
+                      adapter_ids=adapter_ids)
         if prefill:
             # a fill: item assignment of a host number syncs the stream
             cache.index[slice(None) if rows is None else rows].fill_(s)
@@ -921,6 +1002,8 @@ class TransformerLM(nn.Module):
 # matmuls without batch dims: what remat_policy="dots" saves (the JAX
 # package's dots_with_no_batch_dims_saveable); Dense runs one aten.mm
 _DOTS_SAVEABLE = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+# "dots_attn" also saves both outputs of the flash op (O and its lse)
+_DOTS_ATTN_SAVEABLE = _DOTS_SAVEABLE | {_flash._flash_op._opoverload}
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -929,12 +1012,24 @@ def _dots_policy(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def _dots_attn_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS_ATTN_SAVEABLE:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _remat_context(policy: str | None):
     """``context_fn`` of a block's checkpoint: None recomputes everything
-    (the default contexts); "dots" is the selective policy above."""
+    (the default contexts); "dots" saves the projections' matmuls and
+    recomputes the rest, the flash forward included; "dots_attn" also
+    keeps the ``tpu_torch::flash_attention`` op's outputs, so the flash
+    forward runs once a layer a step (the JAX docstring's intent: the JAX
+    policy tags the attention output, not the ``custom_vjp`` residuals the
+    backward reads, and its forward runs twice either way)."""
     if policy is None:
         return noop_context_fn
-    return functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+    fn = _dots_attn_policy if policy == "dots_attn" else _dots_policy
+    return functools.partial(create_selective_checkpoint_contexts, fn)
 
 
 def bind_params(model: TransformerLM, params: Mapping[str, torch.Tensor]) -> None:

@@ -14,10 +14,12 @@ its arithmetic:
 - :func:`flash_dkv` — dk and dv accumulated over query blocks
   (``_dkv_kernel``); plain: :func:`flash_dkv_reference`.
 
-:func:`flash_attention` ties them into a ``torch.autograd.Function`` (the
-JAX ``custom_vjp``): the forward saves q, k, v, O and the logsumexp, and
-the backward computes ``delta = rowsum(dO * O)`` in plain torch, then
-launches dq and dk/dv. It is a drop-in ``attention_fn`` for
+:func:`flash_attention` ties them into the ``tpu_torch::flash_attention``
+op (``torch.library.custom_op``; the JAX ``custom_vjp``): its forward
+returns O and the logsumexp, both visible to the dispatcher, so a
+selective-checkpoint policy can name the op and keep its outputs
+(``remat_policy="dots_attn"``); its backward computes ``delta = rowsum(dO
+* O)`` in plain torch, then launches dq and dk/dv. It is a drop-in ``attention_fn`` for
 :class:`..models.transformer.TransformerConfig`: (B, S, H, D) in and out,
 causal, as ``causal_attention``. Serving calls it too, under
 ``torch.no_grad()``: every whole prefill of a model with this
@@ -314,33 +316,60 @@ def flash_dkv(q, k, v, do, lse, delta, block_q: int = 512, block_k: int = 512, *
     return dk, dv
 
 
-class _FlashAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, block_q, block_k):
-        o, lse = flash_fwd(q, k, v, block_q, block_k)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.blocks = (block_q, block_k)
-        return o
+@torch.library.custom_op("tpu_torch::flash_attention", mutates_args=(), device_types="cpu")
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_q: int,
+              block_k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The flash forward as one dispatcher op, both outputs returned (O,
+    and the lse the backward reads), so a selective-checkpoint policy can
+    keep them (``remat_policy="dots_attn"``). CPU: the plain version."""
+    o, lse = flash_fwd(q, k, v, block_q, block_k)
+    return o, lse.contiguous()
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        if do.stride(-1) != 1:  # e.g. the expanded gradient of a sum
-            do = do.contiguous()
-        acc_t = _acc_dtype(q)
-        # delta_i = rowsum(dO_i * O_i): O(S) elementwise work outside the
-        # kernels, as in the JAX package
-        delta = (do.to(acc_t) * o.to(acc_t)).sum(-1).transpose(1, 2).contiguous()
-        dq = flash_dq(q, k, v, do, lse, delta, *ctx.blocks)
-        dk, dv = flash_dkv(q, k, v, do, lse, delta, *ctx.blocks)
-        return dq, dk, dv, None, None
+
+@_flash_op.register_kernel("cuda")
+def _flash_op_cuda(q, k, v, block_q, block_k):
+    """CUDA: the sm90 forward kernel where :func:`_sm90_route` takes the
+    operands, else ``fwd_kernel``."""
+    return flash_fwd(q, k, v, block_q, block_k)
+
+
+@_flash_op.register_fake
+def _flash_op_fake(q, k, v, block_q, block_k):
+    b, s, h, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((b, h, s), dtype=torch.float32)
+
+
+def _flash_setup(ctx, inputs, output) -> None:
+    q, k, v, block_q, block_k = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.blocks = (block_q, block_k)
+
+
+def _flash_backward(ctx, do, dlse):
+    """dq and dk/dv from the saved O and lse; the lse output carries no
+    gradient (the JAX ``custom_vjp`` returns O alone)."""
+    q, k, v, o, lse = ctx.saved_tensors
+    if do.stride(-1) != 1:  # e.g. the expanded gradient of a sum
+        do = do.contiguous()
+    acc_t = _acc_dtype(q)
+    # delta_i = rowsum(dO_i * O_i): O(S) elementwise work outside the
+    # kernels, as in the JAX package
+    delta = (do.to(acc_t) * o.to(acc_t)).sum(-1).transpose(1, 2).contiguous()
+    dq = flash_dq(q, k, v, do, lse, delta, *ctx.blocks)
+    dk, dv = flash_dkv(q, k, v, do, lse, delta, *ctx.blocks)
+    return dq, dk, dv, None, None
+
+
+_flash_op.register_autograd(_flash_backward, setup_context=_flash_setup)
 
 
 def flash_attention(q, k, v, block_q: int = 512, block_k: int = 512):
     """Causal flash attention; (B, S, H, D) in and out, differentiable in
     q, k and v. Use as ``TransformerConfig(attention_fn=flash_attention)``
-    or through :func:`make_flash_attention`."""
-    return _FlashAttention.apply(q, k, v, block_q, block_k)
+    or through :func:`make_flash_attention`. One call of the
+    ``tpu_torch::flash_attention`` op (:func:`_flash_op`)."""
+    return _flash_op(q, k, v, block_q, block_k)[0]
 
 
 # kernel launches on the card by kernel (CPU calls add none)

@@ -18,8 +18,12 @@ Float32 contiguous leaves only; it raises on anything else and when
 a launch fails, and never falls back. ``fused_adamw.launches`` counts
 kernel launches; CPU calls add none.
 
-``mask=`` (the LoRA factor mask of the JAX package) arrives with the
-LoRA-bank slice and raises here.
+``mask=`` (the JAX package's, e.g. ``adapters.lora.lora_param_mask``)
+restricts the update to the leaves it marks True: the rest get a hard
+zero update (they are not touched) and no moment buffers, and the kernel
+launches once a step over the trainable leaves only
+(:meth:`..train.optim.AdamW.select`; ``TrainState`` freezes the rest, so
+they get no gradient either).
 """
 
 from __future__ import annotations
@@ -74,10 +78,11 @@ class FusedAdamW(AdamW):
     the card (the plain foreach version on the CPU)."""
 
     @torch.no_grad()
-    def update_(self, params: list[torch.Tensor], grads: list[torch.Tensor],
-                state: AdamWState, ok: torch.Tensor | None = None) -> None:
+    def update_(self, params, grads, state: AdamWState,
+                ok: torch.Tensor | None = None) -> None:
         """One AdamW step, parameters and moments updated in place; with
         ``ok`` 0 everything stays bitwise as it was."""
+        params, grads = self.select(params, grads)
         if not _route(params, grads, state):
             return super().update_(params, grads, state, ok)
         if ok is not None and (ok.dtype != torch.int32 or ok.numel() != 1
@@ -109,20 +114,17 @@ class FusedAdamW(AdamW):
 def fused_adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
                 eps: float = 1e-8, weight_decay: float = 1e-4, *,
                 mask=None) -> FusedAdamW:
-    """``optax.adamw`` with its defaults (no mask, no nesterov), the
-    update fused into one kernel pass on the card."""
+    """``optax.adamw`` with its defaults (no nesterov), the update fused
+    into one kernel pass on the card. ``mask`` (a name -> bool mapping, or
+    a callable that returns one from the named parameters) restricts the
+    update to the True leaves, as the JAX ``fused_adamw(mask=)``."""
     if callable(learning_rate):
         raise TypeError(
             "fused_adamw takes a static float learning_rate (it is passed to "
             "the kernel as a scalar); use train.optim.adamw for schedules"
         )
-    if mask is not None:
-        raise NotImplementedError(
-            "fused_adamw(mask=...) is not supported by the PyTorch port yet; "
-            "it arrives with the LoRA-bank slice (the adapter factor mask)"
-        )
     return FusedAdamW(lr=float(learning_rate), b1=b1, b2=b2, eps=eps,
-                      weight_decay=weight_decay)
+                      weight_decay=weight_decay, mask=mask)
 
 
 # kernel launches on the card (CPU calls add none)

@@ -1,7 +1,7 @@
 """``python -m pytorch_distributed_training_tutorials_tpu_torch.serve
 --selftest [--paged [--paged-kernel] [--kv-bits 8|4]] [--prefix] [--chunk]
-[--flash] [--spec-k K [--spec-ngram N]] [--pipeline-depth D] [--device
-cpu]``: end-to-end smoke of the port's serving path.
+[--flash] [--spec-k K [--spec-ngram N]] [--pipeline-depth D] [--adapters
+N] [--device cpu]``: end-to-end smoke of the port's serving path.
 
 A toy int8 LM serves a staggered stream of mixed-length requests through
 :class:`.engine.ServeEngine` (2 slots, a queue bound of 2 so backpressure
@@ -52,6 +52,13 @@ engine with chunks of 8 (and ``speculative_k=K`` with ``--spec-k``). Its
 tokens must equal the serial engine's, the host syncs stay one per chain
 plus one per prefill, and the stream's 12-token prompt must be chunked.
 
+``--adapters N`` (>= 2) adds the multi-tenant arm (the JAX selftest's):
+a bank of N rows, N - 1 tenants with distinct seeded factors, the
+staggered stream with ids ``i % N`` through one engine. Every request's
+tokens must equal a dedicated single-tenant engine's, id 0's the
+bank-less engine's; the host syncs stay one per chain plus one per
+prefill; an unregistered id raises at submit.
+
 Prints one JSON line (``"ok": true`` when every check held) and exits 0,
 or 1 when a check failed. Runs on ``cuda`` unless ``--device`` names
 another device.
@@ -67,7 +74,7 @@ import sys
 def selftest(device=None, paged: bool = False, paged_kernel: bool = False,
              kv_bits: int | None = None, prefix: bool = False, chunk: bool = False,
              flash: bool = False, spec_k: int = 0, spec_ngram: int = 3,
-             pipeline_depth: int = 1) -> dict:
+             pipeline_depth: int = 1, adapters: int = 0) -> dict:
     import numpy as np
     import torch
 
@@ -146,6 +153,8 @@ def selftest(device=None, paged: bool = False, paged_kernel: bool = False,
                      spec_ngram, problems)
         if pipeline_depth > 1 else {}
     )
+    adapter_fields = (adapter_arm(model, params, dev, prompts, completions, adapters,
+                                  problems) if adapters else {})
     return {
         "selftest": "serve_torch",
         "ok": not problems,
@@ -167,8 +176,65 @@ def selftest(device=None, paged: bool = False, paged_kernel: bool = False,
         **flash_fields,
         **spec_fields,
         **pipeline_fields,
+        **adapter_fields,
         "problems": problems,
     }
+
+
+def adapter_arm(model, params, dev, prompts, completions, n_adapters: int,
+                problems: list) -> dict:
+    """The ``--adapters`` checks (module docstring); appends to
+    ``problems`` and returns the receipt fields."""
+    import numpy as np
+    import torch
+
+    from pytorch_distributed_training_tutorials_tpu_torch.adapters import AdapterBank
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import Request, ServeEngine
+
+    bank = AdapterBank(model, n_adapters=n_adapters, rank=4, device=dev)
+    rng = np.random.Generator(np.random.PCG64(5))
+    base_row = {k: rng.standard_normal(tuple(v.shape)) * 0.5
+                for k, v in bank.row_zeros().items()}
+    for aid in range(1, n_adapters):
+        # distinct factors per tenant (scaled copies: cheap, different)
+        sign = 1.0 if aid % 2 else -1.0
+        bank.register(f"tenant-{aid}", {k: torch.tensor(v * sign / aid, dtype=torch.float32)
+                                        for k, v in base_row.items()})
+    ids = [i % n_adapters for i in range(len(prompts))]
+
+    def run(rows, with_bank: bool):
+        eng = ServeEngine(model, params, n_slots=2, tokens_per_launch=8, device=dev,
+                          adapter_bank=bank if with_bank else None)
+        rids = [eng.submit(Request(prompt=prompts[i][0], max_new_tokens=prompts[i][1],
+                                   adapter=ids[i] if with_bank else 0)) for i in rows]
+        done = {c.request_id: c.tokens for c in eng.run_until_idle()}
+        return eng, [done[r] for r in rids]
+
+    every = list(range(len(prompts)))
+    eng, mixed = run(every, True)
+    for aid in range(n_adapters):
+        rows = [i for i in every if ids[i] == aid]
+        if rows and run(rows, True)[1] != [mixed[i] for i in rows]:
+            problems.append(f"adapter {aid}: mixed-tenant tokens differ from a dedicated engine's")
+    base = [i for i in every if ids[i] == 0]
+    if [mixed[i] for i in base] != [completions[i].tokens for i in base]:
+        problems.append("adapter 0 tokens differ from the bank-less engine's")
+    budget = eng.n_chains + eng.n_prefills
+    if eng.n_host_syncs != budget:
+        problems.append(f"adapter arm: {eng.n_host_syncs} host syncs != {budget}")
+    try:
+        eng.submit(Request(prompt=[1, 2], max_new_tokens=2, adapter=n_adapters))
+        problems.append(f"unregistered adapter id {n_adapters} admitted at submit")
+    except ValueError:
+        pass
+    tenants_differ = sum(mixed[i] != completions[i].tokens for i in every if ids[i])
+    if not tenants_differ:
+        problems.append("no tenant request's tokens differ from the base model's")
+    stats = eng.adapter_stats()
+    if stats["adapter_requests"] < 1:
+        problems.append(f"no tenant traffic recorded: {stats}")
+    return {"adapter_n_host_syncs": eng.n_host_syncs, "adapter_tenants_differ": tenants_differ,
+            **stats}
 
 
 def paged_arm(model, params, dev, paged_kernel: bool, kv_bits, problems: list) -> dict:
@@ -475,6 +541,10 @@ def main(argv: list[str] | None = None) -> int:
         "--pipeline-depth", type=int, default=1,
         help="add the pipelined arm at this depth (> 1), with chunks of 8",
     )
+    ap.add_argument(
+        "--adapters", type=int, default=0,
+        help="add the multi-tenant LoRA arm with a bank of this many rows (>= 2)",
+    )
     args = ap.parse_args(argv)
     if not args.selftest:
         ap.print_help()
@@ -485,7 +555,7 @@ def main(argv: list[str] | None = None) -> int:
                        paged_kernel=args.paged_kernel, kv_bits=args.kv_bits,
                        prefix=args.prefix, chunk=args.chunk, flash=args.flash,
                        spec_k=args.spec_k, spec_ngram=args.spec_ngram,
-                       pipeline_depth=args.pipeline_depth)
+                       pipeline_depth=args.pipeline_depth, adapters=args.adapters)
     print(json.dumps(receipt))
     return 0 if receipt["ok"] else 1
 

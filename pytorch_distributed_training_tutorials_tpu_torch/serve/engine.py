@@ -84,6 +84,21 @@ which is safe because chains, parks and refills share one stream, so the
 extra chain runs before the park and before the next refill's writes.
 A refill's first-token fetch still drains the stream. Depth 1 is the
 serial loop.
+
+Multi-tenant LoRA (``adapter_bank=``, an :class:`..adapters.bank.AdapterBank`):
+the engine serves the bank's LoRA twin of the model, bound to the base
+weights and to the bank's own factor tensors (no copy), so a register or
+an evict on a live engine is seen by the next forward. Every slot carries
+its request's adapter id (``SlotState.adapter_ids``) into the decode and
+verify forwards, and every refill kind passes the request's id to its
+forward, so tenants co-batch. ``Request.adapter`` is checked at submit
+(an unregistered id raises) and its row's generation snapshotted; a
+request whose tenant was evicted or replaced while it queued completes as
+``"adapter_evicted"`` with no device work. Prefix keys are namespaced per
+(adapter, generation) (:meth:`ServeEngine._prefix_key`), so tenants never
+splice each other's segments, nor a recycled row its previous tenant's.
+Id 0 is the base model, exactly. Without a bank the engine's state and
+launches are those of the base engine.
 """
 
 from __future__ import annotations
@@ -104,6 +119,7 @@ from pytorch_distributed_training_tutorials_tpu_torch.models.sampling import (
 from pytorch_distributed_training_tutorials_tpu_torch.models.transformer import (
     KVCache,
     PagedKVCache,
+    TransformerConfig,
     TransformerLM,
     _kv_quant_mode,
     bind_params,
@@ -132,6 +148,7 @@ from pytorch_distributed_training_tutorials_tpu_torch.serve.slots import (
     seed_cache,
     seed_cache_paged,
     seed_history,
+    set_adapter,
     tree_nbytes,
     upload,
     write_slot,
@@ -183,10 +200,10 @@ class _PendingPrefill:
     """A chunked prefill in progress: the request, its slot, the batch-1
     side cache the chunks accumulate into, how many prompt tokens it holds
     (``done``, a spliced ``depth`` included), the pinned donor segment of a
-    prefix hit, whether the prompt's own segment is inserted at the end
-    (``grow``) and, paged, the fresh pages allocated for the slot. The
-    slot's device budget stays 0 until the final chunk, so decode chains
-    treat it as inactive."""
+    prefix hit, the prefix key the prompt's own segment is inserted under
+    at the end (``grow``; None: not inserted) and, paged, the fresh pages
+    allocated for the slot. The slot's device budget stays 0 until the
+    final chunk, so decode chains treat it as inactive."""
 
     __slots__ = ("request", "slot", "prompt", "cache1", "done", "depth",
                  "segment", "grow", "pages")
@@ -199,8 +216,12 @@ class _PendingPrefill:
         self.done = 0
         self.depth = 0
         self.segment: Segment | None = None
-        self.grow = False
+        self.grow: list[int] | None = None
         self.pages: list[int] = []
+
+
+def _base_cfg(cfg: TransformerConfig) -> TransformerConfig:
+    return dataclasses.replace(cfg, lora_adapters=0, lora_rank=0)
 
 
 def _variant(model: TransformerLM, **changes) -> TransformerLM:
@@ -238,7 +259,9 @@ class ServeEngine:
     chunk of a chunked prefill (module docstring). ``speculative_k`` (0:
     off) drafts that many tokens a verify step by ``spec_ngram``-gram
     lookup; ``pipeline_depth`` (1: serial) is how many chains may be in
-    flight (module docstring)."""
+    flight; ``adapter_bank`` (None: off) serves LoRA tenants from an
+    :class:`..adapters.bank.AdapterBank` built for ``model`` on the
+    engine's device (module docstring)."""
 
     def __init__(
         self,
@@ -263,6 +286,7 @@ class ServeEngine:
         speculative_k: int = 0,
         spec_ngram: int = 3,
         pipeline_depth: int = 1,
+        adapter_bank=None,
     ):
         if n_slots < 1:
             raise ValueError("n_slots must be >= 1")
@@ -303,6 +327,19 @@ class ServeEngine:
             bind_params(
                 model, {k: v.to(self.device) for k, v in params.items()}
             )
+        self._bank = adapter_bank
+        if adapter_bank is not None:
+            if _base_cfg(model.cfg) != _base_cfg(adapter_bank.model.cfg):
+                raise ValueError("adapter_bank was built for a different model config")
+            if adapter_bank.device != self.device:
+                raise ValueError(f"adapter_bank lives on {adapter_bank.device}, the engine "
+                                 f"on {self.device}")
+            # the LoRA twin over the base weights and the bank's own
+            # factor tensors: register/evict write what the forwards read
+            lora = TransformerLM(adapter_bank.model.cfg)
+            bind_params(lora, {**model.state_dict(), **adapter_bank.factors})
+            model = lora
+            self._merged_version = adapter_bank.version
         if kv_bits is not None:
             model = _variant(
                 model, kv_cache_dtype="int4" if kv_bits == 4 else torch.int8
@@ -347,7 +384,8 @@ class ServeEngine:
         if self._spec and spec_ngram < 1:
             raise ValueError("spec_ngram must be >= 1")
         self._state = init_slot_state(self._dec_model.cfg, n_slots, self.device,
-                                      history=self.window if self._spec else 0)
+                                      history=self.window if self._spec else 0,
+                                      adapters=adapter_bank is not None)
         # pipelining: the chains in flight, and at depth >= 2 on a card one
         # pinned host buffer per chain in flight for its token block
         self._depth = int(pipeline_depth)
@@ -396,6 +434,10 @@ class ServeEngine:
         self.n_verify_forwards = 0
         self.spec_steps_consumed = 0
         self.spec_drafts_accepted = 0
+        # adapters: refills served under a non-base adapter, and queued
+        # requests completed as "adapter_evicted"
+        self.adapter_requests = 0
+        self.adapter_rejected = 0
 
     @property
     def n_prefills(self) -> int:
@@ -417,9 +459,18 @@ class ServeEngine:
         """Enqueue one request; returns its id. Raises
         :class:`..serve.scheduler.QueueFull` at capacity,
         :class:`..serve.scheduler.QueueClosed` after :meth:`close`,
-        ``ValueError`` when the request can never fit the window, or (paged)
-        :class:`.pages.PoolExhausted` when it needs more pages than the
-        whole pool holds."""
+        ``ValueError`` when the request can never fit the window or names
+        an adapter this engine cannot serve (no bank, or an unregistered or
+        out-of-range id), or (paged) :class:`.pages.PoolExhausted` when it
+        needs more pages than the whole pool holds. Admission snapshots the
+        adapter row's generation into ``request.adapter_gen``."""
+        aid = int(request.adapter)
+        if aid and self._bank is None:
+            raise ValueError(f"request names adapter {aid} but the engine has no adapter "
+                             "bank (pass ServeEngine(adapter_bank=...))")
+        if self._bank is not None:
+            self._bank.check_id(aid)
+            request.adapter_gen = self._bank.generation(aid)
         if self._paged:
             need = self._pool.pages_needed(
                 len(request.prompt) + request.max_new_tokens
@@ -451,7 +502,11 @@ class ServeEngine:
         them once no slot is active). Depth 1 collects the chain it just
         dispatched: the serial loop. Returns the requests that finished
         this round (possibly mid-chain — surplus chain tokens of a finished
-        slot are discarded)."""
+        slot are discarded). A bank whose version moved since the last
+        step (a register or an evict) is picked up first
+        (:meth:`refresh_adapters`)."""
+        if self._bank is not None and self._bank.version != self._merged_version:
+            self.refresh_adapters()
         done: list[Completion] = []
         # pending prefills advance BEFORE refill, so a chunked prefill
         # begun this round is not advanced twice
@@ -591,6 +646,40 @@ class ServeEngine:
             "spec_acceptance_rate": self.spec_drafts_accepted / (steps * self._spec_k),
         }
 
+    def refresh_adapters(self) -> None:
+        """Take up the bank's current version. The engine's LoRA model
+        holds the bank's factor tensors themselves, so a register or an
+        evict is already what the next forward reads; this checks that
+        binding (every factor parameter of the prefill and decode models
+        at the bank tensor's address) and records the version. :meth:`step`
+        calls it when the version moved."""
+        if self._bank is None:
+            raise ValueError("engine has no adapter bank")
+        factors = self._bank.factors
+        for model in {id(m): m for m in (self.model, self._dec_model)}.values():
+            for name, p in model.named_parameters():
+                if name in factors and p.data_ptr() != factors[name].data_ptr():
+                    raise RuntimeError(f"{name} is no longer the bank's tensor")
+        self._merged_version = self._bank.version
+
+    def adapter_stats(self) -> dict[str, int]:
+        """Multi-tenancy counters (the JAX engine's keys): the bank's
+        geometry and occupancy, refills served under a non-base adapter,
+        queued requests completed as ``"adapter_evicted"``. Host
+        bookkeeping only."""
+        if self._bank is None:
+            return {"adapters": 0}
+        reg = self._bank.registry
+        return {
+            "adapters": 1,
+            "n_adapters": self._bank.n_adapters,
+            "lora_rank": self._bank.rank,
+            "adapters_registered": len(reg),
+            "adapter_requests": self.adapter_requests,
+            "adapter_rejected": self.adapter_rejected,
+            "adapter_bytes": reg.used_bytes,
+        }
+
     def pipeline_stats(self) -> dict[str, int]:
         """Pipelining counters (the JAX engine's keys): the depth, the
         prefill chunk and the chunks run. Host bookkeeping only."""
@@ -631,22 +720,54 @@ class ServeEngine:
     # refill: whole prefill, splice, chunked prefill
     # ------------------------------------------------------------------
 
-    def _lookup(self, prompt: list[int]):
-        """``(hit, grow)`` for a prompt: the prefix index's longest match
-        ``(depth, segment)`` or None, and whether the prompt's own segment
-        is to be inserted (not resident yet). The port serves one adapter,
-        so a prompt is its own key."""
+    def _prefix_key(self, prompt: list[int], aid: int) -> list[int]:
+        """The prefix-index key of a tenant's prompt: every token shifted
+        by ``(generation * n_adapters + aid) * vocab_size``, so each tenant
+        incarnation owns a disjoint key range — the same match depth
+        within a tenant, no match across tenants, and none for a tenant
+        that recycled an evicted tenant's row (the old segments go
+        unreachable and age out of the budget). Id 0 keys are the raw
+        prompt (row 0's generation is always 0). Host arithmetic only."""
+        if aid == 0:
+            return prompt
+        ns = self._bank.generation(aid) * self._bank.n_adapters + aid
+        shift = ns * int(self.model.cfg.vocab_size)
+        return [t + shift for t in prompt]
+
+    def _lookup(self, key: list[int]):
+        """``(hit, grow)`` for a prefix key: the prefix index's longest
+        match ``(depth, segment)`` or None, and the key to insert the
+        prompt's own segment under (not resident yet) or None."""
         if self.prefix is None:
-            return None, False
-        return (self.prefix.lookup(prompt, self._min_hit_depth),
-                tuple(prompt) not in self.prefix)
+            return None, None
+        return (self.prefix.lookup(key, self._min_hit_depth),
+                None if tuple(key) in self.prefix else key)
+
+    def _ids(self, req: Request) -> int | None:
+        """The ``adapter_ids`` of a refill's forwards: the request's id
+        with a bank, None (the base model's forward) without."""
+        return None if self._bank is None else int(req.adapter)
 
     @torch.no_grad()
     def _refill(self, slot: int, req: Request) -> list[Completion]:
         """Admit ``req`` into ``slot`` (:meth:`_admit`): a whole prefill or
         a splice, one host sync each for the first token, or the start of
         a chunked prefill (:meth:`_advance_one` runs its first chunk in
-        this same step)."""
+        this same step). A request whose tenant is no longer the one it
+        was admitted under (evicted, or its row handed to another) is
+        completed here as ``"adapter_evicted"``, with no device work; the
+        slot stays free."""
+        aid = int(req.adapter)
+        if aid and not (self._bank.registry.is_live(aid)
+                        and self._bank.generation(aid) == req.adapter_gen):
+            self.adapter_rejected += 1
+            return [Completion(
+                request_id=req.request_id, prompt=[int(t) for t in req.prompt],
+                tokens=[], finish_reason="adapter_evicted",
+                latency_s=time.perf_counter() - req.submitted_s,
+            )]
+        if aid:
+            self.adapter_requests += 1
         prompt = [int(t) for t in req.prompt]
         admitted = self._admit(slot, req, prompt)
         if admitted is None:
@@ -671,8 +792,11 @@ class ServeEngine:
         released, the slot parked (paged: its pages returned) and the
         error re-raised. Returns ``(logits, first, pages, segment, kind,
         depth)``: ``kind`` one of ``_REFILL_KINDS``, ``depth`` the reused
-        prefix length."""
-        hit, grow = self._lookup(prompt)
+        prefix length. With a bank, the slot's adapter id is set first and
+        the prompt is looked up under its tenant's key."""
+        if self._bank is not None:
+            set_adapter(self._state, slot, int(req.adapter))
+        hit, grow = self._lookup(self._prefix_key(prompt, int(req.adapter)))
         depth = hit[0] if hit is not None else 0
         fetch = first is None
         if self._chunk and len(prompt) - depth > self._chunk:
@@ -727,7 +851,7 @@ class ServeEngine:
         return upload([toks + [0] * (bucket - len(toks))], torch.int64, self.device)
 
     def _whole_prefill(self, slot: int, req: Request, prompt: list[int],
-                       grow: bool, first=None):
+                       grow: list[int] | None, first=None):
         """One forward over the bucket-padded prompt (``cfg.attention_fn``
         runs here); the first token is sampled from the logits at the last
         REAL prompt position with the slot's generator reseeded from
@@ -738,27 +862,28 @@ class ServeEngine:
         prefills the unpaged batch-1 flat cache, copies the allocated
         pages whole into the pool and installs the slot's table
         (:func:`.slots.write_slot_paged`); if that raises, the pages go
-        back to the pool. With ``grow`` the prompt's segment is inserted
-        into the prefix index. Returns ``(logits, first, pages)``,
-        ``pages`` None unpaged. No host sync."""
+        back to the pool. With ``grow`` (a prefix key) the prompt's segment
+        is inserted into the prefix index under it. Returns ``(logits,
+        first, pages)``, ``pages`` None unpaged. No host sync."""
         p_len = len(prompt)
         bucket = bucket_len(p_len, self.window)
         tokens = self._tokens(prompt, bucket)
         st = self._state
+        ids = self._ids(req)
         if not self._paged:
             logits = self.model(tokens, st.cache, prefill=True, last_pos=p_len - 1,
-                                rows=slot)
+                                rows=slot, adapter_ids=ids)
             if first is None:
                 first = self._first_token(slot, req, logits)
             write_slot(st, slot, p_len, first[0], req.max_new_tokens)
-            if grow:
+            if grow is not None:
                 seg = extract_segment(st.cache, bucket, row=slot)
-                self.prefix.insert(prompt, seg, tree_nbytes(seg))
+                self.prefix.insert(grow, seg, tree_nbytes(seg))
             return logits, first, None
         pages = self._pool.alloc(self._pool.pages_needed(p_len + req.max_new_tokens))
         try:
             logits = self.model(tokens, self._prefill_cache, prefill=True,
-                                last_pos=p_len - 1)
+                                last_pos=p_len - 1, adapter_ids=ids)
             if first is None:
                 first = self._first_token(slot, req, logits)
             write_slot_paged(st, self._prefill_cache, pages, slot, p_len,
@@ -766,12 +891,12 @@ class ServeEngine:
         except Exception:
             self._pool.release_all(pages)
             raise
-        if grow:
-            self._insert_paged_segment(prompt, pages, p_len)
+        if grow is not None:
+            self._insert_paged_segment(grow, pages, p_len)
         return logits, first, pages
 
     def _splice(self, slot: int, req: Request, prompt: list[int], depth: int,
-                segment: Segment, grow: bool, first=None):
+                segment: Segment, grow: list[int] | None, first=None):
         """Prefix-hit refill (the JAX engine's ``_splice_fn`` and
         ``_finish_prefill``): reuse ``segment``'s K/V on ``[0, depth)`` and
         run ONE suffix continuation — decode over the bucket-padded suffix
@@ -781,8 +906,8 @@ class ServeEngine:
         Unpaged: the batch-1 side cache is seeded from the segment
         (:func:`.slots.seed_cache`), continued, then copied whole into the
         slot (:func:`.slots.copy_slot`); the other slots' rows and
-        positions do not move. With ``grow`` the full prompt's segment is
-        cut from the side cache and inserted.
+        positions do not move. With ``grow`` (a prefix key) the full
+        prompt's segment is cut from the side cache and inserted under it.
 
         Paged: the donor's whole pages below ``depth`` are shared in place
         (a reference each); fresh pages cover the rest, and a partly shared
@@ -799,16 +924,17 @@ class ServeEngine:
         tokens = self._tokens(suffix, bucket_len(len(suffix), self.window))
         last = p_len - 1 - depth
         st = self._state
+        ids = self._ids(req)
         if not self._paged:
             cache1 = seed_cache(self._side, segment.handle, depth)
-            logits = self.model(tokens, cache1, decode=True, last_pos=last)
+            logits = self.model(tokens, cache1, decode=True, last_pos=last, adapter_ids=ids)
             if first is None:
                 first = self._first_token(slot, req, logits)
             copy_slot(st, cache1, slot)
             write_slot(st, slot, p_len, first[0], req.max_new_tokens)
-            if grow:
+            if grow is not None:
                 seg = extract_segment(cache1, bucket_len(p_len, self.window))
-                self.prefix.insert(prompt, seg, tree_nbytes(seg))
+                self.prefix.insert(grow, seg, tree_nbytes(seg))
             return logits, first, None
         pool, ps = self._pool, self._page_size
         n_alloc = pool.pages_needed(p_len + req.max_new_tokens)
@@ -828,7 +954,8 @@ class ServeEngine:
                 index=torch.full((1,), depth, dtype=torch.int64, device=self.device),
                 k_scale=cache.k_scale, v_scale=cache.v_scale, quant=cache.quant,
             )
-            logits = self._dec_model(tokens, view, decode=True, last_pos=last)
+            logits = self._dec_model(tokens, view, decode=True, last_pos=last,
+                                     adapter_ids=ids)
             if first is None:
                 first = self._first_token(slot, req, logits)
             cache.table[slot] = table[0]
@@ -836,12 +963,12 @@ class ServeEngine:
         except Exception:
             pool.release_all(pages)
             raise
-        if grow:
-            self._insert_paged_segment(prompt, pages, p_len)
+        if grow is not None:
+            self._insert_paged_segment(grow, pages, p_len)
         return logits, first, pages
 
     def _start_pending(self, slot: int, req: Request, prompt: list[int], hit,
-                       grow: bool) -> _PendingPrefill:
+                       grow: list[int] | None) -> _PendingPrefill:
         """A chunked prefill's record and its batch-1 side cache (the
         engine's one chunk side cache): zeroed (:func:`.slots.zero_cache`),
         or on a prefix hit — the donor pinned first — seeded from its
@@ -905,7 +1032,8 @@ class ServeEngine:
         """The next ``prefill_chunk`` prompt tokens into the side cache:
         the suffix continuation over one chunk, its logits unused."""
         toks = pend.prompt[pend.done:pend.done + self._chunk]
-        self.model(self._tokens(toks, self._chunk), pend.cache1, decode=True, last_pos=0)
+        self.model(self._tokens(toks, self._chunk), pend.cache1, decode=True, last_pos=0,
+                   adapter_ids=self._ids(pend.request))
         pend.done += self._chunk
 
     def _final_chunk(self, pend: _PendingPrefill, first=None):
@@ -919,21 +1047,22 @@ class ServeEngine:
         req, slot, prompt = pend.request, pend.slot, pend.prompt
         p_len, rest = len(prompt), len(prompt) - pend.done
         tokens = self._tokens(prompt[pend.done:], bucket_len(rest, self.window))
-        logits = self.model(tokens, pend.cache1, decode=True, last_pos=rest - 1)
+        logits = self.model(tokens, pend.cache1, decode=True, last_pos=rest - 1,
+                            adapter_ids=self._ids(req))
         if first is None:
             first = self._first_token(slot, req, logits)
         st = self._state
         if self._paged:
             write_slot_paged(st, pend.cache1, pend.pages, slot, p_len, first[0],
                              req.max_new_tokens)
-            if pend.grow:
-                self._insert_paged_segment(prompt, pend.pages, p_len)
+            if pend.grow is not None:
+                self._insert_paged_segment(pend.grow, pend.pages, p_len)
             return logits, first, pend.pages
         copy_slot(st, pend.cache1, slot)
         write_slot(st, slot, p_len, first[0], req.max_new_tokens)
-        if pend.grow:
+        if pend.grow is not None:
             seg = extract_segment(pend.cache1, bucket_len(p_len, self.window))
-            self.prefix.insert(prompt, seg, tree_nbytes(seg))
+            self.prefix.insert(pend.grow, seg, tree_nbytes(seg))
         return logits, first, None
 
     def _abandon_pending(self, pend: _PendingPrefill) -> None:
@@ -947,17 +1076,17 @@ class ServeEngine:
             pend.pages = []
         self._pending.pop(pend.slot, None)
 
-    def _insert_paged_segment(self, prompt: list[int], pages: list[int],
+    def _insert_paged_segment(self, key: list[int], pages: list[int],
                               p_len: int) -> None:
         """Insert-on-prefill, paged: the segment is the tuple of page ids
-        covering the prompt's positions, each given one more reference
-        first (no device copy); a refused insert (already resident, or the
-        budget full of pinned segments) returns them. Priced as pages x
-        ``page_bytes``."""
+        covering the prompt's ``p_len`` positions, each given one more
+        reference first (no device copy), inserted under the prefix
+        ``key``; a refused insert (already resident, or the budget full of
+        pinned segments) returns them. Priced as pages x ``page_bytes``."""
         seg_ids = tuple(pages[: self._pool.pages_needed(p_len)])
         for pid in seg_ids:
             self._pool.retain(pid)
-        if not self.prefix.insert(prompt, seg_ids, len(seg_ids) * self._page_bytes):
+        if not self.prefix.insert(key, seg_ids, len(seg_ids) * self._page_bytes):
             self._pool.release_all(seg_ids)
 
     def _release_segment_pages(self, seg: Segment) -> None:
@@ -971,7 +1100,8 @@ class ServeEngine:
     # ------------------------------------------------------------------
 
     @torch.no_grad()
-    def teacher_forced_logits(self, prompt, tokens, rows: int = 1) -> torch.Tensor:
+    def teacher_forced_logits(self, prompt, tokens, rows: int = 1,
+                              adapter: int = 0) -> torch.Tensor:
         """The serving path's logits on GIVEN tokens, to hold one read path
         against another: ``prompt`` is admitted into slot 0 as a request's
         would be, through :meth:`_admit` (spliced on a prefix hit, chunked
@@ -981,10 +1111,11 @@ class ServeEngine:
         ones, ``rows`` a forward (1: one decode step at a time; k+1: the
         shape of a speculative verify forward whose drafts are all
         accepted). Row ``i`` of the (len(tokens), vocab) float32 result is
-        the logits that chose ``tokens[i]``. Needs an idle engine; the
-        slot, the donor segment and the pages are released afterwards. The
-        request counters do not move; the prefix index sees the prompt's
-        lookup (and insert) as a request's."""
+        the logits that chose ``tokens[i]``. ``adapter``: the tenant whose
+        factors the forwards apply (a registered id). Needs an idle engine;
+        the slot, the donor segment and the pages are released afterwards.
+        The request counters do not move; the prefix index sees the
+        prompt's lookup (and insert) as a request's."""
         if not self.idle:
             raise RuntimeError("teacher_forced_logits needs an idle engine")
         if not tokens:
@@ -992,7 +1123,11 @@ class ServeEngine:
         if rows < 1:
             raise ValueError("rows must be >= 1")
         prompt = [int(t) for t in prompt]
-        req = Request(prompt=prompt, max_new_tokens=len(tokens))
+        req = Request(prompt=prompt, max_new_tokens=len(tokens), adapter=int(adapter))
+        if adapter and self._bank is None:
+            raise ValueError("teacher_forced_logits: adapter given, but the engine has no bank")
+        if self._bank is not None:
+            self._bank.check_id(req.adapter)
         first = upload([int(tokens[0])], torch.int64, self.device)
         logits, _, pages, segment, _, _ = self._admit(0, req, prompt, first,
                                                       all_chunks=True)
@@ -1004,7 +1139,8 @@ class ServeEngine:
                 block = feed[i:i + rows]
                 x = self._state.last_tok[:, None].repeat(1, len(block))
                 x[0] = upload(block, torch.int64, self.device)
-                out.append(self._dec_model(x, self._state.cache, decode=True)[0])
+                out.append(self._dec_model(x, self._state.cache, decode=True,
+                                           adapter_ids=self._state.adapter_ids)[0])
         finally:
             self._release(0, act)
         return torch.cat(out).float()
@@ -1034,7 +1170,8 @@ class ServeEngine:
         tok, remaining = st.last_tok, st.remaining
         for t in range(self.tokens_per_launch):
             active = remaining > 0
-            logits = self._dec_model(tok[:, None], st.cache, decode=True)
+            logits = self._dec_model(tok[:, None], st.cache, decode=True,
+                                     adapter_ids=st.adapter_ids)
             nxt = sample_logits_per_slot(
                 logits[:, -1].float(), st.generators, self._temperature,
                 self._top_k, self._top_p,
@@ -1073,7 +1210,7 @@ class ServeEngine:
             active = remaining > 0
             draft = ngram_draft(st.hist[:, :win], hist_len, k, self._spec_ngram)
             logits = self._dec_model(torch.cat([tok[:, None], draft], dim=1), st.cache,
-                                     decode=True)
+                                     decode=True, adapter_ids=st.adapter_ids)
             emitted, n_acc = speculative_accept(
                 logits.float(), draft, st.generators, self._temperature, self._top_k,
                 self._top_p,

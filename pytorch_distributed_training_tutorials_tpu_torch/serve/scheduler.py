@@ -40,23 +40,36 @@ class Request:
     depend only on (seed, draw index), never on which other requests share
     the decode batch. ``eos_token`` stops the request early when sampled
     (the stop token is included in the output); ``None`` always runs to
-    ``max_new_tokens``."""
+    ``max_new_tokens``.
+
+    ``adapter`` names the tenant's LoRA bank row (0 = the base model).
+    ``ServeEngine.submit`` checks it against the engine's
+    :class:`..adapters.bank.AdapterBank` (an unregistered id raises
+    ``ValueError`` there) and snapshots the row's tenant generation into
+    ``adapter_gen``; a request whose tenant is evicted, or whose row is
+    re-registered, while it queues completes with ``finish_reason ==
+    "adapter_evicted"`` and no device work."""
 
     prompt: Any
     max_new_tokens: int
     seed: int = 0
     eos_token: int | None = None
+    adapter: int = 0
     # engine-assigned bookkeeping (not caller inputs)
     request_id: int = -1
     submitted_s: float = 0.0
+    adapter_gen: int = 0
 
 
 @dataclasses.dataclass
 class Completion:
     """A finished request: ``tokens`` are the generated ids (prompt
     excluded, stop token included when ``finish_reason == "eos"``);
-    ``finish_reason`` is ``"length"`` or ``"eos"``; ``latency_s`` is
-    submit-to-completion wall time and ``ttft_s`` submit-to-first-token."""
+    ``finish_reason`` is ``"length"``, ``"eos"`` or ``"adapter_evicted"``
+    (the request's tenant was evicted, or its bank row re-registered, while
+    it queued: no tokens were generated — resubmit under a live id);
+    ``latency_s`` is submit-to-completion wall time and ``ttft_s``
+    submit-to-first-token."""
 
     request_id: int
     prompt: list[int]

@@ -12,6 +12,7 @@ into that slot and a per-slot position reset.
 - :func:`write_slot` — reset one slot's counters after its prefill;
 - :func:`seed_history` — reset one slot's draft history to its prompt and
   first token;
+- :func:`set_adapter` — one slot's LoRA bank row (engines with a bank);
 - :func:`upload` — a host list to the device with no stream sync (pinned
   memory, a non-blocking copy);
 - :func:`write_slot_paged` and :func:`park_slot_paged` — the paged twins
@@ -77,7 +78,10 @@ class SlotState:
       every emitted token) over the window W, the draft table of
       :func:`..models.sampling.ngram_draft`, and its valid length. Column
       W is a trash column: a history write past the window lands there and
-      is never read (PyTorch has no dropping scatter)."""
+      is never read (PyTorch has no dropping scatter);
+    - ``adapter_ids`` (S,) int32 — engines with an adapter bank only (None
+      otherwise): each slot's LoRA bank row, the decode forwards'
+      ``adapter_ids``, set at refill by :func:`set_adapter`."""
 
     cache: KVCache | PagedKVCache
     last_tok: torch.Tensor
@@ -85,15 +89,17 @@ class SlotState:
     generators: list[torch.Generator]
     hist: torch.Tensor | None = None
     hist_len: torch.Tensor | None = None
+    adapter_ids: torch.Tensor | None = None
 
 
 def init_slot_state(cfg: TransformerConfig, n_slots: int, device,
-                    history: int = 0) -> SlotState:
+                    history: int = 0, adapters: bool = False) -> SlotState:
     """Zeroed state for ``n_slots`` concurrent requests of a model with
     config ``cfg`` on ``device``; a paged model (``cfg.kv_pages`` > 0) gets
     a :class:`..models.transformer.PagedKVCache` with every table entry
     the sentinel. ``history`` > 0 (a speculative engine: the window) adds
-    the draft history ``hist`` / ``hist_len``; 0 leaves them None."""
+    the draft history ``hist`` / ``hist_len``; 0 leaves them None.
+    ``adapters`` adds the per-slot ``adapter_ids`` (all 0, the base row)."""
     if n_slots < 1:
         raise ValueError("n_slots must be >= 1")
     if cfg.kv_pages:
@@ -109,7 +115,16 @@ def init_slot_state(cfg: TransformerConfig, n_slots: int, device,
               if history else None),
         hist_len=(torch.zeros((n_slots,), dtype=torch.int64, device=device)
                   if history else None),
+        adapter_ids=(torch.zeros((n_slots,), dtype=torch.int32, device=device)
+                     if adapters else None),
     )
+
+
+def set_adapter(state: SlotState, slot: int, aid: int) -> None:
+    """``slot``'s adapter id, in place: a fill of the slot's view (a host
+    number as a kernel argument), never item assignment, which on a card
+    copies a host scalar and synchronizes the stream."""
+    state.adapter_ids[slot].fill_(aid)
 
 
 def upload(values, dtype: torch.dtype, device) -> torch.Tensor:

@@ -17,6 +17,14 @@ and the bias corrections are read from a device table of the host's
 float32 values indexed by it (:class:`AdamWState`), so a step does no host
 sync and the corrections are bitwise what the host computes.
 
+``mask`` (set through ``ops.fused_optim.fused_adamw(mask=...)``, the JAX
+package's ``optax.masked`` with a hard zero on the rest) restricts the
+update to the leaves it marks True: ``init`` and ``update_`` given the
+parameters as a name -> tensor mapping select those leaves, so the others
+get no moment buffers and no update; given a list, the list is taken as
+the trainable leaves already (what ``TrainState`` passes after freezing
+the others).
+
 ``update_(..., ok=flag)`` is the skip-step guard's form (the trainer's
 ``skip_nonfinite``): ``flag`` is a 0-dim int32 device tensor, and where it
 is 0 the parameters and the optimizer state come out bitwise unchanged,
@@ -27,9 +35,12 @@ one, bitwise the same arithmetic.
 from __future__ import annotations
 
 import dataclasses
+from collections.abc import Mapping
 
 import numpy as np
 import torch
+
+from pytorch_distributed_training_tutorials_tpu_torch.adapters.lora import resolve_mask
 
 # leaves per foreach call: bounds the temporaries of one update (m / bias
 # correction, its denominator, the decay term) to a few leaves' worth. At
@@ -73,8 +84,25 @@ class AdamW:
     b2: float = 0.999
     eps: float = 1e-8
     weight_decay: float = 1e-4
+    mask: object = None  # name -> bool, or a callable of the named params
 
-    def init(self, params: list[torch.Tensor]) -> AdamWState:
+    def select(self, params, grads=None):
+        """The leaves this optimizer updates, and their gradients: a list
+        as given; from a name -> tensor mapping the leaves ``mask`` marks
+        True (every leaf without a mask), ``grads`` a mapping by name or a
+        list in ``params``' order."""
+        if not isinstance(params, Mapping):
+            return list(params), None if grads is None else list(grads)
+        keep = (resolve_mask(self.mask, params) if self.mask is not None
+                else dict.fromkeys(params, True))
+        names = [n for n in params if keep[n]]
+        if grads is not None and not isinstance(grads, Mapping):
+            grads = dict(zip(params, grads))
+        return ([params[n] for n in names],
+                None if grads is None else [grads[n] for n in names])
+
+    def init(self, params) -> AdamWState:
+        params, _ = self.select(params)
         dev = params[0].device
         return AdamWState(
             count=torch.zeros((), dtype=torch.int32, device=dev),
@@ -111,10 +139,11 @@ class AdamW:
         state.count.add_(1 if ok is None else ok)
 
     @torch.no_grad()
-    def update_(self, params: list[torch.Tensor], grads: list[torch.Tensor],
-                state: AdamWState, ok: torch.Tensor | None = None) -> None:
+    def update_(self, params, grads, state: AdamWState,
+                ok: torch.Tensor | None = None) -> None:
         """One AdamW step, parameters and moments updated in place; with
         ``ok`` 0 everything stays bitwise as it was."""
+        params, grads = self.select(params, grads)
         kept = None
         if ok is not None:
             kept = [x.clone() for x in (*params, *state.mu, *state.nu)]

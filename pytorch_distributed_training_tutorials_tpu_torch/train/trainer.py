@@ -34,8 +34,12 @@ against. ``rollback_spike_factor``: a host monitor of the loss restores the
 latest ``save()`` and continues when the loss spikes; it costs a loss fetch
 a step (a chunk on the chunked path).
 
-``aux_loss_weight`` (A14) and ``model_kwargs`` (the LoRA bank, A13) raise
-``NotImplementedError``.
+``model_kwargs`` (e.g. ``{"adapter_ids": tenant}`` for a LoRA fine-tune)
+are forwarded to every model call, evaluation's too. An optimizer with a
+``mask`` (``fused_adamw(mask=lora_param_mask)``) freezes the leaves it
+marks False when the state is created: they get no gradient, no moments
+and no update, the eager counterpart of XLA dropping an unused gradient.
+``aux_loss_weight`` (A14) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from pytorch_distributed_training_tutorials_tpu_torch.adapters.lora import resolve_mask
 from pytorch_distributed_training_tutorials_tpu_torch.data.loader import to_device
 from pytorch_distributed_training_tutorials_tpu_torch.models.convert import init_lm, init_params
 from pytorch_distributed_training_tutorials_tpu_torch.models.resnet import BatchNorm
@@ -68,7 +73,6 @@ from pytorch_distributed_training_tutorials_tpu_torch.utils import chaos as chao
 from pytorch_distributed_training_tutorials_tpu_torch.utils.logging import epoch_line
 
 _MOE = "the MoE slice (ROADMAP A14)"
-_LORA = "the LoRA-bank slice (ROADMAP A13)"
 
 
 def _later(what: str, slice_name: str) -> NotImplementedError:
@@ -93,6 +97,14 @@ class TrainState:
 
     @classmethod
     def create(cls, *, model: nn.Module, tx) -> "TrainState":
+        """The state of ``model`` under ``tx``; an optimizer ``mask``
+        freezes the parameters it marks False (``requires_grad`` off)."""
+        mask = getattr(tx, "mask", None)
+        if mask is not None:
+            keep = resolve_mask(mask, model)
+            for name, p in model.named_parameters():
+                if not keep[name]:
+                    p.requires_grad_(False)
         params = [p for p in model.parameters() if p.requires_grad]
         dev = params[0].device
         return cls(
@@ -155,9 +167,8 @@ def _make_loss_fn(loss: str, has_batch_stats: bool = False,
     model's BatchNorm statistics in place."""
     if aux_loss_weight:
         raise _later("aux_loss_weight", _MOE)
-    if model_kwargs:
-        raise _later("model_kwargs", _LORA)
     kwargs = {"train": True} if has_batch_stats else {}
+    kwargs.update(model_kwargs or {})
     if loss == "fused_cross_entropy":
         def fused_loss_fn(model: nn.Module, batch) -> torch.Tensor:
             x, y = batch
@@ -300,19 +311,22 @@ def make_train_step(loss: str = "cross_entropy", has_batch_stats: bool = False,
                           model_kwargs, skip_nonfinite=skip_nonfinite, chaos=chaos)
 
 
-def make_eval_step(loss: str = "cross_entropy", has_batch_stats: bool = False):
+def make_eval_step(loss: str = "cross_entropy", has_batch_stats: bool = False,
+                   model_kwargs: dict | None = None):
     """Eval step: per batch (summed per-sample loss, correct count, sample
     count), each row weighted by ``mask`` (0 for the wrap-padded rows).
     ``correct`` counts argmax hits for integer-label cross entropy and is 0
     otherwise. A ``fused_cross_entropy`` trainer evaluates through the
-    logits (the same objective)."""
+    logits (the same objective). ``model_kwargs`` go to the forward."""
     if loss == "fused_cross_entropy":
         loss = "cross_entropy"
+    kwargs = {"train": False} if has_batch_stats else {}
+    kwargs.update(model_kwargs or {})
 
     @torch.no_grad()
     def eval_fn(state: TrainState, batch, mask: torch.Tensor):
         x, y = batch
-        logits = state.model(x, train=False) if has_batch_stats else state.model(x)
+        logits = state.model(x, **kwargs)
         mask = mask.float()
         if loss == "cross_entropy" and y.ndim < logits.ndim:
             mask_rows = mask.reshape(mask.shape[0], *([1] * (y.ndim - 1)))
@@ -361,6 +375,9 @@ class Trainer:
     trains chunk by chunk (:meth:`_run_epoch_chunked`), the next chunk's
     upload overlapping the steps.
 
+    ``model_kwargs`` go to every forward, and an optimizer ``mask``
+    freezes the parameters it leaves out (the module docstring).
+
     Guardrails (the module docstring): ``skip_nonfinite``, ``chaos``, and
     ``rollback_spike_factor`` with ``rollback_patience`` and
     ``rollback_ema``: when the monitored loss exceeds factor x its EMA (or
@@ -373,7 +390,7 @@ class Trainer:
                  grad_accum_steps: int = 1, seed: int = 0, quiet: bool = False,
                  skip_nonfinite: bool = False, chaos=None,
                  rollback_spike_factor: float | None = None, rollback_patience: int = 2,
-                 rollback_ema: float = 0.9):
+                 rollback_ema: float = 0.9, model_kwargs: dict | None = None):
         if aux_loss_weight:
             raise _later("aux_loss_weight", _MOE)
         if rollback_spike_factor is not None and rollback_spike_factor <= 1:
@@ -408,8 +425,10 @@ class Trainer:
                                  f"divisible by grad_accum_steps ({grad_accum_steps})")
         self.grad_accum_steps = grad_accum_steps
         self.chaos = chaos
+        self.model_kwargs = dict(model_kwargs or {})
         self.train_step = make_train_step(loss=loss, has_batch_stats=self.has_batch_stats,
                                           grad_accum_steps=grad_accum_steps,
+                                          model_kwargs=self.model_kwargs,
                                           skip_nonfinite=skip_nonfinite, chaos=chaos)
         self.metrics = MetricsLogger(quiet=quiet)
         self.loss_name = loss
@@ -698,7 +717,8 @@ class Trainer:
         axis; one host fetch. ``"samples"`` counts label positions."""
         loader = eval_loader if eval_loader is not None else self.loader
         if self._eval_step is None:
-            self._eval_step = make_eval_step(self.loss_name, self.has_batch_stats)
+            self._eval_step = make_eval_step(self.loss_name, self.has_batch_stats,
+                                             self.model_kwargs)
         masks: dict = {}  # padding lives in the tail steps: upload each distinct mask once
         totals = []
         for step, batch in enumerate(loader):

@@ -102,6 +102,22 @@ def test_gradcheck_float64():
     )
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_op_passes_opcheck(dtype):
+    """``tpu_torch::flash_attention`` is a well-formed ``torch.library``
+    op on CPU tensors (its schema, autograd registration, fake-tensor
+    shapes and AOT dispatch, ``torch.library.opcheck``), and
+    ``flash_attention`` returns its first output: O, with the lse the
+    op's second, equal to the plain forward's."""
+    q, k, v, _ = (torch.tensor(x, dtype=dtype).requires_grad_() for x in _inputs(1, 40, 2, 16))
+    result = torch.library.opcheck(tf._flash_op, (q, k, v, 16, 16))
+    assert set(result.values()) == {"SUCCESS"}, result
+    o, lse = torch.ops.tpu_torch.flash_attention(q, k, v, 16, 16)
+    want_o, want_lse = tf.flash_fwd_reference(q.detach(), k.detach(), v.detach(), 16, 16)
+    assert torch.equal(o.detach(), want_o) and torch.equal(lse, want_lse)
+    assert torch.equal(tf.flash_attention(q, k, v, 16, 16).detach(), want_o)
+
+
 def test_matches_dense_causal_attention():
     """The plain forward equals the model's dense causal attention (the
     ``masked_attention`` contract) at float32 rounding."""

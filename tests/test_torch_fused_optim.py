@@ -101,8 +101,10 @@ def test_plain_path_is_the_foreach_adamw_bitwise():
 def test_refusals():
     with pytest.raises(TypeError, match="static float"):
         fused_adamw(lambda step: 1e-3)
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        fused_adamw(1e-3, mask=lambda params: params)
+    # a mask must name every leaf (the JAX mask is a pytree of the params)
+    named = {"a": torch.zeros(3), "b": torch.zeros(2)}
+    with pytest.raises(ValueError, match="no value for"):
+        fused_adamw(1e-3, mask={"a": True}).init(named)
     tx = fused_adamw(1e-3)
     p = [torch.zeros(3)]
     with pytest.raises(ValueError, match="leaf count"):

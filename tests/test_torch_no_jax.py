@@ -47,7 +47,9 @@ def test_port_modules_import_no_jax():
            "launch.train_ddp_env", "bench.harness", "bench.headline",
            # the rest of the training path: streaming input, guardrails, benches
            "utils.chaos", "data.prefetch", "data.streaming", "obs.receipt", "obs.timing",
-           "bench.scaling", "bench.__main__", "launch.pod")
+           "bench.scaling", "bench.__main__", "launch.pod",
+           # the LoRA slice: the port's own copy of the registry, the bank, lora
+           "adapters", "adapters.registry", "adapters.bank", "adapters.lora")
     assert {f"{PORT}.{m}" for m in ddp} <= set(mods)
     code = (
         "import sys\n"

@@ -202,7 +202,7 @@ def test_logits_and_grads_match_jax(dtype, attn, gqa, stacked):
 
 
 @pytest.mark.parametrize("attn", ["dense", "flash"])
-@pytest.mark.parametrize("policy", [None, "dots"])
+@pytest.mark.parametrize("policy", [None, "dots", "dots_attn"])
 def test_remat_gradients_equal_no_remat(attn, policy):
     jcfg, cfg = configs("f32", attn)
     tree = jax_float_tree(jcfg)
@@ -214,11 +214,13 @@ def test_remat_gradients_equal_no_remat(attn, policy):
         torch.testing.assert_close(got[name], want[name], rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("policy", [None, "dots"])
+@pytest.mark.parametrize("policy", [None, "dots", "dots_attn"])
 def test_remat_recomputes_flash_forward(monkeypatch, policy):
     """Under remat the flash forward runs again in the backward, "dots"
     included (the JAX ``_remat_policy`` docstring): two forwards per layer
-    per step, one dq and one dk/dv — the 48/24/24 launches of a 760m step."""
+    per step, one dq and one dk/dv — the 48/24/24 launches of a 760m step.
+    "dots_attn" keeps the flash op's outputs (O and lse): one forward per
+    layer per step — 24/24/24 at 760m."""
     from pytorch_distributed_training_tutorials_tpu_torch.ops import flash_attention as fa
 
     calls = {"fwd": 0, "dq": 0, "dkv": 0}
@@ -237,7 +239,49 @@ def test_remat_recomputes_flash_forward(monkeypatch, policy):
                        jax_float_tree(jcfg))
     port_grads(model, *batch_np())
     n = TOY["n_layers"]
-    assert calls == {"fwd": 2 * n, "dq": n, "dkv": n}
+    fwd = n if policy == "dots_attn" else 2 * n
+    assert calls == {"fwd": fwd, "dq": n, "dkv": n}
+
+
+def _jax_flash_kernels(jaxpr, out):
+    """Flash ``pallas_call``s in a JAX program by kind: the forward takes
+    q, k, v; dq returns one output, dk/dv two."""
+    from jax.extend import core as jcore
+
+    for e in jaxpr.eqns:
+        if e.primitive.name == "pallas_call":
+            kind = "fwd" if len(e.invars) <= 3 else ("dq" if len(e.outvars) == 1 else "dkv")
+            out[kind] = out.get(kind, 0) + 1
+            continue
+        for v in e.params.values():
+            for sub in v if isinstance(v, (list, tuple)) else [v]:
+                if isinstance(sub, jcore.ClosedJaxpr):
+                    _jax_flash_kernels(sub.jaxpr, out)
+                elif isinstance(sub, jcore.Jaxpr):
+                    _jax_flash_kernels(sub, out)
+    return out
+
+
+@pytest.mark.parametrize("remat,policy", [(False, None), (True, None), (True, "dots"),
+                                          (True, "dots_attn")],
+                         ids=["no-remat", "none", "dots", "dots_attn"])
+def test_jax_dots_attn_reruns_the_flash_forward(remat, policy):
+    """A finding about the reference, pinned: the JAX ``"dots_attn"``
+    policy saves its ``checkpoint_name``-tagged attention output, not the
+    ``custom_vjp`` residuals (O and lse) the flash backward reads, so the
+    forward runs twice a layer under every remat policy — the kernels of
+    ``jax.grad`` of the toy model: no remat 2 / 2 / 2, any policy 4 / 2 /
+    2. The port keeps the flash op's outputs under "dots_attn"
+    (``test_remat_recomputes_flash_forward``: n / n / n)."""
+    jcfg, _ = configs("f32", "flash")
+    jcfg = dataclasses.replace(jcfg, remat=remat, remat_policy=policy)
+    model, tree = jt.TransformerLM(jcfg), jax_float_tree(jcfg)
+    x = jnp.asarray(batch_np()[0], jnp.int32)
+    jaxpr = jax.make_jaxpr(jax.grad(
+        lambda p: model.apply({"params": p}, x).astype(jnp.float32).sum()))(tree)
+    n = TOY["n_layers"]
+    assert _jax_flash_kernels(jaxpr.jaxpr, {}) == {"fwd": 2 * n if remat else n, "dq": n,
+                                                    "dkv": n}
 
 
 def _jax_state_and_step(jcfg, tree):
@@ -314,18 +358,44 @@ def test_compute_loss_mse_and_one_hot_match_jax():
 
 
 def test_train_step_refuses_later_slice_options():
-    for kw, slice_name in (
-        ({"aux_loss_weight": 0.1}, "A14"), ({"model_kwargs": {"adapter_ids": 1}}, "A13"),
-    ):
-        with pytest.raises(NotImplementedError, match=slice_name):
-            ttrainer.make_train_step(**kw)
+    with pytest.raises(NotImplementedError, match="A14"):
+        ttrainer.make_train_step(aux_loss_weight=0.1)
     # the DDP slice brought gradient accumulation and BatchNorm statistics,
-    # the guardrails slice the skip-step guard and chaos (test_torch_guardrails.py)
+    # the guardrails slice the skip-step guard and chaos (test_torch_guardrails.py),
+    # the LoRA slice model_kwargs and fused_adamw(mask=) (test_torch_adapters.py)
     assert callable(ttrainer.make_train_step(grad_accum_steps=2, has_batch_stats=True))
     assert callable(ttrainer.make_train_step(grad_accum_steps=2, skip_nonfinite=True,
                                              chaos=ChaosConfig(nan_grad_step=0)))
-    with pytest.raises(NotImplementedError, match="LoRA-bank"):
-        fused_adamw(3e-4, mask={"lm_head": True})
+    assert callable(ttrainer.make_train_step(model_kwargs={"adapter_ids": 1}))
+    assert fused_adamw(3e-4, mask={"lm_head": True}).mask == {"lm_head": True}
+
+
+def test_train_step_forwards_model_kwargs():
+    """``model_kwargs`` reach every forward of the step: a LoRA model's
+    loss under ``adapter_ids`` 1 is the forward's with that id, and the
+    step's update moves only what the masked optimizer trains."""
+    from pytorch_distributed_training_tutorials_tpu_torch.adapters import lora_param_mask
+
+    _, cfg = configs("f32", "dense", lora_adapters=2, lora_rank=2)
+    model = TransformerLM(cfg)
+    params = init_lm(cfg, seed=0, device="cpu")
+    for name, t in params.items():
+        if "_lora." in name:
+            t.copy_(torch.randn(t.shape, generator=torch.Generator().manual_seed(1)) * 0.3)
+    bind_params(model, params)
+    x, y = (torch.tensor(a) for a in batch_np())
+    with torch.no_grad():
+        want = float(ttrainer._compute_loss("cross_entropy", model(x, adapter_ids=1), y))
+        base = float(ttrainer._compute_loss("cross_entropy", model(x), y))
+    assert want != base
+    state = ttrainer.TrainState.create(
+        model=model, tx=fused_adamw(1e-2, mask=lora_param_mask))
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    step = ttrainer.make_train_step(model_kwargs={"adapter_ids": 1})
+    state, metrics = step(state, (x, y))
+    assert float(metrics["loss"]) == want
+    for name, p in model.named_parameters():
+        assert torch.equal(p, before[name]) != ("_lora." in name), name
 
 
 def test_init_lm_distributions():
@@ -344,8 +414,10 @@ def test_init_lm_distributions():
 
 
 def test_config_refusals():
-    with pytest.raises(NotImplementedError, match="dots_attn"):
-        TransformerConfig(quantized=False, remat=True, remat_policy="dots_attn")
+    # "dots_attn" is accepted since the flash op is a torch.library op
+    # (test_remat_recomputes_flash_forward holds its launches)
+    assert TransformerConfig(quantized=False, remat=True,
+                             remat_policy="dots_attn").remat_policy == "dots_attn"
     with pytest.raises(ValueError, match="unknown remat_policy"):
         TransformerConfig(quantized=False, remat_policy="everything")
     with pytest.raises(NotImplementedError, match="float32 or bfloat16"):

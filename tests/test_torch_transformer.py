@@ -298,6 +298,28 @@ def test_unsupported_config_fields_raise(field, value):
             model(torch.zeros((1, 4), dtype=torch.int64), cache, prefill=True,
                   return_hidden=True)
         return
+    if field in ("lora_adapters", "lora_rank"):
+        # supported since the LoRA-bank slice: both together build the
+        # *_lora siblings (zero factors, so every id is the base model);
+        # one without the other is misuse and raises ValueError naming it
+        with pytest.raises(ValueError, match=field):
+            TransformerConfig(**{**TOY, "quantized": True, field: value})
+        cfg = TransformerConfig(**{**TOY, "quantized": True, "lora_adapters": 2,
+                                   "lora_rank": 4})
+        base_cfg = TransformerConfig(**{**TOY, "quantized": True})
+        params = init_quantized_lm(cfg, seed=0, device="cpu")
+        base_params = init_quantized_lm(base_cfg, seed=0, device="cpu")
+        assert {k: v for k, v in params.items() if "_lora." not in k}.keys() == base_params.keys()
+        for k, v in base_params.items():
+            assert torch.equal(params[k], v), k  # the factors draw nothing
+        model, base = TransformerLM(cfg), TransformerLM(base_cfg)
+        bind_params(model, params)
+        bind_params(base, base_params)
+        toks = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8]])
+        caches = [KVCache.zeros(c, 2, device="cpu") for c in (cfg, base_cfg)]
+        got = model(toks, caches[0], prefill=True, adapter_ids=torch.tensor([0, 1]))
+        assert torch.equal(got, base(toks, caches[1], prefill=True))
+        return
     if field == "attention_fn":
         # int8 prefill runs cfg.attention_fn since the prefill slice (the
         # flash forward); decode keeps the dense cached path
