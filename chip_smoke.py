@@ -6,6 +6,7 @@
     python3 chip_smoke.py --ddp-only      # the training path: fused AdamW's check, 8, 9 and 10-12
     python3 chip_smoke.py --serve-only    # phases 0, 1, 4 and the serving phases after it
     python3 chip_smoke.py --lora-only     # phases 0, 1 and the LoRA / dots_attn phases
+    python3 chip_smoke.py --faults-only   # phases 0, 1 and the failure-handling phases
 
 It drives the port (``pytorch_distributed_training_tutorials_tpu_torch``)
 on the card and fails — non-zero exit, no result line — if a phase fails.
@@ -223,6 +224,33 @@ the plain AdamW's run, flash and fused-loss launches sm90; the trained
 row registered into a bank and served, its teacher-forced logits within
 1e-4 of the merged model's in float32.
 
+Then the failure-handling slice. ``serve_1b_faults``: phase 4's cell
+with flash prefill, (a) guard off and (g) ``guard_nonfinite`` in turns
+(a, g, g, a): token-identical, equal host and stream syncs, tok/s and
+kernels a decode step of each; (c) the guard with a ``ChaosConfig`` (NaN
+logits at slot 1, global step 5; request 5's prefill failing; chain 1's
+dispatch stalled 5 s past request 2's 1.5 s deadline), a queued and an
+active cancel, then ``drain()``: the poisoned request ``"nonfinite"`` with
+exactly (g)'s tokens before the poisoned step, the failed prefill
+``"error"`` and its slot serving the next request token-identically, the
+deadline and cancel victims prefixes of (g)'s tokens, every other request
+equal to (g), ``QueueClosed`` after the drain, ``fault_stats()`` equal to
+what was injected (one ``prefill_errors`` exactly), host syncs = chains +
+prefills + splices, stream syncs over them as (g)'s, 113 int8 calls a
+forward and 16 flash launches a whole prefill on their routes.
+``serve_1b_gqa_paged_faults``: the same on serve_1b_paged's kernel arm
+(c) with ``speculative_k=2`` and ``pipeline_depth=2`` (the observed
+boundary; the poisoned request's tokens replayed on the host), no page
+left after the drain, one paged launch a layer a verify forward, all
+sm90. ``serve_1b_flight``: (g)'s stream with a ``FlightRecorder``: equal
+tokens, host and stream syncs; every span complete, event counts
+reconciled, the histograms' p50/p95 within one bucket of the sorted
+latencies. ``serve_1b_fleet``: three engines over one set of 1b weights
+behind a ``FleetRouter``: fault-free, token-identical to (g); with
+request 0's replica chaos-killed at its second chain (work in flight and
+queued), the ledger verified, re-dispatched requests token-identical, the
+killed replica frozen, host syncs the replicas' summed budget.
+
 Every serving stream is also run under PyTorch's sync debug mode: its
 stream syncs (with their call sites) must not exceed the host syncs the
 engine budgets.
@@ -347,8 +375,10 @@ SPEC_ARMS = {
     "p": dict(pipeline_depth=2),
     "sp": dict(speculative_k=SPEC_K, spec_ngram=SPEC_NGRAM, pipeline_depth=2),
 }
-# steady steps of the profiled window of each serve_1b_spec arm
-SPEC_PROFILE_STEPS = 3
+# steady steps of the profiled window of each serve_1b_spec arm: two give
+# the overlap gate one chain pair at depth 1 and two at depth 2; each more
+# step adds its events to the profiler's processing on the host
+SPEC_PROFILE_STEPS = 2
 
 # the 1b preset of examples/serve_llm_int8.py
 PRESET_1B = dict(
@@ -1348,12 +1378,12 @@ def percentile(vals, q: float) -> float:
     return s[min(len(s) - 1, int(round(q * (len(s) - 1))))]
 
 
-def profile_chain(torch, engine, mk_request, gpu: str, label: str = "serve_1b") -> None:
+def profile_chain(torch, engine, mk_request, gpu: str, label: str = "serve_1b") -> dict:
     """Where a decode chain's time goes: ``torch.profiler`` over one
     ``step()`` that runs a chain of ``tokens_per_launch`` decode steps on 4
     active slots (no prefill inside). Device time by kernel name, the
     device's busy and idle share of the step's wall time, kernels per
-    decode step."""
+    decode step. Returns the line it prints."""
     from torch.profiler import ProfilerActivity, profile
 
     for i in range(engine.n_slots):
@@ -1377,7 +1407,7 @@ def profile_chain(torch, engine, mk_request, gpu: str, label: str = "serve_1b") 
         (e for e in events if e.device_type == torch.autograd.DeviceType.CPU),
         key=lambda e: -e.self_cpu_time_total,
     )[:10]
-    emit({
+    row = {
         "phase": "profile_decode_chain", "of": label,
         "decode_steps": engine.tokens_per_launch,
         "slots_active": engine.n_slots, "wall_ms_profiled": wall_ms,
@@ -1391,7 +1421,9 @@ def profile_chain(torch, engine, mk_request, gpu: str, label: str = "serve_1b") 
             e.key[:80]: [e.self_cpu_time_total / 1e3, e.count] for e in cpu_ops
         },
         "gpu": gpu,
-    })
+    }
+    emit(row)
+    return row
 
 
 def phase_serve(torch, quant, gpu: str) -> int:
@@ -2477,6 +2509,571 @@ def phase_serve_spec(torch, fa, gpu: str) -> dict:
             "flash": {a: r["flash_fwd_launches"] for a, r in rows.items()},
             "verify_forwards": {a: r["spec_stats"].get("n_verify_forwards", 0)
                                 for a, r in rows.items()}}
+
+
+# serving's failure handling (serve_1b_faults, serve_1b_gqa_paged_faults):
+# where each fault lands in the 12-request streams. The chaos NaN hits slot
+# 1 at global decode step 5 (chain 0; request 1, the first wave filling
+# slots in order); request 5's prefill fails; request 2 carries a deadline
+# of FAULT_DEADLINE_S and chain 1's dispatch stalls FAULT_CHAOS["stall_s"],
+# over three times that deadline, so it expires at the boundary after chain
+# 1 (the observed one at depth 2) whatever the host's speed: the first wave
+# is popped microseconds after its submit and reaches chain 1 well inside
+# the deadline. Request 11 is cancelled while queued, request 0 once the
+# first chain was observed. Clean requests carry no deadline.
+FAULT_CHAOS = dict(nan_logit_slot=1, nan_logit_step=5, fail_prefill_request=5,
+                   stall_chain=1, stall_s=5.0)
+FAULT_DEADLINE_S = 1.5
+FAULT_VICTIMS = dict(poisoned=1, failed=5, deadline=2, cancel_queued=11, cancel_active=0)
+# serve_1b_fleet: three engines over one set of 1b weights, 2 slots each;
+# the stream is serve_1b_faults' 12 requests and two copies of request 0,
+# so request 0's affine replica holds work in flight and queued when the
+# chaos kills it at its second chain
+FLEET = dict(replicas=3, n_slots=2, clones=2, kill_at_chain=2)
+
+
+def replay_emitted(prompt: list, tokens: list, k: int, ngram: int, steps: int) -> int:
+    """How many of ``tokens`` (a greedy stream, its first token the
+    prefill's) a greedy speculative engine holds after ``steps`` verify
+    steps: each step accepts the drafts (:func:`draft_host`) while they
+    equal the stream and adds the bonus token, as :func:`replay_spec`."""
+    hist = list(prompt) + [tokens[0]]
+    got = 1
+    for _ in range(steps):
+        if got >= len(tokens):
+            break
+        draft = draft_host(hist, k, ngram)
+        n = 0
+        while n < k and got + n < len(tokens) and draft[n] == tokens[got + n]:
+            n += 1
+        hist += tokens[got:got + n + 1]
+        got += n + 1
+    return min(got, len(tokens))
+
+
+def serve_stream(torch, eng, prompts: list, new: int, recorder=None) -> dict:
+    """The 12-request stream through ``eng`` under sync debug mode: tokens
+    in submit order, wall seconds, tok/s, latency and TTFT percentiles,
+    host and stream syncs."""
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import Request
+
+    t0 = time.perf_counter()
+    with real_syncs(torch) as real:
+        ids = [eng.submit(Request(prompt=p, max_new_tokens=new, seed=i))
+               for i, p in enumerate(prompts)]
+        done = {c.request_id: c for c in eng.run_until_idle()}
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    comps = [done[i] for i in ids]
+    lat, ttft = [c.latency_s for c in comps], [c.ttft_s for c in comps]
+    return {"tokens": [c.tokens for c in comps], "reasons": [c.finish_reason for c in comps],
+            "completions": comps, "wall_s": wall_s,
+            "aggregate_tok_s": sum(len(c.tokens) for c in comps) / wall_s,
+            "latency_p50_s": percentile(lat, 0.5), "latency_p95_s": percentile(lat, 0.95),
+            "ttft_p50_s": percentile(ttft, 0.5), "ttft_p95_s": percentile(ttft, 0.95),
+            "host_syncs": eng.n_host_syncs, "stream_syncs": real["count"],
+            "stream_sync_sites": real["sites"], "chains": eng.n_chains,
+            "prefills": eng.n_prefills}
+
+
+def fault_leg(torch, eng, prompts: list, new: int, cancel_after: int) -> dict:
+    """The chaos leg (FAULT_CHAOS is ``eng``'s chaos): the 12 requests, the
+    deadline on FAULT_VICTIMS["deadline"], the queued cancel, ``cancel_after``
+    steps, the active cancel, then ``drain()`` — all under sync debug mode;
+    then a submit that must raise ``QueueClosed``."""
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import QueueClosed, Request
+
+    v = FAULT_VICTIMS
+    t0 = time.perf_counter()
+    with real_syncs(torch) as real:
+        ids = [eng.submit(Request(prompt=p, max_new_tokens=new, seed=i,
+                                  deadline_s=FAULT_DEADLINE_S if i == v["deadline"] else None))
+               for i, p in enumerate(prompts)]
+        queued = eng.cancel(ids[v["cancel_queued"]])
+        done = []
+        for _ in range(cancel_after):
+            done += eng.step()
+        active = eng.cancel(ids[v["cancel_active"]])
+        done += eng.drain()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    try:
+        eng.submit(Request(prompt=prompts[0], max_new_tokens=2))
+        closed = False
+    except QueueClosed:
+        closed = True
+    by_id = {c.request_id: c for c in done}
+    return {"ids": ids, "done": [by_id.get(i) for i in ids], "real": real,
+            "cancel_ok": [queued, active], "closed": closed, "wall_s": wall_s,
+            "completions": len(done)}
+
+
+def seen_syncs(run: dict, depth: int) -> int:
+    """The host syncs sync debug mode can see: at depth 2 a chain lands by
+    its event's wait, which it does not see (``bench.harness.count_host_syncs``),
+    so only the refills' fetches count there."""
+    return run["host_syncs"] - (run["chains"] if depth > 1 else 0)
+
+
+def fault_gates(eng, rec, leg: dict, ref: dict, prompts: list, new: int,
+                spec_k: int, depth: int) -> tuple:
+    """The chaos leg's gates against the guarded run ``ref`` (a
+    :func:`serve_stream` result of the same options); ``rec`` is ``eng``'s
+    flight recorder, ``depth`` its pipeline depth. Returns the problems and
+    the line's fields."""
+    v, c = FAULT_VICTIMS, FAULT_CHAOS
+    done, ref_toks = leg["done"], ref["tokens"]
+    bad = []
+    if leg["completions"] != len(prompts) or any(d is None for d in done):
+        bad.append(f"{leg['completions']} completions for {len(prompts)} requests")
+        return bad, {}
+    want = {v["poisoned"]: "nonfinite", v["failed"]: "error", v["deadline"]: "deadline",
+            v["cancel_queued"]: "cancelled", v["cancel_active"]: "cancelled"}
+    reasons = [d.finish_reason for d in done]
+    for i, d in enumerate(done):
+        if d.finish_reason != want.get(i, "length"):
+            bad.append(f"request {i} finished {d.finish_reason!r}, want "
+                       f"{want.get(i, 'length')!r}")
+        elif i not in want and d.tokens != ref_toks[i]:
+            bad.append(f"request {i}, untouched by any fault, differs from the guarded run")
+    poisoned = done[v["poisoned"]].tokens
+    ref_p = ref_toks[v["poisoned"]]
+    if spec_k:
+        want_len = replay_emitted(prompts[v["poisoned"]], ref_p, spec_k, SPEC_NGRAM,
+                                  c["nan_logit_step"])
+    else:
+        want_len = 1 + c["nan_logit_step"]
+    if poisoned != ref_p[:want_len]:
+        bad.append(f"the poisoned request kept {len(poisoned)} tokens, want the guarded "
+                   f"run's first {want_len} (the steps before the poisoned one)")
+    for name in ("deadline", "cancel_active"):
+        t = done[v[name]].tokens
+        if not 0 < len(t) < new or t != ref_toks[v[name]][:len(t)]:
+            bad.append(f"the {name} victim's {len(t)} tokens are not a proper prefix of the "
+                       "guarded run's")
+    for name in ("failed", "cancel_queued"):
+        if done[v[name]].tokens:
+            bad.append(f"the {name} request has tokens")
+    stats = eng.fault_stats()
+    injected = {"nonfinite_quarantined": 1, "prefill_errors": 1, "deadline_expired": 1,
+                "cancelled": 2}
+    if {k: stats[k] for k in injected} != injected:
+        bad.append(f"fault_stats {stats} != what was injected {injected}")
+    # the failed prefill's slot: the next refill of that slot (the
+    # recorder's events) must serve its request token-identically
+    events = list(rec.events)
+    (err,) = [e for e in events if e.get("fault_kind") == "prefill_error"]
+    nxt = next((e for e in events[events.index(err):]
+                if e["kind"] in ("prefill", "splice") and e["slot"] == err["slot"]), None)
+    if nxt is None or reasons[nxt["rid"]] != "length" or done[nxt["rid"]].tokens != ref_toks[
+            nxt["rid"]]:
+        bad.append(f"the failed prefill's slot {err['slot']} did not serve its next request "
+                   f"({nxt}) token-identically")
+    budget = eng.n_chains + eng.n_prefills + eng.n_splices
+    if eng.n_host_syncs != budget:
+        bad.append(f"{eng.n_host_syncs} host syncs != {budget} chains + prefills + splices")
+    real = leg["real"]["count"]
+    seen = seen_syncs({"host_syncs": eng.n_host_syncs, "chains": eng.n_chains}, depth)
+    if real > seen or real - seen != ref["stream_syncs"] - seen_syncs(ref, depth):
+        bad.append(f"{real} stream syncs for {seen} host syncs sync debug mode sees; the "
+                   f"guarded run {ref['stream_syncs']} for {seen_syncs(ref, depth)}: "
+                   f"{leg['real']['sites']}")
+    if not leg["closed"] or leg["cancel_ok"] != [True, True]:
+        bad.append(f"QueueClosed after drain {leg['closed']}, cancels known {leg['cancel_ok']}")
+    fields = {"reasons": reasons, "poisoned_tokens": len(poisoned),
+              "poisoned_tokens_want": want_len,
+              "deadline_victim_tokens": len(done[v["deadline"]].tokens),
+              "cancel_active_tokens": len(done[v["cancel_active"]].tokens),
+              "failed_slot_next_request": None if nxt is None else nxt["rid"],
+              "fault_stats": stats, "host_syncs": eng.n_host_syncs,
+              "stream_syncs": real, "stream_sync_sites": leg["real"]["sites"],
+              "queue_closed_after_drain": leg["closed"], "wall_s": leg["wall_s"],
+              "flight_faults": rec.n_faults}
+    return bad, fields
+
+
+def phase_serve_faults(torch, fa, gpu: str) -> dict:
+    """``serve_1b_faults``: the 1b int8 cell (PRESET_1B, 4 slots, 12
+    requests, prompts {16, 32, 48}, 32 new tokens, flash prefill). (a)
+    guard off and (g) ``guard_nonfinite`` in turns (a, g, g, a): token-
+    identical, equal host and stream syncs, tok/s of each, kernels a decode
+    step of each (``profile_chain``). (c) the guard with FAULT_CHAOS, the
+    deadline and the cancels (:func:`fault_leg`), a recorder riding along:
+    :func:`fault_gates`; 113 int8 calls a forward and 16 flash launches a
+    whole prefill, on their routes (the failed prefill launches none).
+    Returns what serve_1b_flight and serve_1b_fleet reuse and the launch
+    counts."""
+    import dataclasses
+
+    import numpy as np
+
+    from pytorch_distributed_training_tutorials_tpu_torch.models import (
+        TransformerConfig,
+        TransformerLM,
+        bind_params,
+        init_quantized_lm,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.obs import FlightRecorder
+    from pytorch_distributed_training_tutorials_tpu_torch.ops import quant
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import Request, ServeEngine
+    from pytorch_distributed_training_tutorials_tpu_torch.utils.chaos import ChaosConfig
+
+    cfg = TransformerConfig(**PRESET_1B, quantized=True)
+    params = init_quantized_lm(cfg, seed=0, device="cuda")
+    model = TransformerLM(dataclasses.replace(cfg, attention_fn=fa.flash_attention))
+    bind_params(model, params)
+    n_slots, tpl, new, n_req, layers = 4, 8, 32, 12, cfg.n_layers
+    lengths = (16, 32, 48)
+    rng = np.random.Generator(np.random.PCG64(11))
+    prompts = [rng.integers(0, cfg.vocab_size, (lengths[i % 3],)).tolist()
+               for i in range(n_req + 4)]
+    timed, spare = prompts[:n_req], prompts[n_req:]
+
+    def engine(**kw):
+        return ServeEngine(model, None, n_slots=n_slots, tokens_per_launch=tpl, max_queue=64,
+                           device="cuda", **kw)
+
+    def mk_request(i: int) -> Request:
+        return Request(prompt=spare[i % len(spare)], max_new_tokens=2 * new, seed=100 + i)
+
+    for guard in (False, True):  # warmup
+        warm = engine(guard_nonfinite=guard)
+        warm.submit(Request(prompt=spare[0], max_new_tokens=16))
+        warm.run_until_idle()
+    torch.cuda.synchronize()
+    runs, problems = [], []
+    for arm in ("a", "g", "g", "a"):
+        eng = engine(guard_nonfinite=arm == "g")
+        quant.int8_matmul.launches = 0
+        quant.int8_matmul.routes = {"sm90": 0, "v1": 0}
+        fa.flash_attention.launches["fwd"] = 0
+        fa.flash_attention.routes["fwd"] = {"sm90": 0, "sm80": 0}
+        run = serve_stream(torch, eng, timed, new)
+        run.update(arm=arm, int8=quant.int8_matmul.launches,
+                   int8_routes=dict(quant.int8_matmul.routes),
+                   flash=fa.flash_attention.launches["fwd"],
+                   flash_routes=dict(fa.flash_attention.routes["fwd"]))
+        runs.append(run)
+        emit({"phase": "serve_1b_faults", "arm": arm, "turn": len(runs),
+              **{k: v for k, v in run.items() if k not in ("tokens", "completions")},
+              "gpu": gpu})
+        forwards = run["prefills"] + run["chains"] * tpl
+        if run["int8"] != (layers * 7 + 1) * forwards or run["int8_routes"]["v1"]:
+            problems.append(f"turn {len(runs)} ({arm}): int8_matmul {run['int8']} calls "
+                            f"{run['int8_routes']}, want {layers * 7 + 1} x {forwards}, sm90")
+        if run["flash"] != layers * run["prefills"] or run["flash_routes"]["sm80"] != run[
+                "flash"]:
+            problems.append(f"turn {len(runs)} ({arm}): flash_fwd {run['flash']} "
+                            f"{run['flash_routes']}, want {layers} x {run['prefills']} f32")
+        if run["host_syncs"] != run["chains"] + run["prefills"] or run["stream_syncs"] > run[
+                "host_syncs"]:
+            problems.append(f"turn {len(runs)} ({arm}): {run['host_syncs']} host syncs, "
+                            f"{run['stream_syncs']} stream syncs for {run['chains']} chains "
+                            f"+ {run['prefills']} prefills: {run['stream_sync_sites']}")
+        if any(r != "length" for r in run["reasons"]) or run["tokens"] != runs[0]["tokens"]:
+            problems.append(f"turn {len(runs)} ({arm}): not every request finished 'length' "
+                            "with the first turn's tokens")
+        if (run["host_syncs"], run["stream_syncs"]) != (runs[0]["host_syncs"],
+                                                        runs[0]["stream_syncs"]):
+            problems.append(f"turn {len(runs)} ({arm}): host and stream syncs "
+                            f"{run['host_syncs']}, {run['stream_syncs']} != the first turn's")
+    prof = {arm: profile_chain(torch, engine(guard_nonfinite=arm == "g"), mk_request, gpu,
+                               label=f"serve_1b_faults arm {arm}")
+            for arm in ("a", "g")}
+    ref = runs[1]
+    rec = FlightRecorder(capacity=4096)
+    eng = engine(guard_nonfinite=True, chaos=ChaosConfig(**FAULT_CHAOS), flight=rec)
+    quant.int8_matmul.launches = 0
+    quant.int8_matmul.routes = {"sm90": 0, "v1": 0}
+    fa.flash_attention.launches["fwd"] = 0
+    fa.flash_attention.routes["fwd"] = {"sm90": 0, "sm80": 0}
+    leg = fault_leg(torch, eng, timed, new, cancel_after=1)
+    bad, fields = fault_gates(eng, rec, leg, ref, timed, new, 0, 1)
+    int8_calls, flash_calls = quant.int8_matmul.launches, fa.flash_attention.launches["fwd"]
+    forwards = eng.n_prefills + eng.n_chains * tpl
+    if int8_calls != (layers * 7 + 1) * forwards or quant.int8_matmul.routes["v1"]:
+        bad.append(f"int8_matmul {int8_calls} calls {quant.int8_matmul.routes}, want "
+                   f"{layers * 7 + 1} x {forwards}, all sm90")
+    if flash_calls != layers * eng.n_prefills or fa.flash_attention.routes["fwd"]["sm80"] != \
+            flash_calls:
+        bad.append(f"flash_fwd {flash_calls} launches, want {layers} x {eng.n_prefills} "
+                   "whole prefills on the f32 route")
+    emit({"phase": "serve_1b_faults", "arm": "c", "chaos": FAULT_CHAOS,
+          "deadline_s": FAULT_DEADLINE_S, "victims": FAULT_VICTIMS, **fields,
+          "chains": eng.n_chains, "prefills": eng.n_prefills, "int8_matmul_launches": int8_calls,
+          "flash_fwd_launches": flash_calls, "ok": not bad, "problems": bad, "gpu": gpu})
+    problems += [f"arm c: {x}" for x in bad]
+    by_arm = {a: [r for r in runs if r["arm"] == a] for a in ("a", "g")}
+    summary = {
+        "phase": "serve_1b_faults_summary",
+        "aggregate_tok_s": {a: [r["aggregate_tok_s"] for r in rs] for a, rs in by_arm.items()},
+        "latency_p50_s": {a: [r["latency_p50_s"] for r in rs] for a, rs in by_arm.items()},
+        "kernels_per_decode_step": {a: p["kernels_per_decode_step"] for a, p in prof.items()},
+        "guard_kernels_per_decode_step": prof["g"]["kernels_per_decode_step"]
+        - prof["a"]["kernels_per_decode_step"],
+        "device_busy_ms": {a: p["device_busy_ms"] for a, p in prof.items()},
+        "device_idle_share": {a: p["device_idle_share"] for a, p in prof.items()},
+        "host_syncs": {a: rs[0]["host_syncs"] for a, rs in by_arm.items()},
+        "stream_syncs": {a: rs[0]["stream_syncs"] for a, rs in by_arm.items()},
+        "ok": not problems, "gpu": gpu,
+    }
+    emit(summary)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"model": model, "cfg": cfg, "prompts": timed, "new": new, "ref": ref,
+            "int8": {f"serve_1b_faults_{r['arm']}{i + 1}": r["int8"] for i, r in enumerate(runs)}
+            | {"serve_1b_faults_c": int8_calls},
+            "flash": {"serve_1b_faults_c": flash_calls},
+            "kernels_per_decode_step": summary["kernels_per_decode_step"]}
+
+
+def phase_serve_paged_faults(torch, pa, gpu: str) -> dict:
+    """``serve_1b_gqa_paged_faults``: serve_1b_paged's kernel arm (c) (the
+    1b-gqa preset, window 4096, 48 pages of 64, f32 pool) with
+    ``speculative_k=2`` and ``pipeline_depth=2``: (g) the guard, then (c)
+    the guard with FAULT_CHAOS, the deadline and the cancels, at the
+    observed boundary (the active cancel after two steps). :func:`fault_gates`
+    (the poisoned request's tokens: the verify steps before the poisoned
+    one, replayed on the host over (g)'s tokens); no page in use after the
+    drain; one paged launch a layer a verify forward and 113 int8 calls a
+    forward, all sm90. Returns the launch counts."""
+    import numpy as np
+
+    from pytorch_distributed_training_tutorials_tpu_torch.models import (
+        TransformerConfig,
+        TransformerLM,
+        init_quantized_lm,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.obs import FlightRecorder
+    from pytorch_distributed_training_tutorials_tpu_torch.ops import quant
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import Request, ServeEngine
+    from pytorch_distributed_training_tutorials_tpu_torch.utils.chaos import ChaosConfig
+
+    st = PAGED_STREAM
+    cfg = TransformerConfig(**PRESET_1B_GQA, quantized=True)
+    params = init_quantized_lm(cfg, seed=0, device="cuda")
+    model = TransformerLM(cfg)
+    rng = np.random.Generator(np.random.PCG64(12))
+    prompts = [rng.integers(0, cfg.vocab_size, (st["prompts"][i % 3],)).tolist()
+               for i in range(st["requests"])]
+    options = dict(PAGED_ARMS["c"], page_size=st["page_size"], pool_pages=st["pool_pages"],
+                   speculative_k=SPEC_K, spec_ngram=SPEC_NGRAM, pipeline_depth=2,
+                   guard_nonfinite=True)
+    layers, tpl = cfg.n_layers, st["tokens_per_launch"]
+
+    def engine(**kw):
+        return ServeEngine(model, params, n_slots=st["n_slots"], tokens_per_launch=tpl,
+                           max_queue=64, device="cuda", **options, **kw)
+
+    warm = engine()
+    warm.submit(Request(prompt=prompts[0], max_new_tokens=st["new"], seed=99))
+    warm.run_until_idle()
+    del warm
+    torch.cuda.synchronize()
+    rows, problems = {}, []
+    for arm in ("g", "c"):
+        rec = FlightRecorder(capacity=4096)
+        eng = engine(**({} if arm == "g" else dict(chaos=ChaosConfig(**FAULT_CHAOS), flight=rec)))
+        pa.paged_attention.launches = 0
+        pa.paged_attention.routes = {"sm90": 0, "v1": 0}
+        quant.int8_matmul.launches = 0
+        quant.int8_matmul.routes = {"sm90": 0, "v1": 0}
+        if arm == "g":
+            ref = serve_stream(torch, eng, prompts, st["new"])
+            fields = {k: v for k, v in ref.items() if k not in ("tokens", "completions")}
+            bad = [] if (all(r == "length" for r in ref["reasons"])
+                         and ref["stream_syncs"] <= seen_syncs(ref, 2)
+                         and ref["host_syncs"] == eng.n_chains + eng.n_prefills) else [
+                f"not every request finished 'length', or syncs {ref['host_syncs']} host, "
+                f"{ref['stream_syncs']} stream for {eng.n_chains} chains + {eng.n_prefills} "
+                "prefills"]
+        else:
+            leg = fault_leg(torch, eng, prompts, st["new"], cancel_after=2)
+            bad, fields = fault_gates(eng, rec, leg, ref, prompts, st["new"], SPEC_K, 2)
+        verify, launches = eng.spec_stats()["n_verify_forwards"], pa.paged_attention.launches
+        int8_calls = quant.int8_matmul.launches
+        if launches != layers * verify or pa.paged_attention.routes != {"sm90": launches,
+                                                                          "v1": 0}:
+            bad.append(f"paged_attention {launches} launches {pa.paged_attention.routes}, want "
+                       f"{layers} x {verify} verify forwards, all sm90")
+        if int8_calls != (layers * 7 + 1) * (eng.n_prefills + verify) or \
+                quant.int8_matmul.routes["v1"]:
+            bad.append(f"int8_matmul {int8_calls} calls {quant.int8_matmul.routes}, want "
+                       f"{layers * 7 + 1} x ({eng.n_prefills} prefills + {verify}), all sm90")
+        pstats = eng.page_stats()
+        if pstats["pages_in_use"] != 0 or pstats["pages_high_water"] > st["pool_pages"]:
+            bad.append(f"pages after the drain: {pstats}")
+        rows[arm] = {"paged_attention_launches": launches, "int8_matmul_launches": int8_calls,
+                     "n_verify_forwards": verify}
+        emit({"phase": "serve_1b_gqa_paged_faults", "arm": arm, "options": {
+                  k: v for k, v in options.items() if k != "guard_nonfinite"},
+              "guard_nonfinite": True, **({"chaos": FAULT_CHAOS, "deadline_s": FAULT_DEADLINE_S}
+                                          if arm == "c" else {}),
+              **fields, **rows[arm], "chains": eng.n_chains, "prefills": eng.n_prefills,
+              "spec_stats": eng.spec_stats(), "page_stats": pstats, "ok": not bad,
+              "problems": bad, "gpu": gpu})
+        problems += [f"arm {arm}: {x}" for x in bad]
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return rows
+
+
+def phase_serve_flight(torch, gpu: str, ctx: dict) -> dict:
+    """``serve_1b_flight``: serve_1b_faults' (g) stream through an engine
+    with a ``FlightRecorder``: tokens, host and stream syncs equal (g)'s;
+    every request's span complete (submit, pop, first token, completion);
+    event counts reconciled with the engine's counters and the
+    completions; the histograms' p50/p95 of latency and TTFT within one
+    bucket of the sorted completions'."""
+    from pytorch_distributed_training_tutorials_tpu_torch.obs import FlightRecorder
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import ServeEngine
+
+    ref = ctx["ref"]
+    rec = FlightRecorder(capacity=4096)
+    eng = ServeEngine(ctx["model"], None, n_slots=4, tokens_per_launch=8, max_queue=64,
+                      device="cuda", guard_nonfinite=True, flight=rec)
+    run = serve_stream(torch, eng, ctx["prompts"], ctx["new"])
+    bad = []
+    if run["tokens"] != ref["tokens"]:
+        bad.append("the recorder changed the tokens")
+    if (run["host_syncs"], run["stream_syncs"]) != (ref["host_syncs"], ref["stream_syncs"]):
+        bad.append(f"host, stream syncs {run['host_syncs']}, {run['stream_syncs']} != (g)'s "
+                   f"{ref['host_syncs']}, {ref['stream_syncs']}: {run['stream_sync_sites']}")
+    n = len(ctx["prompts"])
+    spans = {s["rid"]: s for s in rec.done_spans}
+    keys = ("submit_t", "queue_pop_t", "prefill_t", "complete_t", "finish_reason")
+    span_full = len(spans) == n and all(all(k in s for k in keys) for s in spans.values())
+    kc = rec.kind_counts
+    counts_ok = (kc["submit"] == kc["queue_pop"] == kc["complete"] == n
+                 and kc["prefill"] == eng.n_prefills
+                 and kc["chain_start"] == kc["chain_end"] == eng.n_chains
+                 and sum(s["tokens"] for s in spans.values()) == sum(map(len, run["tokens"])))
+    timing_ok = span_full and all(
+        abs(spans[c.request_id]["e2e_s"] - c.latency_s) < 1e-5
+        and abs(spans[c.request_id]["ttft_s"] - c.ttft_s) < 1e-5 for c in run["completions"])
+    hist = {}
+    for name, vals in (("e2e", [c.latency_s for c in run["completions"]]),
+                       ("ttft", [c.ttft_s for c in run["completions"]])):
+        h = rec.hist[name]
+        for q in (0.5, 0.95):
+            sv = sorted(vals)[max(1, math.ceil(q * len(vals))) - 1]
+            hist[f"{name}_p{int(q * 100)}"] = {
+                "histogram": h.quantile(q), "sorted": sv,
+                "ok": abs(h.quantile(q) - sv) <= h.rel_error_bound * max(sv, h.min_value) + 1e-9}
+    if not (span_full and counts_ok and timing_ok):
+        bad.append(f"spans complete {span_full}, counts {dict(kc)} reconciled {counts_ok}, "
+                   f"timings {timing_ok}")
+    if not all(v["ok"] for v in hist.values()):
+        bad.append(f"histogram quantiles beyond one bucket of the sort: {hist}")
+    emit({"phase": "serve_1b_flight", **{k: v for k, v in run.items()
+                                          if k not in ("tokens", "completions")},
+          "ref_aggregate_tok_s": ref["aggregate_tok_s"], "span_full": span_full,
+          "event_counts": dict(kc), "counts_reconciled": counts_ok, "timings_ok": timing_ok,
+          "histogram_vs_sort": hist, "flight_stats": eng.flight_stats(), "ok": not bad,
+          "problems": bad, "gpu": gpu})
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return {"events": rec.n_events}
+
+
+def phase_serve_fleet(torch, gpu: str, ctx: dict) -> dict:
+    """``serve_1b_fleet``: FLEET["replicas"] engines over serve_1b_faults'
+    model (one set of 1b weights), each with a recorder on a shared epoch,
+    behind a ``FleetRouter``; the stream is (g)'s 12 requests and
+    FLEET["clones"] copies of request 0. Leg 1, no fault: every request
+    token-identical to (g) (the single engine), the ledger clean. Leg 2,
+    ``FleetChaosConfig`` kills request 0's affine replica at its
+    FLEET["kill_at_chain"]-th chain, holding work in flight (completed
+    ``"replica_dead"``) and queued (re-dispatched): the ledger verifies,
+    every request completes once, the re-dispatched ones token-identical to
+    leg 1, the killed replica's chains frozen at the kill, the fleet's host
+    syncs the sum of the replicas' chains + prefills + splices and its
+    stream syncs no more. Returns the int8 launches of leg 2."""
+    from pytorch_distributed_training_tutorials_tpu_torch.obs import FlightRecorder
+    from pytorch_distributed_training_tutorials_tpu_torch.ops import quant
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import (
+        FleetRouter,
+        Request,
+        ServeEngine,
+        affinity_hash,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.utils.chaos import FleetChaosConfig
+
+    prompts = ctx["prompts"] + [ctx["prompts"][0]] * FLEET["clones"]
+    want = ctx["ref"]["tokens"] + [ctx["ref"]["tokens"][0]] * FLEET["clones"]
+    new, n_rep = ctx["new"], FLEET["replicas"]
+    target = affinity_hash(prompts[0], adapter=0, depth=16) % n_rep
+
+    def leg(chaos):
+        t0 = time.perf_counter()
+        engines = [ServeEngine(ctx["model"], None, n_slots=FLEET["n_slots"], tokens_per_launch=8,
+                               max_queue=64, device="cuda",
+                               flight=FlightRecorder(capacity=4096, t0=t0))
+                   for _ in range(n_rep)]
+        fr = FleetRouter(engines, chaos=chaos, flight=FlightRecorder(capacity=1024, t0=t0))
+        quant.int8_matmul.launches = 0
+        t1 = time.perf_counter()
+        with real_syncs(torch) as real:
+            gids = [fr.submit(Request(prompt=p, max_new_tokens=new, seed=i))
+                    for i, p in enumerate(prompts)]
+            done = {}
+            for c in fr.run_until_idle():
+                done.setdefault(c.request_id, []).append(c)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t1
+        return fr, engines, gids, done, real, wall_s, quant.int8_matmul.launches
+
+    rows, problems = {}, []
+    for name, chaos in (("ok", None), ("kill", FleetChaosConfig(
+            kill_replica=target, kill_at_chain=FLEET["kill_at_chain"]))):
+        fr, engines, gids, done, real, wall_s, int8_calls = leg(chaos)
+        bad = []
+        if sorted(done) != sorted(gids) or any(len(v) != 1 for v in done.values()):
+            bad.append(f"completions {({g: len(v) for g, v in done.items()})} for gids {gids}")
+        comps = [done[g][0] for g in gids]
+        if fr.ledger.verify():
+            bad.append(f"ledger: {fr.ledger.verify()}")
+        syncs = sum(e.n_host_syncs for e in engines)
+        budget = sum(e.n_chains + e.n_prefills + e.n_splices for e in engines)
+        if syncs != budget or real["count"] > syncs:
+            bad.append(f"{syncs} host syncs, {real['count']} stream syncs; the replicas' "
+                       f"budget {budget}: {real['sites']}")
+        reasons = [c.finish_reason for c in comps]
+        if name == "ok":
+            if reasons != ["length"] * len(prompts) or [c.tokens for c in comps] != want:
+                bad.append("the fault-free fleet is not token-identical to the single engine")
+            ok_tokens = [c.tokens for c in comps]
+        else:
+            dead = [i for i, r in enumerate(reasons) if r == "replica_dead"]
+            moved = fr.ledger.n_redispatched
+            if fr.replica_states()[target] != "dead" or not dead or moved < 1:
+                bad.append(f"replica {target} {fr.replica_states()[target]!r}: {len(dead)} "
+                           f"in flight died, {moved} queued moved (want >= 1 each)")
+            for i, c in enumerate(comps):
+                if c.finish_reason == "length" and c.tokens != ok_tokens[i]:
+                    bad.append(f"request {i} differs from the fault-free fleet")
+                elif c.finish_reason not in ("length", "replica_dead"):
+                    bad.append(f"request {i} finished {c.finish_reason!r}")
+            if engines[target].n_chains != FLEET["kill_at_chain"]:
+                bad.append(f"the killed replica ran {engines[target].n_chains} chains, want "
+                           f"{FLEET['kill_at_chain']} (frozen at its kill)")
+        rows[name] = {"int8_matmul_launches": int8_calls}
+        emit({"phase": "serve_1b_fleet", "leg": name, "replicas": n_rep,
+              "n_slots": FLEET["n_slots"], "requests": len(prompts), "killed": target
+              if chaos else None, "kill_at_chain": FLEET["kill_at_chain"] if chaos else None,
+              "reasons": reasons, "replica_states": fr.replica_states(),
+              "replica_chains": [e.n_chains for e in engines],
+              "replica_host_syncs": [e.n_host_syncs for e in engines],
+              "host_syncs": syncs, "budget": budget, "stream_syncs": real["count"],
+              "router_stats": fr.router_stats(), "wall_s": wall_s,
+              "aggregate_tok_s": sum(len(c.tokens) for c in comps) / wall_s,
+              "fleet_flight": {k: v for k, v in (fr.fleet_flight_summary() or {}).items()
+                               if k.startswith(("flight_", "e2e_p", "ttft_p"))},
+              "int8_matmul_launches": int8_calls, "ok": not bad, "problems": bad, "gpu": gpu})
+        problems += [f"leg {name}: {x}" for x in bad]
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return rows
 
 
 LOSSES = ("cross_entropy", "fused_cross_entropy")
@@ -4272,6 +4869,10 @@ def main(argv=None) -> int:
                     help="after the build, run the LoRA slice's phases only "
                          "(serve_1b_lora with its composed arm, train_760m dots_attn, "
                          "train_lora)")
+    ap.add_argument("--faults-only", action="store_true",
+                    help="after the build, run the failure-handling phases only "
+                         "(serve_1b_faults, serve_1b_gqa_paged_faults, serve_1b_flight, "
+                         "serve_1b_fleet)")
     args = ap.parse_args(argv)
 
     import torch
@@ -4334,12 +4935,24 @@ def main(argv=None) -> int:
         run(phase_bench_and_scaling, torch, gpu)
         emit({"phase": "phase_seconds", **seconds})
         return 0
+    def fault_phases():
+        faults = run(phase_serve_faults, torch, fa, gpu)
+        paged_faults = run(phase_serve_paged_faults, torch, pa, gpu)
+        run(phase_serve_flight, torch, gpu, faults)
+        fleet = run(phase_serve_fleet, torch, gpu, faults)
+        return faults, paged_faults, fleet
+
     if args.serve_only:
         run(phase_serve, torch, quant, gpu)
         run(phase_serve_paged, torch, pa, gpu)
         run(phase_serve_prefill, torch, fa, gpu)
         run(phase_serve_spec, torch, fa, gpu)
         run(phase_serve_lora, torch, quant, fa, pa, gpu)
+        fault_phases()
+        emit({"phase": "phase_seconds", **seconds})
+        return 0
+    if args.faults_only:
+        fault_phases()
         emit({"phase": "phase_seconds", **seconds})
         return 0
     if args.lora_only:
@@ -4363,6 +4976,7 @@ def main(argv=None) -> int:
     prefill = run(phase_serve_prefill, torch, fa, gpu)
     spec = run(phase_serve_spec, torch, fa, gpu)
     lora = run(phase_serve_lora, torch, quant, fa, pa, gpu)
+    faults, paged_faults, fleet = fault_phases()
     run(phase_train_card_vs_cpu, torch, gpu)
     base = run(phase_train, torch, gpu)
     train_launches = base["flash"]
@@ -4407,7 +5021,14 @@ def main(argv=None) -> int:
                              **{f"serve_1b_spec_{a}": n for a, n in spec["int8"].items()},
                              "serve_1b_gqa_paged_spec": paged_serve["spec_int8"],
                              "serve_1b_lora": lora["serve_1b_lora"],
-                             "serve_1b_lora_composed": lora["int8"]},
+                             "serve_1b_lora_composed": lora["int8"],
+                             **faults["int8"],
+                             **{f"serve_1b_gqa_paged_faults_{a}": r["int8_matmul_launches"]
+                                for a, r in paged_faults.items()},
+                             **{f"serve_1b_fleet_{leg}": r["int8_matmul_launches"]
+                                for leg, r in fleet.items()}},
+        # the guard's cost: kernels a decode step, serve_1b_faults (a) and (g)
+        "kernels_per_decode_step": faults["kernels_per_decode_step"],
         "verify_forwards_by_path": {
             **{f"serve_1b_spec_{a}": n for a, n in spec["verify_forwards"].items() if n},
             "serve_1b_gqa_paged_spec": paged_serve["spec"]["n_verify_forwards"]},
@@ -4447,7 +5068,8 @@ def main(argv=None) -> int:
                 "train_lora": train_lora["flash_fwd"],
                 "serve_1b_lora_composed": lora["composed_flash_fwd"],
                 **{f"serve_1b_prefill_{a}": n for a, n in prefill["launches"].items()},
-                **{f"serve_1b_spec_{a}": n for a, n in spec["flash"].items()}}
+                **{f"serve_1b_spec_{a}": n for a, n in spec["flash"].items()},
+                **faults["flash"]}
             kernels[-1]["serving"] = {
                 "launches_per_prefill": PRESET_1B["n_layers"],
                 "whole_prefills": prefill["prefills"],
@@ -4532,7 +5154,9 @@ def main(argv=None) -> int:
         "launches_by_path": {"serve_1b_paged": paged_serve["launches"],
                              "serve_1b_prefill_f": prefill["paged_f"],
                              "serve_1b_gqa_paged_spec": paged_serve["spec"],
-                             "serve_1b_lora_composed": lora["composed_paged"]},
+                             "serve_1b_lora_composed": lora["composed_paged"],
+                             **{f"serve_1b_gqa_paged_faults_{a}": r["paged_attention_launches"]
+                                for a, r in paged_faults.items()}},
         "verify": {k: paged["results"][("1b-gqa-verify", "f32", "f32")][k] * 16
                    for k in ("ms", "plain_ms", "bound_ms")}
         | {"bound_by": paged["results"][("1b-gqa-verify", "f32", "f32")]["bound_by"],

@@ -35,11 +35,16 @@ _NUCLEUS_CANDIDATES = 1024
 
 def greedy_token(logits: torch.Tensor) -> torch.Tensor:
     """Greedy next token over ``(..., V)`` logits: among the positions
-    holding the row maximum, the smallest vocabulary index wins. int64."""
+    holding the row maximum, the smallest vocabulary index wins. int64.
+
+    A row holding a NaN has no position equal to its maximum (NaN); it
+    gives ``V - 1``, a token the embedding can read, so a poisoned row
+    never indexes out of range (a device-side assert on a card). A finite
+    row's maximum is attained, so the fill value never wins there."""
     v = logits.shape[-1]
     top = logits.amax(dim=-1, keepdim=True)
     idx = torch.arange(v, device=logits.device)
-    tied = torch.where(logits == top, idx, torch.full_like(idx, v))
+    tied = torch.where(logits == top, idx, torch.full_like(idx, v - 1))
     return tied.amin(dim=-1)
 
 

@@ -6,7 +6,10 @@ step's ``"skipped"`` flag), as the device scalars they are; the pending
 scalars are fetched in ONE batched copy (stacked on the device, one
 ``.tolist()``) when an epoch is logged or at :meth:`flush`. Every fetch is
 counted in ``host_fetches``. Events land in a ring buffer; console lines
-print on rank 0 unless ``quiet``.
+print on rank 0 unless ``quiet``. With a ``flight`` recorder
+(:class:`.flight.FlightRecorder`), a drained step whose ``"skipped"`` flag
+is set becomes a ``step_skipped`` event: the flag rode the drain's one
+fetch, so the recorder learns of the skip with no sync of its own.
 """
 
 from __future__ import annotations
@@ -24,11 +27,12 @@ class MetricsLogger:
     """Ring buffer of step and epoch events, with one batched fetch of the
     pending step losses per drain."""
 
-    def __init__(self, *, quiet: bool = False):
+    def __init__(self, *, quiet: bool = False, flight=None):
         self.events: collections.deque[dict] = collections.deque(maxlen=CAPACITY)
         self._pending: collections.deque[tuple[int, torch.Tensor | float, dict | None]] = (
             collections.deque(maxlen=CAPACITY))
         self.quiet = quiet
+        self.flight = flight
         self.host_fetches = 0
 
     def say(self, msg: str) -> None:
@@ -73,6 +77,8 @@ class MetricsLogger:
         for step, loss, extra in pending:
             event = {"kind": "step", "step": step, "loss": host(loss)}
             event.update({k: host(v) for k, v in (extra or {}).items()})
+            if self.flight is not None and event.get("skipped"):
+                self.flight.step_skipped(step=step)
             self.events.append(event)
 
     def step_events(self) -> list[dict]:

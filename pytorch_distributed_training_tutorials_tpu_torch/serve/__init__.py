@@ -1,6 +1,12 @@
 """Continuous-batching serving for the PyTorch port: :class:`ServeEngine`
 over a slot-indexed or paged KV cache, with its own copies of the FIFO
-scheduler, the page pool and the radix prefix index."""
+scheduler, the page pool and the radix prefix index; and the fleet front
+door over several engines, :class:`.router.FleetRouter` (with
+:class:`.router.DispatchLedger` and :func:`.router.affinity_hash`),
+exported lazily (PEP 562, as ``adapters/``): importing the router loads
+nothing but the scheduler and the standard library."""
+
+import importlib
 
 from pytorch_distributed_training_tutorials_tpu_torch.serve.engine import ServeEngine
 from pytorch_distributed_training_tutorials_tpu_torch.serve.pages import (
@@ -49,3 +55,25 @@ __all__ = [
     "write_slot",
     "write_slot_paged",
 ]
+
+# name -> submodule; resolved on first access via __getattr__
+_LAZY_EXPORTS = {
+    "DispatchLedger": "pytorch_distributed_training_tutorials_tpu_torch.serve.router",
+    "FleetRouter": "pytorch_distributed_training_tutorials_tpu_torch.serve.router",
+    "affinity_hash": "pytorch_distributed_training_tutorials_tpu_torch.serve.router",
+}
+__all__ += sorted(_LAZY_EXPORTS)
+
+
+def __getattr__(name: str):
+    try:
+        module_name = _LAZY_EXPORTS[name]
+    except KeyError:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}") from None
+    value = getattr(importlib.import_module(module_name), name)
+    globals()[name] = value  # cache: __getattr__ runs once per name
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_LAZY_EXPORTS))

@@ -1,7 +1,8 @@
 """``python -m pytorch_distributed_training_tutorials_tpu_torch.serve
 --selftest [--paged [--paged-kernel] [--kv-bits 8|4]] [--prefix] [--chunk]
 [--flash] [--spec-k K [--spec-ngram N]] [--pipeline-depth D] [--adapters
-N] [--device cpu]``: end-to-end smoke of the port's serving path.
+N] [--chaos] [--flight] [--router] [--device cpu]``: end-to-end smoke of
+the port's serving path.
 
 A toy int8 LM serves a staggered stream of mixed-length requests through
 :class:`.engine.ServeEngine` (2 slots, a queue bound of 2 so backpressure
@@ -59,6 +60,39 @@ tokens must equal a dedicated single-tenant engine's, id 0's the
 bank-less engine's; the host syncs stay one per chain plus one per
 prefill; an unregistered id raises at submit.
 
+``--chaos`` adds the failure-handling arm (the JAX selftest's): a guarded
+engine with ``ChaosConfig(nan_logit_slot=0, nan_logit_step=3)`` and a
+recorder that dumps to a temporary file serves two requests, a third
+whose 1 µs deadline has passed when it is popped and a fourth cancelled
+while queued, then ``drain()``. The poisoned request must complete
+``"nonfinite"`` with a strict prefix of a clean guarded run's tokens, its
+neighbour equal to the clean run, the deadline and cancel victims with no
+tokens; ``submit`` after the drain raises ``QueueClosed``; host syncs
+exactly chains + prefills + splices; ``fault_stats()`` one quarantine, one
+expiry, one cancel; at least two dumps, one naming the quarantined slot.
+Then a training leg: ``Trainer(skip_nonfinite=True,
+chaos=ChaosConfig(nan_batch_step=3), flight=...)`` on a small MLP for one
+epoch must skip exactly one step, one update short, with one
+``step_skipped`` event at step 3.
+
+``--flight`` adds the flight-recorder arm: the staggered stream again
+through an engine with a ``FlightRecorder``. Tokens and host syncs must
+equal the base run's, every request must have a full span (submit, pop,
+first token, completion), the event counts must reconcile with the
+engine's counters and the spans' times with the completions', and the
+histograms' p50/p95 of latency and TTFT must be within one bucket of the
+sorted values.
+
+``--router`` adds the fleet arm: three engines (one slot, chains of 4)
+behind a ``FleetRouter``, each with its recorder on a shared epoch, serve
+the staggered stream plus two copies of its first request. Leg 1, no
+fault: every request equal to the base run. Leg 2, ``FleetChaosConfig``
+kills the first request's affine replica at its second chain (it holds
+work in flight and queued): the ledger verifies, the replica is dead,
+work moved or died with it, every request that finished equals leg 1,
+and the host syncs are the sum of the replicas' chains + prefills +
+splices, the killed replica's frozen at its kill.
+
 Prints one JSON line (``"ok": true`` when every check held) and exits 0,
 or 1 when a check failed. Runs on ``cuda`` unless ``--device`` names
 another device.
@@ -74,7 +108,8 @@ import sys
 def selftest(device=None, paged: bool = False, paged_kernel: bool = False,
              kv_bits: int | None = None, prefix: bool = False, chunk: bool = False,
              flash: bool = False, spec_k: int = 0, spec_ngram: int = 3,
-             pipeline_depth: int = 1, adapters: int = 0) -> dict:
+             pipeline_depth: int = 1, adapters: int = 0, chaos: bool = False,
+             flight: bool = False, router: bool = False) -> dict:
     import numpy as np
     import torch
 
@@ -155,6 +190,11 @@ def selftest(device=None, paged: bool = False, paged_kernel: bool = False,
     )
     adapter_fields = (adapter_arm(model, params, dev, prompts, completions, adapters,
                                   problems) if adapters else {})
+    fault_fields = chaos_arm(model, params, dev, prompts, problems) if chaos else {}
+    flight_fields = (flight_arm(model, params, dev, prompts, completions, problems)
+                     if flight else {})
+    router_fields = (router_arm(model, params, dev, prompts, completions, problems)
+                     if router else {})
     return {
         "selftest": "serve_torch",
         "ok": not problems,
@@ -177,8 +217,254 @@ def selftest(device=None, paged: bool = False, paged_kernel: bool = False,
         **spec_fields,
         **pipeline_fields,
         **adapter_fields,
+        **fault_fields,
+        **flight_fields,
+        **router_fields,
         "problems": problems,
     }
+
+
+def _budget(eng) -> int:
+    return eng.n_chains + eng.n_prefills + eng.n_splices
+
+
+def chaos_arm(model, params, dev, prompts, problems: list) -> dict:
+    """The ``--chaos`` checks (module docstring)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pytorch_distributed_training_tutorials_tpu_torch.data import (
+        ArrayDataset,
+        ShardedLoader,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.models import MLP
+    from pytorch_distributed_training_tutorials_tpu_torch.obs import (
+        FlightRecorder,
+        load_flightlog,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel.mesh import LocalMesh
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import (
+        QueueClosed,
+        Request,
+        ServeEngine,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.train import Trainer, sgd
+    from pytorch_distributed_training_tutorials_tpu_torch.utils.chaos import ChaosConfig
+
+    p0, p1 = prompts[0][0], prompts[1][0]
+    ref_eng = ServeEngine(model, params, n_slots=2, tokens_per_launch=4, device=dev,
+                          guard_nonfinite=True)
+    for p, n in ((p0, 12), (p1, 16)):
+        ref_eng.submit(Request(prompt=p, max_new_tokens=n))
+    ref = {c.request_id: c.tokens for c in ref_eng.run_until_idle()}
+    fd, dump_path = tempfile.mkstemp(suffix=".flightlog.jsonl")
+    os.close(fd)
+    try:
+        eng = ServeEngine(model, params, n_slots=2, tokens_per_launch=4, device=dev,
+                          guard_nonfinite=True,
+                          chaos=ChaosConfig(nan_logit_slot=0, nan_logit_step=3),
+                          flight=FlightRecorder(capacity=128, dump_path=dump_path))
+        r0 = eng.submit(Request(prompt=p0, max_new_tokens=12))
+        r1 = eng.submit(Request(prompt=p1, max_new_tokens=16))
+        r2 = eng.submit(Request(prompt=p0, max_new_tokens=8, deadline_s=1e-6))
+        r3 = eng.submit(Request(prompt=p1, max_new_tokens=8))
+        eng.cancel(r3)
+        out = {c.request_id: c for c in eng.drain()}
+        try:
+            eng.submit(Request(prompt=p0, max_new_tokens=2))
+            problems.append("chaos arm: submit admitted after close()")
+        except QueueClosed:
+            pass
+        snaps = load_flightlog(dump_path)
+    finally:
+        os.unlink(dump_path)
+    if out[r0].finish_reason != "nonfinite":
+        problems.append(f"chaos arm: the poisoned slot finished {out[r0].finish_reason!r}")
+    exact = (out[r0].tokens == ref[0][:len(out[r0].tokens)]
+             and len(out[r0].tokens) < len(ref[0]) and out[r1].tokens == ref[1])
+    if not exact:
+        problems.append(f"chaos arm: tokens diverged from the clean run: poisoned "
+                        f"{out[r0].tokens} vs {ref[0]}, neighbour {out[r1].tokens} vs {ref[1]}")
+    if out[r2].finish_reason != "deadline" or out[r2].tokens:
+        problems.append(f"chaos arm: the deadline request finished {out[r2].finish_reason!r} "
+                        f"with {len(out[r2].tokens)} tokens")
+    if out[r3].finish_reason != "cancelled" or out[r3].tokens:
+        problems.append(f"chaos arm: the cancelled request finished {out[r3].finish_reason!r}")
+    if eng.n_host_syncs != _budget(eng):
+        problems.append(f"chaos arm: {eng.n_host_syncs} host syncs != {_budget(eng)} "
+                        "(chains + prefills + splices)")
+    fstats = eng.stats("fault")
+    for key in ("nonfinite_quarantined", "deadline_expired", "cancelled"):
+        if fstats[key] != 1:
+            problems.append(f"chaos arm: fault_stats[{key!r}] = {fstats[key]}, expected 1")
+    named = any((s["trigger"] or {}).get("fault_kind") == "nonfinite"
+                and s["trigger"].get("slot") == 0 for s in snaps)
+    if len(snaps) < 2 or not named:
+        problems.append(f"chaos arm: {len(snaps)} flight dumps (want >= 2, one naming slot 0)")
+    # the training leg: one poisoned batch skipped, one flight event
+    rng = np.random.Generator(np.random.PCG64(3))
+    x = rng.standard_normal((64, 8)).astype(np.float32)
+    y = rng.integers(0, 4, 64).astype(np.int64)
+    rec = FlightRecorder(capacity=64)
+    trainer = Trainer(MLP(features=(16, 4), in_dim=8),
+                      ShardedLoader(ArrayDataset((x, y)), 16, LocalMesh(torch.device(dev)),
+                                    seed=0),
+                      sgd(0.05), quiet=True, skip_nonfinite=True,
+                      chaos=ChaosConfig(nan_batch_step=3), flight=rec)
+    trainer.train(1)
+    skipped = trainer.steps_skipped
+    events = [e["step"] for e in rec.events if e["kind"] == "step_skipped"]
+    if skipped != 1 or int(trainer.state.step) != 3 or events != [3]:
+        problems.append(f"chaos arm: training leg skipped {skipped} steps, step "
+                        f"{int(trainer.state.step)} after 4 dispatches, step_skipped events "
+                        f"{events} (want 1, 3, [3])")
+    return {**fstats, "steps_skipped": skipped, "chaos_token_exact": exact,
+            "chaos_host_syncs": eng.n_host_syncs, "chaos_flight_dumps": len(snaps),
+            "chaos_flight_named_slot": named, "chaos_step_skipped_events": events}
+
+
+def _staggered(eng, prompts) -> dict:
+    """The base stream's submission pattern (two at once, the rest as the
+    queue bound admits them); completions by request id."""
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import QueueFull, Request
+
+    done = {}
+    pending = list(prompts)
+    for toks, max_new in pending[:2]:
+        eng.submit(Request(prompt=toks, max_new_tokens=max_new))
+    pending = pending[2:]
+    while not eng.idle or pending:
+        while pending:
+            toks, max_new = pending[0]
+            try:
+                eng.submit(Request(prompt=toks, max_new_tokens=max_new))
+                pending.pop(0)
+            except QueueFull:
+                break
+        for c in eng.step():
+            done[c.request_id] = c
+    return done
+
+
+def flight_arm(model, params, dev, prompts, completions, problems: list) -> dict:
+    """The ``--flight`` checks (module docstring): ``prompts`` and
+    ``completions`` are the base run's."""
+    import math
+
+    from pytorch_distributed_training_tutorials_tpu_torch.obs import FlightRecorder
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import ServeEngine
+
+    rec = FlightRecorder(capacity=256)
+    eng = ServeEngine(model, params, n_slots=2, tokens_per_launch=8, max_queue=2, device=dev,
+                      flight=rec)
+    done = _staggered(eng, prompts)
+    if {r: c.tokens for r, c in done.items()} != {r: c.tokens for r, c in completions.items()}:
+        problems.append("flight arm: the recorder changed greedy tokens")
+    if eng.n_host_syncs != _budget(eng):
+        problems.append(f"flight arm: {eng.n_host_syncs} host syncs != {_budget(eng)}")
+    spans = {s["rid"]: s for s in rec.done_spans}
+    keys = ("submit_t", "queue_pop_t", "prefill_t", "complete_t", "finish_reason")
+    span_full = len(spans) == len(prompts) and all(all(k in s for k in keys)
+                                                   for s in spans.values())
+    if not span_full:
+        problems.append(f"flight arm: incomplete spans: {sorted(spans)}")
+    kc = rec.kind_counts
+    events_ok = (kc["submit"] == kc["queue_pop"] == kc["complete"] == len(prompts)
+                 and kc["prefill"] == eng.n_prefills
+                 and kc["chain_start"] == kc["chain_end"] == eng.n_chains)
+    if not events_ok:
+        problems.append(f"flight arm: event counts {dict(kc)} do not reconcile with "
+                        f"{eng.n_prefills} prefills / {eng.n_chains} chains")
+    recon = span_full and all(abs(spans[r]["e2e_s"] - c.latency_s) < 1e-5
+                              and abs(spans[r]["ttft_s"] - c.ttft_s) < 1e-5
+                              for r, c in done.items())
+    if span_full and not recon:
+        problems.append("flight arm: span timings diverge from the completions'")
+
+    def within_a_bucket(h, vals):
+        ok = True
+        for q in (0.50, 0.95):
+            sv = sorted(vals)[max(1, math.ceil(q * len(vals))) - 1]
+            ok = ok and abs(h.quantile(q) - sv) <= h.rel_error_bound * max(sv, h.min_value) + 1e-9
+        return ok
+
+    hist_ok = (within_a_bucket(rec.hist["e2e"], [c.latency_s for c in done.values()])
+               and within_a_bucket(rec.hist["ttft"], [c.ttft_s for c in done.values()]))
+    if not hist_ok:
+        problems.append("flight arm: histogram p50/p95 outside one bucket of the sort")
+    return {"flight_requests": len(prompts), "flight_span_full": span_full,
+            "flight_events_consistent": events_ok, "flight_hist_vs_sort": hist_ok,
+            "flight_host_syncs": eng.n_host_syncs, **eng.stats("flight")}
+
+
+def router_arm(model, params, dev, prompts, completions, problems: list) -> dict:
+    """The ``--router`` checks (module docstring)."""
+    import time
+
+    from pytorch_distributed_training_tutorials_tpu_torch.obs import FlightRecorder
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import (
+        FleetRouter,
+        Request,
+        ServeEngine,
+        affinity_hash,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.utils.chaos import FleetChaosConfig
+
+    n_replicas = 3
+    stream = list(prompts) + [prompts[0], prompts[0]]
+    expected = {g: completions[g].tokens for g in range(len(prompts))}
+    expected[len(prompts)] = expected[len(prompts) + 1] = completions[0].tokens
+    kill_target = affinity_hash(prompts[0][0], adapter=0, depth=16) % n_replicas
+
+    def run_fleet(fleet_chaos):
+        t0 = time.perf_counter()
+        engines = [ServeEngine(model, params, n_slots=1, tokens_per_launch=4, max_queue=8,
+                               device=dev, flight=FlightRecorder(capacity=256, t0=t0))
+                   for _ in range(n_replicas)]
+        fr = FleetRouter(engines, chaos=fleet_chaos, flight=FlightRecorder(capacity=256, t0=t0))
+        for toks, max_new in stream:
+            fr.submit(Request(prompt=toks, max_new_tokens=max_new))
+        return fr, engines, {c.request_id: c for c in fr.run_until_idle()}
+
+    fr_ok, eng_ok, out_ok = run_fleet(None)
+    fleet_exact = len(out_ok) == len(stream) and all(
+        out_ok[g].tokens == expected[g] and out_ok[g].finish_reason == "length"
+        for g in expected)
+    if not fleet_exact:
+        problems.append("router arm: the fault-free fleet diverged from the single engine: "
+                        f"{[(g, c.finish_reason) for g, c in sorted(out_ok.items())]}")
+    if fr_ok.ledger.verify():
+        problems.append(f"router arm: fault-free ledger: {fr_ok.ledger.verify()}")
+    fr_x, eng_x, out_x = run_fleet(FleetChaosConfig(kill_replica=kill_target, kill_at_chain=2))
+    if len(out_x) != len(stream):
+        problems.append(f"router arm: {len(out_x)} completions for {len(stream)} requests")
+    if fr_x.ledger.verify():
+        problems.append(f"router arm: chaos ledger: {fr_x.ledger.verify()}")
+    if fr_x.replica_states()[kill_target] != "dead":
+        problems.append(f"router arm: the killed replica {kill_target} is "
+                        f"{fr_x.replica_states()[kill_target]!r}")
+    if fr_x.ledger.n_redispatched + fr_x.n_dead_completions < 1:
+        problems.append("router arm: the killed replica held no work")
+    router_exact = all(c.tokens == expected[g] for g, c in out_x.items()
+                       if c.finish_reason in ("length", "eos"))
+    if not router_exact:
+        problems.append("router arm: a re-dispatched request diverged from the fault-free run")
+    syncs = sum(e.n_host_syncs for e in eng_x)
+    budget = sum(_budget(e) for e in eng_x)
+    if syncs != budget or eng_x[kill_target].n_chains > 2:
+        problems.append(f"router arm: {syncs} host syncs vs the summed budget {budget}; the "
+                        f"killed replica ran {eng_x[kill_target].n_chains} chains")
+    if (fr_x.fleet_flight_summary() or {}).get("e2e_count", 0) < 1:
+        problems.append("router arm: the fleet flight summary recorded no request")
+    rstats = fr_x.stats()
+    return {"router_requests": len(stream), "router_fleet_exact": fleet_exact and router_exact,
+            "router_host_syncs_ok": sum(e.n_host_syncs for e in eng_ok),
+            "router_host_syncs_chaos": syncs, "router_killed_replica": kill_target,
+            **{f"router_{k}": v for k, v in rstats.items()
+               if isinstance(v, (int, float, bool))}}
 
 
 def adapter_arm(model, params, dev, prompts, completions, n_adapters: int,
@@ -545,6 +831,19 @@ def main(argv: list[str] | None = None) -> int:
         "--adapters", type=int, default=0,
         help="add the multi-tenant LoRA arm with a bank of this many rows (>= 2)",
     )
+    ap.add_argument(
+        "--chaos", action="store_true",
+        help="add the failure-handling arm: quarantine, deadline, cancel, drain, a "
+        "skipped training step, with the recorder's dumps",
+    )
+    ap.add_argument(
+        "--flight", action="store_true",
+        help="add the flight-recorder arm: spans, event counts and histograms",
+    )
+    ap.add_argument(
+        "--router", action="store_true",
+        help="add the fleet arm: three engines behind a FleetRouter, one chaos-killed",
+    )
     args = ap.parse_args(argv)
     if not args.selftest:
         ap.print_help()
@@ -555,7 +854,8 @@ def main(argv: list[str] | None = None) -> int:
                        paged_kernel=args.paged_kernel, kv_bits=args.kv_bits,
                        prefix=args.prefix, chunk=args.chunk, flash=args.flash,
                        spec_k=args.spec_k, spec_ngram=args.spec_ngram,
-                       pipeline_depth=args.pipeline_depth, adapters=args.adapters)
+                       pipeline_depth=args.pipeline_depth, adapters=args.adapters,
+                       chaos=args.chaos, flight=args.flight, router=args.router)
     print(json.dumps(receipt))
     return 0 if receipt["ok"] else 1
 

@@ -99,12 +99,46 @@ request whose tenant was evicted or replaced while it queued completes as
 splice each other's segments, nor a recycled row its previous tenant's.
 Id 0 is the base model, exactly. Without a bank the engine's state and
 launches are those of the base engine.
+
+Failure handling (the JAX engine's robustness layer) lives at the same
+boundaries the scheduler does — between chains and at refill, never
+inside a chain:
+
+- deadlines (``Request.deadline_s``, or the engine's ``default_deadline_s``)
+  and :meth:`ServeEngine.cancel` complete a request ``"deadline"`` /
+  ``"cancelled"`` at the next boundary: an active slot at the sweep that
+  opens every :meth:`ServeEngine.step` (its earned tokens kept, the slot
+  released), a queued request or a pending chunked prefill at refill with
+  no device work. At ``pipeline_depth`` 2 the boundary is the OBSERVED one,
+  a chain behind the device; the in-flight chain's rows for a finished slot
+  are dropped by the identity check;
+- ``guard_nonfinite``: every chain step also writes a per-slot flag,
+  ``isfinite`` over the slot's float logits row, into one more plane (or,
+  speculative, one more column) of the chain's int64 block, so the flags
+  land with the chain's one host sync and ride the same pinned ring at
+  depth 2. A slot whose flag goes false completes ``"nonfinite"`` with the
+  tokens before that step, and is released; co-scheduled slots decode on
+  untouched. Guard off, the chain and its block are what they were;
+- a refill that raises on the host (an injected ``ChaosError``, an
+  out-of-memory error, a shape check) is isolated to its request: the
+  donor is unpinned, the slot parked, its pages returned, a pending side
+  cache abandoned, and the request completes ``"error"`` with no tokens
+  while the engine keeps serving. A fault on the device (an illegal
+  address) leaves the CUDA context unusable; no engine can isolate that;
+- ``chaos=`` (:class:`..utils.chaos.ChaosConfig`) injects the faults those
+  paths are tested with: NaN logits at one (slot, global decode step),
+  decided on the host from the chain's number (no upload), a failing
+  prefill, a stall before a chain's dispatch;
+- ``flight=`` (:class:`..obs.flight.FlightRecorder`) stamps the request
+  lifecycle, chains and faults at the same host boundaries; a stamp is a
+  clock read and a deque append, never a sync.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import logging
 import time
 
 import torch
@@ -155,6 +189,9 @@ from pytorch_distributed_training_tutorials_tpu_torch.serve.slots import (
     write_slot_paged,
     zero_cache,
 )
+from pytorch_distributed_training_tutorials_tpu_torch.utils import chaos as chaos_lib
+
+_log = logging.getLogger(__name__)
 
 # how a refill reached its first token: a whole prefill, a splice, or a
 # chunked prefill's final chunk without and with a prefix hit
@@ -261,7 +298,14 @@ class ServeEngine:
     lookup; ``pipeline_depth`` (1: serial) is how many chains may be in
     flight; ``adapter_bank`` (None: off) serves LoRA tenants from an
     :class:`..adapters.bank.AdapterBank` built for ``model`` on the
-    engine's device (module docstring)."""
+    engine's device (module docstring).
+
+    Failure handling (module docstring): ``default_deadline_s`` (None: no
+    deadline) for requests without their own; ``guard_nonfinite`` the
+    per-step finite flag and the slot quarantine; ``chaos`` a
+    :class:`..utils.chaos.ChaosConfig`; ``flight`` a
+    :class:`..obs.flight.FlightRecorder`. :meth:`cancel`,
+    :meth:`fault_stats` and :meth:`flight_stats` go with them."""
 
     def __init__(
         self,
@@ -287,6 +331,10 @@ class ServeEngine:
         spec_ngram: int = 3,
         pipeline_depth: int = 1,
         adapter_bank=None,
+        default_deadline_s: float | None = None,
+        guard_nonfinite: bool = False,
+        chaos=None,
+        flight=None,
     ):
         if n_slots < 1:
             raise ValueError("n_slots must be >= 1")
@@ -318,6 +366,8 @@ class ServeEngine:
             )
         if prefix_cache_bytes < 0:
             raise ValueError("prefix_cache_bytes must be >= 0 (0 = off)")
+        if default_deadline_s is not None and default_deadline_s <= 0:
+            raise ValueError("default_deadline_s must be > 0 (None = no deadline)")
         if top_k < 0:
             raise ValueError(f"top_k must be >= 0, got {top_k}")
         if not 0.0 < top_p <= 1.0:
@@ -390,7 +440,21 @@ class ServeEngine:
         # pinned host buffer per chain in flight for its token block
         self._depth = int(pipeline_depth)
         self._inflight: collections.deque[_InFlight] = collections.deque()
-        block = (n_slots, tokens_per_launch) + ((self._spec_k + 2,) if self._spec else ())
+        # failure handling: the guard widens the chain's block by the
+        # flags (a plane, or speculative a column); the rest is host state
+        self._deadline = default_deadline_s
+        self._guard = bool(guard_nonfinite)
+        self._chaos = chaos
+        self._flight = flight
+        self._cancelled: set[int] = set()
+        self.n_deadline_expired = 0
+        self.n_cancelled = 0
+        self.nonfinite_quarantined = 0
+        self.n_prefill_errors = 0
+        if self._spec:
+            block = (n_slots, tokens_per_launch, self._spec_k + 2 + self._guard)
+        else:
+            block = ((2,) if self._guard else ()) + (n_slots, tokens_per_launch)
         self._ring = (
             [torch.empty(block, dtype=torch.int64, pin_memory=True)
              for _ in range(self._depth)]
@@ -477,12 +541,20 @@ class ServeEngine:
             )
             if need > self._pool.pool_pages:
                 self._pool.shed()
+                if self._flight is not None:
+                    self._flight.record("pool_shed", p_len=len(request.prompt),
+                                        max_new=request.max_new_tokens, pages=need)
                 raise PoolExhausted(
                     f"request needs {need} pages but the pool holds "
                     f"{self._pool.pool_pages} ({self._pool.page_size} tokens "
                     "each) — shrink the request or grow the pool"
                 )
-        return self.scheduler.submit(request)
+        rid = self.scheduler.submit(request)
+        if self._flight is not None:
+            # after admission: a rejected submit opens no span
+            self._flight.request_submitted(rid, p_len=len(request.prompt),
+                                           max_new=request.max_new_tokens, adapter=aid)
+        return rid
 
     @property
     def active_slots(self) -> int:
@@ -495,19 +567,23 @@ class ServeEngine:
 
     @torch.no_grad()
     def step(self) -> list[Completion]:
-        """One scheduling round: advance each chunked prefill by one chunk,
-        refill free slots from the queue, dispatch one decode chain over all
-        slots, then collect the oldest in-flight chain and hand out its
-        tokens while more than ``pipeline_depth - 1`` are in flight (all of
-        them once no slot is active). Depth 1 collects the chain it just
-        dispatched: the serial loop. Returns the requests that finished
-        this round (possibly mid-chain — surplus chain tokens of a finished
-        slot are discarded). A bank whose version moved since the last
-        step (a register or an evict) is picked up first
+        """One scheduling round: sweep the active slots for cancels and
+        expired deadlines (:meth:`_sweep`, at the observed chain boundary),
+        advance each chunked prefill by one chunk, refill free slots from
+        the queue, dispatch one decode chain over all slots, then collect
+        the oldest in-flight chain and hand out its tokens while more than
+        ``pipeline_depth - 1`` are in flight (all of them once no slot is
+        active). Depth 1 collects the chain it just dispatched: the serial
+        loop. Returns the requests that finished this round (possibly
+        mid-chain — surplus chain tokens of a finished slot are
+        discarded). A bank whose version moved since the last step (a
+        register or an evict) is picked up first
         (:meth:`refresh_adapters`)."""
         if self._bank is not None and self._bank.version != self._merged_version:
             self.refresh_adapters()
-        done: list[Completion] = []
+        done: list[Completion] = self._sweep()
+        if self._flight is not None and done:
+            self._flight.sweep(len(done))
         # pending prefills advance BEFORE refill, so a chunked prefill
         # begun this round is not advanced twice
         for slot in list(self._pending):
@@ -518,6 +594,8 @@ class ServeEngine:
             req = self._pop_request()
             if req is None:
                 break
+            if self._flight is not None:
+                self._flight.request_popped(req.request_id)
             done.extend(self._refill(s, req))
         if self.active_slots:
             self._dispatch()
@@ -531,8 +609,13 @@ class ServeEngine:
         on the current stream; at depth >= 2 on a card, then a
         non-blocking copy of its token block into the next pinned ring
         buffer and an event after it. The chain joins the in-flight queue
-        with the slot views of this moment."""
+        with the slot views of this moment. The recorder's ``chain_start``
+        and the chaos stall come first."""
         chain_id = self.n_chains
+        if self._flight is not None:
+            self._flight.chain_start(self.active_slots, self.n_slots, chain=chain_id)
+        if self._chaos is not None:
+            chaos_lib.maybe_stall(self._chaos, chain_id, flight=self._flight)
         block = self._spec_chain() if self._spec else self._chain()
         self.n_chains += 1
         if self._spec:
@@ -552,9 +635,15 @@ class ServeEngine:
         its dispatch."""
         fl = self._inflight.popleft()
         block = self._land(fl)
+        before = self.generated_tokens
         if self._spec:
-            return self._distribute_spec(block, fl.view)
-        return self._distribute(block, fl.view)
+            done = self._distribute_spec(block, fl.view)
+        else:
+            done = self._distribute(block, fl.view)
+        if self._flight is not None:
+            self._flight.chain_end(tokens=self.generated_tokens - before,
+                                   occupancy=self.active_slots, chain=fl.chain_id)
+        return done
 
     def _land(self, fl: _InFlight) -> torch.Tensor:
         """A chain's host sync, counted: the ``.cpu()`` of its block
@@ -661,6 +750,8 @@ class ServeEngine:
                 if name in factors and p.data_ptr() != factors[name].data_ptr():
                     raise RuntimeError(f"{name} is no longer the bank's tensor")
         self._merged_version = self._bank.version
+        if self._flight is not None:
+            self._flight.record("adapter_refresh", version=self._merged_version)
 
     def adapter_stats(self) -> dict[str, int]:
         """Multi-tenancy counters (the JAX engine's keys): the bank's
@@ -680,11 +771,54 @@ class ServeEngine:
             "adapter_bytes": reg.used_bytes,
         }
 
+    def fault_stats(self) -> dict[str, int | float]:
+        """Failure-handling counters (the JAX engine's keys): the configured
+        deadline, guard and chaos, and how many requests each path
+        completed. Host bookkeeping only."""
+        return {
+            "deadline_s": float(self._deadline or 0.0),
+            "guard_nonfinite": int(self._guard),
+            "chaos": int(self._chaos is not None),
+            "deadline_expired": self.n_deadline_expired,
+            "cancelled": self.n_cancelled,
+            "nonfinite_quarantined": self.nonfinite_quarantined,
+            "prefill_errors": self.n_prefill_errors,
+        }
+
+    def flight_stats(self) -> dict[str, int | float]:
+        """The flight recorder's summary (event, span and dump counters,
+        the histograms' percentiles), or ``{"flight": 0}`` without one.
+        Host bookkeeping only."""
+        if self._flight is None:
+            return {"flight": 0}
+        return self._flight.summary()
+
     def pipeline_stats(self) -> dict[str, int]:
         """Pipelining counters (the JAX engine's keys): the depth, the
         prefill chunk and the chunks run. Host bookkeeping only."""
         return {"pipeline_depth": self._depth, "prefill_chunk": self._chunk,
                 "n_chunks": self.n_chunks}
+
+    _STATS_PARTS = ("prefix", "spec", "adapters", "fault", "flight", "pipeline", "pages")
+
+    def stats(self, *parts: str) -> dict[str, int | float]:
+        """One dict over the per-subsystem stats (the JAX engine's parts
+        this engine has): every part, or those named (``stats("fault",
+        "flight")``). The key sets are disjoint. Host bookkeeping only."""
+        chosen = parts or self._STATS_PARTS
+        unknown = set(chosen) - set(self._STATS_PARTS)
+        if unknown:
+            raise ValueError(f"unknown stats parts {sorted(unknown)}; known: "
+                             f"{list(self._STATS_PARTS)}")
+        fns = {"prefix": self.prefix_stats, "spec": self.spec_stats,
+               "adapters": self.adapter_stats, "fault": self.fault_stats,
+               "flight": self.flight_stats, "pipeline": self.pipeline_stats,
+               "pages": self.page_stats}
+        out: dict[str, int | float] = {}
+        for part in self._STATS_PARTS:
+            if part in chosen:
+                out.update(fns[part]())
+        return out
 
     def run_until_idle(self, max_steps: int = 10_000) -> list[Completion]:
         """Drain queue + slots; returns completions in finish order."""
@@ -694,6 +828,76 @@ class ServeEngine:
                 return out
             out.extend(self.step())
         raise RuntimeError(f"not idle after {max_steps} steps")
+
+    def cancel(self, request_id: int) -> bool:
+        """Cancel a request on the host. True when ``request_id`` is queued,
+        pending a chunked prefill or decoding: it completes ``"cancelled"``
+        at the next boundary (queued or pending: no tokens and no further
+        device work; decoding: the tokens landed so far are kept and the
+        slot released). False for an id that finished or was never
+        submitted. No sync, no interrupt of a running chain."""
+        known = (any(a is not None and a.request.request_id == request_id
+                     for a in self._slots)
+                 or any(p.request.request_id == request_id for p in self._pending.values())
+                 or self.scheduler.has(request_id))
+        if known:
+            self._cancelled.add(request_id)
+        return known
+
+    def _deadline_for(self, req: Request) -> float | None:
+        return req.deadline_s if req.deadline_s is not None else self._deadline
+
+    def _expired(self, req: Request, now: float | None = None) -> bool:
+        dl = self._deadline_for(req)
+        if dl is None:
+            return False
+        return (time.perf_counter() if now is None else now) - req.submitted_s > dl
+
+    def _sweep(self) -> list[Completion]:
+        """The boundary check of the active slots: complete each one whose
+        request was cancelled or whose deadline passed, keeping its tokens,
+        and release its slot (:meth:`_release`). Host bookkeeping and the
+        park; no sync."""
+        done: list[Completion] = []
+        if not self._cancelled and self._deadline is None and not any(
+                a is not None and a.request.deadline_s is not None for a in self._slots):
+            return done
+        now = time.perf_counter()
+        for s, act in enumerate(self._slots):
+            if act is None:
+                continue
+            req = act.request
+            if req.request_id in self._cancelled:
+                reason = "cancelled"
+                self._cancelled.discard(req.request_id)
+                self.n_cancelled += 1
+            elif self._expired(req, now):
+                reason = "deadline"
+                self.n_deadline_expired += 1
+                if self._flight is not None:
+                    self._flight.fault("deadline", rid=req.request_id, slot=s)
+            else:
+                continue
+            self._slots[s] = None
+            self._release(s, act)
+            done.append(self._complete(act, reason))
+        return done
+
+    def _bounced(self, req: Request, slot: int | None = None) -> Completion | None:
+        """The refill boundary's check of a request that holds no slot yet
+        (queued, or pending a chunked prefill): its completion when it was
+        cancelled or its deadline passed, else None."""
+        if req.request_id in self._cancelled:
+            self._cancelled.discard(req.request_id)
+            self.n_cancelled += 1
+            return self._complete_unstarted(req, "cancelled")
+        if self._expired(req):
+            self.n_deadline_expired += 1
+            if self._flight is not None:
+                fields = {} if slot is None else {"slot": slot}
+                self._flight.fault("deadline", rid=req.request_id, **fields)
+            return self._complete_unstarted(req, "deadline")
+        return None
 
     @property
     def closed(self) -> bool:
@@ -753,29 +957,47 @@ class ServeEngine:
         """Admit ``req`` into ``slot`` (:meth:`_admit`): a whole prefill or
         a splice, one host sync each for the first token, or the start of
         a chunked prefill (:meth:`_advance_one` runs its first chunk in
-        this same step). A request whose tenant is no longer the one it
-        was admitted under (evicted, or its row handed to another) is
-        completed here as ``"adapter_evicted"``, with no device work; the
-        slot stays free."""
+        this same step). A request that was cancelled or whose deadline
+        passed while it queued, or whose tenant is no longer the one it was
+        admitted under (evicted, or its row handed to another), is
+        completed here (``"cancelled"``, ``"deadline"``,
+        ``"adapter_evicted"``) with no device work; the slot stays free. A
+        refill that raises is isolated to its request (:meth:`_admit` has
+        cleaned up): it completes ``"error"``."""
+        bounced = self._bounced(req)
+        if bounced is not None:
+            return [bounced]
         aid = int(req.adapter)
         if aid and not (self._bank.registry.is_live(aid)
                         and self._bank.generation(aid) == req.adapter_gen):
             self.adapter_rejected += 1
-            return [Completion(
-                request_id=req.request_id, prompt=[int(t) for t in req.prompt],
-                tokens=[], finish_reason="adapter_evicted",
-                latency_s=time.perf_counter() - req.submitted_s,
-            )]
+            if self._flight is not None:
+                self._flight.fault("adapter_evicted", rid=req.request_id, adapter=aid)
+            return [self._complete_unstarted(req, "adapter_evicted")]
         if aid:
             self.adapter_requests += 1
         prompt = [int(t) for t in req.prompt]
-        admitted = self._admit(slot, req, prompt)
+        try:
+            admitted = self._admit(slot, req, prompt)
+        except Exception:
+            return [self._prefill_error(req, slot)]
         if admitted is None:
             return self._advance_one(self._pending[slot])
         _, first, pages, segment, kind, depth = admitted
         self.refills[kind] += 1
         self.prefix_hit_tokens += depth
-        return self._activate(slot, req, first, pages, segment)
+        return self._activate(slot, req, first, pages, segment, depth)
+
+    def _prefill_error(self, req: Request, slot: int) -> Completion:
+        """A refill raised and was cleaned up: log the traceback (called in
+        the ``except`` block), count it and complete the request
+        ``"error"`` with no tokens."""
+        _log.warning("request %d: refill into slot %d raised; completed 'error'",
+                     req.request_id, slot, exc_info=True)
+        self.n_prefill_errors += 1
+        if self._flight is not None:
+            self._flight.fault("prefill_error", rid=req.request_id, slot=slot)
+        return self._complete_unstarted(req, "error")
 
     def _admit(self, slot: int, req: Request, prompt: list[int], first=None,
                all_chunks: bool = False):
@@ -793,10 +1015,14 @@ class ServeEngine:
         error re-raised. Returns ``(logits, first, pages, segment, kind,
         depth)``: ``kind`` one of ``_REFILL_KINDS``, ``depth`` the reused
         prefix length. With a bank, the slot's adapter id is set first and
-        the prompt is looked up under its tenant's key."""
+        the prompt is looked up under its tenant's key. The chaos prefill
+        failure fires after the lookup, before any allocation or device
+        work of every kind."""
         if self._bank is not None:
             set_adapter(self._state, slot, int(req.adapter))
         hit, grow = self._lookup(self._prefix_key(prompt, int(req.adapter)))
+        if self._chaos is not None:
+            chaos_lib.maybe_fail_prefill(self._chaos, req.request_id)
         depth = hit[0] if hit is not None else 0
         fetch = first is None
         if self._chunk and len(prompt) - depth > self._chunk:
@@ -947,6 +1173,10 @@ class ServeEngine:
         try:
             if depth % ps:
                 copy_page(cache, int(segment.handle[shared]), pages[shared])
+                if self._flight is not None:
+                    self._flight.record("page_cow", rid=req.request_id, slot=slot,
+                                        src=int(segment.handle[shared]), dst=pages[shared],
+                                        depth=depth)
             row = pages + [cache.n_pages] * (cache.table.shape[1] - n_alloc)
             table = upload([row], torch.int32, self.device)
             view = PagedKVCache(
@@ -1007,26 +1237,36 @@ class ServeEngine:
         """One chunk of a pending prefill: a mid chunk (exactly
         ``prefill_chunk`` tokens, no host sync) or the final one
         (:meth:`_final_chunk`, one host sync for the first token), which
-        admits the request. If the device work raises, the pending
-        prefill is abandoned, the slot parked and the error re-raised."""
+        admits the request. A request cancelled or past its deadline is
+        completed first, with no tokens, and its prefill abandoned. If the
+        device work raises, the pending prefill is abandoned, the slot
+        parked and the request completed ``"error"``."""
+        bounced = self._bounced(pend.request, pend.slot)
+        if bounced is not None:
+            self._abandon_pending(pend)
+            return [bounced]
         try:
-            self.n_chunks += 1
             if len(pend.prompt) - pend.done > self._chunk:
                 self._mid_chunk(pend)
+                self.n_chunks += 1
+                if self._flight is not None:
+                    self._flight.prefill_chunk(pend.request.request_id, pend.slot,
+                                               done=pend.done, total=len(pend.prompt))
                 return []
             _, first, pages = self._final_chunk(pend)
+            self.n_chunks += 1
             first = int(self._fetch(first)[0])
         except Exception:
             self._abandon_pending(pend)
             self._park_failed(pend.slot, [])
-            raise
+            return [self._prefill_error(pend.request, pend.slot)]
         kind = "chunked_splice" if pend.segment is not None else "chunked"
         self.refills[kind] += 1
         self.prefix_hit_tokens += pend.depth
         segment = pend.segment
         pend.pages, pend.segment = [], None  # ownership moves to the slot
         del self._pending[pend.slot]
-        return self._activate(pend.slot, pend.request, first, pages, segment)
+        return self._activate(pend.slot, pend.request, first, pages, segment, pend.depth)
 
     def _mid_chunk(self, pend: _PendingPrefill) -> None:
         """The next ``prefill_chunk`` prompt tokens into the side cache:
@@ -1155,30 +1395,47 @@ class ServeEngine:
             self._top_p,
         )
 
+    def _poison(self, logits: torch.Tensor, t: int) -> torch.Tensor:
+        """The chaos NaN at chain step ``t``: the global decode step
+        ``n_chains * tokens_per_launch + t`` (chain iterations, speculative
+        or not) is a host number, so the injector decides on the host and
+        fills the victim row only at its step — no upload."""
+        if self._chaos is None or not self._chaos.poisons_logits:
+            return logits
+        c = self._chaos
+        return chaos_lib.poison_logits(logits, self.n_chains * self.tokens_per_launch + t,
+                                       c.nan_logit_slot, c.nan_logit_step)
+
     @torch.no_grad()
     def _chain(self) -> torch.Tensor:
         """``tokens_per_launch`` decode steps over every slot; returns the
         (n_slots, tokens_per_launch) token block, still on the device.
         Inactive slots re-emit their last token and keep stepping (their
         cache writes past the window, or through a parked slot's sentinel
-        table, drop). No host sync."""
+        table, drop). With ``guard_nonfinite`` the block is (2, n_slots,
+        tokens_per_launch): plane 0 the tokens, plane 1 each slot's flag
+        that its float logits row was finite at that step. No host
+        sync."""
         st = self._state
         out = torch.empty(
-            (self.n_slots, self.tokens_per_launch), dtype=torch.int64,
-            device=self.device,
+            ((2,) if self._guard else ()) + (self.n_slots, self.tokens_per_launch),
+            dtype=torch.int64, device=self.device,
         )
+        toks = out[0] if self._guard else out
         tok, remaining = st.last_tok, st.remaining
         for t in range(self.tokens_per_launch):
             active = remaining > 0
             logits = self._dec_model(tok[:, None], st.cache, decode=True,
                                      adapter_ids=st.adapter_ids)
+            row = self._poison(logits[:, -1].float(), t)
             nxt = sample_logits_per_slot(
-                logits[:, -1].float(), st.generators, self._temperature,
-                self._top_k, self._top_p,
+                row, st.generators, self._temperature, self._top_k, self._top_p,
             )
             tok = torch.where(active, nxt, tok)
             remaining = remaining - active.to(remaining.dtype)
-            out[:, t] = tok
+            toks[:, t] = tok
+            if self._guard:
+                out[1, :, t] = torch.isfinite(row).all(-1)
         st.last_tok, st.remaining = tok, remaining
         return out
 
@@ -1198,10 +1455,12 @@ class ServeEngine:
         to the trash column). An inactive slot emits 0 tokens and keeps its
         history. Returns one (n_slots, T, k+2) int64 block on the device:
         ``[..., :k+1]`` the emitted tokens of each step, ``[..., k+1]`` how
-        many of them are real. No host sync."""
+        many of them are real; with ``guard_nonfinite`` one more column,
+        ``[..., k+2]``, the flag that the step's (k+1, vocab) float verify
+        logits were all finite. No host sync."""
         st = self._state
         k, win, dev = self._spec_k, self.window, self.device
-        out = torch.empty((self.n_slots, self.tokens_per_launch, k + 2),
+        out = torch.empty((self.n_slots, self.tokens_per_launch, k + 2 + self._guard),
                           dtype=torch.int64, device=dev)
         rows = torch.arange(self.n_slots, device=dev)
         offs = torch.arange(k + 1, device=dev)
@@ -1211,9 +1470,9 @@ class ServeEngine:
             draft = ngram_draft(st.hist[:, :win], hist_len, k, self._spec_ngram)
             logits = self._dec_model(torch.cat([tok[:, None], draft], dim=1), st.cache,
                                      decode=True, adapter_ids=st.adapter_ids)
+            lg = self._poison(logits.float(), t)
             emitted, n_acc = speculative_accept(
-                logits.float(), draft, st.generators, self._temperature, self._top_k,
-                self._top_p,
+                lg, draft, st.generators, self._temperature, self._top_k, self._top_p,
             )
             # the verify forward advanced every position by k+1; the slot
             # produced 1 + n_acc tokens, so the rest step back
@@ -1227,6 +1486,8 @@ class ServeEngine:
             remaining = torch.clamp(remaining - n_emit, min=0)
             out[:, t, :k + 1] = emitted
             out[:, t, k + 1] = n_emit
+            if self._guard:
+                out[:, t, k + 2] = torch.isfinite(lg).flatten(1).all(-1)
         st.last_tok, st.remaining, st.hist_len = tok, remaining, hist_len
         return out
 
@@ -1247,16 +1508,22 @@ class ServeEngine:
             self._state.remaining[slot].zero_()
 
     def _activate(self, slot: int, req: Request, first: int, pages=None,
-                  segment: Segment | None = None) -> list[Completion]:
+                  segment: Segment | None = None, cached_len: int = 0) -> list[Completion]:
         """Admit a just-prefilled request into the decode phase; an EOS or
         ``max_new_tokens == 1`` first token completes it at once. Every
         refill kind (whole prefill, splice, chunked, chunked with a splice;
         paged or not) passes here, so this is where a speculative engine
         seeds the slot's draft history (:func:`.slots.seed_history`: the
-        prompt, uploaded non-blocking, and the first token)."""
+        prompt, uploaded non-blocking, and the first token) and the
+        recorder stamps the request's first token (``cached_len``: the
+        reused prefix length)."""
         self.generated_tokens += 1
         act = _Active(req, first, pages, segment)
         act.ttft_s = time.perf_counter() - req.submitted_s
+        if self._flight is not None:
+            self._flight.request_prefilled(
+                req.request_id, slot, kind="splice" if segment is not None else "prefill",
+                cached_len=cached_len)
         if req.max_new_tokens == 1 or first == req.eos_token:
             reason = "eos" if first == req.eos_token else "length"
             self._release(slot, act)
@@ -1268,20 +1535,36 @@ class ServeEngine:
         self._slots[slot] = act
         return []
 
-    def _distribute(self, toks: torch.Tensor, view: list) -> list[Completion]:
-        """Hand one fetched (S, T) chain block out to the slots of ``view``
-        (the slot views at the chain's dispatch; a slot whose ``_Active``
-        is no longer the live one — finished or refilled since — ignores
-        the chain's rows); free every slot that finished (budget spent or
-        EOS mid-chain) and park early-EOS slots whose device counter still
-        shows budget."""
+    def _quarantine(self, act: _Active, s: int, t: int) -> str:
+        """Slot ``s``'s logits went non-finite at chain step ``t``: count it
+        and stamp the fault (the recorder's dump names the slot)."""
+        self.nonfinite_quarantined += 1
+        if self._flight is not None:
+            self._flight.fault("nonfinite", rid=act.request.request_id, slot=s, chain_step=t)
+        return "nonfinite"
+
+    def _distribute(self, block: torch.Tensor, view: list) -> list[Completion]:
+        """Hand one fetched chain block out to the slots of ``view`` (the
+        slot views at the chain's dispatch; a slot whose ``_Active`` is no
+        longer the live one — finished or refilled since — ignores the
+        chain's rows); free every slot that finished (budget spent, EOS
+        mid-chain, or with the guard a false finite flag: the tokens from
+        that step on are dropped and the request completes
+        ``"nonfinite"``) and park early-finished slots whose device counter
+        still shows budget."""
         done: list[Completion] = []
-        rows = toks.tolist()
+        if self._guard:
+            rows, oks = block[0].tolist(), block[1].tolist()
+        else:
+            rows, oks = block.tolist(), None
         for s, act in enumerate(view):
             if act is None or act is not self._slots[s]:
                 continue
             reason = None
-            for tok in rows[s][: act.remaining]:
+            for t, tok in enumerate(rows[s][: act.remaining]):
+                if oks is not None and not oks[s][t]:
+                    reason = self._quarantine(act, s, t)
+                    break
                 act.tokens.append(tok)
                 act.remaining -= 1
                 self.generated_tokens += 1
@@ -1305,7 +1588,9 @@ class ServeEngine:
         ``spec_drafts_accepted``. The host truncates at the request's
         budget as ``generate`` does (the device may have verified past it;
         those writes land in the slot's own window and the refill rewrites
-        the slot). ``view`` as in :meth:`_distribute`."""
+        the slot). ``view`` and the guard's quarantine as in
+        :meth:`_distribute`, a verify step at a time (the flag is the
+        block's last column)."""
         done: list[Completion] = []
         k1 = self._spec_k + 1
         rows = block.tolist()
@@ -1313,7 +1598,11 @@ class ServeEngine:
             if act is None or act is not self._slots[s]:
                 continue
             reason = None
-            for step in rows[s]:
+            for t, step in enumerate(rows[s]):
+                if self._guard and not step[k1 + 1]:
+                    # a poisoned verify step drops all of its emissions
+                    reason = self._quarantine(act, s, t)
+                    break
                 n = step[k1]
                 if n == 0:  # the slot went inactive on the device
                     break
@@ -1337,7 +1626,7 @@ class ServeEngine:
         return done
 
     def _complete(self, act: _Active, reason: str) -> Completion:
-        return Completion(
+        comp = Completion(
             request_id=act.request.request_id,
             prompt=[int(t) for t in act.request.prompt],
             tokens=act.tokens,
@@ -1345,3 +1634,21 @@ class ServeEngine:
             latency_s=time.perf_counter() - act.request.submitted_s,
             ttft_s=act.ttft_s,
         )
+        if self._flight is not None:
+            # the span records the Completion's own numbers
+            self._flight.request_completed(comp.request_id, reason, tokens=len(comp.tokens),
+                                           latency_s=comp.latency_s, ttft_s=comp.ttft_s)
+        return comp
+
+    def _complete_unstarted(self, req: Request, reason: str) -> Completion:
+        """A completion with no tokens for a request stopped before its
+        first token (cancelled, deadline, adapter evicted, prefill
+        error)."""
+        comp = Completion(
+            request_id=req.request_id, prompt=[int(t) for t in req.prompt], tokens=[],
+            finish_reason=reason, latency_s=time.perf_counter() - req.submitted_s,
+        )
+        if self._flight is not None:
+            self._flight.request_completed(req.request_id, reason, tokens=0,
+                                           latency_s=comp.latency_s)
+        return comp

@@ -48,13 +48,25 @@ class Request:
     ``ValueError`` there) and snapshots the row's tenant generation into
     ``adapter_gen``; a request whose tenant is evicted, or whose row is
     re-registered, while it queues completes with ``finish_reason ==
-    "adapter_evicted"`` and no device work."""
+    "adapter_evicted"`` and no device work.
+
+    ``deadline_s`` bounds submit-to-completion wall time: past it the
+    engine completes the request ``"deadline"`` at the next chain or
+    refill boundary (tokens earned before it are kept; never a mid-chain
+    interrupt). ``None`` falls back to the engine's ``default_deadline_s``
+    (itself ``None``: no deadline).
+
+    ``priority`` is the request's SLO class (0 the highest). The FIFO
+    scheduler admits class 0 only: any other raises ``ValueError`` at
+    submit. A fleet router's ``class_deadline_s`` stamps deadlines by it."""
 
     prompt: Any
     max_new_tokens: int
     seed: int = 0
     eos_token: int | None = None
     adapter: int = 0
+    deadline_s: float | None = None
+    priority: int = 0
     # engine-assigned bookkeeping (not caller inputs)
     request_id: int = -1
     submitted_s: float = 0.0
@@ -65,9 +77,19 @@ class Request:
 class Completion:
     """A finished request: ``tokens`` are the generated ids (prompt
     excluded, stop token included when ``finish_reason == "eos"``);
-    ``finish_reason`` is ``"length"``, ``"eos"`` or ``"adapter_evicted"``
+    ``finish_reason`` is ``"length"``, ``"eos"``, ``"adapter_evicted"``
     (the request's tenant was evicted, or its bank row re-registered, while
-    it queued: no tokens were generated — resubmit under a live id);
+    it queued: no tokens were generated — resubmit under a live id), or
+    one of the failure outcomes:
+
+    - ``"deadline"``: the request's deadline expired (tokens generated
+      before the boundary that saw it are kept);
+    - ``"cancelled"``: the caller cancelled it (``ServeEngine.cancel``);
+    - ``"nonfinite"``: its logits went NaN or Inf and its slot was
+      quarantined (the tokens before the poisoned step are kept);
+    - ``"error"``: its prefill raised and the request was isolated (no
+      tokens; the engine keeps serving).
+
     ``latency_s`` is submit-to-completion wall time and ``ttft_s``
     submit-to-first-token."""
 
@@ -85,6 +107,9 @@ class FifoScheduler:
     ``window`` is the engine's cache window (``cfg.max_seq_len``): a
     request whose prompt + budget cannot fit is rejected at submit time
     with ``ValueError``."""
+
+    # SLO classes this scheduler admits: [0, n_classes)
+    n_classes = 1
 
     def __init__(self, window: int, max_queue: int = 64):
         if window < 1 or max_queue < 1:
@@ -105,6 +130,11 @@ class FifoScheduler:
         :class:`QueueClosed`. Queued requests stay queued. Idempotent."""
         self.closed = True
 
+    def has(self, request_id: int) -> bool:
+        """True while ``request_id`` is still queued (not yet popped into a
+        slot). A scan of the queue: the cancel path's only."""
+        return any(r.request_id == request_id for r in self._queue)
+
     def submit(self, request: Request) -> int:
         """Validate + enqueue; returns the assigned request id. Raises
         :class:`QueueClosed` after :meth:`close`, :class:`QueueFull`
@@ -119,6 +149,14 @@ class FifoScheduler:
             raise ValueError("prompt must contain at least one token")
         if request.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        if request.deadline_s is not None and request.deadline_s <= 0:
+            raise ValueError("deadline_s must be > 0 (None = no deadline)")
+        prio = int(request.priority)
+        if not 0 <= prio < self.n_classes:
+            raise ValueError(
+                f"priority {prio} outside [0, {self.n_classes}); this scheduler "
+                "admits only these SLO classes"
+            )
         if p_len + request.max_new_tokens > self.window:
             raise ValueError(
                 f"prompt ({p_len}) + max_new_tokens "

@@ -383,14 +383,19 @@ class Trainer:
     ``rollback_ema``: when the monitored loss exceeds factor x its EMA (or
     is not finite) for ``rollback_patience`` consecutive observations,
     the latest ``save()`` is restored and training continues from the
-    current data position."""
+    current data position.
+
+    ``flight`` (a :class:`..obs.flight.FlightRecorder`, None: off) gets a
+    ``step_skipped`` event for each skipped step when the metrics logger
+    drains, and a ``rollback`` event at each rollback; neither adds a host
+    sync."""
 
     def __init__(self, model: nn.Module, train_loader, optimizer, *, strategy=None,
                  loss: str = "cross_entropy", aux_loss_weight: float = 0.0,
                  grad_accum_steps: int = 1, seed: int = 0, quiet: bool = False,
                  skip_nonfinite: bool = False, chaos=None,
                  rollback_spike_factor: float | None = None, rollback_patience: int = 2,
-                 rollback_ema: float = 0.9, model_kwargs: dict | None = None):
+                 rollback_ema: float = 0.9, model_kwargs: dict | None = None, flight=None):
         if aux_loss_weight:
             raise _later("aux_loss_weight", _MOE)
         if rollback_spike_factor is not None and rollback_spike_factor <= 1:
@@ -430,7 +435,8 @@ class Trainer:
                                           grad_accum_steps=grad_accum_steps,
                                           model_kwargs=self.model_kwargs,
                                           skip_nonfinite=skip_nonfinite, chaos=chaos)
-        self.metrics = MetricsLogger(quiet=quiet)
+        self.metrics = MetricsLogger(quiet=quiet, flight=flight)
+        self._flight = flight
         self.loss_name = loss
         self.last_epoch_metrics: dict = {}
         self.epoch = 0  # next epoch to run; advanced by train(), restored
@@ -583,6 +589,8 @@ class Trainer:
         self.rollbacks += 1
         self._rb_strikes = 0
         self._rb_ema = None
+        if self._flight is not None:
+            self._flight.rollback(step=self._monitor_steps, loss=loss_value)
         self.metrics.say(
             f"  rollback #{self.rollbacks}: loss {loss_value:.4g} spiked "
             f">{self._rb_factor:g}x EMA for {self._rb_patience} obs — "

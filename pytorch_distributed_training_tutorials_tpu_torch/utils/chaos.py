@@ -9,13 +9,18 @@ bodies:
 
 - **device side** (:func:`poison_grads`, :func:`poison_logits`): a
   ``torch.where`` on a device step counter, never a host read, so a
-  guarded step stays free of host syncs;
+  guarded step stays free of host syncs; :func:`poison_logits` given a
+  host step index decides on the host instead (no upload of the index);
 - **host side** (:func:`maybe_poison_batch`, :func:`maybe_fail_prefill`,
   :func:`maybe_stall`, :func:`host_spike_loss`): plain Python against host
-  counters.
+  counters;
+- **replica level** (:class:`FleetChaosConfig`, :func:`replica_killed`,
+  :func:`replica_stall_pending`): host predicates the fleet router
+  (:mod:`..serve.router`) reads to kill or freeze a whole replica.
 
-The trainer consumes the training injectors (``Trainer(chaos=...)``). The
-serving injectors wait for the serving engine's deadlines and quarantine.
+The trainer consumes the training injectors (``Trainer(chaos=...)``), the
+serving engine the serving ones (``ServeEngine(chaos=...)``), the router
+the replica-level ones (``FleetRouter(chaos=...)``).
 """
 
 from __future__ import annotations
@@ -160,17 +165,42 @@ class FleetChaosConfig:
         return self.stall_replica >= 0 and self.stall_rounds > 0
 
 
+def replica_killed(cfg: FleetChaosConfig, replica: int, n_chains: int) -> bool:
+    """True once the configured victim replica has dispatched
+    ``kill_at_chain`` chains, and forever after (the counter is
+    monotonic, so a killed replica stays killed across probes)."""
+    return cfg.kills and replica == cfg.kill_replica and n_chains >= cfg.kill_at_chain
+
+
+def replica_stall_pending(cfg: FleetChaosConfig, replica: int, n_chains: int,
+                          rounds_consumed: int) -> bool:
+    """True while the configured replica should stay frozen: its chain
+    counter reached ``stall_from_chain`` and fewer than ``stall_rounds``
+    scheduling rounds were skipped so far (the router counts its skips and
+    passes them back as ``rounds_consumed``)."""
+    return (cfg.stalls and replica == cfg.stall_replica
+            and n_chains >= cfg.stall_from_chain and rounds_consumed < cfg.stall_rounds)
+
+
 # ---------------------------------------------------------------- device side
 
 
 def poison_logits(logits: torch.Tensor, step_index, slot: int, step: int) -> torch.Tensor:
-    """``logits`` with row ``slot`` set to NaN where the (device or host)
-    ``step_index`` equals ``step``: a select, so a clean step computes the
-    same values. ``logits`` is the per-slot row block, ``(n_slots, ...)``."""
+    """``logits`` with row ``slot`` set to NaN where ``step_index`` equals
+    ``step``. ``logits`` is the per-slot row block, ``(n_slots, ...)``. A
+    device ``step_index`` selects with ``torch.where`` (a clean step
+    computes the same values, with no host read); a host ``int`` is
+    decided on the host — the row is filled only at the matching step,
+    and no scalar goes up to the device."""
+    if not isinstance(step_index, torch.Tensor):
+        if int(step_index) != step:
+            return logits
+        poisoned = logits.clone()
+        poisoned[slot].fill_(float("nan"))
+        return poisoned
     poisoned = logits.clone()
-    poisoned[slot] = float("nan")
-    return torch.where(torch.as_tensor(step_index, device=logits.device) == step,
-                       poisoned, logits)
+    poisoned[slot].fill_(float("nan"))
+    return torch.where(step_index.to(logits.device) == step, poisoned, logits)
 
 
 def poison_grads(grads: list[torch.Tensor], step_counter: torch.Tensor,

@@ -49,7 +49,10 @@ def test_port_modules_import_no_jax():
            "utils.chaos", "data.prefetch", "data.streaming", "obs.receipt", "obs.timing",
            "bench.scaling", "bench.__main__", "launch.pod",
            # the LoRA slice: the port's own copy of the registry, the bank, lora
-           "adapters", "adapters.registry", "adapters.bank", "adapters.lora")
+           "adapters", "adapters.registry", "adapters.bank", "adapters.lora",
+           # serving's failure handling: the port's own copies of the fleet
+           # router, the flight recorder and its histograms
+           "serve.router", "obs.flight", "obs.histogram")
     assert {f"{PORT}.{m}" for m in ddp} <= set(mods)
     code = (
         "import sys\n"

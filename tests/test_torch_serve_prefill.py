@@ -397,9 +397,10 @@ def test_splice_leaves_other_slots_alone(int8):
 
 @pytest.mark.parametrize("paged", [False, True], ids=["whole-slot", "paged"])
 def test_failed_splice_releases_donor_and_pages(int8, paged):
-    """A splice whose forward raises: the error reaches the caller, the
-    donor segment is unpinned, the slot parked and (paged) every page
-    reference the refill took goes back; the engine then serves on."""
+    """A splice whose forward raises: the request completes ``"error"``
+    with no tokens (counted in ``fault_stats()``), the donor segment is
+    unpinned, the slot parked and (paged) every page reference the refill
+    took goes back; the engine then serves on."""
     kw = dict(GEOM) if paged else {}
     eng = ServeEngine(int8.model(), int8.params, n_slots=2, tokens_per_launch=8,
                       device="cpu", prefix_cache_bytes=PREFIX_BYTES, **kw)
@@ -413,10 +414,11 @@ def test_failed_splice_releases_donor_and_pages(int8, paged):
         raise RuntimeError("planted splice failure")
 
     forward.forward = boom
-    eng.submit(Request(prompt=int8.prompts[1], max_new_tokens=4))
-    with pytest.raises(RuntimeError, match="planted"):
-        eng.step()
+    rid = eng.submit(Request(prompt=int8.prompts[1], max_new_tokens=4))
+    (failed,) = eng.step()
     del forward.forward
+    assert (failed.request_id, failed.finish_reason, failed.tokens) == (rid, "error", [])
+    assert eng.fault_stats()["prefill_errors"] == 1
     assert seg.refcount == 0 and eng.n_splices == 0
     assert int(eng._state.remaining[0]) == 0
     if paged:
