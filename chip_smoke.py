@@ -7,6 +7,7 @@
     python3 chip_smoke.py --serve-only    # phases 0, 1, 4 and the serving phases after it
     python3 chip_smoke.py --lora-only     # phases 0, 1 and the LoRA / dots_attn phases
     python3 chip_smoke.py --faults-only   # phases 0, 1 and the failure-handling phases
+    python3 chip_smoke.py --tp-only       # phases 0, 1 and tensor-parallel serving
 
 It drives the port (``pytorch_distributed_training_tutorials_tpu_torch``)
 on the card and fails — non-zero exit, no result line — if a phase fails.
@@ -250,6 +251,29 @@ behind a ``FleetRouter``: fault-free, token-identical to (g); with
 request 0's replica chaos-killed at its second chain (work in flight and
 queued), the ledger verified, re-dispatched requests token-identical, the
 killed replica frozen, host syncs the replicas' summed budget.
+
+Then the tensor-parallel slice, ``serve_1b_tp2``: two ranks, NCCL where
+the machine has a card for each, else gloo with both ranks on card 0 (NCCL
+refuses two ranks on one device), the backend printed with the card
+count. First ``int8_matmul_tp`` against its plain version in this
+process, with no group, at the 1b shard shapes (q/k/v, gate/up and the
+lm_head split on N, o and down on K; M 1, 4 and 512): a column shard
+bitwise the unsharded kernel's columns, the row shards' partials summed
+within ``KERNEL_TOLERANCE`` of ``int8_matmul_tp_reference``, each shard
+call timed beside the unsharded call and its bound. Then two arms, each
+replicated here and sharded on two spawned ranks: the 1b preset's int8
+stream (8 requests, prompts {16, 32, 48}, 16 new tokens, flash prefill,
+whole-slot cache) and the 1b-gqa paged-kernel arm (4 requests, prompts
+{16, 480}). Gates: every rank's tokens equal and its teacher-forced
+logits bitwise equal; tokens equal the replicated engine's except where
+held teacher-forced within 4% of the logit scale; a rank's K/V half the
+replicated bytes, 8 (1b) and 2 (1b-gqa) KV heads; ``audit_decode()``
+clean and the stream's collectives 2 all_reduce a layer and 1 all_gather
+a forward; 113 int8 calls a forward, all ``int8_matmul_tp`` shard calls on
+the sm90 route, 16 flash launches a whole prefill, 16 paged launches a
+decode step; host syncs a rank = chains + prefills = the replicated
+engine's (the sync debug mode's count beside it, with what gloo adds).
+With gloo its times are not tensor parallelism's speed.
 
 Every serving stream is also run under PyTorch's sync debug mode: its
 stream syncs (with their call sites) must not exceed the host syncs the
@@ -3076,6 +3100,407 @@ def phase_serve_fleet(torch, gpu: str, ctx: dict) -> dict:
     return rows
 
 
+# Tensor-parallel serving (serve_1b_tp2): TP ranks, the backend NCCL where
+# the machine has a card per rank, else gloo with every rank on card 0
+# (NCCL refuses two ranks on one device: "Duplicate GPU detected"), which
+# stages each collective through host memory — the phase proves the shard
+# arithmetic, the kernels at shard shapes, the KV split and the collective
+# count; its times are not TP's speed
+TP = 2
+TP_REPLACES = "pytorch_distributed_training_tutorials_tpu/ops/quant.py:262"
+TP_STREAM = dict(n_slots=4, tokens_per_launch=8)
+# arm -> preset, engine options and stream: the 1b int8 stream (flash
+# prefill, whole-slot cache) and the 1b-gqa paged-kernel arm (2 of the 4
+# KV heads a rank)
+TP_ARMS = {
+    "int8": dict(preset=PRESET_1B, engine={}, requests=8, prompts=(16, 32, 48), new=16),
+    "gqa_paged": dict(preset=PRESET_1B_GQA, requests=4, prompts=(16, 480), new=16,
+                      engine=dict(paged=True, paged_kernel=True, page_size=64,
+                                  pool_pages=48)),
+}
+# one 1b decode forward's int8 calls at TP 2, as whole (K, N, kind) and
+# their count: q/k/v and gate/up split their output (column), o and down
+# their input (row), the lm_head the vocabulary
+TP_MIX = [((2048, 2048, "column"), 48), ((2048, 2048, "row"), 16),
+          ((2048, 8192, "column"), 32), ((8192, 2048, "row"), 16),
+          ((2048, 32000, "column"), 1)]
+TP_M = (1, 4, 512)
+TP_NOTE = ("gloo on one card: every collective staged through host memory; the phase's "
+           "times are not tensor parallelism's speed")
+
+
+def tp_shards(quant, whole, kind: str) -> list:
+    """The TP ranks' shards of a whole int8 weight as a served model holds
+    them, cut by the port's ``shard_params`` under the rule of a column
+    layer (gate_proj: a block of N, scales with it) or a row layer
+    (down_proj: a block of K, scales whole)."""
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel.tensor_parallel import (
+        shard_params,
+    )
+
+    name = "gate_proj" if kind == "column" else "down_proj"
+    tree = {f"{name}.qt": whole.q.t(), f"{name}.scale": whole.scale.reshape(1, -1)}
+    out = []
+    for r in range(TP):
+        part = shard_params(tree, r, TP, head_dim=1)
+        out.append(quant.Int8Param(q=part[f"{name}.qt"].t(), scale=part[f"{name}.scale"]))
+    return out
+
+
+def tp_kernel_checks(torch, quant, gpu: str) -> dict:
+    """``int8_matmul_tp`` against its plain version in one process, with no
+    group, at the 1b TP-2 shard shapes (TP_MIX) and M in TP_M: each rank's
+    shard call (``int8_matmul_shard``, the sm90 kernel) — a column shard's
+    output bitwise the unsharded kernel's columns, the row shards'
+    partials summed within KERNEL_TOLERANCE of ``int8_matmul_tp_reference``
+    (expected bitwise: each shard call is its plain version's bits, and a
+    2-term sum is one rounding either way); the shard call timed beside
+    the unsharded call, the plain version and its bound."""
+    from pytorch_distributed_training_tutorials_tpu_torch.ops._check import kernel_error
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel.tensor_parallel import (
+        TensorParallel,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    one = TensorParallel()  # no group: the partials are summed here
+    results, max_err = {}, 0.0
+    for (k, n, kind), _ in TP_MIX:
+        wq = quant.quantize_int8(torch.randn((k, n), generator=gen, device=dev) * 0.02)
+        whole = quant.Int8Param(q=wq.q.t().contiguous().t(),
+                                scale=wq.scale.reshape(1, -1).contiguous())
+        shards = tp_shards(quant, whole, kind)
+        for m in TP_M:
+            x = torch.randn((m, k), generator=gen, device=dev)
+            kl = k // TP
+            xs = [x if kind == "column" else x[:, r * kl:(r + 1) * kl].contiguous()
+                  for r in range(TP)]
+            routes0 = quant.int8_matmul.routes["sm90"]
+            outs = [quant.int8_matmul_shard(xs[r], shards[r], one, kind) for r in range(TP)]
+            if quant.int8_matmul.routes["sm90"] != routes0 + TP:
+                raise AssertionError(f"int8_matmul_tp shard calls at M={m} K={k} N={n} "
+                                     f"{kind} left the sm90 route: {quant.int8_matmul.routes}")
+            torch.cuda.synchronize()
+            if kind == "column":
+                full = quant.int8_matmul(x, whole)
+                nl = n // TP
+                bad = [r for r in range(TP)
+                       if not torch.equal(outs[r], full[:, r * nl:(r + 1) * nl])]
+                if bad:
+                    raise AssertionError(f"int8_matmul_tp column shards {bad} at M={m} K={k} "
+                                         f"N={n} differ from the unsharded kernel's columns")
+                err = {"max_abs_err": 0.0, "worst_ratio": 0.0}
+                bitwise = True
+            else:
+                got = outs[0] + outs[1]
+                ref = quant.int8_matmul_tp_reference(x, whole, TP, "row")
+                err = kernel_error(got, ref, torch.float32)
+                bitwise = bool(torch.equal(got, ref))
+                if not err["worst_ratio"] <= 1.0:
+                    raise AssertionError(f"int8_matmul_tp row at M={m} K={k} N={n}: {err}")
+            max_err = max(max_err, err["max_abs_err"])
+            ks, ns = (k, n // TP) if kind == "column" else (k // TP, n)
+            ms = time_ms(lambda: quant.int8_matmul_shard(xs[0], shards[0], one, kind), torch,
+                         flush)
+            whole_ms = time_ms(lambda: quant.int8_matmul(x, whole), torch, flush)
+            plain_ms = time_ms(lambda: quant.int8_matmul_reference(xs[0], shards[0]), torch,
+                               flush, reps=25 if m <= 64 else 5, warmup=3 if m <= 64 else 1)
+            b_ms, b_by, nbytes, ops = bound(m, ks, ns)
+            results[(m, k, n, kind)] = dict(ms=ms, whole_ms=whole_ms, plain_ms=plain_ms,
+                                            bound_ms=b_ms, nbytes=nbytes, ops=ops)
+            emit({
+                "phase": "kernel_vs_plain", "kernel": "int8_matmul_tp", "kind": kind,
+                "tp": TP, "M": m, "K": k, "N": n, "shard_K": ks, "shard_N": ns,
+                "route": "sm90", "bitwise": bitwise, **err, "ms": ms,
+                "unsharded_ms": whole_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "roofline_share": b_ms / ms, "library_ms": None,
+                "gpu": gpu,
+            })
+    return {"results": results, "max_abs_err": max_err}
+
+
+@contextlib.contextmanager
+def native_sync_warnings():
+    """Sync debug mode's warnings that C++ threads print (a backend's own
+    worker threads: gloo's staging of CUDA tensors), counted: file
+    descriptor 2 goes to a temporary file for the block, the warnings are
+    counted and every other line is written back to stderr. Yields a dict
+    that holds ``count`` when the block ends. (Warnings raised on a
+    Python thread reach ``real_syncs``'s hook instead.)"""
+    import tempfile
+
+    out = {}
+    with tempfile.TemporaryFile() as f:
+        sys.stderr.flush()
+        saved = os.dup(2)
+        os.dup2(f.fileno(), 2)
+        try:
+            yield out
+        finally:
+            sys.stderr.flush()
+            os.dup2(saved, 2)
+            os.close(saved)
+            f.seek(0)
+            lines = f.read().decode(errors="replace").splitlines()
+            sync = [ln for ln in lines if "called a synchronizing CUDA operation" in ln]
+            out["count"] = len(sync)
+            rest = [ln for ln in lines if ln not in sync]
+            if rest:
+                print("\n".join(rest), file=sys.stderr, flush=True)
+
+
+def tp_serve_arm(torch, strategy, name: str, keep: bool = False) -> dict:
+    """One TP_ARMS arm through ``ServeEngine(strategy=strategy)`` — the
+    replicated engine for a strategy of one rank: a warmup request, then
+    the stream under sync debug mode with every counter read, each
+    request's teacher-forced logits on its own tokens, and on a sharded
+    engine ``audit_decode()``. ``keep``: the engine too (the replicated
+    side's, for the near-tie gate)."""
+    import numpy as np
+
+    from pytorch_distributed_training_tutorials_tpu_torch.models import (
+        TransformerConfig,
+        TransformerLM,
+        init_quantized_lm,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.ops import paged_attention as pa
+    from pytorch_distributed_training_tutorials_tpu_torch.ops import quant
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import Request, ServeEngine
+
+    arm = TP_ARMS[name]
+    cfg = TransformerConfig(**arm["preset"], quantized=True, attention_fn=fa.flash_attention)
+    t0 = time.perf_counter()
+    params = init_quantized_lm(cfg, seed=0, device="cuda")
+    eng = ServeEngine(TransformerLM(cfg), params, max_queue=64, device="cuda",
+                      strategy=strategy, **TP_STREAM, **arm["engine"])
+    del params  # a sharded engine holds its copies: the whole tree goes
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    build_s = time.perf_counter() - t0
+    rng = np.random.Generator(np.random.PCG64(15))
+    prompts = [rng.integers(0, cfg.vocab_size, (arm["prompts"][i % len(arm["prompts"])],))
+               .tolist() for i in range(arm["requests"])]
+    eng.submit(Request(prompt=prompts[0][:16], max_new_tokens=2, seed=99))  # warmup
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    base = (eng.n_prefills, eng.n_chains, eng.n_host_syncs)
+    quant.int8_matmul.launches = 0
+    quant.int8_matmul.routes = {"sm90": 0, "v1": 0}
+    quant.int8_matmul_tp.launches = 0
+    fa.flash_attention.launches["fwd"] = 0
+    fa.flash_attention.routes["fwd"] = {"sm90": 0, "sm80": 0}
+    pa.paged_attention.launches = 0
+    pa.paged_attention.routes = {"sm90": 0, "v1": 0}
+    strategy.reset_collectives()
+    t0 = time.perf_counter()
+    # a blocking collective returns after its staging: the backend's
+    # thread syncs of the stream all land inside the block
+    with native_sync_warnings() as native, real_syncs(torch) as real:
+        ids = [eng.submit(Request(prompt=p, max_new_tokens=arm["new"], seed=i))
+               for i, p in enumerate(prompts)]
+        done = eng.run_until_idle()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    out = {
+        "prefills": eng.n_prefills - base[0], "chains": eng.n_chains - base[1],
+        "host_syncs": eng.n_host_syncs - base[2], "stream_syncs": real["count"],
+        "backend_thread_syncs": native["count"],
+        "stream_sync_sites": real["sites"],
+        "int8": quant.int8_matmul.launches, "int8_routes": dict(quant.int8_matmul.routes),
+        "int8_tp": quant.int8_matmul_tp.launches,
+        "flash": fa.flash_attention.launches["fwd"],
+        "flash_routes": dict(fa.flash_attention.routes["fwd"]),
+        "paged": pa.paged_attention.launches, "paged_routes": dict(pa.paged_attention.routes),
+        "collectives": dict(strategy.collectives), "wall_s": wall_s, "build_s": build_s,
+    }
+    by_id = {c.request_id: c for c in done}
+    out["reasons"] = [by_id[i].finish_reason if i in by_id else None for i in ids]
+    out["tokens"] = [by_id[i].tokens if i in by_id else [] for i in ids]
+    out["prompts"] = prompts
+    if strategy.tp_size > 1:  # the replicated side's are taken on the TP tokens
+        out["tf"] = [eng.teacher_forced_logits(p, t).cpu()
+                     for p, t in zip(prompts, out["tokens"])]
+    cache = eng._state.cache
+    out["kv_heads"] = cache.k.shape[3]
+    out["kv_leaf_bytes"] = sum(x.numel() * x.element_size()
+                               for x in (cache.k, cache.v, cache.k_scale, cache.v_scale)
+                               if x is not None)
+    out["tp_stats"] = eng.tp_stats()
+    if strategy.tp_size > 1:
+        out["audit"] = eng.audit_decode()
+        out["tp_stats"] = eng.tp_stats()
+        out["expected_per_forward"] = eng.expected_collectives(1)
+    if keep:
+        out["engine"] = eng
+    return out
+
+
+def tp_kernel_row(tp: dict) -> dict:
+    """The kernels line's ``int8_matmul_tp`` row: one TP-2 rank's share of
+    one 1b decode forward (TP_MIX's 113 shard calls at M 4, the slots),
+    its time, plain time, the unsharded forward's and the bound summed
+    over the mix; launches from ``serve_1b_tp2`` (rank 0's int8 arm, and
+    by path and rank)."""
+    res = tp["kern"]["results"]
+    tot = {key: sum(res[(4, k, n, kind)][key] * c for (k, n, kind), c in TP_MIX)
+           for key in ("ms", "plain_ms", "whole_ms", "nbytes", "ops")}
+    t_bytes, t_ops = tot["nbytes"] / HBM_BYTES_PER_S, tot["ops"] / INT8_OPS_PER_S
+    return {
+        "name": "int8_matmul_tp", "route": "cuda",
+        "source": f"{PKG}/csrc/int8_matmul_sm90.cu", "replaces": TP_REPLACES,
+        "wrapper": f"{PKG}/ops/quant.py int8_matmul_tp / int8_matmul_shard",
+        "launches": tp["launches"]["int8"][0], "max_abs_err": tp["kern"]["max_abs_err"],
+        "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
+        "unsharded_forward_ms": tot["whole_ms"],
+        "work": f"one rank's share of one 1b decode forward at TP {TP}: 113 shard calls "
+                "at M=4",
+        "launches_by_path": {f"serve_1b_tp2_{name}": n for name, n in tp["launches"].items()},
+        "backend": tp["backend"],
+        "library_note": "no one PyTorch call quantizes per (row, 512-tile)",
+    }
+
+
+def tp_serve_rank(tp, names: list) -> dict:
+    """One rank of serve_1b_tp2 (spawned by ``spawn_tp``): every arm of
+    ``names`` through the sharded engine."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return {name: tp_serve_arm(torch, tp, name) for name in names}
+
+
+def phase_serve_tp(torch, quant, gpu: str) -> dict:
+    """``serve_1b_tp2``: tensor-parallel serving at TP 2. The backend
+    (NCCL with a card per rank, else gloo on card 0) is printed with the
+    card count. ``int8_matmul_tp`` against its plain version at the shard
+    shapes (``tp_kernel_checks``); each TP_ARMS arm replicated, here, then
+    sharded on TP spawned ranks. Gates: every rank's tokens equal and its
+    teacher-forced logits bitwise equal; tokens equal the replicated
+    engine's, except requests held teacher-forced against it within 4% of
+    the logit scale (``tf_compare``, ``greedy_held``); K/V bytes a rank
+    half the replicated engine's, KV heads a rank 8 (1b) and 2 (1b-gqa);
+    ``audit_decode()`` clean and the stream's collectives 2 all_reduce a
+    layer and one all_gather a forward; a rank's 113 int8 calls a forward,
+    every one a ``int8_matmul_tp`` shard call on the sm90 route, 16 flash
+    launches a whole prefill, 16 paged launches a decode step (sm90); host
+    syncs a rank = chains + prefills = the replicated engine's."""
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel.tensor_parallel import (
+        TensorParallel,
+        spawn_tp,
+    )
+
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= TP else "gloo"
+    emit({"phase": "serve_1b_tp2_world", "tp": TP, "backend": backend, "cards": cards,
+          "note": TP_NOTE if backend == "gloo" else None, "gpu": gpu})
+    kern = tp_kernel_checks(torch, quant, gpu)
+    one = TensorParallel()
+    replicated = {name: tp_serve_arm(torch, one, name, keep=True) for name in TP_ARMS}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn_tp(tp_serve_rank, TP, (list(TP_ARMS),), backend=backend, device="cuda",
+                     join_timeout_s=900)
+    ranks_s = time.perf_counter() - t0
+    problems, launches = [], {}
+    layers = PRESET_1B["n_layers"]
+    tpl = TP_STREAM["tokens_per_launch"]
+    for name, arm in TP_ARMS.items():
+        rep = replicated[name]
+        got = [r[name] for r in ranks]
+        bad = []
+        forwards = got[0]["prefills"] + got[0]["chains"] * tpl
+        per_forward = layers * 7 + 1
+        for r, g in enumerate(got):
+            if g["reasons"] != ["length"] * arm["requests"] or any(
+                    len(t) != arm["new"] for t in g["tokens"]):
+                bad.append(f"rank {r}: finish {g['reasons']}")
+            if g["tokens"] != got[0]["tokens"]:
+                bad.append(f"rank {r}: tokens differ from rank 0's")
+            if not all(torch.equal(a, b) for a, b in zip(g["tf"], got[0]["tf"])):
+                bad.append(f"rank {r}: teacher-forced logits not bitwise rank 0's")
+            if g["host_syncs"] != g["chains"] + g["prefills"] or g["host_syncs"] != rep[
+                    "host_syncs"]:
+                bad.append(f"rank {r}: {g['host_syncs']} host syncs; budget "
+                           f"{g['chains'] + g['prefills']}, replicated {rep['host_syncs']}")
+            if (g["int8"] != per_forward * forwards or g["int8_tp"] != g["int8"]
+                    or g["int8_routes"] != {"sm90": g["int8"], "v1": 0}):
+                bad.append(f"rank {r}: int8 {g['int8']} (tp {g['int8_tp']}, routes "
+                           f"{g['int8_routes']}), want {per_forward} x {forwards} all sm90")
+            if g["flash"] != layers * g["prefills"] or g["flash_routes"]["sm80"] != g["flash"]:
+                bad.append(f"rank {r}: flash {g['flash']} {g['flash_routes']}, want "
+                           f"{layers} x {g['prefills']} on the f32 route")
+            want_paged = layers * g["chains"] * tpl if arm["engine"].get("paged_kernel") else 0
+            if g["paged"] != want_paged or g["paged_routes"]["sm90"] != g["paged"]:
+                bad.append(f"rank {r}: paged {g['paged']} {g['paged_routes']}, want "
+                           f"{want_paged} sm90")
+            want_kv = arm["preset"].get("n_kv_heads", arm["preset"]["n_heads"]) // TP
+            if g["kv_heads"] != want_kv or 2 * g["kv_leaf_bytes"] != rep["kv_leaf_bytes"]:
+                bad.append(f"rank {r}: {g['kv_heads']} KV heads, {g['kv_leaf_bytes']} K/V "
+                           f"bytes; want {want_kv} and half of {rep['kv_leaf_bytes']}")
+            want_c = {k: v * forwards for k, v in g["expected_per_forward"].items()}
+            if g["collectives"] != want_c or not g["audit"]["ok"]:
+                bad.append(f"rank {r}: collectives {g['collectives']} (want {want_c}), "
+                           f"audit {g['audit']}")
+        held = {}
+        for i, (want, have) in enumerate(zip(rep["tokens"], got[0]["tokens"])):
+            if want == have:
+                continue
+            ref = rep["engine"].teacher_forced_logits(rep["prompts"][i], have).cpu()
+            tf = tf_compare(ref, got[0]["tf"][i])
+            gh = greedy_held(got[0]["tf"][i], have)
+            held[i] = {"tf": {k: v for k, v in tf.items()
+                              if k != "per_step_max_abs_logit_diff"}, "greedy_held": gh}
+            if not (tf["ok"] and gh["ok"]):
+                bad.append(f"request {i}: tokens differ from the replicated engine's and "
+                           f"fail the teacher-forced gate: {held[i]}")
+        launches[name] = [g["int8_tp"] for g in got]
+        row = got[0]
+        toks = sum(len(t) for t in row["tokens"])
+        emit({
+            "phase": "serve_1b_tp2", "arm": name, "tp": TP, "backend": backend,
+            "cards": cards, "requests": arm["requests"], "prompt_lengths": arm["prompts"],
+            "new_tokens": arm["new"], "engine": arm["engine"],
+            "prefills": row["prefills"], "chains": row["chains"], "forwards": forwards,
+            "tokens_equal_replicated": sum(a == b for a, b in
+                                           zip(rep["tokens"], row["tokens"])),
+            "held_teacher_forced": held, "kv_heads_per_rank": row["kv_heads"],
+            "kv_leaf_bytes_per_rank": row["kv_leaf_bytes"],
+            "kv_leaf_bytes_replicated": rep["kv_leaf_bytes"], "tp_stats": row["tp_stats"],
+            "audit": row["audit"], "stream_collectives": [g["collectives"] for g in got],
+            "int8_matmul_launches": [g["int8"] for g in got],
+            "int8_matmul_tp_launches": [g["int8_tp"] for g in got],
+            "flash_fwd_launches": [g["flash"] for g in got],
+            "paged_attention_launches": [g["paged"] for g in got],
+            "host_syncs": [g["host_syncs"] for g in got],
+            "replicated_host_syncs": rep["host_syncs"],
+            "stream_syncs": [g["stream_syncs"] for g in got],
+            "replicated_stream_syncs": rep["stream_syncs"],
+            "stream_sync_sites_rank0": row["stream_sync_sites"],
+            # what the backend adds beside the engine's own: syncs on its
+            # worker threads (gloo stages each collective's CUDA tensor)
+            "backend_thread_syncs": [g["backend_thread_syncs"] for g in got],
+            "replicated_backend_thread_syncs": rep["backend_thread_syncs"],
+            "wall_s_per_rank": [g["wall_s"] for g in got], "replicated_wall_s": rep["wall_s"],
+            "tok_s_rank0": toks / row["wall_s"], "replicated_tok_s": toks / rep["wall_s"],
+            "build_s_per_rank": [g["build_s"] for g in got],
+            "timing_note": TP_NOTE if backend == "gloo" else None,
+            "ok": not bad, "problems": bad, "gpu": gpu,
+        })
+        problems += [f"{name}: {x}" for x in bad]
+        del rep["engine"]
+    emit({"phase": "serve_1b_tp2_ranks_s", "seconds": ranks_s, "gpu": gpu})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"kern": kern, "launches": launches, "backend": backend}
+
+
 LOSSES = ("cross_entropy", "fused_cross_entropy")
 
 
@@ -4873,6 +5298,9 @@ def main(argv=None) -> int:
                     help="after the build, run the failure-handling phases only "
                          "(serve_1b_faults, serve_1b_gqa_paged_faults, serve_1b_flight, "
                          "serve_1b_fleet)")
+    ap.add_argument("--tp-only", action="store_true",
+                    help="after the build, run the tensor-parallel serving phase only "
+                         "(serve_1b_tp2)")
     args = ap.parse_args(argv)
 
     import torch
@@ -4949,6 +5377,11 @@ def main(argv=None) -> int:
         run(phase_serve_spec, torch, fa, gpu)
         run(phase_serve_lora, torch, quant, fa, pa, gpu)
         fault_phases()
+        run(phase_serve_tp, torch, quant, gpu)
+        emit({"phase": "phase_seconds", **seconds})
+        return 0
+    if args.tp_only:
+        emit({"kernels": [tp_kernel_row(run(phase_serve_tp, torch, quant, gpu))]})
         emit({"phase": "phase_seconds", **seconds})
         return 0
     if args.faults_only:
@@ -4977,6 +5410,7 @@ def main(argv=None) -> int:
     spec = run(phase_serve_spec, torch, fa, gpu)
     lora = run(phase_serve_lora, torch, quant, fa, pa, gpu)
     faults, paged_faults, fleet = fault_phases()
+    tp = run(phase_serve_tp, torch, quant, gpu)
     run(phase_train_card_vs_cpu, torch, gpu)
     base = run(phase_train, torch, gpu)
     train_launches = base["flash"]
@@ -5167,6 +5601,7 @@ def main(argv=None) -> int:
         | {"work": "one call at B=1 S=256 H=16 KV=4 D=128 from depth 96, f32, in row "
                    "blocks"},
     })
+    kernels.append(tp_kernel_row(tp))
     emit({"kernels": kernels})
     print(gpu, flush=True)
     emit({"ok": True, "device": {

@@ -23,12 +23,17 @@ from pytorch_distributed_training_tutorials_tpu_torch.models.resnet import (
     resnet50,
 )
 from pytorch_distributed_training_tutorials_tpu_torch.models.transformer import (
+    INT8_TP_RULES,
+    TP_RULES,
     KVCache,
     PagedKVCache,
     TransformerConfig,
     TransformerLM,
     bind_params,
+    int8_param_sharding,
+    place_int8_lm_params,
     quantize_lm_params,
+    tp_layout,
 )
 from pytorch_distributed_training_tutorials_tpu_torch.models.utils import (
     model_flops_per_token,
@@ -36,12 +41,14 @@ from pytorch_distributed_training_tutorials_tpu_torch.models.utils import (
 )
 
 __all__ = [
+    "INT8_TP_RULES",
     "KVCache",
     "LinearRegressor",
     "MLP",
     "PagedKVCache",
     "ResNet",
     "SampleModel",
+    "TP_RULES",
     "ToyModel",
     "TransformerConfig",
     "TransformerLM",
@@ -51,10 +58,13 @@ __all__ = [
     "init_lm",
     "init_params",
     "init_quantized_lm",
+    "int8_param_sharding",
     "model_flops_per_token",
     "model_size",
+    "place_int8_lm_params",
     "quantize_lm_params",
     "resnet18",
     "resnet34",
     "resnet50",
+    "tp_layout",
 ]

@@ -29,13 +29,20 @@ into N. A LoRA model's ``*_lora`` subtrees (``lora_a`` (N, d_in, r),
 the JAX layout, float32 for int8 and float weights alike;
 :func:`adapter_from_jax` converts one adapter's rows (the JAX
 ``extract_adapter`` output) for ``AdapterBank.register``.
+
+A tensor-parallel ``cfg`` (``cfg.int8_mesh`` over ``tp`` ranks) gets the
+rank's shard: the whole tree is converted (or, by the seeded builders,
+drawn) as for the unsharded config, then cut by
+:func:`..parallel.tensor_parallel.shard_params` — each shard a copy, so
+the whole tree is freed when the call returns — and the builders' random
+weights are the unsharded ones' blocks, whatever ``tp``.
 """
 
 from __future__ import annotations
 
-from collections.abc import Mapping
-
+import dataclasses
 import math
+from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -52,6 +59,9 @@ from pytorch_distributed_training_tutorials_tpu_torch.models.transformer import 
 from pytorch_distributed_training_tutorials_tpu_torch.ops.quant import (
     Int8Linear,
     quantize_int8,
+)
+from pytorch_distributed_training_tutorials_tpu_torch.parallel.tensor_parallel import (
+    shard_params,
 )
 
 # port module path inside a block -> the JAX subtree path
@@ -131,6 +141,8 @@ def from_jax_params(tree, cfg: TransformerConfig | torch.nn.Module, device=None,
     dev = resolve_device(device)
     if isinstance(cfg, torch.nn.Module):
         return _module_state_dict(tree, batch_stats, cfg, dev)
+    if cfg.int8_mesh is not None:
+        return _shard_for(cfg, from_jax_params(tree, _whole(cfg), dev))
     t = _unstack(_to_torch(dict(tree), dev), cfg.n_layers)
     is_float = _is_float_tree(t)
     if cfg.quantized and is_float:
@@ -157,6 +169,20 @@ def from_jax_params(tree, cfg: TransformerConfig | torch.nn.Module, device=None,
             out.update(_lora_rows(blk, i))
     out["final_norm.scale"] = t["final_norm"]["scale"].float().contiguous()
     out.update(leaves("lm_head", "lm_head", t["lm_head"]))
+    _check_schema(out, cfg)
+    return out
+
+
+def _whole(cfg: TransformerConfig) -> TransformerConfig:
+    """``cfg`` without its tensor-parallel strategy: the whole model."""
+    return dataclasses.replace(cfg, int8_mesh=None)
+
+
+def _shard_for(cfg: TransformerConfig, params: dict) -> dict[str, torch.Tensor]:
+    """The rank of ``cfg.int8_mesh``'s shard of a whole state dict,
+    checked against the sharded model's schema."""
+    tp = cfg.int8_mesh
+    out = shard_params(params, tp.rank, tp.tp_size, head_dim=cfg.head_dim)
     _check_schema(out, cfg)
     return out
 
@@ -208,8 +234,11 @@ def init_quantized_lm(cfg: TransformerConfig, seed: int = 0,
     ``torch.Generator`` as ``standard_normal * 0.02`` (the recipe of the JAX
     package's ``examples/serve_llm_int8.py`` synthetic checkpoint), each
     matmul kernel quantized the moment it is drawn, so the float model is
-    never resident."""
+    never resident. A tensor-parallel ``cfg`` gets the rank's shard of the
+    unsharded draw."""
     dev = resolve_device(device)
+    if cfg.int8_mesh is not None:
+        return _shard_for(cfg, init_quantized_lm(_whole(cfg), seed, dev))
     gen = torch.Generator(device=dev).manual_seed(seed)
     model = TransformerLM(cfg)  # meta: the schema only
     out: dict[str, torch.Tensor] = {}
@@ -254,10 +283,13 @@ def init_lm(cfg: TransformerConfig, seed: int = 0, device=None) -> dict[str, tor
     truncated normal of variance 1 / fan_in; o_proj's fan_in is H * D),
     the embedding normal with variance 1 / d_model, norm scales ones. The
     draws differ from JAX's (another generator); the distributions are
-    the same."""
+    the same. A tensor-parallel ``cfg`` gets the rank's shard of the
+    unsharded draw."""
     if cfg.quantized:
         raise ValueError("init_lm builds float weights; use init_quantized_lm for int8")
     dev = resolve_device(device)
+    if cfg.int8_mesh is not None:
+        return _shard_for(cfg, init_lm(_whole(cfg), seed, dev))
     gen = torch.Generator(device=dev).manual_seed(seed)
     model = TransformerLM(cfg)  # meta: the schema only
     out: dict[str, torch.Tensor] = {}

@@ -56,7 +56,11 @@ def generate(
     the one-shot mirror of the serving engine's verify chain): greedy
     output is token-identical to ``speculative_k=0``, only the number of
     forwards changes; sampled output follows the same distribution from
-    another draw stream."""
+    another draw stream.
+
+    A tensor-parallel ``model`` (``cfg.int8_mesh``) runs on every rank of
+    its group alike, each with its shard of the weights and cache: its
+    logits are gathered, so every rank samples the same tokens."""
     dev = resolve_device(device)
     if params is not None:
         bind_params(model, params)

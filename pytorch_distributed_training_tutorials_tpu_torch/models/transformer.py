@@ -43,6 +43,24 @@ with f32 scales, int4 nibbles with bf16 scales): writes store the encoded
 K/V, decode attends over the decoded cache, and prefill attends over the
 raw K/V, as in the JAX package.
 
+Tensor-parallel serving (``cfg.int8_mesh``, a
+:class:`..parallel.tensor_parallel.TensorParallel` of ``tp`` ranks): the
+model holds the rank's shard of every projection in the Megatron layout
+(:data:`TP_RULES`, :data:`INT8_TP_RULES`; :func:`tp_layout` gives the
+shard's widths) — q/k/v split over heads, gate/up over d_ff, the lm_head
+over the vocabulary (column layers), o_proj and down_proj over their
+input (row layers, whose partials one ``all_reduce`` sums), the
+embedding and norms whole. Attention runs the rank's ``n_heads / tp``
+query heads against its KV heads, which the caches store and nothing
+else; a KV head count the group size does not divide keeps every KV
+head on every rank (the JAX package's shape-aware drop), and each rank
+reads the ones its query heads use. The logits end with one
+``all_gather`` over the vocabulary, so every rank holds the same bytes
+and samples the same token. A dimension the group size does not divide
+(heads, d_ff or vocabulary) stays whole, with no collective. The float
+model takes the same layout (``torch.mm`` on its shards); its training
+forward is a later slice's.
+
 Batch- and window-invariance. The serving engine's tokens must equal
 ``generate()``'s for the same request, though the engine decodes
 ``n_slots`` rows over the model's whole window and ``generate()`` one
@@ -83,11 +101,15 @@ from pytorch_distributed_training_tutorials_tpu_torch.ops.quant import (
     quantize_int8,
     quantize_kv_int4,
 )
+from pytorch_distributed_training_tutorials_tpu_torch.parallel.tensor_parallel import (
+    TensorParallel,
+    shard_params,
+    split_dim,
+)
 
 # config field -> the later slice of the port that brings it in
 _LATER_SLICES = {
     "moe_experts": "mixture-of-experts blocks",
-    "int8_mesh": "tensor-parallel int8 serving",
 }
 # what the int8 serving model refuses, and the slice that brings it in
 _SERVING_LATER = {
@@ -117,6 +139,14 @@ class TransformerConfig:
     and gate/up/down projection a :class:`LoRADelta` sibling (``*_lora``)
     holding N stacked rank-r factor pairs, gathered per batch row by the
     forward's ``adapter_ids``; row 0 is the base model (zero factors).
+
+    ``int8_mesh`` (the JAX knob of tensor-parallel int8 serving): None (one
+    process holds every weight), or the
+    :class:`..parallel.tensor_parallel.TensorParallel` strategy — or a
+    process group or a mesh with a ``model`` axis, taken as one — whose
+    rank's shard the model holds (module docstring). The port's float
+    serving model takes the same knob (the JAX package shards a float
+    model through the engine's strategy and GSPMD instead).
 
     KV storage: ``kv_cache_dtype`` None (float32 for int8 weights,
     ``dtype`` for float weights), ``torch.float32``, ``torch.bfloat16``,
@@ -150,6 +180,8 @@ class TransformerConfig:
     lora_rank: int = 0
 
     def __post_init__(self):
+        if self.int8_mesh is not None and not isinstance(self.int8_mesh, TensorParallel):
+            object.__setattr__(self, "int8_mesh", _as_strategy(self.int8_mesh))
         for name, later in _LATER_SLICES.items():
             value = getattr(self, name)
             if value not in (None, 0, False):
@@ -212,6 +244,7 @@ class TransformerConfig:
                 f"n_heads {self.n_heads} not divisible by n_kv_heads "
                 f"{self.kv_heads}"
             )
+        tp_layout(self)  # raises on a head layout the group cannot serve
 
     @property
     def ff_dim(self) -> int:
@@ -224,6 +257,76 @@ class TransformerConfig:
     @property
     def kv_heads(self) -> int:
         return self.n_kv_heads if self.n_kv_heads is not None else self.n_heads
+
+
+def _as_strategy(value) -> TensorParallel:
+    """``int8_mesh``'s value as a strategy: a process group or a mesh with
+    a ``model`` axis becomes a :class:`TensorParallel` over it; anything
+    else raises ``TypeError``."""
+    import torch.distributed as dist
+
+    if isinstance(value, dist.ProcessGroup) or hasattr(value, "mesh_dim_names"):
+        return TensorParallel(value)
+    raise TypeError(
+        f"TransformerConfig.int8_mesh takes a TensorParallel strategy, a process group or "
+        f"a mesh with a 'model' axis (or None), got {type(value).__name__}"
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class TPLayout:
+    """One rank's widths of a tensor-parallel model (:func:`tp_layout`):
+    ``tp`` the strategy (None: no group), ``size`` its width; the rank's
+    query ``heads``, the ``kv_heads`` its caches store, ``kv_read`` the
+    slice of those its query heads read (None: all of them), ``ff`` and
+    ``vocab``; which of the attention heads, the KV heads, d_ff and the
+    vocabulary are split (a dimension the width does not divide is
+    whole)."""
+
+    tp: TensorParallel | None
+    size: int
+    heads: int
+    kv_heads: int
+    kv_read: slice | None
+    ff: int
+    vocab: int
+    split_heads: bool
+    split_kv: bool
+    split_ff: bool
+    split_vocab: bool
+
+
+def tp_layout(cfg: "TransformerConfig") -> TPLayout:
+    """The rank's shard widths of ``cfg`` under ``cfg.int8_mesh`` (every
+    width whole without one). KV heads split with the query heads when
+    the width divides them; else every rank stores all of them and reads
+    the one (or the run) that its query heads group onto — which needs
+    one of ``n_heads / tp`` and ``n_heads / n_kv_heads`` to divide the
+    other (it does whenever all three are powers of two)."""
+    tp = cfg.int8_mesh
+    n = 1 if tp is None else tp.tp_size
+    h, kv, ff, vocab = cfg.n_heads, cfg.kv_heads, cfg.ff_dim, cfg.vocab_size
+    split_heads = n > 1 and h % n == 0
+    split_kv = split_heads and kv % n == 0
+    heads = h // n if split_heads else h
+    kv_read = None
+    if split_heads and not split_kv:
+        grp = h // kv
+        if grp % heads:
+            raise NotImplementedError(
+                f"n_heads {h} over tp={n} with n_kv_heads {kv}: a rank's {heads} query "
+                f"heads do not fall inside one group of {grp}"
+            )
+        lo = tp.rank * heads // grp
+        kv_read = slice(lo, lo + 1)
+    return TPLayout(
+        tp=tp if n > 1 else None, size=n, heads=heads,
+        kv_heads=kv // n if split_kv else kv, kv_read=kv_read,
+        ff=ff // n if n > 1 and ff % n == 0 else ff,
+        vocab=vocab // n if n > 1 and vocab % n == 0 else vocab,
+        split_heads=split_heads, split_kv=split_kv,
+        split_ff=n > 1 and ff % n == 0, split_vocab=n > 1 and vocab % n == 0,
+    )
 
 
 _KV_DTYPES = (None, torch.float32, torch.bfloat16, torch.int8, "int4")
@@ -322,7 +425,8 @@ class KVCache:
     written there in place.
 
     ``k``/``v``: (L, B, W + 1, kv_heads, D_store) in the storage type of
-    ``cfg.kv_cache_dtype`` — W = the attention window. Position W is a
+    ``cfg.kv_cache_dtype`` (kv_heads: the rank's, :func:`tp_layout`) —
+    W = the attention window. Position W is a
     write sink: a decode write at a position >= W (a parked slot that keeps
     stepping, or any row past its window) lands there and is never read,
     so such writes are DROPPED, not clamped onto the last real entry and
@@ -343,7 +447,7 @@ class KVCache:
               device=None) -> "KVCache":
         w = cfg.max_seq_len if window is None else window
         store, d_store, scale_dtype = _cache_storage(cfg)
-        lead = (cfg.n_layers, batch, w + 1, cfg.kv_heads)
+        lead = (cfg.n_layers, batch, w + 1, tp_layout(cfg).kv_heads)
         return cls(
             k=torch.zeros(lead + (d_store,), dtype=store, device=device),
             v=torch.zeros(lead + (d_store,), dtype=store, device=device),
@@ -397,7 +501,7 @@ class PagedKVCache:
         if n < 1:
             raise ValueError(f"a paged cache needs kv_pages >= 1, got {n}")
         store, d_store, scale_dtype = _cache_storage(cfg)
-        lead = (cfg.n_layers, n + 1, ps, cfg.kv_heads)
+        lead = (cfg.n_layers, n + 1, ps, tp_layout(cfg).kv_heads)
         return cls(
             k=torch.zeros(lead + (d_store,), dtype=store, device=device),
             v=torch.zeros(lead + (d_store,), dtype=store, device=device),
@@ -581,16 +685,22 @@ class Dense(nn.Module):
     weight cast to ``dtype`` at use, one 2-D matmul. Contracts the last
     ``n_in`` axes of ``x`` into ``features`` (``nn.Dense``,
     ``nn.DenseGeneral`` for q/k/v and o_proj). ``weight`` is (K, N): the
-    JAX kernel flattened to (in, out). No bias."""
+    JAX kernel flattened to (in, out). No bias. ``shard_kind`` "row" (with
+    ``strategy``): the layer holds the rank's rows and its output is the
+    group's sum (one ``all_reduce``); "column": its columns, no
+    collective."""
 
     def __init__(self, in_features, features, n_in: int = 1,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 shard_kind: str | None = None, strategy: TensorParallel | None = None):
         super().__init__()
         feats = tuple(features) if isinstance(features, (tuple, list)) else (features,)
         ins = tuple(in_features) if isinstance(in_features, (tuple, list)) else (in_features,)
         self.features = feats
         self.n_in = n_in
         self.dtype = dtype
+        self.shard_kind = shard_kind
+        self.strategy = strategy
         self.weight = nn.Parameter(
             torch.empty((math.prod(ins), math.prod(feats)), device=device)
         )
@@ -599,14 +709,28 @@ class Dense(nn.Module):
         lead = x.shape[: x.ndim - self.n_in]
         x2 = x.reshape(-1, self.weight.shape[0]).to(self.dtype)
         out = torch.mm(x2, self.weight.to(self.dtype))
+        if self.shard_kind == "row":
+            self.strategy.all_reduce(out)
         return out.reshape(*lead, *self.features)
 
 
 def _projection(cfg: TransformerConfig, in_features, features, n_in=1,
-                device=None) -> nn.Module:
+                device=None, kind: str | None = None) -> nn.Module:
+    """A projection of ``cfg``'s kind; ``kind`` ("column" or "row") makes
+    it the rank's shard of a tensor-parallel layer (widths the shard's)."""
+    tp = tp_layout(cfg).tp if kind else None
+    kind = kind if tp is not None else None
     if cfg.quantized:
-        return Int8Linear(in_features, features, n_in=n_in, device=device)
-    return Dense(in_features, features, n_in=n_in, dtype=cfg.dtype, device=device)
+        return Int8Linear(in_features, features, n_in=n_in, device=device,
+                          shard_kind=kind, strategy=tp)
+    return Dense(in_features, features, n_in=n_in, dtype=cfg.dtype, device=device,
+                 shard_kind=kind, strategy=tp)
+
+
+def _tp_sum(lay: TPLayout, split: bool, x: torch.Tensor) -> torch.Tensor:
+    """A row-parallel LoRA delta summed over the group (its own
+    ``all_reduce``); ``x`` itself when ``split`` is off."""
+    return lay.tp.all_reduce(x) if split else x
 
 
 def _store_decode_kv(buf, val, pos, window: int) -> None:
@@ -695,11 +819,16 @@ class Attention(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
         self.cfg = cfg
-        h, kv, d = cfg.n_heads, cfg.kv_heads, cfg.head_dim
-        self.q_proj = _projection(cfg, cfg.d_model, (h, d), device=device)
-        self.k_proj = _projection(cfg, cfg.d_model, (kv, d), device=device)
-        self.v_proj = _projection(cfg, cfg.d_model, (kv, d), device=device)
-        self.o_proj = _projection(cfg, (h, d), cfg.d_model, n_in=2, device=device)
+        # tensor parallel: the rank's heads (Megatron: q/k/v column, o row)
+        self.lay = lay = tp_layout(cfg)
+        h, kv, d = lay.heads, lay.kv_heads, cfg.head_dim
+        col = "column" if lay.split_heads else None
+        kv_col = "column" if lay.split_kv else None
+        self.q_proj = _projection(cfg, cfg.d_model, (h, d), device=device, kind=col)
+        self.k_proj = _projection(cfg, cfg.d_model, (kv, d), device=device, kind=kv_col)
+        self.v_proj = _projection(cfg, cfg.d_model, (kv, d), device=device, kind=kv_col)
+        self.o_proj = _projection(cfg, (h, d), cfg.d_model, n_in=2, device=device,
+                                  kind="row" if lay.split_heads else None)
         # LoRA siblings (None when off: the module tree is the base one)
         self.q_proj_lora = _lora(cfg, cfg.d_model, h * d, device)
         self.k_proj_lora = _lora(cfg, cfg.d_model, kv * d, device)
@@ -753,7 +882,8 @@ class Attention(nn.Module):
                     quant, v.dtype,
                 )
                 out = grouped_masked_attention(
-                    q, k_read, v_read, _validity(pos, s, window)[:, None], acc
+                    q, self._kv(k_read), self._kv(v_read),
+                    _validity(pos, s, window)[:, None], acc
                 )
         else:
             q = apply_rope(q_raw, cfg.rope_theta)
@@ -773,7 +903,7 @@ class Attention(nn.Module):
                     bl = buf[layer]
                     bl[sel, :s] = (val if rows is None else val[0]).to(bl.dtype)
                     bl[sel, s:].zero_()
-            h = cfg.n_heads
+            h = self.lay.heads
             # int8 weights without an attention_fn attend in float64, the
             # float model under the masked_attention contract; decode keeps
             # the dense cached path whatever attention_fn is (as in JAX)
@@ -782,13 +912,21 @@ class Attention(nn.Module):
             # GQA: attention_fns keep their (B, S, H, D) contract — K/V
             # repeat up to the query head count here (repeat_interleave:
             # contiguous, so a flash kernel takes them at their own strides)
-            out = attn(q, _expand_kv(k, h), _expand_kv(v, h))
+            out = attn(q, _expand_kv(self._kv(k), h), _expand_kv(self._kv(v), h))
         y = self.o_proj(out)
         if cfg.lora_adapters:
-            # the o_proj delta reads the flattened attention context
+            # the o_proj delta reads the flattened attention context (the
+            # rank's heads: a partial, summed like the projection's)
             flat = out.reshape(out.shape[0], out.shape[1], -1)
-            y = y + self.o_proj_lora(flat, adapter_ids)
+            y = y + _tp_sum(self.lay, self.lay.split_heads, self.o_proj_lora(flat, adapter_ids))
         return y
+
+    def _kv(self, t: torch.Tensor) -> torch.Tensor:
+        """The stored KV heads (axis 2) this rank's query heads read: all
+        of them, or under tensor parallelism with KV heads kept whole the
+        group its heads fall in (:func:`tp_layout`)."""
+        sel = self.lay.kv_read
+        return t if sel is None else t[:, :, sel]
 
     def _paged_decode(self, q, encoded, cache: PagedKVCache, layer: int):
         """The paged decode of one layer: the encoded K/V (and scales)
@@ -810,18 +948,18 @@ class Attention(nn.Module):
         if self.cfg.paged_kernel:
             n = cache.n_pages  # the kernel never sees the sink page
             return paged_attention(
-                q, cache.k[layer, :n], cache.v[layer, :n], tbl, pos,
-                k_scale=cache.k_scale[layer, :n] if quant else None,
-                v_scale=cache.v_scale[layer, :n] if quant else None,
+                q, self._kv(cache.k[layer, :n]), self._kv(cache.v[layer, :n]), tbl, pos,
+                k_scale=self._kv(cache.k_scale[layer, :n]) if quant else None,
+                v_scale=self._kv(cache.v_scale[layer, :n]) if quant else None,
                 quant=quant,
             )
         reads = []
         for pool, scale in ((cache.k, cache.k_scale), (cache.v, cache.v_scale)):
-            reads.append(_decode_kv(
+            reads.append(self._kv(_decode_kv(
                 _gather_pages(pool[layer], tbl),
                 _gather_pages(scale[layer], tbl) if quant else None,
                 quant, q.dtype,
-            ))
+            )))
         valid = _validity(pos, q.shape[1], cache.window)
         acc = torch.float64 if self.cfg.quantized else torch.float32
         return grouped_masked_attention(q, *reads, valid[:, None], acc)
@@ -830,12 +968,15 @@ class Attention(nn.Module):
 class SwiGLU(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
-        self.gate_proj = _projection(cfg, cfg.d_model, cfg.ff_dim, device=device)
-        self.up_proj = _projection(cfg, cfg.d_model, cfg.ff_dim, device=device)
-        self.down_proj = _projection(cfg, cfg.ff_dim, cfg.d_model, device=device)
-        self.gate_proj_lora = _lora(cfg, cfg.d_model, cfg.ff_dim, device)
-        self.up_proj_lora = _lora(cfg, cfg.d_model, cfg.ff_dim, device)
-        self.down_proj_lora = _lora(cfg, cfg.ff_dim, cfg.d_model, device)
+        # tensor parallel: gate/up column over d_ff, down row (Megatron MLP)
+        self.lay = lay = tp_layout(cfg)
+        col, row = ("column", "row") if lay.split_ff else (None, None)
+        self.gate_proj = _projection(cfg, cfg.d_model, lay.ff, device=device, kind=col)
+        self.up_proj = _projection(cfg, cfg.d_model, lay.ff, device=device, kind=col)
+        self.down_proj = _projection(cfg, lay.ff, cfg.d_model, device=device, kind=row)
+        self.gate_proj_lora = _lora(cfg, cfg.d_model, lay.ff, device)
+        self.up_proj_lora = _lora(cfg, cfg.d_model, lay.ff, device)
+        self.down_proj_lora = _lora(cfg, lay.ff, cfg.d_model, device)
 
     def forward(self, x, adapter_ids=None):
         if self.gate_proj_lora is None:
@@ -843,7 +984,8 @@ class SwiGLU(nn.Module):
         gate = self.gate_proj(x) + self.gate_proj_lora(x, adapter_ids)
         up = self.up_proj(x) + self.up_proj_lora(x, adapter_ids)
         hidden = F.silu(gate) * up
-        return self.down_proj(hidden) + self.down_proj_lora(hidden, adapter_ids)
+        delta = _tp_sum(self.lay, self.lay.split_ff, self.down_proj_lora(hidden, adapter_ids))
+        return self.down_proj(hidden) + delta
 
 
 class Block(nn.Module):
@@ -901,7 +1043,10 @@ class TransformerLM(nn.Module):
         self.final_norm = RMSNorm(
             cfg.d_model, cfg.norm_eps, device=device, train=not cfg.quantized
         )
-        self.lm_head = _projection(cfg, cfg.d_model, cfg.vocab_size, device=device)
+        # tensor parallel: the vocabulary split (column), gathered at the end
+        self.lay = tp_layout(cfg)
+        self.lm_head = _projection(cfg, cfg.d_model, self.lay.vocab, device=device,
+                                   kind="column" if self.lay.split_vocab else None)
 
     def forward(self, tokens, cache: KVCache | None = None, *,
                 prefill: bool = False, decode: bool = False, last_pos=None,
@@ -921,6 +1066,12 @@ class TransformerLM(nn.Module):
             with torch.no_grad():
                 return self._serve(tokens, cache, prefill=prefill, decode=decode,
                                    last_pos=last_pos, rows=rows, adapter_ids=ids)
+        if self.lay.tp is not None:
+            raise NotImplementedError(
+                "the training forward of a tensor-parallel model (int8_mesh with "
+                f"tp={self.lay.size}) is a later slice's (tensor-parallel training); "
+                "this model serves (a cache, prefill, decode or last_pos)"
+            )
         return self._train_forward(tokens, return_hidden, ids)
 
     def _train_forward(self, tokens, return_hidden: bool = False, adapter_ids=None):
@@ -996,7 +1147,11 @@ class TransformerLM(nn.Module):
                 x = x[torch.arange(b, device=x.device), lp][:, None]
             else:  # a host int: a slice, no upload
                 x = x[:, int(last_pos):int(last_pos) + 1]
-        return self.lm_head(self.final_norm(x))
+        logits = self.lm_head(self.final_norm(x))
+        if self.lay.split_vocab:
+            # the vocab-split head's one collective: every rank the same bytes
+            logits = self.lay.tp.all_gather(logits, dim=-1)
+        return logits
 
 
 # matmuls without batch dims: what remat_policy="dots" saves (the JAX
@@ -1036,6 +1191,58 @@ def bind_params(model: TransformerLM, params: Mapping[str, torch.Tensor]) -> Non
     """Bind a state dict (from the weight bridge) into ``model``: the
     module then holds the caller's tensors themselves (no copy)."""
     model.load_state_dict(dict(params), strict=True, assign=True)
+
+
+# Megatron tensor-parallel layout over the model group, in the port's
+# state-dict names and shapes (the JAX package's TP_RULES / INT8_TP_RULES,
+# whose PartitionSpecs name the same axes of the (in, out) kernels):
+# (pattern, split dim, unit). Column layers — q/k/v (whole heads: the
+# output flattens (heads, head_dim)), gate/up, the lm_head — split their
+# output; row layers — o_proj (whole heads of its input) and down_proj —
+# their input, whose partials one all_reduce sums; embedding and norms
+# replicate (no rule). A float weight is (K, N); an int8 one is qt (N, K)
+# with its scale (1, N), which splits with a column layer's output and
+# replicates for a row layer (each rank's partial is already scaled).
+TP_RULES = [
+    (r"(^|\.)(q_proj|k_proj|v_proj)\.weight$", 1, "head"),
+    (r"(^|\.)o_proj\.weight$", 0, "head"),
+    (r"(^|\.)(gate_proj|up_proj|lm_head)\.weight$", 1, None),
+    (r"(^|\.)down_proj\.weight$", 0, None),
+]
+INT8_TP_RULES = [
+    (r"(^|\.)(q_proj|k_proj|v_proj)\.qt$", 0, "head"),
+    (r"(^|\.)(q_proj|k_proj|v_proj)\.scale$", 1, "head"),
+    (r"(^|\.)(gate_proj|up_proj|lm_head)\.qt$", 0, None),
+    (r"(^|\.)(gate_proj|up_proj|lm_head)\.scale$", 1, None),
+    (r"(^|\.)o_proj\.qt$", 1, "head"),
+    (r"(^|\.)down_proj\.qt$", 1, None),
+]
+# a LoRA sibling shards like its base projection: lora_b (N, r, d_out)
+# on a column layer's output, lora_a (N, d_in, r) on a row layer's input
+LORA_TP_RULES = [
+    (r"(^|\.)(q_proj|k_proj|v_proj)_lora\.lora_b$", 2, "head"),
+    (r"(^|\.)(gate_proj|up_proj)_lora\.lora_b$", 2, None),
+    (r"(^|\.)o_proj_lora\.lora_a$", 1, "head"),
+    (r"(^|\.)down_proj_lora\.lora_a$", 1, None),
+]
+SERVING_TP_RULES = TP_RULES + INT8_TP_RULES + LORA_TP_RULES
+
+
+def int8_param_sharding(name: str, shape, cfg: TransformerConfig) -> int | None:
+    """The dimension of one int8 serving leaf (a state-dict ``name`` and
+    its global ``shape``) that ``cfg.int8_mesh`` splits per
+    :data:`INT8_TP_RULES`, or None (replicated; float leaves always)."""
+    lay = tp_layout(cfg)
+    return split_dim(name, tuple(shape), INT8_TP_RULES, lay.size, {"head": cfg.head_dim})
+
+
+def place_int8_lm_params(params, cfg: TransformerConfig) -> dict[str, torch.Tensor]:
+    """The rank's shard of an int8 serving state dict (global shapes, from
+    the weight bridge) per :data:`INT8_TP_RULES` over ``cfg.int8_mesh``:
+    what a model built from ``cfg`` binds."""
+    lay = tp_layout(cfg)
+    rank = 0 if lay.tp is None else lay.tp.rank
+    return shard_params(params, rank, lay.size, head_dim=cfg.head_dim, rules=INT8_TP_RULES)
 
 
 # the matmul weights int8 serving replaces (embeddings + norms stay float)

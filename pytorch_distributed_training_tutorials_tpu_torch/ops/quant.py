@@ -19,9 +19,17 @@ Port of ``pytorch_distributed_training_tutorials_tpu/ops/quant.py``:
   of the same arithmetic; :func:`int8_matmul_split_reference` states the
   sm90 kernel's split-K order. There is no fallback between the two: a
   CUDA tensor goes through a kernel or the call raises;
+- :func:`int8_matmul_tp` — the tensor-parallel ``x @ (q * scale)`` (the
+  JAX package's ``int8_matmul_tp``): the Megatron column split (the rank's
+  kernel call on its N shard) or row split (its kernel call on its K
+  shard, then an ``all_reduce`` of the partials) over a
+  :class:`..parallel.tensor_parallel.TensorParallel` group; on the card
+  each shard's call is the kernel above. :func:`int8_matmul_tp_reference`
+  states its arithmetic in one process;
 - :class:`Int8Linear` — the serving layer over an int8 weight (both of the
   JAX package's ``Int8Dense`` and ``Int8DenseGeneral``: each flattens its
-  kernel to a 2-D ``q`` with per-column scales).
+  kernel to a 2-D ``q`` with per-column scales), holding the whole weight
+  or, with ``shard_kind``, the rank's shard of a tensor-parallel one.
 
 Numerics follow the reference kernel as XLA executes it (the tests hold
 the port bitwise to JAX's ``int8_matmul``): the activation scale is
@@ -42,6 +50,9 @@ import torch
 from torch import nn
 
 from pytorch_distributed_training_tutorials_tpu_torch.ops import _build
+from pytorch_distributed_training_tutorials_tpu_torch.parallel.tensor_parallel import (
+    TensorParallel,
+)
 
 # float32(1 / 127): the constant XLA multiplies by in place of `/ 127.0`
 _RCP127 = float.fromhex("0x1.020408p-7")
@@ -361,6 +372,115 @@ int8_matmul.launches = 0  # calls that launched a kernel (CPU calls add none)
 int8_matmul.routes = {"sm90": 0, "v1": 0}
 
 
+_SHARD_KINDS = ("column", "row")
+
+
+def int8_matmul_shard(x: torch.Tensor, w: Int8Param, tp: TensorParallel, kind: str) -> torch.Tensor:
+    """One rank's part of a tensor-parallel int8 matmul on operands it
+    already holds sharded: ``kind="column"``, ``x`` (M, K) whole and ``w``
+    the rank's (K, N/tp) column block — its (M, N/tp) output block;
+    ``kind="row"``, ``x`` the rank's (M, K/tp) feature block and ``w`` its
+    (K/tp, N) row block with the full per-column scales — the partial,
+    summed over the group in place (one ``all_reduce``). The kernel call
+    is :func:`int8_matmul` (the sm90 kernel on a card, the plain version
+    on the CPU); each call that launches one adds one to
+    ``int8_matmul_tp.launches``."""
+    if kind not in _SHARD_KINDS:
+        raise ValueError(f"kind must be 'column' or 'row', got {kind!r}")
+    launched = int8_matmul.launches
+    out = int8_matmul(x, w)
+    int8_matmul_tp.launches += int8_matmul.launches - launched
+    if kind == "row":
+        tp.all_reduce(out)
+    return out
+
+
+def int8_matmul_tp(x: torch.Tensor, w: Int8Param, strategy_or_group, *, kind: str,
+                   axis: str = "model") -> torch.Tensor:
+    """Tensor-parallel ``x @ (q * scale)`` over the ``model`` group, from
+    GLOBAL operands (the JAX package's ``int8_matmul_tp``: the kernel
+    stated per shard, the split made explicit rather than propagated).
+
+    - ``kind="column"``: the rank multiplies the whole ``x`` by its block
+      of N/tp columns of ``q`` and their scales, and returns that (M,
+      N/tp) block of the output. Activation quantization sees the
+      unsharded call's (row, K-tile) groups: the block is bitwise the
+      unsharded call's columns;
+    - ``kind="row"``: the rank multiplies its block of K/tp features of
+      ``x`` by its K/tp rows of ``q`` (scales replicated) and the partials
+      are summed over the group (one ``all_reduce``): the (M, N) result,
+      the same on every rank. Activations quantize per (row, LOCAL
+      K-tile), a regrouping of the unsharded tiles (the same ones when
+      K/tp is a multiple of 512, as at 1b with tp 2), and the sum runs in
+      the reduction's order: :func:`int8_matmul_tp_reference` states it.
+
+    ``strategy_or_group``: a :class:`TensorParallel`, a process group, or a
+    mesh with a ``model`` axis. The row split's slices of ``x`` and ``q``
+    are copied dense for the kernel here; a served model holds its shards
+    dense from load (:class:`Int8Linear` with ``shard_kind``)."""
+    if isinstance(strategy_or_group, TensorParallel):
+        tp = strategy_or_group
+    else:
+        names = getattr(strategy_or_group, "mesh_dim_names", None)
+        if names is not None:
+            if axis not in names:
+                raise ValueError(f"mesh has no {axis!r} axis: {tuple(names)}")
+            strategy_or_group = strategy_or_group.get_group(axis)
+        tp = TensorParallel(strategy_or_group)
+    n_shards, r = tp.tp_size, tp.rank
+    m, k = x.shape
+    n = w.q.shape[1]
+    scale = w.scale.reshape(1, n)
+    if kind == "column":
+        if n % n_shards:
+            raise ValueError(f"column split needs N ({n}) % {n_shards} == 0")
+        nl = n // n_shards
+        cols = slice(r * nl, (r + 1) * nl)
+        qt = w.q.t()[cols]  # rows of (N, K): a dense block when q is K-contiguous
+        shard = Int8Param(q=qt.contiguous().t(), scale=scale[:, cols].contiguous())
+        return int8_matmul_shard(x, shard, tp, "column")
+    if kind == "row":
+        if k % n_shards:
+            raise ValueError(f"row split needs K ({k}) % {n_shards} == 0")
+        kl = k // n_shards
+        feats = slice(r * kl, (r + 1) * kl)
+        shard = Int8Param(q=w.q[feats].t().contiguous().t(), scale=scale)
+        return int8_matmul_shard(x[:, feats].contiguous(), shard, tp, "row")
+    raise ValueError(f"kind must be 'column' or 'row', got {kind!r}")
+
+
+int8_matmul_tp.launches = 0  # shard calls that launched a kernel (CPU calls add none)
+
+
+def int8_matmul_tp_reference(x: torch.Tensor, w: Int8Param, tp: int, kind: str) -> torch.Tensor:
+    """Plain statement of :func:`int8_matmul_tp` over all ``tp`` shards in
+    one process, with no group: column, every shard's
+    :func:`int8_matmul_reference` on its N block, concatenated — bitwise
+    the unsharded reference (a column's arithmetic does not see the
+    others); row, every shard's reference on its K block, summed in rank
+    order (a 2-wide reduction sums the same two terms; wider ones may sum
+    in another order, within float32 rounding). Returns the full (M, N)
+    result."""
+    m, k = x.shape
+    n = w.q.shape[1]
+    scale = w.scale.reshape(1, n)
+    if kind == "column":
+        nl = n // tp
+        return torch.cat([
+            int8_matmul_reference(x, Int8Param(q=w.q[:, i * nl:(i + 1) * nl],
+                                               scale=scale[:, i * nl:(i + 1) * nl]))
+            for i in range(tp)], dim=1)
+    if kind == "row":
+        kl = k // tp
+        out = None
+        for i in range(tp):
+            part = int8_matmul_reference(x[:, i * kl:(i + 1) * kl],
+                                         Int8Param(q=w.q[i * kl:(i + 1) * kl], scale=scale))
+            out = part if out is None else out + part
+        return out
+    raise ValueError(f"kind must be 'column' or 'row', got {kind!r}")
+
+
 class Int8Linear(nn.Module):
     """Serving layer over an int8 weight: contracts the last ``n_in`` axes
     of ``x`` (``K`` = their product) into ``features`` (``N`` = their
@@ -372,14 +492,27 @@ class Int8Linear(nn.Module):
     K) int8 — the (K, N) ``q`` stored transposed, K-contiguous, the layout
     the kernel reads (the weight bridge converts once at load) — and
     ``scale`` (1, N) float32. No bias: the transformer's projections have
-    none."""
+    none.
 
-    def __init__(self, in_features, features, n_in: int = 1, device=None):
+    ``shard_kind`` ("column" or "row", with ``strategy`` a
+    :class:`..parallel.tensor_parallel.TensorParallel`; the JAX layers'
+    ``shard_kind``): the layer holds the rank's shard — ``in_features`` /
+    ``features`` are then the SHARD's — and runs
+    :func:`int8_matmul_shard`: a column layer's output is its block of
+    the features, a row layer's the group's sum (one ``all_reduce``)."""
+
+    def __init__(self, in_features, features, n_in: int = 1, device=None,
+                 shard_kind: str | None = None, strategy: TensorParallel | None = None):
         super().__init__()
+        if shard_kind is not None and (shard_kind not in _SHARD_KINDS or strategy is None):
+            raise ValueError(f"shard_kind {shard_kind!r} needs 'column' or 'row' and a "
+                             "TensorParallel strategy")
         feats = tuple(features) if isinstance(features, (tuple, list)) else (features,)
         ins = tuple(in_features) if isinstance(in_features, (tuple, list)) else (in_features,)
         self.features = feats
         self.n_in = n_in
+        self.shard_kind = shard_kind
+        self.strategy = strategy
         k, n = math.prod(ins), math.prod(feats)
         self.register_buffer(
             "qt", torch.zeros((n, k), dtype=torch.int8, device=device)
@@ -391,5 +524,9 @@ class Int8Linear(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[: x.ndim - self.n_in]
         x2 = x.reshape(-1, self.qt.shape[1]).contiguous()
-        out = int8_matmul(x2, Int8Param(q=self.qt.t(), scale=self.scale))
+        w = Int8Param(q=self.qt.t(), scale=self.scale)
+        if self.shard_kind is None:
+            out = int8_matmul(x2, w)
+        else:
+            out = int8_matmul_shard(x2, w, self.strategy, self.shard_kind)
         return out.reshape(*lead, *self.features)

@@ -1,6 +1,7 @@
 """Parallelism of the PyTorch port: the ``torch.distributed`` runtime, the
-data mesh and the data-parallel strategy. The other strategies of the JAX
-package (FSDP, tensor, pipeline, ring and Ulysses attention) arrive in
+mesh, the data-parallel strategy and tensor parallelism for serving
+(:class:`TensorParallel`). The other strategies of the JAX package (FSDP,
+tensor-parallel training, pipeline, ring and Ulysses attention) arrive in
 later slices."""
 
 from pytorch_distributed_training_tutorials_tpu_torch.parallel.data_parallel import DataParallel
@@ -19,18 +20,28 @@ from pytorch_distributed_training_tutorials_tpu_torch.parallel.mesh import (
     STAGE_AXIS,
     create_mesh,
 )
+from pytorch_distributed_training_tutorials_tpu_torch.parallel.tensor_parallel import (
+    SLOT_STATE_RULES,
+    TensorParallel,
+    shard_params,
+    spawn_tp,
+)
 
 __all__ = [
     "DATA_AXIS",
     "EXPERT_AXIS",
     "MODEL_AXIS",
     "SEQ_AXIS",
+    "SLOT_STATE_RULES",
     "STAGE_AXIS",
     "DataParallel",
+    "TensorParallel",
     "create_mesh",
     "init",
     "is_primary",
     "process_count",
     "process_index",
+    "shard_params",
     "shutdown",
+    "spawn_tp",
 ]

@@ -14,7 +14,10 @@ A process with neither is a single-process run and needs no group:
 :class:`..parallel.mesh.LocalMesh`). On ``cuda`` (the default) the
 backend is NCCL, after ``torch.cuda.set_device(local_rank)``; with
 ``device="cpu"`` it is gloo. A world of one on one card, asked for
-explicitly, is a real NCCL group.
+explicitly, is a real NCCL group. ``backend="gloo"`` on ``cuda`` is the
+caller's explicit choice for ranks that share a card (NCCL refuses a
+communicator with two ranks on one device): gloo stages CUDA tensors
+through host memory.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ TIMEOUT_S = 300.0
 
 
 def init(coordinator_address: str | None = None, num_processes: int | None = None,
-         process_id: int | None = None, *, device=None) -> None:
+         process_id: int | None = None, *, device=None, backend: str | None = None) -> None:
     """Form the process group (no-op for a single-process run, and when a
     group exists already).
 
@@ -63,15 +66,20 @@ def init(coordinator_address: str | None = None, num_processes: int | None = Non
             local_rank = int(os.environ["LOCAL_RANK"])
     else:
         return  # a single process: no group to form
+    if backend not in (None, "nccl", "gloo"):
+        raise ValueError(f"backend must be None, 'nccl' or 'gloo', got {backend!r}")
     dev = resolve_device(device)
     kwargs = {}
     if dev.type == "cuda":
         local = local_rank if local_rank is not None else rank % torch.cuda.device_count()
         torch.cuda.set_device(local)
-        backend = "nccl"
-        kwargs["device_id"] = torch.device("cuda", local)
-    else:
+        if backend in (None, "nccl"):
+            backend = "nccl"
+            kwargs["device_id"] = torch.device("cuda", local)
+    elif backend in (None, "gloo"):
         backend = "gloo"
+    else:
+        raise ValueError(f"backend {backend!r} on {dev}: NCCL needs a card")
     dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank,
                             timeout=datetime.timedelta(seconds=TIMEOUT_S), **kwargs)
 

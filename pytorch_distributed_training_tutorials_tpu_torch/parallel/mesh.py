@@ -1,14 +1,19 @@
-"""The data-parallel mesh over the ``torch.distributed`` world.
+"""The mesh over the ``torch.distributed`` world: its ``data`` axis, and
+the ``model`` axis of tensor-parallel serving.
 
-Port of the JAX package's ``parallel/mesh.py`` for its ``data`` axis. With
+Port of the JAX package's ``parallel/mesh.py`` for those two axes. With
 a process group initialized (:func:`..parallel.distributed.init`),
 :func:`create_mesh` returns a ``torch.distributed.device_mesh.DeviceMesh``
 of the whole world with one axis named ``data``. A single process with no
 group — the default, and the CPU tests — gets a :class:`LocalMesh`, a
 mesh of one with the same read surface (``mesh_dim_names``, ``size``,
 ``get_local_rank``, ``get_group``), so no group has to be formed to train
-on one device. Other axes (``model``, ``stage``, ``seq``, ``expert``)
-arrive with the parallel strategies that use them and raise here.
+on one device. ``{"model": tp}`` (or ``{"data": 1, "model": tp}``) is
+the tensor-parallel serving mesh over a world of ``tp`` processes
+(:class:`..parallel.tensor_parallel.TensorParallel` takes it); a data axis
+beside a wider model axis is tensor-parallel training's, a later slice.
+Other axes (``stage``, ``seq``, ``expert``) arrive with the parallel
+strategies that use them and raise here.
 """
 
 from __future__ import annotations
@@ -24,16 +29,16 @@ STAGE_AXIS = "stage"
 SEQ_AXIS = "seq"
 EXPERT_AXIS = "expert"
 
-_LATER = "the remaining parallel strategies (FSDP, tensor, pipeline, sequence, expert)"
+_LATER = "the remaining parallel strategies (FSDP, pipeline, sequence, expert)"
 
 
 class LocalMesh:
-    """A data mesh of one process and one device, with no process group."""
+    """A mesh of one process and one device, with no process group: the
+    data axis (``mesh_dim_names`` ``("data",)``), or a model axis of one."""
 
-    mesh_dim_names = (DATA_AXIS,)
-
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, mesh_dim_names: tuple = (DATA_AXIS,)):
         self.device = device
+        self.mesh_dim_names = tuple(mesh_dim_names)
 
     def size(self, mesh_dim: int | str | None = None) -> int:
         return 1
@@ -45,18 +50,23 @@ class LocalMesh:
         return None
 
     def __repr__(self) -> str:
-        return f"LocalMesh(data=1, device={self.device})"
+        axes = ", ".join(f"{a}=1" for a in self.mesh_dim_names)
+        return f"LocalMesh({axes}, device={self.device})"
 
 
 def create_mesh(axes: dict[str, int] | None = None, *, device=None):
-    """The data mesh over every process of the world: ``{'data': world}``.
+    """The mesh over every process of the world: ``{'data': world}`` by
+    default, or with a ``model`` axis the tensor-parallel serving mesh.
 
-    ``axes`` may name only ``data``, with the world size or ``-1``; a data
-    axis over part of the world is not supported. ``device`` is ``cuda``
-    unless the caller passes another (raises without a GPU)."""
+    ``axes`` may name ``data`` alone, with the world size or ``-1`` (a data
+    axis over part of the world is not supported), or ``model`` with the
+    world size (``-1``: the world) and at most a data axis of 1. ``device``
+    is ``cuda`` unless the caller passes another (raises without a GPU)."""
     dev = resolve_device(device)
     world = dist.get_world_size() if dist.is_initialized() else 1
     axes = dict(axes) if axes is not None else {DATA_AXIS: world}
+    if MODEL_AXIS in axes:
+        return _model_mesh(axes, world, dev)
     other = sorted(set(axes) - {DATA_AXIS})
     if other:
         raise NotImplementedError(
@@ -74,6 +84,34 @@ def create_mesh(axes: dict[str, int] | None = None, *, device=None):
     from torch.distributed.device_mesh import init_device_mesh
 
     return init_device_mesh(dev.type, (world,), mesh_dim_names=(DATA_AXIS,))
+
+
+def _model_mesh(axes: dict[str, int], world: int, dev: torch.device):
+    """``{'model': tp}`` or ``{'data': 1, 'model': tp}`` over a world of
+    ``tp`` processes."""
+    other = sorted(set(axes) - {DATA_AXIS, MODEL_AXIS})
+    if other:
+        raise NotImplementedError(
+            f"mesh axes {other} are not supported by the PyTorch port yet; they "
+            f"arrive with {_LATER}"
+        )
+    size = world if axes[MODEL_AXIS] == -1 else axes[MODEL_AXIS]
+    data = axes.get(DATA_AXIS, 1)
+    if data != 1:
+        raise NotImplementedError(
+            f"a data axis of {data} beside a model axis is tensor-parallel training's "
+            "mesh, which arrives with that later slice; serving takes {'model': tp}"
+        )
+    if size != world:
+        raise ValueError(f"a model axis of {size} over a world of {world} processes: "
+                         "the port's model axis spans the whole world")
+    names = tuple(a for a in (DATA_AXIS, MODEL_AXIS) if a in axes)
+    if not dist.is_initialized():
+        return LocalMesh(dev, names)
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape = tuple(1 if a == DATA_AXIS else world for a in names)
+    return init_device_mesh(dev.type, shape, mesh_dim_names=names)
 
 
 def axis_size(mesh, axis: str) -> int:

@@ -1,0 +1,277 @@
+"""Tensor (intra-layer) parallelism over a ``torch.distributed`` group:
+the Megatron split of a model's projections, as explicit collectives.
+
+Port of the JAX package's ``parallel/tensor_parallel.py`` for serving.
+The JAX package states a placement per parameter path (``PartitionSpec``
+rules) and lets GSPMD insert the collectives; PyTorch has no such
+partitioner for the serving kernels (DTensor has no sharding rule for a
+custom launch), so the port runs SPMD over a process group in PyTorch's
+own idiom: every rank of a ``tp``-wide group holds its shard of each
+weight (:func:`shard_params`), runs the same forward on it and issues the
+collectives itself through :class:`TensorParallel` — one ``all_reduce``
+after each row-parallel projection and one ``all_gather`` of the
+vocab-split logits — each counted by kind (the counterpart of the JAX
+``audit_hlo``: a stray collective shows as a count, where the JAX audit
+reads it from the compiled program).
+
+Rules are ``(pattern, dim, unit)``: the first pattern that matches a
+leaf's name splits its dimension ``dim`` into ``tp`` contiguous blocks,
+the rank taking block ``rank``; ``unit`` names a granule the block must
+hold whole (``"head"``: a projection's head axis is flattened into its
+output, so a split must fall between heads). A dimension whose granules
+the group size does not divide stays replicated — the shape-aware drop of
+the JAX ``spec_for_path``: GQA's K/V heads under a wider group keep every
+head on every rank while the query heads shard. Unmatched leaves
+(embeddings, norms, per-slot bookkeeping) replicate. The model's rules
+are :data:`..models.transformer.TP_RULES` and ``INT8_TP_RULES``; the
+slot state's are :data:`SLOT_STATE_RULES`. Training's tensor parallelism
+(the sharded backward and the vocab-split loss) is a later slice; these
+rules and :class:`TensorParallel` are what it reuses.
+
+One card, two ranks: NCCL refuses a communicator whose ranks share a
+device, so a TP world on a machine with fewer cards than ranks runs gloo,
+which stages CUDA tensors through host memory. That proves the shard
+arithmetic and the collective count on the card, not TP's speed.
+:func:`spawn_tp` takes the backend as an argument and never picks one.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import tempfile
+from collections.abc import Callable, Mapping, Sequence
+
+import torch
+import torch.distributed as dist
+
+from pytorch_distributed_training_tutorials_tpu_torch.parallel.mesh import MODEL_AXIS
+
+# Sharded serving: the slot state's K/V (and their scales) split on the
+# HEAD axis, matching the head-split q/k/v projections, so every cache
+# write, splice, chunk and paged gather stays on its rank with no
+# collective. Written against trailing dims — (..., heads, D) leaves and
+# (..., heads) scales — so one rule covers the whole-slot cache (L, B,
+# W + 1, KV, D), the page pools (L, N + 1, page, KV, D) and the batch-1
+# side caches and segments. Everything else (positions, page tables,
+# tokens, budgets, generators, history, adapter ids) replicates.
+SLOT_STATE_RULES = [
+    (r"(^|\.)(k|v)_scale$", -1, None),
+    (r"(^|\.)(k|v)$", -2, None),
+]
+_KV_LEAF_RE = re.compile(r"(^|\.)(k|v)(_scale)?$")
+COLLECTIVE_KINDS = ("all_reduce", "all_gather")
+
+
+def split_dim(name: str, shape: Sequence[int], rules, tp: int,
+              units: Mapping[str, int] | None = None) -> int | None:
+    """The dimension of a ``shape`` leaf called ``name`` that ``rules``
+    split over a ``tp``-wide group, or None (replicated): the first
+    matching rule's ``dim``, dropped when the group size does not divide
+    its count of ``unit`` granules (``units`` maps a unit's name to its
+    size; a rule without one splits single elements)."""
+    for pattern, dim, unit in rules:
+        if re.search(pattern, name):
+            if tp <= 1 or not shape:
+                return None
+            d = dim % len(shape)
+            g = (units or {}).get(unit, 1) if unit else 1
+            if shape[d] % g or (shape[d] // g) % tp:
+                return None
+            return d
+    return None
+
+
+def shard_tensor(t: torch.Tensor, dim: int | None, rank: int, tp: int, *,
+                 view: bool = False) -> torch.Tensor:
+    """Block ``rank`` of ``tp`` contiguous blocks of ``t`` along ``dim``
+    (``t`` itself when ``dim`` is None). A copy that owns its memory,
+    contiguous, so the full tensor can be freed — unless ``view``, which
+    keeps a view into ``t`` (a bank's factor tensors, whose in-place row
+    writes the view must see)."""
+    if dim is None:
+        return t
+    n = t.shape[dim] // tp
+    part = t.narrow(dim, rank * n, n)
+    return part if view else part.contiguous()
+
+
+def shard_params(tree: Mapping[str, torch.Tensor], rank: int, tp: int, *, head_dim: int,
+                 rules=None, views: bool = False) -> dict[str, torch.Tensor]:
+    """The rank's shard of a state dict from the weight bridge
+    (:func:`..models.convert.from_jax_params`): every leaf sliced per
+    ``rules`` (default the transformer's ``TP_RULES`` + ``INT8_TP_RULES``
+    + its LoRA rules), ``head_dim`` the size of a ``"head"`` unit. Column
+    layers (q/k/v, gate/up, lm_head) split their output and, int8, their
+    per-column scales; row layers (o, down) their input, with scales
+    replicated; embedding and norms replicate; ``*_lora`` factors shard
+    like their base projection (``lora_b``'s output for a column layer,
+    ``lora_a``'s input for a row layer). int8 ``qt`` (N, K) row shards are
+    copied contiguous (the sm90 kernel's route needs 16-byte bases and a
+    dense K). ``views``: slices stay views of the caller's tensors."""
+    if rules is None:
+        from pytorch_distributed_training_tutorials_tpu_torch.models.transformer import (
+            SERVING_TP_RULES,
+        )
+
+        rules = SERVING_TP_RULES
+    units = {"head": head_dim}
+    return {name: shard_tensor(t, split_dim(name, tuple(t.shape), rules, tp, units),
+                               rank, tp, view=views)
+            for name, t in tree.items()}
+
+
+def _group_of(group_or_mesh):
+    """A process group from a group, a mesh with a ``model`` axis, or None
+    (no group: a world of one)."""
+    names = getattr(group_or_mesh, "mesh_dim_names", None)
+    if names is not None:
+        if MODEL_AXIS not in names:
+            raise ValueError(f"mesh has no {MODEL_AXIS!r} axis: {tuple(names)}")
+        return group_or_mesh.get_group(MODEL_AXIS)
+    return group_or_mesh
+
+
+class TensorParallel:
+    """The tensor-parallel strategy of one rank: the ``model`` group, its
+    size ``tp_size`` and this process's ``rank`` in it, and the
+    collectives the sharded forward issues, counted by kind in
+    :attr:`collectives`.
+
+    ``group``: a ``torch.distributed`` process group, a mesh with a
+    ``model`` axis (:func:`..parallel.mesh.create_mesh`), or None — a
+    strategy of one rank (``tp_size`` 1), which shards nothing: an engine
+    or model given it is the replicated one. Every rank of the group must
+    make the same calls in the same order (SPMD)."""
+
+    def __init__(self, group=None):
+        self.group = _group_of(group)
+        if self.group is None:
+            self.tp_size, self.rank = 1, 0
+        else:
+            self.tp_size = dist.get_world_size(self.group)
+            self.rank = dist.get_rank(self.group)
+        self.collectives = dict.fromkeys(COLLECTIVE_KINDS, 0)
+
+    @property
+    def mesh_shape(self) -> dict[str, int]:
+        return {MODEL_AXIS: self.tp_size}
+
+    @property
+    def backend(self) -> str | None:
+        return None if self.group is None else str(dist.get_backend(self.group))
+
+    def __repr__(self) -> str:
+        return f"TensorParallel(tp={self.tp_size}, rank={self.rank}, backend={self.backend})"
+
+    def reset_collectives(self) -> None:
+        self.collectives = dict.fromkeys(COLLECTIVE_KINDS, 0)
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum ``x`` over the group in place (the row-parallel partials'
+        reduction); returns ``x``. Counted. A strategy of one rank returns
+        ``x`` untouched and counts nothing."""
+        if self.tp_size == 1:
+            return x
+        self.collectives["all_reduce"] += 1
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.group)
+        return x
+
+    def all_gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """Every rank's ``x`` concatenated along ``dim`` in rank order (the
+        vocab-split logits' gather): the same bytes on every rank. Counted."""
+        if self.tp_size == 1:
+            return x
+        self.collectives["all_gather"] += 1
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.tp_size)]
+        dist.all_gather(parts, x, group=self.group)
+        return torch.cat(parts, dim=dim)
+
+    def shard_state(self, tree: Mapping[str, torch.Tensor], rules=SLOT_STATE_RULES, *,
+                    head_dim: int = 1) -> dict[str, torch.Tensor]:
+        """This rank's shard of every leaf of ``tree`` per ``rules``
+        (default the slot-state rules): :func:`shard_params` at this
+        rank."""
+        return shard_params(tree, self.rank, self.tp_size, head_dim=head_dim, rules=rules)
+
+    def shard_shapes(self, shapes: Mapping[str, Sequence[int]], rules=SLOT_STATE_RULES, *,
+                     units: Mapping[str, int] | None = None) -> dict[str, tuple]:
+        """The shard shape of each global ``shapes`` entry per ``rules``
+        (default the slot-state rules): what this rank's leaves must be."""
+        out = {}
+        for name, shape in shapes.items():
+            shape = tuple(shape)
+            d = split_dim(name, shape, rules, self.tp_size, units)
+            out[name] = shape if d is None else (
+                shape[:d] + (shape[d] // self.tp_size,) + shape[d + 1:])
+        return out
+
+    def audit(self, params: Mapping[str, torch.Tensor], slot_state=None, *, rules=None,
+              head_dim: int = 1) -> list[str]:
+        """``name: global shape -> split dim`` lines for every weight of
+        ``params`` (global shapes) per ``rules`` (default the transformer's),
+        and with ``slot_state`` (name -> global shape) for the slot state
+        under :data:`SLOT_STATE_RULES`, where a K/V leaf that stays
+        replicated under ``tp_size`` > 1 gets a WARNING: each rank then
+        holds the whole cache (usual cause: a KV head count the group size
+        does not divide)."""
+        if rules is None:
+            from pytorch_distributed_training_tutorials_tpu_torch.models.transformer import (
+                SERVING_TP_RULES,
+            )
+
+            rules = SERVING_TP_RULES
+        units = {"head": head_dim}
+        lines = []
+        for name, t in params.items():
+            shape = tuple(t.shape)
+            lines.append(f"{name}: {shape} -> {split_dim(name, shape, rules, self.tp_size, units)}")
+        for name, shape in (slot_state or {}).items():
+            shape = tuple(shape)
+            d = split_dim(name, shape, SLOT_STATE_RULES, self.tp_size)
+            line = f"{name}: {shape} -> {d}"
+            if self.tp_size > 1 and _KV_LEAF_RE.search(name) and d is None:
+                line += (f" WARNING: KV leaf replicated under tp={self.tp_size} — each rank "
+                         "holds the whole cache; check that the group size divides the "
+                         "KV head count")
+            lines.append(line)
+        return lines
+
+
+def _tp_rank(rank: int, fn: Callable, tp: int, coordinator: str, backend: str, device: str,
+             outdir: str, args: tuple) -> None:
+    """One rank of :func:`spawn_tp`: form the group, run ``fn(strategy,
+    *args)``, save its result to ``outdir/rank{rank}.pt``, tear down."""
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel import distributed
+
+    distributed.init(coordinator, tp, rank, device=device, backend=backend)
+    try:
+        out = fn(TensorParallel(dist.group.WORLD), *args)
+        torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
+    finally:
+        distributed.shutdown()
+
+
+def spawn_tp(fn: Callable, tp: int, args: Sequence = (), *, backend: str, device: str,
+             join_timeout_s: float = 600.0) -> list:
+    """Run ``fn(strategy, *args)`` in a world of ``tp`` spawned processes
+    (a :class:`TensorParallel` over the whole world each) and return the
+    ranks' results in rank order. ``fn`` is a module-level callable (the
+    spawn start method pickles it by name) and its result something
+    ``torch.save`` takes. ``backend`` ("gloo" or "nccl") and ``device``
+    ("cpu" or "cuda") are the caller's explicit choice. A rank that fails
+    fails the call (:func:`..launch.spawn` raises)."""
+    from pytorch_distributed_training_tutorials_tpu_torch.launch._spawn import (
+        coordinator_for_spawn,
+        spawn,
+    )
+
+    if backend not in ("gloo", "nccl"):
+        raise ValueError(f"backend must be 'gloo' or 'nccl', got {backend!r}")
+    with tempfile.TemporaryDirectory(prefix="tp_world_") as outdir:
+        spawn(_tp_rank, tp, args=(fn, tp, coordinator_for_spawn(), backend, device, outdir,
+                                  tuple(args)),
+              join_timeout_s=join_timeout_s)
+        return [torch.load(os.path.join(outdir, f"rank{r}.pt"), weights_only=False)
+                for r in range(tp)]

@@ -1,8 +1,8 @@
 """``python -m pytorch_distributed_training_tutorials_tpu_torch.serve
 --selftest [--paged [--paged-kernel] [--kv-bits 8|4]] [--prefix] [--chunk]
 [--flash] [--spec-k K [--spec-ngram N]] [--pipeline-depth D] [--adapters
-N] [--chaos] [--flight] [--router] [--device cpu]``: end-to-end smoke of
-the port's serving path.
+N] [--chaos] [--flight] [--router] [--tp N [--tp-backend gloo|nccl]]
+[--device cpu]``: end-to-end smoke of the port's serving path.
 
 A toy int8 LM serves a staggered stream of mixed-length requests through
 :class:`.engine.ServeEngine` (2 slots, a queue bound of 2 so backpressure
@@ -93,6 +93,15 @@ work moved or died with it, every request that finished equals leg 1,
 and the host syncs are the sum of the replicas' chains + prefills +
 splices, the killed replica's frozen at its kill.
 
+``--tp N`` adds the tensor-parallel arm (the JAX selftest's): N spawned
+ranks (``--tp-backend``: gloo on the CPU; on cards NCCL, or gloo where
+ranks share a card) each build the sharded engine over the same weights
+and serve the base stream. Every rank's greedy tokens must equal the
+replicated base run's, each rank's host syncs its budget and the base
+run's count, its KV bytes below the unsharded engine's, and
+``audit_decode()`` clean (an ``all_reduce`` per row-parallel projection
+and one logits ``all_gather`` per forward, nothing else).
+
 Prints one JSON line (``"ok": true`` when every check held) and exits 0,
 or 1 when a check failed. Runs on ``cuda`` unless ``--device`` names
 another device.
@@ -109,8 +118,8 @@ def selftest(device=None, paged: bool = False, paged_kernel: bool = False,
              kv_bits: int | None = None, prefix: bool = False, chunk: bool = False,
              flash: bool = False, spec_k: int = 0, spec_ngram: int = 3,
              pipeline_depth: int = 1, adapters: int = 0, chaos: bool = False,
-             flight: bool = False, router: bool = False) -> dict:
-    import numpy as np
+             flight: bool = False, router: bool = False, tp: int = 0,
+             tp_backend: str | None = None) -> dict:
     import torch
 
     from pytorch_distributed_training_tutorials_tpu_torch._device import resolve_device
@@ -120,45 +129,19 @@ def selftest(device=None, paged: bool = False, paged_kernel: bool = False,
         generate,
         init_quantized_lm,
     )
-    from pytorch_distributed_training_tutorials_tpu_torch.serve import (
-        QueueFull,
-        Request,
-        ServeEngine,
-    )
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import ServeEngine
 
     dev = resolve_device(device)
     problems: list[str] = []
-    cfg = TransformerConfig(
-        vocab_size=64, d_model=32, n_layers=2, n_heads=4, max_seq_len=64,
-        quantized=True,
-    )
+    cfg = TransformerConfig(**SELFTEST_CFG, quantized=True)
     params = init_quantized_lm(cfg, seed=0, device=dev)
     model = TransformerLM(cfg)
     engine = ServeEngine(
         model, params, n_slots=2, tokens_per_launch=8, max_queue=2,
         device=dev,
     )
-    rng = np.random.Generator(np.random.PCG64(1))
-    prompts = [
-        (rng.integers(0, cfg.vocab_size, p_len).tolist(), max_new)
-        for p_len, max_new in [(3, 9), (7, 12), (5, 1), (12, 6), (2, 17)]
-    ]
-    completions = {}
-    backpressured = False
-    for toks, max_new in prompts[:2]:
-        engine.submit(Request(prompt=toks, max_new_tokens=max_new))
-    pending = list(prompts[2:])
-    while not engine.idle or pending:
-        while pending:
-            toks, max_new = pending[0]
-            try:
-                engine.submit(Request(prompt=toks, max_new_tokens=max_new))
-                pending.pop(0)
-            except QueueFull:
-                backpressured = True
-                break
-        for c in engine.step():
-            completions[c.request_id] = c
+    prompts = _base_prompts(cfg.vocab_size)
+    completions, backpressured = _base_stream(engine, prompts)
     if len(completions) != len(prompts):
         problems.append(
             f"{len(completions)} completions for {len(prompts)} requests"
@@ -195,6 +178,8 @@ def selftest(device=None, paged: bool = False, paged_kernel: bool = False,
                      if flight else {})
     router_fields = (router_arm(model, params, dev, prompts, completions, problems)
                      if router else {})
+    tp_fields = (tp_arm(dev, tp, tp_backend, completions, engine.n_host_syncs, problems)
+                 if tp > 1 else {})
     return {
         "selftest": "serve_torch",
         "ok": not problems,
@@ -220,8 +205,99 @@ def selftest(device=None, paged: bool = False, paged_kernel: bool = False,
         **fault_fields,
         **flight_fields,
         **router_fields,
+        **tp_fields,
         "problems": problems,
     }
+
+
+# the toy int8 LM every arm serves (weights: init_quantized_lm, seed 0)
+SELFTEST_CFG = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=4, max_seq_len=64)
+
+
+def _base_prompts(vocab: int) -> list:
+    import numpy as np
+
+    rng = np.random.Generator(np.random.PCG64(1))
+    return [(rng.integers(0, vocab, p_len).tolist(), max_new)
+            for p_len, max_new in [(3, 9), (7, 12), (5, 1), (12, 6), (2, 17)]]
+
+
+def _base_stream(engine, prompts) -> tuple[dict, bool]:
+    """The base arm's staggered stream: two requests up front, the rest as
+    the bounded queue admits them. Returns ``(completions by id,
+    backpressured)``."""
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import QueueFull, Request
+
+    completions = {}
+    backpressured = False
+    for toks, max_new in prompts[:2]:
+        engine.submit(Request(prompt=toks, max_new_tokens=max_new))
+    pending = list(prompts[2:])
+    while not engine.idle or pending:
+        while pending:
+            toks, max_new = pending[0]
+            try:
+                engine.submit(Request(prompt=toks, max_new_tokens=max_new))
+                pending.pop(0)
+            except QueueFull:
+                backpressured = True
+                break
+        for c in engine.step():
+            completions[c.request_id] = c
+    return completions, backpressured
+
+
+def tp_rank(strategy, device: str) -> dict:
+    """One rank of the ``--tp`` arm (run by :func:`..parallel.tensor_parallel.spawn_tp`):
+    the sharded engine over the base arm's weights serving the base
+    stream; returns its tokens, syncs, ``tp_stats()`` and audit."""
+    from pytorch_distributed_training_tutorials_tpu_torch.models import (
+        TransformerConfig,
+        TransformerLM,
+        init_quantized_lm,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import ServeEngine
+
+    cfg = TransformerConfig(**SELFTEST_CFG, quantized=True)
+    params = init_quantized_lm(cfg, seed=0, device=device)
+    engine = ServeEngine(TransformerLM(cfg), params, n_slots=2, tokens_per_launch=8,
+                         max_queue=2, device=device, strategy=strategy)
+    completions, _ = _base_stream(engine, _base_prompts(cfg.vocab_size))
+    return {"tokens": {rid: c.tokens for rid, c in completions.items()},
+            "host_syncs": engine.n_host_syncs,
+            "budget": engine.n_chains + engine.n_prefills,
+            "tp_stats": engine.tp_stats(), "audit": engine.audit_decode()}
+
+
+def tp_arm(dev, tp: int, backend: str | None, completions: dict, base_syncs: int,
+           problems: list) -> dict:
+    """The ``--tp`` checks (module docstring), on ``tp`` spawned ranks."""
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel.tensor_parallel import (
+        spawn_tp,
+    )
+    # by its package path, so the spawned ranks import it as a module
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import __main__ as selftest_mod
+
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+    ranks = spawn_tp(selftest_mod.tp_rank, tp, (dev.type,), backend=backend, device=dev.type)
+    want = {rid: c.tokens for rid, c in completions.items()}
+    for r, got in enumerate(ranks):
+        if got["tokens"] != want:
+            problems.append(f"tp rank {r}: tokens {got['tokens']} != replicated {want}")
+        if got["host_syncs"] != got["budget"] or got["host_syncs"] != base_syncs:
+            problems.append(f"tp rank {r}: {got['host_syncs']} host syncs, budget "
+                            f"{got['budget']}, replicated {base_syncs}")
+        st = got["tp_stats"]
+        if not st["tp_kv_bytes_per_chip"] < st["tp_kv_bytes_global"]:
+            problems.append(f"tp rank {r}: KV bytes per chip {st['tp_kv_bytes_per_chip']} "
+                            f"not below the global {st['tp_kv_bytes_global']}")
+        if not got["audit"]["ok"]:
+            problems.append(f"tp rank {r}: audit_decode {got['audit']['problems']}")
+    return {"tp": tp, "tp_backend": backend,
+            "tp_host_syncs": [g["host_syncs"] for g in ranks],
+            "tp_kv_bytes_per_chip": ranks[0]["tp_stats"]["tp_kv_bytes_per_chip"],
+            "tp_kv_bytes_global": ranks[0]["tp_stats"]["tp_kv_bytes_global"],
+            "tp_collectives": ranks[0]["audit"]["collectives"]}
 
 
 def _budget(eng) -> int:
@@ -844,6 +920,16 @@ def main(argv: list[str] | None = None) -> int:
         "--router", action="store_true",
         help="add the fleet arm: three engines behind a FleetRouter, one chaos-killed",
     )
+    ap.add_argument(
+        "--tp", type=int, default=0,
+        help="add the tensor-parallel arm at this width: spawned ranks serving the base "
+             "stream through ServeEngine(strategy=)",
+    )
+    ap.add_argument(
+        "--tp-backend", choices=("gloo", "nccl"), default=None,
+        help="the TP arm's backend (default: gloo on the CPU, nccl on cards; gloo where "
+             "ranks share a card)",
+    )
     args = ap.parse_args(argv)
     if not args.selftest:
         ap.print_help()
@@ -855,7 +941,8 @@ def main(argv: list[str] | None = None) -> int:
                        prefix=args.prefix, chunk=args.chunk, flash=args.flash,
                        spec_k=args.spec_k, spec_ngram=args.spec_ngram,
                        pipeline_depth=args.pipeline_depth, adapters=args.adapters,
-                       chaos=args.chaos, flight=args.flight, router=args.router)
+                       chaos=args.chaos, flight=args.flight, router=args.router,
+                       tp=args.tp, tp_backend=args.tp_backend)
     print(json.dumps(receipt))
     return 0 if receipt["ok"] else 1
 

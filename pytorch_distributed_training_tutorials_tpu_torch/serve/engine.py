@@ -132,6 +132,28 @@ inside a chain:
 - ``flight=`` (:class:`..obs.flight.FlightRecorder`) stamps the request
   lifecycle, chains and faults at the same host boundaries; a stamp is a
   clock read and a deque append, never a sync.
+
+Tensor-parallel serving (``strategy=``, a
+:class:`..parallel.tensor_parallel.TensorParallel` over a ``model`` group
+of ``tp`` processes; the JAX engine's ``strategy``): SPMD in PyTorch's
+idiom. Every rank builds the same engine over the same whole weights,
+which it cuts to its shard of the Megatron layout
+(:func:`..parallel.tensor_parallel.shard_params`; the model's docstring
+says which), receives the same submissions and runs the same
+deterministic host loop; the forwards issue their collectives
+explicitly (an ``all_reduce`` after each row-parallel projection, one
+``all_gather`` of the logits), so every rank samples the same tokens from
+the same bytes and rank 0's completions are the engine's output. The
+slot state holds the rank's KV heads only (checked once at construction
+against :data:`..parallel.tensor_parallel.SLOT_STATE_RULES`), so KV and
+page bytes, the page price and the prefix budget are per rank.
+:meth:`ServeEngine.tp_stats` and :meth:`ServeEngine.audit_decode` report
+it. A host decision that reads the clock could differ between ranks, and
+a rank that decides otherwise hangs its peers in a collective: deadlines
+and chaos stalls are refused under ``tp`` > 1, and :meth:`cancel` is the
+caller's to make on every rank at the same point of the loop. ``tp`` 1
+(or no strategy) is the replicated engine: the same state, launches and
+syncs.
 """
 
 from __future__ import annotations
@@ -158,6 +180,11 @@ from pytorch_distributed_training_tutorials_tpu_torch.models.transformer import 
     _kv_quant_mode,
     bind_params,
     rewind_cache_index,
+    tp_layout,
+)
+from pytorch_distributed_training_tutorials_tpu_torch.parallel.tensor_parallel import (
+    TensorParallel,
+    shard_params,
 )
 from pytorch_distributed_training_tutorials_tpu_torch.serve.pages import (
     PagePool,
@@ -192,6 +219,15 @@ from pytorch_distributed_training_tutorials_tpu_torch.serve.slots import (
 from pytorch_distributed_training_tutorials_tpu_torch.utils import chaos as chaos_lib
 
 _log = logging.getLogger(__name__)
+
+
+def _cache_leaves(cache) -> dict[str, torch.Tensor]:
+    """A slot cache's per-position leaves by name (``k``, ``v`` and,
+    quantized, ``k_scale``, ``v_scale``) — the names the slot-state rules
+    match."""
+    return {name: getattr(cache, name) for name in ("k", "v", "k_scale", "v_scale")
+            if getattr(cache, name) is not None}
+
 
 # how a refill reached its first token: a whole prefill, a splice, or a
 # chunked prefill's final chunk without and with a prefix hit
@@ -258,7 +294,7 @@ class _PendingPrefill:
 
 
 def _base_cfg(cfg: TransformerConfig) -> TransformerConfig:
-    return dataclasses.replace(cfg, lora_adapters=0, lora_rank=0)
+    return dataclasses.replace(cfg, lora_adapters=0, lora_rank=0, int8_mesh=None)
 
 
 def _variant(model: TransformerLM, **changes) -> TransformerLM:
@@ -305,7 +341,14 @@ class ServeEngine:
     per-step finite flag and the slot quarantine; ``chaos`` a
     :class:`..utils.chaos.ChaosConfig`; ``flight`` a
     :class:`..obs.flight.FlightRecorder`. :meth:`cancel`,
-    :meth:`fault_stats` and :meth:`flight_stats` go with them."""
+    :meth:`fault_stats` and :meth:`flight_stats` go with them.
+
+    ``strategy`` (None: replicated) a
+    :class:`..parallel.tensor_parallel.TensorParallel`: with ``tp_size``
+    > 1 the engine serves this rank's shard (module docstring) — ``model``
+    and ``params`` the whole ones on every rank (or a model already built
+    with ``cfg.int8_mesh`` set to the same strategy, holding its shard);
+    :meth:`tp_stats` and :meth:`audit_decode` go with it."""
 
     def __init__(
         self,
@@ -335,6 +378,7 @@ class ServeEngine:
         guard_nonfinite: bool = False,
         chaos=None,
         flight=None,
+        strategy: TensorParallel | None = None,
     ):
         if n_slots < 1:
             raise ValueError("n_slots must be >= 1")
@@ -373,6 +417,21 @@ class ServeEngine:
         if not 0.0 < top_p <= 1.0:
             raise ValueError(f"top_p must be in (0, 1], got {top_p}")
         self.device = resolve_device(device)
+        if strategy is None:
+            strategy = model.cfg.int8_mesh
+        elif model.cfg.int8_mesh not in (None, strategy):
+            raise ValueError("strategy differs from the model's cfg.int8_mesh")
+        # the sharded gate: tp 1 or no strategy is the replicated engine
+        self._tp = strategy if strategy is not None and strategy.tp_size > 1 else None
+        self._tp_audit = None
+        if self._tp is not None:
+            if default_deadline_s is not None or (chaos is not None and chaos.stalls):
+                raise NotImplementedError(
+                    "deadlines and chaos stalls under tensor parallelism (tp="
+                    f"{self._tp.tp_size}): a clock-driven host decision can differ "
+                    "between ranks; it arrives with 'TP with deadlines' (rank 0 decides, "
+                    "broadcast over a CPU gloo group)")
+            model, params = self._sharded(model, params, self._tp)
         if params is not None:
             bind_params(
                 model, {k: v.to(self.device) for k, v in params.items()}
@@ -386,8 +445,14 @@ class ServeEngine:
                                  f"on {self.device}")
             # the LoRA twin over the base weights and the bank's own
             # factor tensors: register/evict write what the forwards read
-            lora = TransformerLM(adapter_bank.model.cfg)
-            bind_params(lora, {**model.state_dict(), **adapter_bank.factors})
+            # (tensor parallel: the rank's views of them)
+            factors = adapter_bank.factors
+            if self._tp is not None:
+                factors = shard_params(factors, self._tp.rank, self._tp.tp_size,
+                                       head_dim=model.cfg.head_dim, views=True)
+            lora = TransformerLM(dataclasses.replace(adapter_bank.model.cfg,
+                                                     int8_mesh=model.cfg.int8_mesh))
+            bind_params(lora, {**model.state_dict(), **factors})
             model = lora
             self._merged_version = adapter_bank.version
         if kv_bits is not None:
@@ -436,6 +501,8 @@ class ServeEngine:
         self._state = init_slot_state(self._dec_model.cfg, n_slots, self.device,
                                       history=self.window if self._spec else 0,
                                       adapters=adapter_bank is not None)
+        if self._tp is not None:
+            self._check_shard_shapes()
         # pipelining: the chains in flight, and at depth >= 2 on a card one
         # pinned host buffer per chain in flight for its token block
         self._depth = int(pipeline_depth)
@@ -528,6 +595,10 @@ class ServeEngine:
         out-of-range id), or (paged) :class:`.pages.PoolExhausted` when it
         needs more pages than the whole pool holds. Admission snapshots the
         adapter row's generation into ``request.adapter_gen``."""
+        if self._tp is not None and request.deadline_s is not None:
+            raise NotImplementedError(
+                "Request.deadline_s under tensor parallelism: a clock-driven host decision "
+                "can differ between ranks; it arrives with 'TP with deadlines'")
         aid = int(request.adapter)
         if aid and self._bank is None:
             raise ValueError(f"request names adapter {aid} but the engine has no adapter "
@@ -747,7 +818,9 @@ class ServeEngine:
         factors = self._bank.factors
         for model in {id(m): m for m in (self.model, self._dec_model)}.values():
             for name, p in model.named_parameters():
-                if name in factors and p.data_ptr() != factors[name].data_ptr():
+                # the bank's tensor itself, or (tensor parallel) a view of it
+                if name in factors and (p.untyped_storage().data_ptr()
+                                        != factors[name].untyped_storage().data_ptr()):
                     raise RuntimeError(f"{name} is no longer the bank's tensor")
         self._merged_version = self._bank.version
         if self._flight is not None:
@@ -799,7 +872,8 @@ class ServeEngine:
         return {"pipeline_depth": self._depth, "prefill_chunk": self._chunk,
                 "n_chunks": self.n_chunks}
 
-    _STATS_PARTS = ("prefix", "spec", "adapters", "fault", "flight", "pipeline", "pages")
+    _STATS_PARTS = ("prefix", "spec", "adapters", "fault", "flight", "pipeline", "pages",
+                    "tp")
 
     def stats(self, *parts: str) -> dict[str, int | float]:
         """One dict over the per-subsystem stats (the JAX engine's parts
@@ -813,12 +887,107 @@ class ServeEngine:
         fns = {"prefix": self.prefix_stats, "spec": self.spec_stats,
                "adapters": self.adapter_stats, "fault": self.fault_stats,
                "flight": self.flight_stats, "pipeline": self.pipeline_stats,
-               "pages": self.page_stats}
+               "pages": self.page_stats, "tp": self.tp_stats}
         out: dict[str, int | float] = {}
         for part in self._STATS_PARTS:
             if part in chosen:
                 out.update(fns[part]())
         return out
+
+    @staticmethod
+    def _sharded(model: TransformerLM, params, tp: TensorParallel):
+        """``(model, params)`` of this rank: a model built with
+        ``cfg.int8_mesh`` already holds (or is given) its shard; a whole
+        one's weights (``params``, or the model's own) are cut to the
+        rank's (copies: the whole tree can go) and bound to its sharded
+        twin."""
+        if model.cfg.int8_mesh is not None:
+            return model, params
+        whole = params if params is not None else model.state_dict()
+        cfg = dataclasses.replace(model.cfg, int8_mesh=tp)
+        return TransformerLM(cfg), shard_params(whole, tp.rank, tp.tp_size,
+                                                head_dim=cfg.head_dim)
+
+    def _whole_cache(self) -> KVCache | PagedKVCache:
+        """The slot cache as the unsharded engine would hold it, on the
+        meta device (shapes and dtypes only)."""
+        cfg = dataclasses.replace(self._dec_model.cfg, int8_mesh=None)
+        if cfg.kv_pages:
+            return PagedKVCache.zeros(cfg, self.n_slots, device="meta")
+        return KVCache.zeros(cfg, self.n_slots, device="meta")
+
+    def _check_shard_shapes(self) -> None:
+        """The counterpart of the JAX engine's ``_pin``, once: every slot
+        cache leaf this rank holds has the shard shape the slot-state
+        rules give the whole one (KV heads split, unless the group size
+        does not divide them; everything else whole)."""
+        whole = _cache_leaves(self._whole_cache())
+        want = self._tp.shard_shapes({k: v.shape for k, v in whole.items()})
+        got = {k: tuple(v.shape) for k, v in _cache_leaves(self._state.cache).items()}
+        if got != want:
+            raise RuntimeError(f"slot state shapes {got} are not the shard shapes {want}")
+
+    def tp_stats(self) -> dict[str, int | float | str | bool]:
+        """Tensor-parallel fields (the JAX engine's keys): ``{"tp": 1}``
+        replicated; else ``tp``, ``mesh_shape`` (``"model:N"``), the
+        backend, ``tp_kv_bytes_per_chip`` (this rank's slot cache: K, V,
+        scales, positions and tables) beside ``tp_kv_bytes_global`` (the
+        unsharded engine's), and after :meth:`audit_decode`
+        ``tp_collectives`` (the audited chain's total) and ``tp_hlo_ok``
+        (its verdict; the JAX key, whose audit reads the compiled
+        program). Host arithmetic only."""
+        if self._tp is None:
+            return {"tp": 1}
+        out: dict[str, int | float | str | bool] = {
+            "tp": self._tp.tp_size,
+            "mesh_shape": ",".join(f"{k}:{v}" for k, v in self._tp.mesh_shape.items()),
+            "tp_backend": self._tp.backend,
+            "tp_kv_bytes_per_chip": tree_nbytes(self._state.cache),
+            "tp_kv_bytes_global": tree_nbytes(self._whole_cache()),
+        }
+        if self._tp_audit is not None:
+            out["tp_collectives"] = sum(self._tp_audit["collectives"].values())
+            out["tp_hlo_ok"] = self._tp_audit["ok"]
+        return out
+
+    def expected_collectives(self, forwards: int = 1) -> dict[str, int]:
+        """The collectives ``forwards`` decode forwards of this engine
+        issue: an ``all_reduce`` after each split row-parallel projection
+        (o_proj, down_proj; with an adapter bank one more for each one's
+        LoRA delta) a layer, one ``all_gather`` of split logits."""
+        lay = tp_layout(self._dec_model.cfg)
+        rows = (lay.split_heads + lay.split_ff) * (1 + (self._bank is not None))
+        return {"all_reduce": forwards * self._dec_model.cfg.n_layers * rows,
+                "all_gather": forwards * int(lay.split_vocab)}
+
+    @torch.no_grad()
+    def audit_decode(self) -> dict:
+        """Run one decode chain over the (idle) slots and count the
+        collectives it issued (the counterpart of the JAX engine's
+        ``audit_decode_hlo``): ``ok`` only at exactly
+        :meth:`expected_collectives` for its ``tokens_per_launch`` forwards
+        — an ``all_reduce`` after each row-parallel projection and one
+        logits ``all_gather`` a forward; a stray collective (a K/V gather, a
+        reshard) fails it. Every rank calls it at the same point (the chain
+        issues collectives). Idle slots step as inactive ones always do (no
+        token is kept; refills rewrite their state). No host sync beyond
+        what the backend's collectives make."""
+        if self._tp is None:
+            raise ValueError("audit_decode needs a tensor-parallel engine (strategy with tp > 1)")
+        if not self.idle:
+            raise RuntimeError("audit_decode needs an idle engine")
+        self._tp.reset_collectives()
+        self._spec_chain() if self._spec else self._chain()
+        got = dict(self._tp.collectives)
+        want = self.expected_collectives(self.tokens_per_launch)
+        problems = [f"{kind}: {got.get(kind, 0)} != {n}" for kind, n in want.items()
+                    if got.get(kind, 0) != n]
+        problems += [f"unexpected {kind}: {n}" for kind, n in got.items()
+                     if kind not in want and n]
+        self._tp_audit = {"collectives": got, "expected": want,
+                          "forwards": self.tokens_per_launch, "problems": problems,
+                          "ok": not problems}
+        return self._tp_audit
 
     def run_until_idle(self, max_steps: int = 10_000) -> list[Completion]:
         """Drain queue + slots; returns completions in finish order."""
@@ -835,7 +1004,9 @@ class ServeEngine:
         at the next boundary (queued or pending: no tokens and no further
         device work; decoding: the tokens landed so far are kept and the
         slot released). False for an id that finished or was never
-        submitted. No sync, no interrupt of a running chain."""
+        submitted. No sync, no interrupt of a running chain. Under tensor
+        parallelism the caller makes the same call on every rank at the
+        same point of the loop (between the same two steps)."""
         known = (any(a is not None and a.request.request_id == request_id
                      for a in self._slots)
                  or any(p.request.request_id == request_id for p in self._pending.values())

@@ -19,6 +19,10 @@ to the free list.
   releases it.
 - **Lowest-id-first reuse** (a heap) keeps the occupied region dense, so
   ``high_water * page_bytes`` is the most pool memory ever live at once.
+  On a tensor-parallel engine ``page_bytes`` is priced per rank: each
+  rank's pools hold its KV heads only, so a page costs it 1/tp of the
+  unsharded bytes (the engine prices it from the rank's own pools; this
+  allocator never sees a tensor).
 """
 
 from __future__ import annotations

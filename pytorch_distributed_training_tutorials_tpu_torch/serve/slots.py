@@ -29,6 +29,12 @@ into that slot and a per-slot position reset.
   cache, :func:`copy_page` copies one pool page (a shared boundary page's
   copy on write), and :func:`tree_nbytes` prices a segment from its shapes
   and dtypes.
+
+Tensor parallel: a rank's state holds the rank's KV heads only (the
+cache shapes come from ``tp_layout``), so every function here works on
+the shard unchanged, and :func:`tree_nbytes` is the rank's own bytes —
+the per-chip price the JAX package's ``tree_nbytes_sharded`` computes
+from shard shapes.
 """
 
 from __future__ import annotations

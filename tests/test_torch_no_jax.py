@@ -52,7 +52,9 @@ def test_port_modules_import_no_jax():
            "adapters", "adapters.registry", "adapters.bank", "adapters.lora",
            # serving's failure handling: the port's own copies of the fleet
            # router, the flight recorder and its histograms
-           "serve.router", "obs.flight", "obs.histogram")
+           "serve.router", "obs.flight", "obs.histogram",
+           # tensor-parallel serving: the strategy, its rules and spawn_tp
+           "parallel.tensor_parallel")
     assert {f"{PORT}.{m}" for m in ddp} <= set(mods)
     code = (
         "import sys\n"

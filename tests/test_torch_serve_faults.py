@@ -285,8 +285,11 @@ def test_admission_cancel_and_close(stream):
         "deadline_s": 300.0, "guard_nonfinite": 0, "chaos": 0, "deadline_expired": 0,
         "cancelled": 0, "nonfinite_quarantined": 0, "prefill_errors": 0}
     assert eng.stats("fault", "flight") == {**eng.fault_stats(), "flight": 0}
+    # tensor-parallel serving's part (the replicated engine's); a part of a
+    # slice still to come (prefill/decode roles) stays unknown
+    assert eng.stats("tp") == {"tp": 1}
     with pytest.raises(ValueError):
-        eng.stats("tp")
+        eng.stats("role")
 
 
 def test_poison_is_decided_on_the_host(stream, monkeypatch):

@@ -43,6 +43,9 @@ from pytorch_distributed_training_tutorials_tpu_torch.models import (
     init_quantized_lm,
     quantize_lm_params,
 )
+from pytorch_distributed_training_tutorials_tpu_torch.parallel.tensor_parallel import (
+    TensorParallel,
+)
 from helpers import requires_pallas_interpret
 
 pytestmark = requires_pallas_interpret
@@ -319,6 +322,27 @@ def test_unsupported_config_fields_raise(field, value):
         caches = [KVCache.zeros(c, 2, device="cpu") for c in (cfg, base_cfg)]
         got = model(toks, caches[0], prefill=True, adapter_ids=torch.tensor([0, 1]))
         assert torch.equal(got, base(toks, caches[1], prefill=True))
+        return
+    if field == "int8_mesh":
+        # supported since the tensor-parallel serving slice: a strategy (or
+        # a process group / a mesh with a model axis, taken as one) is
+        # accepted; any other value is misuse and raises TypeError naming
+        # the field. A strategy of one rank shards nothing: the model is the
+        # unsharded one, value for value
+        with pytest.raises(TypeError, match=field):
+            TransformerConfig(**{**TOY, "quantized": True, field: value})
+        strat = TensorParallel()
+        cfg = TransformerConfig(**{**TOY, "quantized": True, field: strat})
+        assert cfg.int8_mesh is strat
+        base_cfg = TransformerConfig(**{**TOY, "quantized": True})
+        params = init_quantized_lm(cfg, seed=0, device="cpu")
+        model, base = TransformerLM(cfg), TransformerLM(base_cfg)
+        bind_params(model, params)
+        bind_params(base, init_quantized_lm(base_cfg, seed=0, device="cpu"))
+        toks = torch.tensor([[1, 2, 3, 4]])
+        caches = [KVCache.zeros(c, 1, device="cpu") for c in (cfg, base_cfg)]
+        assert torch.equal(model(toks, caches[0], prefill=True),
+                           base(toks, caches[1], prefill=True))
         return
     if field == "attention_fn":
         # int8 prefill runs cfg.attention_fn since the prefill slice (the
