@@ -7,7 +7,7 @@
     python3 chip_smoke.py --serve-only    # phases 0, 1, 4 and the serving phases after it
     python3 chip_smoke.py --lora-only     # phases 0, 1 and the LoRA / dots_attn phases
     python3 chip_smoke.py --faults-only   # phases 0, 1 and the failure-handling phases
-    python3 chip_smoke.py --tp-only       # phases 0, 1 and tensor-parallel serving
+    python3 chip_smoke.py --tp-only       # phases 0, 1 and the tensor-parallel phases
 
 It drives the port (``pytorch_distributed_training_tutorials_tpu_torch``)
 on the card and fails — non-zero exit, no result line — if a phase fails.
@@ -275,6 +275,26 @@ decode step; host syncs a rank = chains + prefills = the replicated
 engine's (the sync debug mode's count beside it, with what gloo adds).
 With gloo its times are not tensor parallelism's speed.
 
+Then ``train_760m_tp2``, tensor-parallel training: the 760m preset of
+``bench/lm_headline.py`` at full depth and width (bf16, flash, remat
+"dots", the fused loss through ``fused_cross_entropy_tp``, fused AdamW,
+the skip guard) through ``Trainer(strategy=TensorParallel(create_mesh(
+{"model": 2})))`` on two spawned ranks (gloo on card 0 where the machine
+has one card), 4 steps, beside the single-device ``Trainer`` from the
+same seed: falling losses, every rank's losses the same floats and its
+replicated leaves the same bits, the first step's loss and named leaves'
+first moments (the step's gradient) within TP_TRAIN_LOSS_TOL and
+TP_TRAIN_GRAD_TOL of the single-device step's slices while a planted
+fault (f's backward sum dropped) falls outside, the collectives a step
+exactly TP_TRAIN_COLLECTIVES, and per rank a step 48 / 24 / 24 flash,
+1 / 1 / 1 fused-loss and 1 AdamW launches on the sm90 route. Its
+``kernel_vs_plain`` lines (``fused_cross_entropy_tp``, run with phase
+2): a rank's forward, dh and dW shard calls at N 4096, D 1536, V_local
+16384 held against the unsharded kernels at V 32768 and timed in turns
+with them. Phase 2's paged check also plants NaN past every row's depth
+in a recycled page at every pool storage (``paged_stale_nan``): both
+kernels' outputs finite and bitwise the zero-planted run's.
+
 Every serving stream is also run under PyTorch's sync debug mode: its
 stream syncs (with their call sites) must not exceed the host syncs the
 engine budgets.
@@ -399,10 +419,12 @@ SPEC_ARMS = {
     "p": dict(pipeline_depth=2),
     "sp": dict(speculative_k=SPEC_K, spec_ngram=SPEC_NGRAM, pipeline_depth=2),
 }
-# steady steps of the profiled window of each serve_1b_spec arm: two give
-# the overlap gate one chain pair at depth 1 and two at depth 2; each more
-# step adds its events to the profiler's processing on the host
-SPEC_PROFILE_STEPS = 2
+# steady steps of the profiled window of a serve_1b_spec arm at depth 1
+# (a, s): two give the overlap gate one chain pair; at depth 2 (p, sp) one
+# step already dispatches the next chain before it collects the last, one
+# pair. Each step adds its events to the profiler's processing on the
+# host, ~10 s a step at 1b, which the script's time limit feels
+SPEC_PROFILE_STEPS = {1: 2, 2: 1}
 
 # the 1b preset of examples/serve_llm_int8.py
 PRESET_1B = dict(
@@ -1015,6 +1037,103 @@ def phase_fused_ce(torch, fl, gpu: str) -> dict:
     return {"results": results, "max_abs_err": max_err, "worst_ratio": worst}
 
 
+FUSED_CE_TP_REPLACES = "pytorch_distributed_training_tutorials_tpu/ops/fused_loss.py:487"
+
+
+def phase_fused_ce_tp(torch, fl, gpu: str) -> dict:
+    """``fused_cross_entropy_tp``'s kernel work at TP 2, in this process:
+    each rank's shard calls of kernels 6-8 at the 760m loss with the
+    vocabulary split (N 4096, D 1536, V_local 16384, bf16, the sm90
+    route), the targets shifted by ``rank * V_local`` (out of the shard:
+    negative past the owner, ``>= V_local`` before it), the shards'
+    (lse, target) combined as the op's MAX and SUM do and dh summed in f32
+    — held element by element (``KERNEL_TOLERANCE``) against the unsharded
+    kernels at V 32768: lse, the target logit, dh and each rank's dW
+    columns. Each shard call timed in turns with the unsharded call (shard,
+    whole, whole, shard), beside its plain version, its bound at V 16384
+    and the materialized logits of the shard as the library yardstick."""
+    import torch.nn.functional as F
+
+    n, d, v = FUSED_CE_SHAPES[0][:3]
+    vl = v // TP
+    dev = torch.device("cuda")
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    h = torch.randn((n, d), generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn((d, v), generator=gen, device=dev) * d ** -0.5).to(torch.bfloat16)
+    y = torch.randint(0, v, (n,), generator=gen, device=dev)
+    g = torch.full((n,), 1.0 / n, device=dev)
+    lse, tgt = fl.fused_ce_fwd(h, w, y)
+    dh = fl.fused_ce_dh(h, w, y, lse, g)
+    dw = fl.fused_ce_dw(h, w, y, lse, g)
+    ws = [w[:, r * vl:(r + 1) * vl].contiguous() for r in range(TP)]
+    ys = [y - r * vl for r in range(TP)]
+    routes0 = {k: dict(c) for k, c in fl.fused_cross_entropy.routes.items()}
+    parts = [fl.fused_ce_fwd(h, ws[r], ys[r]) for r in range(TP)]
+    # the op's collectives, in one process: a MAX, then one SUM of the
+    # shifted exp-sums and of the target logits
+    m = torch.stack([p[0] for p in parts]).amax(0)
+    lse_g = m + torch.log(sum(torch.exp(p[0] - m) for p in parts))
+    tgt_g = sum(p[1] for p in parts)
+    dh_g = sum(fl.fused_ce_dh(h, ws[r], ys[r], lse_g, g, out_dtype=torch.float32)
+               for r in range(TP)).to(h.dtype)
+    dws = [fl.fused_ce_dw(h, ws[r], ys[r], lse_g, g) for r in range(TP)]
+    for k in ("fwd", "dh", "dw"):
+        if fl.fused_cross_entropy.routes[k]["sm90"] != routes0[k]["sm90"] + TP:
+            raise AssertionError(f"fused_cross_entropy_tp's {k} shard calls left the sm90 "
+                                 f"route: {fl.fused_cross_entropy.routes}")
+    torch.cuda.synchronize()
+    errs = {"lse": fl.kernel_error(lse_g, lse), "tgt": fl.kernel_error(tgt_g, tgt),
+            "dh": fl.kernel_error(dh_g, dh)}
+    errs.update({f"dw_rank{r}": fl.kernel_error(dws[r], dw[:, r * vl:(r + 1) * vl])
+                 for r in range(TP)})
+    bad = {k: e for k, e in errs.items() if not e["worst_ratio"] <= 1.0}
+    if bad:
+        raise AssertionError(f"fused_cross_entropy_tp shards != the unsharded kernels: {bad}")
+    # rank 0's shard calls, timed (rank 1's are the same work)
+    h0, w0, y0 = h, ws[0], ys[0]
+    yc = y0.clamp(0, vl - 1)
+    hl, wl = h0.detach().requires_grad_(True), w0.detach().requires_grad_(True)
+    lib_loss = F.cross_entropy((hl @ wl).float(), yc, reduction="none")
+    calls = {
+        "fwd": (lambda: fl.fused_ce_fwd(h0, w0, y0), lambda: fl.fused_ce_fwd(h, w, y),
+                lambda: fl.fused_ce_fwd_reference(h0, w0, y0),
+                lambda: F.cross_entropy((h0 @ w0).float(), yc, reduction="none")),
+        "dh": (lambda: fl.fused_ce_dh(h0, w0, y0, lse_g, g, out_dtype=torch.float32),
+               lambda: fl.fused_ce_dh(h, w, y, lse, g),
+               lambda: fl.fused_ce_dh_reference(h0, w0, y0, lse_g, g),
+               lambda: torch.autograd.grad(lib_loss, (hl, wl), g, retain_graph=True)),
+        "dw": (lambda: fl.fused_ce_dw(h0, w0, y0, lse_g, g), lambda: fl.fused_ce_dw(h, w, y, lse, g),
+               lambda: fl.fused_ce_dw_reference(h0, w0, y0, lse_g, g), None),
+    }
+    results = {}
+    for kind, (shard, whole, plain, lib) in calls.items():
+        turns = time_turns_ms(shard, whole, torch, flush, warmup=1)
+        ms, whole_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        plain_ms = time_ms(plain, torch, flush, reps=5, warmup=1)
+        lib_ms = (time_ms(lib, torch, flush, warmup=1) if lib is not None
+                  else results["dh"]["library_ms"])
+        b_ms, b_by = fused_ce_bound(kind, n, d, vl, h.element_size(), BF16_FLOPS)
+        names = {"fwd": ("lse", "tgt"), "dh": ("dh",), "dw": ("dw_rank0", "dw_rank1")}[kind]
+        row = dict(ms=ms, unsharded_ms=whole_ms, turns_ms=turns, plain_ms=plain_ms,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                   max_abs_err=max(errs[x]["max_abs_err"] for x in names),
+                   worst_ratio=max(errs[x]["worst_ratio"] for x in names))
+        results[kind] = row
+        emit({
+            "phase": "kernel_vs_plain", "kernel": "fused_cross_entropy_tp", "kind": kind,
+            "tp": TP, "N": n, "D": d, "V": v, "V_local": vl, "dtype": "bf16", "route": "sm90",
+            "errors": {x: errs[x] for x in names}, **row, "roofline_share": b_ms / ms,
+            "library": "the shard's materialized logits: cuBLAS h @ W_local + F.cross_entropy"
+                       + (" forward" if kind == "fwd" else
+                          ", that pair's backward (one number for dh and dW)"),
+            "gpu": gpu,
+        })
+    del hl, wl, lib_loss, calls
+    return {"results": results,
+            "max_abs_err": max(e["max_abs_err"] for e in errs.values())}
+
+
 def bit_checksum(torch, tensors) -> "torch.Tensor":
     """(2,) int64 on the device: the sum and the sum of squares (mod 2^64)
     of the tensors' 32-bit patterns; any changed bit moves the first. A
@@ -1324,7 +1443,57 @@ def phase_paged(torch, pa, gpu: str) -> dict:
             "sms": torch.cuda.get_device_properties(0).multi_processor_count,
             "gpu": gpu,
         })
-    return {"results": results, "max_abs_err": max_err, "worst_ratio": worst}
+    stale = paged_stale_nan(torch, pa, gpu)
+    return {"results": results, "max_abs_err": max_err, "worst_ratio": worst,
+            "stale_nan": stale}
+
+
+def paged_stale_nan(torch, pa, gpu: str) -> list:
+    """Stale NaN in recycled pages stays out (ROADMAP C1): on the 1b-gqa
+    decode shape (rows at depths 0, 1000 and 2500 end inside a page) at
+    every pool storage, NaN planted in K and V (the scales of a quantized
+    pool) at every position past each row's depth in its last live page —
+    what a previous tenant could leave — through the sm90 and the v1
+    kernel: the output finite and bitwise the run with those positions
+    zeroed."""
+    shape = PAGED_SHAPES[1]
+    name, b, s, h, kv, d, ps, p_cap, depths, parked = shape
+    out = []
+    for i, store in enumerate(PAGED_STORES):
+        q, k, v, table, pos, kw, live = paged_operands(torch, shape, store, "f32", 90 + i)
+        planted = (kw["k_scale"], kw["v_scale"]) if kw else (k, v)
+        tails = []
+        for r, depth in enumerate(depths):
+            last, first_dead = divmod(depth + s - 1, ps)
+            if first_dead + 1 < ps:
+                tails.append((int(table[r, last]), first_dead + 1))
+
+        def plant(value):
+            for t in planted:
+                for pid, lo in tails:
+                    t[pid, lo:] = value
+
+        for route in (None, "v1"):
+            plant(float("nan"))
+            routes0 = dict(pa.paged_attention.routes)
+            got = pa.paged_attention(q, k, v, table, pos, **kw, route=route)
+            taken = {k_: pa.paged_attention.routes[k_] - routes0[k_] for k_ in routes0}
+            plant(0.0)
+            zero = pa.paged_attention(q, k, v, table, pos, **kw, route=route)
+            torch.cuda.synchronize()
+            finite = bool(torch.isfinite(got).all())
+            equal = bool(torch.equal(got, zero))
+            row = {"phase": "paged_stale_nan", "shape": name, "storage": store,
+                   "route": route or "sm90", "launches": taken, "dead_tails": tails,
+                   "finite": finite, "equal_zero_planted": equal, "ok": finite and equal,
+                   "gpu": gpu}
+            emit(row)
+            out.append({k_: row[k_] for k_ in ("storage", "route", "finite",
+                                               "equal_zero_planted")})
+            if not (finite and equal and taken[route or "sm90"] == 1):
+                raise AssertionError(f"stale NaN past the depth reached the paged kernel's "
+                                     f"output: {row}")
+    return out
 
 
 def phase_model(torch, gpu: str) -> None:
@@ -2464,10 +2633,11 @@ def phase_serve_spec(torch, fa, gpu: str) -> dict:
             bad.append(f"{syncs} host syncs != {chains} chains + {prefills} prefills")
         if real["count"] > syncs:
             bad.append(f"{real['count']} stream syncs > the {syncs} budgeted: {real['sites']}")
+        depth = options.get("pipeline_depth", 1)
         t_prof = time.perf_counter()
-        prof = profile_steps(torch, eng, mk_request, SPEC_PROFILE_STEPS)
+        prof = profile_steps(torch, eng, mk_request, SPEC_PROFILE_STEPS[depth])
         prof_s = time.perf_counter() - t_prof
-        piped = options.get("pipeline_depth", 1) > 1
+        piped = depth > 1
         overlap = [p["next_queued_before_collect_returned"] for p in prof["chain_pairs"]]
         if not prof["launch_events"] or not overlap or any(x != piped for x in overlap):
             bad.append(f"profiled chain pairs {prof['chain_pairs']}: want every next chain "
@@ -3499,6 +3669,294 @@ def phase_serve_tp(torch, quant, gpu: str) -> dict:
     if problems:
         raise AssertionError("; ".join(problems))
     return {"kern": kern, "launches": launches, "backend": backend}
+
+
+# train_760m_tp2: bench/lm_headline.py's 760m preset (vocab 32768, d_model
+# 1536, 24 layers, 16 heads of 96, d_ff 6144, seq 2048, batch 2, bf16,
+# flash, remat "dots") with the fused loss, fused AdamW (3e-4, weight decay
+# 0.01) and the skip guard, through Trainer(strategy=TensorParallel(
+# create_mesh({"model": 2}))): 8 heads, 3072 of d_ff and 16384 vocabulary
+# columns a rank, both ranks on card 0 over gloo; beside the single-device
+# Trainer from the same seed. Full depth and width.
+TP_TRAIN_STEPS = 4
+TP_TRAIN_CFG = dict(PRESET_760M, max_seq_len=2048, remat=True, remat_policy="dots")
+TP_TRAIN_BATCH = 2
+# the leaves whose first step is held against the single-device step's
+# slice: AdamW's first moment after one step is (1 - b1) g, the step's
+# gradient (an early and a late block's column and row shards, norms)
+TP_TRAIN_LEAVES = ("blocks.0.attn_norm.scale", "blocks.0.attn.q_proj.weight",
+                   "blocks.0.attn.o_proj.weight", "blocks.12.mlp_norm.scale",
+                   "blocks.12.attn.k_proj.weight", "blocks.23.attn.o_proj.weight",
+                   "final_norm.scale")
+# the first step's gates against the single-device step: the loss within
+# 1e-3 of it (relative), and each named leaf's first moment within 10% of
+# the single-device one's (relative error norm). Both sides run bf16
+# matmuls: TP rounds each half-K row-parallel partial to bf16 and gloo
+# sums the pair in bf16, a bf16 ulp (2^-8) of every row-parallel output
+# against the single-device product's one rounding, which the layers
+# carry into the gradients at the percent level (0.4-1.0% on a 2-layer
+# toy model on the CPU); the planted fault (f's backward sum dropped: a
+# column region's input gradient only the rank's part) missed by 63-94%
+# there. The first update itself is no gate: AdamW's first step is lr
+# times the gradient's sign (plus the decay), the same bits wherever the
+# signs agree, fault or not
+TP_TRAIN_LOSS_TOL = 1e-3
+TP_TRAIN_GRAD_TOL = 0.1
+# per rank and step: every block's g twice forward and once more in its
+# recompute (remat "dots" recomputes a block only up to the last tensor
+# its backward reads, the down_proj's matmul: its sum is not redone), f
+# twice backward; the fused loss's MAX, SUM and dh; the guard's flag MIN
+TP_TRAIN_COLLECTIVES = {
+    "all_reduce": 0, "all_gather": 0, "g": 3 * PRESET_760M["n_layers"],
+    "f": 2 * PRESET_760M["n_layers"], "lse_max": 1, "lse_sum": 1, "dh": 1, "flag_min": 1}
+
+
+def tp_train_batch():
+    """bench/lm_headline.py's batch: tokens from PCG64(0), (2, 2049)."""
+    import numpy as np
+
+    rng = np.random.Generator(np.random.PCG64(0))
+    toks = rng.integers(0, PRESET_760M["vocab_size"], (TP_TRAIN_BATCH, 2049))
+    return toks[:, :-1], toks[:, 1:]
+
+
+def tp_train_run(torch, tp, steps: int) -> dict:
+    """``steps`` steps of the 760m fused, guarded Trainer — with ``tp`` a
+    TensorParallel, this rank's shard; None, the single-device Trainer —
+    one step an epoch on one batch: the losses, each step's host ms (to
+    the epoch's fetch), peak memory, the launches and routes, the
+    collectives, the first step's loss, first moments and updates of
+    TP_TRAIN_LEAVES (this rank's shards, on the host) and the bit sums
+    of the replicated leaves."""
+    from pytorch_distributed_training_tutorials_tpu_torch.data import ArrayDataset, ShardedLoader
+    from pytorch_distributed_training_tutorials_tpu_torch.models import (
+        TransformerConfig,
+        TransformerLM,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        make_flash_attention,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.fused_loss import (
+        fused_cross_entropy,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.fused_optim import fused_adamw
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel.mesh import create_mesh
+    from pytorch_distributed_training_tutorials_tpu_torch.train import Trainer
+
+    cfg = TransformerConfig(**TP_TRAIN_CFG, dtype=torch.bfloat16,
+                            attention_fn=make_flash_attention(1024, 1024))
+    x, y = tp_train_batch()
+    mesh = tp.mesh if tp is not None else create_mesh(device="cuda")
+    loader = ShardedLoader(ArrayDataset((x, y)), TP_TRAIN_BATCH, mesh, batch_mode="global",
+                           shuffle=False)
+    t0 = time.perf_counter()
+    trainer = Trainer(TransformerLM(cfg), loader, fused_adamw(3e-4, weight_decay=0.01),
+                      strategy=tp, loss="fused_cross_entropy", seed=0, quiet=True,
+                      skip_nonfinite=True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    model, state = trainer.model, trainer.state
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    named = {n: p for n, p in model.named_parameters()}
+    before = {n: named[n].detach().cpu() for n in TP_TRAIN_LEAVES}
+    for counts in (flash_attention.launches, *flash_attention.routes.values(),
+                   fused_cross_entropy.launches, *fused_cross_entropy.routes.values()):
+        for k in counts:
+            counts[k] = 0
+    fused_adamw.launches = 0
+    if tp is not None:
+        tp.reset_collectives()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, first = [], {}
+    for e in range(1, steps + 1):
+        t = time.perf_counter()
+        trainer.train(e)  # one step an epoch, its loss fetched at the epoch's end
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        if e == 1:
+            mu = state.opt_state.mu
+            first = {"mu": {n: mu[names.index(n)].detach().cpu() for n in TP_TRAIN_LEAVES},
+                     "update": {n: named[n].detach().cpu() - before[n]
+                                for n in TP_TRAIN_LEAVES}}
+    replicated = [p for n, p in named.items() if n == "tok_emb.weight" or n.endswith(".scale")]
+    out = {
+        "losses": [ev["loss"] for ev in trainer.metrics.step_events()],
+        "skipped": trainer.steps_skipped, "step_ms": step_ms, "init_s": init_s,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "flash": dict(flash_attention.launches),
+        "flash_routes": {k: dict(c) for k, c in flash_attention.routes.items()},
+        "fused_loss": dict(fused_cross_entropy.launches),
+        "fused_loss_routes": {k: dict(c) for k, c in fused_cross_entropy.routes.items()},
+        "fused_adamw": fused_adamw.launches,
+        "collectives": dict(tp.collectives) if tp is not None else {},
+        "replicated_bits": bit_checksum(torch, replicated).tolist(),
+        "n_params": sum(p.numel() for p in model.parameters()), **first,
+    }
+    del trainer, model, state, named, replicated
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_train_rank(world_tp, steps: int) -> dict:
+    """One rank of train_760m_tp2 (spawned by ``spawn_tp``): the strategy
+    over the ``{"model": 2}`` mesh, ``steps`` steps, then one step of a
+    fresh run with the planted fault — f's backward sum replaced by the
+    identity (``copy_to`` the identity both ways) — for the gate to
+    catch."""
+    import torch
+
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel.mesh import create_mesh
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel.tensor_parallel import (
+        TensorParallel,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tp = TensorParallel(create_mesh({"model": TP}, device="cuda"))
+    out = tp_train_run(torch, tp, steps)
+    tp.copy_to = lambda x: x
+    fault = tp_train_run(torch, tp, 1)
+    del tp.copy_to
+    out["fault"] = {k: fault[k] for k in ("losses", "mu", "update", "collectives")}
+    out["rank"] = tp.rank
+    return out
+
+
+def rel_err(torch, got, want) -> float:
+    return float((got.double() - want.double()).norm() / want.double().norm().clamp_min(1e-30))
+
+
+def tp_train_gaps(torch, rank_run: dict, ref: dict, rank: int) -> dict:
+    """A rank's first-step loss and its TP_TRAIN_LEAVES' first moments and
+    updates against the single-device step's, sliced to the rank's shard."""
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel.tensor_parallel import (
+        shard_params,
+    )
+
+    head_dim = PRESET_760M["d_model"] // PRESET_760M["n_heads"]
+    gaps = {"loss": abs(rank_run["losses"][0] - ref["losses"][0]) / abs(ref["losses"][0])}
+    for what in ("mu", "update"):
+        want = shard_params(ref[what], rank, TP, head_dim=head_dim)
+        gaps[what] = {n: rel_err(torch, rank_run[what][n], want[n]) for n in TP_TRAIN_LEAVES}
+    return gaps
+
+
+def phase_train_tp(torch, gpu: str) -> dict:
+    """``train_760m_tp2``: tensor-parallel training at TP 2 (TP_TRAIN_CFG),
+    the single-device Trainer first, here, then the two ranks (NCCL with a
+    card each, else gloo on card 0). Gates: finite losses that fall; every
+    rank's losses the same floats and its replicated leaves (embedding,
+    norms) the same bits after the steps; the first step's loss within
+    TP_TRAIN_LOSS_TOL of the single-device one's and each named leaf's
+    first moment within TP_TRAIN_GRAD_TOL of its slice, and the planted
+    fault (f's backward sum dropped) outside it, its gap printed; the
+    collectives a step exactly TP_TRAIN_COLLECTIVES; per rank a step 48 /
+    24 / 24 flash, 1 / 1 / 1 fused-loss and 1 AdamW launches, all sm90.
+    Step ms and peak memory a rank beside the single-device step's (with
+    gloo not TP's speed)."""
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel.tensor_parallel import (
+        spawn_tp,
+    )
+
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= TP else "gloo"
+    ref = tp_train_run(torch, None, TP_TRAIN_STEPS)
+    t0 = time.perf_counter()
+    ranks = spawn_tp(tp_train_rank, TP, (TP_TRAIN_STEPS,), backend=backend, device="cuda",
+                     join_timeout_s=900)
+    ranks_s = time.perf_counter() - t0
+    steps = TP_TRAIN_STEPS
+    problems = []
+    want_flash = {k: n * steps for k, n in FLASH_PER_STEP.items()}
+    want_fused = {k: n * steps for k, n in FUSED_PER_STEP.items()}
+    want_coll = {k: n * steps for k, n in TP_TRAIN_COLLECTIVES.items()}
+    gaps = [tp_train_gaps(torch, r, ref, r["rank"]) for r in ranks]
+    fault_gaps = [tp_train_gaps(torch, r["fault"], ref, r["rank"]) for r in ranks]
+    for run in (ref, *ranks):
+        who = "single device" if run is ref else f"rank {run['rank']}"
+        losses = run["losses"]
+        if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+            problems.append(f"{who}: losses {losses} not finite and falling")
+        if run["skipped"]:
+            problems.append(f"{who}: {run['skipped']} steps skipped")
+        if (run["flash"] != want_flash or run["fused_loss"] != want_fused
+                or run["fused_adamw"] != ADAMW_PER_STEP * steps):
+            problems.append(f"{who}: launches flash {run['flash']}, fused loss "
+                            f"{run['fused_loss']}, AdamW {run['fused_adamw']}")
+        routes = (*run["flash_routes"].values(), *run["fused_loss_routes"].values())
+        if any(c["sm80"] for c in routes):
+            problems.append(f"{who}: a launch left the sm90 route: {routes}")
+    for r, g, fg in zip(ranks, gaps, fault_gaps):
+        if r["losses"] != ranks[0]["losses"]:
+            problems.append(f"rank {r['rank']}: losses {r['losses']} != rank 0's")
+        if r["replicated_bits"] != ranks[0]["replicated_bits"]:
+            problems.append(f"rank {r['rank']}: replicated leaves differ from rank 0's")
+        if r["collectives"] != want_coll:
+            problems.append(f"rank {r['rank']}: collectives {r['collectives']} != {want_coll}")
+        if not (g["loss"] <= TP_TRAIN_LOSS_TOL
+                and max(g["mu"].values()) <= TP_TRAIN_GRAD_TOL):
+            problems.append(f"rank {r['rank']}: first step off the single-device one: {g}")
+        if max(fg["mu"].values()) <= TP_TRAIN_GRAD_TOL:
+            problems.append(f"rank {r['rank']}: the planted fault passed the gate: {fg}")
+    emit({
+        "phase": "train_760m_tp2", "tp": TP, "backend": backend, "cards": cards,
+        "config": {**TP_TRAIN_CFG, "dtype": "bf16", "attention": "flash",
+                   "batch": TP_TRAIN_BATCH, "loss": "fused_cross_entropy",
+                   "optimizer": "fused_adamw(3e-4, weight_decay=0.01)",
+                   "skip_nonfinite": True},
+        "steps": steps, "n_params_single": ref["n_params"],
+        "n_params_per_rank": [r["n_params"] for r in ranks],
+        "losses_single": ref["losses"], "losses_per_rank": [r["losses"] for r in ranks],
+        "first_step_gaps": gaps, "tolerance": {"loss": TP_TRAIN_LOSS_TOL,
+                                               "first_moment": TP_TRAIN_GRAD_TOL},
+        "planted_fault": "f's backward all_reduce replaced by the identity",
+        "planted_fault_gaps": fault_gaps,
+        "collectives_per_step": [{k: v / steps for k, v in r["collectives"].items()}
+                                 for r in ranks],
+        "expected_collectives_per_step": TP_TRAIN_COLLECTIVES,
+        "launches_per_rank": [{"flash": r["flash"], "fused_loss": r["fused_loss"],
+                               "fused_adamw": r["fused_adamw"]} for r in ranks],
+        "routes_rank0": {"flash": ranks[0]["flash_routes"],
+                         "fused_loss": ranks[0]["fused_loss_routes"]},
+        "step_ms_single": ref["step_ms"], "step_ms_per_rank": [r["step_ms"] for r in ranks],
+        "peak_memory_bytes_single": ref["peak_memory_bytes"],
+        "peak_memory_bytes_per_rank": [r["peak_memory_bytes"] for r in ranks],
+        "init_s_single": ref["init_s"], "init_s_per_rank": [r["init_s"] for r in ranks],
+        "ranks_s": ranks_s, "timing_note": TP_NOTE if backend == "gloo" else None,
+        "ok": not problems, "problems": problems, "gpu": gpu,
+    })
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"fused_loss": ranks[0]["fused_loss"], "routes": ranks[0]["fused_loss_routes"],
+            "backend": backend}
+
+
+def fused_ce_tp_row(kern: dict, train: dict) -> dict:
+    """The kernels line's ``fused_cross_entropy_tp`` row: one TP-2 rank's
+    shard calls of one 760m train step (forward, dh, dW at N 4096, D 1536,
+    V_local 16384), times, plain times, bounds and the library yardstick
+    summed over the three; launches from train_760m_tp2's rank 0."""
+    res = kern["results"]
+    tot = {k: sum(res[kind][k] for kind in ("fwd", "dh", "dw"))
+           for k in ("ms", "unsharded_ms", "plain_ms", "bound_ms")}
+    return {
+        "name": "fused_cross_entropy_tp", "route": "cuda",
+        "source": f"{PKG}/csrc/fused_loss_sm90.cu", "replaces": FUSED_CE_TP_REPLACES,
+        "wrapper": f"{PKG}/ops/fused_loss.py fused_cross_entropy_tp",
+        "launches": sum(train["fused_loss"].values()),
+        "launches_by_kernel": train["fused_loss"], "route_counts": train["routes"],
+        "max_abs_err": kern["max_abs_err"], **tot,
+        "bound_by": "operations", "library_ms": res["fwd"]["library_ms"]
+        + res["dh"]["library_ms"],
+        "by_kernel": {kind: {k: res[kind][k] for k in ("ms", "unsharded_ms", "plain_ms",
+                                                         "bound_ms", "library_ms")}
+                      for kind in ("fwd", "dh", "dw")},
+        "work": f"one rank's share of one 760m train step at TP {TP}: the forward, dh and dW "
+                "shard calls at N=4096 D=1536 V_local=16384 bf16",
+        "backend": train["backend"],
+        "library_note": "the shard's materialized logits: cuBLAS h @ W_local + "
+                        "F.cross_entropy, forward and backward",
+    }
 
 
 LOSSES = ("cross_entropy", "fused_cross_entropy")
@@ -5299,8 +5757,9 @@ def main(argv=None) -> int:
                          "(serve_1b_faults, serve_1b_gqa_paged_faults, serve_1b_flight, "
                          "serve_1b_fleet)")
     ap.add_argument("--tp-only", action="store_true",
-                    help="after the build, run the tensor-parallel serving phase only "
-                         "(serve_1b_tp2)")
+                    help="after the build, run the tensor-parallel phases only "
+                         "(serve_1b_tp2, fused_cross_entropy_tp's kernel check, "
+                         "train_760m_tp2)")
     args = ap.parse_args(argv)
 
     import torch
@@ -5381,7 +5840,10 @@ def main(argv=None) -> int:
         emit({"phase": "phase_seconds", **seconds})
         return 0
     if args.tp_only:
-        emit({"kernels": [tp_kernel_row(run(phase_serve_tp, torch, quant, gpu))]})
+        tp_row = tp_kernel_row(run(phase_serve_tp, torch, quant, gpu))
+        ce_tp = run(phase_fused_ce_tp, torch, fl, gpu)
+        train_tp = run(phase_train_tp, torch, gpu)
+        emit({"kernels": [tp_row, fused_ce_tp_row(ce_tp, train_tp)]})
         emit({"phase": "phase_seconds", **seconds})
         return 0
     if args.faults_only:
@@ -5397,6 +5859,7 @@ def main(argv=None) -> int:
     kern = run(phase_kernels, torch, quant, gpu)
     flash = run(phase_flash, torch, fa, gpu)
     fused = run(phase_fused_ce, torch, fl, gpu)
+    ce_tp = run(phase_fused_ce_tp, torch, fl, gpu)
     adamw_row = run(phase_adamw, torch, gpu)
     paged = run(phase_paged, torch, pa, gpu)
     flash_serving = run(phase_flash_serving, torch, fa, gpu)
@@ -5411,6 +5874,7 @@ def main(argv=None) -> int:
     lora = run(phase_serve_lora, torch, quant, fa, pa, gpu)
     faults, paged_faults, fleet = fault_phases()
     tp = run(phase_serve_tp, torch, quant, gpu)
+    train_tp = run(phase_train_tp, torch, gpu)
     run(phase_train_card_vs_cpu, torch, gpu)
     base = run(phase_train, torch, gpu)
     train_launches = base["flash"]
@@ -5596,12 +6060,14 @@ def main(argv=None) -> int:
         | {"bound_by": paged["results"][("1b-gqa-verify", "f32", "f32")]["bound_by"],
            "work": "one 1b-gqa verify forward: 16 calls at B=4 S=3 H=16 KV=4 D=128, depths "
                    "(34, 498, 1518, 40), f32"},
+        "stale_nan_checks": paged["stale_nan"],
         "splice": {k: paged["results"][("1b-gqa-splice", "f32", "f32")][k]
                    for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
         | {"work": "one call at B=1 S=256 H=16 KV=4 D=128 from depth 96, f32, in row "
                    "blocks"},
     })
     kernels.append(tp_kernel_row(tp))
+    kernels.append(fused_ce_tp_row(ce_tp, train_tp))
     emit({"kernels": kernels})
     print(gpu, flush=True)
     emit({"ok": True, "device": {

@@ -11,7 +11,8 @@
 // over the positions t <= pos[b] + s of row b, where position t lives at
 // offset t % page_size of pool page table[b, t / page_size]. Page ids at
 // or beyond n_pages (the sentinel) are skipped, so a parked row (all
-// sentinel) writes exact zeros.
+// sentinel) writes exact zeros. A position past pos[b] + S - 1 adds
+// nothing, not even 0 * v: a recycled page's tail may hold stale NaN.
 //
 // One block per (batch row b, kv head c), 128 threads. The block holds its
 // S * grp query rows (grp = H / KV; row r is query r / grp of head
@@ -194,11 +195,15 @@ paged_attention_kernel(const TQ* __restrict__ q, const void* __restrict__ k_pool
       }
     }
     __syncthreads();
+    // positions past depth + S - 1 (no query row reads them) stay out of
+    // the sum: p is 0 there, but a recycled page's stale V may be NaN
+    const long long live = depth + S - static_cast<long long>(p) * page_size;
+    const int t_end = live < page_size ? static_cast<int>(live) : page_size;
     for (int i = threadIdx.x; i < sg * D; i += kThreads) {
       const int r = i / D, j = i % D;
       const float* pr = sc + r * page_size;
       float a = 0.f;
-      for (int t = 0; t < page_size; ++t) a = fmaf(pr[t], vs[t * D + j], a);
+      for (int t = 0; t < t_end; ++t) a = fmaf(pr[t], vs[t * D + j], a);
       acc[i] = acc[i] * corr[r] + a;
     }
     __syncthreads();

@@ -14,6 +14,8 @@
 // over the positions t <= pos[b] + s of row b, position t at offset
 // t % page_size of pool page table[b, t / page_size]; page ids at or past
 // n_pages (the sentinel) are skipped, so a parked row writes exact zeros.
+// A position past pos[b] + S - 1 contributes nothing, not even 0 * v: a
+// recycled page's tail may hold a previous tenant's NaN.
 // Quantized pools dequantize per element as the v1 kernel does: int8 codes
 // times f32 scales, int4 half-split nibbles times bf16 scales, each product
 // rounded to bf16 when q is bf16; p rounds to the V tile's type before the
@@ -447,8 +449,13 @@ __global__ void __launch_bounds__(kThreads)
     }
     named_sync(1, kConsumers);
     // PV: warp w takes positions t = w % 4, w % 4 + 4, ... and every other
-    // query row from w / 4, this lane 4 of D; its partial is (w % 4)'s
+    // query row from w / 4, this lane 4 of D; its partial is (w % 4)'s.
+    // Positions past depth + S - 1, which no query row of the call reads,
+    // are left out of the loop: their p is 0, but their V may be a
+    // recycled page's stale values, and 0 * NaN is NaN
     mbar_wait(&vfull[stage], phase);
+    const long long live = depth + a.S - base;
+    const int t_end = live < ps ? (int)live : ps;
     if (4 * lane < D) {
       const int pg = warp & 3;
       for (int r0 = warp >> 2; r0 < sg; r0 += 16) {  // rows r0, r0 + 2, ..., r0 + 14
@@ -458,7 +465,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[rr][e] = 0.f;
 #pragma unroll 2
-        for (int t = pg; t < ps; t += 4) {
+        for (int t = pg; t < t_end; t += 4) {
           float v[4];
           dequant4<STORE, kRoundKV>(vt + t * a.row_bytes, lane, D, kQuant ? vss[t] : 1.f, v);
 #pragma unroll

@@ -58,8 +58,18 @@ reads the ones its query heads use. The logits end with one
 ``all_gather`` over the vocabulary, so every rank holds the same bytes
 and samples the same token. A dimension the group size does not divide
 (heads, d_ff or vocabulary) stays whole, with no collective. The float
-model takes the same layout (``torch.mm`` on its shards); its training
-forward is a later slice's.
+model takes the same layout (``torch.mm`` on its shards) and trains on
+it: with autograd recording, Megatron's ``f`` (identity forward, the
+input gradient's ``all_reduce`` backward) enters each split column region
+— q/k/v, gate/up, and the vocab-split head of the materialized-logits
+loss — and ``g`` (``all_reduce`` forward, identity backward) replaces the
+row layers' in-place sum, whose summed-in output autograd may have
+saved; the head's logits are gathered with a gradient (the rank's
+slice), or, for the logits-free loss, the hidden states go to
+:func:`..ops.fused_loss.fused_cross_entropy_tp` with no ``f`` (it sums dh
+itself). Under remat a block's recompute issues its o_proj's ``g`` again
+(it stops after the down_proj matmul, the last tensor the block's
+backward reads): 3 sums a layer a step.
 
 Batch- and window-invariance. The serving engine's tokens must equal
 ``generate()``'s for the same request, though the engine decodes
@@ -145,8 +155,10 @@ class TransformerConfig:
     :class:`..parallel.tensor_parallel.TensorParallel` strategy — or a
     process group or a mesh with a ``model`` axis, taken as one — whose
     rank's shard the model holds (module docstring). The port's float
-    serving model takes the same knob (the JAX package shards a float
-    model through the engine's strategy and GSPMD instead).
+    model takes the same knob, to serve and to train (the JAX package
+    shards a float model through the engine's or the Trainer's strategy
+    and GSPMD instead; the port's ``ServeEngine`` and ``Trainer`` set it
+    from theirs).
 
     KV storage: ``kv_cache_dtype`` None (float32 for int8 weights,
     ``dtype`` for float weights), ``torch.float32``, ``torch.bfloat16``,
@@ -617,17 +629,29 @@ def _weights(scores, v, acc):
     return weights if acc == torch.float64 else weights.to(v.dtype).to(acc)
 
 
+def _live_values(v, mask):
+    """``v`` (B, K, H|KV, D) with 0 at every key position that ``mask``
+    (broadcastable to (B, H|1, Q, K)) kills for every query: such a key's
+    weight is 0, but its value may be a previous tenant's stale NaN, and
+    ``0 * NaN`` is NaN. Finite values give the same context either way."""
+    m = mask.reshape((1,) * (4 - mask.ndim) + tuple(mask.shape))
+    live = m.any(dim=2).transpose(1, 2)[..., None]  # (B|1, K, H|1, 1)
+    return torch.where(live, v, 0.0)  # a host scalar: no fill launched
+
+
 def masked_attention(q, k, v, mask, acc: torch.dtype = torch.float64):
     """Scaled-dot-product attention with an explicit boolean ``mask``
     broadcastable to the (B, H, Q, K) scores: q (B, Q, H, D), k/v (B, K, H,
     D). Scores, softmax and context in ``acc``: float64 for int8 weights
     (module docstring), float32 for float weights (with the weights cast
-    to v's type, :func:`_weights`); output in q's dtype."""
+    to v's type, :func:`_weights`); output in q's dtype. A key that the
+    mask kills for every query adds nothing (:func:`_live_values`)."""
     d = q.shape[-1]
     scores = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc))
     scores = scores / math.sqrt(d)
     scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
-    ctx = torch.einsum("bhqk,bkhd->bqhd", _weights(scores, v, acc), v.to(acc))
+    ctx = torch.einsum("bhqk,bkhd->bqhd", _weights(scores, v, acc),
+                       _live_values(v, mask).to(acc))
     return ctx.to(q.dtype)
 
 
@@ -647,7 +671,8 @@ def grouped_masked_attention(q, k, v, mask, acc: torch.dtype = torch.float64):
     scores = torch.where(
         mask[:, :, None], scores, torch.full_like(scores, -1e30)
     )
-    out = torch.einsum("bcgql,blcd->bqcgd", _weights(scores, v, acc), v.to(acc))
+    out = torch.einsum("bcgql,blcd->bqcgd", _weights(scores, v, acc),
+                       _live_values(v, mask).to(acc))
     return out.to(q.dtype).reshape(b, qlen, h, d)
 
 
@@ -687,7 +712,8 @@ class Dense(nn.Module):
     ``nn.DenseGeneral`` for q/k/v and o_proj). ``weight`` is (K, N): the
     JAX kernel flattened to (in, out). No bias. ``shard_kind`` "row" (with
     ``strategy``): the layer holds the rank's rows and its output is the
-    group's sum (one ``all_reduce``); "column": its columns, no
+    group's sum (one ``all_reduce``: in place without autograd, Megatron's
+    ``g`` with it, :func:`_row_sum`); "column": its columns, no
     collective."""
 
     def __init__(self, in_features, features, n_in: int = 1,
@@ -710,8 +736,23 @@ class Dense(nn.Module):
         x2 = x.reshape(-1, self.weight.shape[0]).to(self.dtype)
         out = torch.mm(x2, self.weight.to(self.dtype))
         if self.shard_kind == "row":
-            self.strategy.all_reduce(out)
+            out = _row_sum(self.strategy, out)
         return out.reshape(*lead, *self.features)
+
+
+def _row_sum(tp: TensorParallel, x: torch.Tensor) -> torch.Tensor:
+    """A row-parallel output summed over the group: with autograd
+    recording (training), Megatron's ``g`` into a new tensor — the
+    in-place sum would change a tensor the backward may read; without
+    (serving, evaluation), the in-place ``all_reduce``."""
+    return tp.reduce_from(x) if torch.is_grad_enabled() else tp.all_reduce(x)
+
+
+def _enter_columns(lay: "TPLayout", split: bool, x: torch.Tensor) -> torch.Tensor:
+    """Megatron's ``f`` before a split column region while autograd
+    records (identity forward, the input gradient summed backward); ``x``
+    itself otherwise."""
+    return lay.tp.copy_to(x) if split and torch.is_grad_enabled() else x
 
 
 def _projection(cfg: TransformerConfig, in_features, features, n_in=1,
@@ -730,7 +771,7 @@ def _projection(cfg: TransformerConfig, in_features, features, n_in=1,
 def _tp_sum(lay: TPLayout, split: bool, x: torch.Tensor) -> torch.Tensor:
     """A row-parallel LoRA delta summed over the group (its own
     ``all_reduce``); ``x`` itself when ``split`` is off."""
-    return lay.tp.all_reduce(x) if split else x
+    return _row_sum(lay.tp, x) if split else x
 
 
 def _store_decode_kv(buf, val, pos, window: int) -> None:
@@ -839,6 +880,7 @@ class Attention(nn.Module):
                 prefill: bool = False, decode: bool = False, rows=None,
                 adapter_ids=None):
         cfg = self.cfg
+        x = _enter_columns(self.lay, self.lay.split_heads, x)
         q_raw = self.q_proj(x)
         k_raw = self.k_proj(x)  # GQA: only kv_heads projected and cached
         v = self.v_proj(x)
@@ -979,6 +1021,7 @@ class SwiGLU(nn.Module):
         self.down_proj_lora = _lora(cfg, lay.ff, cfg.d_model, device)
 
     def forward(self, x, adapter_ids=None):
+        x = _enter_columns(self.lay, self.lay.split_ff, x)
         if self.gate_proj_lora is None:
             return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
         gate = self.gate_proj(x) + self.gate_proj_lora(x, adapter_ids)
@@ -1004,6 +1047,21 @@ class Block(nn.Module):
             rows=rows, adapter_ids=adapter_ids,
         )
         return x + self.mlp(self.mlp_norm(x), adapter_ids)
+
+
+def _check_tp_training(cfg: TransformerConfig, lay: TPLayout) -> None:
+    """What tensor-parallel training refuses: query heads split over KV
+    heads kept whole (every rank holds every K/V projection, whose
+    gradient would be a partial a replicated leaf must sum), and LoRA
+    factors (a column layer's ``lora_a`` is replicated with a partial
+    gradient too)."""
+    if lay.split_heads and not lay.split_kv:
+        raise NotImplementedError(
+            f"tensor-parallel training with n_kv_heads {cfg.kv_heads} over tp={lay.size}: "
+            "the KV heads must split with the query heads")
+    if cfg.lora_adapters:
+        raise NotImplementedError("tensor-parallel training of LoRA factors is not "
+                                  "supported by the PyTorch port")
 
 
 class TransformerLM(nn.Module):
@@ -1066,12 +1124,8 @@ class TransformerLM(nn.Module):
             with torch.no_grad():
                 return self._serve(tokens, cache, prefill=prefill, decode=decode,
                                    last_pos=last_pos, rows=rows, adapter_ids=ids)
-        if self.lay.tp is not None:
-            raise NotImplementedError(
-                "the training forward of a tensor-parallel model (int8_mesh with "
-                f"tp={self.lay.size}) is a later slice's (tensor-parallel training); "
-                "this model serves (a cache, prefill, decode or last_pos)"
-            )
+        if self.lay.tp is not None and torch.is_grad_enabled():
+            _check_tp_training(self.cfg, self.lay)
         return self._train_forward(tokens, return_hidden, ids)
 
     def _train_forward(self, tokens, return_hidden: bool = False, adapter_ids=None):
@@ -1082,7 +1136,9 @@ class TransformerLM(nn.Module):
         the fused loss's seam (``train.trainer`` ``loss="fused_cross_entropy"``
         streams them against ``lm_head.weight`` blockwise, so the logits
         never exist). The lm_head parameter stays; its gradient comes
-        through the fused loss."""
+        through the fused loss. A tensor-parallel model runs the rank's
+        shard (module docstring) and returns the whole logits, gathered,
+        or the (replicated) hidden states."""
         cfg = self.cfg
         if tokens.shape[1] > cfg.max_seq_len:
             raise ValueError(
@@ -1099,7 +1155,11 @@ class TransformerLM(nn.Module):
             else:
                 x = block(x, adapter_ids=adapter_ids)
         x = self.final_norm(x)
-        return x if return_hidden else self.lm_head(x)
+        if return_hidden:
+            return x
+        split = self.lay.split_vocab
+        logits = self.lm_head(_enter_columns(self.lay, split, x))
+        return self.lay.tp.gather_from(logits) if split else logits
 
     def _serve(self, tokens, cache: KVCache | None = None, *,
                prefill: bool = False, decode: bool = False, last_pos=None,

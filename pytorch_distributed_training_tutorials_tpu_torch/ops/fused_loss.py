@@ -13,7 +13,8 @@ arithmetic:
   (``_dw_kernel``); plain: :func:`fused_ce_dw_reference`;
 
 with ``dS = g * (softmax(h @ W) - onehot(y))`` recomputed from the saved
-logsumexp. :func:`fused_cross_entropy` ties them into a
+logsumexp. :func:`fused_cross_entropy_tp` runs them on a rank's vocab
+shard of a tensor-parallel head, with its collectives. :func:`fused_cross_entropy` ties them into a
 ``torch.autograd.Function`` (the JAX ``custom_vjp``): the forward saves h,
 W, y and the lse, the backward launches dh, then dW, and returns no
 gradient for the targets. The (N, V) logits never exist.
@@ -123,9 +124,9 @@ def fused_ce_fwd_reference(h, w, y, block_n: int = DEFAULT_BLOCK_N,
 
 
 def fused_ce_dh_reference(h, w, y, lse, g, block_n: int = DEFAULT_BLOCK_N,
-                          block_v: int = DEFAULT_BLOCK_V):
+                          block_v: int = DEFAULT_BLOCK_V, *, out_dtype=None):
     """Plain version of the dh kernel: ``dh = sum over vocab blocks of
-    dS (cast to W's type) . W^T``, in h's type."""
+    dS (cast to W's type) . W^T``, in ``out_dtype`` (default h's type)."""
     v = w.shape[1]
     acc_t = _acc_dtype(h)
     bv = _clamp_block(block_v, v)
@@ -136,7 +137,7 @@ def fused_ce_dh_reference(h, w, y, lse, g, block_n: int = DEFAULT_BLOCK_N,
         wb = w[:, c0:c0 + bv].to(acc_t)
         ds = _dlogits(hf @ wb, y, lse_a, g_a, c0)
         acc = acc + ds.to(w.dtype).to(acc_t) @ wb.T
-    return acc.to(h.dtype)
+    return acc.to(out_dtype or h.dtype)
 
 
 def fused_ce_dw_reference(h, w, y, lse, g, block_n: int = DEFAULT_BLOCK_N,
@@ -344,14 +345,15 @@ def _use_sm90(h, w, route: str | None) -> bool:
 
 
 def fused_ce_dh(h, w, y, lse, g, block_n: int = DEFAULT_BLOCK_N,
-                block_v: int = DEFAULT_BLOCK_V, *, route: str | None = None):
-    """dh (N, D) in h's type from the saved lse and the loss's cotangent
-    ``g`` (both (N,) f32). A CPU tensor runs :func:`fused_ce_dh_reference`;
-    a CUDA tensor launches the sm90 dh kernel where :func:`_sm90_route`
-    takes it, else ``dh_kernel`` (vocab splits summed here); ``route``:
-    see :func:`_use_sm90`."""
+                block_v: int = DEFAULT_BLOCK_V, *, route: str | None = None, out_dtype=None):
+    """dh (N, D) in ``out_dtype`` (default h's type; float32 keeps the
+    kernel's f32 sum unrounded, for a sum over vocab shards) from the saved
+    lse and the loss's cotangent ``g`` (both (N,) f32). A CPU tensor runs
+    :func:`fused_ce_dh_reference`; a CUDA tensor launches the sm90 dh
+    kernel where :func:`_sm90_route` takes it, else ``dh_kernel`` (vocab
+    splits summed here); ``route``: see :func:`_use_sm90`."""
     if not _route(h, w, y, lse, g):
-        return fused_ce_dh_reference(h, w, y, lse, g, block_n, block_v)
+        return fused_ce_dh_reference(h, w, y, lse, g, block_n, block_v, out_dtype=out_dtype)
     (n, d), v = h.shape, w.shape[1]
     y64 = y.long().contiguous()
     sm90 = _use_sm90(h, w, route)
@@ -369,7 +371,7 @@ def fused_ce_dh(h, w, y, lse, g, block_n: int = DEFAULT_BLOCK_N,
         _launch("dh", "fused_ce_dh_launch", h.device, h.data_ptr(), w.data_ptr(),
                 y64.data_ptr(), lse.data_ptr(), g.data_ptr(), part.data_ptr(),
                 n, d, v, nsplit, per, _DTYPE_CODES[h.dtype], route="sm80")
-    return part.sum(0).to(h.dtype)
+    return part.sum(0).to(out_dtype or h.dtype)
 
 
 def fused_ce_dw(h, w, y, lse, g, block_n: int = DEFAULT_BLOCK_N,
@@ -433,6 +435,93 @@ def fused_cross_entropy(hidden, lm_head, targets, *, block_n: int = DEFAULT_BLOC
             "mismatch: hidden must be targets.shape + (d_model,)")
     loss = _FusedCE.apply(hidden.reshape(-1, d), lm_head, targets.reshape(-1),
                           block_n, block_v)
+    return loss.reshape(targets.shape)
+
+
+def _check_tp_call(hidden, lm_head, targets, tp, vocab_size: int) -> None:
+    """The JAX ``fused_cross_entropy_tp``'s refusals, for a rank's shard:
+    a vocabulary the model axis does not divide, a shard of another width,
+    hidden and targets that do not match."""
+    if vocab_size % tp.tp_size:
+        raise ValueError(f"vocab ({vocab_size}) not divisible by the 'model' axis "
+                         f"({tp.tp_size})")
+    if lm_head.ndim != 2 or lm_head.shape[1] * tp.tp_size != vocab_size:
+        raise ValueError(f"lm_head {tuple(lm_head.shape)} is not a (D, {vocab_size} / "
+                         f"{tp.tp_size}) vocab shard")
+    if tuple(hidden.shape[:-1]) != tuple(targets.shape):
+        raise ValueError(
+            f"hidden {tuple(hidden.shape)} / targets {tuple(targets.shape)} "
+            "mismatch: hidden must be targets.shape + (d_model,)")
+
+
+class _FusedCETP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h2, w, y, tp, block_n, block_v):
+        # this shard owns global columns [rank * V_local, (rank + 1) *
+        # V_local): shifted out of them, a target is negative or >= V_local
+        # and hits nothing on this rank (every route's contract)
+        y_local = y.long() - tp.rank * w.shape[1]
+        lse_l, tgt_l = fused_ce_fwd(h2, w, y_local, block_n, block_v)
+        m = tp.reduce_(lse_l.clone(), "max", "lse_max")
+        shift = _guard(m)
+        # the shards' exp-sums and target logits (exactly one shard holds
+        # each row's target) in one sum
+        sums = tp.reduce_(torch.stack([torch.exp(lse_l - shift), tgt_l]), "sum", "lse_sum")
+        lse = torch.where(m == float("-inf"), m, shift + torch.log(sums[0]))
+        ctx.save_for_backward(h2, w, y_local, lse)
+        ctx.tp, ctx.blocks = tp, (block_n, block_v)
+        return lse - sums[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        h2, w, y_local, lse = ctx.saved_tensors
+        g = g.to(lse.dtype).contiguous()
+        # the global lse makes each shard's tiles the global softmax on its
+        # columns: dh sums over the shards (in f32, rounded once), dW is
+        # the shard's own
+        dh = fused_ce_dh(h2, w, y_local, lse, g, *ctx.blocks, out_dtype=torch.float32)
+        dh = ctx.tp.reduce_(dh, "sum", "dh").to(h2.dtype)
+        dw = fused_ce_dw(h2, w, y_local, lse, g, *ctx.blocks)
+        return dh, dw, None, None, None, None
+
+
+def fused_cross_entropy_tp(hidden, lm_head, targets, mesh, *, vocab_size: int,
+                           block_n: int = DEFAULT_BLOCK_N, block_v: int = DEFAULT_BLOCK_V):
+    """:func:`fused_cross_entropy` for a vocab-split head: the port of the
+    JAX ``fused_cross_entropy_tp``, whose ``shard_map`` becomes this
+    rank's share of an SPMD program over the model group. ``lm_head`` is
+    THIS RANK's shard (D, ``vocab_size`` / tp) — columns ``rank * V_local``
+    on, the ``TP_RULES`` layout — and ``mesh`` a
+    :class:`..parallel.tensor_parallel.TensorParallel` or a mesh with a
+    ``model`` axis.
+
+    Each rank streams its columns through kernels 6-8 with its targets
+    shifted by ``rank * V_local``; the forward's ``all_reduce`` MAX of the
+    shards' lse and one SUM of their ``exp(lse - max)`` and target logits
+    give ``lse = max + log(sum)`` and the loss ``lse - target logit`` —
+    the same bytes on every rank. The backward runs the shard's dh and dW
+    kernels with that global lse and sums dh over the group (one SUM);
+    every collective is the strategy's, counted (``"lse_max"``,
+    ``"lse_sum"``, ``"dh"``).
+
+    Rows and the data axis: each data rank passes its own rows, and dW is
+    this rank's exact gradient over THOSE rows. It is not reduced over the
+    data axis here: the ``Trainer``'s data-axis gradient average
+    (``TensorParallel.shard_state``'s ``grad_sync``) reduces it with every
+    other weight — the counterpart of the JAX op's ``psum`` of dW over
+    ``data`` (its ``_row_axis``), so reducing here too would count it
+    twice. Raises the JAX op's ``ValueError``s (a vocabulary the axis does
+    not divide, a mesh without a ``model`` axis, hidden / targets
+    mismatch) and, for a shard of another width, one more."""
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel.tensor_parallel import (
+        TensorParallel,
+    )
+
+    tp = mesh if isinstance(mesh, TensorParallel) else TensorParallel(mesh)
+    _check_tp_call(hidden, lm_head, targets, tp, vocab_size)
+    d = hidden.shape[-1]
+    loss = _FusedCETP.apply(hidden.reshape(-1, d), lm_head, targets.reshape(-1), tp,
+                            block_n, block_v)
     return loss.reshape(targets.shape)
 
 

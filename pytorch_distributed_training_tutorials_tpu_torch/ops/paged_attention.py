@@ -38,7 +38,11 @@ Quantized pools dequantize inside the kernel per page tile: int8 codes
 times f32 scales, or packed int4 nibbles (:func:`..ops.quant.unpack_int4`'s
 half-split layout) times bf16 scales, each cast to ``q``'s type. Exact
 pools (f32, bf16) are read as stored. The sentinel page id is ``n_pages``
-(out of range); the kernel skips every page at or beyond it.
+(out of range); the kernel skips every page at or beyond it. A position
+past ``pos + S - 1`` (read by no query row of the call) contributes
+nothing to the context, in the kernels and all three plain statements:
+its weight is 0, and its V, which may be a recycled page's stale NaN, is
+left out (``0 * NaN`` would be NaN).
 """
 
 from __future__ import annotations
@@ -203,6 +207,10 @@ def _recurrence(qg, k_pool, v_pool, table, pos, k_scale, v_scale, quant, q_dtype
         ids = pid.clamp(0, n_pages - 1)
         kb = _dequant_tile(k_pool, k_scale, ids, quant, k_dtype)
         vb = _dequant_tile(v_pool, v_scale, ids, quant, v_dtype)
+        # V past depth + s - 1 (read by no query row) is 0: a recycled
+        # page's stale NaN would survive its 0 weight (0 * NaN)
+        v_live = (p * page_size + offs)[None, :] <= (depth + (s - 1))[:, None]
+        vb = torch.where(v_live[:, None, :, None], vb, 0.0)
         scores = torch.einsum("bcrd,bctd->bcrt", qg, kb) * sm_scale
         valid = (p * page_size + offs) <= (depth[:, None, None] + srow[None, :, None])
         scores = torch.where(valid[:, None], scores, -math.inf)
@@ -247,6 +255,8 @@ def paged_attention_reference(q, k_pool, v_pool, table, pos, *, k_scale=None,
         k, v = gather(k_pool), gather(v_pool)
     qpos = pos.to(torch.int64)[:, None] + torch.arange(s, device=q.device)
     valid = torch.arange(w, device=q.device) <= qpos[..., None]  # (B, S, W)
+    # V at positions no query reads is 0, so stale NaN there adds nothing
+    v = torch.where(valid.any(1)[:, :, None, None], v, 0.0)
     q5 = q.float().reshape(b, s, kv, grp, d)
     scores = torch.einsum("bqcgd,blcd->bcgql", q5, k.float()) / math.sqrt(d)
     scores = torch.where(valid[:, None, None], scores, -1e30)

@@ -1,8 +1,8 @@
 """Parallelism of the PyTorch port: the ``torch.distributed`` runtime, the
-mesh, the data-parallel strategy and tensor parallelism for serving
-(:class:`TensorParallel`). The other strategies of the JAX package (FSDP,
-tensor-parallel training, pipeline, ring and Ulysses attention) arrive in
-later slices."""
+mesh (``data`` and ``model`` axes), the data-parallel strategy and tensor
+parallelism for serving and training (:class:`TensorParallel`). The other
+strategies of the JAX package (FSDP, pipeline, ring and Ulysses
+attention) arrive in later slices."""
 
 from pytorch_distributed_training_tutorials_tpu_torch.parallel.data_parallel import DataParallel
 from pytorch_distributed_training_tutorials_tpu_torch.parallel.distributed import (

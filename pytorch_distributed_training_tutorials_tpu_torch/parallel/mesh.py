@@ -1,5 +1,5 @@
 """The mesh over the ``torch.distributed`` world: its ``data`` axis, and
-the ``model`` axis of tensor-parallel serving.
+the ``model`` axis of tensor parallelism.
 
 Port of the JAX package's ``parallel/mesh.py`` for those two axes. With
 a process group initialized (:func:`..parallel.distributed.init`),
@@ -8,12 +8,14 @@ of the whole world with one axis named ``data``. A single process with no
 group — the default, and the CPU tests — gets a :class:`LocalMesh`, a
 mesh of one with the same read surface (``mesh_dim_names``, ``size``,
 ``get_local_rank``, ``get_group``), so no group has to be formed to train
-on one device. ``{"model": tp}`` (or ``{"data": 1, "model": tp}``) is
-the tensor-parallel serving mesh over a world of ``tp`` processes
-(:class:`..parallel.tensor_parallel.TensorParallel` takes it); a data axis
-beside a wider model axis is tensor-parallel training's, a later slice.
-Other axes (``stage``, ``seq``, ``expert``) arrive with the parallel
-strategies that use them and raise here.
+on one device. ``{"model": tp}`` is the tensor-parallel mesh over a world
+of ``tp`` processes, and ``{"data": d, "model": tp}`` the data x model
+mesh over a world of ``d * tp``, the model axis inner (rank ``i * tp + j``
+is data coordinate ``i``, model coordinate ``j``: the JAX layout
+``devices.reshape(data, model)``);
+:class:`..parallel.tensor_parallel.TensorParallel` takes either. Other
+axes (``stage``, ``seq``, ``expert``) arrive with the parallel strategies
+that use them and raise here.
 """
 
 from __future__ import annotations
@@ -56,12 +58,13 @@ class LocalMesh:
 
 def create_mesh(axes: dict[str, int] | None = None, *, device=None):
     """The mesh over every process of the world: ``{'data': world}`` by
-    default, or with a ``model`` axis the tensor-parallel serving mesh.
+    default, or with a ``model`` axis the tensor-parallel mesh.
 
     ``axes`` may name ``data`` alone, with the world size or ``-1`` (a data
-    axis over part of the world is not supported), or ``model`` with the
-    world size (``-1``: the world) and at most a data axis of 1. ``device``
-    is ``cuda`` unless the caller passes another (raises without a GPU)."""
+    axis over part of the world is not supported), or ``model`` with a
+    ``data`` axis beside it (default 1) whose product is the world size
+    (either one ``-1``: the rest of the world). ``device`` is ``cuda``
+    unless the caller passes another (raises without a GPU)."""
     dev = resolve_device(device)
     world = dist.get_world_size() if dist.is_initialized() else 1
     axes = dict(axes) if axes is not None else {DATA_AXIS: world}
@@ -87,30 +90,28 @@ def create_mesh(axes: dict[str, int] | None = None, *, device=None):
 
 
 def _model_mesh(axes: dict[str, int], world: int, dev: torch.device):
-    """``{'model': tp}`` or ``{'data': 1, 'model': tp}`` over a world of
-    ``tp`` processes."""
+    """``{'model': tp}`` or ``{'data': d, 'model': tp}`` over a world of
+    ``d * tp`` processes, the model axis inner."""
     other = sorted(set(axes) - {DATA_AXIS, MODEL_AXIS})
     if other:
         raise NotImplementedError(
             f"mesh axes {other} are not supported by the PyTorch port yet; they "
             f"arrive with {_LATER}"
         )
-    size = world if axes[MODEL_AXIS] == -1 else axes[MODEL_AXIS]
-    data = axes.get(DATA_AXIS, 1)
-    if data != 1:
-        raise NotImplementedError(
-            f"a data axis of {data} beside a model axis is tensor-parallel training's "
-            "mesh, which arrives with that later slice; serving takes {'model': tp}"
-        )
-    if size != world:
-        raise ValueError(f"a model axis of {size} over a world of {world} processes: "
-                         "the port's model axis spans the whole world")
+    size, data = axes[MODEL_AXIS], axes.get(DATA_AXIS, 1)
+    if size == -1 and data > 0 and world % data == 0:
+        size = world // data
+    elif data == -1 and size > 0 and world % size == 0:
+        data = world // size
+    if size < 1 or data < 1 or data * size != world:
+        raise ValueError(f"a data axis of {data} and a model axis of {size} over a world "
+                         f"of {world} processes: the port's mesh spans the whole world")
     names = tuple(a for a in (DATA_AXIS, MODEL_AXIS) if a in axes)
     if not dist.is_initialized():
         return LocalMesh(dev, names)
     from torch.distributed.device_mesh import init_device_mesh
 
-    shape = tuple(1 if a == DATA_AXIS else world for a in names)
+    shape = tuple(data if a == DATA_AXIS else size for a in names)
     return init_device_mesh(dev.type, shape, mesh_dim_names=names)
 
 

@@ -24,9 +24,25 @@ the JAX ``spec_for_path``: GQA's K/V heads under a wider group keep every
 head on every rank while the query heads shard. Unmatched leaves
 (embeddings, norms, per-slot bookkeeping) replicate. The model's rules
 are :data:`..models.transformer.TP_RULES` and ``INT8_TP_RULES``; the
-slot state's are :data:`SLOT_STATE_RULES`. Training's tensor parallelism
-(the sharded backward and the vocab-split loss) is a later slice; these
-rules and :class:`TensorParallel` are what it reuses.
+slot state's are :data:`SLOT_STATE_RULES`.
+
+Training (the JAX ``Trainer(..., strategy=TensorParallel(mesh, TP_RULES))``,
+whose collectives GSPMD inserts) runs the same split with Megatron's two
+autograd-aware collectives, issued by the model through the strategy:
+:meth:`TensorParallel.copy_to` (``f``, at the entry of a column-parallel
+region: identity forward, the input gradient's ``all_reduce`` backward) and
+:meth:`TensorParallel.reduce_from` (``g``, after a row-parallel
+projection: ``all_reduce`` forward, identity backward); the vocab-split
+logits are gathered by :meth:`TensorParallel.gather_from` (backward: the
+rank's slice), and the logits-free loss reduces its own lse and dh
+(:func:`..ops.fused_loss.fused_cross_entropy_tp`). A strategy built on a
+``{"data": d, "model": tp}`` mesh (:func:`..parallel.mesh.create_mesh`, the
+model axis inner) is also the ``Trainer``'s data-parallel strategy over
+the data axis: ``num_devices``, ``data_rank``, ``data_group``,
+``shard_batch`` and, through :meth:`TensorParallel.shard_state`, the
+data-axis gradient average and the model group's agreement on the skip
+flag. ``rank`` and ``group`` stay the MODEL group's, which every sharded
+layer reads.
 
 One card, two ranks: NCCL refuses a communicator whose ranks share a
 device, so a TP world on a machine with fewer cards than ranks runs gloo,
@@ -45,6 +61,8 @@ from collections.abc import Callable, Mapping, Sequence
 import torch
 import torch.distributed as dist
 
+from pytorch_distributed_training_tutorials_tpu_torch.parallel.collective import bucket_plan
+from pytorch_distributed_training_tutorials_tpu_torch.parallel.data_parallel import DataParallel
 from pytorch_distributed_training_tutorials_tpu_torch.parallel.mesh import MODEL_AXIS
 
 # Sharded serving: the slot state's K/V (and their scales) split on the
@@ -60,7 +78,13 @@ SLOT_STATE_RULES = [
     (r"(^|\.)(k|v)$", -2, None),
 ]
 _KV_LEAF_RE = re.compile(r"(^|\.)(k|v)(_scale)?$")
+# the serving forward's kinds, always counted; training adds its own on
+# first use: "g" (a row-parallel output's forward sum), "f" (a column
+# region's input-gradient sum), "lse_max" / "lse_sum" / "dh" (the
+# vocab-split loss), "flag_min" (the skip flag's agreement) and
+# "data_all_reduce" (the data-axis gradient average, one a bucket)
 COLLECTIVE_KINDS = ("all_reduce", "all_gather")
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
 
 
 def split_dim(name: str, shape: Sequence[int], rules, tp: int,
@@ -122,8 +146,8 @@ def shard_params(tree: Mapping[str, torch.Tensor], rank: int, tp: int, *, head_d
 
 
 def _group_of(group_or_mesh):
-    """A process group from a group, a mesh with a ``model`` axis, or None
-    (no group: a world of one)."""
+    """A process group from a group, a mesh with a ``model`` axis (its
+    model group), or None (no group: a world of one)."""
     names = getattr(group_or_mesh, "mesh_dim_names", None)
     if names is not None:
         if MODEL_AXIS not in names:
@@ -132,30 +156,95 @@ def _group_of(group_or_mesh):
     return group_or_mesh
 
 
+class _CopyTo(torch.autograd.Function):
+    """Megatron's ``f``: the identity forward, the gradient summed over
+    the model group backward (each rank's column shard saw the whole
+    input, and its gradient holds only that shard's part)."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.tp.reduce_(grad.clone(), "sum", "f"), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """Megatron's ``g``: the row-parallel partials summed over the model
+    group forward (into a new tensor: the summed-in partial may be saved
+    for the backward), the identity backward (every rank's output
+    gradient is the whole one)."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        return tp.reduce_(x.clone(), "sum", "g")
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    """The vocab-split logits gathered along ``dim`` in rank order; the
+    backward takes the rank's slice of the (identical) whole gradient."""
+
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim, ctx.n = tp, dim, x.shape[dim]
+        return tp.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.tp.rank * ctx.n, ctx.n).contiguous(), None, None
+
+
 class TensorParallel:
     """The tensor-parallel strategy of one rank: the ``model`` group, its
     size ``tp_size`` and this process's ``rank`` in it, and the
-    collectives the sharded forward issues, counted by kind in
+    collectives the sharded forward and backward issue, counted by kind in
     :attr:`collectives`.
 
     ``group``: a ``torch.distributed`` process group, a mesh with a
-    ``model`` axis (:func:`..parallel.mesh.create_mesh`), or None — a
+    ``model`` axis (:func:`..parallel.mesh.create_mesh`; with a ``data``
+    axis too, the data-parallel side of training over it), or None — a
     strategy of one rank (``tp_size`` 1), which shards nothing: an engine
     or model given it is the replicated one. Every rank of the group must
     make the same calls in the same order (SPMD)."""
 
     def __init__(self, group=None):
+        self.mesh = group if hasattr(group, "mesh_dim_names") else None
         self.group = _group_of(group)
         if self.group is None:
             self.tp_size, self.rank = 1, 0
         else:
             self.tp_size = dist.get_world_size(self.group)
             self.rank = dist.get_rank(self.group)
+        # the data axis beside the model axis (none without a mesh)
+        self._data = DataParallel(self.mesh) if self.mesh is not None else None
         self.collectives = dict.fromkeys(COLLECTIVE_KINDS, 0)
 
     @property
     def mesh_shape(self) -> dict[str, int]:
-        return {MODEL_AXIS: self.tp_size}
+        data = {} if self.num_devices == 1 else {"data": self.num_devices}
+        return {**data, MODEL_AXIS: self.tp_size}
+
+    @property
+    def num_devices(self) -> int:
+        """The data-axis width (the strategies' interface contract: how
+        many ways the batch's dim 0 is split), not the device count."""
+        return 1 if self._data is None else self._data.num_devices
+
+    @property
+    def data_rank(self) -> int:
+        return 0 if self._data is None else self._data.rank
+
+    @property
+    def data_group(self):
+        """The data-axis group (None for a data axis of one): the ranks of
+        this rank's model coordinate."""
+        return None if self._data is None else self._data.group
 
     @property
     def backend(self) -> str | None:
@@ -167,15 +256,37 @@ class TensorParallel:
     def reset_collectives(self) -> None:
         self.collectives = dict.fromkeys(COLLECTIVE_KINDS, 0)
 
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum ``x`` over the group in place (the row-parallel partials'
-        reduction); returns ``x``. Counted. A strategy of one rank returns
-        ``x`` untouched and counts nothing."""
+    def reduce_(self, x: torch.Tensor, op: str = "sum", kind: str = "all_reduce"
+                ) -> torch.Tensor:
+        """``x`` reduced over the group in place by ``op`` ("sum", "max" or
+        "min"), counted under ``kind``; returns ``x``. A strategy of one
+        rank returns ``x`` untouched and counts nothing."""
         if self.tp_size == 1:
             return x
-        self.collectives["all_reduce"] += 1
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.group)
+        self.collectives[kind] = self.collectives.get(kind, 0) + 1
+        dist.all_reduce(x, op=_OPS[op], group=self.group)
         return x
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum ``x`` over the group in place (the serving forward's
+        row-parallel partials, with no autograd); returns ``x``. Counted."""
+        return self.reduce_(x)
+
+    def copy_to(self, x: torch.Tensor) -> torch.Tensor:
+        """Megatron's ``f`` before a column-parallel region (training):
+        ``x`` forward; its gradient summed over the group backward
+        (counted ``"f"``)."""
+        return x if self.tp_size == 1 else _CopyTo.apply(x, self)
+
+    def reduce_from(self, x: torch.Tensor) -> torch.Tensor:
+        """Megatron's ``g`` after a row-parallel projection (training): the
+        partials' sum over the group in a new tensor (counted ``"g"``),
+        the gradient passed through."""
+        return x if self.tp_size == 1 else _ReduceFrom.apply(x, self)
+
+    def gather_from(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """:meth:`all_gather` with a gradient: the rank's slice of it."""
+        return x if self.tp_size == 1 else _GatherFrom.apply(x, self, dim % x.ndim)
 
     def all_gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """Every rank's ``x`` concatenated along ``dim`` in rank order (the
@@ -188,12 +299,39 @@ class TensorParallel:
         dist.all_gather(parts, x, group=self.group)
         return torch.cat(parts, dim=dim)
 
-    def shard_state(self, tree: Mapping[str, torch.Tensor], rules=SLOT_STATE_RULES, *,
-                    head_dim: int = 1) -> dict[str, torch.Tensor]:
-        """This rank's shard of every leaf of ``tree`` per ``rules``
-        (default the slot-state rules): :func:`shard_params` at this
-        rank."""
-        return shard_params(tree, self.rank, self.tp_size, head_dim=head_dim, rules=rules)
+    def shard_state(self, state, rules=SLOT_STATE_RULES, *, head_dim: int = 1):
+        """Place a state on this rank, as the JAX ``shard_state`` places one
+        per the rules. A mapping of tensors (serving's slot state): this
+        rank's shard of every leaf per ``rules`` (default the slot-state
+        rules), :func:`shard_params` at this rank. A train state (the
+        ``Trainer``'s, whose model already holds this rank's shard): over
+        the data axis what :meth:`..DataParallel.shard_state` does (rank
+        0's shards broadcast to the data group, ``grad_sync`` the data-axis
+        average, counted ``"data_all_reduce"``), and ``flag_sync`` the
+        model group's MIN of the skip flag (counted ``"flag_min"``), so
+        ranks that each see only their shards' gradients skip together."""
+        if isinstance(state, Mapping):
+            return shard_params(state, self.rank, self.tp_size, head_dim=head_dim,
+                                rules=rules)
+        if self._data is not None:
+            state = self._data.shard_state(state)
+            if state.grad_sync is not None:
+                state.grad_sync = self._data_mean_
+        state.flag_sync = (None if self.tp_size == 1
+                           else lambda ok: self.reduce_(ok, "min", "flag_min"))
+        return state
+
+    def _data_mean_(self, tensors: list[torch.Tensor]) -> None:
+        self.collectives["data_all_reduce"] = (self.collectives.get("data_all_reduce", 0)
+                                               + len(bucket_plan(tensors)))
+        self._data.all_reduce_mean_(tensors)
+
+    def shard_batch(self, batch):
+        """This rank's rows of a global batch: its data coordinate's block
+        of dim 0 (every model rank of a coordinate the same rows). A
+        strategy without a mesh has a data axis of one: the batch as
+        given."""
+        return batch if self._data is None else self._data.shard_batch(batch)
 
     def shard_shapes(self, shapes: Mapping[str, Sequence[int]], rules=SLOT_STATE_RULES, *,
                      units: Mapping[str, int] | None = None) -> dict[str, tuple]:

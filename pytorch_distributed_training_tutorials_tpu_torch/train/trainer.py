@@ -34,6 +34,23 @@ against. ``rollback_spike_factor``: a host monitor of the loss restores the
 latest ``save()`` and continues when the loss spikes; it costs a loss fetch
 a step (a chunk on the chunked path).
 
+Tensor parallelism: ``Trainer(TransformerLM(cfg), loader, opt,
+strategy=TensorParallel(create_mesh({"data": d, "model": tp})))``, the JAX
+call without its rules (the port's model knows its Megatron split). The
+Trainer rebuilds a whole model (``cfg.int8_mesh`` None) as this rank's
+shard — ``cfg.int8_mesh`` set to the strategy — or takes one already
+built on the same strategy. Every rank draws the whole model's weights
+from ``seed`` and keeps its shard (:func:`..models.convert.init_lm`), so
+step 0 is the single-device model's. ``loss="fused_cross_entropy"`` then
+runs :func:`..ops.fused_loss.fused_cross_entropy_tp` on the rank's vocab
+shard; ``"cross_entropy"`` the gathered logits. The data axis averages
+the gradients (each data coordinate holds its own rows, every model rank
+of it the same ones), and the skip flag is the model group's MIN, so the
+ranks, which each see only their shards' gradients, skip together.
+Replicated leaves (embedding, norms) get the same gradient bytes on every
+model rank and stay bitwise equal. Checkpoints (``save``, ``restore``,
+rollback) of a tensor-parallel state raise ``NotImplementedError``.
+
 ``model_kwargs`` (e.g. ``{"adapter_ids": tenant}`` for a LoRA fine-tune)
 are forwarded to every model call, evaluation's too. An optimizer with a
 ``mask`` (``fused_adamw(mask=lora_param_mask)``) freezes the leaves it
@@ -65,9 +82,15 @@ from pytorch_distributed_training_tutorials_tpu_torch.models.transformer import 
     bind_params,
 )
 from pytorch_distributed_training_tutorials_tpu_torch.obs.metrics import MetricsLogger
-from pytorch_distributed_training_tutorials_tpu_torch.ops.fused_loss import fused_cross_entropy
+from pytorch_distributed_training_tutorials_tpu_torch.ops.fused_loss import (
+    fused_cross_entropy,
+    fused_cross_entropy_tp,
+)
 from pytorch_distributed_training_tutorials_tpu_torch.parallel.data_parallel import DataParallel
 from pytorch_distributed_training_tutorials_tpu_torch.parallel.distributed import is_primary
+from pytorch_distributed_training_tutorials_tpu_torch.parallel.tensor_parallel import (
+    TensorParallel,
+)
 from pytorch_distributed_training_tutorials_tpu_torch.train.optim import keep_where
 from pytorch_distributed_training_tutorials_tpu_torch.utils import chaos as chaos_lib
 from pytorch_distributed_training_tutorials_tpu_torch.utils.logging import epoch_line
@@ -85,15 +108,18 @@ def _later(what: str, slice_name: str) -> NotImplementedError:
 @dataclasses.dataclass
 class TrainState:
     """The model (its parameters and BatchNorm statistics), the optimizer
-    and its state, the step count as a device tensor, and ``grad_sync``,
-    the data-parallel average of the gradients (None on one device). The
-    step mutates all of them in place."""
+    and its state, the step count as a device tensor, ``grad_sync``, the
+    data-parallel average of the gradients (None on one device), and
+    ``flag_sync``, the tensor-parallel agreement on the skip flag (in
+    place; None without a model group). The step mutates all of them in
+    place."""
 
     step: torch.Tensor
     model: nn.Module
     tx: object
     opt_state: object
     grad_sync: Callable[[list[torch.Tensor]], None] | None = None
+    flag_sync: Callable[[torch.Tensor], torch.Tensor] | None = None
 
     @classmethod
     def create(cls, *, model: nn.Module, tx) -> "TrainState":
@@ -150,14 +176,21 @@ def _soft_ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 def _fused_ce_loss(model: nn.Module, hidden: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean logits-free cross entropy: the final hidden states streamed
     against the model's own lm_head weight, cast to the activations' type
-    (the cast its ``Dense`` applies before the matmul)."""
+    (the cast its ``Dense`` applies before the matmul); a vocab-split
+    head (tensor parallel) through :func:`fused_cross_entropy_tp` on the
+    rank's shard."""
     head = getattr(model, "lm_head", None)
     if head is None:
         raise ValueError(
             'loss="fused_cross_entropy" needs a model with an lm_head whose '
             "forward supports return_hidden=True (models.transformer.TransformerLM)"
         )
-    return fused_cross_entropy(hidden, head.weight.to(hidden.dtype), targets).mean()
+    w = head.weight.to(hidden.dtype)
+    lay = getattr(model, "lay", None)
+    if lay is not None and lay.split_vocab:
+        return fused_cross_entropy_tp(hidden, w, targets, lay.tp,
+                                      vocab_size=model.cfg.vocab_size).mean()
+    return fused_cross_entropy(hidden, w, targets).mean()
 
 
 def _make_loss_fn(loss: str, has_batch_stats: bool = False,
@@ -209,10 +242,12 @@ def _apply_update(state: TrainState, grads: list[torch.Tensor], loss_val: torch.
 
     ``chaos`` poisons the averaged gradients at its ``nan_grad_step``.
     ``skip_nonfinite`` computes the finite flag on the averaged values,
-    which every rank holds alike, so the ranks agree with no collective of
-    their own; the update takes the flag, BatchNorm's statistics go back
-    to ``stats_before`` where it is 0, ``step`` advances by it, and the
-    metrics gain ``"skipped"`` (a device scalar)."""
+    which every data rank holds alike; a tensor-parallel state's
+    ``flag_sync`` then takes the model group's MIN (each model rank sees
+    its shards only), so all ranks agree; the update takes the flag,
+    BatchNorm's statistics go back to ``stats_before`` where it is 0,
+    ``step`` advances by it, and the metrics gain ``"skipped"`` (a device
+    scalar)."""
     loss_val = loss_val.detach()
     if state.grad_sync is not None:
         loss_val = loss_val.clone()
@@ -225,6 +260,8 @@ def _apply_update(state: TrainState, grads: list[torch.Tensor], loss_val: torch.
         state.step += 1
         return state, metrics
     ok = finite_flag(loss_val, grads)
+    if state.flag_sync is not None:
+        ok = state.flag_sync(ok)
     state.tx.update_(state.params, grads, state.opt_state, ok=ok)
     if stats_before:
         keep_where(ok, batch_stats(state.model), stats_before)
@@ -348,6 +385,17 @@ def make_eval_step(loss: str = "cross_entropy", has_batch_stats: bool = False,
     return eval_fn
 
 
+def _tp_model(model: TransformerLM, tp: TensorParallel) -> TransformerLM:
+    """The rank's model of a tensor-parallel trainer: a whole model
+    rebuilt (on the meta device, its weights drawn after) with
+    ``cfg.int8_mesh`` set to ``tp``, or one already built on ``tp``."""
+    if model.cfg.int8_mesh is None:
+        return TransformerLM(dataclasses.replace(model.cfg, int8_mesh=tp))
+    if model.cfg.int8_mesh is not tp:
+        raise ValueError("strategy differs from the model's cfg.int8_mesh")
+    return model
+
+
 def _init_weights(model: nn.Module, seed: int, device: torch.device) -> None:
     """Random weights from ``seed`` on ``device``, bound into ``model``."""
     if isinstance(model, TransformerLM):
@@ -405,9 +453,11 @@ class Trainer:
             raise ValueError(f"rollback_patience must be >= 1, got {rollback_patience}")
         if not 0.0 <= rollback_ema < 1.0:
             raise ValueError(f"rollback_ema must be in [0, 1), got {rollback_ema}")
-        self.model = model
         self.loader = train_loader
         self.strategy = strategy if strategy is not None else DataParallel(train_loader.mesh)
+        if isinstance(self.strategy, TensorParallel) and isinstance(model, TransformerLM):
+            model = _tp_model(model, self.strategy)
+        self.model = model
         self.device = train_loader.device
         _init_weights(model, seed, self.device)
         self.state = self.strategy.shard_state(TrainState.create(model=model, tx=optimizer))
@@ -614,6 +664,12 @@ class Trainer:
             "epoch": self.epoch,
         }
 
+    def _check_checkpointable(self) -> None:
+        if isinstance(self.strategy, TensorParallel) and self.strategy.tp_size > 1:
+            raise NotImplementedError(
+                "checkpoints of a tensor-parallel train state (each model rank holds "
+                "its own shards) are not supported by the PyTorch port")
+
     def _write(self, target: str) -> None:
         """Rank 0 writes ``target/state.pt`` (the state is replicated)."""
         if is_primary():
@@ -634,6 +690,7 @@ class Trainer:
         ``ckpt-{step:08d}`` children, each written to a tmp name and
         renamed; all but the newest K are pruned. Rank 0 writes; every rank
         waits for it."""
+        self._check_checkpointable()
         path = os.path.abspath(os.fspath(path))
         primary = is_primary()
         if keep is not None:
@@ -693,6 +750,7 @@ class Trainer:
         device count, a field the current state lacks is dropped, and
         AdamW's ``calls`` starts from that count, so the bias-correction
         table grows to cover it on the next update."""
+        self._check_checkpointable()
         tree = torch.load(os.path.join(self._resolve_ckpt(path), "state.pt"),
                           map_location=self.device, weights_only=True)
         self.state.model.load_state_dict(tree["model"])
@@ -740,7 +798,9 @@ class Trainer:
             loss_sum, correct, count = self._eval_step(self.state, batch, masks[m.tobytes()])
             totals.append(torch.stack([loss_sum.double(), correct.double(), count.double()]))
         total = torch.stack(totals).sum(0)
-        group = self.strategy.group
+        # the data group (a TensorParallel's own group is its model group)
+        group = (self.strategy.data_group if isinstance(self.strategy, TensorParallel)
+                 else self.strategy.group)
         if group is not None:
             dist.all_reduce(total, group=group)
         loss_sum, correct, seen = total.tolist()

@@ -20,14 +20,18 @@ paged path.
   this script). The port's ``greedy_token`` gives ``V - 1`` for such a
   row, so its quarantined slot writes finite K/V and the neighbours equal
   the fault-free stream (``ROADMAP.md`` section C).
-- Stale NaN in recycled pages: NaN planted in a page's V rows past a
-  request's depth reaches that request's output in both packages' paged
-  attention — the JAX kernel and the port's plain version — because the
-  masked positions' weights are 0 and ``0 * NaN`` is NaN. The same inputs
-  with the NaN rows zeroed give finite outputs, equal in both packages
-  (f32 2e-5 + 1e-5 relative, as ``test_torch_paged_attention.py``). The
-  repair (a select on the weight before the accumulate, or a loop bounded
-  by the depth) is left to a later change of both.
+- Stale NaN in recycled pages: NaN planted past a request's depth (in a
+  page's V rows, or a quantized pool's V scales) still reaches the JAX
+  kernel's output, because the masked positions' weights are 0 and ``0 *
+  NaN`` is NaN; the port leaves those positions' V out of the sum in its
+  kernels and in every plain statement (the plain version, its split
+  statement, the gather oracle and the model's gather path), so its output
+  is finite and equal, bitwise, to the run with those rows zeroed, which
+  both packages agree on (f32 2e-5 + 1e-5 relative, as
+  ``test_torch_paged_attention.py``).
+- A whole-slot cache hands no previous holder's NaN to the next request:
+  every refill kind (whole prefill, splice, chunked prefill) writes the
+  slot's whole window, zeros past the new request's bucket.
 """
 
 import numpy as np
@@ -42,7 +46,9 @@ from pytorch_distributed_training_tutorials_tpu.serve import (
     ServeEngine as JaxServeEngine,
 )
 from pytorch_distributed_training_tutorials_tpu.utils import chaos as jchaos
+from pytorch_distributed_training_tutorials_tpu_torch.models import transformer as tt
 from pytorch_distributed_training_tutorials_tpu_torch.ops import paged_attention as tpa
+from pytorch_distributed_training_tutorials_tpu_torch.serve import Request
 from pytorch_distributed_training_tutorials_tpu_torch.utils import chaos
 from helpers import requires_pallas_interpret
 from test_torch_paged_attention import _both, _np32, _setup
@@ -112,25 +118,103 @@ def test_quarantined_slot_junk_token_poisons_recycled_pages_in_jax_only(stream, 
         w for i, w in enumerate(want) if i not in spread]
 
 
+def _port_paths(q, k, v, table, pos, kw) -> dict:
+    """The port's paged attention over CPU operands along every plain
+    statement: the wrapper (the plain version), the sm90 kernel's split
+    statement (a page a split), the gather oracle, and the model's gather
+    decode (pages gathered through the table, decoded, grouped masked
+    attention in float32; a zero sink page behind the pools for the
+    sentinel entries)."""
+    quant = kw.get("quant")
+    out = {
+        "plain": tpa.paged_attention(q, k, v, table, pos, **kw),
+        "split": tpa.paged_attention_plain(q, k, v, table, pos, **kw, pages_per_split=1),
+        "reference": tpa.paged_attention_reference(q, k, v, table, pos, **kw),
+    }
+
+    def gathered(pool, scale):
+        sink = lambda t: torch.cat([t, torch.zeros_like(t[:1])])  # noqa: E731
+        return tt._decode_kv(tt._gather_pages(sink(pool), table),
+                             tt._gather_pages(sink(scale), table) if quant else None,
+                             quant, q.dtype)
+
+    kr, vr = gathered(k, kw.get("k_scale")), gathered(v, kw.get("v_scale"))
+    valid = tt._validity(pos.to(torch.int64), q.shape[1], kr.shape[1])
+    out["gather"] = tt.grouped_masked_attention(q, kr, vr, valid[:, None], torch.float32)
+    return out
+
+
+@pytest.mark.parametrize("quant", [None, "int8", "int4"])
 @pytest.mark.parametrize("row", [0, 2])
-def test_stale_nan_past_the_depth_reaches_the_output_in_both(row):
-    q, k, v, table, pos, kw = _setup(0, 4, 1, 4, 4, 16, 8, 4, 24)
+def test_stale_nan_past_the_depth_stays_out_of_the_port(row, quant):
+    q, k, v, table, pos, kw = _setup(0, 4, 1, 4, 4, 16, 8, 4, 24, quant)
+    v, kw = np.array(v), {n: a if isinstance(a, str) else np.array(a) for n, a in kw.items()}
     page_size = k.shape[1]
     last = int(pos[row]) // page_size
     first_dead = int(pos[row]) % page_size + 1
     assert first_dead < page_size  # there are dead positions to plant in
-    v[table[row, last], first_dead:] = np.nan
-    (jx, jkw), (tx, tkw) = _both((q, k, v, table, pos), kw)
-    got = _np32(tpa.paged_attention(*tx, **tkw))
+
+    def plant(value):
+        # the V rows of an exact pool; the V scales of a quantized one
+        (kw["v_scale"] if quant else v)[table[row, last], first_dead:] = value
+        return _both((q, k, v, table, pos), kw)
+
+    (jx, jkw), (tx, tkw) = plant(np.nan)
+    want_nan = _np32(j_paged_attention(*jx, **jkw))
+    got_nan = _port_paths(*tx, tkw)
+    (jx, jkw), (tx, tkw) = plant(0.0)
     want = _np32(j_paged_attention(*jx, **jkw))
-    assert np.isnan(got[row]).all() and np.isnan(want[row]).all()
+    got = _port_paths(*tx, tkw)
+    # the reference still accumulates 0 * NaN; its other rows are untouched
     others = [i for i in range(4) if i != row]
-    np.testing.assert_allclose(got[others], want[others], atol=2e-5, rtol=1e-5)
-    assert np.isfinite(got[others]).all()
-    # the same inputs with the planted rows zeroed: finite, equal
-    v[table[row, last], first_dead:] = 0.0
-    (jx, jkw), (tx, tkw) = _both((q, k, v, table, pos), kw)
-    got = _np32(tpa.paged_attention(*tx, **tkw))
-    want = _np32(j_paged_attention(*jx, **jkw))
-    assert np.isfinite(got).all()
-    np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-5)
+    assert np.isnan(want_nan[row]).all()
+    np.testing.assert_array_equal(want_nan[others], want[others])
+    assert np.isfinite(want).all()
+    for path, out in got_nan.items():
+        assert torch.isfinite(out).all(), path
+        assert torch.equal(out, got[path]), path
+        np.testing.assert_allclose(_np32(out), want, atol=2e-5, rtol=1e-5, err_msg=path)
+
+
+@pytest.mark.parametrize("kind, options", [
+    ("prefill", {}),
+    ("splice", dict(prefix_cache_bytes=PREFIX_BYTES)),
+    ("chunked", dict(prefill_chunk=8)),
+])
+def test_whole_slot_refill_wipes_a_previous_holders_nan(stream, kind, options):
+    """NaN in every position of every slot of a whole-slot cache (what a
+    non-finite holder could leave) is gone from the slot a new request
+    takes, whatever the refill kind: every position of its window is
+    finite once the request has run, and its tokens equal a fresh
+    engine's."""
+    first, second = stream.prompts[5], stream.prompts[1]  # 16 tokens; 12 sharing a head
+
+    def run(plant: bool):
+        eng = stream.engine(**options)
+        eng.submit(Request(prompt=first, max_new_tokens=4))
+        eng.run_until_idle()
+        cache = eng._state.cache
+        if plant:
+            for x in (cache.k, cache.v, cache.k_scale, cache.v_scale):
+                if x is not None:
+                    x.fill_(float("nan"))
+        before = dict(eng.refills)
+        rid = eng.submit(Request(prompt=second, max_new_tokens=6))
+        slot = None
+        while not eng.idle:
+            done = eng.step()
+            slot = slot if slot is not None else next(
+                (i for i, a in enumerate(eng._slots) if a is not None), None)
+            if done:
+                (c,) = done
+                assert c.request_id == rid
+                tokens = c.tokens
+        assert eng.refills[kind] > before[kind], (kind, eng.refills)
+        return tokens, cache, slot
+
+    want, _, _ = run(plant=False)
+    got, cache, slot = run(plant=True)
+    assert got == want
+    window = cache.window  # row W is the sink: written, never read
+    for x in (cache.k, cache.v):
+        assert torch.isfinite(x[:, slot, :window]).all()

@@ -197,9 +197,10 @@ def test_slot_state_shards_on_the_kv_head_axis():
 
 
 def test_model_axis_mesh_without_a_group():
-    """``create_mesh({"model": 1})`` in one process is a mesh of one; a data
-    axis beside a model axis (TP training's mesh) and a model axis wider
-    than the world raise."""
+    """``create_mesh({"model": 1})`` in one process is a mesh of one; a
+    data x model mesh or a model axis wider than the world raise (a world
+    mismatch: the data x model mesh itself is TP training's,
+    ``tests/test_torch_tp_train_dp.py``)."""
     from pytorch_distributed_training_tutorials_tpu_torch.parallel.mesh import (
         create_mesh,
     )
@@ -208,7 +209,7 @@ def test_model_axis_mesh_without_a_group():
     assert mesh.mesh_dim_names == ("model",) and TensorParallel(mesh).tp_size == 1
     assert create_mesh({"data": 1, "model": -1}, device="cpu").mesh_dim_names == (
         "data", "model")
-    with pytest.raises(NotImplementedError, match="data axis of 2"):
+    with pytest.raises(ValueError, match="data axis of 2"):
         create_mesh({"data": 2, "model": 1}, device="cpu")
     with pytest.raises(ValueError, match="model axis of 2"):
         create_mesh({"model": 2}, device="cpu")
