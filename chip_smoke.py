@@ -8,6 +8,7 @@
     python3 chip_smoke.py --lora-only     # phases 0, 1 and the LoRA / dots_attn phases
     python3 chip_smoke.py --faults-only   # phases 0, 1 and the failure-handling phases
     python3 chip_smoke.py --tp-only       # phases 0, 1 and the tensor-parallel phases
+    python3 chip_smoke.py --strategies-only  # phases 0, 1 and the model-parallel phases
 
 It drives the port (``pytorch_distributed_training_tutorials_tpu_torch``)
 on the card and fails — non-zero exit, no result line — if a phase fails.
@@ -72,7 +73,7 @@ Every phase prints JSON lines:
    tokens_per_launch=8)``, with the kernel-launch and host-sync counts
    checked, every int8 call on the sm90 route, and two requests held
    against ``generate``;
-5. training: a 2-layer model at the 760m preset's widths, S 256, flash
+5. training: a 2-layer model at the 760m preset's widths, S 128, flash
    attention, in float32 and bfloat16, on the card (kernels) against the
    CPU (plain versions): the loss and every gradient, with cross entropy
    and with the fused loss (then also one ``fused_adamw`` step);
@@ -143,8 +144,7 @@ kernel f32, (d) kernel int8, (e) kernel int4 — each with its launch, sync,
 page and shed gates, and every int8 and paged call on the sm90 route. Then each kernel arm is held teacher-forced against a
 gather engine at its KV storage on (b)'s tokens (``teacher_forced_logits``:
 logits within 4% of their scale, the same argmax where the top-2 gap is
-wider): (c) on every request, (d) and (e) on one request of each prompt
-length; (d) and (e) against the f32 gather are read as a lower-precision
+wider): (c) on two requests of each prompt length, (d) and (e) on one; (d) and (e) against the f32 gather are read as a lower-precision
 control, and two planted faults (the first page of each table swapped for
 another request's page, or dropped) must trip the gate. Then
 ``serve_1b_gqa_paged_spec``: arm (c) with ``speculative_k=2`` and
@@ -185,11 +185,11 @@ arm (SPEC_ARMS): (a) plain, (s) ``speculative_k=2``, (p)
 ``pipeline_depth=2``, (sp) both. Gates: (s), (p) and (sp) token-identical
 to (a); 113 int8 calls a forward (a verify forward at M = 12) and 16 flash
 launches a whole prefill, all on their routes; host syncs = chains +
-prefills; in a profiled window of (p) and (sp) each next chain's first
-kernel queued before the previous chain's collect returned, in (a) and (s)
-never; ``spec_stats()`` equal to a host replay of the drafts over (a)'s
-greedy tokens. Each arm's tok/s, latency, TTFT, verify forwards, acceptance
-and the device's busy and idle share.
+prefills; in a window of (p) and (sp) each next chain's dispatch (its
+launches) returned before the previous chain's collect returned, in (a)
+and (s) never (host clock marks, ``chain_order``); ``spec_stats()`` equal
+to a host replay of the drafts over (a)'s greedy tokens. Each arm's tok/s,
+latency, TTFT, verify forwards and acceptance.
 
 Then ``serve_1b_lora``, the multi-tenant slice: the 1b preset (int8
 weights, flash prefill) with ``ServeEngine(adapter_bank=AdapterBank(
@@ -203,8 +203,7 @@ scale, and a planted fault that ignores the ids failing that gate; host
 syncs equal the bank-less stream's; 113 int8 calls a forward, all sm90;
 a request queued behind an ``evict`` completes as ``"adapter_evicted"``
 with no launch; a ``register`` into a live engine served at the next
-step. Both engines' decode chains profiled (kernels a decode step, busy
-and idle share; this is phase 4's profile). Then its composed arm:
+step. Then its composed arm:
 ``paged=True, paged_kernel=True``, a prefix cache and
 ``speculative_k=2`` on serve_1b_prefill's overlapping prompts with ids
 i % 4, and the same arm on the gather: splices equal a host replay of
@@ -227,8 +226,8 @@ row registered into a bank and served, its teacher-forced logits within
 
 Then the failure-handling slice. ``serve_1b_faults``: phase 4's cell
 with flash prefill, (a) guard off and (g) ``guard_nonfinite`` in turns
-(a, g, g, a): token-identical, equal host and stream syncs, tok/s and
-kernels a decode step of each; (c) the guard with a ``ChaosConfig`` (NaN
+(a, g, g, a): token-identical, equal host and stream syncs, tok/s of
+each; (c) the guard with a ``ChaosConfig`` (NaN
 logits at slot 1, global step 5; request 5's prefill failing; chain 1's
 dispatch stalled 5 s past request 2's 1.5 s deadline), a queued and an
 active cancel, then ``drain()``: the poisoned request ``"nonfinite"`` with
@@ -294,6 +293,31 @@ exactly TP_TRAIN_COLLECTIVES, and per rank a step 48 / 24 / 24 flash,
 with them. Phase 2's paged check also plants NaN past every row's depth
 in a recycled page at every pool storage (``paged_stale_nan``): both
 kernels' outputs finite and bitwise the zero-planted run's.
+
+Then the model-parallel slice (``strategy_phases``).
+``train_resnet50_pipeline``: the 03 lesson's split ResNet-50 (SURVEY C15/
+C17: the imagenet stem, 1000 classes, batch 120 of 128x128 random images,
+MSE on one-hot labels, SGD 1e-3) through ``ManualPipeline`` on ``["cuda:0",
+"cuda:0"]`` and unsplit through the ``Trainer``'s step, from the same
+weights: stage counts summing to 25,557,032, three losses and the
+parameters within PIPE_TOL, ``forward`` in eval mode, a fused-AdamW
+pipeline launching kernel 9 once a stage a step; ms a ``train()`` of 3
+batches (mean and std of 10, in turns), peak memory and kernels a step.
+``train_resnet50_gpipe``: the same model and batch through ``GPipe`` at
+1, 2 and 4 microbatches, each step within PIPE_TOL of the single-device
+gradient accumulation over the same microbatches, n*m / n*m / n stage
+forwards, backwards and applies; ms a step and kernels a microbatch.
+``train_resnet18_fsdp``: ``Trainer(strategy=FSDP(mesh))`` on the JAX
+``examples/train_resnet_mnist.py --fsdp`` config: bitwise DataParallel in
+an NCCL world of one with no collective; in a gloo world of 2 on card 0
+within FSDP_TOL of DataParallel's, a rank's parameter and moment bytes
+half, kernel 9 once a step over the rank's shards and bitwise its plain
+version there (timed beside its bound), the collectives by kind.
+``train_lm_hybrid_fsdp``: ``HybridFSDP(mesh, TP_RULES)`` on a gloo world
+of 4 (``{"data": 2, "model": 2}``) at the 760m widths and 2 layers, every
+leaf placed as the JAX strategy places it (HYBRID_SPECS), the first step
+within TP_TRAIN_LOSS_TOL / TP_TRAIN_GRAD_TOL of the single-device
+``Trainer``'s, flash and AdamW launches on the sm90 route.
 
 Every serving stream is also run under PyTorch's sync debug mode: its
 stream syncs (with their call sites) must not exceed the host syncs the
@@ -419,12 +443,12 @@ SPEC_ARMS = {
     "p": dict(pipeline_depth=2),
     "sp": dict(speculative_k=SPEC_K, spec_ngram=SPEC_NGRAM, pipeline_depth=2),
 }
-# steady steps of the profiled window of a serve_1b_spec arm at depth 1
+# steady steps of the marked window of a serve_1b_spec arm at depth 1
 # (a, s): two give the overlap gate one chain pair; at depth 2 (p, sp) one
 # step already dispatches the next chain before it collects the last, one
-# pair. Each step adds its events to the profiler's processing on the
-# host, ~10 s a step at 1b, which the script's time limit feels
-SPEC_PROFILE_STEPS = {1: 2, 2: 1}
+# pair (the window's marks are host clock reads: a profiler over it cost
+# ~10 s of post-processing a step at 1b, ~80 s a run)
+SPEC_WINDOW_STEPS = {1: 2, 2: 1}
 
 # the 1b preset of examples/serve_llm_int8.py
 PRESET_1B = dict(
@@ -464,9 +488,10 @@ PAGED_ARMS = {
 # ROADMAP.md section C) and the planted faults by 8.2% (dropped page) and
 # 16.7% (wrong page); 4% is near the geometric middle (PERF.md section 6)
 TF_LOGIT_BOUND = 0.04
-# kernel arm -> (its gather reference, requests held: None = all, 3 = one
-# of each prompt length); "b8"/"b4" are gather engines at kv_bits 8/4
-TF_PAIRS = {"c": ("b", None), "d": ("b8", 3), "e": ("b4", 3)}
+# kernel arm -> (its gather reference, requests held: the first n, the
+# prompt lengths cycling: 6 = two of each, 3 = one of each); "b8"/"b4"
+# are gather engines at kv_bits 8/4
+TF_PAIRS = {"c": ("b", 6), "d": ("b8", 3), "e": ("b4", 3)}
 TF_GATHER = {"b8": dict(paged=True, kv_bits=8), "b4": dict(paged=True, kv_bits=4)}
 # planted faults arm (c) must fail the gate with, on request 1 (8 pages)
 TF_FAULTS = ("wrong_page", "dropped_page")
@@ -1571,54 +1596,6 @@ def percentile(vals, q: float) -> float:
     return s[min(len(s) - 1, int(round(q * (len(s) - 1))))]
 
 
-def profile_chain(torch, engine, mk_request, gpu: str, label: str = "serve_1b") -> dict:
-    """Where a decode chain's time goes: ``torch.profiler`` over one
-    ``step()`` that runs a chain of ``tokens_per_launch`` decode steps on 4
-    active slots (no prefill inside). Device time by kernel name, the
-    device's busy and idle share of the step's wall time, kernels per
-    decode step. Returns the line it prints."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for i in range(engine.n_slots):
-        engine.submit(mk_request(100 + i))
-    engine.step()  # the prefills and a first chain, outside the window
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        engine.step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    engine.run_until_idle()
-    events = prof.key_averages()
-    kernels = [
-        e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-    ]
-    dev_us = {e.key: e.self_device_time_total for e in kernels}
-    busy_ms = sum(dev_us.values()) / 1e3
-    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]
-    cpu_ops = sorted(
-        (e for e in events if e.device_type == torch.autograd.DeviceType.CPU),
-        key=lambda e: -e.self_cpu_time_total,
-    )[:10]
-    row = {
-        "phase": "profile_decode_chain", "of": label,
-        "decode_steps": engine.tokens_per_launch,
-        "slots_active": engine.n_slots, "wall_ms_profiled": wall_ms,
-        "device_busy_ms": busy_ms,
-        "device_busy_share": busy_ms / wall_ms,
-        "device_idle_share": 1.0 - busy_ms / wall_ms,
-        "kernels_per_decode_step":
-            sum(e.count for e in kernels) / engine.tokens_per_launch,
-        "top_kernels_ms": {k[:80]: v / 1e3 for k, v in top},
-        "top_host_ops_self_ms": {
-            e.key[:80]: [e.self_cpu_time_total / 1e3, e.count] for e in cpu_ops
-        },
-        "gpu": gpu,
-    }
-    emit(row)
-    return row
-
-
 def phase_serve(torch, quant, gpu: str) -> int:
     """Phase 4: the 1b preset at full depth through ServeEngine. Returns
     the kernel launches of the timed stream."""
@@ -1927,8 +1904,6 @@ def phase_serve_paged(torch, pa, gpu: str) -> dict:
         emit(row)
         problems += [f"arm {arm}: {x}" for x in bad]
         summary[arm] = row
-        if arm == "c":
-            profile_chain(torch, eng, mk_request, gpu, label="serve_1b_paged arm c")
         if arm != "a":
             kept[arm] = eng
         del eng
@@ -2466,75 +2441,58 @@ def phase_serve_prefill(torch, fa, gpu: str) -> dict:
             "routes_g": float_row["flash_fwd_routes"], "routes_b": rows["b"]["flash_fwd_routes"]}
 
 
-def profile_steps(torch, engine, mk_request, n_steps: int) -> dict:
-    """``torch.profiler`` over ``n_steps`` steady ``step()`` calls of
+def chain_order(torch, engine, mk_request, n_steps: int) -> dict:
+    """The pipeline's overlap over ``n_steps`` steady ``step()`` calls of
     ``engine`` with 4 fresh requests (their prefills and first two chains
-    outside the window), each chain's dispatch and collect marked
-    (``record_function``). Returns the device's busy and idle share of the
-    window's wall time, kernels per step and, for each chain i collected
-    in the window whose successor was dispatched in it, whether chain
-    i+1's first kernel launch (a ``cudaLaunch*`` runtime call inside its
-    dispatch) was queued before chain i's collect returned — the pipeline's
-    overlap at depth 2, the serial order at depth 1 — and how long the
-    collect took."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    outside the window): each chain's dispatch and collect marked on the
+    host clock. For each chain i collected in the window whose successor
+    was dispatched in it, whether chain i+1's dispatch — every launch of
+    it — returned before chain i's collect returned (the overlap at depth
+    2; at depth 1 the serial order: the dispatch starts after the collect),
+    and how long the collect took; the int8 launches in the window."""
+    from pytorch_distributed_training_tutorials_tpu_torch.ops import quant
 
     for i in range(engine.n_slots):
         engine.submit(mk_request(i))
     engine.step()
     engine.step()
     real_dispatch, real_collect = engine._dispatch, engine._collect_chain
+    marks = {}
 
     def dispatch():
-        with record_function(f"chain_dispatch {engine.n_chains}"):
-            real_dispatch()
+        i, t0 = engine.n_chains, time.perf_counter_ns()
+        real_dispatch()
+        marks["dispatch", i] = (t0, time.perf_counter_ns())
 
     def collect():
-        with record_function(f"chain_collect {engine._inflight[0].chain_id}"):
-            return real_collect()
+        i, t0 = engine._inflight[0].chain_id, time.perf_counter_ns()
+        out = real_collect()
+        marks["collect", i] = (t0, time.perf_counter_ns())
+        return out
 
     engine._dispatch, engine._collect_chain = dispatch, collect
     torch.cuda.synchronize()
+    launches = quant.int8_matmul.launches
     try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n_steps):
-                engine.step()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            engine.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
         del engine._dispatch, engine._collect_chain
+    launches = quant.int8_matmul.launches - launches
     engine.run_until_idle()
-    # host-side events only: a record_function range also shows on the
-    # device's timeline (a user annotation spanning its kernels)
-    cpu = torch.autograd.DeviceType.CPU
-    events = [e for e in prof.events() if e.device_type == cpu]
-    marks = {}
-    for e in events:
-        if e.name.startswith(("chain_dispatch ", "chain_collect ")):
-            kind, i = e.name.split()
-            marks[kind, int(i)] = (e.time_range.start, e.time_range.end)
-    launches = sorted(e.time_range.start for e in events
-                      if e.name.startswith(("cudaLaunch", "cuLaunch")))
     pairs = []
     for (kind, i), (c0, c1) in sorted(marks.items()):
-        if kind != "chain_collect" or ("chain_dispatch", i + 1) not in marks:
+        if kind != "collect" or ("dispatch", i + 1) not in marks:
             continue
-        d0, d1 = marks["chain_dispatch", i + 1]
-        first = next((t for t in launches if d0 <= t <= d1), None)
-        pairs.append({"chain": i, "collect_us": c1 - c0,
-                      "next_first_launch_minus_collect_end_us":
-                          None if first is None else first - c1,
-                      "next_queued_before_collect_returned": first is not None and first < c1})
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.key.startswith("chain_")]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    return {"steps": n_steps, "wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
-            "device_busy_share": busy_ms / wall_ms,
-            "device_idle_share": 1.0 - busy_ms / wall_ms,
-            "kernels_per_step": sum(e.count for e in kernels) / n_steps,
-            "launch_events": len(launches), "chain_pairs": pairs}
+        d0, d1 = marks["dispatch", i + 1]
+        pairs.append({"chain": i, "collect_us": (c1 - c0) / 1e3,
+                      "next_dispatch_end_minus_collect_end_us": (d1 - c1) / 1e3,
+                      "next_queued_before_collect_returned": d1 <= c1})
+    return {"steps": n_steps, "wall_ms": wall_ms, "int8_launches": launches,
+            "chain_pairs": pairs}
 
 
 def phase_serve_spec(torch, fa, gpu: str) -> dict:
@@ -2544,13 +2502,13 @@ def phase_serve_spec(torch, fa, gpu: str) -> dict:
     (p) and (sp) token-identical to (a); 113 int8 calls a forward (a
     verify forward: M = 12) and 16 flash launches a whole prefill, all on
     their routes (int8 sm90, flash f32); host syncs = chains + prefills,
-    stream syncs (sync debug mode) no more, their sites printed; in the
-    profiled window of (p) and (sp) every next chain's first kernel queued
-    before the previous chain's collect returned, in (a) and (s) never
-    (the control); ``spec_stats()`` of (s) and (sp) equal to the host
+    stream syncs (sync debug mode) no more, their sites printed; in a
+    window of (p) and (sp) every next chain's dispatch returned before the
+    previous chain's collect returned, in (a) and (s) never (the control;
+    ``chain_order``); ``spec_stats()`` of (s) and (sp) equal to the host
     replay (``replay_spec``) over (a)'s greedy tokens extended by k. Each
-    arm's tok/s, latency, TTFT, verify forwards, acceptance and busy/idle
-    share. Returns the launches by arm."""
+    arm's tok/s, latency, TTFT, verify forwards and acceptance. Returns the
+    launches by arm."""
     import dataclasses
 
     import numpy as np
@@ -2634,13 +2592,11 @@ def phase_serve_spec(torch, fa, gpu: str) -> dict:
         if real["count"] > syncs:
             bad.append(f"{real['count']} stream syncs > the {syncs} budgeted: {real['sites']}")
         depth = options.get("pipeline_depth", 1)
-        t_prof = time.perf_counter()
-        prof = profile_steps(torch, eng, mk_request, SPEC_PROFILE_STEPS[depth])
-        prof_s = time.perf_counter() - t_prof
+        order = chain_order(torch, eng, mk_request, SPEC_WINDOW_STEPS[depth])
         piped = depth > 1
-        overlap = [p["next_queued_before_collect_returned"] for p in prof["chain_pairs"]]
-        if not prof["launch_events"] or not overlap or any(x != piped for x in overlap):
-            bad.append(f"profiled chain pairs {prof['chain_pairs']}: want every next chain "
+        overlap = [p["next_queued_before_collect_returned"] for p in order["chain_pairs"]]
+        if not order["int8_launches"] or not overlap or any(x != piped for x in overlap):
+            bad.append(f"chain pairs {order['chain_pairs']}: want every next chain "
                        f"queued {'before' if piped else 'after'} the previous collect returned")
         lat = [c.latency_s for c in done.values()]
         ttft = [c.ttft_s for c in done.values()]
@@ -2660,7 +2616,7 @@ def phase_serve_spec(torch, fa, gpu: str) -> dict:
             "latency_p50_s": percentile(lat, 0.5), "latency_p95_s": percentile(lat, 0.95),
             "ttft_p50_s": percentile(ttft, 0.5), "ttft_p95_s": percentile(ttft, 0.95),
             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-            "profile": prof, "profile_s": prof_s, "ok": not bad, "problems": bad, "gpu": gpu,
+            "chain_order": order, "ok": not bad, "problems": bad, "gpu": gpu,
             "tokens": toks,
         }
         emit({k: v for k, v in rows[arm].items() if k != "tokens"})
@@ -2688,12 +2644,10 @@ def phase_serve_spec(torch, fa, gpu: str) -> dict:
     emit({"phase": "serve_1b_spec_summary", "k": SPEC_K, "ngram": SPEC_NGRAM,
           "replay_steps_consumed": want[0], "replay_drafts_accepted": want[1],
           "replay_stream_s": ext_s,
-          "profile_s": {a: r["profile_s"] for a, r in rows.items()},
           "spec_stats": {a: rows[a]["spec_stats"] for a in ("s", "sp")},
           "aggregate_tok_s": {a: r["aggregate_tok_s"] for a, r in rows.items()},
           "latency_p50_s": {a: r["latency_p50_s"] for a, r in rows.items()},
           "ttft_p50_s": {a: r["ttft_p50_s"] for a, r in rows.items()},
-          "device_idle_share": {a: r["profile"]["device_idle_share"] for a, r in rows.items()},
           "tokens_equal_a": {a: r["tokens"] == rows["a"]["tokens"] for a, r in rows.items()},
           "ok": not problems, "gpu": gpu})
     if problems:
@@ -2890,8 +2844,7 @@ def phase_serve_faults(torch, fa, gpu: str) -> dict:
     """``serve_1b_faults``: the 1b int8 cell (PRESET_1B, 4 slots, 12
     requests, prompts {16, 32, 48}, 32 new tokens, flash prefill). (a)
     guard off and (g) ``guard_nonfinite`` in turns (a, g, g, a): token-
-    identical, equal host and stream syncs, tok/s of each, kernels a decode
-    step of each (``profile_chain``). (c) the guard with FAULT_CHAOS, the
+    identical, equal host and stream syncs, tok/s of each. (c) the guard with FAULT_CHAOS, the
     deadline and the cancels (:func:`fault_leg`), a recorder riding along:
     :func:`fault_gates`; 113 int8 calls a forward and 16 flash launches a
     whole prefill, on their routes (the failed prefill launches none).
@@ -2971,9 +2924,6 @@ def phase_serve_faults(torch, fa, gpu: str) -> dict:
                                                         runs[0]["stream_syncs"]):
             problems.append(f"turn {len(runs)} ({arm}): host and stream syncs "
                             f"{run['host_syncs']}, {run['stream_syncs']} != the first turn's")
-    prof = {arm: profile_chain(torch, engine(guard_nonfinite=arm == "g"), mk_request, gpu,
-                               label=f"serve_1b_faults arm {arm}")
-            for arm in ("a", "g")}
     ref = runs[1]
     rec = FlightRecorder(capacity=4096)
     eng = engine(guard_nonfinite=True, chaos=ChaosConfig(**FAULT_CHAOS), flight=rec)
@@ -3002,11 +2952,6 @@ def phase_serve_faults(torch, fa, gpu: str) -> dict:
         "phase": "serve_1b_faults_summary",
         "aggregate_tok_s": {a: [r["aggregate_tok_s"] for r in rs] for a, rs in by_arm.items()},
         "latency_p50_s": {a: [r["latency_p50_s"] for r in rs] for a, rs in by_arm.items()},
-        "kernels_per_decode_step": {a: p["kernels_per_decode_step"] for a, p in prof.items()},
-        "guard_kernels_per_decode_step": prof["g"]["kernels_per_decode_step"]
-        - prof["a"]["kernels_per_decode_step"],
-        "device_busy_ms": {a: p["device_busy_ms"] for a, p in prof.items()},
-        "device_idle_share": {a: p["device_idle_share"] for a, p in prof.items()},
         "host_syncs": {a: rs[0]["host_syncs"] for a, rs in by_arm.items()},
         "stream_syncs": {a: rs[0]["stream_syncs"] for a, rs in by_arm.items()},
         "ok": not problems, "gpu": gpu,
@@ -3017,8 +2962,7 @@ def phase_serve_faults(torch, fa, gpu: str) -> dict:
     return {"model": model, "cfg": cfg, "prompts": timed, "new": new, "ref": ref,
             "int8": {f"serve_1b_faults_{r['arm']}{i + 1}": r["int8"] for i, r in enumerate(runs)}
             | {"serve_1b_faults_c": int8_calls},
-            "flash": {"serve_1b_faults_c": flash_calls},
-            "kernels_per_decode_step": summary["kernels_per_decode_step"]}
+            "flash": {"serve_1b_faults_c": flash_calls}}
 
 
 def phase_serve_paged_faults(torch, pa, gpu: str) -> dict:
@@ -3963,7 +3907,7 @@ LOSSES = ("cross_entropy", "fused_cross_entropy")
 
 
 def phase_train_card_vs_cpu(torch, gpu: str) -> None:
-    """Phase 5: a 2-layer model at the 760m widths, S 256, flash attention,
+    """Phase 5: a 2-layer model at the 760m widths, S 128, flash attention,
     in float32 and in bfloat16 (the train step's compute type), with cross
     entropy and with the fused loss: the loss and every gradient on the
     card (kernels, TF32 off) against the CPU (plain versions), on the same
@@ -3991,7 +3935,7 @@ def phase_train_card_vs_cpu(torch, gpu: str) -> None:
         _train_step_fn,
     )
 
-    seq = 256
+    seq = 128
     rng = np.random.Generator(np.random.PCG64(6))
     toks = torch.as_tensor(rng.integers(0, PRESET_760M["vocab_size"], (2, seq + 1)),
                            dtype=torch.int64)
@@ -5345,11 +5289,6 @@ def phase_serve_lora(torch, quant, fa, pa, gpu: str) -> dict:
                    and bank.generation(3) == 2 and all(b in done for b in busy))
     if not register_ok:
         problems.append(f"register into a live engine: {done.get(late)} != {ref_tokens}")
-    profile_chain(torch, base_eng, lambda i: Request(prompt=reqs[i % 12][0], max_new_tokens=32),
-                  gpu, label="serve_1b")
-    profile_chain(torch, lora_eng,
-                  lambda i: Request(prompt=reqs[i % 12][0], max_new_tokens=32, adapter=1 + i % 3),
-                  gpu, label="serve_1b_lora")
     mean = lambda arm, k: statistics.mean(r[k] for r in runs[arm])  # noqa: E731
     emit({
         "phase": "serve_1b_lora", "preset": "1b", "layers": cfg.n_layers,
@@ -5737,6 +5676,763 @@ def phase_train_dots_attn(torch, gpu: str) -> dict:
     return {"flash": launches, "flash_routes": routes, "step_ms": r["step_ms"]}
 
 
+# model parallelism, the 03 lesson at the reference's shapes (SURVEY
+# C15/C17): ResNet-50 with the imagenet stem and 1000 classes, a batch of
+# 120 random 128x128 images with one-hot(1000) random labels, MSE, SGD at
+# 1e-3, a train() of 3 batches; the data is drawn on the card in bulk
+# from a seed (the reference draws each batch on the host)
+PIPE = dict(batch=120, px=128, classes=1000, batches=3, lr=1e-3, repeats=10)
+PIPE_M = (1, 2, 4)
+RESNET50_PARAMS = 25_557_032
+# the split against the unsplit model from the same weights, both float32
+# with TF32 off and cuDNN in its deterministic algorithms (``deterministic``;
+# with its default algorithms three steps left the parameters 1.4e-5 of
+# their largest entry apart on an H100 while the losses stayed bitwise):
+# the same convolutions on the same shapes, so losses within
+# 1e-5 relative, parameters and BatchNorm statistics within 1e-5 of their
+# largest entry, the eval-mode forward within 1e-5 of its largest logit
+PIPE_TOL = 1e-5
+# resnet18_fsdp: the config of the JAX package's examples/train_resnet_mnist.py
+# --fsdp (ResNet-18, cifar stem, bf16 on f32 parameters, SGD 0.05 momentum
+# 0.9, MNIST's uint8 surrogate resident on the card) at the
+# resnet18-mnist-ddp cell's 512 images a device, one epoch of the first
+# FSDP_ROWS images a world size; FSDP at its default min_size (1024)
+FSDP_ROWS = 4096
+# the gloo world of 2 against DataParallel's: both ranks' steps under
+# deterministic cuDNN, the same bf16 arithmetic, the gradients summed by an
+# all_reduce (DataParallel, in 25 MB buckets) or by the staged route's
+# per-leaf all_reduce: losses within 1e-3 relative, parameters within 1e-3
+# of their largest entry after the epoch (bitwise reported beside)
+FSDP_TOL = 1e-3
+# the strategies' gloo worlds on one card: their times are correctness
+# runs, not the strategies' speed
+STRATEGY_NOTE = ("gloo on one card: every collective staged through host memory; the "
+                 "phase's times are not the strategy's speed")
+# lm_hybrid_fsdp: the 760m widths at 2 layers (bench/lm_headline.py's
+# model: bf16, flash, remat "dots", seq 2048, its batch of 2), cross
+# entropy, fused AdamW, 2 steps, on {"data": 2, "model": 2}
+HYBRID_CFG = dict(PRESET_760M, n_layers=2, max_seq_len=2048, remat=True, remat_policy="dots")
+HYBRID_MESH = {"data": 2, "model": 2}
+HYBRID_STEPS = 2
+# every leaf's placement in flax's dimension order: the JAX package's
+# HybridFSDP(mesh, TP_RULES) spec for the same path at this config
+# (tests/test_torch_hybrid_fsdp.py holds this table against the JAX
+# strategy)
+HYBRID_SPECS = {
+    "tok_emb.weight": ((32768, 1536), ("data", None)),
+    **{f"blocks.{i}.{name}": spec for i in range(2) for name, spec in {
+        "attn_norm.scale": ((1536,), ("data",)),
+        "attn.q_proj.weight": ((1536, 16, 96), ("data", "model", None)),
+        "attn.k_proj.weight": ((1536, 16, 96), ("data", "model", None)),
+        "attn.v_proj.weight": ((1536, 16, 96), ("data", "model", None)),
+        "attn.o_proj.weight": ((16, 96, 1536), ("model", None, "data")),
+        "mlp_norm.scale": ((1536,), ("data",)),
+        "mlp.gate_proj.weight": ((1536, 6144), ("data", "model")),
+        "mlp.up_proj.weight": ((1536, 6144), ("data", "model")),
+        "mlp.down_proj.weight": ((6144, 1536), ("model", "data")),
+    }.items()},
+    "final_norm.scale": ((1536,), ("data",)),
+    "lm_head.weight": ((1536, 32768), ("data", "model")),
+}
+HYBRID_LEAVES = ("tok_emb.weight", "blocks.0.attn_norm.scale", "blocks.0.attn.q_proj.weight",
+                 "blocks.0.attn.o_proj.weight", "blocks.1.mlp.gate_proj.weight",
+                 "blocks.1.mlp.down_proj.weight", "final_norm.scale", "lm_head.weight")
+# per rank and step at 2 layers under remat "dots": the flash forward
+# twice a layer (the recompute), dq and dk/dv once
+HYBRID_FLASH = {"fwd": 4, "dq": 2, "dkv": 2}
+
+
+def pipe_batches(torch, n: int, seed: int = 0) -> list:
+    """``n`` batches of the lesson's shapes on the card, NHWC images."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for _ in range(n):
+        x = torch.randn((PIPE["batch"], PIPE["px"], PIPE["px"], 3), generator=gen, device="cuda")
+        labels = torch.randint(0, PIPE["classes"], (PIPE["batch"],), generator=gen, device="cuda")
+        out.append((x, torch.nn.functional.one_hot(labels, PIPE["classes"]).float()))
+    return out
+
+
+def resnet50_from(torch, weights: dict):
+    """A ResNet-50 on ``weights`` (a state dict on the card, copied)."""
+    from pytorch_distributed_training_tutorials_tpu_torch.models import resnet50
+
+    model = resnet50(num_classes=PIPE["classes"], stem="imagenet")
+    model.load_state_dict({k: v.clone() for k, v in weights.items()}, assign=True)
+    return model
+
+
+def max_rel(torch, got: list, want: list) -> float:
+    """The largest difference of paired tensors over the largest entry of
+    the reference (or 1)."""
+    return max(float((a.detach().double() - b.detach().double()).abs().max()
+                     / b.detach().double().abs().max().clamp_min(1.0)) for a, b in zip(got, want))
+
+
+def kernels_in(torch, fn) -> int:
+    """CUDA kernels ``fn`` launches, from one profiled call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def phase_train_resnet50_pipeline(torch, gpu: str) -> dict:
+    """``train_resnet50_pipeline``: SURVEY C15/C17. The split ResNet-50
+    (``ManualPipeline`` on ``["cuda:0", "cuda:0"]``) and the unsplit one
+    (the ``Trainer``'s step) from the same weights, in turns. Gates: the
+    stage counts sum to 25,557,032; three steps' losses, then every
+    parameter and BatchNorm statistic, within PIPE_TOL of the unsplit
+    model's; ``forward`` in eval mode (the unsplit eval logits, the
+    statistics untouched); the hop to the device a tensor is on is no copy;
+    a fused-AdamW pipeline launches kernel 9 once a stage a step. Then ms
+    per ``train()`` of 3 batches, mean and std over 10 repeats each (C17's
+    ``timeit.repeat``), peak memory and kernels a step of both."""
+    from pytorch_distributed_training_tutorials_tpu_torch.models.convert import init_params
+    from pytorch_distributed_training_tutorials_tpu_torch.models.resnet import resnet50
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.fused_optim import fused_adamw
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel import ManualPipeline
+    from pytorch_distributed_training_tutorials_tpu_torch.train.optim import sgd
+    from pytorch_distributed_training_tutorials_tpu_torch.train.trainer import (
+        TrainState,
+        batch_stats,
+        make_train_step,
+    )
+
+    weights = init_params(resnet50(num_classes=PIPE["classes"]), 0, "cuda")
+    batches = pipe_batches(torch, PIPE["batches"])
+    devices = ["cuda:0", "cuda:0"]
+    split = resnet50_from(torch, weights)
+    pipe = ManualPipeline(split, devices, loss="mse", optimizer=sgd(PIPE["lr"]))
+    unsplit = resnet50_from(torch, weights)
+    state = TrainState.create(model=unsplit, tx=sgd(PIPE["lr"]))
+    step = make_train_step("mse", has_batch_stats=True)
+    problems = []
+    counts = pipe.stage_param_counts()
+    if sum(counts) != RESNET50_PARAMS:
+        problems.append(f"stage counts {counts} sum to {sum(counts)}, not {RESNET50_PARAMS}")
+    hop = batches[0][0]
+    no_copy = hop.to(torch.device("cuda:0")) is hop
+
+    def train(which):
+        """The reference's train(): the 3 batches, one step each; the
+        losses (device tensors)."""
+        nonlocal state
+        out = []
+        for x, y in batches:
+            if which == "split":
+                out.append(pipe.train_step(x, y))
+            else:
+                state, metrics = step(state, (x, y))
+                out.append(metrics["loss"])
+        return out
+
+    with deterministic(torch):  # the gated steps: cuDNN's algorithms fixed
+        losses = {w: [float(v) for v in train(w)] for w in ("split", "unsplit")}
+        stats_before = bit_checksum(torch, batch_stats(split))
+        with torch.no_grad():
+            eval_pipe = pipe.forward(batches[0][0])
+            eval_unsplit = unsplit(batches[0][0], train=False)
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses["split"], losses["unsplit"]))
+    param_gap = max_rel(torch, list(split.parameters()), list(unsplit.parameters()))
+    stats_gap = max_rel(torch, batch_stats(split), batch_stats(unsplit))
+    eval_gap = max_rel(torch, [eval_pipe], [eval_unsplit])
+    eval_kept = bool(torch.equal(stats_before, bit_checksum(torch, batch_stats(split))))
+    if loss_gap > PIPE_TOL or param_gap > PIPE_TOL or stats_gap > PIPE_TOL:
+        problems.append(f"split vs unsplit: losses {loss_gap}, parameters {param_gap}, "
+                        f"statistics {stats_gap} (tolerance {PIPE_TOL})")
+    if eval_gap > PIPE_TOL or not eval_kept:
+        problems.append(f"forward not in eval mode: {eval_gap} off the unsplit eval logits, "
+                        f"statistics kept {eval_kept}")
+    if not no_copy:
+        problems.append("x.to(its own device) copied")
+    if not all(math.isfinite(v) for v in losses["split"]):
+        problems.append(f"losses {losses['split']}")
+    # kernel 9 on the pipeline: each stage its own fused AdamW state
+    adam_pipe = ManualPipeline(resnet50_from(torch, weights), devices, loss="mse",
+                               optimizer=fused_adamw(PIPE["lr"]))
+    fused_adamw.launches = 0
+    adam_loss = float(adam_pipe.train_step(*batches[0]))
+    adamw_launches = fused_adamw.launches
+    if adamw_launches != adam_pipe.num_stages or not math.isfinite(adam_loss):
+        problems.append(f"fused AdamW pipeline: {adamw_launches} launches in one step of "
+                        f"{adam_pipe.num_stages} stages, loss {adam_loss}")
+    del adam_pipe
+    if problems:
+        raise AssertionError("; ".join(problems))
+    # C17: train() timed in turns, ten repeats each
+    times = {"split": [], "unsplit": []}
+    for _ in range(PIPE["repeats"]):
+        for which in ("split", "unsplit"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train(which)
+            torch.cuda.synchronize()
+            times[which].append((time.perf_counter() - t0) * 1e3)
+    peak = {}
+    for which in ("split", "unsplit"):
+        torch.cuda.reset_peak_memory_stats()
+        train(which)
+        torch.cuda.synchronize()
+        peak[which] = torch.cuda.max_memory_allocated()
+    kernels = {"split": kernels_in(torch, lambda: pipe.train_step(*batches[0])),
+               "unsplit": kernels_in(torch, lambda: step(state, batches[0]))}
+    ms = {w: statistics.mean(t) for w, t in times.items()}
+    row = {
+        "phase": "train_resnet50_pipeline", "model": "resnet50 imagenet stem, 1000 classes",
+        "batch": PIPE["batch"], "image_px": PIPE["px"], "loss": "mse on one-hot(1000)",
+        "optimizer": f"sgd({PIPE['lr']})", "batches_per_train": PIPE["batches"],
+        "devices": devices, "stage_param_counts": counts, "placement": pipe.placement_audit(),
+        "losses_split": losses["split"], "losses_unsplit": losses["unsplit"],
+        "loss_max_rel_gap": loss_gap, "param_max_rel_gap": param_gap,
+        "batch_stats_max_rel_gap": stats_gap, "eval_logits_max_rel_gap": eval_gap,
+        "eval_mode_stats_unchanged": eval_kept, "tolerance": PIPE_TOL,
+        "hop_to_same_device_is_no_copy": no_copy,
+        "adamw_launches_one_step": adamw_launches,
+        "train_ms_mean": ms, "train_ms_std": {w: statistics.stdev(t) for w, t in times.items()},
+        "train_ms_repeats": times, "split_over_unsplit": ms["split"] / ms["unsplit"],
+        "peak_memory_bytes": peak, "kernels_per_step": kernels,
+        "note": "both stages on cuda:0: the hop is no copy, so the split's cost is its "
+                "overhead only; the real hop needs two cards",
+        "ok": True, "gpu": gpu,
+    }
+    emit(row)
+    del pipe, split, unsplit, state, weights, batches
+    torch.cuda.empty_cache()
+    return {"adamw_launches": adamw_launches}
+
+
+def accum_reference(torch, model, xs: list, ys: list, lr: float) -> None:
+    """The GPipe comparator (the JAX ``tests/test_gpipe.py:50-86``): plain
+    gradient accumulation on one device over the same microbatches, each
+    from the step's starting BatchNorm statistics, their new statistics
+    and the gradients averaged, one SGD update; in place."""
+    from pytorch_distributed_training_tutorials_tpu_torch.train.optim import sgd
+    from pytorch_distributed_training_tutorials_tpu_torch.train.trainer import batch_stats
+
+    params = list(model.parameters())
+    stats = batch_stats(model)
+    start = [s.clone() for s in stats]
+    g_acc = [torch.zeros_like(p) for p in params]
+    s_acc = [torch.zeros_like(s) for s in stats]
+    for x, y in zip(xs, ys):
+        with torch.no_grad():
+            for s, s0 in zip(stats, start):
+                s.copy_(s0)
+        loss = torch.mean((model(x, train=True) - y) ** 2)
+        torch._foreach_add_(g_acc, torch.autograd.grad(loss, params))
+        with torch.no_grad():
+            torch._foreach_add_(s_acc, stats)
+    inv = 1.0 / len(xs)
+    with torch.no_grad():
+        for s, a in zip(stats, s_acc):
+            s.copy_(a * inv)
+    torch._foreach_mul_(g_acc, inv)
+    tx = sgd(lr)
+    tx.update_(params, g_acc, tx.init(params))
+
+
+def phase_train_resnet50_gpipe(torch, gpu: str) -> dict:
+    """``train_resnet50_gpipe``: the lesson's model and batch through
+    ``GPipe`` on ``create_mesh({"data": 1, "stage": 2}, stage_devices=
+    ["cuda:0", "cuda:0"])`` at m in PIPE_M microbatches. Gates: one step's
+    parameters and BatchNorm statistics within PIPE_TOL of the
+    single-device gradient-accumulation step over the same microbatches
+    (``accum_reference``); n*m stage forwards, n*m stage backwards and n
+    applies. Then ms a step (mean of 5) and kernels a microbatch for each
+    m."""
+    from pytorch_distributed_training_tutorials_tpu_torch.models.convert import init_params
+    from pytorch_distributed_training_tutorials_tpu_torch.models.resnet import resnet50
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel import GPipe, create_mesh
+    from pytorch_distributed_training_tutorials_tpu_torch.train.optim import sgd
+    from pytorch_distributed_training_tutorials_tpu_torch.train.trainer import batch_stats
+
+    weights = init_params(resnet50(num_classes=PIPE["classes"]), 1, "cuda")
+    (x, y), = pipe_batches(torch, 1, seed=1)
+    mesh = create_mesh({"data": 1, "stage": 2}, stage_devices=["cuda:0", "cuda:0"])
+    rows, problems = {}, []
+    for m in PIPE_M:
+        model = resnet50_from(torch, weights)
+        pipe = GPipe(model, mesh, num_microbatches=m, loss="mse", optimizer=sgd(PIPE["lr"]))
+        calls = {"forward": 0, "backward": 0, "apply": 0}
+
+        def counted(fn, key):
+            def inner(*a, **kw):
+                calls[key] += 1
+                return fn(*a, **kw)
+            return inner
+
+        pipe._stage_forward = counted(pipe._stage_forward, "forward")
+        pipe._stage_backward = counted(pipe._stage_backward, "backward")
+        pipe._apply_stage = counted(pipe._apply_stage, "apply")
+        ref = resnet50_from(torch, weights)
+        mb = PIPE["batch"] // m
+        with deterministic(torch):
+            loss = float(pipe.train_step(x, y))
+            accum_reference(torch, ref, [x[k * mb:(k + 1) * mb] for k in range(m)],
+                            [y[k * mb:(k + 1) * mb] for k in range(m)], PIPE["lr"])
+        gated = dict(calls)  # the gated step's; the timed steps below count on
+        n = pipe.num_stages
+        param_gap = max_rel(torch, list(model.parameters()), list(ref.parameters()))
+        stats_gap = max_rel(torch, batch_stats(model), batch_stats(ref))
+        want_calls = {"forward": n * m, "backward": n * m, "apply": n}
+        if gated != want_calls:
+            problems.append(f"m={m}: calls {gated}, want {want_calls}")
+        if param_gap > PIPE_TOL or stats_gap > PIPE_TOL or not math.isfinite(loss):
+            problems.append(f"m={m}: off the accumulation step: parameters {param_gap}, "
+                            f"statistics {stats_gap}, loss {loss}")
+        del ref
+        times = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe.train_step(x, y)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        kernels = kernels_in(torch, lambda: pipe.train_step(x, y))
+        rows[m] = {"loss": loss, "calls": gated, "param_max_rel_gap": param_gap,
+                   "batch_stats_max_rel_gap": stats_gap, "step_ms_mean": statistics.mean(times[1:]),
+                   "step_ms": times[1:], "kernels_per_step": kernels,
+                   "kernels_per_microbatch": kernels / m}
+        del pipe, model
+        torch.cuda.empty_cache()
+    emit({"phase": "train_resnet50_gpipe", "model": "resnet50 imagenet stem, 1000 classes",
+          "batch": PIPE["batch"], "image_px": PIPE["px"], "mesh": {"data": 1, "stage": 2},
+          "stage_devices": ["cuda:0", "cuda:0"], "by_microbatches": rows,
+          "tolerance": PIPE_TOL, "ok": not problems, "problems": problems, "gpu": gpu})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return rows
+
+
+def fsdp_dataset(rows: int):
+    """The first ``rows`` images of the MNIST train surrogate (uint8)."""
+    from pytorch_distributed_training_tutorials_tpu_torch.data import ArrayDataset, mnist
+
+    full = mnist("train", raw=True)
+    return ArrayDataset(tuple(a[:rows] for a in full.arrays))
+
+
+def fsdp_arm(torch, strategy, optimizer=None) -> dict:
+    """One epoch of the headline workload (``bench.headline``) over
+    FSDP_ROWS images a rank under ``strategy`` (None: DataParallel),
+    deterministic cuDNN: the losses, the state's bit sums and bytes, the
+    parameters as the model sees them, the collectives and the fused-AdamW
+    launches and elements."""
+    import torch.distributed as dist
+
+    from pytorch_distributed_training_tutorials_tpu_torch.bench import headline
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.fused_optim import fused_adamw
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel.fsdp import param_names
+    from pytorch_distributed_training_tutorials_tpu_torch.train.trainer import batch_stats
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    kw = {} if strategy is None else {"strategy": strategy}
+    with deterministic(torch):
+        setup = headline.make_headline_setup(RESNET_BATCH, quiet=True, optimizer=optimizer,
+                                             dataset=fsdp_dataset(FSDP_ROWS * world), **kw)
+        trainer = setup.trainer
+        if strategy is not None:
+            strategy.reset_collectives()
+        fused_adamw.launches = 0
+        t0 = time.perf_counter()
+        trainer.train(1)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+    state, model = trainer.state, trainer.model
+    opt = state.opt_state
+    moments = ([*opt.mu, *opt.nu] if hasattr(opt, "mu") else list(opt.trace or []))
+    names = param_names(model)
+    out = {
+        "losses": [e["loss"] for e in trainer.metrics.step_events()], "epoch_s": epoch_s,
+        "steps": len(trainer.metrics.step_events()),
+        "param_bytes": sum(p.numel() * p.element_size() for p in state.params),
+        "moment_bytes": sum(m.numel() * m.element_size() for m in moments),
+        "param_elements": sum(p.numel() for p in state.params),
+        "bits": bit_checksum(torch, [*state.params, *batch_stats(model)]).tolist(),
+        "collectives": dict(getattr(strategy, "collectives", {})),
+        "fused_adamw": fused_adamw.launches,
+    }
+    with torch.no_grad():  # as the model sees them (an FSDP leaf: its gather)
+        whole = {}
+        for n in names:
+            prefix, _, leaf = n.rpartition(".")
+            whole[n] = getattr(model.get_submodule(prefix), leaf).detach().float().cpu()
+    out["whole"] = whole
+    if strategy is not None and strategy.plan:
+        out["replicated"] = sorted(n for n, p in strategy.plan.items() if p.dim is None)
+        out["sharded"] = sum(p.dim is not None for p in strategy.plan.values())
+        out["route"] = strategy.route
+    out["state"], out["tx"] = state, state.tx
+    return out
+
+
+def adamw_at_shards(torch, state) -> dict:
+    """Kernel 9 at the leaves FSDP hands it (this rank's shards and the
+    replicated leaves): one update of ``fused_adamw`` against the plain
+    AdamW on copies of the state and the same random gradients, bitwise;
+    then both timed beside the bound (28 bytes an element) and
+    ``torch._fused_adamw_``."""
+    import dataclasses
+
+    from pytorch_distributed_training_tutorials_tpu_torch.train.optim import adamw
+
+    tx = state.tx
+    params = [p.detach().clone() for p in state.params]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    grads = [torch.randn(p.shape, generator=gen, device="cuda") * 1e-3 for p in params]
+    opt = state.opt_state
+
+    def copy():
+        return dataclasses.replace(opt, mu=[m.clone() for m in opt.mu],
+                                   nu=[v.clone() for v in opt.nu], count=opt.count.clone())
+
+    s_k, s_p = copy(), copy()
+    p_k, p_p = params, [p.clone() for p in params]
+    tx.update_(p_k, grads, s_k)
+    plain = adamw(tx.lr, tx.b1, tx.b2, tx.eps, tx.weight_decay)
+    plain.update_(p_p, grads, s_p)
+    torch.cuda.synchronize()
+    got, want = p_k + s_k.mu + s_k.nu, p_p + s_p.mu + s_p.nu
+    differ = sum(int((a != b).sum()) for a, b in zip(got, want))
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    ms = time_ms(lambda: tx.update_(p_k, grads, s_k), torch, flush, warmup=1)
+    plain_ms = time_ms(lambda: plain.update_(p_p, grads, s_p), torch, flush, warmup=1)
+    steps = [torch.tensor(10.0, device="cuda") for _ in p_k]
+    lib_ms = time_ms(lambda: torch._fused_adamw_(
+        p_k, grads, s_k.mu, s_k.nu, [], steps, lr=tx.lr, beta1=tx.b1, beta2=tx.b2,
+        weight_decay=tx.weight_decay, eps=tx.eps, amsgrad=False, maximize=False),
+        torch, flush, warmup=1)
+    n_el = sum(p.numel() for p in p_k)
+    return {"leaves": len(p_k), "elements": n_el, "elements_differ": differ, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": 28.0 * n_el / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+
+
+def fsdp_rank(world_tp) -> dict:
+    """One rank of the gloo world of 2 on card 0 (spawned): the headline
+    workload under DataParallel, FSDP, and FSDP with fused AdamW, one
+    epoch each; kernel 9 at this rank's shards."""
+    import torch
+
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.fused_optim import fused_adamw
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel import FSDP, create_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = create_mesh(device="cuda")
+    out = {"rank": world_tp.rank}
+    for arm, make in (("dp", lambda: (None, None)),
+                      ("fsdp", lambda: (FSDP(mesh), None)),
+                      ("fsdp_adamw", lambda: (FSDP(mesh), fused_adamw(1e-3)))):
+        strategy, opt = make()
+        run = fsdp_arm(torch, strategy, opt)
+        state = run.pop("state")
+        run.pop("tx")
+        if arm == "fsdp_adamw":
+            out["adamw_shards"] = adamw_at_shards(torch, state)
+        out[arm] = run
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_resnet18_fsdp(torch, gpu: str) -> dict:
+    """``train_resnet18_fsdp``: ``Trainer(strategy=FSDP(mesh))`` on the
+    config of the JAX package's ``examples/train_resnet_mnist.py --fsdp``
+    (see FSDP_ROWS). In an NCCL world of one, the FSDP epoch bitwise the
+    DataParallel epoch with no collective. In a gloo world of 2 on card 0
+    (NCCL refuses two ranks on one device): the ranks' losses equal, the
+    FSDP losses and parameters within FSDP_TOL of DataParallel's, a rank's
+    parameter and moment bytes about half DataParallel's (the leaves
+    ``min_size`` keeps replicated listed), kernel 9 once a step over the
+    rank's shards and bitwise its plain version there, the collectives by
+    kind (the staged route: gloo on CUDA tensors)."""
+    from pytorch_distributed_training_tutorials_tpu_torch.launch import pick_unused_port
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel import (
+        FSDP,
+        create_mesh,
+        distributed,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel.tensor_parallel import (
+        spawn_tp,
+    )
+
+    problems = []
+    distributed.init(f"127.0.0.1:{pick_unused_port()}", num_processes=1, process_id=0)
+    try:
+        one_dp = fsdp_arm(torch, None)
+        one_fsdp = fsdp_arm(torch, FSDP(create_mesh()))
+    finally:
+        distributed.shutdown()
+    for run in (one_dp, one_fsdp):
+        run.pop("state"), run.pop("tx")
+    world_one = {"losses_bitwise": one_fsdp["losses"] == one_dp["losses"],
+                 "state_bitwise": one_fsdp["bits"] == one_dp["bits"],
+                 "collectives": one_fsdp["collectives"], "steps": one_fsdp["steps"]}
+    if not (world_one["losses_bitwise"] and world_one["state_bitwise"]) or world_one[
+            "collectives"]:
+        problems.append(f"NCCL world of one: FSDP not DataParallel's bits, or collectives: "
+                        f"{world_one}")
+    t0 = time.perf_counter()
+    ranks = spawn_tp(fsdp_rank, 2, (), backend="gloo", device="cuda", join_timeout_s=900)
+    ranks_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    dp, fs, fa = r0["dp"], r0["fsdp"], r0["fsdp_adamw"]
+    for arm in ("dp", "fsdp", "fsdp_adamw"):
+        if ranks[1][arm]["losses"] != ranks[0][arm]["losses"]:
+            problems.append(f"{arm}: the ranks' losses differ")
+        if not all(map(math.isfinite, ranks[0][arm]["losses"])):
+            problems.append(f"{arm}: a loss is not finite")
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(fs["losses"], dp["losses"]))
+    param_gap = max(float((fs["whole"][n] - dp["whole"][n]).abs().max()
+                          / dp["whole"][n].abs().max().clamp_min(1.0)) for n in dp["whole"])
+    if loss_gap > FSDP_TOL or param_gap > FSDP_TOL:
+        problems.append(f"FSDP vs DataParallel (gloo, 2): losses {loss_gap}, parameters "
+                        f"{param_gap} (tolerance {FSDP_TOL})")
+    ratio = {"params": fs["param_bytes"] / dp["param_bytes"],
+             "sgd_trace": fs["moment_bytes"] / dp["moment_bytes"]}
+    if not all(0.5 <= v <= 0.51 for v in ratio.values()):
+        problems.append(f"a rank's bytes against DataParallel's: {ratio}")
+    steps = fa["steps"]
+    sh = r0["adamw_shards"]
+    if fa["fused_adamw"] != steps or sh["elements"] != fa["param_elements"] or sh[
+            "elements_differ"]:
+        problems.append(f"kernel 9: {fa['fused_adamw']} launches in {steps} steps, "
+                        f"{sh['elements']} elements vs {fa['param_elements']} held, "
+                        f"{sh['elements_differ']} differ from the plain AdamW")
+    per_step = {k: v / fs["steps"] for k, v in fs["collectives"].items()}
+    gather, scatter = fs["route"]
+    if per_step.get(gather) != fs["sharded"] or per_step.get(scatter) != fs["sharded"]:
+        problems.append(f"collectives a step {per_step}, want {fs['sharded']} of each of "
+                        f"{fs['route']}")
+    row = {
+        "phase": "train_resnet18_fsdp",
+        "config": "examples/train_resnet_mnist.py --fsdp: resnet18 cifar stem bf16, "
+                  f"sgd(0.05, momentum=0.9), MNIST surrogate, {RESNET_BATCH} a device",
+        "rows_per_rank": FSDP_ROWS, "nccl_world_of_one": world_one,
+        "gloo_world": 2, "route": fs["route"], "steps": fs["steps"],
+        "losses": {"dp": dp["losses"], "fsdp": fs["losses"], "fsdp_adamw": fa["losses"]},
+        "loss_max_rel_gap": loss_gap, "param_max_rel_gap": param_gap,
+        "bitwise_dp": {"losses": fs["losses"] == dp["losses"],
+                       "parameters": all(torch.equal(fs["whole"][n], dp["whole"][n])
+                                         for n in dp["whole"])},
+        "tolerance": FSDP_TOL, "bytes_per_rank": {
+            "dp": {"params": dp["param_bytes"], "sgd_trace": dp["moment_bytes"]},
+            "fsdp": {"params": fs["param_bytes"], "sgd_trace": fs["moment_bytes"]},
+            "fsdp_adamw": {"params": fa["param_bytes"], "adamw_moments": fa["moment_bytes"]}},
+        "bytes_ratio_fsdp_over_dp": ratio, "replicated_leaves": fs["replicated"],
+        "sharded_leaves": fs["sharded"], "collectives_per_step": per_step,
+        "fused_adamw": {"launches": fa["fused_adamw"], "steps": steps, **sh},
+        "epoch_s": {arm: [r[arm]["epoch_s"] for r in ranks] for arm in ("dp", "fsdp",
+                                                                          "fsdp_adamw")},
+        "ranks_s": ranks_s, "timing_note": STRATEGY_NOTE,
+        "ok": not problems, "problems": problems, "gpu": gpu,
+    }
+    emit(row)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"adamw_launches": fa["fused_adamw"], "adamw_shards": sh}
+
+
+def hybrid_run(torch, strategy) -> dict:
+    """HYBRID_STEPS steps of HYBRID_CFG through the ``Trainer`` — under
+    ``strategy`` (a HybridFSDP) this rank's shards, with None the single
+    device — one step an epoch on bench/lm_headline.py's batch: losses,
+    the first step's first moments of HYBRID_LEAVES (the rank's stored
+    shards), the launches and routes, peak memory, step ms."""
+    from pytorch_distributed_training_tutorials_tpu_torch.data import ArrayDataset, ShardedLoader
+    from pytorch_distributed_training_tutorials_tpu_torch.models import (
+        TransformerConfig,
+        TransformerLM,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        make_flash_attention,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.fused_optim import fused_adamw
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel.fsdp import param_names
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel.mesh import create_mesh
+    from pytorch_distributed_training_tutorials_tpu_torch.train import Trainer
+
+    cfg = TransformerConfig(**HYBRID_CFG, dtype=torch.bfloat16,
+                            attention_fn=make_flash_attention(1024, 1024))
+    x, y = tp_train_batch()
+    mesh = strategy.mesh if strategy is not None else create_mesh(device="cuda")
+    loader = ShardedLoader(ArrayDataset((x, y)), TP_TRAIN_BATCH, mesh, batch_mode="global",
+                           shuffle=False)
+    trainer = Trainer(TransformerLM(cfg), loader, fused_adamw(3e-4, weight_decay=0.01),
+                      strategy=strategy, loss="cross_entropy", seed=0, quiet=True)
+    names = param_names(trainer.model)
+    for counts in (flash_attention.launches, *flash_attention.routes.values()):
+        for k in counts:
+            counts[k] = 0
+    fused_adamw.launches = 0
+    if strategy is not None:
+        strategy.reset_collectives()
+        strategy.tp.reset_collectives()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, mu = [], {}
+    for e in range(1, HYBRID_STEPS + 1):
+        t = time.perf_counter()
+        trainer.train(e)
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        if e == 1:
+            mus = trainer.state.opt_state.mu
+            mu = {n: mus[names.index(n)].detach().cpu() for n in HYBRID_LEAVES}
+    out = {"losses": [ev["loss"] for ev in trainer.metrics.step_events()], "mu": mu,
+           "step_ms": step_ms, "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "flash": dict(flash_attention.launches),
+           "flash_routes": {k: dict(c) for k, c in flash_attention.routes.items()},
+           "fused_adamw": fused_adamw.launches,
+           "stored_elements": sum(p.numel() for p in trainer.state.params),
+           "stored_shapes": {n: tuple(p.shape) for n, p in zip(names,
+                                                               trainer.model.parameters())}}
+    if strategy is not None:
+        out["plan"] = {n: (p.flax_shape, p.spec, p.dim) for n, p in strategy.plan.items()}
+        out["collectives"] = dict(strategy.collectives)
+        out["tp_collectives"] = dict(strategy.tp.collectives)
+        out["route"] = strategy.route
+        out["rank"], out["data_rank"] = strategy.tp.rank, strategy.tp.data_rank
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def hybrid_rank(world_tp) -> dict:
+    """One rank of train_lm_hybrid_fsdp (spawned): HybridFSDP over the
+    {"data": 2, "model": 2} mesh of the world, TP_RULES."""
+    import torch
+
+    from pytorch_distributed_training_tutorials_tpu_torch.models.transformer import TP_RULES
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel import HybridFSDP, create_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return hybrid_run(torch, HybridFSDP(create_mesh(HYBRID_MESH, device="cuda"), TP_RULES))
+
+
+def hybrid_expected(torch, name: str, plan: tuple, model_rank: int, data_rank: int, whole):
+    """The stored shard a rank must hold of ``whole`` (a tensor of the
+    single device's, e.g. its first moment): its model rank's TP block,
+    then its data rank's block of the FSDP dimension."""
+    from pytorch_distributed_training_tutorials_tpu_torch.models.transformer import TP_RULES
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel.tensor_parallel import (
+        shard_tensor,
+        split_dim,
+    )
+
+    tp, dp = HYBRID_MESH["model"], HYBRID_MESH["data"]
+    head_dim = PRESET_760M["d_model"] // PRESET_760M["n_heads"]
+    local = shard_tensor(whole, split_dim(name, tuple(whole.shape), TP_RULES, tp,
+                                          {"head": head_dim}), model_rank, tp)
+    return shard_tensor(local, plan[2], data_rank, dp)
+
+
+def phase_train_lm_hybrid_fsdp(torch, gpu: str) -> dict:
+    """``train_lm_hybrid_fsdp``: ``Trainer(strategy=HybridFSDP(mesh,
+    TP_RULES))`` on a gloo world of 4 on card 0 (``{"data": 2, "model":
+    2}``) at HYBRID_CFG, beside the single-device ``Trainer`` from the same
+    seed (the JAX DP x TP pin is xfail, so the single-device step is the
+    oracle, as for train_760m_tp2). Gates: every leaf's flax shape and spec
+    those of HYBRID_SPECS (the JAX HybridFSDP's), its stored shard the
+    model rank's TP block's data-rank block; every rank's losses the same
+    floats and finite; the first step's loss within TP_TRAIN_LOSS_TOL and
+    each of HYBRID_LEAVES' first moments within TP_TRAIN_GRAD_TOL of the
+    single-device step's matching block; a step's 4 / 2 / 2 flash and 1
+    AdamW launches per rank, all flash on the sm90 route; one reduce-scatter
+    a sharded leaf a step. Correctness only: gloo stages every collective
+    through host memory."""
+    from pytorch_distributed_training_tutorials_tpu_torch.models import (
+        TransformerConfig,
+        TransformerLM,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel.tensor_parallel import (
+        spawn_tp,
+    )
+
+    ref = hybrid_run(torch, None)
+    whole = dict(TransformerLM(TransformerConfig(**HYBRID_CFG)).named_parameters())  # meta
+    t0 = time.perf_counter()
+    ranks = spawn_tp(hybrid_rank, 4, (), backend="gloo", device="cuda", join_timeout_s=900)
+    ranks_s = time.perf_counter() - t0
+    problems, gaps = [], []
+    want_flash = {k: v * HYBRID_STEPS for k, v in HYBRID_FLASH.items()}
+    for r in (ref, *ranks):
+        who = "single device" if r is ref else f"rank {r['rank']}/{r['data_rank']}"
+        if not all(map(math.isfinite, r["losses"])):
+            problems.append(f"{who}: losses {r['losses']}")
+        if r["flash"] != want_flash or r["fused_adamw"] != HYBRID_STEPS:
+            problems.append(f"{who}: flash {r['flash']}, AdamW {r['fused_adamw']}")
+        if any(c["sm80"] for c in r["flash_routes"].values()):
+            problems.append(f"{who}: a flash launch left the sm90 route: {r['flash_routes']}")
+    for r in ranks:
+        who = f"rank (model {r['rank']}, data {r['data_rank']})"
+        if r["losses"] != ranks[0]["losses"]:
+            problems.append(f"{who}: losses {r['losses']} != rank 0's")
+        bad = [n for n, (shape, spec) in HYBRID_SPECS.items()
+               if tuple(r["plan"][n][:2]) != (shape, spec)]
+        if bad or set(r["plan"]) != set(HYBRID_SPECS):
+            problems.append(f"{who}: placements off the JAX HybridFSDP spec: {bad}")
+        wrong = [n for n, t in whole.items() if r["stored_shapes"][n] != tuple(
+            hybrid_expected(torch, n, r["plan"][n], r["rank"], r["data_rank"],
+                            torch.empty(t.shape, device="meta")).shape)]
+        if wrong:
+            problems.append(f"{who}: stored shards of the wrong shape: {wrong}")
+        g = {"loss": abs(r["losses"][0] - ref["losses"][0]) / abs(ref["losses"][0]),
+             "mu": {n: rel_err(torch, r["mu"][n], hybrid_expected(
+                 torch, n, r["plan"][n], r["rank"], r["data_rank"], ref["mu"][n]))
+                    for n in HYBRID_LEAVES}}
+        gaps.append(g)
+        if g["loss"] > TP_TRAIN_LOSS_TOL or max(g["mu"].values()) > TP_TRAIN_GRAD_TOL:
+            problems.append(f"{who}: first step off the single-device one: {g}")
+        sharded = sum(p[2] is not None for p in r["plan"].values())
+        scatter = r["collectives"].get(r["route"][1], 0)
+        if scatter != sharded * HYBRID_STEPS:
+            problems.append(f"{who}: {scatter} reduce-scatters in {HYBRID_STEPS} steps of "
+                            f"{sharded} sharded leaves")
+    r0 = ranks[0]
+    row = {
+        "phase": "train_lm_hybrid_fsdp", "mesh": HYBRID_MESH, "backend": "gloo", "ranks": 4,
+        "config": {**HYBRID_CFG, "dtype": "bf16", "attention": "flash", "batch": TP_TRAIN_BATCH,
+                   "loss": "cross_entropy", "optimizer": "fused_adamw(3e-4, weight_decay=0.01)"},
+        "steps": HYBRID_STEPS, "losses_single": ref["losses"],
+        "losses_per_rank": [r["losses"] for r in ranks], "first_step_gaps": gaps,
+        "tolerance": {"loss": TP_TRAIN_LOSS_TOL, "first_moment": TP_TRAIN_GRAD_TOL},
+        "placements_checked": len(HYBRID_SPECS), "route": r0["route"],
+        "collectives_per_step_rank0": {k: v / HYBRID_STEPS for k, v in r0["collectives"].items()},
+        "tp_collectives_per_step_rank0": {k: v / HYBRID_STEPS
+                                          for k, v in r0["tp_collectives"].items()},
+        "stored_elements": {"single": ref["stored_elements"],
+                            "per_rank": [r["stored_elements"] for r in ranks]},
+        "launches_per_rank": [{"flash": r["flash"], "fused_adamw": r["fused_adamw"]}
+                              for r in ranks],
+        "step_ms_single": ref["step_ms"], "step_ms_per_rank": [r["step_ms"] for r in ranks],
+        "peak_memory_bytes_single": ref["peak_memory_bytes"],
+        "peak_memory_bytes_per_rank": [r["peak_memory_bytes"] for r in ranks],
+        "ranks_s": ranks_s, "timing_note": STRATEGY_NOTE,
+        "ok": not problems, "problems": problems, "gpu": gpu,
+    }
+    emit(row)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"flash": r0["flash"], "fused_adamw": r0["fused_adamw"]}
+
+
+def strategy_phases(run, torch, gpu: str) -> dict:
+    """The model-parallel slice's four phases (``--strategies-only`` runs
+    these after the build)."""
+    return {"pipeline": run(phase_train_resnet50_pipeline, torch, gpu),
+            "gpipe": run(phase_train_resnet50_gpipe, torch, gpu),
+            "fsdp": run(phase_train_resnet18_fsdp, torch, gpu),
+            "hybrid": run(phase_train_lm_hybrid_fsdp, torch, gpu)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel-only", action="store_true",
@@ -5760,6 +6456,10 @@ def main(argv=None) -> int:
                     help="after the build, run the tensor-parallel phases only "
                          "(serve_1b_tp2, fused_cross_entropy_tp's kernel check, "
                          "train_760m_tp2)")
+    ap.add_argument("--strategies-only", action="store_true",
+                    help="after the build, run the model-parallel slice's phases only "
+                         "(train_resnet50_pipeline, train_resnet50_gpipe, "
+                         "train_resnet18_fsdp, train_lm_hybrid_fsdp)")
     args = ap.parse_args(argv)
 
     import torch
@@ -5850,6 +6550,10 @@ def main(argv=None) -> int:
         fault_phases()
         emit({"phase": "phase_seconds", **seconds})
         return 0
+    if args.strategies_only:
+        strategy_phases(run, torch, gpu)
+        emit({"phase": "phase_seconds", **seconds})
+        return 0
     if args.lora_only:
         run(phase_serve_lora, torch, quant, fa, pa, gpu)
         run(phase_train_dots_attn, torch, gpu)
@@ -5886,6 +6590,7 @@ def main(argv=None) -> int:
     run(phase_train_resnet_streaming, torch, gpu)
     guard = run(phase_train_guardrails, torch, gpu)
     run(phase_bench_and_scaling, torch, gpu)
+    strat = strategy_phases(run, torch, gpu)
     emit({"phase": "phase_seconds", **seconds})
 
     # the kernels line: one decode forward's 113 int8 matmuls at M = 4
@@ -5925,8 +6630,6 @@ def main(argv=None) -> int:
                                 for a, r in paged_faults.items()},
                              **{f"serve_1b_fleet_{leg}": r["int8_matmul_launches"]
                                 for leg, r in fleet.items()}},
-        # the guard's cost: kernels a decode step, serve_1b_faults (a) and (g)
-        "kernels_per_decode_step": faults["kernels_per_decode_step"],
         "verify_forwards_by_path": {
             **{f"serve_1b_spec_{a}": n for a, n in spec["verify_forwards"].items() if n},
             "serve_1b_gqa_paged_spec": paged_serve["spec"]["n_verify_forwards"]},
@@ -5957,6 +6660,8 @@ def main(argv=None) -> int:
             # layer a step
             "per_step_by_policy": {p: n[kind] for p, n in FLASH_PER_STEP_BY_POLICY.items()},
             "launches_train_760m_dots_attn": dots_attn["flash"][kind],
+            # HybridFSDP at 2 layers, a rank's launches in its 2 steps
+            "launches_train_lm_hybrid_fsdp_rank0": strat["hybrid"]["flash"][kind],
         })
         if kind == "fwd":
             # the serving path: 16 launches (one a layer) per whole prefill
@@ -6010,7 +6715,13 @@ def main(argv=None) -> int:
                              "train_resnet_ddp_fused_adamw": ddp["fused_adamw"],
                              "train_guardrails_resnet18": guard["resnet_guarded_adamw_launches"],
                              "train_guardrails_760m": guard["guard_760m_adamw_launches"],
-                             "train_lora_masked": train_lora["fused_adamw"]},
+                             "train_lora_masked": train_lora["fused_adamw"],
+                             "train_resnet50_pipeline_adamw": strat["pipeline"]["adamw_launches"],
+                             "train_resnet18_fsdp_adamw_rank0": strat["fsdp"]["adamw_launches"],
+                             "train_lm_hybrid_fsdp_rank0": strat["hybrid"]["fused_adamw"]},
+        "fsdp_shards": {**strat["fsdp"]["adamw_shards"],
+                        "work": "one FSDP rank's update at world 2: 1 launch over its ResNet-18 "
+                                "shards and the replicated leaves"},
         "lora_factor_leaves": {
             "ms": train_lora["adamw_ms"], "plain_ms": train_lora["adamw_plain_ms"],
             "bound_ms": train_lora["adamw_bound_ms"], "bound_by": "bytes",

@@ -722,6 +722,7 @@ class Dense(nn.Module):
         super().__init__()
         feats = tuple(features) if isinstance(features, (tuple, list)) else (features,)
         ins = tuple(in_features) if isinstance(in_features, (tuple, list)) else (in_features,)
+        self.in_features = ins
         self.features = feats
         self.n_in = n_in
         self.dtype = dtype
@@ -733,8 +734,9 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[: x.ndim - self.n_in]
-        x2 = x.reshape(-1, self.weight.shape[0]).to(self.dtype)
-        out = torch.mm(x2, self.weight.to(self.dtype))
+        w = self.weight  # read once: under FSDP each read is a gather
+        x2 = x.reshape(-1, w.shape[0]).to(self.dtype)
+        out = torch.mm(x2, w.to(self.dtype))
         if self.shard_kind == "row":
             out = _row_sum(self.strategy, out)
         return out.reshape(*lead, *self.features)

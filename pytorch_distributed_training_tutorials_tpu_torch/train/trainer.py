@@ -51,6 +51,15 @@ Replicated leaves (embedding, norms) get the same gradient bytes on every
 model rank and stay bitwise equal. Checkpoints (``save``, ``restore``,
 rollback) of a tensor-parallel state raise ``NotImplementedError``.
 
+FSDP: ``Trainer(model, loader, opt, strategy=FSDP(mesh))`` shards every
+large parameter and its optimizer moments over the data axis (each rank
+holds its shard; the forward gathers, the backward reduce-scatters),
+BatchNorm synced over ``data`` as under ``DataParallel``;
+``strategy=HybridFSDP(mesh, TP_RULES)`` on a ``{"data": d, "model": tp}``
+mesh builds the model as the rank's tensor-parallel shard (on the
+strategy's ``tp``) and shards over ``data`` what the rules leave whole.
+Checkpoints of a sharded state raise ``NotImplementedError`` too.
+
 ``model_kwargs`` (e.g. ``{"adapter_ids": tenant}`` for a LoRA fine-tune)
 are forwarded to every model call, evaluation's too. An optimizer with a
 ``mask`` (``fused_adamw(mask=lora_param_mask)``) freezes the leaves it
@@ -88,6 +97,7 @@ from pytorch_distributed_training_tutorials_tpu_torch.ops.fused_loss import (
 )
 from pytorch_distributed_training_tutorials_tpu_torch.parallel.data_parallel import DataParallel
 from pytorch_distributed_training_tutorials_tpu_torch.parallel.distributed import is_primary
+from pytorch_distributed_training_tutorials_tpu_torch.parallel.fsdp import FSDP, HybridFSDP
 from pytorch_distributed_training_tutorials_tpu_torch.parallel.tensor_parallel import (
     TensorParallel,
 )
@@ -455,8 +465,9 @@ class Trainer:
             raise ValueError(f"rollback_ema must be in [0, 1), got {rollback_ema}")
         self.loader = train_loader
         self.strategy = strategy if strategy is not None else DataParallel(train_loader.mesh)
-        if isinstance(self.strategy, TensorParallel) and isinstance(model, TransformerLM):
-            model = _tp_model(model, self.strategy)
+        tp = self.strategy.tp if isinstance(self.strategy, HybridFSDP) else self.strategy
+        if isinstance(tp, TensorParallel) and isinstance(model, TransformerLM):
+            model = _tp_model(model, tp)
         self.model = model
         self.device = train_loader.device
         _init_weights(model, seed, self.device)
@@ -669,6 +680,10 @@ class Trainer:
             raise NotImplementedError(
                 "checkpoints of a tensor-parallel train state (each model rank holds "
                 "its own shards) are not supported by the PyTorch port")
+        if isinstance(self.strategy, FSDP) and self.strategy.sharded:
+            raise NotImplementedError(
+                "checkpoints of an FSDP-sharded train state (each rank holds its own "
+                "shards) are not supported by the PyTorch port")
 
     def _write(self, target: str) -> None:
         """Rank 0 writes ``target/state.pt`` (the state is replicated)."""
