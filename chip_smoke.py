@@ -9,6 +9,7 @@
     python3 chip_smoke.py --faults-only   # phases 0, 1 and the failure-handling phases
     python3 chip_smoke.py --tp-only       # phases 0, 1 and the tensor-parallel phases
     python3 chip_smoke.py --strategies-only  # phases 0, 1 and the model-parallel phases
+    python3 chip_smoke.py --load-only     # phases 0, 1 and serve_1b_from_checkpoint
 
 It drives the port (``pytorch_distributed_training_tutorials_tpu_torch``)
 on the card and fails — non-zero exit, no result line — if a phase fails.
@@ -318,6 +319,31 @@ of 4 (``{"data": 2, "model": 2}``) at the 760m widths and 2 layers, every
 leaf placed as the JAX strategy places it (HYBRID_SPECS), the first step
 within TP_TRAIN_LOSS_TOL / TP_TRAIN_GRAD_TOL of the single-device
 ``Trainer``'s, flash and AdamW launches on the sm90 route.
+
+Between ``serve_1b_tp2`` and ``train_760m_tp2``, the checkpoint-loading
+slice, ``serve_1b_from_checkpoint`` (``--load-only``: the build and this
+phase), under a temporary directory of ``build/`` (the disk's usage
+printed first, each arm's files removed when it ends). Arm ``port``: the
+1b preset's float32 flax tree drawn on the card from a seed, written with
+``save_checkpoint`` one file a top-level subtree (4.82 GB), streamed back
+with ``load_quantized_lm`` onto ``cuda:0``: every entry bitwise
+``from_jax_params`` of the same tree; the card's allocated bytes after
+the load the state dict's within 1%; a child process's host peak RSS
+growth over the same load (VmRSS sampled, read only) under LOAD_RSS_SHARE of
+the tree; ``audit_placement``: int8 exactly the ``_QUANTIZED_KERNELS``
+weights, float32 the rest, all on ``cuda:0``; phase 4's stream shape (4
+slots, 4 requests) over the loaded weights: 113 int8 calls a forward, all
+sm90, tokens equal to the same engine's over ``from_jax_params`` weights;
+load seconds and GB/s. Arm ``hf``: the 1b-gqa preset's bfloat16 weights
+drawn on the card, written as an HF directory (``config.json``, ~1 GB
+shards by the port's ``save_safetensors``, an index; each weight named
+and transposed to (out, in) here, not by the loader): ``load_hf_llama``
+float and int8 each bitwise ``from_jax_params`` of the drawn tree; 4
+requests on ``serve_1b_paged``'s arm (c) (paged kernel): 113 int8 and 16
+paged calls a forward, all sm90, no page left; the int8 model's
+teacher-forced logits against the float model's with mean |difference|
+under LOAD_HF_GATE of their std, and a load with ``o_proj`` left
+untransposed failing that gate.
 
 Every serving stream is also run under PyTorch's sync debug mode: its
 stream syncs (with their call sites) must not exceed the host syncs the
@@ -6424,6 +6450,483 @@ def phase_train_lm_hybrid_fsdp(torch, gpu: str) -> dict:
     return {"flash": r0["flash"], "fused_adamw": r0["fused_adamw"]}
 
 
+# the checkpoint-loading slice (serve_1b_from_checkpoint): arm "port" writes
+# the 1b preset's float32 flax tree with save_checkpoint, one file a
+# top-level subtree (the JAX examples/serve_llm_int8.py layout), and
+# streams it back int8 onto the card with load_quantized_lm; arm "hf"
+# writes the 1b-gqa preset's bfloat16 weights as an HF directory (shards of
+# about LOAD_HF_SHARD_BYTES and an index) and loads it with load_hf_llama
+LOAD_SEED = 5
+LOAD_STREAM = dict(n_slots=4, tokens_per_launch=8, prompts=(16, 32, 48, 16), new=32)
+LOAD_HF_STREAM = dict(prompts=(16, 480, 16, 480), new=32)
+LOAD_HF_SHARD_BYTES = 1 << 30
+# the card's allocated bytes after the load against the state dict's
+LOAD_CARD_TOL = 0.01
+# a load's host peak RSS growth, read in a child process (VmRSS sampled
+# every 2 ms, and getrusage's maxrss where the load raised it; the card's
+# machine has no VmHWM), as a share of the float32 tree it streams (one
+# leaf at a time: the largest, 262 MB, is 5.4% of it)
+LOAD_RSS_SHARE = 0.2
+# int8 against float logits, teacher-forced: mean |difference| under this
+# share of the float logits' std (the JAX tests/test_hf_llama.py gate)
+LOAD_HF_GATE = 0.15
+LOAD_RSS_CHILD = r"""
+import json, os, resource, sys, threading, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from pytorch_distributed_training_tutorials_tpu_torch.models import load_quantized_lm
+
+
+def rss_kb():
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1])
+    raise RuntimeError("VmRSS")
+
+
+def maxrss_kb():
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+
+
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+base, max_before = rss_kb(), maxrss_kb()
+peak, stop = [base], threading.Event()
+
+
+def sample():
+    while not stop.is_set():
+        peak[0] = max(peak[0], rss_kb())
+        stop.wait(0.002)
+
+
+sampler = threading.Thread(target=sample)
+sampler.start()
+t0 = time.perf_counter()
+sd = {}
+for name in sorted(os.listdir(sys.argv[2])):
+    sd.update(load_quantized_lm(os.path.join(sys.argv[2], name), device="cuda"))
+torch.cuda.synchronize()
+seconds = time.perf_counter() - t0
+stop.set()
+sampler.join()
+max_after, sampled = maxrss_kb(), max(peak[0], rss_kb())
+# the kernel's own high-water mark where the load raised it, else the samples
+print(json.dumps({"base_kb": base, "sampled_peak_kb": sampled,
+                  "maxrss_before_kb": max_before, "maxrss_after_kb": max_after,
+                  "peak_kb": max(sampled, max_after if max_after > max_before else 0),
+                  "seconds": seconds, "entries": len(sd)}))
+"""
+
+
+def flax_lm_shapes(cfg) -> dict:
+    """The JAX ``TransformerLM``'s parameter tree for ``cfg`` as nested
+    dicts of shapes, in its order: the flax layout (kernels (in, out),
+    q/k/v (d, H, D), o_proj (H, D, d))."""
+    d, h, kv, hd, ff = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.ff_dim
+    block = {
+        "attn_norm": {"scale": (d,)},
+        "attn": {"q_proj": {"kernel": (d, h, hd)}, "k_proj": {"kernel": (d, kv, hd)},
+                 "v_proj": {"kernel": (d, kv, hd)}, "o_proj": {"kernel": (h, hd, d)}},
+        "mlp_norm": {"scale": (d,)},
+        "mlp": {"gate_proj": {"kernel": (d, ff)}, "up_proj": {"kernel": (d, ff)},
+                "down_proj": {"kernel": (ff, d)}},
+    }
+    return {"tok_emb": {"embedding": (cfg.vocab_size, d)},
+            **{f"block_{i}": block for i in range(cfg.n_layers)},
+            "final_norm": {"scale": (d,)}, "lm_head": {"kernel": (d, cfg.vocab_size)}}
+
+
+def draw_subtree(torch, shapes: dict, seed: int, dtype):
+    """One top-level subtree drawn on the card from its own seed: every
+    matrix N(0, 0.02^2) (the JAX example's synthetic checkpoint), norm
+    scales 1 + N(0, 0.02^2)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(name, shape):
+        x = torch.randn(shape, generator=gen, device="cuda") * 0.02
+        return (x + 1.0 if name == "scale" else x).to(dtype)
+
+    def walk(tree):
+        return {k: walk(v) if isinstance(v, dict) else draw(k, v) for k, v in tree.items()}
+
+    return walk(shapes)
+
+
+def draw_flax_tree(torch, cfg, dtype) -> dict:
+    return {name: draw_subtree(torch, sub, LOAD_SEED * 1000 + i, dtype)
+            for i, (name, sub) in enumerate(flax_lm_shapes(cfg).items())}
+
+
+def tree_bytes(tree) -> int:
+    return sum(tree_bytes(v) if isinstance(v, dict) else v.nbytes for v in tree.values())
+
+
+def bitwise_mismatches(torch, got: dict, want: dict) -> list:
+    """Names whose tensors differ in dtype, shape or any bit (or that one
+    side lacks)."""
+    return sorted({k for k in set(got) ^ set(want)}
+                  | {k for k in set(got) & set(want)
+                     if got[k].dtype != want[k].dtype or not torch.equal(got[k], want[k])})
+
+
+def load_serve(torch, quant, pa, cfg, params, prompts: list, new: int, **options) -> dict:
+    """A stream through ``ServeEngine`` over ``params``: the tokens, the
+    int8 and paged launches and routes, counted from 0 over the stream."""
+    from pytorch_distributed_training_tutorials_tpu_torch.models import TransformerLM
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import Request, ServeEngine
+
+    tpl = LOAD_STREAM["tokens_per_launch"]
+    eng = ServeEngine(TransformerLM(cfg), params, n_slots=LOAD_STREAM["n_slots"],
+                      tokens_per_launch=tpl, max_queue=64, device="cuda", **options)
+    quant.int8_matmul.launches = 0
+    quant.int8_matmul.routes = {"sm90": 0, "v1": 0}
+    pa.paged_attention.launches = 0
+    pa.paged_attention.routes = {"sm90": 0, "v1": 0}
+    t0 = time.perf_counter()
+    ids = [eng.submit(Request(prompt=p, max_new_tokens=new, seed=i))
+           for i, p in enumerate(prompts)]
+    done = {c.request_id: c for c in eng.run_until_idle()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {
+        "tokens": [done[i].tokens if i in done else None for i in ids],
+        "finished": sum(done[i].finish_reason == "length" and len(done[i].tokens) == new
+                        for i in ids if i in done),
+        "forwards": eng.n_prefills + eng.n_chains * tpl, "decode_steps": eng.n_chains * tpl,
+        "int8_matmul_launches": quant.int8_matmul.launches,
+        "int8_matmul_routes": dict(quant.int8_matmul.routes),
+        "paged_attention_launches": pa.paged_attention.launches,
+        "paged_attention_routes": dict(pa.paged_attention.routes),
+        "wall_s": wall, "aggregate_tok_s": sum(len(c.tokens) for c in done.values()) / wall,
+    }
+    if options.get("paged"):
+        out["pages_in_use"] = eng.page_stats()["pages_in_use"]
+    return out
+
+
+def serve_problems(run: dict, n_req: int, layers: int, paged: bool) -> list:
+    """The launch and route gates of one :func:`load_serve` stream."""
+    bad = []
+    if run["finished"] != n_req:
+        bad.append(f"{run['finished']} of {n_req} requests finished with every token")
+    per_forward = 7 * layers + 1
+    if run["int8_matmul_launches"] != per_forward * run["forwards"]:
+        bad.append(f"int8_matmul launched {run['int8_matmul_launches']} times, want "
+                   f"{per_forward} x {run['forwards']} forwards")
+    want_paged = layers * run["decode_steps"] if paged else 0
+    if run["paged_attention_launches"] != want_paged:
+        bad.append(f"paged_attention launched {run['paged_attention_launches']} times, "
+                   f"want {want_paged}")
+    for kern in ("int8_matmul", "paged_attention"):
+        calls = run[f"{kern}_launches"]
+        if run[f"{kern}_routes"] != {"sm90": calls, "v1": 0}:
+            bad.append(f"{kern} routes {run[f'{kern}_routes']}: every one of its {calls} "
+                       "calls must take the sm90 route")
+    if run.get("pages_in_use"):
+        bad.append(f"{run['pages_in_use']} pages in use after the stream")
+    return bad
+
+
+def load_prompts(vocab: int, lengths, seed: int) -> list:
+    import numpy as np
+
+    rng = np.random.Generator(np.random.PCG64(seed))
+    return [rng.integers(0, vocab, (n,)).tolist() for n in lengths]
+
+
+def load_port_arm(torch, quant, pa, gpu: str, tmp: str) -> dict:
+    """Arm "port": the 1b preset's float32 tree written and streamed back
+    int8 (module docstring)."""
+    from pytorch_distributed_training_tutorials_tpu_torch.models import (
+        TransformerConfig,
+        from_jax_params,
+        load_quantized_lm,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.models.transformer import (
+        _QUANTIZED_KERNELS,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel.auto import (
+        audit_placement,
+        save_checkpoint,
+    )
+
+    cfg = TransformerConfig(**PRESET_1B, quantized=True)
+    ckpt = os.path.join(tmp, "1b")
+    os.makedirs(ckpt)
+    t0, f32_bytes = time.perf_counter(), 0
+    for i, (name, sub) in enumerate(flax_lm_shapes(cfg).items()):
+        part = draw_subtree(torch, sub, LOAD_SEED * 1000 + i, torch.float32)
+        f32_bytes += tree_bytes(part)
+        save_checkpoint(os.path.join(ckpt, name), {name: part})
+        del part
+    write_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = {}
+    for name in sorted(os.listdir(ckpt)):
+        params.update(load_quantized_lm(os.path.join(ckpt, name), device="cuda"))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    card_bytes = torch.cuda.memory_allocated() - base
+    sd_bytes = sum(t.nbytes for t in params.values())
+    child = subprocess.run([sys.executable, "-c", LOAD_RSS_CHILD, REPO, ckpt],
+                           capture_output=True, text=True, timeout=600)
+    if child.returncode:
+        raise RuntimeError(f"the RSS child failed: {child.stderr[-2000:]}")
+    rss = json.loads(child.stdout.strip().splitlines()[-1])
+    rss_growth = (rss["peak_kb"] - rss["base_kb"]) * 1024
+    lines = audit_placement(params)
+    audit_bad = []
+    for line in lines:
+        name, rest = line.split(": ", 1)
+        dtype, where = rest.rsplit(" on ", 1)[0].split()[-1], rest.rsplit(" on ", 1)[1]
+        owner = name.rsplit(".", 2)[-2]
+        if where != "cuda:0" or (dtype == "int8") != (name.endswith(".qt")
+                                                      and owner in _QUANTIZED_KERNELS) \
+                or dtype not in ("int8", "float32"):
+            audit_bad.append(line)
+    tree = draw_flax_tree(torch, cfg, torch.float32)
+    want = from_jax_params(tree, cfg, device="cuda")
+    del tree
+    mismatched = bitwise_mismatches(torch, params, want)
+    prompts = load_prompts(cfg.vocab_size, LOAD_STREAM["prompts"], 17)
+    new = LOAD_STREAM["new"]
+    loaded = load_serve(torch, quant, pa, cfg, params, prompts, new)
+    bridged = load_serve(torch, quant, pa, cfg, want, prompts, new)
+    bad = serve_problems(loaded, len(prompts), cfg.n_layers, paged=False)
+    if mismatched:
+        bad.append(f"{len(mismatched)} entries differ from from_jax_params: {mismatched[:4]}")
+    if abs(card_bytes - sd_bytes) > LOAD_CARD_TOL * sd_bytes:
+        bad.append(f"card bytes {card_bytes} against the state dict's {sd_bytes}")
+    if rss_growth >= LOAD_RSS_SHARE * f32_bytes:
+        bad.append(f"host RSS grew {rss_growth} bytes in the load, the bound "
+                   f"{LOAD_RSS_SHARE} x {f32_bytes}")
+    if rss["entries"] != len(params):
+        bad.append(f"the child loaded {rss['entries']} entries, this process {len(params)}")
+    if audit_bad:
+        bad.append(f"{len(audit_bad)} audit lines out of place: {audit_bad[:3]}")
+    if loaded["tokens"] != bridged["tokens"]:
+        bad.append("tokens over the loaded weights != over from_jax_params's")
+    row = {
+        "phase": "serve_1b_from_checkpoint", "arm": "port", "preset": "1b",
+        "layers": cfg.n_layers, "checkpoint_files": len(os.listdir(ckpt)),
+        "f32_tree_bytes": f32_bytes, "write_s": write_s, "load_s": load_s,
+        "load_gb_per_s": f32_bytes / load_s / 1e9, "read": "warm (just written)",
+        "card_bytes_after_load": card_bytes, "state_dict_bytes": sd_bytes,
+        "int8_bytes": sum(t.nbytes for t in params.values() if t.dtype == torch.int8),
+        "entries": len(params), "bitwise_from_jax_params": not mismatched,
+        "child_load_s": rss["seconds"], "child_rss_base_bytes": rss["base_kb"] * 1024,
+        "child_rss_kb": {k: v for k, v in rss.items() if k.endswith("_kb")},
+        "child_rss_growth_bytes": rss_growth, "rss_bound_bytes": LOAD_RSS_SHARE * f32_bytes,
+        "audit_lines": len(lines), "audit_example": lines[:3],
+        "requests": len(prompts), "new_tokens": new,
+        **{k: v for k, v in loaded.items() if k != "tokens"},
+        "tokens_equal_from_jax_params_engine": loaded["tokens"] == bridged["tokens"],
+        "ok": not bad, "problems": bad, "gpu": gpu,
+    }
+    emit(row)
+    return row
+
+
+@contextlib.contextmanager
+def untransposed_o_proj():
+    """A planted fault: ``load_hf_llama`` reshapes each HF ``o_proj`` (d,
+    H*D) to (H, D, d) without its transpose (square at 1b: the shape still
+    fits)."""
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel import hf_llama
+
+    real = hf_llama._llama_layer_entries
+
+    def faulty(i, cfg):
+        return [(p, n, (lambda w: w.reshape(cfg.n_heads, cfg.head_dim, cfg.d_model))
+                 if p[-2] == "o_proj" else t) for p, n, t in real(i, cfg)]
+
+    hf_llama._llama_layer_entries = faulty
+    try:
+        yield
+    finally:
+        hf_llama._llama_layer_entries = real
+
+
+def write_hf_llama(torch, path: str, cfg, tree: dict) -> int:
+    """``tree`` (the flax layout, on the card) as a HF Llama directory:
+    ``config.json``, shards of about LOAD_HF_SHARD_BYTES written with the
+    port's ``save_safetensors``, and ``model.safetensors.index.json`` —
+    each weight in HF's (out, in) layout, named and transposed here
+    without the loader's mapping. Returns the tensor bytes."""
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel.hf_llama import (
+        save_safetensors,
+    )
+
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim
+
+    def tensors():
+        yield "model.embed_tokens.weight", tree["tok_emb"]["embedding"]
+        for i in range(cfg.n_layers):
+            b, pre = tree[f"block_{i}"], f"model.layers.{i}."
+            att, mlp = b["attn"], b["mlp"]
+            yield pre + "input_layernorm.weight", b["attn_norm"]["scale"]
+            yield pre + "self_attn.q_proj.weight", att["q_proj"]["kernel"].reshape(d, h * hd).t()
+            yield pre + "self_attn.k_proj.weight", att["k_proj"]["kernel"].reshape(d, kv * hd).t()
+            yield pre + "self_attn.v_proj.weight", att["v_proj"]["kernel"].reshape(d, kv * hd).t()
+            yield pre + "self_attn.o_proj.weight", att["o_proj"]["kernel"].reshape(h * hd, d).t()
+            yield pre + "post_attention_layernorm.weight", b["mlp_norm"]["scale"]
+            yield pre + "mlp.gate_proj.weight", mlp["gate_proj"]["kernel"].t()
+            yield pre + "mlp.up_proj.weight", mlp["up_proj"]["kernel"].t()
+            yield pre + "mlp.down_proj.weight", mlp["down_proj"]["kernel"].t()
+        yield "model.norm.weight", tree["final_norm"]["scale"]
+        yield "lm_head.weight", tree["lm_head"]["kernel"].t()
+
+    shards, size = [[]], 0
+    for name, t in tensors():
+        if shards[-1] and size + t.nbytes > LOAD_HF_SHARD_BYTES:
+            shards.append([])
+            size = 0
+        shards[-1].append((name, t))
+        size += t.nbytes
+    os.makedirs(path)
+    weight_map = {}
+    for j, part in enumerate(shards):
+        fname = f"model-{j + 1:05d}-of-{len(shards):05d}.safetensors"
+        save_safetensors(os.path.join(path, fname), dict(part))
+        weight_map.update(dict.fromkeys((n for n, _ in part), fname))
+    total = sum(t.nbytes for part in shards for _, t in part)
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({
+            "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+            "vocab_size": cfg.vocab_size, "hidden_size": d, "intermediate_size": cfg.ff_dim,
+            "num_hidden_layers": cfg.n_layers, "num_attention_heads": h,
+            "num_key_value_heads": kv, "head_dim": hd,
+            "max_position_embeddings": cfg.max_seq_len, "rms_norm_eps": cfg.norm_eps,
+            "rope_theta": cfg.rope_theta, "hidden_act": "silu", "rope_scaling": None,
+            "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+        }, f)
+    return total
+
+
+def logit_share(torch, cfg, fparams, qparams, tokens: list) -> float:
+    """Teacher-forced mean |int8 - float| over std(float) of the logits of
+    one sequence through the float and int8 models (full forwards)."""
+    from pytorch_distributed_training_tutorials_tpu_torch.models import (
+        TransformerLM,
+        bind_params,
+    )
+
+    seq = torch.tensor([tokens], device="cuda")
+    out = []
+    for c, p in ((cfg, fparams), (dataclasses.replace(cfg, quantized=True), qparams)):
+        model = TransformerLM(c)
+        bind_params(model, p)
+        with torch.no_grad():
+            out.append(model(seq).float())
+    ref, got = out
+    return float((got - ref).abs().mean() / ref.std())
+
+
+def load_hf_arm(torch, quant, pa, gpu: str, tmp: str) -> dict:
+    """Arm "hf": the 1b-gqa preset's bfloat16 weights as an HF directory,
+    loaded float and int8 and served (module docstring)."""
+    from pytorch_distributed_training_tutorials_tpu_torch.models import (
+        TransformerConfig,
+        from_jax_params,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel.hf_llama import (
+        load_hf_llama,
+    )
+
+    spec = TransformerConfig(**PRESET_1B_GQA)
+    tree = draw_flax_tree(torch, spec, torch.bfloat16)
+    hf_dir = os.path.join(tmp, "hf")
+    t0 = time.perf_counter()
+    hf_bytes = write_hf_llama(torch, hf_dir, spec, tree)
+    write_s = time.perf_counter() - t0
+    files = sorted(os.listdir(hf_dir))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cfg, fparams = load_hf_llama(hf_dir, device="cuda")
+    torch.cuda.synchronize()
+    float_s = time.perf_counter() - t0
+    bad_float = bitwise_mismatches(torch, fparams, from_jax_params(tree, cfg, device="cuda"))
+    t0 = time.perf_counter()
+    _, qparams = load_hf_llama(hf_dir, quantize=True, device="cuda")
+    torch.cuda.synchronize()
+    int8_s = time.perf_counter() - t0
+    qcfg = dataclasses.replace(cfg, quantized=True)
+    bad_int8 = bitwise_mismatches(torch, qparams, from_jax_params(tree, qcfg, device="cuda"))
+    del tree
+    prompts = load_prompts(cfg.vocab_size, LOAD_HF_STREAM["prompts"], 19)
+    new = LOAD_HF_STREAM["new"]
+    st = PAGED_STREAM
+    run = load_serve(torch, quant, pa, qcfg, qparams, prompts, new, paged=True,
+                     paged_kernel=True, page_size=st["page_size"], pool_pages=st["pool_pages"])
+    seq = prompts[0] + run["tokens"][0]
+    share = logit_share(torch, cfg, fparams, qparams, seq)
+    with untransposed_o_proj():
+        _, faulty = load_hf_llama(hf_dir, quantize=True, device="cuda")
+    fault_share = logit_share(torch, cfg, fparams, faulty, seq)
+    del faulty
+    bad = serve_problems(run, len(prompts), cfg.n_layers, paged=True)
+    if cfg != spec:
+        bad.append(f"config.json read as {cfg}")
+    if bad_float:
+        bad.append(f"float load: {len(bad_float)} entries differ from from_jax_params: "
+                   f"{bad_float[:4]}")
+    if bad_int8:
+        bad.append(f"int8 load: {len(bad_int8)} entries differ from from_jax_params: "
+                   f"{bad_int8[:4]}")
+    if not share < LOAD_HF_GATE:
+        bad.append(f"int8 against float logits {share} >= {LOAD_HF_GATE} of their std")
+    if not fault_share >= LOAD_HF_GATE:
+        bad.append(f"the untransposed o_proj passed the gate: {fault_share}")
+    row = {
+        "phase": "serve_1b_from_checkpoint", "arm": "hf", "preset": "1b-gqa",
+        "layers": cfg.n_layers, "files": files, "tensor_bytes_bf16": hf_bytes,
+        "write_s": write_s, "load_float_s": float_s, "load_int8_s": int8_s,
+        "load_float_gb_per_s": hf_bytes / float_s / 1e9,
+        "load_int8_gb_per_s": hf_bytes / int8_s / 1e9, "read": "warm (just written)",
+        "bitwise_float": not bad_float, "bitwise_int8": not bad_int8,
+        "int8_state_dict_bytes": sum(t.nbytes for t in qparams.values()),
+        "float_state_dict_bytes": sum(t.nbytes for t in fparams.values()),
+        "requests": len(prompts), "prompt_lengths": list(LOAD_HF_STREAM["prompts"]),
+        "new_tokens": new, "options": "paged kernel, pages of 64, a pool of 48",
+        **{k: v for k, v in run.items() if k != "tokens"},
+        "logit_share": share, "fault_logit_share": fault_share, "gate": LOAD_HF_GATE,
+        "teacher_forced_tokens": len(seq),
+        "ok": not bad, "problems": bad, "gpu": gpu,
+    }
+    emit(row)
+    return row
+
+
+def phase_serve_1b_from_checkpoint(torch, quant, pa, gpu: str) -> dict:
+    """The checkpoint-loading slice: arms "port" and "hf", each under a
+    temporary directory of ``build/`` removed when the arm ends. Returns
+    each arm's line."""
+    import shutil
+    import tempfile
+
+    root = os.path.join(REPO, "build")
+    os.makedirs(root, exist_ok=True)
+    du = shutil.disk_usage(root)
+    emit({"phase": "serve_1b_from_checkpoint_disk", "path": root, "total_bytes": du.total,
+          "used_bytes": du.used, "free_bytes": du.free, "gpu": gpu})
+    out = {}
+    for arm, fn in (("port", load_port_arm), ("hf", load_hf_arm)):
+        with tempfile.TemporaryDirectory(prefix=f"ckpt_{arm}_", dir=root) as tmp:
+            out[arm] = fn(torch, quant, pa, gpu, tmp)
+        torch.cuda.empty_cache()
+    problems = [f"arm {a}: {x}" for a, row in out.items() for x in row["problems"]]
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return out
+
+
 def strategy_phases(run, torch, gpu: str) -> dict:
     """The model-parallel slice's four phases (``--strategies-only`` runs
     these after the build)."""
@@ -6456,6 +6959,9 @@ def main(argv=None) -> int:
                     help="after the build, run the tensor-parallel phases only "
                          "(serve_1b_tp2, fused_cross_entropy_tp's kernel check, "
                          "train_760m_tp2)")
+    ap.add_argument("--load-only", action="store_true",
+                    help="after the build, run the checkpoint-loading phase only "
+                         "(serve_1b_from_checkpoint)")
     ap.add_argument("--strategies-only", action="store_true",
                     help="after the build, run the model-parallel slice's phases only "
                          "(train_resnet50_pipeline, train_resnet50_gpipe, "
@@ -6554,6 +7060,10 @@ def main(argv=None) -> int:
         strategy_phases(run, torch, gpu)
         emit({"phase": "phase_seconds", **seconds})
         return 0
+    if args.load_only:
+        run(phase_serve_1b_from_checkpoint, torch, quant, pa, gpu)
+        emit({"phase": "phase_seconds", **seconds})
+        return 0
     if args.lora_only:
         run(phase_serve_lora, torch, quant, fa, pa, gpu)
         run(phase_train_dots_attn, torch, gpu)
@@ -6578,6 +7088,7 @@ def main(argv=None) -> int:
     lora = run(phase_serve_lora, torch, quant, fa, pa, gpu)
     faults, paged_faults, fleet = fault_phases()
     tp = run(phase_serve_tp, torch, quant, gpu)
+    load = run(phase_serve_1b_from_checkpoint, torch, quant, pa, gpu)
     train_tp = run(phase_train_tp, torch, gpu)
     run(phase_train_card_vs_cpu, torch, gpu)
     base = run(phase_train, torch, gpu)
@@ -6629,7 +7140,9 @@ def main(argv=None) -> int:
                              **{f"serve_1b_gqa_paged_faults_{a}": r["int8_matmul_launches"]
                                 for a, r in paged_faults.items()},
                              **{f"serve_1b_fleet_{leg}": r["int8_matmul_launches"]
-                                for leg, r in fleet.items()}},
+                                for leg, r in fleet.items()},
+                             **{f"serve_1b_from_checkpoint_{a}": r["int8_matmul_launches"]
+                                for a, r in load.items()}},
         "verify_forwards_by_path": {
             **{f"serve_1b_spec_{a}": n for a, n in spec["verify_forwards"].items() if n},
             "serve_1b_gqa_paged_spec": paged_serve["spec"]["n_verify_forwards"]},
@@ -6765,7 +7278,8 @@ def main(argv=None) -> int:
                              "serve_1b_gqa_paged_spec": paged_serve["spec"],
                              "serve_1b_lora_composed": lora["composed_paged"],
                              **{f"serve_1b_gqa_paged_faults_{a}": r["paged_attention_launches"]
-                                for a, r in paged_faults.items()}},
+                                for a, r in paged_faults.items()},
+                             "serve_1b_from_checkpoint_hf": load["hf"]["paged_attention_launches"]},
         "verify": {k: paged["results"][("1b-gqa-verify", "f32", "f32")][k] * 16
                    for k in ("ms", "plain_ms", "bound_ms")}
         | {"bound_by": paged["results"][("1b-gqa-verify", "f32", "f32")]["bound_by"],

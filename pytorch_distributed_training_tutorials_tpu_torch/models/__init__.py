@@ -1,6 +1,7 @@
 """Models of the PyTorch port: ``TransformerLM`` (int8 serving and float
 training), its sampling pipeline, ``generate``, the ResNets and the
-linear and MLP models, the weight bridge and the seeded weight
+linear and MLP models, the weight bridge (whole trees and one leaf at a
+time), the streaming int8 checkpoint loader and the seeded weight
 builders."""
 
 from pytorch_distributed_training_tutorials_tpu_torch.models.convert import (
@@ -8,6 +9,7 @@ from pytorch_distributed_training_tutorials_tpu_torch.models.convert import (
     init_lm,
     init_params,
     init_quantized_lm,
+    jax_leaf_to_port,
 )
 from pytorch_distributed_training_tutorials_tpu_torch.models.generate import generate
 from pytorch_distributed_training_tutorials_tpu_torch.models.mlp import (
@@ -31,8 +33,10 @@ from pytorch_distributed_training_tutorials_tpu_torch.models.transformer import 
     TransformerLM,
     bind_params,
     int8_param_sharding,
+    load_quantized_lm,
     place_int8_lm_params,
     quantize_lm_params,
+    stack_quantized_lm_params,
     tp_layout,
 )
 from pytorch_distributed_training_tutorials_tpu_torch.models.utils import (
@@ -59,6 +63,8 @@ __all__ = [
     "init_params",
     "init_quantized_lm",
     "int8_param_sharding",
+    "jax_leaf_to_port",
+    "load_quantized_lm",
     "model_flops_per_token",
     "model_size",
     "place_int8_lm_params",
@@ -66,5 +72,6 @@ __all__ = [
     "resnet18",
     "resnet34",
     "resnet50",
+    "stack_quantized_lm_params",
     "tp_layout",
 ]

@@ -13,9 +13,14 @@ norms' buffers; flax's module names map to the port's nesting
 / ``Dense_k`` -> ``convs.k`` / ``norms.k`` / ``denses.k``).
 
 :func:`from_jax_params` takes the JAX tree as nested dicts of numpy arrays
-(a caller holding jax arrays converts them on its side, e.g.
+or tensors (a caller holding jax arrays converts them on its side, e.g.
 ``jax.tree_util.tree_map(np.asarray, params)``; the port never sees a jax
-object) and returns a state dict for :class:`.transformer.TransformerLM`.
+object) and returns a state dict for :class:`.transformer.TransformerLM`,
+converting leaf by leaf through :func:`jax_leaf_to_port` — the one
+per-leaf bridge, which the streaming loaders
+(:func:`.transformer.load_quantized_lm`,
+:func:`..parallel.hf_llama.load_hf_llama`) call on each leaf as it is
+read, so a streamed load gives this function's bits.
 Float trees and ``quantize_lm_params`` trees, unrolled (``block_i/...``)
 and stacked (``layers/block/...``, leading layer axis) layouts all give
 the same port weights. For ``cfg.quantized`` a float tree is quantized
@@ -42,7 +47,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -54,12 +58,13 @@ from pytorch_distributed_training_tutorials_tpu_torch.models.transformer import 
     LoRADelta,
     TransformerConfig,
     TransformerLM,
-    quantize_lm_params,
+    _quantize_kernel,
 )
 from pytorch_distributed_training_tutorials_tpu_torch.ops.quant import (
     Int8Linear,
     quantize_int8,
 )
+from pytorch_distributed_training_tutorials_tpu_torch.parallel.auto import tree_leaves
 from pytorch_distributed_training_tutorials_tpu_torch.parallel.tensor_parallel import (
     shard_params,
 )
@@ -76,65 +81,87 @@ _BLOCK_LEAVES = {
     "mlp.up_proj": ("mlp", "up_proj"),
     "mlp.down_proj": ("mlp", "down_proj"),
 }
-# the LoRA siblings of a block (cfg.lora_adapters > 0), the same way
-_LORA_LEAVES = {f"{k}_lora": (*v[:-1], f"{v[-1]}_lora")
-                for k, v in _BLOCK_LEAVES.items() if not k.endswith("_norm")}
+# the top-level subtrees outside the blocks
+_TOP = ("tok_emb", "final_norm", "lm_head")
 
 
-def _to_torch(tree, device):
-    if isinstance(tree, Mapping):
-        return {k: _to_torch(v, device) for k, v in tree.items()}
-    return torch.tensor(np.asarray(tree), device=device)
+def jax_leaf_to_port(path, leaf: torch.Tensor, *, quantized: bool,
+                     lora: bool = False) -> dict[str, torch.Tensor]:
+    """The weight bridge for ONE leaf of a JAX ``TransformerLM`` param
+    tree: its key path (``("block_3", "attn", "q_proj", "kernel")``, or
+    stacked ``("layers", "block", ...)`` with a leading layer axis) and
+    its values, a tensor the caller hands over on the target device ->
+    the port's state-dict entries it makes (one a layer for a stacked
+    leaf). A float ``kernel`` becomes, for ``quantized``, ``qt`` (N, K)
+    K-contiguous and its ``scale`` (1, N) (quantized per layer, bitwise
+    the JAX quantizer), else the float ``weight`` (K, N); an int8 ``q`` /
+    ``scale`` pair (a ``quantize_lm_params`` tree) converts to the same
+    layout and refuses a float model. Embedding, norm scales and, with
+    ``lora``, the ``*_lora`` factors pass through as float32. A leaf that
+    is not the model's gives nothing. :func:`from_jax_params` and every
+    streaming loader (:func:`..models.transformer.load_quantized_lm`,
+    :func:`..parallel.hf_llama.load_hf_llama`) convert through here, so a
+    streamed load gives the whole-tree bridge's bits."""
+    path = tuple(str(p) for p in path)
+    if path[:2] == ("layers", "block"):
+        out = {}
+        for i in range(leaf.shape[0]):
+            out.update(jax_leaf_to_port((f"block_{i}", *path[2:]), leaf[i].clone(),
+                                        quantized=quantized, lora=lora))
+        return out
+    *parents, name = path
+    if not parents:
+        return {}
+    if parents[0].startswith("block_"):
+        prefix = ".".join(["blocks", parents[0][len("block_"):], *parents[1:]])
+    elif parents[0] in _TOP and len(parents) == 1:
+        prefix = parents[0]
+    else:
+        return {}
+    owner = parents[-1]
+    if owner.endswith("_lora"):
+        return {f"{prefix}.{name}": leaf.float().contiguous()} if lora else {}
+    if owner == "tok_emb" and name == "embedding":
+        return {"tok_emb.weight": leaf.float().contiguous()}
+    if owner.endswith("_norm") and name == "scale":
+        return {f"{prefix}.scale": leaf.float().contiguous()}
+    if owner not in _QUANTIZED_KERNELS or name not in ("kernel", "q", "scale"):
+        return {}
+    if name == "kernel" and not quantized:
+        kern = leaf.float()
+        if owner == "o_proj":  # (H, D, d_model): both leading axes contract
+            w = kern.reshape(-1, kern.shape[-1])
+        else:  # (in, out...) : the first axis contracts
+            w = kern.reshape(kern.shape[0], -1)
+        return {f"{prefix}.weight": w.contiguous()}
+    if not quantized:
+        raise ValueError(
+            "a quantized param tree cannot load into a float "
+            "TransformerConfig(quantized=False)"
+        )
+    if name == "kernel":
+        part = _quantize_kernel(owner, leaf)
+        return {f"{prefix}.qt": part["q"].t().contiguous(),
+                f"{prefix}.scale": part["scale"].reshape(1, -1).float().contiguous()}
+    if name == "q":
+        return {f"{prefix}.qt": leaf.t().contiguous()}
+    return {f"{prefix}.scale": leaf.reshape(1, -1).float().contiguous()}
 
 
-def _unstack(tree: dict, n_layers: int) -> dict:
-    """``layers/block/...`` (leading L axis) -> ``block_i/...``."""
-    if "layers" not in tree:
-        return tree
-    stacked = tree["layers"]["block"]
-
-    def take(sub, i):
-        if isinstance(sub, Mapping):
-            return {k: take(v, i) for k, v in sub.items()}
-        return sub[i]
-
-    out = {k: v for k, v in tree.items() if k != "layers"}
-    for i in range(n_layers):
-        out[f"block_{i}"] = take(stacked, i)
-    return out
-
-
-def _is_float_tree(tree) -> bool:
-    for name, sub in tree.items():
-        if isinstance(sub, Mapping):
-            if name in _QUANTIZED_KERNELS and "kernel" in sub:
-                return True
-            if _is_float_tree(sub):
-                return True
-    return False
-
-
-def _int8_leaves(prefix: str, name: str, sub: Mapping) -> dict:
-    return {
-        f"{prefix}.qt": sub["q"].t().contiguous(),
-        f"{prefix}.scale": sub["scale"].reshape(1, -1).float().contiguous(),
-    }
-
-
-def _float_leaves(prefix: str, name: str, sub: Mapping) -> dict:
-    kern = sub["kernel"].float()
-    if name == "o_proj":  # (H, D, d_model): both leading axes contract
-        w = kern.reshape(-1, kern.shape[-1])
-    else:  # (in, out...) : the first axis contracts
-        w = kern.reshape(kern.shape[0], -1)
-    return {f"{prefix}.weight": w.contiguous()}
+def _owned_on(x, dev: torch.device) -> torch.Tensor:
+    """``x`` (a tensor or array) as a new tensor on ``dev``: the bridge
+    may hand it back as an entry, never the caller's own memory."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(dev, copy=True)
+    return torch.tensor(np.asarray(x), device=dev)
 
 
 def from_jax_params(tree, cfg: TransformerConfig | torch.nn.Module, device=None, *,
                     batch_stats=None) -> dict[str, torch.Tensor]:
-    """JAX param tree (nested dicts of numpy arrays) -> the port's state
-    dict on ``device`` (``cuda`` unless the caller passes another). For an
-    int8 ``cfg`` a float tree is quantized here, per layer, bitwise the JAX
+    """JAX param tree (nested dicts of numpy arrays or tensors) -> the
+    port's state dict on ``device`` (``cuda`` unless the caller passes
+    another), leaf by leaf through :func:`jax_leaf_to_port`. For an int8
+    ``cfg`` a float tree is quantized here, per layer, bitwise the JAX
     quantizer; for a float ``cfg`` the tree must be float and stays so.
     With a module in place of ``cfg``, the Conv/Dense leg (module
     docstring); ``batch_stats`` is the JAX ``batch_stats`` collection."""
@@ -143,34 +170,11 @@ def from_jax_params(tree, cfg: TransformerConfig | torch.nn.Module, device=None,
         return _module_state_dict(tree, batch_stats, cfg, dev)
     if cfg.int8_mesh is not None:
         return _shard_for(cfg, from_jax_params(tree, _whole(cfg), dev))
-    t = _unstack(_to_torch(dict(tree), dev), cfg.n_layers)
-    is_float = _is_float_tree(t)
-    if cfg.quantized and is_float:
-        t = quantize_lm_params(t)
-    elif not cfg.quantized and not is_float:
-        raise ValueError(
-            "a quantized param tree cannot load into a float "
-            "TransformerConfig(quantized=False)"
-        )
-    leaves = _int8_leaves if cfg.quantized else _float_leaves
-    out = {"tok_emb.weight": t["tok_emb"]["embedding"].float().contiguous()}
-    for i in range(cfg.n_layers):
-        blk = t[f"block_{i}"]
-        for port_name, path in _BLOCK_LEAVES.items():
-            sub = blk
-            for key in path:
-                sub = sub[key]
-            prefix = f"blocks.{i}.{port_name}"
-            if path[-1].endswith("_norm"):
-                out[f"{prefix}.scale"] = sub["scale"].float().contiguous()
-            else:
-                out.update(leaves(prefix, path[-1], sub))
-        if cfg.lora_adapters:
-            out.update(_lora_rows(blk, i))
-    out["final_norm.scale"] = t["final_norm"]["scale"].float().contiguous()
-    out.update(leaves("lm_head", "lm_head", t["lm_head"]))
-    _check_schema(out, cfg)
-    return out
+    out = {}
+    for path, leaf in tree_leaves(tree):
+        out.update(jax_leaf_to_port(path, _owned_on(leaf, dev), quantized=cfg.quantized,
+                                    lora=bool(cfg.lora_adapters)))
+    return _check_schema(out, cfg)
 
 
 def _whole(cfg: TransformerConfig) -> TransformerConfig:
@@ -182,21 +186,8 @@ def _shard_for(cfg: TransformerConfig, params: dict) -> dict[str, torch.Tensor]:
     """The rank of ``cfg.int8_mesh``'s shard of a whole state dict,
     checked against the sharded model's schema."""
     tp = cfg.int8_mesh
-    out = shard_params(params, tp.rank, tp.tp_size, head_dim=cfg.head_dim)
-    _check_schema(out, cfg)
-    return out
-
-
-def _lora_rows(blk: Mapping, i: int) -> dict[str, torch.Tensor]:
-    """Block ``i``'s ``*_lora`` factor leaves under the port's names."""
-    out = {}
-    for port_name, path in _LORA_LEAVES.items():
-        sub = blk
-        for key in path:
-            sub = sub[key]
-        for leaf in ("lora_a", "lora_b"):
-            out[f"blocks.{i}.{port_name}.{leaf}"] = sub[leaf].float().contiguous()
-    return out
+    return _check_schema(shard_params(params, tp.rank, tp.tp_size, head_dim=cfg.head_dim),
+                         cfg)
 
 
 def adapter_from_jax(row, cfg: TransformerConfig, device=None) -> dict[str, torch.Tensor]:
@@ -205,14 +196,18 @@ def adapter_from_jax(row, cfg: TransformerConfig, device=None) -> dict[str, torc
     ``layers/block/...``, each leaf without the adapter axis) -> the
     name -> tensor rows :meth:`..adapters.bank.AdapterBank.register`
     takes, on ``device`` (``cuda`` unless the caller passes another)."""
-    t = _unstack(_to_torch(dict(row), resolve_device(device)), cfg.n_layers)
+    dev = resolve_device(device)
     out = {}
-    for i in range(cfg.n_layers):
-        out.update(_lora_rows(t[f"block_{i}"], i))
+    for path, leaf in tree_leaves(row):
+        if str(path[-2]).endswith("_lora"):
+            out.update(jax_leaf_to_port(path, _owned_on(leaf, dev), quantized=cfg.quantized,
+                                        lora=True))
     return out
 
 
-def _check_schema(params: dict, cfg: TransformerConfig) -> None:
+def _check_schema(params: dict, cfg: TransformerConfig) -> dict[str, torch.Tensor]:
+    """``params`` in the model's order, after checking it holds exactly
+    the model's names, shapes and dtypes."""
     want = TransformerLM(cfg).state_dict()
     if set(want) != set(params):
         missing = sorted(set(want) - set(params))
@@ -225,6 +220,7 @@ def _check_schema(params: dict, cfg: TransformerConfig) -> None:
                 f"{name}: got {tuple(got.shape)} {got.dtype}, the config "
                 f"needs {tuple(ref.shape)} {ref.dtype}"
             )
+    return {name: params[name] for name in want}
 
 
 def init_quantized_lm(cfg: TransformerConfig, seed: int = 0,

@@ -114,6 +114,7 @@ from pytorch_distributed_training_tutorials_tpu_torch.ops.quant import (
 from pytorch_distributed_training_tutorials_tpu_torch.parallel.tensor_parallel import (
     TensorParallel,
     shard_params,
+    shard_tensor,
     split_dim,
 )
 
@@ -1364,3 +1365,101 @@ def _quantize_kernel(name: str, kernel: torch.Tensor, stacked: bool = False) -> 
         k2 = kern.reshape(kern.shape[0], -1)  # (in, out...)
     qp = quantize_int8(k2)
     return {"q": qp.q, "scale": qp.scale.reshape(1, -1)}
+
+
+def stack_quantized_lm_params(params):
+    """An unrolled JAX-layout tree (``block_0`` .. ``block_{L-1}``, nested
+    dicts of tensors or arrays, float or quantized) -> the stacked layout
+    (``layers/block/...``, a leading layer axis on every leaf), as the JAX
+    package's ``stack_quantized_lm_params`` stacks it. The port's model
+    keeps one module a layer, so it serves either layout through the
+    weight bridge; this writes stacked trees (a ``scan_layers``
+    checkpoint)."""
+    blocks, rest = {}, {}
+    for name, sub in dict(params).items():
+        if name.startswith("block_"):
+            blocks[int(name[len("block_"):])] = sub
+        else:
+            rest[name] = sub
+    if not blocks:
+        raise ValueError(
+            "no block_<i> subtrees found — already stacked, or not a "
+            "TransformerLM serving tree"
+        )
+    n = len(blocks)
+    if sorted(blocks) != list(range(n)):
+        raise ValueError(f"non-contiguous block indices: {sorted(blocks)}")
+
+    def stack(trees):
+        if isinstance(trees[0], Mapping):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return torch.stack([torch.as_tensor(t) for t in trees])
+
+    rest["layers"] = {"block": stack([blocks[i] for i in range(n)])}
+    return rest
+
+
+def _head_dim_of(path: tuple, shape) -> int:
+    """The head width a JAX attention kernel carries: q/k/v (d, H, D),
+    o_proj (H, D, d), a leading layer axis when stacked; 1 elsewhere."""
+    owner = path[-2] if len(path) >= 2 else ""
+    if owner in ("q_proj", "k_proj", "v_proj"):
+        return shape[-1]
+    if owner == "o_proj":
+        return shape[-2]
+    return 1
+
+
+def load_quantized_lm(path, mesh=None, *, device=None) -> dict[str, torch.Tensor]:
+    """Stream a float JAX-layout :class:`TransformerLM` checkpoint (written
+    by :func:`..parallel.auto.save_checkpoint`) into the state dict that
+    ``TransformerLM(replace(cfg, quantized=True))`` binds, on ``device``
+    (``cuda`` unless the caller passes another), one leaf at a time.
+
+    The ``from_pretrained(..., load_in_8bit=True)`` loop (reference
+    ``03.model_parallel.ipynb`` cell 2, SURVEY C13): each leaf is read
+    alone (:func:`..parallel.auto.restore_leaf`), placed, converted
+    through the one weight bridge (:func:`..models.convert.jax_leaf_to_port`:
+    every matmul kernel quantized, norms and embedding float) and freed
+    before the next read, so the float model is resident neither on the
+    host nor on the card, and the result is bitwise
+    ``from_jax_params(tree, quantized cfg)``. Unrolled (``block_i/...``)
+    and stacked (``layers/block/...``, quantized per layer) checkpoints
+    alike; a checkpoint of some top-level subtrees gives their entries
+    only (the caller merges them).
+
+    ``mesh`` (a :class:`..parallel.tensor_parallel.TensorParallel`, or a
+    process group or a mesh with a ``model`` axis, as ``int8_mesh`` takes
+    it): each rank keeps only its shard per :data:`INT8_TP_RULES` (a
+    LoRA factor as its projection), cut from the whole quantized leaf —
+    a row layer's scales are the whole column's, so a block quantized on
+    its own would take other codes. Serve it with ``replace(cfg,
+    quantized=True, int8_mesh=mesh)``. The JAX ``materialize`` has no
+    counterpart: the entries are on the device already."""
+    from pytorch_distributed_training_tutorials_tpu_torch._device import resolve_device
+    from pytorch_distributed_training_tutorials_tpu_torch.models.convert import (
+        jax_leaf_to_port,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel.auto import (
+        checkpoint_leaf_metadata,
+        restore_leaf,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel.hf_llama import (
+        SafetensorsFile,
+    )
+
+    dev = resolve_device(device)
+    tp = None if mesh is None else (mesh if isinstance(mesh, TensorParallel)
+                                    else _as_strategy(mesh))
+    f = SafetensorsFile(path)
+    out: dict[str, torch.Tensor] = {}
+    for kp, meta in checkpoint_leaf_metadata(path):
+        leaf = restore_leaf(path, kp, dev, file=f)
+        units = {"head": _head_dim_of(kp, meta.shape)}
+        for name, t in jax_leaf_to_port(kp, leaf, quantized=True, lora=True).items():
+            if tp is not None:
+                dim = split_dim(name, tuple(t.shape), SERVING_TP_RULES, tp.tp_size, units)
+                t = shard_tensor(t, dim, tp.rank, tp.tp_size)
+            out[name] = t
+        del leaf  # free the float leaf before the next read
+    return out

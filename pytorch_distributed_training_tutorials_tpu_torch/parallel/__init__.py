@@ -2,10 +2,23 @@
 mesh (``data``, ``model`` and ``stage`` axes), the data-parallel strategy,
 tensor parallelism for serving and training (:class:`TensorParallel`),
 the pipelines (:class:`ManualPipeline`, :class:`GPipe`) and FSDP
-(:class:`FSDP`, :class:`HybridFSDP`). The other strategies of the JAX
-package (the single-program pipeline, ring and Ulysses attention) arrive
-in later slices."""
+(:class:`FSDP`, :class:`HybridFSDP`), checkpoints with per-leaf
+placement and 8-bit load (:mod:`.auto`) and HF-layout Llama loading
+(:mod:`.hf_llama`). The other strategies of the JAX package (the
+single-program pipeline, ring and Ulysses attention) arrive in later
+slices."""
 
+from pytorch_distributed_training_tutorials_tpu_torch.parallel.auto import (
+    LeafMeta,
+    Shard,
+    audit_placement,
+    checkpoint_leaf_metadata,
+    load_quantized,
+    load_sharded,
+    restore_checkpoint,
+    restore_leaf,
+    save_checkpoint,
+)
 from pytorch_distributed_training_tutorials_tpu_torch.parallel.data_parallel import DataParallel
 from pytorch_distributed_training_tutorials_tpu_torch.parallel.distributed import (
     init,
@@ -18,6 +31,13 @@ from pytorch_distributed_training_tutorials_tpu_torch.parallel.fsdp import (
     FSDP,
     HybridFSDP,
     shard_dim_for,
+)
+from pytorch_distributed_training_tutorials_tpu_torch.parallel.hf_llama import (
+    HFCheckpoint,
+    SafetensorsFile,
+    config_from_hf,
+    load_hf_llama,
+    save_safetensors,
 )
 from pytorch_distributed_training_tutorials_tpu_torch.parallel.mesh import (
     DATA_AXIS,
@@ -50,16 +70,30 @@ __all__ = [
     "DataParallel",
     "FSDP",
     "GPipe",
+    "HFCheckpoint",
     "HybridFSDP",
+    "LeafMeta",
     "ManualPipeline",
+    "SafetensorsFile",
+    "Shard",
     "StageMesh",
     "TensorParallel",
+    "audit_placement",
+    "checkpoint_leaf_metadata",
+    "config_from_hf",
     "create_mesh",
     "init",
     "is_primary",
+    "load_hf_llama",
+    "load_quantized",
+    "load_sharded",
     "partition_variables",
     "process_count",
     "process_index",
+    "restore_checkpoint",
+    "restore_leaf",
+    "save_checkpoint",
+    "save_safetensors",
     "shard_dim_for",
     "shard_params",
     "shutdown",
