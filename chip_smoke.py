@@ -1835,9 +1835,6 @@ def phase_serve_paged(torch, pa, gpu: str) -> dict:
     prompts = [prompt(i) for i in range(st["requests"])]
     shed_prompt = rng.integers(0, cfg.vocab_size, (st["shed_prompt"],)).tolist()
 
-    def mk_request(i: int) -> Request:
-        return Request(prompt=prompt(i), max_new_tokens=st["new"], seed=i)
-
     def engine(options: dict):
         kw = dict(options)
         if kw.get("paged"):
@@ -1848,7 +1845,7 @@ def phase_serve_paged(torch, pa, gpu: str) -> dict:
 
     for arm in ("a", "c"):  # warmup: first launches, cuBLAS handles
         warm = engine(PAGED_ARMS[arm])
-        warm.submit(mk_request(99))
+        warm.submit(Request(prompt=prompt(99), max_new_tokens=2, seed=99))
         warm.run_until_idle()
         del warm
     torch.cuda.synchronize()
@@ -3249,12 +3246,19 @@ def phase_serve_fleet(torch, gpu: str, ctx: dict) -> dict:
 TP = 2
 TP_REPLACES = "pytorch_distributed_training_tutorials_tpu/ops/quant.py:262"
 TP_STREAM = dict(n_slots=4, tokens_per_launch=8)
+# the served depth of the TP arms: the 1b widths at 8 of their 16 layers
+# (cut in PR 19 to make room for that slice's phases; each rank's
+# teacher-forced decode of every request, through gloo's staged
+# all_reduces, was most of the phase)
+TP_LAYERS = 8
 # arm -> preset, engine options and stream: the 1b int8 stream (flash
 # prefill, whole-slot cache) and the 1b-gqa paged-kernel arm (2 of the 4
 # KV heads a rank)
 TP_ARMS = {
-    "int8": dict(preset=PRESET_1B, engine={}, requests=8, prompts=(16, 32, 48), new=16),
-    "gqa_paged": dict(preset=PRESET_1B_GQA, requests=4, prompts=(16, 480), new=16,
+    "int8": dict(preset=dict(PRESET_1B, n_layers=TP_LAYERS), engine={}, requests=8,
+                 prompts=(16, 32, 48), new=16),
+    "gqa_paged": dict(preset=dict(PRESET_1B_GQA, n_layers=TP_LAYERS), requests=4,
+                      prompts=(16, 480), new=16,
                       engine=dict(paged=True, paged_kernel=True, page_size=64,
                                   pool_pages=48)),
 }
@@ -3500,6 +3504,8 @@ def tp_kernel_row(tp: dict) -> dict:
         "work": f"one rank's share of one 1b decode forward at TP {TP}: 113 shard calls "
                 "at M=4",
         "launches_by_path": {f"serve_1b_tp2_{name}": n for name, n in tp["launches"].items()},
+        "launches_note": f"serve_1b_tp2 serves {TP_LAYERS} layers: {TP_LAYERS * 7 + 1} shard "
+                         "calls a forward",
         "backend": tp["backend"],
         "library_note": "no one PyTorch call quantizes per (row, 512-tile)",
     }
@@ -3527,8 +3533,9 @@ def phase_serve_tp(torch, quant, gpu: str) -> dict:
     half the replicated engine's, KV heads a rank 8 (1b) and 2 (1b-gqa);
     ``audit_decode()`` clean and the stream's collectives 2 all_reduce a
     layer and one all_gather a forward; a rank's 113 int8 calls a forward,
-    every one a ``int8_matmul_tp`` shard call on the sm90 route, 16 flash
-    launches a whole prefill, 16 paged launches a decode step (sm90); host
+    every one a ``int8_matmul_tp`` shard call on the sm90 route, a flash
+    launch a layer a whole prefill, a paged launch a layer a decode step
+    (sm90), at the arms' TP_LAYERS; host
     syncs a rank = chains + prefills = the replicated engine's."""
     from pytorch_distributed_training_tutorials_tpu_torch.parallel.tensor_parallel import (
         TensorParallel,
@@ -3549,7 +3556,7 @@ def phase_serve_tp(torch, quant, gpu: str) -> dict:
                      join_timeout_s=900)
     ranks_s = time.perf_counter() - t0
     problems, launches = [], {}
-    layers = PRESET_1B["n_layers"]
+    layers = TP_LAYERS
     tpl = TP_STREAM["tokens_per_launch"]
     for name, arm in TP_ARMS.items():
         rep = replicated[name]
@@ -3605,7 +3612,7 @@ def phase_serve_tp(torch, quant, gpu: str) -> dict:
         toks = sum(len(t) for t in row["tokens"])
         emit({
             "phase": "serve_1b_tp2", "arm": name, "tp": TP, "backend": backend,
-            "cards": cards, "requests": arm["requests"], "prompt_lengths": arm["prompts"],
+            "cards": cards, "layers": TP_LAYERS, "requests": arm["requests"], "prompt_lengths": arm["prompts"],
             "new_tokens": arm["new"], "engine": arm["engine"],
             "prefills": row["prefills"], "chains": row["chains"], "forwards": forwards,
             "tokens_equal_replicated": sum(a == b for a, b in
@@ -6927,6 +6934,576 @@ def phase_serve_1b_from_checkpoint(torch, quant, pa, gpu: str) -> dict:
     return out
 
 
+
+# the last parallel strategies (the sequence-, pipeline- and expert-
+# parallel slice): three gloo worlds of 2 on card 0, each held to the
+# single-device Trainer on the same weights (seed 0) in the same call
+SPEP_SEED = 0
+# train_760m_spmd_pipeline: the 760m widths at 4 layers, 2 a stage, bf16,
+# flash, cross entropy, fused AdamW; batch 4 at M 1, 2, 4
+PP_CFG = dict(PRESET_760M, n_layers=4, max_seq_len=2048)
+PP_BATCH = 4
+PP_M = (1, 2, 4)
+PP_STEPS = 2
+# one leaf of each kind and stage: the embedding (stage 0's gradient,
+# summed over the stages), each stage's column and row projections, the
+# replicated norm and head
+PP_LEAVES = ("tok_emb.weight", "blocks.0.attn.q_proj.weight", "blocks.1.mlp.down_proj.weight",
+             "blocks.2.attn.o_proj.weight", "blocks.3.mlp.gate_proj.weight",
+             "final_norm.scale", "lm_head.weight")
+# the first step against the single-device one (both bf16): at M 1 the
+# stages run the single device's matmuls at its shapes, so the loss and
+# every first moment are bitwise; at M > 1 the microbatches' weight
+# gradients are bf16 partials rounded on their own: the loss within 1e-3
+# relative and each leaf's first moment within 1% (relative error norm;
+# the H100 reads 0.2345-0.2348%, with the loss equal); the planted fault
+# (stage 0 sends microbatch 1 as 0 and 0 as 1) pairs rows with other
+# targets: the head's gradient, whose target term dominates at random
+# weights, moves by its whole size (0.54-1.41)
+PP_LOSS_TOL = 1e-3
+PP_GRAD_TOL = 0.01
+# train_760m_seq: 2 layers, batch 2, {"seq": 2}; the ring's plain hop
+# folds f32 scores of bf16 q/k against the reference's flash kernels, so
+# train_760m_tp2's bounds again; the planted fault (rank 1's RoPE offset 0)
+# rotates half the queries and keys to other positions
+SEQ_CFG = dict(PRESET_760M, n_layers=2, max_seq_len=2048)
+SEQ_BATCH = 2
+SEQ_STEPS = 2
+SEQ_HOP_BLOCK = 512
+SEQ_LEAVES = ("tok_emb.weight", "blocks.0.attn.q_proj.weight", "blocks.0.attn.k_proj.weight",
+              "blocks.1.attn.q_proj.weight", "blocks.1.mlp.down_proj.weight",
+              "final_norm.scale", "lm_head.weight")
+# train_moe_ep: 8 experts, top 2, capacity 1.25, 2 layers, batch 2, aux
+# 0.01, {"expert": 2}, float32 (TF32 off) so that the gates hold the router
+# and expert gradients to float32 summation order: loss within 1e-5 and
+# each first moment within 1e-3; the aux loss counted twice moves the
+# router's gradient by the aux term's share
+MOE_CFG = dict(PRESET_760M, n_layers=2, max_seq_len=2048, moe_experts=8, moe_top_k=2,
+               moe_capacity_factor=1.25)
+MOE_BATCH = 2
+MOE_STEPS = 2
+MOE_AUX = 0.01
+MOE_LEAVES = ("blocks.0.moe.router", "blocks.1.moe.router", "blocks.0.moe.w_gate",
+              "blocks.0.moe.w_down", "blocks.1.moe.w_up", "tok_emb.weight", "lm_head.weight")
+MOE_LOSS_TOL = 1e-5
+MOE_GRAD_TOL = 1e-3
+SPEP_NOTE = ("gloo on one card: every collective and hop staged through host memory; the "
+             "phase's times are not the strategy's speed")
+
+
+def lm_batch(batch: int):
+    """``batch`` rows of 2049 tokens from PCG64(0) (bench/lm_headline.py's
+    recipe): tokens and the shifted targets."""
+    import numpy as np
+
+    rng = np.random.Generator(np.random.PCG64(0))
+    toks = rng.integers(0, PRESET_760M["vocab_size"], (batch, 2049))
+    return toks[:, :-1], toks[:, 1:]
+
+
+def reset_kernel_counts(torch) -> None:
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.flash_attention import (
+        flash_attention,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.fused_optim import fused_adamw
+
+    for counts in (flash_attention.launches, *flash_attention.routes.values()):
+        for k in counts:
+            counts[k] = 0
+    fused_adamw.launches = 0
+
+
+def kernel_counts() -> dict:
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.flash_attention import (
+        flash_attention,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.fused_optim import fused_adamw
+
+    return {"flash": dict(flash_attention.launches),
+            "flash_routes": {k: dict(c) for k, c in flash_attention.routes.items()},
+            "fused_adamw": fused_adamw.launches}
+
+
+def spep_run(torch, model, mesh, strategy, batch, leaves, steps: int, *, batch_spec=None,
+             aux_loss_weight: float = 0.0, counted=()) -> dict:
+    """``steps`` steps of ``model`` through the ``Trainer`` (fused AdamW
+    3e-4, weight decay 0.01, cross entropy, weights from SPEP_SEED) on
+    ``batch``, one step an epoch: the losses, the first step's first
+    moments of ``leaves`` this rank holds (on the host), the kernel
+    launches and the collectives of ``counted`` (objects with
+    ``collectives``) over the steps, each step's ms, peak memory, and the
+    bytes of the rank's parameters by name."""
+    from pytorch_distributed_training_tutorials_tpu_torch.data import ArrayDataset, ShardedLoader
+    from pytorch_distributed_training_tutorials_tpu_torch.models import moe_dropped
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.fused_optim import fused_adamw
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel.collective import bucket_plan
+    from pytorch_distributed_training_tutorials_tpu_torch.train import Trainer
+
+    x, y = batch
+    loader = ShardedLoader(ArrayDataset((x, y)), x.shape[0], mesh, batch_mode="global",
+                           shuffle=False, batch_spec=batch_spec)
+    trainer = Trainer(model, loader, fused_adamw(3e-4, weight_decay=0.01), strategy=strategy,
+                      loss="cross_entropy", seed=SPEP_SEED, quiet=True,
+                      aux_loss_weight=aux_loss_weight)
+    names = [n for n, p in trainer.model.named_parameters() if p.requires_grad]
+    reset_kernel_counts(torch)
+    for c in counted:
+        c.reset_collectives()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, mu = [], {}
+    for e in range(1, steps + 1):
+        t = time.perf_counter()
+        trainer.train(e)
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        if e == 1:
+            mus = trainer.state.opt_state.mu
+            mu = {n: mus[names.index(n)].detach().to("cpu", copy=True)
+                  for n in leaves if n in names}
+            dropped = [int(d) for d in moe_dropped(trainer.model)]
+    out = {"losses": [ev["loss"] for ev in trainer.metrics.step_events()], "mu": mu,
+           "dropped": dropped, "step_ms": step_ms,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "bytes": {n: p.numel() * p.element_size() for n, p in trainer.model.named_parameters()},
+           "collectives": [dict(c.collectives) for c in counted],
+           # the gradient average's buckets a step: the gradients and the
+           # loss (in the logits' type)
+           "buckets": len(bucket_plan([*trainer.state.params,
+                                       torch.zeros((), dtype=trainer.model.cfg.dtype)])),
+           **kernel_counts()}
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def spep_gaps(torch, run: dict, ref: dict, block=lambda name, t: t) -> dict:
+    """A rank's first-step loss and first moments against the single
+    device's (``block`` cuts a whole tensor to the rank's entries)."""
+    return {"loss": abs(run["losses"][0] - ref["losses"][0]) / abs(ref["losses"][0]),
+            "mu": {n: rel_err(torch, m, block(n, ref["mu"][n])) for n, m in run["mu"].items()}}
+
+
+def spep_problems(who: str, gaps: dict, loss_tol: float, grad_tol: float) -> list:
+    if gaps["loss"] <= loss_tol and max(gaps["mu"].values()) <= grad_tol:
+        return []
+    return [f"{who}: first step off the single-device one: {gaps}"]
+
+
+def spep_lm(torch, cfg_spec: dict, dtype, attention_fn=None, **extra):
+    from pytorch_distributed_training_tutorials_tpu_torch.models import (
+        TransformerConfig,
+        TransformerLM,
+    )
+
+    return TransformerLM(TransformerConfig(**cfg_spec, dtype=dtype, attention_fn=attention_fn,
+                                           **extra))
+
+
+def plant_microbatch_swap(stages) -> None:
+    """The pipeline fault: the stage holds microbatch 0 and sends
+    microbatch 1's activations under 0's tag, then 0's under 1's."""
+    real, held = stages.send, {}
+
+    def send(x, stage, tag):
+        if stage > stages.stage and tag == 0:
+            held[0] = x.detach().clone()
+            return
+        if stage > stages.stage and tag == 1:
+            real(x, stage, 0)
+            real(held.pop(0), stage, 1)
+            return
+        real(x, stage, tag)
+
+    stages.send = send
+
+
+def pp_rank(world_tp) -> dict:
+    """One rank of train_760m_spmd_pipeline (spawned): the pipeline over
+    ``{"stage": 2}`` at each M of PP_M, and one step at M 2 with the
+    planted microbatch swap."""
+    import torch
+
+    from pytorch_distributed_training_tutorials_tpu_torch.models import TransformerConfig
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.flash_attention import (
+        make_flash_attention,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel import (
+        PipelinedTransformerLM,
+        PipelineParallel,
+        create_mesh,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel.pipeline_spmd import (
+        expected_messages,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = create_mesh({"stage": 2}, device="cuda", stage_ranks=True)
+    cfg = TransformerConfig(**PP_CFG, dtype=torch.bfloat16,
+                            attention_fn=make_flash_attention(1024, 1024))
+    out = {"by_m": {}}
+    for m in (*PP_M, "planted"):
+        model = PipelinedTransformerLM(cfg, mesh, num_microbatches=2 if m == "planted" else m)
+        if m == "planted":
+            plant_microbatch_swap(model.stages)
+        strategy = PipelineParallel(mesh, num_microbatches=model.num_microbatches)
+        run = spep_run(torch, model, mesh, strategy, lm_batch(PP_BATCH), PP_LEAVES,
+                       1 if m == "planted" else PP_STEPS,
+                       counted=(model.stages, strategy.stages))
+        run["expected_messages"] = expected_messages(model.stages.stage, 2,
+                                                     model.num_microbatches)
+        out["by_m"][m] = run
+        out["stage"] = model.stages.stage
+    return out
+
+
+def phase_train_760m_spmd_pipeline(torch, gpu: str) -> dict:
+    """``train_760m_spmd_pipeline``: ``PipelinedTransformerLM`` +
+    ``PipelineParallel`` over ``create_mesh({"stage": 2}, stage_ranks=True)``
+    (a gloo world of 2 on card 0) at PP_CFG, beside the single-device
+    ``Trainer`` from the same seed. Gates, at each M of PP_M: the first
+    step's loss within PP_LOSS_TOL and each of PP_LEAVES' first moments a
+    stage holds within PP_GRAD_TOL of the single-device step's, and at M 1
+    bitwise; the planted
+    microbatch swap outside them; the stages' losses the same floats; a
+    step's sends, receives and broadcast the schedule's own count
+    (``expected_messages``), one stage sum of the embedding's gradient; per
+    rank a step 2M flash forward, dq and dk/dv launches (2 layers, M
+    microbatches), all sm90, and one AdamW launch. Then step ms by M and
+    peak memory a rank (gloo on one card: not pipeline speed)."""
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.flash_attention import (
+        make_flash_attention,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel import create_mesh
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel.tensor_parallel import (
+        spawn_tp,
+    )
+
+    ref = spep_run(torch, spep_lm(torch, PP_CFG, torch.bfloat16, make_flash_attention(1024, 1024)),
+                   create_mesh(device="cuda"), None, lm_batch(PP_BATCH), PP_LEAVES,
+                   PP_STEPS)
+    t0 = time.perf_counter()
+    ranks = spawn_tp(pp_rank, 2, (), backend="gloo", device="cuda", join_timeout_s=900)
+    ranks_s = time.perf_counter() - t0
+    problems, gaps, planted = [], {}, []
+    for r in ranks:
+        who = f"stage {r['stage']}"
+        for m, run in r["by_m"].items():
+            g = spep_gaps(torch, run, ref)
+            if m == "planted":
+                planted.append(g)
+                if max(g["mu"].values()) <= PP_GRAD_TOL:
+                    problems.append(f"{who}: the planted microbatch swap passed the gate: {g}")
+                continue
+            gaps.setdefault(m, []).append(g)
+            if m == 1 and (g["loss"] or any(g["mu"].values())):
+                problems.append(f"{who}, M 1: first step not bitwise the single device's: {g}")
+            problems += spep_problems(f"{who}, M {m}", g, PP_LOSS_TOL, PP_GRAD_TOL)
+            steps = PP_STEPS
+            messages, strat = run["collectives"]
+            want = {k: v * steps for k, v in run["expected_messages"].items()}
+            want["staged"] = want["send"] + want["recv"]
+            if messages != want or strat != {"stage_sum": steps}:
+                problems.append(f"{who}, M {m}: messages {messages} / {strat} != {want}")
+            if run["flash"] != {k: 2 * m * steps for k in ("fwd", "dq", "dkv")}:
+                problems.append(f"{who}, M {m}: flash launches {run['flash']}")
+            if any(c["sm80"] for c in run["flash_routes"].values()):
+                problems.append(f"{who}, M {m}: a flash launch left the sm90 route")
+            if run["fused_adamw"] != steps:
+                problems.append(f"{who}, M {m}: {run['fused_adamw']} AdamW launches")
+            if run["losses"] != ranks[0]["by_m"][m]["losses"]:
+                problems.append(f"{who}, M {m}: losses differ from stage 0's")
+            if not all(map(math.isfinite, run["losses"])):
+                problems.append(f"{who}, M {m}: losses {run['losses']}")
+    r0 = ranks[0]["by_m"]
+    row = {
+        "phase": "train_760m_spmd_pipeline", "mesh": {"stage": 2}, "backend": "gloo",
+        "ranks": 2, "config": {**PP_CFG, "dtype": "bf16", "attention": "flash",
+                               "batch": PP_BATCH, "loss": "cross_entropy",
+                               "optimizer": "fused_adamw(3e-4, weight_decay=0.01)"},
+        "microbatches": list(PP_M), "steps": PP_STEPS, "losses_single": ref["losses"],
+        "losses_by_m": {m: r0[m]["losses"] for m in PP_M}, "first_step_gaps": gaps,
+        "tolerance": {"loss": PP_LOSS_TOL, "first_moment": PP_GRAD_TOL, "at_m_1": "bitwise"},
+        "planted_fault": "stage 0 sends microbatch 1 under 0's tag and 0 under 1's (M 2)",
+        "planted_fault_gaps": planted,
+        "messages_per_step": {m: [{k: v / PP_STEPS for k, v in r["by_m"][m]["collectives"][0]
+                                   .items()} for r in ranks] for m in PP_M},
+        "launches_per_rank_step": {m: {"flash": {k: v / PP_STEPS
+                                                 for k, v in r0[m]["flash"].items()},
+                                       "fused_adamw": r0[m]["fused_adamw"] / PP_STEPS}
+                                   for m in PP_M},
+        "step_ms_single": ref["step_ms"],
+        "step_ms_by_m": {m: [r["by_m"][m]["step_ms"] for r in ranks] for m in PP_M},
+        "peak_memory_bytes_single": ref["peak_memory_bytes"],
+        "peak_memory_bytes_by_m": {m: [r["by_m"][m]["peak_memory_bytes"] for r in ranks]
+                                   for m in PP_M},
+        "param_bytes": {"single": sum(ref["bytes"].values()),
+                        "per_stage": [sum(r["by_m"][1]["bytes"].values()) for r in ranks]},
+        "ranks_s": ranks_s, "timing_note": SPEP_NOTE,
+        "ok": not problems, "problems": problems, "gpu": gpu,
+    }
+    emit(row)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"flash": r0[2]["flash"], "fused_adamw": r0[2]["fused_adamw"]}
+
+
+def seq_rank(world_tp) -> dict:
+    """One rank of train_760m_seq (spawned): ``{"seq": 2}``, each arm's
+    SEQ_STEPS steps and one step with the RoPE offset planted at 0."""
+    import torch
+
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.flash_attention import (
+        make_flash_attention,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel import (
+        TensorParallel,
+        create_mesh,
+        make_ring_attention,
+        make_ulysses_attention,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = create_mesh({"seq": 2}, device="cuda")
+    arms = {"ring": lambda: make_ring_attention(mesh, hop_block=SEQ_HOP_BLOCK),
+            "ulysses": lambda: make_ulysses_attention(
+                mesh, inner_attention=make_flash_attention(1024, 1024))}
+    out = {}
+    for name, make in arms.items():
+        for planted in (False, True):
+            fn = make()
+            if planted:
+                fn.seq_shard.position_offset = lambda s_local: 0
+            tp = TensorParallel(mesh, [], seq_axis="seq")
+            run = spep_run(torch, spep_lm(torch, SEQ_CFG, torch.bfloat16, fn), mesh, tp,
+                           lm_batch(SEQ_BATCH), SEQ_LEAVES, 1 if planted else SEQ_STEPS,
+                           batch_spec=("data", "seq"), counted=(tp, fn.seq_shard))
+            out[f"{name}_planted" if planted else name] = run
+        out["rank"] = fn.seq_shard.rank
+    return out
+
+
+def phase_train_760m_seq(torch, gpu: str) -> dict:
+    """``train_760m_seq``: sequence parallelism over ``{"seq": 2}`` (a gloo
+    world of 2 on card 0) at SEQ_CFG, batch 2, each rank its (2, 1024)
+    block (``batch_spec=("data", "seq")``, ``TensorParallel(mesh, [],
+    seq_axis="seq")``), beside the single-device flash ``Trainer``. Arms:
+    ``ring`` (the plain hop, hop_block 512) and ``ulysses`` (the flash op at
+    8 heads a rank). Gates: the first step's loss and SEQ_LEAVES' first
+    moments within train_760m_tp2's bounds, the planted RoPE offset 0
+    outside them; the ranks' losses the same floats; collectives a step by
+    kind (ring: a hop a layer each way; Ulysses: 4 all_to_alls a layer;
+    each staged through host memory; the seq mean's all_reduce buckets);
+    Ulysses' flash launches 2 / 2 / 2 a rank a step, all sm90; one AdamW
+    launch a rank a step; a rank's peak memory below the single
+    device's."""
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.flash_attention import (
+        make_flash_attention,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel import create_mesh
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel.tensor_parallel import (
+        spawn_tp,
+    )
+
+    ref = spep_run(torch, spep_lm(torch, SEQ_CFG, torch.bfloat16, make_flash_attention(1024, 1024)),
+                   create_mesh(device="cuda"), None, lm_batch(SEQ_BATCH), SEQ_LEAVES,
+                   SEQ_STEPS)
+    t0 = time.perf_counter()
+    ranks = spawn_tp(seq_rank, 2, (), backend="gloo", device="cuda", join_timeout_s=900)
+    ranks_s = time.perf_counter() - t0
+    layers, steps = SEQ_CFG["n_layers"], SEQ_STEPS
+    want_attn = {"ring": {"ring_hop": layers, "ring_hop_grad": layers, "staged": 2 * layers},
+                 "ulysses": {"all_to_all": 4 * layers, "staged": 4 * layers}}
+    problems, gaps, planted = [], {}, {}
+    for r in ranks:
+        who = f"seq rank {r['rank']}"
+        for arm in ("ring", "ulysses"):
+            run = r[arm]
+            g = spep_gaps(torch, run, ref)
+            gaps.setdefault(arm, []).append(g)
+            problems += spep_problems(f"{who}, {arm}", g, TP_TRAIN_LOSS_TOL, TP_TRAIN_GRAD_TOL)
+            pg = spep_gaps(torch, r[f"{arm}_planted"], ref)
+            planted.setdefault(arm, []).append(pg)
+            if pg["loss"] <= TP_TRAIN_LOSS_TOL and max(pg["mu"].values()) <= TP_TRAIN_GRAD_TOL:
+                problems.append(f"{who}, {arm}: the planted RoPE offset passed the gate: {pg}")
+            tp_c, attn_c = run["collectives"]
+            want = {k: v * steps for k, v in want_attn[arm].items()}
+            if attn_c != want or tp_c.get("seq_all_reduce") != run["buckets"] * steps:
+                problems.append(f"{who}, {arm}: collectives {attn_c} / {tp_c}, want {want}")
+            flash = {k: 2 * steps for k in ("fwd", "dq", "dkv")} if arm == "ulysses" else {
+                k: 0 for k in ("fwd", "dq", "dkv")}
+            if run["flash"] != flash or any(c["sm80"] for c in run["flash_routes"].values()):
+                problems.append(f"{who}, {arm}: flash {run['flash']} {run['flash_routes']}")
+            if run["fused_adamw"] != steps:
+                problems.append(f"{who}, {arm}: {run['fused_adamw']} AdamW launches")
+            if run["peak_memory_bytes"] >= ref["peak_memory_bytes"]:
+                problems.append(f"{who}, {arm}: peak memory {run['peak_memory_bytes']} not "
+                                f"below the single device's {ref['peak_memory_bytes']}")
+            if run["losses"] != ranks[0][arm]["losses"] or not all(
+                    map(math.isfinite, run["losses"])):
+                problems.append(f"{who}, {arm}: losses {run['losses']}")
+    row = {
+        "phase": "train_760m_seq", "mesh": {"seq": 2}, "backend": "gloo", "ranks": 2,
+        "config": {**SEQ_CFG, "dtype": "bf16", "batch": SEQ_BATCH, "loss": "cross_entropy",
+                   "optimizer": "fused_adamw(3e-4, weight_decay=0.01)",
+                   "reference_attention": "flash", "ring_hop_block": SEQ_HOP_BLOCK,
+                   "ulysses_inner": "flash, 8 heads a rank"},
+        "steps": steps, "losses_single": ref["losses"],
+        "losses": {arm: ranks[0][arm]["losses"] for arm in ("ring", "ulysses")},
+        "first_step_gaps": gaps,
+        "tolerance": {"loss": TP_TRAIN_LOSS_TOL, "first_moment": TP_TRAIN_GRAD_TOL},
+        "planted_fault": "rank 1's RoPE offset 0 (its positions restart at 0)",
+        "planted_fault_gaps": planted,
+        "collectives_per_step": {arm: [{k: v / steps for c in r[arm]["collectives"]
+                                        for k, v in c.items()} for r in ranks]
+                                 for arm in ("ring", "ulysses")},
+        "launches_per_rank_step": {arm: {"flash": {k: v / steps
+                                                   for k, v in ranks[0][arm]["flash"].items()},
+                                         "fused_adamw": ranks[0][arm]["fused_adamw"] / steps}
+                                   for arm in ("ring", "ulysses")},
+        "step_ms_single": ref["step_ms"],
+        "step_ms": {arm: [r[arm]["step_ms"] for r in ranks] for arm in ("ring", "ulysses")},
+        "peak_memory_bytes_single": ref["peak_memory_bytes"],
+        "peak_memory_bytes": {arm: [r[arm]["peak_memory_bytes"] for r in ranks]
+                              for arm in ("ring", "ulysses")},
+        "ranks_s": ranks_s, "timing_note": SPEP_NOTE,
+        "ok": not problems, "problems": problems, "gpu": gpu,
+    }
+    emit(row)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {arm: {"flash": ranks[0][arm]["flash"], "fused_adamw": ranks[0][arm]["fused_adamw"]}
+            for arm in ("ring", "ulysses")}
+
+
+def moe_rank(world_tp) -> dict:
+    """One rank of train_moe_ep (spawned): ``{"expert": 2}`` with
+    ``ep_rules()``, MOE_STEPS steps, and one step with the aux loss counted
+    twice."""
+    import torch
+
+    from pytorch_distributed_training_tutorials_tpu_torch.models import ep_rules
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.flash_attention import (
+        make_flash_attention,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel import (
+        TensorParallel,
+        create_mesh,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = create_mesh({"expert": 2}, device="cuda")
+    out = {}
+    for planted in (False, True):
+        tp = TensorParallel(mesh, ep_rules())
+        run = spep_run(torch, spep_lm(torch, MOE_CFG, torch.float32,
+                                      make_flash_attention(1024, 1024)),
+                       mesh, tp, lm_batch(MOE_BATCH), MOE_LEAVES, 1 if planted else MOE_STEPS,
+                       aux_loss_weight=MOE_AUX * (2 if planted else 1), counted=(tp.expert,))
+        out["planted" if planted else "run"] = run
+        out["rank"] = tp.ep_rank
+    return out
+
+
+def expert_block(rank: int):
+    def block(name: str, t):
+        if name.rsplit(".", 1)[-1] in ("w_gate", "w_up", "w_down"):
+            n = t.shape[0] // 2
+            return t[rank * n:(rank + 1) * n]
+        return t
+    return block
+
+
+def phase_train_moe_ep(torch, gpu: str) -> dict:
+    """``train_moe_ep``: MoE blocks (MOE_CFG) with expert parallelism over
+    ``{"expert": 2}`` (``TensorParallel(mesh, ep_rules())``, a gloo world
+    of 2 on card 0), float32, beside the single-device ``Trainer``. Gates:
+    the first step's loss within MOE_LOSS_TOL and the routers' and the
+    rank's expert blocks' first moments within MOE_GRAD_TOL, the aux loss
+    counted twice outside them; each layer's dropped (token, choice) count
+    equal to the single device's; a rank's expert bytes half of the
+    whole; the expert group's collectives a step (g one a layer, f two a
+    layer); one AdamW launch a rank a step; the ranks' losses the same
+    floats. Then step ms and peak memory a rank."""
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.flash_attention import (
+        make_flash_attention,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel import create_mesh
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel.tensor_parallel import (
+        spawn_tp,
+    )
+
+    ref = spep_run(torch, spep_lm(torch, MOE_CFG, torch.float32, make_flash_attention(1024, 1024)),
+                   create_mesh(device="cuda"), None, lm_batch(MOE_BATCH), MOE_LEAVES,
+                   MOE_STEPS,
+                   aux_loss_weight=MOE_AUX)
+    t0 = time.perf_counter()
+    ranks = spawn_tp(moe_rank, 2, (), backend="gloo", device="cuda", join_timeout_s=900)
+    ranks_s = time.perf_counter() - t0
+    layers, steps = MOE_CFG["n_layers"], MOE_STEPS
+    experts = ("w_gate", "w_up", "w_down")
+    whole_expert = sum(b for n, b in ref["bytes"].items() if n.rsplit(".", 1)[-1] in experts)
+    problems, gaps, planted, shares = [], [], [], []
+    for r in ranks:
+        who, run = f"expert rank {r['rank']}", r["run"]
+        g = spep_gaps(torch, run, ref, expert_block(r["rank"]))
+        gaps.append(g)
+        problems += spep_problems(who, g, MOE_LOSS_TOL, MOE_GRAD_TOL)
+        pg = spep_gaps(torch, r["planted"], ref, expert_block(r["rank"]))
+        planted.append(pg)
+        if max(pg["mu"][n] for n in pg["mu"] if n.endswith("router")) <= MOE_GRAD_TOL:
+            problems.append(f"{who}: the aux loss counted twice passed the router gate: {pg}")
+        if run["dropped"] != ref["dropped"]:
+            problems.append(f"{who}: dropped {run['dropped']} != single device {ref['dropped']}")
+        mine = sum(b for n, b in run["bytes"].items() if n.rsplit(".", 1)[-1] in experts)
+        shares.append(mine / whole_expert)
+        if mine * 2 != whole_expert:
+            problems.append(f"{who}: expert bytes {mine} of {whole_expert}")
+        want = {"all_reduce": 0, "all_gather": 0, "g": layers * steps, "f": 2 * layers * steps}
+        if run["collectives"][0] != want:
+            problems.append(f"{who}: expert collectives {run['collectives'][0]} != {want}")
+        if run["fused_adamw"] != steps:
+            problems.append(f"{who}: {run['fused_adamw']} AdamW launches")
+        if run["losses"] != ranks[0]["run"]["losses"] or not all(
+                map(math.isfinite, run["losses"])):
+            problems.append(f"{who}: losses {run['losses']}")
+    r0 = ranks[0]["run"]
+    row = {
+        "phase": "train_moe_ep", "mesh": {"expert": 2}, "backend": "gloo", "ranks": 2,
+        "config": {**MOE_CFG, "dtype": "f32 (TF32 off)", "attention": "flash (f32 route)",
+                   "batch": MOE_BATCH, "loss": "cross_entropy", "aux_loss_weight": MOE_AUX,
+                   "optimizer": "fused_adamw(3e-4, weight_decay=0.01)"},
+        "steps": steps, "losses_single": ref["losses"],
+        "losses_per_rank": [r["run"]["losses"] for r in ranks], "first_step_gaps": gaps,
+        "tolerance": {"loss": MOE_LOSS_TOL, "first_moment": MOE_GRAD_TOL},
+        "planted_fault": "the aux loss counted twice (what an f on the gates does at ep 2)",
+        "planted_fault_gaps": planted, "dropped_single": ref["dropped"],
+        "dropped_per_rank": [r["run"]["dropped"] for r in ranks],
+        "expert_bytes": {"single": whole_expert, "share_per_rank": shares},
+        "collectives_per_step": [{k: v / steps for k, v in r["run"]["collectives"][0].items()}
+                                 for r in ranks],
+        "launches_per_rank_step": {"flash": {k: v / steps for k, v in r0["flash"].items()},
+                                   "flash_routes": r0["flash_routes"],
+                                   "fused_adamw": r0["fused_adamw"] / steps},
+        "step_ms_single": ref["step_ms"], "step_ms_per_rank": [r["run"]["step_ms"] for r in ranks],
+        "peak_memory_bytes_single": ref["peak_memory_bytes"],
+        "peak_memory_bytes_per_rank": [r["run"]["peak_memory_bytes"] for r in ranks],
+        "ranks_s": ranks_s, "timing_note": SPEP_NOTE,
+        "ok": not problems, "problems": problems, "gpu": gpu,
+    }
+    emit(row)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"flash": r0["flash"], "fused_adamw": r0["fused_adamw"]}
+
+
+def spep_phases(run, torch, gpu: str) -> dict:
+    """The sequence-, pipeline- and expert-parallel slice's three phases
+    (``--sp-ep-only`` runs these after the build)."""
+    return {"pipeline": run(phase_train_760m_spmd_pipeline, torch, gpu),
+            "seq": run(phase_train_760m_seq, torch, gpu),
+            "moe": run(phase_train_moe_ep, torch, gpu)}
+
+
 def strategy_phases(run, torch, gpu: str) -> dict:
     """The model-parallel slice's four phases (``--strategies-only`` runs
     these after the build)."""
@@ -6962,6 +7539,10 @@ def main(argv=None) -> int:
     ap.add_argument("--load-only", action="store_true",
                     help="after the build, run the checkpoint-loading phase only "
                          "(serve_1b_from_checkpoint)")
+    ap.add_argument("--sp-ep-only", action="store_true",
+                    help="after the build, run the sequence-, pipeline- and expert-parallel "
+                         "slice's phases only (train_760m_spmd_pipeline, train_760m_seq, "
+                         "train_moe_ep)")
     ap.add_argument("--strategies-only", action="store_true",
                     help="after the build, run the model-parallel slice's phases only "
                          "(train_resnet50_pipeline, train_resnet50_gpipe, "
@@ -7060,6 +7641,10 @@ def main(argv=None) -> int:
         strategy_phases(run, torch, gpu)
         emit({"phase": "phase_seconds", **seconds})
         return 0
+    if args.sp_ep_only:
+        spep_phases(run, torch, gpu)
+        emit({"phase": "phase_seconds", **seconds})
+        return 0
     if args.load_only:
         run(phase_serve_1b_from_checkpoint, torch, quant, pa, gpu)
         emit({"phase": "phase_seconds", **seconds})
@@ -7102,6 +7687,7 @@ def main(argv=None) -> int:
     guard = run(phase_train_guardrails, torch, gpu)
     run(phase_bench_and_scaling, torch, gpu)
     strat = strategy_phases(run, torch, gpu)
+    spep = spep_phases(run, torch, gpu)
     emit({"phase": "phase_seconds", **seconds})
 
     # the kernels line: one decode forward's 113 int8 matmuls at M = 4
@@ -7175,6 +7761,12 @@ def main(argv=None) -> int:
             "launches_train_760m_dots_attn": dots_attn["flash"][kind],
             # HybridFSDP at 2 layers, a rank's launches in its 2 steps
             "launches_train_lm_hybrid_fsdp_rank0": strat["hybrid"]["flash"][kind],
+            # the last strategies, rank 0's launches in its 2 steps: a stage
+            # of the pipeline at M 2, Ulysses' inner flash at 8 heads a
+            # rank, the MoE blocks' attention (f32: the mma.sync route)
+            "launches_train_760m_spmd_pipeline_m2_rank0": spep["pipeline"]["flash"][kind],
+            "launches_train_760m_seq_ulysses_rank0": spep["seq"]["ulysses"]["flash"][kind],
+            "launches_train_moe_ep_rank0": spep["moe"]["flash"][kind],
         })
         if kind == "fwd":
             # the serving path: 16 launches (one a layer) per whole prefill
@@ -7231,7 +7823,11 @@ def main(argv=None) -> int:
                              "train_lora_masked": train_lora["fused_adamw"],
                              "train_resnet50_pipeline_adamw": strat["pipeline"]["adamw_launches"],
                              "train_resnet18_fsdp_adamw_rank0": strat["fsdp"]["adamw_launches"],
-                             "train_lm_hybrid_fsdp_rank0": strat["hybrid"]["fused_adamw"]},
+                             "train_lm_hybrid_fsdp_rank0": strat["hybrid"]["fused_adamw"],
+                             "train_760m_spmd_pipeline_m2_rank0": spep["pipeline"]["fused_adamw"],
+                             "train_760m_seq_ring_rank0": spep["seq"]["ring"]["fused_adamw"],
+                             "train_760m_seq_ulysses_rank0": spep["seq"]["ulysses"]["fused_adamw"],
+                             "train_moe_ep_rank0": spep["moe"]["fused_adamw"]},
         "fsdp_shards": {**strat["fsdp"]["adamw_shards"],
                         "work": "one FSDP rank's update at world 2: 1 launch over its ResNet-18 "
                                 "shards and the replicated leaves"},

@@ -14,9 +14,13 @@ The semantics stay the JAX loader's:
 What changes is who holds a batch. One JAX process feeds every device of
 the mesh from one array; in the DDP idiom each process holds its own
 rank's rows, so iterating yields this rank's block — the global batch in
-a world of one. Rows are gathered on the host (:mod:`.native`), copied to
-the device, and ``transform`` (e.g. ``x.to(torch.bfloat16) / 255``) runs
-there.
+a world of one. ``batch_spec`` (the JAX ``PartitionSpec`` as a tuple of
+axis names, e.g. ``("data", "seq")`` for sequence parallelism) cuts the
+dimensions past 0 too: each rank gets its ``(B / d, S / n)`` block of the
+tokens and of the targets (``synthetic_lm``'s are shifted already, so the
+rank's targets are its own columns). Rows are gathered on the host
+(:mod:`.native`), copied to the device, and ``transform`` (e.g.
+``x.to(torch.bfloat16) / 255``) runs there.
 """
 
 from __future__ import annotations
@@ -52,12 +56,6 @@ class ShardedLoader:
                  drop_last: bool = False, batch_spec=None, transform=None):
         if batch_mode not in ("per_device", "global"):
             raise ValueError(f"unknown batch_mode {batch_mode!r}")
-        if batch_spec is not None:
-            raise NotImplementedError(
-                "batch_spec (batches sharded beyond dim 0, e.g. sequence parallelism) "
-                "is not supported by the PyTorch port yet; it arrives with the "
-                "sequence-parallel strategies"
-            )
         self.dataset = dataset
         self.mesh = mesh
         self.axis = axis
@@ -73,11 +71,43 @@ class ShardedLoader:
         else:
             self.per_device_batch = batch_size
         self.global_batch = self.per_device_batch * self.world
+        self._cuts = self._spec_cuts(batch_spec)
         # one logical sampler enumerates every replica's shard (rank 0's
         # view of the flat order); each process then takes its own block
         self._sampler = DistributedSampler(len(dataset), self.world, 0, shuffle=shuffle,
                                            seed=seed, drop_last=drop_last)
         self.steps_per_epoch = -(-self._sampler.num_samples // self.per_device_batch)
+
+    def _spec_cuts(self, batch_spec) -> list[tuple[int, int, int]]:
+        """``batch_spec`` (one mesh axis name or None a dimension, e.g.
+        ``("data", "seq")``) as the cuts of the dimensions past 0: ``(dim,
+        width, this rank's block)`` for each dimension over an axis of
+        the mesh wider than one. Dim 0 must map to the loader's axis (the
+        steps and shards are its world's)."""
+        if batch_spec is None:
+            return []
+        spec = tuple(batch_spec)
+        dim0 = spec[0] if spec else None
+        if self.world > 1 and dim0 != self.axis:
+            raise ValueError(f"batch_spec dim 0 must map to the loader axis {self.axis!r} "
+                             f"(got {dim0!r}): steps/shard math assumes it")
+        return [(i, axis_size(self.mesh, a), axis_rank(self.mesh, a))
+                for i, a in enumerate(spec) if i > 0 and a is not None
+                and axis_size(self.mesh, a) > 1]
+
+    def _cut(self, a: np.ndarray) -> np.ndarray:
+        """This rank's block of ``a`` on every dimension ``batch_spec``
+        shards past dim 0 (dimensions ``a`` lacks are skipped: a (B,)
+        label array shares a (B, S) token array's spec)."""
+        for dim, width, r in self._cuts:
+            if dim >= a.ndim:
+                continue
+            if a.shape[dim] % width:
+                raise ValueError(f"batch dim {dim} ({a.shape[dim]}) not divisible by the "
+                                 f"{width} ranks batch_spec shards it over")
+            n = a.shape[dim] // width
+            a = a[(slice(None),) * dim + (slice(r * n, (r + 1) * n),)]
+        return a
 
     def set_epoch(self, epoch: int) -> None:
         """Reseed the shard permutation."""
@@ -138,7 +168,8 @@ class ShardedLoader:
         shards = self._epoch_index_matrix()
         for step in range(self.steps_per_epoch):
             lo = step * self.per_device_batch
-            yield self.dataset.gather(shards[self.rank, lo:lo + self.per_device_batch])
+            rows = self.dataset.gather(shards[self.rank, lo:lo + self.per_device_batch])
+            yield tuple(self._cut(a) for a in rows) if self._cuts else rows
 
     def finish(self, batch: tuple[torch.Tensor, ...]):
         """A device batch as iteration yields it: unwrapped when the

@@ -1,8 +1,9 @@
 """Models of the PyTorch port: ``TransformerLM`` (int8 serving and float
-training), its sampling pipeline, ``generate``, the ResNets and the
-linear and MLP models, the weight bridge (whole trees and one leaf at a
-time), the streaming int8 checkpoint loader and the seeded weight
-builders."""
+training, dense or mixture-of-experts blocks), the MoE FFN with its
+aux loss and expert-parallel rules, its sampling pipeline, ``generate``,
+the ResNets and the linear and MLP models, the weight bridge (whole trees
+and one leaf at a time), the streaming int8 checkpoint loader and the
+seeded weight builders."""
 
 from pytorch_distributed_training_tutorials_tpu_torch.models.convert import (
     from_jax_params,
@@ -12,6 +13,12 @@ from pytorch_distributed_training_tutorials_tpu_torch.models.convert import (
     jax_leaf_to_port,
 )
 from pytorch_distributed_training_tutorials_tpu_torch.models.generate import generate
+from pytorch_distributed_training_tutorials_tpu_torch.models.moe import (
+    MOE_RULES,
+    MoEFFN,
+    moe_aux_loss,
+    moe_dropped,
+)
 from pytorch_distributed_training_tutorials_tpu_torch.models.mlp import (
     MLP,
     LinearRegressor,
@@ -32,6 +39,7 @@ from pytorch_distributed_training_tutorials_tpu_torch.models.transformer import 
     TransformerConfig,
     TransformerLM,
     bind_params,
+    ep_rules,
     int8_param_sharding,
     load_quantized_lm,
     place_int8_lm_params,
@@ -49,6 +57,8 @@ __all__ = [
     "KVCache",
     "LinearRegressor",
     "MLP",
+    "MOE_RULES",
+    "MoEFFN",
     "PagedKVCache",
     "ResNet",
     "SampleModel",
@@ -57,6 +67,7 @@ __all__ = [
     "TransformerConfig",
     "TransformerLM",
     "bind_params",
+    "ep_rules",
     "from_jax_params",
     "generate",
     "init_lm",
@@ -67,6 +78,8 @@ __all__ = [
     "load_quantized_lm",
     "model_flops_per_token",
     "model_size",
+    "moe_aux_loss",
+    "moe_dropped",
     "place_int8_lm_params",
     "quantize_lm_params",
     "resnet18",

@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from pytorch_distributed_training_tutorials_tpu_torch._device import resolve_device
+from pytorch_distributed_training_tutorials_tpu_torch.models.moe import MOE_RULES, MoEFFN
 from pytorch_distributed_training_tutorials_tpu_torch.models.transformer import (
     _QUANTIZED_KERNELS,
     Dense,
@@ -83,6 +84,8 @@ _BLOCK_LEAVES = {
 }
 # the top-level subtrees outside the blocks
 _TOP = ("tok_emb", "final_norm", "lm_head")
+# an MoE block's FFN leaves (``block_i/moe/...``), in the JAX layout
+_MOE_LEAVES = ("router", "w_gate", "w_up", "w_down")
 
 
 def jax_leaf_to_port(path, leaf: torch.Tensor, *, quantized: bool,
@@ -121,6 +124,10 @@ def jax_leaf_to_port(path, leaf: torch.Tensor, *, quantized: bool,
     owner = parents[-1]
     if owner.endswith("_lora"):
         return {f"{prefix}.{name}": leaf.float().contiguous()} if lora else {}
+    if owner == "moe" and name in _MOE_LEAVES:
+        if quantized:
+            raise ValueError("quantized serving supports dense blocks only (no MoE)")
+        return {f"{prefix}.{name}": leaf.float().contiguous()}
     if owner == "tok_emb" and name == "embedding":
         return {"tok_emb.weight": leaf.float().contiguous()}
     if owner.endswith("_norm") and name == "scale":
@@ -183,11 +190,15 @@ def _whole(cfg: TransformerConfig) -> TransformerConfig:
 
 
 def _shard_for(cfg: TransformerConfig, params: dict) -> dict[str, torch.Tensor]:
-    """The rank of ``cfg.int8_mesh``'s shard of a whole state dict,
-    checked against the sharded model's schema."""
+    """The rank of ``cfg.int8_mesh``'s shard of a whole state dict — its
+    tensor-parallel shard, then under expert parallelism its dim-0 block
+    of the stacked experts (:data:`.moe.MOE_RULES`) — checked against the
+    sharded model's schema."""
     tp = cfg.int8_mesh
-    return _check_schema(shard_params(params, tp.rank, tp.tp_size, head_dim=cfg.head_dim),
-                         cfg)
+    out = shard_params(params, tp.rank, tp.tp_size, head_dim=cfg.head_dim)
+    if tp.ep_size > 1:
+        out = shard_params(out, tp.ep_rank, tp.ep_size, head_dim=1, rules=MOE_RULES)
+    return _check_schema(out, cfg)
 
 
 def adapter_from_jax(row, cfg: TransformerConfig, device=None) -> dict[str, torch.Tensor]:
@@ -276,8 +287,9 @@ def init_lm(cfg: TransformerConfig, seed: int = 0, device=None) -> dict[str, tor
     (``cuda`` unless the caller passes another), every leaf drawn from one
     seeded ``torch.Generator`` with the distributions of the flax
     initializers the JAX model uses: projections ``lecun_normal`` (a
-    truncated normal of variance 1 / fan_in; o_proj's fan_in is H * D),
-    the embedding normal with variance 1 / d_model, norm scales ones. The
+    truncated normal of variance 1 / fan_in; o_proj's fan_in is H * D;
+    an MoE block's router d and its stacked experts' E * in, flax's fan_in
+    of an (E, in, out) kernel), the embedding normal with variance 1 / d_model, norm scales ones. The
     draws differ from JAX's (another generator); the distributions are
     the same. A tensor-parallel ``cfg`` gets the rank's shard of the
     unsharded draw."""
@@ -297,6 +309,9 @@ def init_lm(cfg: TransformerConfig, seed: int = 0, device=None) -> dict[str, tor
             w = torch.empty(p.shape, dtype=torch.float32, device=dev)
             if isinstance(mod, Dense):
                 _truncated_normal_(w, math.sqrt(1.0 / p.shape[0]), gen)
+            elif isinstance(mod, MoEFFN):
+                # flax's fan_in of a stacked (E, in, out) kernel is E * in
+                _truncated_normal_(w, math.sqrt(p.shape[-1] / p.numel()), gen)
             elif isinstance(mod, torch.nn.Embedding):
                 w.normal_(0.0, math.sqrt(1.0 / cfg.d_model), generator=gen)
             else:  # RMSNorm scale

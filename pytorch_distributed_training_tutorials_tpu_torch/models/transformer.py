@@ -71,6 +71,19 @@ itself). Under remat a block's recompute issues its o_proj's ``g`` again
 (it stops after the down_proj matmul, the last tensor the block's
 backward reads): 3 sums a layer a step.
 
+Mixture of experts (``cfg.moe_experts`` > 0): every block's FFN is a
+routed :class:`..models.moe.MoEFFN` (``blocks.i.moe``; the JAX
+``block_i/moe``), float weights only; under expert parallelism (the
+strategy's ``expert`` group) a block holds its rank's experts.
+
+Sequence parallelism: an ``attention_fn`` with a ``seq_shard`` (ring or
+Ulysses attention, :mod:`..parallel.ring_attention`,
+:mod:`..parallel.ulysses`) makes the float train forward take the rank's
+block of the sequence, its rotary positions from the block's global
+offset. The serving paths hold every token on every rank: their prefill
+runs the dense causal attention in place of such an ``attention_fn``, at
+any prompt length.
+
 Batch- and window-invariance. The serving engine's tokens must equal
 ``generate()``'s for the same request, though the engine decodes
 ``n_slots`` rows over the model's whole window and ``generate()`` one
@@ -100,6 +113,7 @@ from torch.utils.checkpoint import (
 )
 
 from pytorch_distributed_training_tutorials_tpu_torch.adapters.bank import apply_lora
+from pytorch_distributed_training_tutorials_tpu_torch.models.moe import MOE_RULES, MoEFFN
 from pytorch_distributed_training_tutorials_tpu_torch.ops import flash_attention as _flash
 from pytorch_distributed_training_tutorials_tpu_torch.ops.paged_attention import (
     paged_attention,
@@ -118,10 +132,6 @@ from pytorch_distributed_training_tutorials_tpu_torch.parallel.tensor_parallel i
     split_dim,
 )
 
-# config field -> the later slice of the port that brings it in
-_LATER_SLICES = {
-    "moe_experts": "mixture-of-experts blocks",
-}
 # what the int8 serving model refuses, and the slice that brings it in
 _SERVING_LATER = {
     "remat": "no later slice: remat is a training option and int8 weights "
@@ -167,7 +177,12 @@ class TransformerConfig:
     bf16 scales), for :class:`KVCache` and :class:`PagedKVCache` alike.
     ``kv_pages`` > 0 makes decode read and write a :class:`PagedKVCache`
     of that many pages of ``kv_page_size`` tokens; ``paged_kernel``
-    selects its read path (the paged-attention kernel, or the gather)."""
+    selects its read path (the paged-attention kernel, or the gather).
+
+    ``moe_experts`` > 0 (with ``moe_top_k``, ``moe_capacity_factor``,
+    ``moe_group_size``, the JAX fields) gives every block a routed
+    mixture-of-experts FFN; int8 weights and LoRA refuse it (ValueError,
+    as in the JAX model)."""
 
     vocab_size: int = 256
     d_model: int = 128
@@ -183,6 +198,9 @@ class TransformerConfig:
     remat_policy: str | None = None
     attention_fn: Callable | None = None
     moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_group_size: int | None = None
     quantized: bool = False
     kv_cache_dtype: object = None
     kv_pages: int = 0
@@ -195,13 +213,10 @@ class TransformerConfig:
     def __post_init__(self):
         if self.int8_mesh is not None and not isinstance(self.int8_mesh, TensorParallel):
             object.__setattr__(self, "int8_mesh", _as_strategy(self.int8_mesh))
-        for name, later in _LATER_SLICES.items():
-            value = getattr(self, name)
-            if value not in (None, 0, False):
-                raise NotImplementedError(
-                    f"TransformerConfig.{name}={value!r} is not supported by "
-                    f"the PyTorch port yet; it arrives with {later}"
-                )
+        if self.moe_experts and self.quantized:
+            raise ValueError("quantized serving supports dense blocks only (no MoE)")
+        if self.moe_experts and self.lora_adapters:
+            raise ValueError("LoRA adapters support dense blocks only (no MoE)")
         if self.quantized:
             for name, later in _SERVING_LATER.items():
                 value = getattr(self, name)
@@ -881,7 +896,11 @@ class Attention(nn.Module):
 
     def forward(self, x, cache: KVCache | None = None, layer: int = 0, *,
                 prefill: bool = False, decode: bool = False, rows=None,
-                adapter_ids=None):
+                adapter_ids=None, rope_offset=None):
+        """``rope_offset`` (the float train forward only, an int): the
+        global position of ``x``'s first token — the rank's sequence block
+        under sequence parallelism; None on the serving paths, which shard
+        no tokens over ``seq``."""
         cfg = self.cfg
         x = _enter_columns(self.lay, self.lay.split_heads, x)
         q_raw = self.q_proj(x)
@@ -931,8 +950,9 @@ class Attention(nn.Module):
                     _validity(pos, s, window)[:, None], acc
                 )
         else:
-            q = apply_rope(q_raw, cfg.rope_theta)
-            k = apply_rope(k_raw, cfg.rope_theta)
+            off = 0 if rope_offset is None else rope_offset
+            q = apply_rope(q_raw, cfg.rope_theta, offset=off)
+            k = apply_rope(k_raw, cfg.rope_theta, offset=off)
             if prefill:
                 # batched prefill: the causal forward over the RAW K/V, and
                 # the cache of `rows` (all, or one slot) gets the encoded
@@ -954,6 +974,13 @@ class Attention(nn.Module):
             # the dense cached path whatever attention_fn is (as in JAX)
             dense = causal_attention if cfg.quantized else dense_causal_attention
             attn = cfg.attention_fn or dense
+            if rope_offset is None and getattr(attn, "requires_seq_divisible", 0):
+                # a sequence-parallel attention_fn (ring, Ulysses) takes a
+                # rank's sequence block; serving holds every token on every
+                # rank, so its prefill runs the dense causal path at any
+                # prompt length (the JAX fallback for a length the seq axis
+                # does not divide, taken at every length here)
+                attn = dense
             # GQA: attention_fns keep their (B, S, H, D) contract — K/V
             # repeat up to the query head count here (repeat_interleave:
             # contiguous, so a flash kernel takes them at their own strides)
@@ -1035,20 +1062,33 @@ class SwiGLU(nn.Module):
 
 
 class Block(nn.Module):
+    """Attention and the FFN, each behind its RMSNorm and a residual. The
+    FFN is :class:`SwiGLU`, or with ``cfg.moe_experts`` > 0 a routed
+    :class:`..models.moe.MoEFFN` (``moe``; its experts the rank's block
+    under expert parallelism)."""
+
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
         train = not cfg.quantized
         self.attn_norm = RMSNorm(cfg.d_model, cfg.norm_eps, device=device, train=train)
         self.attn = Attention(cfg, device=device)
         self.mlp_norm = RMSNorm(cfg.d_model, cfg.norm_eps, device=device, train=train)
-        self.mlp = SwiGLU(cfg, device=device)
+        if cfg.moe_experts > 0:
+            self.moe = MoEFFN(cfg.d_model, cfg.moe_experts, cfg.moe_top_k, cfg.ff_dim,
+                              cfg.moe_capacity_factor, cfg.dtype, cfg.moe_group_size,
+                              ep=None if cfg.int8_mesh is None else cfg.int8_mesh.expert,
+                              device=device)
+        else:
+            self.mlp = SwiGLU(cfg, device=device)
 
     def forward(self, x, cache=None, layer=0, *, prefill=False, decode=False,
-                rows=None, adapter_ids=None):
+                rows=None, adapter_ids=None, rope_offset=None):
         x = x + self.attn(
             self.attn_norm(x), cache, layer, prefill=prefill, decode=decode,
-            rows=rows, adapter_ids=adapter_ids,
+            rows=rows, adapter_ids=adapter_ids, rope_offset=rope_offset,
         )
+        if hasattr(self, "moe"):
+            return x + self.moe(self.mlp_norm(x))
         return x + self.mlp(self.mlp_norm(x), adapter_ids)
 
 
@@ -1143,20 +1183,22 @@ class TransformerLM(nn.Module):
         shard (module docstring) and returns the whole logits, gathered,
         or the (replicated) hidden states."""
         cfg = self.cfg
-        if tokens.shape[1] > cfg.max_seq_len:
-            raise ValueError(
-                f"sequence length {tokens.shape[1]} exceeds max_seq_len "
-                f"{cfg.max_seq_len}"
-            )
+        # sequence parallelism: the tokens are the rank's block of the
+        # sequence, at global positions from the attention's offset
+        sp = getattr(cfg.attention_fn, "seq_shard", None)
+        s = tokens.shape[1] * (1 if sp is None else sp.size)
+        if s > cfg.max_seq_len:
+            raise ValueError(f"sequence length {s} exceeds max_seq_len {cfg.max_seq_len}")
+        offset = 0 if sp is None else sp.position_offset(tokens.shape[1])
         x = self.tok_emb(tokens).to(cfg.dtype)
         for block in self.blocks:
             if cfg.remat:
                 x = checkpoint(
-                    block, x, adapter_ids=adapter_ids, use_reentrant=False,
-                    context_fn=_remat_context(cfg.remat_policy),
+                    block, x, adapter_ids=adapter_ids, rope_offset=offset,
+                    use_reentrant=False, context_fn=_remat_context(cfg.remat_policy),
                 )
             else:
-                x = block(x, adapter_ids=adapter_ids)
+                x = block(x, adapter_ids=adapter_ids, rope_offset=offset)
         x = self.final_norm(x)
         if return_hidden:
             return x
@@ -1289,6 +1331,15 @@ LORA_TP_RULES = [
     (r"(^|\.)down_proj_lora\.lora_a$", 1, None),
 ]
 SERVING_TP_RULES = TP_RULES + INT8_TP_RULES + LORA_TP_RULES
+
+
+def ep_rules() -> list:
+    """Tensor- and expert-parallel rules of an MoE transformer (the JAX
+    package's ``ep_rules``): :data:`..models.moe.MOE_RULES` (the stacked
+    experts on dim 0 over the expert group) and :data:`TP_RULES`. A
+    :class:`..parallel.tensor_parallel.TensorParallel` given them on a
+    mesh with an ``expert`` axis shards the experts (dp x ep)."""
+    return MOE_RULES + TP_RULES
 
 
 def int8_param_sharding(name: str, shape, cfg: TransformerConfig) -> int | None:

@@ -517,6 +517,9 @@ def fused_cross_entropy_tp(hidden, lm_head, targets, mesh, *, vocab_size: int,
         TensorParallel,
     )
 
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None and "model" not in names:
+        raise ValueError(f"mesh has no 'model' axis: {tuple(names)}")
     tp = mesh if isinstance(mesh, TensorParallel) else TensorParallel(mesh)
     _check_tp_call(hidden, lm_head, targets, tp, vocab_size)
     d = hidden.shape[-1]

@@ -1,12 +1,14 @@
 """Parallelism of the PyTorch port: the ``torch.distributed`` runtime, the
-mesh (``data``, ``model`` and ``stage`` axes), the data-parallel strategy,
-tensor parallelism for serving and training (:class:`TensorParallel`),
-the pipelines (:class:`ManualPipeline`, :class:`GPipe`) and FSDP
-(:class:`FSDP`, :class:`HybridFSDP`), checkpoints with per-leaf
-placement and 8-bit load (:mod:`.auto`) and HF-layout Llama loading
-(:mod:`.hf_llama`). The other strategies of the JAX package (the
-single-program pipeline, ring and Ulysses attention) arrive in later
-slices."""
+mesh (``data``, ``model``, ``seq``, ``expert`` and ``stage`` axes), the
+data-parallel strategy, tensor parallelism for serving and training
+(:class:`TensorParallel`, with its ``seq`` and ``expert`` axes), the
+pipelines (:class:`ManualPipeline`, :class:`GPipe`, and the
+single-program pipeline over ranks, :class:`PipelinedTransformerLM` with
+:class:`PipelineParallel`), sequence parallelism (ring and Ulysses
+attention), FSDP (:class:`FSDP`, :class:`HybridFSDP`), checkpoints with
+per-leaf placement and 8-bit load (:mod:`.auto`) and HF-layout Llama
+loading (:mod:`.hf_llama`) — every parallel strategy of the JAX
+package."""
 
 from pytorch_distributed_training_tutorials_tpu_torch.parallel.auto import (
     LeafMeta,
@@ -53,11 +55,23 @@ from pytorch_distributed_training_tutorials_tpu_torch.parallel.pipeline import (
     ManualPipeline,
     partition_variables,
 )
+from pytorch_distributed_training_tutorials_tpu_torch.parallel.pipeline_spmd import (
+    PipelinedTransformerLM,
+    PipelineParallel,
+    spmd_pipeline,
+)
+from pytorch_distributed_training_tutorials_tpu_torch.parallel.ring_attention import (
+    SeqShard,
+    make_ring_attention,
+)
 from pytorch_distributed_training_tutorials_tpu_torch.parallel.tensor_parallel import (
     SLOT_STATE_RULES,
     TensorParallel,
     shard_params,
     spawn_tp,
+)
+from pytorch_distributed_training_tutorials_tpu_torch.parallel.ulysses import (
+    make_ulysses_attention,
 )
 
 __all__ = [
@@ -74,7 +88,10 @@ __all__ = [
     "HybridFSDP",
     "LeafMeta",
     "ManualPipeline",
+    "PipelineParallel",
+    "PipelinedTransformerLM",
     "SafetensorsFile",
+    "SeqShard",
     "Shard",
     "StageMesh",
     "TensorParallel",
@@ -87,6 +104,8 @@ __all__ = [
     "load_hf_llama",
     "load_quantized",
     "load_sharded",
+    "make_ring_attention",
+    "make_ulysses_attention",
     "partition_variables",
     "process_count",
     "process_index",
@@ -98,4 +117,5 @@ __all__ = [
     "shard_params",
     "shutdown",
     "spawn_tp",
+    "spmd_pipeline",
 ]

@@ -59,6 +59,7 @@ from torch.nn.utils import parametrize
 from pytorch_distributed_training_tutorials_tpu_torch.parallel.collective import (
     all_reduce_mean_,
     bucket_plan,
+    stages_through_host,
 )
 from pytorch_distributed_training_tutorials_tpu_torch.parallel.data_parallel import DataParallel
 from pytorch_distributed_training_tutorials_tpu_torch.parallel.mesh import (
@@ -218,8 +219,7 @@ class FSDP:
         self._replicated: list[int] = []
         if self.group is None:
             self.route = None
-        elif (dist.get_backend(self.group) == "gloo"
-              and mesh_device(self.mesh).type == "cuda"):
+        elif stages_through_host(self.group, mesh_device(self.mesh)):
             self.route = STAGED_ROUTE
         else:
             self.route = TENSOR_ROUTE

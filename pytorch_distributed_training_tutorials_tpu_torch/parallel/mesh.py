@@ -1,33 +1,40 @@
 """The mesh over the ``torch.distributed`` world: its ``data`` axis, the
-``model`` axis of tensor parallelism and the ``stage`` axis of the
-pipelines.
+``model`` axis of tensor parallelism, the ``seq`` axis of sequence
+parallelism, the ``expert`` axis of expert parallelism and the ``stage``
+axis of the pipelines.
 
-Port of the JAX package's ``parallel/mesh.py`` for those three axes. With
-a process group initialized (:func:`..parallel.distributed.init`),
-:func:`create_mesh` returns a ``torch.distributed.device_mesh.DeviceMesh``
-of the whole world with one axis named ``data``. A single process with no
-group — the default, and the CPU tests — gets a :class:`LocalMesh`, a
-mesh of one with the same read surface (``mesh_dim_names``, ``size``,
-``get_local_rank``, ``get_group``), so no group has to be formed to train
-on one device. ``{"model": tp}`` is the tensor-parallel mesh over a world
-of ``tp`` processes, and ``{"data": d, "model": tp}`` the data x model
-mesh over a world of ``d * tp``, the model axis inner (rank ``i * tp + j``
-is data coordinate ``i``, model coordinate ``j``: the JAX layout
-``devices.reshape(data, model)``);
-:class:`..parallel.tensor_parallel.TensorParallel` takes either.
+Port of the JAX package's ``parallel/mesh.py``. With a process group
+initialized (:func:`..parallel.distributed.init`), :func:`create_mesh`
+returns a ``torch.distributed.device_mesh.DeviceMesh`` of the whole world
+whose axes are the ones the caller names, in the JAX package's order
+``devices.reshape(data, seq, model)`` / ``(data, expert)`` / ``(data,
+stage)``: the last axis innermost (rank ``i * tp + j`` of a ``{"data": d,
+"model": tp}`` mesh is data coordinate ``i``, model coordinate ``j``). The
+axes' product is the world size (one axis may be ``-1``: the rest of the
+world). A single process with no group — the default, and the CPU tests —
+gets a :class:`LocalMesh`, a mesh of one with the same read surface
+(``mesh_dim_names``, ``size``, ``get_local_rank``, ``get_group``), so no
+group has to be formed to train on one device.
 
-``{"data": d, "stage": s}`` is a :class:`StageMesh`: a world of ``d``
-processes, each holding all ``s`` stages, stage i on its own device
-(``stage_devices``, default ``cuda:0 … cuda:s-1``), the data axis over
-the world as above (the JAX mesh puts the ``d * s`` devices in one grid;
-the port's layout of ``d * s`` ranks with point-to-point sends is
-``pipeline_spmd``'s, not ported). One card, or the CPU, holds every stage
-only when the caller passes the same device ``s`` times: nothing repeats
-a device silently. ``stage`` beside ``model``, and the ``seq`` and
-``expert`` axes, raise.
+A ``stage`` axis has two layouts, and the call names the one it wants:
+
+- ``stage_devices=[...]``: a :class:`StageMesh` — a world of ``d``
+  processes, each holding all ``s`` stages, stage i on its own device (the
+  layout of :class:`..parallel.pipeline.GPipe`; one card, or the CPU,
+  holds every stage only when the caller passes the same device ``s``
+  times: nothing repeats a device silently);
+- ``stage_ranks=True``: a ``DeviceMesh`` of ``d * s`` ranks, one stage a
+  rank, the hops point-to-point sends on the stage group (the layout of
+  :mod:`.pipeline_spmd`).
+
+Neither is guessed from the world size. Still refused with
+``NotImplementedError``: ``expert`` beside ``model`` (dp x tp x ep), and a
+``stage`` axis beside ``seq``, ``model`` or ``expert``.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.distributed as dist
@@ -40,12 +47,14 @@ STAGE_AXIS = "stage"
 SEQ_AXIS = "seq"
 EXPERT_AXIS = "expert"
 
-_LATER = "the remaining parallel strategies (sequence and expert parallelism)"
+# the JAX layout: every axis present, in this order, the last innermost
+_ORDER = (DATA_AXIS, SEQ_AXIS, EXPERT_AXIS, STAGE_AXIS, MODEL_AXIS)
+_UNSCHEDULED = "no slice of the port schedules it yet (ROADMAP: what the port refuses)"
 
 
 class LocalMesh:
     """A mesh of one process and one device, with no process group: the
-    data axis (``mesh_dim_names`` ``("data",)``), or a model axis of one."""
+    data axis (``mesh_dim_names`` ``("data",)``), or any axes of one."""
 
     def __init__(self, device: torch.device, mesh_dim_names: tuple = (DATA_AXIS,)):
         self.device = device
@@ -99,39 +108,52 @@ class StageMesh:
         return f"StageMesh(data={self.data_mesh.size(0)}, stage=[{devices}])"
 
 
-def create_mesh(axes: dict[str, int] | None = None, *, device=None, stage_devices=None):
+def create_mesh(axes: dict[str, int] | None = None, *, device=None, stage_devices=None,
+                stage_ranks: bool = False):
     """The mesh over every process of the world: ``{'data': world}`` by
-    default, with a ``model`` axis the tensor-parallel mesh, with a
-    ``stage`` axis a :class:`StageMesh`.
+    default; with a ``stage`` axis a :class:`StageMesh` (``stage_devices``)
+    or a stage axis over ranks (``stage_ranks=True``); otherwise a mesh of
+    the named axes over the world (module docstring).
 
-    ``axes`` may name ``data`` alone, with the world size or ``-1`` (a data
-    axis over part of the world is not supported), or ``model`` with a
-    ``data`` axis beside it (default 1) whose product is the world size
-    (either one ``-1``: the rest of the world), or ``stage`` with a
-    ``data`` axis beside it (default: the world). ``device`` is ``cuda``
-    unless the caller passes another (raises without a GPU).
-    ``stage_devices`` (a ``stage`` axis only): one device a stage, default
-    ``cuda:0 … cuda:s-1``; on the CPU, or on fewer cards than stages, the
-    caller names them (the same device ``s`` times for one)."""
+    ``axes`` names ``data`` with any of ``seq`` and ``model``, or ``data``
+    with ``expert``, or ``data`` with ``stage``; their product is the world
+    size, one of them ``-1`` for the rest of it (a ``data`` axis alone over
+    part of the world is not supported). ``device`` is ``cuda`` unless the
+    caller passes another (raises without a GPU). ``stage_devices`` (a
+    :class:`StageMesh` only): one device a stage; on the CPU, or on fewer
+    cards than stages, the caller names them (the same device ``s`` times
+    for one)."""
     dev = resolve_device(device)
     world = dist.get_world_size() if dist.is_initialized() else 1
     axes = dict(axes) if axes is not None else {DATA_AXIS: world}
-    if MODEL_AXIS in axes:
-        return _model_mesh(axes, world, dev)
+    unknown = sorted(set(axes) - set(_ORDER))
+    if unknown:
+        raise ValueError(f"unknown mesh axes {unknown} (the port's axes: {_ORDER})")
+    if EXPERT_AXIS in axes and MODEL_AXIS in axes:
+        raise NotImplementedError(
+            "an expert axis beside a model axis (dp x tp x ep) is not supported by the "
+            f"PyTorch port: {_UNSCHEDULED}")
     if STAGE_AXIS in axes:
+        beside = sorted(set(axes) - {DATA_AXIS, STAGE_AXIS})
+        if beside:
+            raise NotImplementedError(
+                f"a stage axis beside a {' / '.join(beside)} axis is not supported by the "
+                f"PyTorch port: {_UNSCHEDULED}")
+        if stage_ranks:
+            if stage_devices is not None:
+                raise ValueError("stage_ranks=True puts one stage on each rank; "
+                                 "stage_devices is the in-process StageMesh's")
+            return _grid_mesh(axes, world, dev)
         return _stage_mesh(axes, world, dev, stage_devices)
-    if stage_devices is not None:
-        raise ValueError("stage_devices needs a 'stage' axis")
-    return _data_mesh(axes, world, dev)
+    if stage_devices is not None or stage_ranks:
+        what = "stage_devices" if stage_devices is not None else "stage_ranks=True"
+        raise ValueError(f"{what} needs a 'stage' axis")
+    if set(axes) == {DATA_AXIS}:
+        return _data_mesh(axes, world, dev)
+    return _grid_mesh(axes, world, dev)
 
 
 def _data_mesh(axes: dict[str, int], world: int, dev: torch.device):
-    other = sorted(set(axes) - {DATA_AXIS})
-    if other:
-        raise NotImplementedError(
-            f"mesh axes {other} are not supported by the PyTorch port yet; they "
-            f"arrive with {_LATER}"
-        )
     size = axes.get(DATA_AXIS, world)
     if size == -1:
         size = world
@@ -146,8 +168,8 @@ def _data_mesh(axes: dict[str, int], world: int, dev: torch.device):
 
 
 def _stage_mesh(axes: dict[str, int], world: int, dev: torch.device, stage_devices):
-    """``{'stage': s}`` or ``{'data': d, 'stage': s}``: a data mesh over
-    the world and ``s`` stage devices in this process."""
+    """``{'stage': s}`` or ``{'data': d, 'stage': s}`` in one process: a
+    data mesh over the world and ``s`` stage devices in this process."""
     stages = axes[STAGE_AXIS]
     if stages < 1:
         raise ValueError(f"a stage axis of {stages}")
@@ -156,7 +178,8 @@ def _stage_mesh(axes: dict[str, int], world: int, dev: torch.device, stage_devic
             raise ValueError(
                 f"{stages} stages need stage_devices: the default, cuda:0 … "
                 f"cuda:{stages - 1}, needs {stages} cards; name the devices (the same "
-                "one repeated to hold several stages)")
+                "one repeated to hold several stages), or pass stage_ranks=True for "
+                "one stage a rank")
         stage_devices = [torch.device("cuda", i) for i in range(stages)]
     if len(stage_devices) != stages:
         raise ValueError(f"{len(stage_devices)} stage_devices for a stage axis of {stages}")
@@ -164,33 +187,25 @@ def _stage_mesh(axes: dict[str, int], world: int, dev: torch.device, stage_devic
     return StageMesh(_data_mesh(data, world, dev), stage_devices)
 
 
-def _model_mesh(axes: dict[str, int], world: int, dev: torch.device):
-    """``{'model': tp}`` or ``{'data': d, 'model': tp}`` over a world of
-    ``d * tp`` processes, the model axis inner."""
-    if STAGE_AXIS in axes:
-        raise NotImplementedError("a stage axis beside a model axis is not supported by "
-                                  "the PyTorch port")
-    other = sorted(set(axes) - {DATA_AXIS, MODEL_AXIS})
-    if other:
-        raise NotImplementedError(
-            f"mesh axes {other} are not supported by the PyTorch port yet; they "
-            f"arrive with {_LATER}"
-        )
-    size, data = axes[MODEL_AXIS], axes.get(DATA_AXIS, 1)
-    if size == -1 and data > 0 and world % data == 0:
-        size = world // data
-    elif data == -1 and size > 0 and world % size == 0:
-        data = world // size
-    if size < 1 or data < 1 or data * size != world:
-        raise ValueError(f"a data axis of {data} and a model axis of {size} over a world "
-                         f"of {world} processes: the port's mesh spans the whole world")
-    names = tuple(a for a in (DATA_AXIS, MODEL_AXIS) if a in axes)
+def _grid_mesh(axes: dict[str, int], world: int, dev: torch.device):
+    """The named axes over a world of their product, in the JAX order
+    (:data:`_ORDER`, the last innermost); one ``-1`` takes the rest of the
+    world."""
+    names = tuple(a for a in _ORDER if a in axes)
+    sizes = {a: axes[a] for a in names}
+    rest = [a for a in names if sizes[a] == -1]
+    known = math.prod(v for v in sizes.values() if v != -1)
+    if len(rest) == 1 and known > 0 and world % known == 0:
+        sizes[rest[0]] = world // known
+    if any(v < 1 for v in sizes.values()) or math.prod(sizes.values()) != world:
+        shape = " and a ".join(f"{a} axis of {axes[a]}" for a in names)
+        raise ValueError(f"a {shape} over a world of {world} processes: the port's mesh "
+                         "spans the whole world")
     if not dist.is_initialized():
         return LocalMesh(dev, names)
     from torch.distributed.device_mesh import init_device_mesh
 
-    shape = tuple(data if a == DATA_AXIS else size for a in names)
-    return init_device_mesh(dev.type, shape, mesh_dim_names=names)
+    return init_device_mesh(dev.type, tuple(sizes[a] for a in names), mesh_dim_names=names)
 
 
 def axis_size(mesh, axis: str) -> int:

@@ -44,6 +44,18 @@ data-axis gradient average and the model group's agreement on the skip
 flag. ``rank`` and ``group`` stay the MODEL group's, which every sharded
 layer reads.
 
+The JAX strategy's other axes (``TensorParallel(mesh, rules,
+seq_axis=)``): a mesh with a ``seq`` axis and ``seq_axis="seq"`` is
+sequence parallelism — each rank holds its block of the sequence (the
+loader's ``batch_spec``), and the gradients and the loss are averaged
+over the data axis and then the seq axis (``seq_group``, counted
+``"seq_all_reduce"``); a mesh with an ``expert`` axis wider than one is
+expert parallelism (the JAX ``ep_rules()``: the experts always shard over
+it) — :attr:`TensorParallel.expert` is the expert group's own
+strategy, whose ``copy_to`` and ``reduce_from`` the MoE blocks issue
+(counted in its ``collectives``). A mesh without a ``model`` axis is a
+model group of one.
+
 One card, two ranks: NCCL refuses a communicator whose ranks share a
 device, so a TP world on a machine with fewer cards than ranks runs gloo,
 which stages CUDA tensors through host memory. That proves the shard
@@ -61,9 +73,16 @@ from collections.abc import Callable, Mapping, Sequence
 import torch
 import torch.distributed as dist
 
-from pytorch_distributed_training_tutorials_tpu_torch.parallel.collective import bucket_plan
+from pytorch_distributed_training_tutorials_tpu_torch.parallel.collective import (
+    all_reduce_mean_,
+    bucket_plan,
+)
 from pytorch_distributed_training_tutorials_tpu_torch.parallel.data_parallel import DataParallel
-from pytorch_distributed_training_tutorials_tpu_torch.parallel.mesh import MODEL_AXIS
+from pytorch_distributed_training_tutorials_tpu_torch.parallel.mesh import (
+    EXPERT_AXIS,
+    MODEL_AXIS,
+    SEQ_AXIS,
+)
 
 # Sharded serving: the slot state's K/V (and their scales) split on the
 # HEAD axis, matching the head-split q/k/v projections, so every cache
@@ -146,14 +165,24 @@ def shard_params(tree: Mapping[str, torch.Tensor], rank: int, tp: int, *, head_d
 
 
 def _group_of(group_or_mesh):
-    """A process group from a group, a mesh with a ``model`` axis (its
-    model group), or None (no group: a world of one)."""
+    """A process group from a group, a mesh (its ``model`` axis's group;
+    None without a model axis: a model group of one), or None (no group: a
+    world of one)."""
     names = getattr(group_or_mesh, "mesh_dim_names", None)
     if names is not None:
-        if MODEL_AXIS not in names:
-            raise ValueError(f"mesh has no {MODEL_AXIS!r} axis: {tuple(names)}")
-        return group_or_mesh.get_group(MODEL_AXIS)
+        return group_or_mesh.get_group(MODEL_AXIS) if MODEL_AXIS in names else None
     return group_or_mesh
+
+
+def _axis_group(mesh, axis: str | None):
+    """``(size, rank, group)`` of ``axis`` in ``mesh``: ``(1, 0, None)``
+    where the mesh lacks the axis or it is one wide."""
+    if mesh is None or axis is None or axis not in mesh.mesh_dim_names:
+        return 1, 0, None
+    size = mesh.size(mesh.mesh_dim_names.index(axis))
+    if size == 1:
+        return 1, 0, None
+    return size, mesh.get_local_rank(axis), mesh.get_group(axis)
 
 
 class _CopyTo(torch.autograd.Function):
@@ -206,14 +235,18 @@ class TensorParallel:
     collectives the sharded forward and backward issue, counted by kind in
     :attr:`collectives`.
 
-    ``group``: a ``torch.distributed`` process group, a mesh with a
-    ``model`` axis (:func:`..parallel.mesh.create_mesh`; with a ``data``
-    axis too, the data-parallel side of training over it), or None — a
-    strategy of one rank (``tp_size`` 1), which shards nothing: an engine
-    or model given it is the replicated one. Every rank of the group must
-    make the same calls in the same order (SPMD)."""
+    ``group``: a ``torch.distributed`` process group, a mesh
+    (:func:`..parallel.mesh.create_mesh`: its ``model`` axis the model
+    group, none a group of one; a ``data`` axis the data-parallel side of
+    training over it; ``seq`` with ``seq_axis`` and ``expert`` as the
+    module docstring says), or None — a strategy of one rank (``tp_size``
+    1), which shards nothing: an engine or model given it is the
+    replicated one. ``rules``: the JAX call's rules, taken for the call's
+    shape and not read — the port's model knows its Megatron split and
+    its expert split. Every rank of the group must make the same calls in
+    the same order (SPMD)."""
 
-    def __init__(self, group=None):
+    def __init__(self, group=None, rules=None, *, seq_axis: str | None = None):
         self.mesh = group if hasattr(group, "mesh_dim_names") else None
         self.group = _group_of(group)
         if self.group is None:
@@ -221,14 +254,34 @@ class TensorParallel:
         else:
             self.tp_size = dist.get_world_size(self.group)
             self.rank = dist.get_rank(self.group)
-        # the data axis beside the model axis (none without a mesh)
+        if seq_axis is not None and self.mesh is None:
+            raise ValueError("seq_axis names an axis of a mesh: pass the mesh")
+        # the data axis beside the model axis (none without a mesh); the
+        # seq axis (when named and present) averages with it
         self._data = DataParallel(self.mesh) if self.mesh is not None else None
+        self.seq_axis = seq_axis
+        self.seq_size, self.seq_rank, self.seq_group = _axis_group(self.mesh, seq_axis)
+        # the expert axis: the MoE experts' group, a strategy of its own
+        # (its copy_to / reduce_from)
+        size, _, ep_group = _axis_group(self.mesh, EXPERT_AXIS)
+        self.expert = TensorParallel(ep_group) if size > 1 else None
         self.collectives = dict.fromkeys(COLLECTIVE_KINDS, 0)
+
+    @property
+    def ep_size(self) -> int:
+        """The expert-parallel width (1: every rank holds every expert)."""
+        return 1 if self.expert is None else self.expert.tp_size
+
+    @property
+    def ep_rank(self) -> int:
+        return 0 if self.expert is None else self.expert.rank
 
     @property
     def mesh_shape(self) -> dict[str, int]:
         data = {} if self.num_devices == 1 else {"data": self.num_devices}
-        return {**data, MODEL_AXIS: self.tp_size}
+        seq = {} if self.seq_size == 1 else {SEQ_AXIS: self.seq_size}
+        ep = {} if self.ep_size == 1 else {EXPERT_AXIS: self.ep_size}
+        return {**data, **seq, **ep, MODEL_AXIS: self.tp_size}
 
     @property
     def num_devices(self) -> int:
@@ -255,6 +308,8 @@ class TensorParallel:
 
     def reset_collectives(self) -> None:
         self.collectives = dict.fromkeys(COLLECTIVE_KINDS, 0)
+        if self.expert is not None:
+            self.expert.reset_collectives()
 
     def reduce_(self, x: torch.Tensor, op: str = "sum", kind: str = "all_reduce"
                 ) -> torch.Tensor:
@@ -307,24 +362,41 @@ class TensorParallel:
         ``Trainer``'s, whose model already holds this rank's shard): over
         the data axis what :meth:`..DataParallel.shard_state` does (rank
         0's shards broadcast to the data group, ``grad_sync`` the data-axis
-        average, counted ``"data_all_reduce"``), and ``flag_sync`` the
-        model group's MIN of the skip flag (counted ``"flag_min"``), so
-        ranks that each see only their shards' gradients skip together."""
+        average, counted ``"data_all_reduce"``, then the seq-axis average,
+        ``"seq_all_reduce"``), and ``flag_sync`` the MIN of the skip flag
+        over the model group and the expert group (counted ``"flag_min"``),
+        so ranks that each see only their shards' gradients skip
+        together."""
         if isinstance(state, Mapping):
             return shard_params(state, self.rank, self.tp_size, head_dim=head_dim,
                                 rules=rules)
         if self._data is not None:
             state = self._data.shard_state(state)
-            if state.grad_sync is not None:
-                state.grad_sync = self._data_mean_
-        state.flag_sync = (None if self.tp_size == 1
-                           else lambda ok: self.reduce_(ok, "min", "flag_min"))
+        averaged = self.data_group is not None or self.seq_group is not None
+        state.grad_sync = self._data_mean_ if averaged else None
+        sharded = [g for g in (self, self.expert) if g is not None and g.tp_size > 1]
+        state.flag_sync = (lambda ok: self._flag_min(ok, sharded)) if sharded else None
         return state
 
+    @staticmethod
+    def _flag_min(ok: torch.Tensor, groups: list) -> torch.Tensor:
+        """The skip flag's MIN over the model group and the expert group
+        (ranks that hold different shards see different gradients)."""
+        for g in groups:
+            ok = g.reduce_(ok, "min", "flag_min")
+        return ok
+
     def _data_mean_(self, tensors: list[torch.Tensor]) -> None:
-        self.collectives["data_all_reduce"] = (self.collectives.get("data_all_reduce", 0)
-                                               + len(bucket_plan(tensors)))
-        self._data.all_reduce_mean_(tensors)
+        """The gradients (and the loss) averaged over the data axis, then
+        over the seq axis (each seq rank holds its block of the sequence:
+        the mean over data x seq, one bucketed ``all_reduce`` a group)."""
+        n = len(bucket_plan(tensors))
+        if self.data_group is not None:
+            self.collectives["data_all_reduce"] = self.collectives.get("data_all_reduce", 0) + n
+            self._data.all_reduce_mean_(tensors)
+        if self.seq_group is not None:
+            self.collectives["seq_all_reduce"] = self.collectives.get("seq_all_reduce", 0) + n
+            all_reduce_mean_(tensors, self.seq_group, self.seq_size)
 
     def shard_batch(self, batch):
         """This rank's rows of a global batch: its data coordinate's block

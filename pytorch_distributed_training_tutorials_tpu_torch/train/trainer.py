@@ -65,7 +65,10 @@ are forwarded to every model call, evaluation's too. An optimizer with a
 ``mask`` (``fused_adamw(mask=lora_param_mask)``) freezes the leaves it
 marks False when the state is created: they get no gradient, no moments
 and no update, the eager counterpart of XLA dropping an unused gradient.
-``aux_loss_weight`` (A14) raises ``NotImplementedError``.
+``aux_loss_weight`` adds that multiple of the MoE layers' load-balancing
+losses (each :class:`..models.moe.MoEFFN`'s ``aux_loss`` of the step's
+forward, :func:`..models.moe.moe_aux_loss`) to the objective, as the JAX
+step adds its sown ``"losses"``.
 """
 
 from __future__ import annotations
@@ -85,6 +88,7 @@ from torch import nn
 from pytorch_distributed_training_tutorials_tpu_torch.adapters.lora import resolve_mask
 from pytorch_distributed_training_tutorials_tpu_torch.data.loader import to_device
 from pytorch_distributed_training_tutorials_tpu_torch.models.convert import init_lm, init_params
+from pytorch_distributed_training_tutorials_tpu_torch.models.moe import moe_aux_loss
 from pytorch_distributed_training_tutorials_tpu_torch.models.resnet import BatchNorm
 from pytorch_distributed_training_tutorials_tpu_torch.models.transformer import (
     TransformerLM,
@@ -98,22 +102,15 @@ from pytorch_distributed_training_tutorials_tpu_torch.ops.fused_loss import (
 from pytorch_distributed_training_tutorials_tpu_torch.parallel.data_parallel import DataParallel
 from pytorch_distributed_training_tutorials_tpu_torch.parallel.distributed import is_primary
 from pytorch_distributed_training_tutorials_tpu_torch.parallel.fsdp import FSDP, HybridFSDP
+from pytorch_distributed_training_tutorials_tpu_torch.parallel.pipeline_spmd import (
+    PipelinedTransformerLM,
+)
 from pytorch_distributed_training_tutorials_tpu_torch.parallel.tensor_parallel import (
     TensorParallel,
 )
 from pytorch_distributed_training_tutorials_tpu_torch.train.optim import keep_where
 from pytorch_distributed_training_tutorials_tpu_torch.utils import chaos as chaos_lib
 from pytorch_distributed_training_tutorials_tpu_torch.utils.logging import epoch_line
-
-_MOE = "the MoE slice (ROADMAP A14)"
-
-
-def _later(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not supported by the PyTorch port yet; it arrives with "
-        f"{slice_name}"
-    )
-
 
 @dataclasses.dataclass
 class TrainState:
@@ -207,21 +204,26 @@ def _make_loss_fn(loss: str, has_batch_stats: bool = False,
                   aux_loss_weight: float = 0.0, model_kwargs: dict | None = None):
     """The training objective: ``loss_fn(model, batch) -> loss``. With
     ``has_batch_stats`` the forward runs in train mode and updates the
-    model's BatchNorm statistics in place."""
-    if aux_loss_weight:
-        raise _later("aux_loss_weight", _MOE)
+    model's BatchNorm statistics in place. ``aux_loss_weight`` adds that
+    multiple of the MoE layers' load-balancing losses of this forward
+    (:func:`..models.moe.moe_aux_loss`, each layer's ``aux_loss``)."""
     kwargs = {"train": True} if has_batch_stats else {}
     kwargs.update(model_kwargs or {})
+
+    def with_aux(model: nn.Module, value: torch.Tensor) -> torch.Tensor:
+        return value + aux_loss_weight * moe_aux_loss(model) if aux_loss_weight else value
+
     if loss == "fused_cross_entropy":
         def fused_loss_fn(model: nn.Module, batch) -> torch.Tensor:
             x, y = batch
-            return _fused_ce_loss(model, model(x, return_hidden=True, **kwargs), y)
+            return with_aux(model, _fused_ce_loss(model, model(x, return_hidden=True, **kwargs),
+                                                  y))
 
         return fused_loss_fn
 
     def loss_fn(model: nn.Module, batch) -> torch.Tensor:
         x, y = batch
-        return _compute_loss(loss, model(x, **kwargs), y)
+        return with_aux(model, _compute_loss(loss, model(x, **kwargs), y))
 
     return loss_fn
 
@@ -407,9 +409,12 @@ def _tp_model(model: TransformerLM, tp: TensorParallel) -> TransformerLM:
 
 
 def _init_weights(model: nn.Module, seed: int, device: torch.device) -> None:
-    """Random weights from ``seed`` on ``device``, bound into ``model``."""
+    """Random weights from ``seed`` on ``device``, bound into ``model``
+    (a pipeline stage binds its entries of the whole model's draw)."""
     if isinstance(model, TransformerLM):
         bind_params(model, init_lm(model.cfg, seed, device))
+    elif isinstance(model, PipelinedTransformerLM):
+        bind_params(model, model.stage_params(init_lm(model.cfg, seed, device)))
     else:
         model.load_state_dict(init_params(model, seed, device), assign=True)
 
@@ -454,8 +459,6 @@ class Trainer:
                  skip_nonfinite: bool = False, chaos=None,
                  rollback_spike_factor: float | None = None, rollback_patience: int = 2,
                  rollback_ema: float = 0.9, model_kwargs: dict | None = None, flight=None):
-        if aux_loss_weight:
-            raise _later("aux_loss_weight", _MOE)
         if rollback_spike_factor is not None and rollback_spike_factor <= 1:
             raise ValueError(f"rollback_spike_factor must be > 1 (None = off), got "
                              f"{rollback_spike_factor}")
@@ -493,6 +496,7 @@ class Trainer:
         self.chaos = chaos
         self.model_kwargs = dict(model_kwargs or {})
         self.train_step = make_train_step(loss=loss, has_batch_stats=self.has_batch_stats,
+                                          aux_loss_weight=aux_loss_weight,
                                           grad_accum_steps=grad_accum_steps,
                                           model_kwargs=self.model_kwargs,
                                           skip_nonfinite=skip_nonfinite, chaos=chaos)
@@ -813,11 +817,15 @@ class Trainer:
             loss_sum, correct, count = self._eval_step(self.state, batch, masks[m.tobytes()])
             totals.append(torch.stack([loss_sum.double(), correct.double(), count.double()]))
         total = torch.stack(totals).sum(0)
-        # the data group (a TensorParallel's own group is its model group)
-        group = (self.strategy.data_group if isinstance(self.strategy, TensorParallel)
-                 else self.strategy.group)
-        if group is not None:
-            dist.all_reduce(total, group=group)
+        # the data group (a TensorParallel's own group is its model group;
+        # its seq group holds the other blocks of each row's positions)
+        if isinstance(self.strategy, TensorParallel):
+            groups = (self.strategy.data_group, self.strategy.seq_group)
+        else:
+            groups = (self.strategy.group,)
+        for group in groups:
+            if group is not None:
+                dist.all_reduce(total, group=group)
         loss_sum, correct, seen = total.tolist()
         self._own_syncs += 1
         seen = int(seen)

@@ -11,6 +11,7 @@ processes would, so no process group is formed here
 (``tests/test_torch_launch.py`` forms real ones).
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -174,8 +175,20 @@ def test_global_batch_mode_and_transform(devices):
     assert xb.dtype == torch.bfloat16 and xb.shape == (8, 4, 4, 1)
     with pytest.raises(ValueError, match="not divisible"):
         ShardedLoader(ArrayDataset((x, y)), 15, port_mesh(2, 0), batch_mode="global")
-    with pytest.raises(NotImplementedError, match="batch_spec"):
-        ShardedLoader(ArrayDataset((x, y)), 16, port_mesh(2, 0), batch_spec=("data", "seq"))
+    # batch_spec shards dims past 0 since the sequence-parallel slice
+    # (tests/test_torch_seq_parallel.py); its dim 0 must map to the
+    # loader's axis, as in the JAX loader, and a spec of the data axis
+    # alone is the default layout
+    with pytest.raises(ValueError, match="batch_spec dim 0 must map"):
+        ShardedLoader(ArrayDataset((x, y)), 16, port_mesh(2, 0), batch_spec=("seq", "data"))
+    with pytest.raises(ValueError, match="batch_spec dim 0 must map"):
+        JaxLoader(jds.ArrayDataset((x, y)), 16, jax_mesh({"data": 2}),
+                  batch_spec=jax.sharding.PartitionSpec("seq"))
+    plain = ShardedLoader(ArrayDataset((x, y)), 16, port_mesh(2, 1), shuffle=False)
+    spec = ShardedLoader(ArrayDataset((x, y)), 16, port_mesh(2, 1), shuffle=False,
+                         batch_spec=("data", "seq"))  # a mesh without a seq axis: dim 0 only
+    for a, b in zip(next(iter(plain)), next(iter(spec))):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("world", [1, 2, 4])

@@ -54,7 +54,11 @@ def test_port_modules_import_no_jax():
            # router, the flight recorder and its histograms
            "serve.router", "obs.flight", "obs.histogram",
            # tensor-parallel serving: the strategy, its rules and spawn_tp
-           "parallel.tensor_parallel")
+           "parallel.tensor_parallel",
+           # the last parallel strategies: the pipeline over ranks, ring and
+           # Ulysses attention, mixture-of-experts with expert parallelism
+           "parallel.pipeline_spmd", "parallel.ring_attention", "parallel.ulysses",
+           "models.moe")
     assert {f"{PORT}.{m}" for m in ddp} <= set(mods)
     code = (
         "import sys\n"

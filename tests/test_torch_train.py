@@ -358,8 +358,11 @@ def test_compute_loss_mse_and_one_hot_match_jax():
 
 
 def test_train_step_refuses_later_slice_options():
-    with pytest.raises(NotImplementedError, match="A14"):
-        ttrainer.make_train_step(aux_loss_weight=0.1)
+    # aux_loss_weight is taken since the MoE slice (tests/test_torch_moe.py);
+    # what the step refuses is a gradient accumulation below one step
+    assert callable(ttrainer.make_train_step(aux_loss_weight=0.1))
+    with pytest.raises(ValueError, match="grad_accum_steps must be >= 1"):
+        ttrainer.make_train_step(grad_accum_steps=0)
     # the DDP slice brought gradient accumulation and BatchNorm statistics,
     # the guardrails slice the skip-step guard and chaos (test_torch_guardrails.py),
     # the LoRA slice model_kwargs and fused_adamw(mask=) (test_torch_adapters.py)

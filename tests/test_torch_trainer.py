@@ -216,8 +216,11 @@ def test_trainer_refusals():
     model = resnet18(num_classes=10, stem="cifar", num_filters=8, in_channels=1)
     with pytest.raises(ValueError, match="grad_accum_steps applies to the per-step path"):
         Trainer(model, resident, sgd(0.1), grad_accum_steps=2)
-    with pytest.raises(NotImplementedError, match="A14"):
-        Trainer(model, resident, sgd(0.1), aux_loss_weight=0.1)
+    # aux_loss_weight is taken since the MoE slice (tests/test_torch_moe.py);
+    # the resident loader keeps refusing batch_spec, as the JAX one does
+    Trainer(model, resident, sgd(0.1), aux_loss_weight=0.1)
+    with pytest.raises(NotImplementedError, match="batch_specs"):
+        DeviceResidentLoader(ArrayDataset(ds.arrays), 16, CPU, batch_spec=("data", "seq"))
     # the guardrails are ported (tests/test_torch_guardrails.py)
     Trainer(model, resident, sgd(0.1), skip_nonfinite=True, rollback_spike_factor=3.0)
 

@@ -40,6 +40,7 @@ from pytorch_distributed_training_tutorials_tpu_torch.models import (
     bind_params,
     from_jax_params,
     generate,
+    init_lm,
     init_quantized_lm,
     quantize_lm_params,
 )
@@ -343,6 +344,19 @@ def test_unsupported_config_fields_raise(field, value):
         caches = [KVCache.zeros(c, 1, device="cpu") for c in (cfg, base_cfg)]
         assert torch.equal(model(toks, caches[0], prefill=True),
                            base(toks, caches[1], prefill=True))
+        return
+    if field == "moe_experts":
+        # supported since the MoE slice (tests/test_torch_moe.py) on float
+        # weights; int8 serving refuses MoE blocks as the JAX model does
+        with pytest.raises(ValueError, match="dense blocks only"):
+            TransformerConfig(**{**TOY, "quantized": True, field: value})
+        cfg = TransformerConfig(**{**TOY, field: value})
+        model = TransformerLM(cfg)
+        bind_params(model, init_lm(cfg, seed=0, device="cpu"))
+        cache = KVCache.zeros(cfg, 1, device="cpu")
+        with torch.no_grad():
+            model(torch.zeros((1, 4), dtype=torch.int64), cache, prefill=True)
+        assert cache.index.tolist() == [4] and model.blocks[0].moe.aux_loss is not None
         return
     if field == "attention_fn":
         # int8 prefill runs cfg.attention_fn since the prefill slice (the
