@@ -9,11 +9,17 @@
     python3 chip_smoke.py --faults-only   # phases 0, 1 and the failure-handling phases
     python3 chip_smoke.py --tp-only       # phases 0, 1 and the tensor-parallel phases
     python3 chip_smoke.py --strategies-only  # phases 0, 1 and the model-parallel phases
+    python3 chip_smoke.py --slo-roles-only   # phases 0, 1 and the engine features' phases
     python3 chip_smoke.py --load-only     # phases 0, 1 and serve_1b_from_checkpoint
 
 It drives the port (``pytorch_distributed_training_tutorials_tpu_torch``)
 on the card and fails — non-zero exit, no result line — if a phase fails.
-Every phase prints JSON lines:
+``serve_1b_prefill``, ``serve_1b_spec``, ``serve_1b_lora``, the
+failure-handling phases, ``serve_1b_slo`` and ``serve_1b_disagg`` serve the
+presets' widths at SERVE_LAYERS (8) of their 16 layers: where their text
+below counts 113 int8 calls, or 16 flash or paged launches, a forward,
+read 57 and 8 (``serve_1b_tp2``: TP_LAYERS). Every phase prints JSON
+lines:
 
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 1. the build of every hand-written kernel from ``csrc/`` (one ``nvcc`` per
@@ -252,6 +258,31 @@ request 0's replica chaos-killed at its second chain (work in flight and
 queued), the ledger verified, re-dispatched requests token-identical, the
 killed replica frozen, host syncs the replicas' summed budget.
 
+Then the rest of serving's engine features. ``serve_1b_slo``: the 1b
+preset with flash prefill, 4 slots, ``priority_classes=2``: twelve
+class-1 requests (prompts {16, 32, 48}, 32 new tokens), then four class-0
+arrivals while every slot is busy, beside the SLO-off engine on the same
+stream, greedy (a) and sampled (s): tokens equal the SLO-off engine's,
+swaps out and as many in, host syncs = chains + prefills + splices +
+swaps out (stream syncs no more), 113 int8 calls a forward and 16 flash
+launches a whole prefill on their routes; (c) the chaos force-preempt of
+slot 0 at chain 1 with no pressure, token-exact; then
+``serve_1b_gqa_paged_slo``: the 1b-gqa preset with the paged kernel, two
+class-1 requests of 1,500 tokens holding every page of the pool when two
+class-0 requests of 480 tokens arrive (free slots, no free pages): the
+same gates, 16 paged launches a decode step (sm90), no page left. Bytes a
+swap, swap-out and swap-in ms (CUDA events) and host ms, class-0 TTFT with
+SLO on and off. ``serve_1b_disagg``: a 1-prefill + 2-decode fleet of 1b
+engines (one decode engine paged with the kernel) on card 0 behind a
+``FleetRouter``, greedy (12 requests) and sampled (4): each request's
+tokens the monolithic engine's of its decode engine's cache, 12 handoffs
+moved, the prefill engine 0 host syncs (alone under sync debug mode: 0
+stream syncs), each decode engine's syncs its chains + handoffs in, a CUDA
+generator's state read and set under sync debug mode "error", 113 int8
+calls a forward, 16 flash launches a prefill (f32 route) and 16 paged
+launches a paged decode step, all on their routes; handoff bytes, TTFT
+and tok/s of the fleet and the monolithic engines.
+
 Then the tensor-parallel slice, ``serve_1b_tp2``: two ranks, NCCL where
 the machine has a card for each, else gloo with both ranks on card 0 (NCCL
 refuses two ranks on one device), the backend printed with the card
@@ -272,7 +303,13 @@ clean and the stream's collectives 2 all_reduce a layer and 1 all_gather
 a forward; 113 int8 calls a forward, all ``int8_matmul_tp`` shard calls on
 the sm90 route, 16 flash launches a whole prefill, 16 paged launches a
 decode step; host syncs a rank = chains + prefills = the replicated
-engine's (the sync debug mode's count beside it, with what gloo adds).
+engine's (the sync debug mode's count beside it, with what gloo adds);
+no decision broadcast with no clock feature on. Then its clock legs
+(TP_CLOCK_LEGS, rank 0 deciding): deadlines under a stall on rank 0 only,
+a cancel made on rank 0 alone (the other rank's call a no-op), a stall
+alone, each beside the leg with none: the ranks' completions identical,
+one broadcast a step (none off), the victims completed with a prefix of
+their tokens or none, every int8 call a shard call on the sm90 route.
 With gloo its times are not tensor parallelism's speed.
 
 Then ``train_760m_tp2``, tensor-parallel training: the 760m preset of
@@ -497,6 +534,13 @@ PRESET_1B_GQA = dict(
     vocab_size=32000, d_model=2048, n_layers=16, n_heads=16, n_kv_heads=4,
     d_ff=8192, max_seq_len=4096,
 )
+# the served depth of serve_1b_prefill, serve_1b_spec, serve_1b_lora, the
+# failure-handling phases, serve_1b_slo and serve_1b_disagg: the presets'
+# widths at 8 of their 16 layers, cut to keep the whole script inside the
+# tool's time limit as phases were added. Phase 4, serve_1b_paged (its
+# planted faults' margins were measured at 16 layers) and
+# serve_1b_from_checkpoint serve the full depth
+SERVE_LAYERS = 8
 PAGED_STREAM = dict(n_slots=4, tokens_per_launch=8, requests=12, prompts=(16, 480, 1500),
                     new=32, page_size=64, pool_pages=48, shed_prompt=3500)
 # arm -> engine options: (a) whole-slot, (b) paged gather f32, (c) paged
@@ -530,7 +574,7 @@ PAGE_BYTES = {0: 4_194_304, 8: 1_081_344, 4: 540_672}
 # in f32 (the int8 model) and bf16 (the float model)
 FLASH_SERVE_SHAPES = [(1, s, 16, 128, dt) for dt in ("f32", "bf16")
                       for s in (16, 32, 64, 128, 256, 512)]
-# serve_1b_prefill: the 1b preset at full width and depth, int8 weights
+# serve_1b_prefill: the 1b preset at full width, SERVE_LAYERS deep, int8 weights
 # from init_quantized_lm(seed=0); 4 slots, 12 timed requests of 32 new
 # tokens, prompts {128, 256, 384} made as examples/serve_llm_int8.py makes
 # them (one shared family: prompt = shared[:round(0.75 p_len)] + tail)
@@ -2149,7 +2193,7 @@ def profile_device_ms(torch, fn) -> tuple[float, int]:
 
 
 def phase_serve_prefill(torch, fa, gpu: str) -> dict:
-    """The prefill slice: the 1b preset at full width and depth through
+    """The prefill slice: the 1b preset at full width (SERVE_LAYERS deep) through
     ``ServeEngine`` on PREFILL_STREAM, arm by arm (PREFILL_ARMS), each with
     its launch, route, counter and sync gates; (d) token-identical to
     (a), the flash arms teacher-forced against their dense twins
@@ -2174,7 +2218,7 @@ def phase_serve_prefill(torch, fa, gpu: str) -> dict:
     from pytorch_distributed_training_tutorials_tpu_torch.serve import Request, ServeEngine
 
     st = PREFILL_STREAM
-    cfg = TransformerConfig(**PRESET_1B, quantized=True)
+    cfg = TransformerConfig(**{**PRESET_1B, "n_layers": SERVE_LAYERS}, quantized=True)
     t0 = time.perf_counter()
     params = init_quantized_lm(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -2360,7 +2404,7 @@ def phase_serve_prefill(torch, fa, gpu: str) -> dict:
     del models, params
 
     # (f) the paged leg: 1b-gqa, paged kernel, prefix cache, flash prefill
-    gcfg = TransformerConfig(**PRESET_1B_GQA, quantized=True)
+    gcfg = TransformerConfig(**{**PRESET_1B_GQA, "n_layers": SERVE_LAYERS}, quantized=True)
     gparams = init_quantized_lm(gcfg, seed=0, device="cuda")
     gmodel = TransformerLM(dataclasses.replace(gcfg, attention_fn=fa.flash_attention))
     geo = dict(paged=True, page_size=PAGED_STREAM["page_size"],
@@ -2415,7 +2459,7 @@ def phase_serve_prefill(torch, fa, gpu: str) -> dict:
 
     # (g) the float arm: init_lm 1b in bf16, flash prefill (sm90) against
     # dense prefill
-    fcfg = TransformerConfig(**PRESET_1B, dtype=torch.bfloat16)
+    fcfg = TransformerConfig(**{**PRESET_1B, "n_layers": SERVE_LAYERS}, dtype=torch.bfloat16)
     fparams = init_lm(fcfg, seed=0, device="cuda")
     dense_f = ServeEngine(TransformerLM(fcfg), fparams, n_slots=st["n_slots"],
                           tokens_per_launch=tpl, device="cuda")
@@ -2519,7 +2563,7 @@ def chain_order(torch, engine, mk_request, n_steps: int) -> dict:
 
 
 def phase_serve_spec(torch, fa, gpu: str) -> dict:
-    """``serve_1b_spec``: the 1b int8 cell (PRESET_1B at full depth, 4
+    """``serve_1b_spec``: the 1b int8 cell (PRESET_1B, SERVE_LAYERS deep, 4
     slots, 12 requests, prompts {16, 32, 48}, 32 new tokens, greedy), flash
     prefill, arm by arm (SPEC_ARMS). Gates: every request finishes; (s),
     (p) and (sp) token-identical to (a); 113 int8 calls a forward (a
@@ -2545,7 +2589,7 @@ def phase_serve_spec(torch, fa, gpu: str) -> dict:
     from pytorch_distributed_training_tutorials_tpu_torch.ops import quant
     from pytorch_distributed_training_tutorials_tpu_torch.serve import Request, ServeEngine
 
-    cfg = TransformerConfig(**PRESET_1B, quantized=True)
+    cfg = TransformerConfig(**{**PRESET_1B, "n_layers": SERVE_LAYERS}, quantized=True)
     params = init_quantized_lm(cfg, seed=0, device="cuda")
     model = TransformerLM(dataclasses.replace(cfg, attention_fn=fa.flash_attention))
     bind_params(model, params)
@@ -2888,7 +2932,7 @@ def phase_serve_faults(torch, fa, gpu: str) -> dict:
     from pytorch_distributed_training_tutorials_tpu_torch.serve import Request, ServeEngine
     from pytorch_distributed_training_tutorials_tpu_torch.utils.chaos import ChaosConfig
 
-    cfg = TransformerConfig(**PRESET_1B, quantized=True)
+    cfg = TransformerConfig(**{**PRESET_1B, "n_layers": SERVE_LAYERS}, quantized=True)
     params = init_quantized_lm(cfg, seed=0, device="cuda")
     model = TransformerLM(dataclasses.replace(cfg, attention_fn=fa.flash_attention))
     bind_params(model, params)
@@ -3011,7 +3055,7 @@ def phase_serve_paged_faults(torch, pa, gpu: str) -> dict:
     from pytorch_distributed_training_tutorials_tpu_torch.utils.chaos import ChaosConfig
 
     st = PAGED_STREAM
-    cfg = TransformerConfig(**PRESET_1B_GQA, quantized=True)
+    cfg = TransformerConfig(**{**PRESET_1B_GQA, "n_layers": SERVE_LAYERS}, quantized=True)
     params = init_quantized_lm(cfg, seed=0, device="cuda")
     model = TransformerLM(cfg)
     rng = np.random.Generator(np.random.PCG64(12))
@@ -3235,6 +3279,506 @@ def phase_serve_fleet(torch, gpu: str, ctx: dict) -> dict:
     if problems:
         raise AssertionError("; ".join(problems))
     return rows
+
+
+# SLO preemption (serve_1b_slo): the 1b int8 preset at full width,
+# SERVE_LAYERS deep, with flash prefill, 4 slots, priority_classes=2 — twelve class-1 requests
+# (phase 4's prompts {16, 32, 48}, 32 new tokens), then, once every slot
+# is busy (after SLO_STREAM["high_after"] steps), four class-0 arrivals;
+# each leg beside the SLO-off engine on the same stream. The paged leg
+# (serve_1b_gqa_paged_slo): the 1b-gqa preset (window 4096) over a pool of
+# 48 pages of 64 with the paged kernel — two class-1 requests of 1500-token
+# prompts hold every page (24 each) with two slots free when two class-0
+# requests of 480 tokens arrive: pool pressure, not slot pressure
+SLO_STREAM = dict(n_slots=4, tokens_per_launch=8, low=12, high=4, prompts=(16, 32, 48),
+                  new=32, high_after=2, temperature=0.8)
+SLO_PAGED = dict(n_slots=4, tokens_per_launch=8, page_size=64, pool_pages=48,
+                 low=(1500, 1500), high=(480, 480), new=32, high_after=1)
+# the chaos leg: slot 0 force-preempted once at chain 1 of a 4-request
+# class-1 stream, with no pressure
+SLO_CHAOS = dict(requests=4, preempt_slot=0, preempt_at_chain=1)
+
+
+def timed_calls(torch, fn, log: list):
+    """``fn`` wrapped so that each call appends (CUDA start event, end
+    event, host seconds) to ``log``."""
+    def wrapped(*a, **k):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        start.record()
+        out = fn(*a, **k)
+        end.record()
+        log.append((start, end, time.perf_counter() - t))
+        return out
+    return wrapped
+
+
+def slo_stream(torch, eng, low: list, high: list, new: int, high_after: int) -> dict:
+    """Submit ``low`` (class 1 on a priority engine, else the FIFO's one
+    class), step ``high_after`` times, submit ``high`` (class 0), run to
+    idle — under sync debug mode, the swap calls timed. Returns the
+    completions in submit order, the wall time, the stream syncs and the
+    swaps' bytes and times."""
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import Request
+
+    slo = eng.slo_stats()["priority_classes"] > 0
+    outs, ins, nbytes = [], [], []
+    if slo:
+        swap_out = eng._swap_out
+
+        def counted(slot):
+            rid = eng._slots[slot].request.request_id
+            swap_out(slot)
+            nbytes.append(eng._swapped[rid].packed.numel())
+
+        eng._swap_out = timed_calls(torch, counted, outs)
+        eng._swap_in = timed_calls(torch, eng._swap_in, ins)
+    base = (eng.n_prefills, eng.n_splices, eng.n_chains, eng.n_host_syncs)
+    t0 = time.perf_counter()
+    done = []
+    with real_syncs(torch) as real:
+        ids = [eng.submit(Request(prompt=p, max_new_tokens=new, seed=i, priority=int(slo)))
+               for i, p in enumerate(low)]
+        for _ in range(high_after):
+            done += eng.step()
+        ids += [eng.submit(Request(prompt=p, max_new_tokens=new, seed=len(low) + i))
+                for i, p in enumerate(high)]
+        done += eng.run_until_idle()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    by_id = {c.request_id: c for c in done}
+    comps = [by_id.get(i) for i in ids]
+    return {
+        "comps": comps, "wall_s": wall_s, "stream_syncs": real["count"],
+        "stream_sync_sites": real["sites"],
+        "prefills": eng.n_prefills - base[0], "splices": eng.n_splices - base[1],
+        "chains": eng.n_chains - base[2], "host_syncs": eng.n_host_syncs - base[3],
+        "swaps_out": eng.n_swaps_out if slo else 0, "swaps_in": eng.n_swaps_in if slo else 0,
+        "swap_bytes": nbytes,
+        "swap_out_ms": [s.elapsed_time(e) for s, e, _ in outs],
+        "swap_out_host_ms": [h * 1e3 for _, _, h in outs],
+        "swap_in_ms": [s.elapsed_time(e) for s, e, _ in ins],
+        "swap_in_host_ms": [h * 1e3 for _, _, h in ins],
+    }
+
+
+def slo_gates(run: dict, ref: dict, new: int, layers: int, tpl: int, launches: dict) -> list:
+    """The gates of one SLO-on stream against its SLO-off twin: every
+    request complete with ``new`` tokens equal to the twin's, at least one
+    swap out and as many in, host syncs = chains + prefills + splices +
+    swaps out with the stream syncs no more, 7 int8 calls a layer and the
+    head's a forward on the sm90 route, and where counted one flash launch
+    a layer a whole prefill (f32 route) and one paged call a layer a
+    decode step (sm90)."""
+    bad = []
+    comps = run["comps"]
+    if any(c is None or c.finish_reason != "length" or len(c.tokens) != new for c in comps):
+        bad.append("finish " + str([None if c is None else (c.finish_reason, len(c.tokens))
+                                    for c in comps]))
+    elif [c.tokens for c in comps] != [c.tokens for c in ref["comps"]]:
+        diff = [i for i, (a, b) in enumerate(zip(comps, ref["comps"])) if a.tokens != b.tokens]
+        bad.append(f"requests {diff}: tokens differ from the SLO-off engine's")
+    if run["swaps_out"] < 1 or run["swaps_in"] != run["swaps_out"]:
+        bad.append(f"swaps out {run['swaps_out']}, in {run['swaps_in']}")
+    budget = run["chains"] + run["prefills"] + run["splices"] + run["swaps_out"]
+    if run["host_syncs"] != budget or run["stream_syncs"] > budget:
+        bad.append(f"{run['host_syncs']} host syncs, {run['stream_syncs']} stream syncs; "
+                   f"budget {budget}: {run['stream_sync_sites']}")
+    forwards = run["prefills"] + run["chains"] * tpl
+    per_forward = layers * 7 + 1
+    if launches["int8"] != per_forward * forwards or launches["int8_routes"]["v1"]:
+        bad.append(f"int8 {launches['int8']} {launches['int8_routes']}, want "
+                   f"{per_forward} x {forwards} sm90")
+    if "paged" in launches:
+        want = layers * run["chains"] * tpl
+        if launches["paged"] != want or launches["paged_routes"]["v1"]:
+            bad.append(f"paged {launches['paged']} {launches['paged_routes']}, want {want} sm90")
+    if "flash" in launches:
+        want = layers * run["prefills"]
+        if launches["flash"] != want or launches["flash_routes"]["sm80"] != want:
+            bad.append(f"flash {launches['flash']} {launches['flash_routes']}, want {want} "
+                       "on the f32 route")
+    return bad
+
+
+def reset_counts(quant, fa=None, pa=None) -> None:
+    """Zero the serving kernels' launch and route counters."""
+    quant.int8_matmul.launches = 0
+    quant.int8_matmul.routes = {"sm90": 0, "v1": 0}
+    if fa is not None:
+        fa.flash_attention.launches["fwd"] = 0
+        fa.flash_attention.routes["fwd"] = {"sm90": 0, "sm80": 0}
+    if pa is not None:
+        pa.paged_attention.launches = 0
+        pa.paged_attention.routes = {"sm90": 0, "v1": 0}
+
+
+def read_counts(quant, fa=None, pa=None) -> dict:
+    out = {"int8": quant.int8_matmul.launches, "int8_routes": dict(quant.int8_matmul.routes)}
+    if fa is not None:
+        out.update(flash=fa.flash_attention.launches["fwd"],
+                   flash_routes=dict(fa.flash_attention.routes["fwd"]))
+    if pa is not None:
+        out.update(paged=pa.paged_attention.launches,
+                   paged_routes=dict(pa.paged_attention.routes))
+    return out
+
+
+def ttft(comps: list) -> dict:
+    vals = [c.ttft_s for c in comps]
+    return {"p50_s": percentile(vals, 0.5), "p95_s": percentile(vals, 0.95)}
+
+
+def phase_serve_slo(torch, quant, fa, pa, gpu: str, dev: str = "cuda") -> dict:
+    """``serve_1b_slo``: SLO preemption by KV swap on the 1b preset
+    (SLO_STREAM), each leg beside the SLO-off engine on the same stream:
+    (a) greedy and (s) sampled (temperature SLO_STREAM["temperature"]),
+    gated by ``slo_gates`` — tokens equal the SLO-off engine's, swaps out
+    and in, host syncs chains + prefills + splices + swaps out, 113 int8
+    calls a forward and 16 flash launches a whole prefill on their routes;
+    (c) the chaos force-preempt (SLO_CHAOS) token-exact to the clean run;
+    then ``serve_1b_gqa_paged_slo`` (SLO_PAGED) under pool pressure with the
+    paged kernel: the same gates, 16 paged launches a decode step (sm90),
+    no page left. Numbers: swaps, bytes a swap, swap-out and swap-in ms
+    (CUDA events) and host ms, class-0 TTFT p50/p95 with SLO on and off.
+    Returns the launches by leg."""
+    import numpy as np
+
+    from pytorch_distributed_training_tutorials_tpu_torch.models import (
+        TransformerConfig,
+        TransformerLM,
+        init_quantized_lm,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import Request, ServeEngine
+    from pytorch_distributed_training_tutorials_tpu_torch.utils.chaos import ChaosConfig
+
+    st = SLO_STREAM
+    cfg = TransformerConfig(**{**PRESET_1B, "n_layers": SERVE_LAYERS}, quantized=True,
+                            attention_fn=fa.flash_attention)
+    params = init_quantized_lm(cfg, seed=0, device=dev)
+    model = TransformerLM(cfg)
+    rng = np.random.Generator(np.random.PCG64(20))
+    n = st["low"] + st["high"]
+    prompts = [rng.integers(0, cfg.vocab_size, (st["prompts"][i % 3],)).tolist()
+               for i in range(n)]
+    low, high = prompts[:st["low"]], prompts[st["low"]:]
+    tpl, layers = st["tokens_per_launch"], cfg.n_layers
+
+    def engine(**kw):
+        return ServeEngine(model, params, n_slots=st["n_slots"], tokens_per_launch=tpl,
+                           max_queue=64, device=dev, **kw)
+
+    warm = engine(priority_classes=2)  # first launches, cuBLAS handles
+    warm.submit(Request(prompt=low[0], max_new_tokens=2, seed=99, priority=1))
+    warm.run_until_idle()
+    del warm
+    out, problems, launches = {}, [], {}
+    for leg, temp in (("a", 0.0), ("s", st["temperature"])):
+        runs = {}
+        for slo in (False, True):
+            eng = engine(temperature=temp, **({"priority_classes": 2} if slo else {}))
+            reset_counts(quant, fa)
+            runs[slo] = slo_stream(torch, eng, low, high, st["new"], st["high_after"])
+            runs[slo]["launches"] = read_counts(quant, fa)
+            del eng
+        on, off = runs[True], runs[False]
+        bad = slo_gates(on, off, st["new"], layers, tpl, on["launches"])
+        launches[f"serve_1b_slo_{leg}"] = on["launches"]
+        hi_on, hi_off = on["comps"][st["low"]:], off["comps"][st["low"]:]
+        emit({"phase": "serve_1b_slo", "leg": leg, "temperature": temp,
+              "n_slots": st["n_slots"], "requests": {"class_1": st["low"], "class_0": st["high"]},
+              "prompt_lengths": st["prompts"], "new_tokens": st["new"],
+              "class_0_after_steps": st["high_after"],
+              "swaps_out": on["swaps_out"], "swaps_in": on["swaps_in"],
+              "swap_bytes": on["swap_bytes"], "swap_out_ms": on["swap_out_ms"],
+              "swap_out_host_ms": on["swap_out_host_ms"], "swap_in_ms": on["swap_in_ms"],
+              "swap_in_host_ms": on["swap_in_host_ms"],
+              "class_0_ttft_slo_on": ttft(hi_on), "class_0_ttft_slo_off": ttft(hi_off),
+              "class_1_ttft_slo_on": ttft(on["comps"][:st["low"]]),
+              "class_1_ttft_slo_off": ttft(off["comps"][:st["low"]]),
+              "class_0_latency_p95_s": {"on": percentile([c.latency_s for c in hi_on], 0.95),
+                                        "off": percentile([c.latency_s for c in hi_off], 0.95)},
+              "prefills": on["prefills"], "chains": [on["chains"], off["chains"]],
+              "host_syncs": [on["host_syncs"], off["host_syncs"]],
+              "stream_syncs": [on["stream_syncs"], off["stream_syncs"]],
+              "wall_s": [on["wall_s"], off["wall_s"]],
+              "tok_s": [n * st["new"] / on["wall_s"], n * st["new"] / off["wall_s"]],
+              "launches": on["launches"], "ok": not bad, "problems": bad, "gpu": gpu})
+        problems += [f"{leg}: {x}" for x in bad]
+    # (c) the chaos force-preempt: no pressure, one swap, token-exact
+    ch = SLO_CHAOS
+    runs = {}
+    for name, kw in (("clean", {}), ("chaos", dict(priority_classes=2, chaos=ChaosConfig(
+            preempt_slot=ch["preempt_slot"], preempt_at_chain=ch["preempt_at_chain"])))):
+        eng = engine(**kw)
+        reset_counts(quant, fa)
+        runs[name] = slo_stream(torch, eng, low[:ch["requests"]], [], st["new"], 0)
+        runs[name]["launches"] = read_counts(quant, fa)
+    bad = slo_gates(runs["chaos"], runs["clean"], st["new"], layers, tpl,
+                    runs["chaos"]["launches"])
+    if runs["chaos"]["swaps_out"] != 1:
+        bad.append(f"the chaos preempt fired {runs['chaos']['swaps_out']} times, want 1")
+    launches["serve_1b_slo_c"] = runs["chaos"]["launches"]
+    emit({"phase": "serve_1b_slo", "leg": "c", "chaos": ch,
+          "swaps_out": runs["chaos"]["swaps_out"], "swap_bytes": runs["chaos"]["swap_bytes"],
+          "swap_out_ms": runs["chaos"]["swap_out_ms"], "swap_in_ms": runs["chaos"]["swap_in_ms"],
+          "host_syncs": runs["chaos"]["host_syncs"], "launches": runs["chaos"]["launches"],
+          "ok": not bad, "problems": bad, "gpu": gpu})
+    problems += [f"c: {x}" for x in bad]
+    del params, model
+    torch.cuda.empty_cache()
+    paged = phase_serve_gqa_paged_slo(torch, quant, pa, gpu, dev)
+    problems += paged["problems"]
+    launches["serve_1b_gqa_paged_slo"] = paged["launches"]
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return launches
+
+
+def phase_serve_gqa_paged_slo(torch, quant, pa, gpu: str, dev: str = "cuda") -> dict:
+    """``serve_1b_gqa_paged_slo`` (inside ``serve_1b_slo``): SLO_PAGED on
+    the 1b-gqa preset with the paged kernel, beside the SLO-off paged
+    engine: the class-0 requests find free slots but no free pages, so the
+    newest class-1 request swaps out (its 24 pages back to the pool) and
+    back in later; ``slo_gates`` with the paged kernel's launches, and no
+    page in use at the end."""
+    import numpy as np
+
+    from pytorch_distributed_training_tutorials_tpu_torch.models import (
+        TransformerConfig,
+        TransformerLM,
+        init_quantized_lm,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import Request, ServeEngine
+
+    st = SLO_PAGED
+    cfg = TransformerConfig(**{**PRESET_1B_GQA, "n_layers": SERVE_LAYERS}, quantized=True)
+    params = init_quantized_lm(cfg, seed=0, device=dev)
+    model = TransformerLM(cfg)
+    rng = np.random.Generator(np.random.PCG64(21))
+    low = [rng.integers(0, cfg.vocab_size, (p,)).tolist() for p in st["low"]]
+    high = [rng.integers(0, cfg.vocab_size, (p,)).tolist() for p in st["high"]]
+    tpl = st["tokens_per_launch"]
+
+    def engine(**kw):
+        return ServeEngine(model, params, n_slots=st["n_slots"], tokens_per_launch=tpl,
+                           max_queue=64, device=dev, paged=True, paged_kernel=True,
+                           page_size=st["page_size"], pool_pages=st["pool_pages"], **kw)
+
+    warm = engine()
+    warm.submit(Request(prompt=high[0][:16], max_new_tokens=2, seed=99))
+    warm.run_until_idle()
+    del warm
+    runs, pages_left = {}, {}
+    for slo in (False, True):
+        eng = engine(**({"priority_classes": 2} if slo else {}))
+        reset_counts(quant, pa=pa)
+        runs[slo] = slo_stream(torch, eng, low, high, st["new"], st["high_after"])
+        runs[slo]["launches"] = read_counts(quant, pa=pa)
+        pages_left[slo] = eng.page_stats()["pages_in_use"]
+        del eng
+    on, off = runs[True], runs[False]
+    bad = slo_gates(on, off, st["new"], cfg.n_layers, tpl, on["launches"])
+    if pages_left != {False: 0, True: 0}:
+        bad.append(f"pages in use at the end: {pages_left}")
+    hi_on, hi_off = on["comps"][len(low):], off["comps"][len(low):]
+    emit({"phase": "serve_1b_gqa_paged_slo", "n_slots": st["n_slots"],
+          "page_size": st["page_size"], "pool_pages": st["pool_pages"],
+          "class_1_prompts": st["low"], "class_0_prompts": st["high"], "new_tokens": st["new"],
+          "swaps_out": on["swaps_out"], "swaps_in": on["swaps_in"],
+          "swap_bytes": on["swap_bytes"], "swap_out_ms": on["swap_out_ms"],
+          "swap_out_host_ms": on["swap_out_host_ms"], "swap_in_ms": on["swap_in_ms"],
+          "swap_in_host_ms": on["swap_in_host_ms"],
+          "class_0_ttft_slo_on": ttft(hi_on), "class_0_ttft_slo_off": ttft(hi_off),
+          "chains": [on["chains"], off["chains"]], "host_syncs": [on["host_syncs"],
+                                                                   off["host_syncs"]],
+          "stream_syncs": [on["stream_syncs"], off["stream_syncs"]],
+          "wall_s": [on["wall_s"], off["wall_s"]], "launches": on["launches"],
+          "ok": not bad, "problems": bad, "gpu": gpu})
+    del params, model
+    torch.cuda.empty_cache()
+    return {"problems": [f"gqa_paged: {x}" for x in bad], "launches": on["launches"]}
+
+
+# disaggregation (serve_1b_disagg): a 1-prefill + 2-decode fleet of 1b
+# engines (int8 weights, SERVE_LAYERS deep, flash prefill) in one process on card 0 behind a
+# FleetRouter, one decode engine paged with the kernel; phase 4's stream
+# (12 requests, prompts {16, 32, 48}, 32 new tokens), greedy, then a
+# sampled leg of DISAGG["sampled"] requests
+DISAGG = dict(n_slots=4, tokens_per_launch=8, requests=12, prompts=(16, 32, 48), new=32,
+              page_size=64, pool_pages=32, sampled=4, temperature=0.8)
+
+
+def phase_serve_disagg(torch, quant, fa, pa, gpu: str, dev: str = "cuda") -> dict:
+    """``serve_1b_disagg``: DISAGG's fleet against the monolithic engines
+    (whole-slot, and paged with the kernel for the requests the paged
+    decode engine served). Gates: every request's tokens equal the
+    monolithic engine's of its decode engine's cache; handoffs moved =
+    requests, the ledger clean; the prefill engine made 0 host syncs (and
+    alone, under sync debug mode, 0 stream syncs) and each decode engine's
+    syncs are its chains + handoffs in; reading and setting a CUDA
+    generator's state raises nothing under sync debug mode "error"; 113
+    int8 calls a forward (prefill and decode), 16 flash launches a prefill
+    (f32 route) and 16 paged launches a paged decode step, all on their
+    routes. Numbers: handoff bytes, TTFT p50/p95 and tok/s of the fleet
+    and of the monolithic engine. A sampled leg (temperature
+    DISAGG["temperature"]): the fleet's draws equal the monolithic
+    engines'."""
+    import numpy as np
+
+    from pytorch_distributed_training_tutorials_tpu_torch.models import (
+        TransformerConfig,
+        TransformerLM,
+        init_quantized_lm,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import (
+        FleetRouter,
+        Request,
+        ServeEngine,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.serve.slots import tree_nbytes
+
+    st = DISAGG
+    cfg = TransformerConfig(**{**PRESET_1B, "n_layers": SERVE_LAYERS}, quantized=True,
+                            attention_fn=fa.flash_attention)
+    params = init_quantized_lm(cfg, seed=0, device=dev)
+    rng = np.random.Generator(np.random.PCG64(22))
+    prompts = [rng.integers(0, cfg.vocab_size, (st["prompts"][i % 3],)).tolist()
+               for i in range(st["requests"])]
+    tpl, per_forward = st["tokens_per_launch"], cfg.n_layers * 7 + 1
+    paged_kw = dict(paged=True, paged_kernel=True, page_size=st["page_size"],
+                    pool_pages=st["pool_pages"])
+
+    def engine(**kw):
+        return ServeEngine(TransformerLM(cfg), params, n_slots=st["n_slots"],
+                           tokens_per_launch=tpl, max_queue=64, device=dev, **kw)
+
+    def reqs(n):
+        return [Request(prompt=p, max_new_tokens=st["new"], seed=i)
+                for i, p in enumerate(prompts[:n])]
+
+    # a CUDA generator's state is host data: reading and setting it must
+    # not synchronize (sync debug mode "error" raises on a sync)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    torch.randn(8, device=dev, generator=gen)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gen.set_state(gen.get_state())
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    # warm up every engine kind; then the prefill engine alone under sync
+    # debug mode: no stream sync
+    pre_alone = engine(role="prefill")
+    with real_syncs(torch) as pre_real:
+        for r in reqs(4):
+            pre_alone.submit(r)
+        pre_alone.run_until_idle()
+    for kw in ({}, paged_kw):
+        warm = engine(**kw)
+        warm.submit(Request(prompt=prompts[0], max_new_tokens=2, seed=99))
+        warm.run_until_idle()
+    del pre_alone, warm
+    problems, rows, launches = [], {}, {}
+    for leg, n, temp in (("greedy", st["requests"], 0.0),
+                         ("sampled", st["sampled"], st["temperature"])):
+        mono = {}
+        for name, kw in (("whole", {}), ("paged", paged_kw)):
+            eng = engine(temperature=temp, **kw)
+            t0 = time.perf_counter()
+            ids = [eng.submit(r) for r in reqs(n)]
+            done = {c.request_id: c for c in eng.run_until_idle()}
+            torch.cuda.synchronize()
+            mono[name] = {"comps": [done[i] for i in ids], "wall_s": time.perf_counter() - t0}
+            del eng
+        engines = [engine(role="prefill", temperature=temp),
+                   engine(role="decode", temperature=temp),
+                   engine(role="decode", temperature=temp, **paged_kw)]
+        fr = FleetRouter(engines)
+        take, handoff_bytes = engines[0].take_handoff, []
+
+        def taking(rid, take=take, handoff_bytes=handoff_bytes):
+            h = take(rid)
+            handoff_bytes.append(tree_nbytes(h.segment))
+            return h
+
+        engines[0].take_handoff = taking
+        reset_counts(quant, fa, pa)
+        t0 = time.perf_counter()
+        with real_syncs(torch) as real:
+            gids = [fr.submit(r) for r in reqs(n)]
+            done = {c.request_id: c for c in fr.run_until_idle()}
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = read_counts(quant, fa, pa)
+        comps = [done.get(g) for g in gids]
+        served_by = {g: next(r for r, _, kind, _ in e.dispatches if kind == "handoff")
+                     for g, e in fr.ledger.entries.items()}
+        bad = []
+        pre, dec_w, dec_p = engines
+        for i, (g, c) in enumerate(zip(gids, comps)):
+            ref = mono["paged" if served_by[g] == 2 else "whole"]["comps"][i]
+            if c is None or c.finish_reason != "length" or c.tokens != ref.tokens:
+                bad.append(f"request {i} (decode replica {served_by[g]}): "
+                           f"{None if c is None else c.finish_reason}, tokens differ from "
+                           "the monolithic engine's")
+        if fr.ledger.verify() or fr.router_stats()["handoffs_moved"] != n:
+            bad.append(f"ledger {fr.ledger.verify()}, handoffs moved "
+                       f"{fr.router_stats()['handoffs_moved']} for {n} requests")
+        if pre.n_host_syncs or pre.n_chains or pre.n_handoffs_out != n:
+            bad.append(f"prefill engine: {pre.n_host_syncs} syncs, {pre.n_chains} chains, "
+                       f"{pre.n_handoffs_out} handoffs")
+        for d in (dec_w, dec_p):
+            if d.n_host_syncs != d.n_chains + d.n_handoffs_in:
+                bad.append(f"decode engine: {d.n_host_syncs} syncs != {d.n_chains} chains + "
+                           f"{d.n_handoffs_in} handoffs")
+        budget = dec_w.n_host_syncs + dec_p.n_host_syncs
+        if real["count"] > budget:
+            bad.append(f"{real['count']} stream syncs > the decode engines' {budget}: "
+                       f"{real['sites']}")
+        forwards = pre.n_prefills + pre.n_splices + (dec_w.n_chains + dec_p.n_chains) * tpl
+        if counts["int8"] != per_forward * forwards or counts["int8_routes"]["v1"]:
+            bad.append(f"int8 {counts['int8']} {counts['int8_routes']}, want {per_forward} x "
+                       f"{forwards} sm90")
+        if (counts["flash"] != cfg.n_layers * pre.n_prefills
+                or counts["flash_routes"]["sm80"] != counts["flash"]):
+            bad.append(f"flash {counts['flash']} {counts['flash_routes']}, want one a layer "
+                       f"x {pre.n_prefills} prefills on the f32 route")
+        if (counts["paged"] != cfg.n_layers * dec_p.n_chains * tpl
+                or counts["paged_routes"]["v1"]):
+            bad.append(f"paged {counts['paged']} {counts['paged_routes']}, want one a layer "
+                       f"x {dec_p.n_chains} chains x {tpl} sm90")
+        if dec_p.page_stats()["pages_in_use"]:
+            bad.append(f"{dec_p.page_stats()['pages_in_use']} pages in use at the end")
+        launches[f"serve_1b_disagg_{leg}"] = counts
+        toks = n * st["new"]
+        emit({"phase": "serve_1b_disagg", "leg": leg, "temperature": temp,
+              "fleet": "1 prefill + 2 decode (whole-slot, paged kernel)", "requests": n,
+              "prompt_lengths": st["prompts"], "new_tokens": st["new"],
+              "served_by": [served_by[g] for g in gids],
+              "handoffs_moved": fr.router_stats()["handoffs_moved"],
+              "handoff_bytes": {"total": sum(handoff_bytes), "each": handoff_bytes},
+              "prefill_engine": {"host_syncs": pre.n_host_syncs, "prefills": pre.n_prefills,
+                                 "handoffs_out": pre.n_handoffs_out,
+                                 "alone_stream_syncs": pre_real["count"]},
+              "decode_engines": [{"chains": d.n_chains, "handoffs_in": d.n_handoffs_in,
+                                  "host_syncs": d.n_host_syncs} for d in (dec_w, dec_p)],
+              "stream_syncs": real["count"], "launches": counts,
+              "ttft_fleet": ttft(comps) if all(comps) else None,
+              "ttft_mono": {k: ttft(v["comps"]) for k, v in mono.items()},
+              "tok_s_fleet": toks / wall_s,
+              "tok_s_mono": {k: toks / v["wall_s"] for k, v in mono.items()},
+              "wall_s": wall_s, "ok": not bad, "problems": bad, "gpu": gpu})
+        if pre_real["count"]:
+            bad.append(f"the prefill engine alone made {pre_real['count']} stream syncs: "
+                       f"{pre_real['sites']}")
+        problems += [f"{leg}: {x}" for x in bad]
+        del engines, fr
+    del params
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return launches
 
 
 # Tensor-parallel serving (serve_1b_tp2): TP ranks, the backend NCCL where
@@ -3511,14 +4055,155 @@ def tp_kernel_row(tp: dict) -> dict:
     }
 
 
-def tp_serve_rank(tp, names: list) -> dict:
+def tp_serve_rank(tp, names: list, clock: bool = True) -> dict:
     """One rank of serve_1b_tp2 (spawned by ``spawn_tp``): every arm of
-    ``names`` through the sharded engine."""
+    ``names`` through the sharded engine, then (``clock``) the clock legs
+    (``tp_clock_legs``) under ``"clock"``."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return {name: tp_serve_arm(torch, tp, name) for name in names}
+    out = {name: tp_serve_arm(torch, tp, name) for name in names}
+    if clock:
+        out["clock"] = tp_clock_legs(torch, tp)
+    return out
+
+
+# serve_1b_tp2's clock legs (rank 0 decides, every rank applies): the int8
+# arm's first TP_CLOCK["requests"] prompts on its 4 slots (two queued),
+# TP_CLOCK["new"] new tokens (four chains: a victim still decodes when its
+# deadline or cancel lands) — "deadline": requests 1 (decoding) and 5
+# (queued) with 1 s deadlines, chain 1 stalled 2.5 s on rank 0 only;
+# "cancel": a cancellable engine, every rank calling cancel on requests 0
+# (decoding) and 5 (queued) after step 2 (rank 0's call counts); "stall":
+# 0.5 s on rank 0, no deadline; each beside "off", no clock feature
+TP_CLOCK = dict(requests=6, new=32)
+TP_CLOCK_LEGS = {
+    "off": {},
+    "deadline": dict(deadlines={1: 1.0, 5: 1.0}, chaos=dict(stall_chain=1, stall_s=2.5)),
+    "cancel": dict(engine=dict(cancellable=True), cancel=(0, 5), cancel_after=2),
+    "stall": dict(chaos=dict(stall_chain=1, stall_s=0.5)),
+}
+
+
+def tp_clock_legs(torch, tp, dev: str = "cuda") -> dict:
+    """Every TP_CLOCK_LEGS leg through the sharded int8 engine of this
+    rank: the completions (ids, reasons, tokens) in order, the steps and
+    decision broadcasts, the cancel calls' answers and what they recorded,
+    the stall events of this rank's recorder, ``fault_stats()``, host syncs
+    and their budget, and the int8 launches (shard calls and routes)."""
+    import numpy as np
+
+    from pytorch_distributed_training_tutorials_tpu_torch.models import (
+        TransformerConfig,
+        TransformerLM,
+        init_quantized_lm,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.obs import FlightRecorder
+    from pytorch_distributed_training_tutorials_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.ops import quant
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import Request, ServeEngine
+    from pytorch_distributed_training_tutorials_tpu_torch.utils.chaos import ChaosConfig
+
+    arm = TP_ARMS["int8"]
+    cfg = TransformerConfig(**arm["preset"], quantized=True, attention_fn=fa.flash_attention)
+    params = init_quantized_lm(cfg, seed=0, device=dev)
+    rng = np.random.Generator(np.random.PCG64(15))
+    prompts = [rng.integers(0, cfg.vocab_size, (arm["prompts"][i % len(arm["prompts"])],))
+               .tolist() for i in range(TP_CLOCK["requests"])]
+    out = {}
+    for name, leg in TP_CLOCK_LEGS.items():
+        kw = dict(leg.get("engine", {}))
+        if "chaos" in leg:
+            kw["chaos"] = ChaosConfig(**leg["chaos"])
+        flight = FlightRecorder(capacity=4096)
+        eng = ServeEngine(TransformerLM(cfg), params, max_queue=64, device=dev,
+                          strategy=tp, flight=flight, **TP_STREAM, **kw)
+        quant.int8_matmul.launches = 0
+        quant.int8_matmul.routes = {"sm90": 0, "v1": 0}
+        quant.int8_matmul_tp.launches = 0
+        deadlines = leg.get("deadlines", {})
+        t0 = time.perf_counter()
+        ids = [eng.submit(Request(prompt=p, max_new_tokens=TP_CLOCK["new"], seed=i,
+                                  deadline_s=deadlines.get(i)))
+               for i, p in enumerate(prompts)]
+        done, steps, known, recorded = [], 0, [], []
+        while not eng.idle:
+            done += eng.step()
+            steps += 1
+            if steps == leg.get("cancel_after"):
+                known = [eng.cancel(ids[i]) for i in leg["cancel"]]
+                recorded = sorted(eng._cancelled)
+        torch.cuda.synchronize()
+        out[name] = {
+            "completions": [(c.request_id, c.finish_reason, c.tokens) for c in done],
+            "ids": ids, "steps": steps, "broadcasts": eng.n_decision_broadcasts,
+            "known": known, "cancel_recorded": recorded,
+            "stall_events": sum(e["kind"] == "stall" for e in flight.events),
+            "fault_stats": eng.fault_stats(), "host_syncs": eng.n_host_syncs,
+            "budget": eng.n_chains + eng.n_prefills + eng.n_splices,
+            "forwards": eng.n_prefills + eng.n_chains * TP_STREAM["tokens_per_launch"],
+            "int8": quant.int8_matmul.launches, "int8_tp": quant.int8_matmul_tp.launches,
+            "int8_routes": dict(quant.int8_matmul.routes), "wall_s": time.perf_counter() - t0,
+        }
+        del eng
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_clock_gates(ranks: list) -> list:
+    """serve_1b_tp2's clock-leg gates over the ranks' ``tp_clock_legs``:
+    identical completions on every rank; no broadcast in "off", one a step
+    in the others; the deadline and cancel victims completed with a prefix
+    of "off"'s tokens (decoding) or none (queued); the stall leg equal to
+    "off"; the stall on rank 0 alone; cancel calls known everywhere and
+    recorded on rank 0 only; host syncs the budget; 57 int8 shard calls a
+    forward (8 layers), all sm90."""
+    bad = []
+    off = {rid: (reason, toks) for rid, reason, toks in ranks[0]["off"]["completions"]}
+    for name, leg in TP_CLOCK_LEGS.items():
+        rows = [r[name] for r in ranks]
+        if any(r["completions"] != rows[0]["completions"] for r in rows):
+            bad.append(f"{name}: the ranks' completions differ")
+        want_b = 0 if name == "off" else rows[0]["steps"]
+        for rank, r in enumerate(rows):
+            if r["broadcasts"] != want_b or r["steps"] != rows[0]["steps"]:
+                bad.append(f"{name} rank {rank}: {r['broadcasts']} broadcasts in {r['steps']} "
+                           f"steps, want {want_b}")
+            if r["host_syncs"] != r["budget"]:
+                bad.append(f"{name} rank {rank}: {r['host_syncs']} host syncs, budget "
+                           f"{r['budget']}")
+            per = TP_LAYERS * 7 + 1
+            if (r["int8"] != per * r["forwards"] or r["int8_tp"] != r["int8"]
+                    or r["int8_routes"] != {"sm90": r["int8"], "v1": 0}):
+                bad.append(f"{name} rank {rank}: int8 {r['int8']} (tp {r['int8_tp']}, "
+                           f"{r['int8_routes']}), want {per} x {r['forwards']} sm90")
+            want_stall = int("chaos" in leg and rank == 0)
+            if r["stall_events"] != want_stall:
+                bad.append(f"{name} rank {rank}: {r['stall_events']} stall events, want "
+                           f"{want_stall}")
+        got = {rid: (reason, toks) for rid, reason, toks in rows[0]["completions"]}
+        ids = rows[0]["ids"]
+        victims = {ids[i]: "deadline" for i in leg.get("deadlines", {})}
+        victims.update({ids[i]: "cancelled" for i in leg.get("cancel", ())})
+        for rid, (reason, toks) in got.items():
+            if rid in victims:
+                full = off[rid][1]
+                if reason != victims[rid] or toks != full[:len(toks)] or len(toks) >= len(full):
+                    bad.append(f"{name}: victim {rid} {reason} with {len(toks)} tokens")
+            elif (reason, toks) != off[rid]:
+                bad.append(f"{name}: request {rid} differs from the off leg")
+        if "cancel" in leg:
+            want_rec = sorted(ids[i] for i in leg["cancel"])
+            for rank, r in enumerate(rows):
+                if r["known"] != [True] * len(leg["cancel"]) or r["cancel_recorded"] != (
+                        want_rec if rank == 0 else []):
+                    bad.append(f"cancel rank {rank}: known {r['known']}, recorded "
+                               f"{r['cancel_recorded']}")
+    return bad
 
 
 def phase_serve_tp(torch, quant, gpu: str) -> dict:
@@ -3554,6 +4239,7 @@ def phase_serve_tp(torch, quant, gpu: str) -> dict:
     t0 = time.perf_counter()
     ranks = spawn_tp(tp_serve_rank, TP, (list(TP_ARMS),), backend=backend, device="cuda",
                      join_timeout_s=900)
+    clock = [r.pop("clock") for r in ranks]
     ranks_s = time.perf_counter() - t0
     problems, launches = [], {}
     layers = TP_LAYERS
@@ -3591,6 +4277,9 @@ def phase_serve_tp(torch, quant, gpu: str) -> dict:
             if g["kv_heads"] != want_kv or 2 * g["kv_leaf_bytes"] != rep["kv_leaf_bytes"]:
                 bad.append(f"rank {r}: {g['kv_heads']} KV heads, {g['kv_leaf_bytes']} K/V "
                            f"bytes; want {want_kv} and half of {rep['kv_leaf_bytes']}")
+            if g["tp_stats"]["tp_decision_broadcasts"]:
+                bad.append(f"rank {r}: {g['tp_stats']['tp_decision_broadcasts']} decision "
+                           "broadcasts with no clock feature on")
             want_c = {k: v * forwards for k, v in g["expected_per_forward"].items()}
             if g["collectives"] != want_c or not g["audit"]["ok"]:
                 bad.append(f"rank {r}: collectives {g['collectives']} (want {want_c}), "
@@ -3642,6 +4331,28 @@ def phase_serve_tp(torch, quant, gpu: str) -> dict:
         })
         problems += [f"{name}: {x}" for x in bad]
         del rep["engine"]
+    bad = tp_clock_gates(clock)
+    for name in TP_CLOCK_LEGS:
+        rows = [r[name] for r in clock]
+        launches[f"clock_{name}"] = [r["int8_tp"] for r in rows]
+        emit({"phase": "serve_1b_tp2_clock", "leg": name, "tp": TP, "backend": backend,
+              "layers": TP_LAYERS, "requests": TP_CLOCK["requests"],
+              "new_tokens": TP_CLOCK["new"], "options": TP_CLOCK_LEGS[name],
+              "reasons": [reason for _, reason, _ in rows[0]["completions"]],
+              "tokens": [len(toks) for _, _, toks in rows[0]["completions"]],
+              "ranks_identical": all(r["completions"] == rows[0]["completions"] for r in rows),
+              "steps": [r["steps"] for r in rows], "broadcasts": [r["broadcasts"] for r in rows],
+              "cancel_known": [r["known"] for r in rows],
+              "cancel_recorded": [r["cancel_recorded"] for r in rows],
+              "stall_events": [r["stall_events"] for r in rows],
+              "fault_stats_rank0": rows[0]["fault_stats"],
+              "host_syncs": [r["host_syncs"] for r in rows],
+              "int8_matmul_tp_launches": [r["int8_tp"] for r in rows],
+              "int8_routes": [r["int8_routes"] for r in rows],
+              "wall_s": [r["wall_s"] for r in rows],
+              "timing_note": TP_NOTE if backend == "gloo" else None, "gpu": gpu})
+    emit({"phase": "serve_1b_tp2_clock_gates", "ok": not bad, "problems": bad, "gpu": gpu})
+    problems += [f"clock: {x}" for x in bad]
     emit({"phase": "serve_1b_tp2_ranks_s", "seconds": ranks_s, "gpu": gpu})
     if problems:
         raise AssertionError("; ".join(problems))
@@ -5197,7 +5908,7 @@ def replay_namespaced(prompts: list, ids: list, vocab: int, n_adapters: int, gen
 
 def phase_serve_lora(torch, quant, fa, pa, gpu: str) -> dict:
     """``serve_1b_lora``: the 1b preset (int8 weights, f32 compute, flash
-    prefill) at full width and depth serving phase 4's stream (12
+    prefill) at full width, SERVE_LAYERS deep, serving phase 4's stream (12
     requests, prompts {16, 32, 48}, 32 new tokens, 4 slots) with ids i % 4
     through ``ServeEngine(adapter_bank=AdapterBank(n_adapters=4,
     rank=8))``, and the bank-less engine in turns (base, bank, bank,
@@ -5221,7 +5932,8 @@ def phase_serve_lora(torch, quant, fa, pa, gpu: str) -> dict:
     )
     from pytorch_distributed_training_tutorials_tpu_torch.serve import Request, ServeEngine
 
-    cfg = TransformerConfig(**PRESET_1B, quantized=True, attention_fn=fa.flash_attention)
+    cfg = TransformerConfig(**{**PRESET_1B, "n_layers": SERVE_LAYERS}, quantized=True,
+                            attention_fn=fa.flash_attention)
     params = init_quantized_lm(cfg, seed=0, device="cuda")
     bank = AdapterBank(TransformerLM(cfg), device="cuda", **LORA_BANK)
     frng = np.random.Generator(np.random.PCG64(13))
@@ -5247,7 +5959,7 @@ def phase_serve_lora(torch, quant, fa, pa, gpu: str) -> dict:
         runs[arm].append(lora_stream(torch, quant, fa, engines[arm],
                                      reqs if arm == "bank" else base_reqs))
     problems = []
-    per_forward = 16 * 7 + 1
+    per_forward = cfg.n_layers * 7 + 1
     for arm, rs in runs.items():
         for r in rs:
             if r["reasons"] != ["length"] * 12:
@@ -5263,7 +5975,7 @@ def phase_serve_lora(torch, quant, fa, pa, gpu: str) -> dict:
             if r["stream_syncs"] > r["host_syncs"]:
                 problems.append(f"{arm}: {r['stream_syncs']} stream syncs > "
                                 f"{r['host_syncs']}: {r['stream_sync_sites']}")
-            if r["flash_fwd_routes"] != {"sm90": 0, "sm80": PRESET_1B["n_layers"] * 12}:
+            if r["flash_fwd_routes"] != {"sm90": 0, "sm80": cfg.n_layers * 12}:
                 problems.append(f"{arm}: flash forward routes {r['flash_fwd_routes']}")
     mixed, plain = runs["bank"][0]["tokens"], runs["base"][0]["tokens"]
     if any(r["tokens"] != mixed for r in runs["bank"]) or any(
@@ -5423,7 +6135,7 @@ def phase_serve_lora_composed(torch, quant, fa, pa, gpu: str, cfg, params, bank)
             problems.append(f"{arm}: host syncs {r['host_syncs']} != chains + refills")
         if r["stream_syncs"] > r["host_syncs"]:
             problems.append(f"{arm}: {r['stream_syncs']} stream syncs > {r['host_syncs']}")
-        if r["flash_fwd"] != PRESET_1B["n_layers"] * r["refills"]["prefill"] or \
+        if r["flash_fwd"] != cfg.n_layers * r["refills"]["prefill"] or \
                 r["flash_fwd_routes"]["sm90"]:
             problems.append(f"{arm}: flash forwards {r['flash_fwd']} / "
                             f"{r['flash_fwd_routes']} for {r['refills']['prefill']} prefills")
@@ -7543,6 +8255,10 @@ def main(argv=None) -> int:
                     help="after the build, run the sequence-, pipeline- and expert-parallel "
                          "slice's phases only (train_760m_spmd_pipeline, train_760m_seq, "
                          "train_moe_ep)")
+    ap.add_argument("--slo-roles-only", action="store_true",
+                    help="after the build, run the serving engine features' phases only "
+                         "(serve_1b_slo with serve_1b_gqa_paged_slo, serve_1b_disagg, "
+                         "serve_1b_tp2 with its clock legs)")
     ap.add_argument("--strategies-only", action="store_true",
                     help="after the build, run the model-parallel slice's phases only "
                          "(train_resnet50_pipeline, train_resnet50_gpipe, "
@@ -7649,6 +8365,12 @@ def main(argv=None) -> int:
         run(phase_serve_1b_from_checkpoint, torch, quant, pa, gpu)
         emit({"phase": "phase_seconds", **seconds})
         return 0
+    if args.slo_roles_only:
+        run(phase_serve_slo, torch, quant, fa, pa, gpu)
+        run(phase_serve_disagg, torch, quant, fa, pa, gpu)
+        emit({"kernels": [tp_kernel_row(run(phase_serve_tp, torch, quant, gpu))]})
+        emit({"phase": "phase_seconds", **seconds})
+        return 0
     if args.lora_only:
         run(phase_serve_lora, torch, quant, fa, pa, gpu)
         run(phase_train_dots_attn, torch, gpu)
@@ -7672,6 +8394,8 @@ def main(argv=None) -> int:
     spec = run(phase_serve_spec, torch, fa, gpu)
     lora = run(phase_serve_lora, torch, quant, fa, pa, gpu)
     faults, paged_faults, fleet = fault_phases()
+    slo = run(phase_serve_slo, torch, quant, fa, pa, gpu)
+    disagg = run(phase_serve_disagg, torch, quant, fa, pa, gpu)
     tp = run(phase_serve_tp, torch, quant, gpu)
     load = run(phase_serve_1b_from_checkpoint, torch, quant, pa, gpu)
     train_tp = run(phase_train_tp, torch, gpu)
@@ -7728,7 +8452,9 @@ def main(argv=None) -> int:
                              **{f"serve_1b_fleet_{leg}": r["int8_matmul_launches"]
                                 for leg, r in fleet.items()},
                              **{f"serve_1b_from_checkpoint_{a}": r["int8_matmul_launches"]
-                                for a, r in load.items()}},
+                                for a, r in load.items()},
+                             **{path: n["int8"] for path, n in slo.items()},
+                             **{path: n["int8"] for path, n in disagg.items()}},
         "verify_forwards_by_path": {
             **{f"serve_1b_spec_{a}": n for a, n in spec["verify_forwards"].items() if n},
             "serve_1b_gqa_paged_spec": paged_serve["spec"]["n_verify_forwards"]},
@@ -7777,9 +8503,10 @@ def main(argv=None) -> int:
                 "serve_1b_lora_composed": lora["composed_flash_fwd"],
                 **{f"serve_1b_prefill_{a}": n for a, n in prefill["launches"].items()},
                 **{f"serve_1b_spec_{a}": n for a, n in spec["flash"].items()},
-                **faults["flash"]}
+                **faults["flash"],
+                **{path: n["flash"] for path, n in {**slo, **disagg}.items() if "flash" in n}}
             kernels[-1]["serving"] = {
-                "launches_per_prefill": PRESET_1B["n_layers"],
+                "launches_per_prefill": SERVE_LAYERS,
                 "whole_prefills": prefill["prefills"],
                 "route_counts": {"b (f32, int8 model)": prefill["routes_b"],
                                  "g (bf16, float model)": prefill["routes_g"]},
@@ -7875,7 +8602,9 @@ def main(argv=None) -> int:
                              "serve_1b_lora_composed": lora["composed_paged"],
                              **{f"serve_1b_gqa_paged_faults_{a}": r["paged_attention_launches"]
                                 for a, r in paged_faults.items()},
-                             "serve_1b_from_checkpoint_hf": load["hf"]["paged_attention_launches"]},
+                             "serve_1b_from_checkpoint_hf": load["hf"]["paged_attention_launches"],
+                             **{path: n["paged"] for path, n in {**slo, **disagg}.items()
+                                if "paged" in n}},
         "verify": {k: paged["results"][("1b-gqa-verify", "f32", "f32")][k] * 16
                    for k in ("ms", "plain_ms", "bound_ms")}
         | {"bound_by": paged["results"][("1b-gqa-verify", "f32", "f32")]["bound_by"],

@@ -1,6 +1,8 @@
 """Continuous-batching serving for the PyTorch port: :class:`ServeEngine`
 over a slot-indexed or paged KV cache, with its own copies of the FIFO
-scheduler, the page pool and the radix prefix index; and the fleet front
+scheduler (and its SLO tiers, :mod:`.slo`), the page pool and the radix
+prefix index; the disaggregation record :class:`.scheduler.Handoff`; and
+the fleet front
 door over several engines, :class:`.router.FleetRouter` (with
 :class:`.router.DispatchLedger` and :func:`.router.affinity_hash`),
 exported lazily (PEP 562, as ``adapters/``): importing the router loads
@@ -20,16 +22,24 @@ from pytorch_distributed_training_tutorials_tpu_torch.serve.prefix import (
 from pytorch_distributed_training_tutorials_tpu_torch.serve.scheduler import (
     Completion,
     FifoScheduler,
+    Handoff,
     QueueClosed,
     QueueFull,
     Request,
+)
+from pytorch_distributed_training_tutorials_tpu_torch.serve.slo import (
+    PriorityScheduler,
+    SwapRecord,
+    choose_victim,
 )
 from pytorch_distributed_training_tutorials_tpu_torch.serve.slots import (
     SlotState,
     bucket_len,
     init_slot_state,
+    pack,
     park_slot_paged,
     seed_history,
+    unpack,
     upload,
     write_slot,
     write_slot_paged,
@@ -38,19 +48,25 @@ from pytorch_distributed_training_tutorials_tpu_torch.serve.slots import (
 __all__ = [
     "Completion",
     "FifoScheduler",
+    "Handoff",
     "PagePool",
     "PoolExhausted",
     "PrefixIndex",
+    "PriorityScheduler",
     "QueueClosed",
     "QueueFull",
     "Request",
     "Segment",
     "ServeEngine",
     "SlotState",
+    "SwapRecord",
     "bucket_len",
+    "choose_victim",
     "init_slot_state",
+    "pack",
     "park_slot_paged",
     "seed_history",
+    "unpack",
     "upload",
     "write_slot",
     "write_slot_paged",

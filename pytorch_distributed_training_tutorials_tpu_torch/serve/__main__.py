@@ -2,7 +2,7 @@
 --selftest [--paged [--paged-kernel] [--kv-bits 8|4]] [--prefix] [--chunk]
 [--flash] [--spec-k K [--spec-ngram N]] [--pipeline-depth D] [--adapters
 N] [--chaos] [--flight] [--router] [--tp N [--tp-backend gloo|nccl]]
-[--device cpu]``: end-to-end smoke of the port's serving path.
+[--slo] [--device cpu]``: end-to-end smoke of the port's serving path.
 
 A toy int8 LM serves a staggered stream of mixed-length requests through
 :class:`.engine.ServeEngine` (2 slots, a queue bound of 2 so backpressure
@@ -102,6 +102,17 @@ run's count, its KV bytes below the unsharded engine's, and
 ``audit_decode()`` clean (an ``all_reduce`` per row-parallel projection
 and one logits ``all_gather`` per forward, nothing else).
 
+``--slo`` adds the SLO arm (the JAX selftest's twelfth, without its
+sentry half, which waits for the sentry): a ``priority_classes=2``
+engine decodes a class-1 request on its only slot when a class-0 request
+arrives; the engine must preempt (swap the victim out, ``n_swaps_out``),
+serve the class-0 request and swap the victim back in, both token-exact
+to ``generate``, with host syncs exactly chains + prefills + splices +
+swaps out. A chaos leg (``preempt_at_chain``) force-preempts a slot of a
+2-slot engine with no pressure: both requests' tokens equal a clean run's.
+A host leg: ``PriorityScheduler(n_classes=1)`` pops what ``FifoScheduler``
+pops over the same submissions.
+
 Prints one JSON line (``"ok": true`` when every check held) and exits 0,
 or 1 when a check failed. Runs on ``cuda`` unless ``--device`` names
 another device.
@@ -119,7 +130,7 @@ def selftest(device=None, paged: bool = False, paged_kernel: bool = False,
              flash: bool = False, spec_k: int = 0, spec_ngram: int = 3,
              pipeline_depth: int = 1, adapters: int = 0, chaos: bool = False,
              flight: bool = False, router: bool = False, tp: int = 0,
-             tp_backend: str | None = None) -> dict:
+             tp_backend: str | None = None, slo: bool = False) -> dict:
     import torch
 
     from pytorch_distributed_training_tutorials_tpu_torch._device import resolve_device
@@ -180,6 +191,7 @@ def selftest(device=None, paged: bool = False, paged_kernel: bool = False,
                      if router else {})
     tp_fields = (tp_arm(dev, tp, tp_backend, completions, engine.n_host_syncs, problems)
                  if tp > 1 else {})
+    slo_fields = slo_arm(model, params, dev, prompts, completions, problems) if slo else {}
     return {
         "selftest": "serve_torch",
         "ok": not problems,
@@ -206,6 +218,7 @@ def selftest(device=None, paged: bool = False, paged_kernel: bool = False,
         **flight_fields,
         **router_fields,
         **tp_fields,
+        **slo_fields,
         "problems": problems,
     }
 
@@ -302,6 +315,68 @@ def tp_arm(dev, tp: int, backend: str | None, completions: dict, base_syncs: int
 
 def _budget(eng) -> int:
     return eng.n_chains + eng.n_prefills + eng.n_splices
+
+
+def slo_arm(model, params, dev, prompts, completions, problems: list) -> dict:
+    """The ``--slo`` checks (module docstring; the JAX selftest's twelfth
+    arm, ``serve/__main__.py:104-120``)."""
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import (
+        FifoScheduler,
+        PriorityScheduler,
+        Request,
+        ServeEngine,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.utils.chaos import ChaosConfig
+
+    (lo_toks, lo_new), (hi_toks, hi_new) = prompts[4], prompts[3]  # 2 + 17, 12 + 6
+    eng = ServeEngine(model, params, n_slots=1, tokens_per_launch=8, priority_classes=2,
+                      device=dev)
+    lo = eng.submit(Request(prompt=lo_toks, max_new_tokens=lo_new, priority=1))
+    done = {c.request_id: c for c in eng.step()}  # its prefill and first chain
+    hi = eng.submit(Request(prompt=hi_toks, max_new_tokens=hi_new, priority=0))
+    done.update((c.request_id, c) for c in eng.run_until_idle())
+    if eng.n_swaps_out < 1 or eng.n_swaps_in < 1:
+        problems.append(f"slo arm: no preemption (swaps out {eng.n_swaps_out}, in "
+                        f"{eng.n_swaps_in})")
+    # the base stream's requests 4 and 3 are these prompts, served unpreempted
+    exact = (done[lo].tokens == completions[4].tokens
+             and done[hi].tokens == completions[3].tokens)
+    if not exact:
+        problems.append(f"slo arm: preemption changed tokens: {done[lo].tokens}, "
+                        f"{done[hi].tokens}")
+    if not done[hi].latency_s < done[lo].latency_s:
+        problems.append("slo arm: the class-0 request did not finish first")
+    budget = _budget(eng) + eng.n_swaps_out
+    if eng.n_host_syncs != budget:
+        problems.append(f"slo arm: {eng.n_host_syncs} host syncs != {budget} (chains + "
+                        "prefills + splices + swaps out)")
+
+    def pair(**kw):
+        e = ServeEngine(model, params, n_slots=2, tokens_per_launch=8, device=dev, **kw)
+        prio = 1 if kw else 0
+        ids = [e.submit(Request(prompt=t, max_new_tokens=n, priority=prio))
+               for t, n in ((lo_toks, lo_new), (hi_toks, hi_new))]
+        out = {c.request_id: c.tokens for c in e.run_until_idle()}
+        return e, [out[i] for i in ids]
+
+    _, clean = pair()
+    forced, chaotic = pair(priority_classes=2,
+                           chaos=ChaosConfig(preempt_slot=0, preempt_at_chain=1))
+    if forced.n_swaps_out != 1:
+        problems.append(f"slo arm: the chaos preempt fired {forced.n_swaps_out} times")
+    if chaotic != clean:
+        problems.append(f"slo arm: the forced preempt changed tokens: {chaotic} vs {clean}")
+    scheds = [FifoScheduler(64, max_queue=16), PriorityScheduler(64, 16, n_classes=1)]
+    for sch in scheds:
+        for toks, new in prompts:
+            sch.submit(Request(prompt=toks, max_new_tokens=new))
+    orders = [[sch.pop(fits=lambda r: len(r.prompt) < 10).request_id
+               for _ in range(3)] for sch in scheds]
+    if orders[0] != orders[1]:
+        problems.append(f"slo arm: one-class pop order {orders[1]} != FIFO {orders[0]}")
+    return {"slo_swaps_out": eng.n_swaps_out, "slo_swaps_in": eng.n_swaps_in,
+            "slo_token_exact": exact, "slo_host_syncs": eng.n_host_syncs,
+            "slo_chaos_exact": chaotic == clean, "slo_fifo_order": orders[0] == orders[1]}
 
 
 def chaos_arm(model, params, dev, prompts, problems: list) -> dict:
@@ -930,6 +1005,11 @@ def main(argv: list[str] | None = None) -> int:
         help="the TP arm's backend (default: gloo on the CPU, nccl on cards; gloo where "
              "ranks share a card)",
     )
+    ap.add_argument(
+        "--slo", action="store_true",
+        help="add the SLO arm: a class-0 arrival preempts a class-1 request (KV swap "
+             "out and in), token-exact, and the chaos force-preempt",
+    )
     args = ap.parse_args(argv)
     if not args.selftest:
         ap.print_help()
@@ -942,7 +1022,7 @@ def main(argv: list[str] | None = None) -> int:
                        spec_k=args.spec_k, spec_ngram=args.spec_ngram,
                        pipeline_depth=args.pipeline_depth, adapters=args.adapters,
                        chaos=args.chaos, flight=args.flight, router=args.router,
-                       tp=args.tp, tp_backend=args.tp_backend)
+                       tp=args.tp, tp_backend=args.tp_backend, slo=args.slo)
     print(json.dumps(receipt))
     return 0 if receipt["ok"] else 1
 

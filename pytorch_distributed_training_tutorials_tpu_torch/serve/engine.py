@@ -148,12 +148,51 @@ slot state holds the rank's KV heads only (checked once at construction
 against :data:`..parallel.tensor_parallel.SLOT_STATE_RULES`), so KV and
 page bytes, the page price and the prefix budget are per rank.
 :meth:`ServeEngine.tp_stats` and :meth:`ServeEngine.audit_decode` report
-it. A host decision that reads the clock could differ between ranks, and
-a rank that decides otherwise hangs its peers in a collective: deadlines
-and chaos stalls are refused under ``tp`` > 1, and :meth:`cancel` is the
-caller's to make on every rank at the same point of the loop. ``tp`` 1
-(or no strategy) is the replicated engine: the same state, launches and
-syncs.
+it. A host decision that reads the clock or the caller could differ
+between ranks, and a rank that decides otherwise hangs its peers in a
+collective (a rank that pops a request the others bounced prefills alone
+and waits in its first ``all_reduce``). So rank 0 alone makes those
+decisions — the sweep's deadline expiries and cancels, the refill
+boundary's bounced requests, the chaos stall (it sleeps on rank 0 only;
+the others wait in the next collective) — and, in each step where a
+deadline is set (the engine's, or a live request's), a chaos stall is
+configured or the engine is ``cancellable``, broadcasts its verdicts on
+the step's live requests in ONE message over a CPU gloo group beside the
+model group (:meth:`ServeEngine._decide`); the other ranks apply what they
+receive, never their own clock. With none of these on, no broadcast is
+issued. ``tp`` 1 (or no strategy) is the replicated engine: the same
+state, launches and syncs.
+
+Disaggregation (``role=``, the JAX engine's prefill/decode roles;
+DistServe, OSDI '24): a ``role="prefill"`` engine admits prompts and
+prefills them (whole, spliced from its prefix cache, or chunked), but
+instead of occupying a slot it cuts the finished batch-1 cache to the
+prompt's bucket and completes the request ``"handoff"``, parking a
+:class:`.scheduler.Handoff` (segment, first token, the request's
+generator state) for :meth:`ServeEngine.take_handoff`; it makes no host
+sync. A ``role="decode"`` engine admits work through
+:meth:`ServeEngine.accept` only and rebuilds the monolithic post-prefill
+slot from the segment — :func:`.slots.seed_cache` and
+:func:`.slots.copy_slot` + :func:`.slots.write_slot`, or the paged write —
+bitwise, since nothing is recomputed; the fetch of the first token is the
+handoff's one sync, so its budget is chains + handoffs accepted. A
+:class:`.router.FleetRouter` over such engines moves the handoffs.
+
+SLO preemption (``priority_classes`` N > 0): a
+:class:`.slo.PriorityScheduler` admits classes ``[0, N)`` and pops by
+(class, arrival); at the chain boundary, when a strictly higher class
+waits and no slot (or, paged, not enough of the pool) can take it, the
+lowest-tier active request (:func:`.slo.choose_victim`) is SWAPPED OUT:
+the in-flight chains are collected first (the host's view then equals
+the device's), then ONE counted fetch brings its cache segment, last
+token and (speculative) history to the host packed in one buffer, its
+slot parks (paged: its pages return to the pool, its prefix donor is
+released) and it requeues at its arrival position with a
+:class:`.slo.SwapRecord`. When it pops again it is SWAPPED IN: the packed
+buffer goes up through :func:`.slots.upload` (no fetch), the segment is
+spliced back (fresh pages when paged) and its budget, generator state and
+history restored verbatim, so it resumes token-exact. The budget is
+chains + prefills + splices + swaps out.
 """
 
 from __future__ import annotations
@@ -164,6 +203,7 @@ import logging
 import time
 
 import torch
+import torch.distributed as dist
 
 from pytorch_distributed_training_tutorials_tpu_torch._device import resolve_device
 from pytorch_distributed_training_tutorials_tpu_torch.models.sampling import (
@@ -197,7 +237,13 @@ from pytorch_distributed_training_tutorials_tpu_torch.serve.prefix import (
 from pytorch_distributed_training_tutorials_tpu_torch.serve.scheduler import (
     Completion,
     FifoScheduler,
+    Handoff,
     Request,
+)
+from pytorch_distributed_training_tutorials_tpu_torch.serve.slo import (
+    PriorityScheduler,
+    SwapRecord,
+    choose_victim,
 )
 from pytorch_distributed_training_tutorials_tpu_torch.serve.slots import (
     bucket_len,
@@ -205,12 +251,14 @@ from pytorch_distributed_training_tutorials_tpu_torch.serve.slots import (
     copy_slot,
     extract_segment,
     init_slot_state,
+    pack,
     park_slot_paged,
     seed_cache,
     seed_cache_paged,
     seed_history,
     set_adapter,
     tree_nbytes,
+    unpack,
     upload,
     write_slot,
     write_slot_paged,
@@ -232,6 +280,9 @@ def _cache_leaves(cache) -> dict[str, torch.Tensor]:
 # how a refill reached its first token: a whole prefill, a splice, or a
 # chunked prefill's final chunk without and with a prefix hit
 _REFILL_KINDS = ("prefill", "splice", "chunked", "chunked_splice")
+
+# the verdicts rank 0 broadcasts under tensor parallelism, by code (0: none)
+_VERDICTS = (None, "cancelled", "deadline")
 
 
 class _Active:
@@ -293,6 +344,19 @@ class _PendingPrefill:
         self.pages: list[int] = []
 
 
+def _decision_group(tp: TensorParallel):
+    """A CPU gloo group over ``tp``'s model group, and the global rank of
+    its rank 0: the channel of rank 0's host decisions. ``new_group`` is
+    collective over the whole world, so the model group must be the whole
+    world (a serving world of ``tp`` ranks)."""
+    ranks = dist.get_process_group_ranks(tp.group)
+    if len(ranks) != dist.get_world_size():
+        raise NotImplementedError(
+            "rank 0's decisions under tensor parallelism need the model group to be the "
+            f"whole world (model group {ranks}, world {dist.get_world_size()})")
+    return dist.new_group(ranks, backend="gloo"), dist.get_global_rank(tp.group, 0)
+
+
 def _base_cfg(cfg: TransformerConfig) -> TransformerConfig:
     return dataclasses.replace(cfg, lora_adapters=0, lora_rank=0, int8_mesh=None)
 
@@ -348,7 +412,20 @@ class ServeEngine:
     > 1 the engine serves this rank's shard (module docstring) — ``model``
     and ``params`` the whole ones on every rank (or a model already built
     with ``cfg.int8_mesh`` set to the same strategy, holding its shard);
-    :meth:`tp_stats` and :meth:`audit_decode` go with it."""
+    :meth:`tp_stats` and :meth:`audit_decode` go with it. ``cancellable``
+    (tensor parallel only; a replicated engine can always cancel):
+    broadcast rank 0's verdicts every step, so :meth:`cancel` made on rank
+    0 alone cancels on every rank.
+
+    ``role`` (None: monolithic; ``"prefill"`` or ``"decode"``) splits the
+    engine for a disaggregated fleet (module docstring; JAX ``:348-392``
+    refuses the same options): a prefill engine takes no paged pool, no
+    speculation and no pipelining, a decode engine no prefix cache and no
+    chunked prefill. :meth:`take_handoff`, :meth:`accept` and :attr:`load`
+    go with it. ``priority_classes`` (0: one FIFO class) turns on SLO
+    preemption (module docstring), not beside a role. Under tensor
+    parallelism both still raise ``NotImplementedError``, as does
+    ``sentry`` (the contract sentry is not ported yet)."""
 
     def __init__(
         self,
@@ -379,7 +456,13 @@ class ServeEngine:
         chaos=None,
         flight=None,
         strategy: TensorParallel | None = None,
+        cancellable: bool = False,
+        role: str | None = None,
+        priority_classes: int = 0,
+        sentry=None,
     ):
+        if sentry is not None:
+            raise NotImplementedError("sentry= (the contract sentry) is not ported yet")
         if n_slots < 1:
             raise ValueError("n_slots must be >= 1")
         if tokens_per_launch < 1:
@@ -412,6 +495,27 @@ class ServeEngine:
             raise ValueError("prefix_cache_bytes must be >= 0 (0 = off)")
         if default_deadline_s is not None and default_deadline_s <= 0:
             raise ValueError("default_deadline_s must be > 0 (None = no deadline)")
+        if role not in (None, "prefill", "decode"):
+            raise ValueError(f"role must be None (monolithic), 'prefill', or 'decode'; "
+                             f"got {role!r}")
+        if role == "prefill":
+            for on, what in ((paged, "the paged pool"), (speculative_k, "speculation"),
+                             (pipeline_depth != 1, "pipeline_depth")):
+                if on:
+                    raise ValueError(f"role='prefill' engines never decode: {what} belongs "
+                                     "on the decode side")
+        if role == "decode":
+            for on, what in ((prefix_cache_bytes, "the prefix cache"),
+                             (prefill_chunk, "prefill_chunk")):
+                if on:
+                    raise ValueError(f"role='decode' engines never prefill a prompt: {what} "
+                                     "belongs on the prefill side")
+        if priority_classes < 0:
+            raise ValueError("priority_classes must be >= 0 (0 = single-class FIFO)")
+        if priority_classes and role is not None:
+            raise ValueError("priority_classes requires role=None: preemption swaps in "
+                             "through the monolithic refill path; role-split fleets shape "
+                             "traffic at the router")
         if top_k < 0:
             raise ValueError(f"top_k must be >= 0, got {top_k}")
         if not 0.0 < top_p <= 1.0:
@@ -425,12 +529,11 @@ class ServeEngine:
         self._tp = strategy if strategy is not None and strategy.tp_size > 1 else None
         self._tp_audit = None
         if self._tp is not None:
-            if default_deadline_s is not None or (chaos is not None and chaos.stalls):
-                raise NotImplementedError(
-                    "deadlines and chaos stalls under tensor parallelism (tp="
-                    f"{self._tp.tp_size}): a clock-driven host decision can differ "
-                    "between ranks; it arrives with 'TP with deadlines' (rank 0 decides, "
-                    "broadcast over a CPU gloo group)")
+            for on, what in ((role, "role="), (priority_classes, "priority_classes")):
+                if on:
+                    raise NotImplementedError(
+                        f"{what} under tensor parallelism (tp={self._tp.tp_size}) is not "
+                        "ported yet")
             model, params = self._sharded(model, params, self._tp)
         if params is not None:
             bind_params(
@@ -466,7 +569,12 @@ class ServeEngine:
         self.n_slots = n_slots
         self.tokens_per_launch = tokens_per_launch
         self.window = int(model.cfg.max_seq_len)
-        self.scheduler = FifoScheduler(self.window, max_queue=max_queue)
+        self._role = role
+        self._slo = priority_classes > 0
+        self._n_classes = int(priority_classes)
+        self.scheduler = (
+            PriorityScheduler(self.window, max_queue=max_queue, n_classes=self._n_classes)
+            if self._slo else FifoScheduler(self.window, max_queue=max_queue))
         self._slots: list[_Active | None] = [None] * n_slots
         # paged: decode runs a twin of the model whose config names the
         # pool (its paged_kernel picks the read path); prefill keeps the
@@ -514,6 +622,13 @@ class ServeEngine:
         self._chaos = chaos
         self._flight = flight
         self._cancelled: set[int] = set()
+        # tensor parallel: rank 0's verdicts of this step (None: each rank
+        # decides itself — replicated, or no clock feature on) and their
+        # gloo channel, made at the first broadcast
+        self._cancellable = bool(cancellable)
+        self._decided: dict[int, str] | None = None
+        self._dgroup = None
+        self.n_decision_broadcasts = 0
         self.n_deadline_expired = 0
         self.n_cancelled = 0
         self.nonfinite_quarantined = 0
@@ -552,6 +667,25 @@ class ServeEngine:
         self._chunk_side = (
             KVCache.zeros(model.cfg, 1, device=self.device) if self._chunk else None
         )
+        # roles and SLO: the batch-1 cache a handoff's segment is prefilled
+        # into or spliced from, and a swap's segment gathered into or
+        # spliced from
+        self._xfer = (KVCache.zeros(model.cfg, 1, device=self.device)
+                      if role is not None or self._slo else None)
+        # disaggregation: handoffs emitted for the router to collect
+        # (prefill role) and accepted, waiting for a slot (decode role)
+        self._handoffs: dict[int, Handoff] = {}
+        self._handoff_in: dict[int, Handoff] = {}
+        self.n_handoffs_out = 0
+        self.n_handoffs_in = 0
+        # SLO preemption (only with priority_classes: an off engine has
+        # none of these): parked requests by id, the chaos force-preempt's
+        # one-shot latch, the counters
+        if self._slo:
+            self._swapped: dict[int, SwapRecord] = {}
+            self._chaos_preempt_fired = False
+            self.n_swaps_out = 0
+            self.n_swaps_in = 0
         # counters for receipts and the sync-budget checks
         self.refills = dict.fromkeys(_REFILL_KINDS, 0)
         self.n_chains = 0
@@ -590,15 +724,24 @@ class ServeEngine:
         """Enqueue one request; returns its id. Raises
         :class:`..serve.scheduler.QueueFull` at capacity,
         :class:`..serve.scheduler.QueueClosed` after :meth:`close`,
-        ``ValueError`` when the request can never fit the window or names
+        ``ValueError`` when the request can never fit the window, names
         an adapter this engine cannot serve (no bank, or an unregistered or
-        out-of-range id), or (paged) :class:`.pages.PoolExhausted` when it
-        needs more pages than the whole pool holds. Admission snapshots the
-        adapter row's generation into ``request.adapter_gen``."""
-        if self._tp is not None and request.deadline_s is not None:
-            raise NotImplementedError(
-                "Request.deadline_s under tensor parallelism: a clock-driven host decision "
-                "can differ between ranks; it arrives with 'TP with deadlines'")
+        out-of-range id) or a priority outside its classes, or (paged)
+        :class:`.pages.PoolExhausted` when it needs more pages than the
+        whole pool holds. Admission snapshots the adapter row's generation
+        into ``request.adapter_gen``. A decode-role engine refuses it
+        (``ValueError``; JAX ``:1762``): its work comes through
+        :meth:`accept`."""
+        if self._role == "decode":
+            raise ValueError("role='decode' engines admit work via accept(request, handoff), "
+                             "not submit(): a prompt with no finished prefill attached has "
+                             "nothing to decode from")
+        return self._enqueue(request)
+
+    def _enqueue(self, request: Request) -> int:
+        """The admission body of :meth:`submit` and :meth:`accept`: the
+        adapter and page checks, the scheduler's enqueue, the recorder's
+        stamp."""
         aid = int(request.adapter)
         if aid and self._bank is None:
             raise ValueError(f"request names adapter {aid} but the engine has no adapter "
@@ -627,6 +770,69 @@ class ServeEngine:
                                            max_new=request.max_new_tokens, adapter=aid)
         return rid
 
+    def accept(self, request: Request, handoff: Handoff) -> int:
+        """Decode-role admission (JAX ``:1815``): enqueue ``request`` with
+        its finished prefill attached; returns its id here. The segment is
+        checked against this engine's cache first (:meth:`_validate_segment`:
+        a segment of another storage, window or layer count raises
+        ``ValueError`` now, not inside a forward), then admission runs as
+        :meth:`submit`'s. The handoff's ``submitted_s`` replaces the
+        scheduler's stamp, so latency and TTFT span the original submit."""
+        if self._role != "decode":
+            raise ValueError("accept() needs role='decode': monolithic and prefill-role "
+                             "engines take work via submit()")
+        self._validate_segment(handoff)
+        rid = self._enqueue(request)
+        if handoff.submitted_s:
+            request.submitted_s = handoff.submitted_s
+        self._handoff_in[rid] = handoff
+        return rid
+
+    def take_handoff(self, request_id: int) -> Handoff:
+        """Pop the :class:`.scheduler.Handoff` this prefill-role engine
+        emitted for ``request_id`` (JAX ``:1837``; the router calls it on
+        the ``"handoff"`` completion). Its tensors leave with it."""
+        if self._role != "prefill":
+            raise ValueError("take_handoff() needs role='prefill': only prefill-role "
+                             "engines emit handoffs")
+        return self._handoffs.pop(request_id)
+
+    def _validate_segment(self, handoff: Handoff) -> None:
+        """A handoff's segment must be a batch-1 cache of this engine's
+        storage (JAX ``:1850``): the same KV quantization, the same leaves
+        with the same dtypes, layer count, KV heads and head width, and
+        positions no more than this engine's window, covering the prompt."""
+        seg, proto = handoff.segment, self._xfer
+        if not isinstance(seg, KVCache) or seg.quant != proto.quant:
+            raise ValueError("handoff segment does not match this engine's cache layout "
+                             "(different model config or KV cache storage?)")
+        got, want = _cache_leaves(seg), _cache_leaves(proto)
+        if got.keys() != want.keys():
+            raise ValueError(f"handoff segment leaves {sorted(got)} are not this engine's "
+                             f"{sorted(want)}")
+        for name, leaf in got.items():
+            p = want[name]
+            if (leaf.dtype != p.dtype or leaf.ndim != p.ndim
+                    or leaf.shape[:2] != p.shape[:2] or leaf.shape[3:] != p.shape[3:]):
+                raise ValueError(f"handoff segment leaf {name} {leaf.dtype}{tuple(leaf.shape)} "
+                                 f"does not match this engine's {p.dtype}{tuple(p.shape)}")
+            if not handoff.p_len <= leaf.shape[2] <= self.window:
+                raise ValueError(f"handoff segment of {leaf.shape[2]} positions does not fit "
+                                 f"this engine's window ({self.window}) or cover its prompt "
+                                 f"({handoff.p_len})")
+
+    @property
+    def role(self) -> str | None:
+        return self._role
+
+    @property
+    def load(self) -> int:
+        """The host-visible backlog (JAX ``:1902``): active + pending +
+        queued + accepted handoffs waiting for a slot — the router's
+        least-loaded decode placement key. Host counting only."""
+        return (self.active_slots + len(self._pending) + len(self.scheduler)
+                + len(self._handoff_in))
+
     @property
     def active_slots(self) -> int:
         return sum(a is not None for a in self._slots)
@@ -634,14 +840,17 @@ class ServeEngine:
     @property
     def idle(self) -> bool:
         return (self.active_slots == 0 and not self._pending
-                and len(self.scheduler) == 0 and not self._inflight)
+                and len(self.scheduler) == 0 and not self._inflight
+                and not self._handoff_in)
 
     @torch.no_grad()
     def step(self) -> list[Completion]:
         """One scheduling round: sweep the active slots for cancels and
-        expired deadlines (:meth:`_sweep`, at the observed chain boundary),
-        advance each chunked prefill by one chunk, refill free slots from
-        the queue, dispatch one decode chain over all slots, then collect
+        expired deadlines (:meth:`_sweep`, at the observed chain boundary;
+        under tensor parallelism rank 0's verdicts, :meth:`_decide`),
+        advance each chunked prefill by one chunk, with SLO classes
+        preempt for a waiting higher class (:meth:`_maybe_preempt`), refill
+        free slots from the queue (a preempted request swaps back in), dispatch one decode chain over all slots, then collect
         the oldest in-flight chain and hand out its tokens while more than
         ``pipeline_depth - 1`` are in flight (all of them once no slot is
         active). Depth 1 collects the chain it just dispatched: the serial
@@ -652,6 +861,8 @@ class ServeEngine:
         (:meth:`refresh_adapters`)."""
         if self._bank is not None and self._bank.version != self._merged_version:
             self.refresh_adapters()
+        if self._tp is not None:
+            self._decided = self._decide()
         done: list[Completion] = self._sweep()
         if self._flight is not None and done:
             self._flight.sweep(len(done))
@@ -659,6 +870,10 @@ class ServeEngine:
         # begun this round is not advanced twice
         for slot in list(self._pending):
             done.extend(self._advance_one(self._pending[slot]))
+        if self._slo:
+            # before refill: a slot freed by a swap-out takes the waiting
+            # higher class this very round
+            done.extend(self._maybe_preempt())
         for s in range(self.n_slots):
             if self._slots[s] is not None or s in self._pending:
                 continue
@@ -685,7 +900,9 @@ class ServeEngine:
         chain_id = self.n_chains
         if self._flight is not None:
             self._flight.chain_start(self.active_slots, self.n_slots, chain=chain_id)
-        if self._chaos is not None:
+        if self._chaos is not None and (self._tp is None or self._tp.rank == 0):
+            # under tensor parallelism the stall is rank 0's host alone:
+            # the others wait for it in the next collective
             chaos_lib.maybe_stall(self._chaos, chain_id, flight=self._flight)
         block = self._spec_chain() if self._spec else self._chain()
         self.n_chains += 1
@@ -872,8 +1089,27 @@ class ServeEngine:
         return {"pipeline_depth": self._depth, "prefill_chunk": self._chunk,
                 "n_chunks": self.n_chunks}
 
+    def role_stats(self) -> dict[str, int | str]:
+        """Disaggregation fields (the JAX engine's keys): the role and the
+        handoffs emitted and accepted; ``{"role": 0}`` when monolithic.
+        Host bookkeeping only."""
+        if self._role is None:
+            return {"role": 0}
+        return {"role": self._role, "handoffs_out": self.n_handoffs_out,
+                "handoffs_in": self.n_handoffs_in}
+
+    def slo_stats(self) -> dict[str, int]:
+        """SLO-tier fields (the JAX engine's keys): the class count, the
+        preemptions (swaps out), swaps in and requests parked now;
+        ``{"priority_classes": 0}`` when off. Host bookkeeping only."""
+        if not self._slo:
+            return {"priority_classes": 0}
+        return {"priority_classes": self._n_classes, "preemption": 1,
+                "n_preemptions": self.n_swaps_out, "n_swaps_out": self.n_swaps_out,
+                "n_swaps_in": self.n_swaps_in, "swapped_now": len(self._swapped)}
+
     _STATS_PARTS = ("prefix", "spec", "adapters", "fault", "flight", "pipeline", "pages",
-                    "tp")
+                    "tp", "role", "slo")
 
     def stats(self, *parts: str) -> dict[str, int | float]:
         """One dict over the per-subsystem stats (the JAX engine's parts
@@ -887,7 +1123,8 @@ class ServeEngine:
         fns = {"prefix": self.prefix_stats, "spec": self.spec_stats,
                "adapters": self.adapter_stats, "fault": self.fault_stats,
                "flight": self.flight_stats, "pipeline": self.pipeline_stats,
-               "pages": self.page_stats, "tp": self.tp_stats}
+               "pages": self.page_stats, "tp": self.tp_stats, "role": self.role_stats,
+               "slo": self.slo_stats}
         out: dict[str, int | float] = {}
         for part in self._STATS_PARTS:
             if part in chosen:
@@ -944,6 +1181,7 @@ class ServeEngine:
             "tp_backend": self._tp.backend,
             "tp_kv_bytes_per_chip": tree_nbytes(self._state.cache),
             "tp_kv_bytes_global": tree_nbytes(self._whole_cache()),
+            "tp_decision_broadcasts": self.n_decision_broadcasts,
         }
         if self._tp_audit is not None:
             out["tp_collectives"] = sum(self._tp_audit["collectives"].values())
@@ -1002,18 +1240,68 @@ class ServeEngine:
         """Cancel a request on the host. True when ``request_id`` is queued,
         pending a chunked prefill or decoding: it completes ``"cancelled"``
         at the next boundary (queued or pending: no tokens and no further
-        device work; decoding: the tokens landed so far are kept and the
-        slot released). False for an id that finished or was never
-        submitted. No sync, no interrupt of a running chain. Under tensor
-        parallelism the caller makes the same call on every rank at the
-        same point of the loop (between the same two steps)."""
+        device work — a preempted request keeps the tokens it earned;
+        decoding: the tokens landed so far are kept and the slot released).
+        False for an id that finished or was never submitted. No sync, no
+        interrupt of a running chain.
+
+        Under tensor parallelism the engine must be ``cancellable`` (else
+        ``ValueError``) and the call is made on rank 0: its next step's
+        broadcast carries the cancel to every rank. On another rank the
+        call only reports whether the id is known and changes nothing."""
         known = (any(a is not None and a.request.request_id == request_id
                      for a in self._slots)
                  or any(p.request.request_id == request_id for p in self._pending.values())
                  or self.scheduler.has(request_id))
+        if self._tp is not None:
+            if not self._cancellable:
+                raise ValueError("cancel() under tensor parallelism needs "
+                                 "ServeEngine(cancellable=True): rank 0 decides, and its "
+                                 "verdicts are broadcast each step")
+            if self._tp.rank != 0:
+                return known
         if known:
             self._cancelled.add(request_id)
         return known
+
+    def _live_requests(self) -> list[Request]:
+        """Every request the engine holds, in a fixed order (slots,
+        pending prefills, the queue): the same list on every rank."""
+        return ([a.request for a in self._slots if a is not None]
+                + [p.request for p in self._pending.values()] + list(self.scheduler))
+
+    def _decide(self) -> dict[int, str] | None:
+        """Tensor parallel: this step's verdicts, rank 0's. When a deadline
+        is set (the engine's, or a live request's), a chaos stall is
+        configured or the engine is ``cancellable`` — a condition every
+        rank evaluates alike — rank 0 judges each live request
+        (``"cancelled"``, ``"deadline"`` or nothing, on its own clock and
+        its own cancels) and broadcasts the codes in ONE message over the
+        CPU gloo group (:func:`_decision_group`, made at the first
+        broadcast); every rank returns ``{request_id: verdict}`` from
+        it, applied by :meth:`_sweep` and :meth:`_bounced` this step. Else
+        None: no broadcast, and the local checks (which then find nothing
+        to do) stand."""
+        live = self._live_requests()
+        c = self._chaos
+        if not (self._cancellable or self._deadline is not None
+                or (c is not None and c.stalls)
+                or any(r.deadline_s is not None for r in live)):
+            return None
+        codes = torch.zeros(max(1, len(live)), dtype=torch.int64)
+        if self._tp.rank == 0:
+            now = time.perf_counter()
+            for i, r in enumerate(live):
+                if r.request_id in self._cancelled:
+                    codes[i] = 1
+                elif self._expired(r, now):
+                    codes[i] = 2
+        if self._dgroup is None:
+            self._dgroup, self._dsrc = _decision_group(self._tp)
+        dist.broadcast(codes, src=self._dsrc, group=self._dgroup)
+        self.n_decision_broadcasts += 1
+        return {r.request_id: _VERDICTS[code]
+                for r, code in zip(live, codes.tolist()) if code}
 
     def _deadline_for(self, req: Request) -> float | None:
         return req.deadline_s if req.deadline_s is not None else self._deadline
@@ -1024,51 +1312,212 @@ class ServeEngine:
             return False
         return (time.perf_counter() if now is None else now) - req.submitted_s > dl
 
+    def _verdict(self, req: Request, now: float | None = None,
+                 **fields) -> str | None:
+        """``"cancelled"``, ``"deadline"`` or None for ``req`` at this
+        boundary — rank 0's broadcast verdict under tensor parallelism,
+        else this host's cancel set and clock — counted (and a deadline
+        stamped on the recorder with ``fields``)."""
+        if self._decided is not None:
+            reason = self._decided.get(req.request_id)
+        elif req.request_id in self._cancelled:
+            reason = "cancelled"
+        else:
+            reason = "deadline" if self._expired(req, now) else None
+        if reason == "cancelled":
+            self._cancelled.discard(req.request_id)
+            self.n_cancelled += 1
+        elif reason == "deadline":
+            self.n_deadline_expired += 1
+            if self._flight is not None:
+                self._flight.fault("deadline", rid=req.request_id, **fields)
+        return reason
+
     def _sweep(self) -> list[Completion]:
         """The boundary check of the active slots: complete each one whose
         request was cancelled or whose deadline passed, keeping its tokens,
         and release its slot (:meth:`_release`). Host bookkeeping and the
         park; no sync."""
         done: list[Completion] = []
-        if not self._cancelled and self._deadline is None and not any(
+        if self._decided is not None:
+            if not self._decided:
+                return done
+        elif not self._cancelled and self._deadline is None and not any(
                 a is not None and a.request.deadline_s is not None for a in self._slots):
             return done
         now = time.perf_counter()
         for s, act in enumerate(self._slots):
             if act is None:
                 continue
-            req = act.request
-            if req.request_id in self._cancelled:
-                reason = "cancelled"
-                self._cancelled.discard(req.request_id)
-                self.n_cancelled += 1
-            elif self._expired(req, now):
-                reason = "deadline"
-                self.n_deadline_expired += 1
-                if self._flight is not None:
-                    self._flight.fault("deadline", rid=req.request_id, slot=s)
-            else:
+            reason = self._verdict(act.request, now, slot=s)
+            if reason is None:
                 continue
             self._slots[s] = None
             self._release(s, act)
             done.append(self._complete(act, reason))
         return done
 
-    def _bounced(self, req: Request, slot: int | None = None) -> Completion | None:
+    def _bounced(self, req: Request, slot: int | None = None,
+                 rec: SwapRecord | None = None) -> Completion | None:
         """The refill boundary's check of a request that holds no slot yet
         (queued, or pending a chunked prefill): its completion when it was
-        cancelled or its deadline passed, else None."""
-        if req.request_id in self._cancelled:
-            self._cancelled.discard(req.request_id)
-            self.n_cancelled += 1
-            return self._complete_unstarted(req, "cancelled")
-        if self._expired(req):
-            self.n_deadline_expired += 1
+        cancelled or its deadline passed, else None. A preempted request
+        (``rec``) keeps the tokens it earned before the swap."""
+        reason = self._verdict(req, **({} if slot is None else {"slot": slot}))
+        return None if reason is None else self._bounce(req, rec, reason)
+
+    def _bounce(self, req: Request, rec: SwapRecord | None, reason: str) -> Completion:
+        """A boundary completion of a request that holds no slot: no tokens
+        for one that never started, the earned tokens of a preempted one."""
+        if rec is not None:
+            return self._complete(rec.active, reason)
+        return self._complete_unstarted(req, reason)
+
+    # -- SLO preemption: swap out, swap in --------------------------------
+
+    def _maybe_preempt(self) -> list[Completion]:
+        """The preemption decision (JAX ``:2145``), at the chain boundary.
+        Pressure: a strictly higher class waits and no slot can take it —
+        every slot is occupied or pending, or (paged, JAX ``:2186-2194``)
+        the pool cannot back the best waiter even with a free slot. Then
+        the lowest-tier active slot (:func:`.slo.choose_victim`) is swapped
+        out (:meth:`_swap_out`), after every in-flight chain is collected
+        (each its own counted sync): at depth 2 the device runs a chain
+        ahead of the host's view, and the swap must capture what the host
+        has accounted for; a victim that finished in a collected chain is
+        not swapped. The chaos ``preempt_at_chain`` forces its named slot
+        through the same path, once."""
+        done: list[Completion] = []
+        c = self._chaos
+        if (c is not None and c.preempts and not self._chaos_preempt_fired
+                and self.n_chains >= c.preempt_at_chain):
+            self._chaos_preempt_fired = True
+            victim = int(c.preempt_slot)
+            if victim >= self.n_slots or self._slots[victim] is None:
+                return done
+        else:
+            wait = self.scheduler.peek_priority()
+            if wait is None:
+                return done
+            pressure = not any(self._slots[s] is None and s not in self._pending
+                               for s in range(self.n_slots))
+            if not pressure and self._paged:
+                head = self.scheduler.peek_request()
+                if int(head.priority) == wait:
+                    need = self._pool.pages_needed(len(head.prompt) + head.max_new_tokens)
+                    pressure = self._pool.available < need
+            if not pressure:
+                return done
+            victim = choose_victim(
+                [(s, int(a.request.priority), a.request.request_id)
+                 for s, a in enumerate(self._slots) if a is not None], wait)
+            if victim is None:
+                return done
+        while self._inflight:
+            done.extend(self._collect_chain())
+        if self._slots[victim] is not None:
+            self._swap_out(victim)
+        return done
+
+    def _swap_layout(self, seg_len: int) -> list[tuple]:
+        """The (shape, dtype) of each tensor a swap packs, in order: the
+        cache segment's leaves over ``seg_len`` positions, the last token
+        and, speculative, the history and its length."""
+        st = self._state
+        like = [((x.shape[0], 1, seg_len) + tuple(x.shape[3:]), x.dtype)
+                for x in _cache_leaves(self._xfer).values()]
+        like.append(((1,), st.last_tok.dtype))
+        if self._spec:
+            like += [((1, st.hist.shape[1]), st.hist.dtype), ((1,), st.hist_len.dtype)]
+        return like
+
+    def _swap_out(self, slot: int) -> None:
+        """Park ``slot``'s request on the host (JAX ``:2219``): its cache
+        segment over ``[0, seg_len)`` (``seg_len`` the bucket of its next
+        write position; paged, its pages gathered into the transfer cache
+        first, :func:`.slots.seed_cache_paged`), last token and
+        (speculative) history packed into one buffer (:func:`.slots.pack`)
+        and fetched in ONE counted sync (:meth:`_fetch`); the generator's
+        state is host bytes already. The slot is then released as a
+        completion's is (parked; paged, its pages returned; its prefix
+        donor released — the swap-in splices from the parked copy, never
+        from the donor) and the request requeued at its arrival position
+        with a :class:`.slo.SwapRecord`."""
+        act = self._slots[slot]
+        req = act.request
+        position = len(req.prompt) + len(act.tokens) - 1
+        seg_len = bucket_len(position, self.window)
+        st = self._state
+        if self._paged:
+            cache1 = seed_cache_paged(self._xfer, st.cache, act.pages, position)
+            leaves = [x[:, :, :seg_len] for x in _cache_leaves(cache1).values()]
+        else:
+            leaves = [x[:, slot:slot + 1, :seg_len] for x in _cache_leaves(st.cache).values()]
+        leaves.append(st.last_tok[slot:slot + 1])
+        if self._spec:
+            leaves += [st.hist[slot:slot + 1], st.hist_len[slot:slot + 1]]
+        gen_state = st.generators[slot].get_state()
+        packed = self._fetch(pack(leaves))  # the swap's one counted sync
+        self.n_swaps_out += 1
+        self._slots[slot] = None
+        self._release(slot, act)
+        self._swapped[req.request_id] = SwapRecord(
+            active=act, packed=packed, generator_state=gen_state, position=position,
+            seg_len=seg_len, preempt_t=time.perf_counter())
+        self.scheduler.requeue(req)
+        if self._flight is not None:
+            self._flight.preempted(req.request_id, slot=slot, position=position,
+                                   tokens=len(act.tokens))
+
+    def _swap_in(self, slot: int, req: Request, rec: SwapRecord) -> list[Completion]:
+        """Resume a preempted request in ``slot`` (JAX ``:2276``): the
+        packed buffer goes up in one pinned, non-blocking copy
+        (:func:`.slots.upload`; no fetch), its segment is seeded into the
+        transfer cache at the parked position and copied into the slot —
+        paged, into freshly allocated pages (:func:`.slots.write_slot_paged`
+        rewrites them whole) — and the request's live budget, last token,
+        generator state and history are restored verbatim: it resumes
+        token-exact. If this raises, the request completes ``"error"`` with
+        the tokens it earned before the swap, the pages go back and the
+        slot parks, as for a raising prefill."""
+        act, st, pages = rec.active, self._state, []
+        try:
+            parts = unpack(upload(rec.packed, torch.uint8, self.device),
+                           self._swap_layout(rec.seg_len))
+            names = list(_cache_leaves(self._xfer))
+            seg = KVCache(index=self._xfer.index, quant=self._xfer.quant,
+                          **dict(zip(names, parts)))
+            cache1 = seed_cache(self._xfer, seg, rec.position)
+            last_tok = parts[len(names)][0]
+            if self._paged:
+                pages = self._pool.alloc(
+                    self._pool.pages_needed(len(req.prompt) + req.max_new_tokens))
+                write_slot_paged(st, cache1, pages, slot, rec.position, last_tok,
+                                 act.remaining + 1)
+            else:
+                copy_slot(st, cache1, slot)
+                write_slot(st, slot, rec.position, last_tok, act.remaining + 1)
+            st.generators[slot].set_state(rec.generator_state)
+            if self._spec:
+                st.hist[slot] = parts[-2][0]
+                st.hist_len[slot] = parts[-1][0]
+            if self._bank is not None:
+                set_adapter(st, slot, int(req.adapter))
+        except Exception:
+            _log.warning("request %d: swap-in into slot %d raised; completed 'error'",
+                         req.request_id, slot, exc_info=True)
+            self._park_failed(slot, pages)
+            self.n_prefill_errors += 1
             if self._flight is not None:
-                fields = {} if slot is None else {"slot": slot}
-                self._flight.fault("deadline", rid=req.request_id, **fields)
-            return self._complete_unstarted(req, "deadline")
-        return None
+                self._flight.fault("swap_in_error", rid=req.request_id, slot=slot)
+            return [self._complete(act, "error")]
+        act.pages = pages
+        self.n_swaps_in += 1
+        self._slots[slot] = act
+        if self._flight is not None:
+            self._flight.resumed(req.request_id, slot=slot,
+                                 wait_s=time.perf_counter() - rec.preempt_t)
+        return []
 
     @property
     def closed(self) -> bool:
@@ -1134,8 +1583,12 @@ class ServeEngine:
         completed here (``"cancelled"``, ``"deadline"``,
         ``"adapter_evicted"``) with no device work; the slot stays free. A
         refill that raises is isolated to its request (:meth:`_admit` has
-        cleaned up): it completes ``"error"``."""
-        bounced = self._bounced(req)
+        cleaned up): it completes ``"error"``. A preempted request swaps
+        back in (:meth:`_swap_in`), a decode-role engine splices the
+        request's handoff (:meth:`_accept_refill`) and a prefill-role one
+        emits one (:meth:`_refill_handoff`)."""
+        rec = self._swapped.pop(req.request_id, None) if self._slo else None
+        bounced = self._bounced(req, rec=rec)
         if bounced is not None:
             return [bounced]
         aid = int(req.adapter)
@@ -1144,10 +1597,16 @@ class ServeEngine:
             self.adapter_rejected += 1
             if self._flight is not None:
                 self._flight.fault("adapter_evicted", rid=req.request_id, adapter=aid)
-            return [self._complete_unstarted(req, "adapter_evicted")]
+            return [self._bounce(req, rec, "adapter_evicted")]
         if aid:
             self.adapter_requests += 1
+        if rec is not None:
+            return self._swap_in(slot, req, rec)
+        if self._role == "decode":
+            return self._accept_refill(slot, req)
         prompt = [int(t) for t in req.prompt]
+        if self._role == "prefill":
+            return self._refill_handoff(slot, req, prompt)
         try:
             admitted = self._admit(slot, req, prompt)
         except Exception:
@@ -1169,6 +1628,142 @@ class ServeEngine:
         if self._flight is not None:
             self._flight.fault("prefill_error", rid=req.request_id, slot=slot)
         return self._complete_unstarted(req, "error")
+
+    # -- disaggregation: the prefill role's emits, the decode role's accept
+
+    def _refill_handoff(self, slot: int, req: Request, prompt: list[int]) -> list[Completion]:
+        """Prefill-role refill (JAX ``_refill_handoff``): the prompt's whole
+        prefill (:meth:`_handoff_prefill`), its splice from a prefix hit
+        (:meth:`_handoff_splice`) or the start of its chunked prefill (the
+        final chunk emits, :meth:`_advance_one`), ending in a
+        :class:`.scheduler.Handoff` instead of slot surgery — no host sync.
+        The outgoing segment doubles as the prompt's prefix segment, and a
+        splice's donor unpins as soon as the splice is queued. A refill
+        that raises completes ``"error"`` (no slot state was written)."""
+        hit, grow = self._lookup(self._prefix_key(prompt, int(req.adapter)))
+        depth = hit[0] if hit is not None else 0
+        segment = None
+        try:
+            if self._chaos is not None:
+                chaos_lib.maybe_fail_prefill(self._chaos, req.request_id)
+            if self._chunk and len(prompt) - depth > self._chunk:
+                self._pending[slot] = self._start_pending(slot, req, prompt, hit, grow)
+                return self._advance_one(self._pending[slot])
+            if hit is not None:
+                segment = hit[1]
+                self.prefix.acquire(segment)  # pin the donor FIRST
+                seg, first, gen_state = self._handoff_splice(slot, req, prompt, depth,
+                                                             segment)
+                kind = "splice"
+            else:
+                seg, first, gen_state = self._handoff_prefill(slot, req, prompt)
+                kind = "prefill"
+        except Exception:
+            if segment is not None:
+                self.prefix.release(segment)
+            return [self._prefill_error(req, slot)]
+        if segment is not None:
+            self.prefix.release(segment)
+        self.refills[kind] += 1
+        self.prefix_hit_tokens += depth
+        if grow is not None:
+            self.prefix.insert(grow, seg, tree_nbytes(seg))
+        return self._emit_handoff(req, seg, first, gen_state, len(prompt))
+
+    def _handoff_first(self, slot: int, req: Request, logits):
+        """A prefill-role refill's first token (:meth:`_first_token`, on
+        the device) and the slot generator's state after its draw (host
+        bytes: no sync)."""
+        first = self._first_token(slot, req, logits)
+        return first, self._state.generators[slot].get_state()
+
+    def _handoff_prefill(self, slot: int, req: Request, prompt: list[int]):
+        """Prefill-role miss (JAX ``_handoff_prefill_fn``, ``:1270``): the
+        monolithic whole prefill's forward over the bucket-padded prompt
+        into the batch-1 transfer cache, then that cache cut to the bucket
+        (:func:`.slots.extract_segment`). Returns ``(segment, first,
+        generator_state)``. No host sync."""
+        p_len = len(prompt)
+        bucket = bucket_len(p_len, self.window)
+        logits = self.model(self._tokens(prompt, bucket), self._xfer, prefill=True,
+                            last_pos=p_len - 1, adapter_ids=self._ids(req))
+        first, gen_state = self._handoff_first(slot, req, logits)
+        return extract_segment(self._xfer, bucket), first, gen_state
+
+    def _handoff_splice(self, slot: int, req: Request, prompt: list[int], depth: int,
+                        segment: Segment):
+        """Prefill-role prefix hit (JAX ``_handoff_splice_fn``, ``:1299``):
+        the monolithic splice's side cache seeded from the donor at
+        ``depth`` and its one suffix continuation, then the side cache cut
+        to the prompt's bucket. Returns ``(segment, first,
+        generator_state)``. No host sync."""
+        suffix = prompt[depth:]
+        tokens = self._tokens(suffix, bucket_len(len(suffix), self.window))
+        cache1 = seed_cache(self._side, segment.handle, depth)
+        logits = self.model(tokens, cache1, decode=True, last_pos=len(prompt) - 1 - depth,
+                            adapter_ids=self._ids(req))
+        first, gen_state = self._handoff_first(slot, req, logits)
+        return extract_segment(cache1, bucket_len(len(prompt), self.window)), first, gen_state
+
+    def _handoff_final(self, pend: _PendingPrefill):
+        """Prefill-role final chunk (JAX ``_handoff_final_fn``, ``:1315``):
+        the monolithic final chunk's continuation over the accumulated side
+        cache, then that cache cut to the prompt's bucket. Returns
+        ``(segment, first, generator_state)``. No host sync."""
+        req, prompt = pend.request, pend.prompt
+        rest = len(prompt) - pend.done
+        tokens = self._tokens(prompt[pend.done:], bucket_len(rest, self.window))
+        logits = self.model(tokens, pend.cache1, decode=True, last_pos=rest - 1,
+                            adapter_ids=self._ids(req))
+        first, gen_state = self._handoff_first(pend.slot, req, logits)
+        return (extract_segment(pend.cache1, bucket_len(len(prompt), self.window)), first,
+                gen_state)
+
+    def _emit_handoff(self, req: Request, seg: KVCache, first, gen_state,
+                      p_len: int) -> list[Completion]:
+        """Park a finished prefill for :meth:`take_handoff` and complete
+        the request ``"handoff"`` (no tokens here). Host bookkeeping only."""
+        self._handoffs[req.request_id] = Handoff(
+            segment=seg, first=first, generator_state=gen_state, p_len=p_len,
+            bucket=seg.k.shape[2], aid=int(req.adapter), submitted_s=req.submitted_s)
+        self.n_handoffs_out += 1
+        if self._flight is not None:
+            self._flight.record("handoff_emit", rid=req.request_id, p_len=p_len)
+        return [self._complete_unstarted(req, "handoff")]
+
+    def _accept_refill(self, slot: int, req: Request) -> list[Completion]:
+        """Decode-role refill (JAX ``_accept_fn`` ``:1350`` and
+        ``_accept_paged_fn`` ``:1390``): rebuild the monolithic
+        post-prefill slot from the request's handoff — the segment seeded
+        into the batch-1 transfer cache at the prompt's length
+        (:func:`.slots.seed_cache`: the bucket's K/V, zeros past it), copied
+        into the slot (:func:`.slots.copy_slot` + :func:`.slots.write_slot`)
+        or, paged, into fresh pages (:func:`.slots.write_slot_paged`) —
+        bitwise, since nothing is recomputed; the slot generator takes the
+        handoff's state. Then the handoff's one host sync: the fetch of the
+        first token. A refill that raises is isolated as a prefill's is."""
+        h = self._handoff_in.pop(req.request_id)
+        st, pages = self._state, []
+        try:
+            if self._chaos is not None:
+                chaos_lib.maybe_fail_prefill(self._chaos, req.request_id)
+            if self._bank is not None:
+                set_adapter(st, slot, h.aid)
+            cache1 = seed_cache(self._xfer, h.segment, h.p_len)
+            if self._paged:
+                pages = self._pool.alloc(self._pool.pages_needed(h.p_len + req.max_new_tokens))
+                write_slot_paged(st, cache1, pages, slot, h.p_len, h.first[0],
+                                 req.max_new_tokens)
+            else:
+                copy_slot(st, cache1, slot)
+                write_slot(st, slot, h.p_len, h.first[0], req.max_new_tokens)
+            st.generators[slot].set_state(h.generator_state)
+            self.n_handoffs_in += 1
+            first = int(self._fetch(h.first)[0])
+        except Exception:
+            self._park_failed(slot, pages)
+            return [self._prefill_error(req, slot)]
+        return self._activate(slot, req, first, pages, kind="handoff")
 
     def _admit(self, slot: int, req: Request, prompt: list[int], first=None,
                all_chunks: bool = False):
@@ -1408,7 +2003,8 @@ class ServeEngine:
         """One chunk of a pending prefill: a mid chunk (exactly
         ``prefill_chunk`` tokens, no host sync) or the final one
         (:meth:`_final_chunk`, one host sync for the first token), which
-        admits the request. A request cancelled or past its deadline is
+        admits the request — on a prefill-role engine emits its handoff
+        (:meth:`_handoff_final`, no sync). A request cancelled or past its deadline is
         completed first, with no tokens, and its prefill abandoned. If the
         device work raises, the pending prefill is abandoned, the slot
         parked and the request completed ``"error"``."""
@@ -1424,9 +2020,13 @@ class ServeEngine:
                     self._flight.prefill_chunk(pend.request.request_id, pend.slot,
                                                done=pend.done, total=len(pend.prompt))
                 return []
-            _, first, pages = self._final_chunk(pend)
+            if self._role == "prefill":
+                seg, first, gen_state = self._handoff_final(pend)
+            else:
+                _, first, pages = self._final_chunk(pend)
             self.n_chunks += 1
-            first = int(self._fetch(first)[0])
+            if self._role != "prefill":
+                first = int(self._fetch(first)[0])
         except Exception:
             self._abandon_pending(pend)
             self._park_failed(pend.slot, [])
@@ -1437,6 +2037,14 @@ class ServeEngine:
         segment = pend.segment
         pend.pages, pend.segment = [], None  # ownership moves to the slot
         del self._pending[pend.slot]
+        if self._role == "prefill":
+            # the segment leaves in the handoff: the donor unpins now, and
+            # the outgoing segment is the prompt's prefix segment
+            if segment is not None:
+                self.prefix.release(segment)
+            if pend.grow is not None:
+                self.prefix.insert(pend.grow, seg, tree_nbytes(seg))
+            return self._emit_handoff(pend.request, seg, first, gen_state, len(pend.prompt))
         return self._activate(pend.slot, pend.request, first, pages, segment, pend.depth)
 
     def _mid_chunk(self, pend: _PendingPrefill) -> None:
@@ -1679,7 +2287,8 @@ class ServeEngine:
             self._state.remaining[slot].zero_()
 
     def _activate(self, slot: int, req: Request, first: int, pages=None,
-                  segment: Segment | None = None, cached_len: int = 0) -> list[Completion]:
+                  segment: Segment | None = None, cached_len: int = 0,
+                  kind: str | None = None) -> list[Completion]:
         """Admit a just-prefilled request into the decode phase; an EOS or
         ``max_new_tokens == 1`` first token completes it at once. Every
         refill kind (whole prefill, splice, chunked, chunked with a splice;
@@ -1687,13 +2296,14 @@ class ServeEngine:
         seeds the slot's draft history (:func:`.slots.seed_history`: the
         prompt, uploaded non-blocking, and the first token) and the
         recorder stamps the request's first token (``cached_len``: the
-        reused prefix length)."""
+        reused prefix length; ``kind`` names an accepted handoff's)."""
         self.generated_tokens += 1
         act = _Active(req, first, pages, segment)
         act.ttft_s = time.perf_counter() - req.submitted_s
         if self._flight is not None:
             self._flight.request_prefilled(
-                req.request_id, slot, kind="splice" if segment is not None else "prefill",
+                req.request_id, slot,
+                kind=kind or ("splice" if segment is not None else "prefill"),
                 cached_len=cached_len)
         if req.max_new_tokens == 1 or first == req.eos_token:
             reason = "eos" if first == req.eos_token else "length"
@@ -1813,8 +2423,10 @@ class ServeEngine:
 
     def _complete_unstarted(self, req: Request, reason: str) -> Completion:
         """A completion with no tokens for a request stopped before its
-        first token (cancelled, deadline, adapter evicted, prefill
-        error)."""
+        first token (cancelled, deadline, adapter evicted, prefill error,
+        or a prefill-role engine's handoff). An accepted handoff the
+        request still holds is dropped."""
+        self._handoff_in.pop(req.request_id, None)
         comp = Completion(
             request_id=req.request_id, prompt=[int(t) for t in req.prompt], tokens=[],
             finish_reason=reason, latency_s=time.perf_counter() - req.submitted_s,

@@ -50,10 +50,12 @@ passes through, percentiles come from the merged histograms).
 An N=1 router with hedging off is plumbing: global ids are the engine's
 local ids and the completions are the engine's own objects.
 
-Role-aware dispatch (engines with ``role="prefill"`` / ``"decode"``, a
-handoff moved by :meth:`FleetRouter._move_handoffs`) is copied as it is;
-the port's engines carry no role yet, so a port fleet takes the
-monolithic paths.
+Disaggregation: a fleet of ``role="prefill"`` and ``role="decode"``
+engines (all-or-nothing, at least one of each) takes submissions on its
+prefill replicas only; each ``"handoff"`` completion's
+:class:`.scheduler.Handoff` (``take_handoff``) moves to the least-``load``
+healthy decode replica (:meth:`FleetRouter._move_handoffs`, ``accept``),
+recorded in the ledger as a ``"handoff"`` dispatch.
 """
 
 from __future__ import annotations

@@ -58,7 +58,11 @@ class Request:
 
     ``priority`` is the request's SLO class (0 the highest). The FIFO
     scheduler admits class 0 only: any other raises ``ValueError`` at
-    submit. A fleet router's ``class_deadline_s`` stamps deadlines by it."""
+    submit; an engine with ``priority_classes`` (its
+    :class:`.slo.PriorityScheduler`) admits ``[0, priority_classes)``, pops
+    by class and may preempt a lower class's active request (its KV
+    swapped to host) for a higher one, resuming it token-exact later.
+    A fleet router's ``class_deadline_s`` stamps deadlines by it."""
 
     prompt: Any
     max_new_tokens: int
@@ -71,6 +75,33 @@ class Request:
     request_id: int = -1
     submitted_s: float = 0.0
     adapter_gen: int = 0
+
+
+@dataclasses.dataclass
+class Handoff:
+    """A finished prefill leaving a ``role="prefill"`` engine (the JAX
+    package's ``Handoff``, ``serve/scheduler.py:89``), for a
+    ``role="decode"`` engine's ``accept``.
+
+    ``segment`` is the batch-1 :class:`..models.transformer.KVCache` cut to
+    the prompt's power-of-two bucket ``[0, bucket)``, ``first`` the sampled
+    first token, a (1,) tensor; both stay on the device (the prefill side
+    never syncs on them; the decode side's accept fetches ``first``, the
+    handoff's one sync). ``generator_state`` is the request's sampling
+    generator's state after that first draw (host bytes, read with no
+    sync; the port samples from per-slot ``torch.Generator`` s where the
+    JAX engine carries a key), so the decode side continues the request's
+    draws where a monolithic engine would. ``aid`` is the request's adapter
+    row. ``submitted_s`` is the prefill side's admission stamp, restored by
+    the decode side so latency and TTFT span the original submit."""
+
+    segment: Any
+    first: Any
+    generator_state: Any
+    p_len: int
+    bucket: int
+    aid: int = 0
+    submitted_s: float = 0.0
 
 
 @dataclasses.dataclass
@@ -89,6 +120,11 @@ class Completion:
       quarantined (the tokens before the poisoned step are kept);
     - ``"error"``: its prefill raised and the request was isolated (no
       tokens; the engine keeps serving).
+
+    ``"handoff"``: a ``role="prefill"`` engine finished the prompt's
+    prefill and parked it for transfer (no tokens here; collect the
+    :class:`Handoff` with ``take_handoff`` and give it to a decode
+    engine's ``accept``, whose completion carries the tokens).
 
     ``latency_s`` is submit-to-completion wall time and ``ttft_s``
     submit-to-first-token."""
@@ -124,6 +160,10 @@ class FifoScheduler:
 
     def __len__(self) -> int:
         return len(self._queue)
+
+    def __iter__(self):
+        """The queued requests in arrival order (not popped)."""
+        return iter(tuple(self._queue))
 
     def close(self) -> None:
         """Stop admitting: every later :meth:`submit` raises

@@ -13,8 +13,10 @@ into that slot and a per-slot position reset.
 - :func:`seed_history` — reset one slot's draft history to its prompt and
   first token;
 - :func:`set_adapter` — one slot's LoRA bank row (engines with a bank);
-- :func:`upload` — a host list to the device with no stream sync (pinned
-  memory, a non-blocking copy);
+- :func:`upload` — a host list (or a host tensor) to the device with no
+  stream sync (pinned memory, a non-blocking copy);
+- :func:`pack` and :func:`unpack` — tensors of any dtypes as one flat byte
+  tensor and back (views): a swap-out's one host copy;
 - :func:`write_slot_paged` and :func:`park_slot_paged` — the paged twins
   (a :class:`..models.transformer.PagedKVCache`): copy a prefill's pages
   into the pool and install the slot's page table; sentinel a finished
@@ -134,16 +136,49 @@ def set_adapter(state: SlotState, slot: int, aid: int) -> None:
 
 
 def upload(values, dtype: torch.dtype, device) -> torch.Tensor:
-    """``values`` (a nested list of ints) as a ``dtype`` tensor on
-    ``device``, with no host sync: on a card the host tensor is pinned and
-    copied non-blocking, on the current stream (the caching host allocator
-    keeps the pinned buffer until the copy has run). A plain copy from
-    pageable memory would synchronize the stream, draining every chain
+    """``values`` (a nested list of ints, or a host tensor) as a ``dtype``
+    tensor on ``device``, with no host sync: on a card the host tensor is
+    pinned and copied non-blocking, on the current stream (the caching host
+    allocator keeps the pinned buffer until the copy has run). A plain copy
+    from pageable memory would synchronize the stream, draining every chain
     queued ahead of it."""
-    t = torch.tensor(values, dtype=dtype)
+    t = (values.to(dtype) if isinstance(values, torch.Tensor)
+         else torch.tensor(values, dtype=dtype))
     if torch.device(device).type != "cuda":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
+
+
+# a packed piece starts on this many bytes, so each unpacked view is
+# aligned for its dtype
+_PACK_ALIGN = 16
+
+
+def pack(tensors: list[torch.Tensor]) -> torch.Tensor:
+    """``tensors`` (any dtypes and shapes, on one device) as ONE flat
+    uint8 tensor on that device: each one's bytes in order, each piece
+    padded to 16 bytes. One device copy; :func:`unpack` inverts it."""
+    pieces = []
+    for t in tensors:
+        b = t.contiguous().reshape(-1).view(torch.uint8)
+        pieces.append(b)
+        pad = -b.numel() % _PACK_ALIGN
+        if pad:
+            pieces.append(b.new_zeros(pad))
+    return torch.cat(pieces)
+
+
+def unpack(buf: torch.Tensor, like: list[tuple]) -> list[torch.Tensor]:
+    """The tensors :func:`pack` put into ``buf``, as views of it: ``like``
+    lists each one's ``(shape, dtype)`` in the packed order."""
+    out, off = [], 0
+    for shape, dtype in like:
+        n = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+        out.append(buf[off:off + n].view(dtype).reshape(shape))
+        off += n + (-n % _PACK_ALIGN)
+    if off != buf.numel():
+        raise ValueError(f"packed buffer holds {buf.numel()} bytes, the layout {off}")
+    return out
 
 
 def write_slot(state: SlotState, slot: int, p_len: int, first: torch.Tensor,

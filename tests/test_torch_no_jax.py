@@ -58,7 +58,9 @@ def test_port_modules_import_no_jax():
            # the last parallel strategies: the pipeline over ranks, ring and
            # Ulysses attention, mixture-of-experts with expert parallelism
            "parallel.pipeline_spmd", "parallel.ring_attention", "parallel.ulysses",
-           "models.moe")
+           "models.moe",
+           # serving's SLO tiers: the port's own copy of the JAX slo module
+           "serve.slo")
     assert {f"{PORT}.{m}" for m in ddp} <= set(mods)
     code = (
         "import sys\n"

@@ -285,11 +285,13 @@ def test_admission_cancel_and_close(stream):
         "deadline_s": 300.0, "guard_nonfinite": 0, "chaos": 0, "deadline_expired": 0,
         "cancelled": 0, "nonfinite_quarantined": 0, "prefill_errors": 0}
     assert eng.stats("fault", "flight") == {**eng.fault_stats(), "flight": 0}
-    # tensor-parallel serving's part (the replicated engine's); a part of a
-    # slice still to come (prefill/decode roles) stays unknown
+    # tensor-parallel serving's part (the replicated engine's), the roles'
+    # and the SLO tiers' off values; a part of a slice still to come (the
+    # contract sentry) stays unknown
     assert eng.stats("tp") == {"tp": 1}
+    assert eng.stats("role", "slo") == {"role": 0, "priority_classes": 0}
     with pytest.raises(ValueError):
-        eng.stats("role")
+        eng.stats("sentry")
 
 
 def test_poison_is_decided_on_the_host(stream, monkeypatch):

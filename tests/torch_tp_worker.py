@@ -126,9 +126,10 @@ def serve_cases(tp, workdir: str, cases: dict) -> dict:
 def int8_cases(tp, workdir: str) -> dict:
     """The quantized tensor-parallel model of ``workdir/int8.pt`` (whole
     weights, ``cfg`` in ``workdir/int8_cfg.pt``): its full-sequence logits
-    on the tokens there, its prefill and decode logits; and what the
-    engine refuses under ``tp`` > 1 (each a clock-driven host decision):
-    ``default_deadline_s``, a chaos stall, ``Request.deadline_s``."""
+    on the tokens there, its prefill and decode logits; and whether the
+    engine refuses under ``tp`` > 1 (None: it accepts) each clock-driven
+    host decision: ``default_deadline_s``, a chaos stall,
+    ``Request.deadline_s``."""
     torch.set_num_threads(1)
     spec = torch.load(os.path.join(workdir, "int8_cfg.pt"))
     whole = torch.load(os.path.join(workdir, "int8.pt"))
