@@ -9,17 +9,18 @@
     python3 chip_smoke.py --faults-only   # phases 0, 1 and the failure-handling phases
     python3 chip_smoke.py --tp-only       # phases 0, 1 and the tensor-parallel phases
     python3 chip_smoke.py --strategies-only  # phases 0, 1 and the model-parallel phases
-    python3 chip_smoke.py --slo-roles-only   # phases 0, 1 and the engine features' phases
+    python3 chip_smoke.py --slo-roles-only   # phases 0, 1, the engine features' and the sentry's
     python3 chip_smoke.py --load-only     # phases 0, 1 and serve_1b_from_checkpoint
 
 It drives the port (``pytorch_distributed_training_tutorials_tpu_torch``)
 on the card and fails — non-zero exit, no result line — if a phase fails.
-``serve_1b_prefill``, ``serve_1b_spec``, ``serve_1b_lora``, the
-failure-handling phases, ``serve_1b_slo`` and ``serve_1b_disagg`` serve the
-presets' widths at SERVE_LAYERS (8) of their 16 layers: where their text
-below counts 113 int8 calls, or 16 flash or paged launches, a forward,
-read 57 and 8 (``serve_1b_tp2``: TP_LAYERS). Every phase prints JSON
-lines:
+``serve_1b_paged``, ``serve_1b_prefill``, ``serve_1b_spec``,
+``serve_1b_lora``, the failure-handling phases, ``serve_1b_slo``,
+``serve_1b_disagg`` and ``serve_1b_sentry`` serve the presets' widths at
+SERVE_LAYERS (8) of their 16 layers: where their text below counts 113
+int8 calls, or 16 flash or paged launches, a forward, read 57 and 8
+(``serve_1b_tp2`` and ``serve_1b_tp2_world4``: TP_LAYERS, also 8). Every
+phase prints JSON lines:
 
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 1. the build of every hand-written kernel from ``csrc/`` (one ``nvcc`` per
@@ -143,8 +144,8 @@ Phase 2's ``fused_adamw`` check also runs the kernel with its skip flag
 ``ok`` at 1 and 0 (bitwise the plain version; with 0 the state's bit
 patterns unchanged) and times both.
 
-Between phases 4 and 5, ``serve_1b_paged``: the 1b-gqa preset at full
-depth, window 4096, serving 12 requests (prompts {16, 480, 1500}, 32 new
+Between phases 4 and 5, ``serve_1b_paged``: the 1b-gqa preset at
+SERVE_LAYERS, window 4096, serving 12 requests (prompts {16, 480, 1500}, 32 new
 tokens) through 4 slots over a pool of 48 pages of 64 tokens, arm by arm —
 (a) whole-slot, (b) paged gather f32 (tokens equal to (a)), (c) paged
 kernel f32, (d) kernel int8, (e) kernel int4 — each with its launch, sync,
@@ -310,20 +311,56 @@ a cancel made on rank 0 alone (the other rank's call a no-op), a stall
 alone, each beside the leg with none: the ranks' completions identical,
 one broadcast a step (none off), the victims completed with a prefix of
 their tokens or none, every int8 call a shard call on the sm90 route.
+Then its roles, SLO and router-clock legs (TP_ROLES, TP_SLO), each rank
+with its own contract sentry: a TP prefill engine and two TP decode
+engines (whole-slot, and paged with the kernel) behind a ``FleetRouter``
+whose clock runs 101x fast on rank 1 with hedging on — every rank's
+tokens, dispatches, replica states and clock broadcasts identical, tokens
+the monolithic TP engine's (the paged decode engine's held greedy under
+its own teacher-forced logits where they differ) and the unsharded
+engine's (held teacher-forced where they differ, as the int8 arm holds
+its own: ``tp_roles_unsharded``), the prefill side 0 host
+syncs, a rank's handoff half the unsharded bytes within 1%, 57 int8 shard
+calls a forward, 8 flash launches a prefill (f32 route) and 8 paged
+launches a paged decode step (sm90); a one-slot ``priority_classes=2``
+engine preempting a class-1 request for a class-0 one — tokens the int8
+arm's (the SLO-off TP engine's), victims identical on both ranks, a rank's swap half the
+unsharded bytes within 1%, host syncs chains + prefills + splices + swaps
+out; every rank's sentry balanced (fetched == budgeted == host syncs, no
+violation, no re-upload). Then ``serve_1b_tp2_world4``: a gloo world of 4
+on card 0 (``{"data": 2, "model": 2}``), ranks {0, 1} and {2, 3} each
+serving their data rank's share of TP_WORLD4's requests through a TP
+engine with a default deadline — the two ranks of a group identical, the
+tokens the unsharded engine's (or the TP-2 world's, held teacher-forced
+there), one broadcast a step in each group over its own decision group.
 With gloo its times are not tensor parallelism's speed.
 
+After ``serve_1b_disagg``, ``serve_1b_sentry``: the contract sentry
+(``obs/sentry.py``) on SLO_STREAM's greedy leg and DISAGG's greedy fleet
+(one sentry shared by the fleet, read through ``fleet_sentry_summary``),
+sentry off and on in turns: tokens the sentry-off turn's, no steady
+recompile, violation or re-upload, fetched == budgeted == host syncs,
+tok/s on and off; then three injections on the SLO engine, each exactly
+one violation and one dump naming it (a kernel library loaded again after
+the steady mark, a ``.item()`` of a device tensor inside one round, a
+CPU-tensor leaf beside its silent CUDA twin). After ``train_guardrails``,
+``train_sentry``: ``Trainer(sentry=)`` on the guardrails' ResNet-18 arm
+for 2 epochs with fused AdamW: two phases, two state walks with 0 bytes
+off the card.
+
 Then ``train_760m_tp2``, tensor-parallel training: the 760m preset of
-``bench/lm_headline.py`` at full depth and width (bf16, flash, remat
-"dots", the fused loss through ``fused_cross_entropy_tp``, fused AdamW,
-the skip guard) through ``Trainer(strategy=TensorParallel(create_mesh(
-{"model": 2})))`` on two spawned ranks (gloo on card 0 where the machine
-has one card), 4 steps, beside the single-device ``Trainer`` from the
-same seed: falling losses, every rank's losses the same floats and its
-replicated leaves the same bits, the first step's loss and named leaves'
+``bench/lm_headline.py`` at full width and TP_TRAIN_LAYERS (8) of its 24
+layers (bf16, flash, remat "dots", the fused loss through
+``fused_cross_entropy_tp``, fused AdamW, the skip guard) through
+``Trainer(strategy=TensorParallel(create_mesh({"model": 2})))`` on two
+spawned ranks (gloo on card 0 where the machine has one card), 4 steps,
+beside the single-device ``Trainer`` from the same seed: falling
+losses, every rank's losses the same floats and its replicated leaves
+the same bits, the first step's loss and named leaves'
 first moments (the step's gradient) within TP_TRAIN_LOSS_TOL and
 TP_TRAIN_GRAD_TOL of the single-device step's slices while a planted
 fault (f's backward sum dropped) falls outside, the collectives a step
-exactly TP_TRAIN_COLLECTIVES, and per rank a step 48 / 24 / 24 flash,
+exactly TP_TRAIN_COLLECTIVES, and per rank a step 16 / 8 / 8 flash,
 1 / 1 / 1 fused-loss and 1 AdamW launches on the sm90 route. Its
 ``kernel_vs_plain`` lines (``fused_cross_entropy_tp``, run with phase
 2): a rank's forward, dh and dW shard calls at N 4096, D 1536, V_local
@@ -460,6 +497,9 @@ FUSED_CE_REPLACES = {
 # score passes (2 N D V FLOPs each) per kernel: dh and dW recompute the
 # scores and run one gradient product
 FUSED_CE_PASSES = {"fwd": 1, "dh": 2, "dw": 2}
+# timed calls a median of the fused-loss checks: fewer than time_ms's 25,
+# to keep the whole script inside the tool's time limit
+FUSED_CE_REPS = 10
 # fused-loss and fused-AdamW launches per 760m train step (219 leaves: one
 # multi-tensor launch)
 FUSED_PER_STEP = {"fwd": 1, "dh": 1, "dw": 1}
@@ -489,6 +529,10 @@ PAGED_STORES = ("f32", "bf16", "int8", "int4")
 # bf16 queries (the JAX kernel's sweep), on the 1b-gqa shape
 PAGED_BF16_Q = ("bf16", "int8")
 PAGED_MAIN = ("1b-gqa-stream", "f32", "f32")  # (shape, storage, q) of the kernels line
+# timed calls a median of the plain paged attention: a per-page loop of
+# 10-900 ms a call, most of the paged check's time, so few, to keep the whole
+# script inside the tool's time limit
+PAGED_PLAIN_REPS = 3
 PAGED_LIBRARY_NOTE = (
     "no single PyTorch call walks a page table: the nearest is two calls, a "
     "gather of the pages (index_select) and F.scaled_dot_product_attention "
@@ -534,11 +578,12 @@ PRESET_1B_GQA = dict(
     vocab_size=32000, d_model=2048, n_layers=16, n_heads=16, n_kv_heads=4,
     d_ff=8192, max_seq_len=4096,
 )
-# the served depth of serve_1b_prefill, serve_1b_spec, serve_1b_lora, the
-# failure-handling phases, serve_1b_slo and serve_1b_disagg: the presets'
-# widths at 8 of their 16 layers, cut to keep the whole script inside the
-# tool's time limit as phases were added. Phase 4, serve_1b_paged (its
-# planted faults' margins were measured at 16 layers) and
+# the served depth of serve_1b_paged, serve_1b_prefill, serve_1b_spec,
+# serve_1b_lora, the failure-handling phases, serve_1b_slo,
+# serve_1b_disagg and serve_1b_sentry: the presets' widths at 8 of their
+# 16 layers, cut to keep the whole script inside the tool's time limit as
+# phases were added (serve_1b_paged last, whose planted faults must still
+# fail its teacher-forced gate at this depth). Phase 4 and
 # serve_1b_from_checkpoint serve the full depth
 SERVE_LAYERS = 8
 PAGED_STREAM = dict(n_slots=4, tokens_per_launch=8, requests=12, prompts=(16, 480, 1500),
@@ -565,9 +610,10 @@ TF_PAIRS = {"c": ("b", 6), "d": ("b8", 3), "e": ("b4", 3)}
 TF_GATHER = {"b8": dict(paged=True, kv_bits=8), "b4": dict(paged=True, kv_bits=4)}
 # planted faults arm (c) must fail the gate with, on request 1 (8 pages)
 TF_FAULTS = ("wrong_page", "dropped_page")
-# one page across the 16 layers' K, V (and scales): 64 tokens x 4 kv heads
-# x (2 x 128 x 4 bytes | 2 x (128 + 4) | 2 x (64 + 2))
-PAGE_BYTES = {0: 4_194_304, 8: 1_081_344, 4: 540_672}
+# one page of one layer's K, V (and scales): 64 tokens x 4 kv heads x
+# (2 x 128 x 4 bytes | 2 x (128 + 4) | 2 x (64 + 2)); a page spans every
+# served layer
+PAGE_BYTES_PER_LAYER = {0: 262_144, 8: 67_584, 4: 33_792}
 # the flash forward on the serving path: one prefill at B 1, H 16, D 128
 # per bucket of serve_1b_spec's prompts (16, 32, 64: partial tiles of the
 # f32 kernel's 64-row blocks) and of serve_1b_prefill's (128, 256, 512),
@@ -1100,16 +1146,17 @@ def phase_fused_ce(torch, fl, gpu: str) -> dict:
                 old = {"fwd": lambda: fl.fused_ce_fwd(h, w, y, route="sm80"),
                        "dh": lambda: fl.fused_ce_dh(h, w, y, lse, g, route="sm80"),
                        "dw": lambda: fl.fused_ce_dw(h, w, y, lse, g, route="sm80")}[kind]
-                turns = [time_ms(fn, torch, flush, warmup=1) for fn in (kern, old, old, kern)]
+                turns = [time_ms(fn, torch, flush, reps=FUSED_CE_REPS, warmup=1)
+                         for fn in (kern, old, old, kern)]
                 ms, v1_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
                 v1 = {"v1_ms": v1_ms, "turns_ms": turns, "speedup_vs_v1": v1_ms / ms,
                       "errors_v1": {x: errs[x] for x in {"fwd": ("lse_v1", "tgt_v1"),
                                                           "dh": ("dh_v1",),
                                                           "dw": ("dw_v1",)}[kind]}}
             else:
-                ms = time_ms(kern, torch, flush, warmup=1)
-            plain_ms = time_ms(plain, torch, flush, warmup=1)
-            lib_ms = (time_ms(lib, torch, flush, warmup=1) if lib is not None
+                ms = time_ms(kern, torch, flush, reps=FUSED_CE_REPS, warmup=1)
+            plain_ms = time_ms(plain, torch, flush, reps=FUSED_CE_REPS, warmup=1)
+            lib_ms = (time_ms(lib, torch, flush, reps=FUSED_CE_REPS, warmup=1) if lib is not None
                       else results[(i, "dh")]["library_ms"])
             b_ms, b_by = fused_ce_bound(kind, n, d, v, h.element_size(), flops)
             row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -1500,7 +1547,7 @@ def phase_paged(torch, pa, gpu: str) -> dict:
         else:
             ms = time_ms(lambda: pa.paged_attention(q, k, v, table, pos, **kw), torch, flush)
         plain_ms = time_ms(lambda: pa.paged_attention_plain(q, k, v, table, pos, **kw),
-                           torch, flush, reps=10, warmup=1)
+                           torch, flush, reps=PAGED_PLAIN_REPS, warmup=1)
         note_ms = None
         if not kw and not parked:
             # the grp query heads of a kv head as one (S * grp)-row query:
@@ -1844,8 +1891,8 @@ def planted_fault(kind: str):
 
 
 def phase_serve_paged(torch, pa, gpu: str) -> dict:
-    """The paged serving slice: the 1b-gqa preset at full depth and width,
-    int8 weights, window 4096, through ``ServeEngine`` on the paged stream
+    """The paged serving slice: the 1b-gqa preset's widths at SERVE_LAYERS
+    of its 16 layers, int8 weights, window 4096, through ``ServeEngine`` on the paged stream
     (PAGED_STREAM), arm by arm (PAGED_ARMS), each with its gates; then
     the kernel arms teacher-forced against the gather (TF_PAIRS), the
     lower-precision controls and the planted faults (TF_FAULTS). Returns
@@ -1865,7 +1912,7 @@ def phase_serve_paged(torch, pa, gpu: str) -> dict:
     )
 
     st = PAGED_STREAM
-    cfg = TransformerConfig(**PRESET_1B_GQA, quantized=True)
+    cfg = TransformerConfig(**{**PRESET_1B_GQA, "n_layers": SERVE_LAYERS}, quantized=True)
     t0 = time.perf_counter()
     params = init_quantized_lm(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -1942,8 +1989,9 @@ def phase_serve_paged(torch, pa, gpu: str) -> dict:
                 bad.append(f"{stats['pages_in_use']} pages leaked")
             if stats["pages_high_water"] > st["pool_pages"]:
                 bad.append(f"high_water {stats['pages_high_water']} > {st['pool_pages']}")
-            if stats["page_bytes"] != PAGE_BYTES[stats["kv_bits"]]:
-                bad.append(f"page_bytes {stats['page_bytes']} != {PAGE_BYTES[stats['kv_bits']]}")
+            want_pb = PAGE_BYTES_PER_LAYER[stats["kv_bits"]] * cfg.n_layers
+            if stats["page_bytes"] != want_pb:
+                bad.append(f"page_bytes {stats['page_bytes']} != {want_pb}")
             try:
                 eng.submit(Request(prompt=shed_prompt, max_new_tokens=st["new"]))
                 bad.append(f"a {st['shed_prompt']}-token prompt was admitted")
@@ -3780,6 +3828,275 @@ def phase_serve_disagg(torch, quant, fa, pa, gpu: str, dev: str = "cuda") -> dic
         raise AssertionError("; ".join(problems))
     return launches
 
+# the contract sentry on the card (serve_1b_sentry): SLO_STREAM's greedy
+# leg cut to SENTRY_SLO requests and DISAGG's greedy fleet to
+# SENTRY_FLEET_REQUESTS, each sentry off and on, in turns (off, on, off,
+# on), then three injected violations on the SLO engine; train_sentry:
+# the guardrails' ResNet-18 arm (GUARD_STEPS steps an epoch, fused AdamW)
+# for 2 epochs through Trainer(sentry=)
+SENTRY_TURNS = 2
+SENTRY_SLO = dict(low=8, high=2)
+SENTRY_FLEET_REQUESTS = 6
+
+
+def sentry_gates(sen, host_syncs: int, comps: list, ref: list) -> list:
+    """A clean sentry-on stream: tokens equal the sentry-off twin's, no
+    steady recompile, violation or re-upload, and fetched == budgeted ==
+    the engines' host syncs."""
+    bad = []
+    if [c.tokens for c in comps] != [c.tokens for c in ref]:
+        bad.append("tokens differ from the sentry-off twin's")
+    s = sen.summary()
+    if s["sentry_steady_recompiles"] or s["sentry_budget_violations"] or s["sentry_reuploads"]:
+        bad.append(f"sentry {s}")
+    if not s["sentry_fetched"] == s["sentry_budgeted"] == host_syncs:
+        bad.append(f"sentry fetched {s['sentry_fetched']}, budgeted {s['sentry_budgeted']}, "
+                   f"host syncs {host_syncs}")
+    return bad
+
+
+def phase_serve_sentry(torch, quant, fa, pa, gpu: str, dev: str = "cuda") -> dict:
+    """``serve_1b_sentry``: the contract sentry (``obs/sentry.py``: native
+    loads, ``Tensor.cpu`` and sync debug mode's counts, leaves off the
+    card) on two serving paths, each sentry off and on in turns
+    (SENTRY_TURNS of each): (slo) SLO_STREAM's greedy leg (SENTRY_SLO's
+    requests) through a ``priority_classes=2`` engine; (disagg) DISAGG's
+    greedy fleet (SENTRY_FLEET_REQUESTS), one sentry shared by its three
+    engines and read through ``FleetRouter.fleet_sentry_summary``. Gates
+    (``sentry_gates``): tokens equal the sentry-off turn's, no steady
+    recompile, violation or re-upload, fetched == budgeted == host syncs;
+    every int8 call sm90. Numbers: tok/s on and off. Then three injections
+    on the SLO engine, each exactly one violation and one dump naming it:
+    a kernel library loaded again through ``ops/_build.py`` after the
+    steady mark, a ``.item()`` of a device tensor inside one round (a
+    leaky ``_sweep``), a CPU-tensor leaf beside its silent CUDA twin.
+    Returns the launches by leg."""
+    import tempfile
+
+    import numpy as np
+
+    from pytorch_distributed_training_tutorials_tpu_torch.models import (
+        TransformerConfig,
+        TransformerLM,
+        init_quantized_lm,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.obs import (
+        ContractSentry,
+        FlightRecorder,
+        load_flightlog,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.ops import _build
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import (
+        FleetRouter,
+        Request,
+        ServeEngine,
+    )
+
+    st, dg = SLO_STREAM, DISAGG
+    cfg = TransformerConfig(**{**PRESET_1B, "n_layers": SERVE_LAYERS}, quantized=True,
+                            attention_fn=fa.flash_attention)
+    params = init_quantized_lm(cfg, seed=0, device=dev)
+    rng = np.random.Generator(np.random.PCG64(20))
+    n = SENTRY_SLO["low"] + SENTRY_SLO["high"]
+    prompts = [rng.integers(0, cfg.vocab_size, (st["prompts"][i % 3],)).tolist()
+               for i in range(max(n, SENTRY_FLEET_REQUESTS))]
+    low, high = prompts[:SENTRY_SLO["low"]], prompts[SENTRY_SLO["low"]:n]
+    problems, launches, rows = [], {}, {}
+
+    def slo_engine(**kw):
+        return ServeEngine(TransformerLM(cfg), params, n_slots=st["n_slots"],
+                           tokens_per_launch=st["tokens_per_launch"], max_queue=64, device=dev,
+                           priority_classes=2, **kw)
+
+    def slo_run(eng, lows=low, highs=high):
+        ids = [eng.submit(Request(prompt=p, max_new_tokens=st["new"], seed=i, priority=1))
+               for i, p in enumerate(lows)]
+        done = []
+        for _ in range(st["high_after"]):
+            done += eng.step()
+        ids += [eng.submit(Request(prompt=p, max_new_tokens=st["new"], seed=len(lows) + i))
+                for i, p in enumerate(highs)]
+        done += eng.run_until_idle()
+        by_id = {c.request_id: c for c in done}
+        return [by_id[i] for i in ids]
+
+    def fleet_run(engines):
+        fleet = FleetRouter(engines)
+        gids = [fleet.submit(Request(prompt=p, max_new_tokens=dg["new"], seed=i))
+                for i, p in enumerate(prompts[:SENTRY_FLEET_REQUESTS])]
+        done = {c.request_id: c for c in fleet.run_until_idle()}
+        return fleet, [done[g] for g in gids]
+
+    def fleet_engines(**kw):
+        paged = dict(paged=True, paged_kernel=True, page_size=dg["page_size"],
+                     pool_pages=dg["pool_pages"])
+        return [ServeEngine(TransformerLM(cfg), params, n_slots=dg["n_slots"],
+                            tokens_per_launch=dg["tokens_per_launch"], max_queue=64, device=dev,
+                            **extra, **kw)
+                for extra in (dict(role="prefill"), dict(role="decode"),
+                              dict(role="decode", **paged))]
+
+    warm = slo_engine()
+    slo_run(warm)  # first launches, cuBLAS handles
+    del warm
+    for leg in ("slo", "disagg"):
+        turns = {"off": [], "on": []}
+        for _ in range(SENTRY_TURNS):
+            for mode in ("off", "on"):
+                sen = ContractSentry() if mode == "on" else None
+                kw = {"sentry": sen} if sen is not None else {}
+                engines = [slo_engine(**kw)] if leg == "slo" else fleet_engines(**kw)
+                if sen is not None:
+                    sen.install()
+                reset_counts(quant, fa, pa)
+                t0 = time.perf_counter()
+                try:
+                    if leg == "slo":
+                        comps, fleet = slo_run(engines[0]), None
+                    else:
+                        fleet, comps = fleet_run(engines)
+                finally:
+                    if sen is not None:
+                        sen.uninstall()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                syncs = sum(e.n_host_syncs for e in engines)
+                turns[mode].append({"comps": comps, "wall_s": wall, "host_syncs": syncs,
+                                    "sentry": sen, "fleet": fleet,
+                                    "launches": read_counts(quant, fa, pa)})
+                del engines, fleet
+        ref = turns["off"][0]["comps"]
+        bad = []
+        for run in turns["off"][1:]:
+            if [c.tokens for c in run["comps"]] != [c.tokens for c in ref]:
+                bad.append("the sentry-off turns differ")
+        for run in turns["on"]:
+            bad += sentry_gates(run["sentry"], run["host_syncs"], run["comps"], ref)
+            if run["fleet"] is not None and (run["fleet"].fleet_sentry_summary()
+                                             != run["sentry"].summary()):
+                bad.append("fleet_sentry_summary is not the shared sentry's")
+            if run["launches"]["int8_routes"]["v1"]:
+                bad.append(f"int8 routes {run['launches']['int8_routes']}")
+        toks = sum(len(c.tokens) for c in ref)
+        on = turns["on"][-1]
+        launches[f"serve_1b_sentry_{leg}"] = on["launches"]
+        rows[leg] = {
+            "requests": len(ref), "tokens": toks,
+            "tok_s_on": [toks / r["wall_s"] for r in turns["on"]],
+            "tok_s_off": [toks / r["wall_s"] for r in turns["off"]],
+            "host_syncs": on["host_syncs"], "sentry": on["sentry"].summary(),
+            "launches": on["launches"], "problems": bad}
+        emit({"phase": "serve_1b_sentry", "leg": leg, "turns": SENTRY_TURNS,
+              "order": "off, on, off, on", **rows[leg], "ok": not bad, "gpu": gpu})
+        problems += [f"{leg}: {x}" for x in bad]
+    # the three injections, on one SLO engine after a clean steady stream
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        dump = os.path.join(tmp, "sentry.flightlog.jsonl")
+        fl = FlightRecorder(capacity=256, dump_path=dump)
+        sen = ContractSentry(flight=fl)
+        eng = slo_engine(sentry=sen, flight=fl)
+        stray = torch.zeros((), device=dev)
+        cpu_leaf = torch.ones((64, 64))
+        twin = {"w": cpu_leaf.to(dev)}
+        got, bad = {}, []
+        sen.install()
+        try:
+            slo_run(eng, low[:4], high[:1])
+            sen.mark_steady()  # after a warmup stream
+            slo_run(eng, low[:4], high[:1])
+            clean = sen.summary()
+            if (clean["sentry_steady_recompiles"] or clean["sentry_budget_violations"]
+                    or not clean["sentry_fetched"] == clean["sentry_budgeted"]
+                    == eng.n_host_syncs):
+                bad.append(f"clean stream: {clean}, host syncs {eng.n_host_syncs}")
+            _build._libs.pop("fused_adamw", None)
+            _build.library("fused_adamw")  # a post-steady load, the real loader
+            got["compile"] = sen.n_steady_recompiles
+            orig = eng._sweep
+
+            def leaky_sweep():
+                stray.item()
+                return orig()
+
+            eng.submit(Request(prompt=low[0], max_new_tokens=3, priority=1))
+            eng._sweep = leaky_sweep
+            eng.step()
+            eng._sweep = orig
+            eng.run_until_idle()
+            got["budget_violation"] = sen.n_budget_violations
+            nbytes = sen.check_args({"w": cpu_leaf}, label="card_cpu_leaf", device=dev)
+            twin_bytes = sen.check_args(twin, label="card_cpu_leaf", device=dev)
+            got["reupload"] = sen.n_reuploads
+        finally:
+            sen.uninstall()
+        snaps = load_flightlog(dump)
+    checks = {"compile": lambda t: t.get("steady") is True and t.get("library") == "fused_adamw",
+              "budget_violation": lambda t: t.get("fetched", 0) == t.get("budgeted", 0) + 1,
+              "reupload": lambda t: t.get("label") == "card_cpu_leaf"}
+    dumps = {}
+    for reason, check in checks.items():
+        hits = [s["trigger"] for s in snaps if s["reason"] == reason]
+        dumps[reason] = hits
+        if got.get(reason) != 1 or len(hits) != 1 or not check(hits[0] or {}):
+            bad.append(f"{reason}: counted {got.get(reason)}, dumps {hits}")
+    if nbytes != cpu_leaf.nbytes or twin_bytes:
+        bad.append(f"re-upload bytes {nbytes} (want {cpu_leaf.nbytes}), CUDA twin {twin_bytes}")
+    emit({"phase": "serve_1b_sentry", "leg": "injections", "counted": got, "dumps": dumps,
+          "reupload_bytes": nbytes, "twin_bytes": twin_bytes, "clean": clean,
+          "sync_probe": "sync_debug_mode", "ok": not bad, "problems": bad, "gpu": gpu})
+    problems += [f"injections: {x}" for x in bad]
+    del params, eng
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return launches
+
+
+def phase_train_sentry(torch, gpu: str) -> dict:
+    """``train_sentry``: ``Trainer(sentry=)`` on the guardrails' ResNet-18
+    arm (the headline model, GUARD_STEPS steps of 512 MNIST images an
+    epoch, fused AdamW) for 2 epochs, the sentry installed: two phases
+    (``"epoch 0"``, ``"epoch 1"``), two train-state walks with 0 bytes off
+    the card, no steady recompile or violation, one ``fused_adamw``
+    launch a step, the loss finite."""
+    from pytorch_distributed_training_tutorials_tpu_torch.bench import headline
+    from pytorch_distributed_training_tutorials_tpu_torch.data import mnist
+    from pytorch_distributed_training_tutorials_tpu_torch.obs import ContractSentry
+    from pytorch_distributed_training_tutorials_tpu_torch.ops.fused_optim import fused_adamw
+
+    sen = ContractSentry()
+    phases = []
+    set_phase = sen.set_phase
+
+    def recorded(label):
+        phases.append(label)
+        set_phase(label)
+
+    sen.set_phase = recorded
+    setup = headline.make_headline_setup(
+        RESNET_BATCH, quiet=True, dataset=headline_rows(mnist("train", raw=True), GUARD_STEPS),
+        optimizer=fused_adamw(**ADAMW_ARM), sentry=sen)
+    fused_adamw.launches = 0
+    t0 = time.perf_counter()
+    with sen:
+        m = setup.trainer.train(2)
+    torch.cuda.synchronize()
+    s = sen.summary()
+    bad = []
+    if phases != ["epoch 0", "epoch 1"] or sen.n_checked != 2:
+        bad.append(f"phases {phases}, state walks {sen.n_checked}")
+    if s["sentry_reupload_bytes"] or s["sentry_reuploads"] or s["sentry_steady_recompiles"]:
+        bad.append(f"sentry {s}")
+    if fused_adamw.launches != 2 * GUARD_STEPS or not math.isfinite(m["loss"]):
+        bad.append(f"fused_adamw {fused_adamw.launches} launches, loss {m['loss']}")
+    emit({"phase": "train_sentry", "epochs": 2, "steps_per_epoch": GUARD_STEPS,
+          "phases": phases, "sentry": s, "fused_adamw_launches": fused_adamw.launches,
+          "loss": m["loss"], "seconds": time.perf_counter() - t0, "ok": not bad,
+          "problems": bad, "gpu": gpu})
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return {"fused_adamw": fused_adamw.launches}
+
 
 # Tensor-parallel serving (serve_1b_tp2): TP ranks, the backend NCCL where
 # the machine has a card per rank, else gloo with every rank on card 0
@@ -4058,7 +4375,8 @@ def tp_kernel_row(tp: dict) -> dict:
 def tp_serve_rank(tp, names: list, clock: bool = True) -> dict:
     """One rank of serve_1b_tp2 (spawned by ``spawn_tp``): every arm of
     ``names`` through the sharded engine, then (``clock``) the clock legs
-    (``tp_clock_legs``) under ``"clock"``."""
+    (``tp_clock_legs``) under ``"clock"`` and the roles / SLO /
+    router-clock legs (``tp_roles_slo_legs``) under ``"roles_slo"``."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4066,6 +4384,7 @@ def tp_serve_rank(tp, names: list, clock: bool = True) -> dict:
     out = {name: tp_serve_arm(torch, tp, name) for name in names}
     if clock:
         out["clock"] = tp_clock_legs(torch, tp)
+        out["roles_slo"] = tp_roles_slo_legs(torch, tp)
     return out
 
 
@@ -4240,6 +4559,7 @@ def phase_serve_tp(torch, quant, gpu: str) -> dict:
     ranks = spawn_tp(tp_serve_rank, TP, (list(TP_ARMS),), backend=backend, device="cuda",
                      join_timeout_s=900)
     clock = [r.pop("clock") for r in ranks]
+    roles = [r.pop("roles_slo") for r in ranks]
     ranks_s = time.perf_counter() - t0
     problems, launches = [], {}
     layers = TP_LAYERS
@@ -4330,7 +4650,8 @@ def phase_serve_tp(torch, quant, gpu: str) -> dict:
             "ok": not bad, "problems": bad, "gpu": gpu,
         })
         problems += [f"{name}: {x}" for x in bad]
-        del rep["engine"]
+        if name != "int8":  # the roles legs' unsharded holds need the int8 one
+            del rep["engine"]
     bad = tp_clock_gates(clock)
     for name in TP_CLOCK_LEGS:
         rows = [r[name] for r in clock]
@@ -4353,29 +4674,481 @@ def phase_serve_tp(torch, quant, gpu: str) -> dict:
               "timing_note": TP_NOTE if backend == "gloo" else None, "gpu": gpu})
     emit({"phase": "serve_1b_tp2_clock_gates", "ok": not bad, "problems": bad, "gpu": gpu})
     problems += [f"clock: {x}" for x in bad]
+    mono = ranks[0]["int8"]["tokens"]
+    unsharded = tp_roles_unsharded(roles[0]["roles"], mono, ranks[0]["int8"]["tf"],
+                                   replicated["int8"])
+    del replicated["int8"]["engine"]
+    bad = tp_roles_slo_gates(roles, mono, unsharded)
+    ro, slo = [r["roles"] for r in roles], [r["slo"] for r in roles]
+    for r in ro:
+        r.pop("paged_tf")
+    toks = sum(len(t) for t in ro[0]["tokens"])
+    emit({"phase": "serve_1b_tp2_roles", "tp": TP, "backend": backend, "layers": TP_LAYERS,
+          "fleet": "1 prefill + 2 decode (whole-slot, paged kernel), all TP",
+          "requests": TP_ROLES["requests"], "new_tokens": TP_ARMS["int8"]["new"],
+          "tokens_equal_monolithic_tp": sum(a == b for a, b in zip(ro[0]["tokens"],
+                                                                   mono[:TP_ROLES["requests"]])),
+          "tokens_equal_unsharded": sum(a == b for a, b in zip(
+              ro[0]["tokens"], replicated["int8"]["tokens"])),
+          "unsharded_held_teacher_forced": unsharded,
+          "served_by": ro[0]["served_by"], "paged_held": ro[0]["paged_held"],
+          "handoff_bytes_per_rank": [r["handoff_bytes"] for r in ro],
+          "handoff_bytes_unsharded": roles[0]["whole_handoff_bytes"],
+          "handoff_kv_heads": ro[0]["handoff_kv_heads"],
+          "prefill": [r["prefill"] for r in ro], "decode": [r["decode"] for r in ro],
+          "clock": "rank 1 runs 101x fast; hedging on",
+          "clock_broadcasts": [r["clock_broadcasts"] for r in ro],
+          "states": [r["states"] for r in ro], "transitions": [r["transitions"] for r in ro],
+          "sentry": [r["sentry"] for r in ro], "launches": [r["launches"] for r in ro],
+          "wall_s": [r["wall_s"] for r in ro], "tok_s_rank0": toks / ro[0]["wall_s"],
+          "timing_note": TP_NOTE if backend == "gloo" else None, "gpu": gpu})
+    emit({"phase": "serve_1b_tp2_slo", "tp": TP, "backend": backend, "layers": TP_LAYERS,
+          "n_slots": 1, "new_tokens": TP_ARMS["int8"]["new"],
+          "class_0_after_steps": TP_SLO["high_after"], "requests": [TP_SLO["low"], TP_SLO["high"]],
+          "swaps": [r["swaps"] for r in slo],
+          "swap_bytes_unsharded": roles[0]["whole_swap_bytes"],
+          "swaps_out": [r["swaps_out"] for r in slo], "swaps_in": [r["swaps_in"] for r in slo],
+          "host_syncs": [r["host_syncs"] for r in slo], "budget": [r["budget"] for r in slo],
+          "swap_agreements": [r["tp_stats"]["tp_swap_agreements"] for r in slo],
+          "sentry": [r["sentry"] for r in slo],
+          "wall_s": [r["slo"]["wall_s"] for r in roles],
+          "timing_note": TP_NOTE if backend == "gloo" else None, "gpu": gpu})
+    emit({"phase": "serve_1b_tp2_roles_slo_gates", "ok": not bad, "problems": bad, "gpu": gpu})
+    problems += [f"roles/slo: {x}" for x in bad]
+    launches["roles"] = [r["launches"]["int8_tp"] for r in ro]
+    launches["slo"] = [r["launches"]["int8_tp"] for r in slo]
     emit({"phase": "serve_1b_tp2_ranks_s", "seconds": ranks_s, "gpu": gpu})
     if problems:
         raise AssertionError("; ".join(problems))
-    return {"kern": kern, "launches": launches, "backend": backend}
+    return {"kern": kern, "launches": launches, "backend": backend,
+            "roles_launches": ro[0]["launches"],
+            "replicated_tokens": replicated["int8"]["tokens"],
+            "sharded_tokens": ranks[0]["int8"]["tokens"]}
+
+# serve_1b_tp2's roles, SLO and router-clock legs (every rank with its own
+# contract sentry) over the int8 arm's model and prompts: a TP prefill
+# engine and two TP decode engines (whole-slot, and paged with the kernel)
+# behind a FleetRouter whose clock runs 101x fast on rank 1 (hedging on),
+# TP_ROLES["requests"] requests of TP_ARMS["int8"]["new"] tokens; a
+# one-slot priority_classes=2 engine where request TP_SLO["low"] (class 1)
+# is preempted by TP_SLO["high"] (class 0) arriving after
+# TP_SLO["high_after"] steps, held to the int8 arm's tokens
+TP_ROLES = dict(requests=4, page_size=64, pool_pages=16, hedge_after_s=30.0)
+# low and high index the int8 arm's requests: at its new tokens (16) the
+# arm's own tokens for them are the SLO-off engine's
+TP_SLO = dict(low=2, high=3, high_after=1)
+
+
+def tp_roles_slo_legs(torch, tp, dev: str = "cuda") -> dict:
+    """The roles / SLO / router-clock legs of one rank (see TP_ROLES,
+    TP_SLO). Rank 0 also serves the same requests through replicated
+    engines for the unsharded handoff and swap bytes."""
+    import numpy as np
+
+    from pytorch_distributed_training_tutorials_tpu_torch.models import (
+        TransformerConfig,
+        TransformerLM,
+        init_quantized_lm,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.obs import ContractSentry
+    from pytorch_distributed_training_tutorials_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.ops import paged_attention as pa
+    from pytorch_distributed_training_tutorials_tpu_torch.ops import quant
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import (
+        FleetRouter,
+        Request,
+        ServeEngine,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.serve.slots import tree_nbytes
+
+    arm = TP_ARMS["int8"]
+    cfg = TransformerConfig(**arm["preset"], quantized=True, attention_fn=fa.flash_attention)
+    params = init_quantized_lm(cfg, seed=0, device=dev)
+    rng = np.random.Generator(np.random.PCG64(15))
+    prompts = [rng.integers(0, cfg.vocab_size, (arm["prompts"][i % len(arm["prompts"])],))
+               .tolist() for i in range(arm["requests"])]
+    n, new = TP_ROLES["requests"], arm["new"]
+    paged = dict(paged=True, paged_kernel=True, page_size=TP_ROLES["page_size"],
+                 pool_pages=TP_ROLES["pool_pages"])
+
+    def engine(strategy=tp, **kw):
+        return ServeEngine(TransformerLM(cfg), params, max_queue=64, device=dev,
+                           strategy=strategy, **{**TP_STREAM, **kw})
+
+    def counts():
+        return {**read_counts(quant, fa, pa), "int8_tp": quant.int8_matmul_tp.launches}
+
+    def zero():
+        reset_counts(quant, fa, pa)
+        quant.int8_matmul_tp.launches = 0
+
+    out = {}
+    # roles behind the router, one sentry for the fleet of this rank
+    sen = ContractSentry()
+    engines = [engine(role="prefill", sentry=sen), engine(role="decode", sentry=sen),
+               engine(role="decode", sentry=sen, **paged)]
+    take, handoffs = engines[0].take_handoff, []
+
+    def taking(rid):
+        h = take(rid)
+        handoffs.append((tree_nbytes(h.segment), h.segment.k.shape[3]))
+        return h
+
+    engines[0].take_handoff = taking
+    rate = 1.0 + 100.0 * tp.rank
+    fleet = FleetRouter(engines, clock=lambda: time.perf_counter() * rate,
+                        hedge_after_s=TP_ROLES["hedge_after_s"])
+    zero()
+    t0 = time.perf_counter()
+    with native_sync_warnings():
+        sen.install()
+        try:
+            gids = [fleet.submit(Request(prompt=p, max_new_tokens=new, seed=i))
+                    for i, p in enumerate(prompts[:n])]
+            done = {c.request_id: c for c in fleet.run_until_idle()}
+        finally:
+            sen.uninstall()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = counts()  # before the teacher-forced forwards below
+    pre, dec_w, dec_p = engines
+    served_by = {g: next(r for r, _, kind, _ in e.dispatches if kind == "handoff")
+                 for g, e in fleet.ledger.entries.items()}
+    held, paged_tf = {}, {}
+    tokens = [done[g].tokens for g in gids]
+    for i, g in enumerate(gids):  # the paged decode engine's, on its own logits
+        if served_by[g] == 2:
+            paged_tf[i] = dec_p.teacher_forced_logits(prompts[i], tokens[i]).cpu()
+            held[i] = greedy_held(paged_tf[i], tokens[i])
+    out["roles"] = {
+        "tokens": tokens, "reasons": [done[g].finish_reason for g in gids],
+        "served_by": [served_by[g] for g in gids], "paged_held": held,
+        "paged_tf": paged_tf if tp.rank == 0 else {},
+        "handoff_bytes": [b for b, _ in handoffs], "handoff_kv_heads": [h for _, h in handoffs],
+        "prefill": {"host_syncs": pre.n_host_syncs, "chains": pre.n_chains,
+                    "handoffs_out": pre.n_handoffs_out, "prefills": pre.n_prefills},
+        "decode": [{"host_syncs": d.n_host_syncs, "chains": d.n_chains,
+                    "handoffs_in": d.n_handoffs_in} for d in (dec_w, dec_p)],
+        "host_syncs": sum(e.n_host_syncs for e in engines),
+        "sentry": fleet.fleet_sentry_summary(), "ledger": fleet.ledger.verify(),
+        "handoffs_moved": fleet.router_stats()["handoffs_moved"],
+        "clock_broadcasts": fleet.n_clock_broadcasts, "states": fleet.replica_states(),
+        "transitions": fleet.n_health_transitions,
+        "dispatches": sorted((g, [(r, k) for r, _, k, _ in e.dispatches])
+                             for g, e in fleet.ledger.entries.items()),
+        "forwards": pre.n_prefills + (dec_w.n_chains + dec_p.n_chains) * TP_STREAM[
+            "tokens_per_launch"],
+        "paged_chains": dec_p.n_chains, "launches": launches,
+        "wall_s": wall_s,
+    }
+    del engines, fleet, pre, dec_w, dec_p
+    # SLO: the priority engine with its sentry
+    lo, hi = TP_SLO["low"], TP_SLO["high"]
+    sen = ContractSentry()
+    eng = engine(n_slots=1, priority_classes=2, sentry=sen)
+    swaps = []
+    swap_out = eng._swap_out
+
+    def recorded(slot):
+        rid = eng._slots[slot].request.request_id
+        swap_out(slot)
+        swaps.append((rid, eng._swapped[rid].packed.numel()))
+
+    eng._swap_out = recorded
+    zero()
+    t0 = time.perf_counter()
+    with native_sync_warnings():
+        sen.install()
+        try:
+            ids = [eng.submit(Request(prompt=prompts[lo], max_new_tokens=new, seed=lo,
+                                      priority=1))]
+            got = []
+            for _ in range(TP_SLO["high_after"]):
+                got += eng.step()
+            ids.append(eng.submit(Request(prompt=prompts[hi], max_new_tokens=new, seed=hi)))
+            got += eng.run_until_idle()
+        finally:
+            sen.uninstall()
+    torch.cuda.synchronize()
+    by_id = {c.request_id: c for c in got}
+    out["slo"] = {
+        "tokens": [by_id[i].tokens for i in ids],
+        "reasons": [by_id[i].finish_reason for i in ids],
+        "order": [c.request_id == ids[1] for c in got],
+        "swaps": swaps, "swaps_out": eng.n_swaps_out, "swaps_in": eng.n_swaps_in,
+        "host_syncs": eng.n_host_syncs,
+        "budget": eng.n_chains + eng.n_prefills + eng.n_splices + eng.n_swaps_out,
+        "tp_stats": eng.tp_stats(), "sentry": sen.summary(),
+        "forwards": eng.n_prefills + eng.n_chains * TP_STREAM["tokens_per_launch"],
+        "launches": counts(), "wall_s": time.perf_counter() - t0,
+    }
+    del eng
+    if tp.rank == 0:  # the unsharded bytes of the same handoffs and swaps
+        whole = engine(strategy=None, role="prefill")
+        wids = [whole.submit(Request(prompt=p, max_new_tokens=new, seed=i))
+                for i, p in enumerate(prompts[:n])]
+        whole.run_until_idle()
+        out["whole_handoff_bytes"] = [tree_nbytes(whole.take_handoff(w).segment) for w in wids]
+        whole = engine(strategy=None, n_slots=1, priority_classes=2)
+        wswaps = []
+        swap_out = whole._swap_out
+
+        def whole_recorded(slot):
+            rid = whole._slots[slot].request.request_id
+            swap_out(slot)
+            wswaps.append(whole._swapped[rid].packed.numel())
+
+        whole._swap_out = whole_recorded
+        whole.submit(Request(prompt=prompts[lo], max_new_tokens=new, seed=lo, priority=1))
+        for _ in range(TP_SLO["high_after"]):
+            whole.step()
+        whole.submit(Request(prompt=prompts[hi], max_new_tokens=new, seed=hi))
+        whole.run_until_idle()
+        out["whole_swap_bytes"] = wswaps
+        del whole
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_roles_unsharded(r0: dict, mono: list, mono_tf: list, rep: dict) -> dict:
+    """The roles leg's tokens (rank 0's ``r0``) against the unsharded
+    engine's (``rep``, the int8 arm's replicated side): where a request's
+    differ, held as the int8 arm holds its own — the unsharded engine's
+    logits teacher-forced on the roles tokens against the TP logits that
+    chose them (the paged decode engine's own, else, where the tokens are
+    the monolithic TP engine's, ``mono_tf``, that engine's), within
+    ``tf_compare``'s bound, and greedy under those TP logits. Returns
+    request -> the hold, ``ok`` in each."""
+    held = {}
+    for i, toks in enumerate(r0["tokens"]):
+        if toks == rep["tokens"][i]:
+            continue
+        have = r0["paged_tf"].get(i, mono_tf[i] if toks == mono[i] else None)
+        if have is None:
+            held[i] = {"ok": False, "why": "no TP logits chose these tokens"}
+            continue
+        ref = rep["engine"].teacher_forced_logits(rep["prompts"][i], toks).cpu()
+        tf, gh = tf_compare(ref, have), greedy_held(have, toks)
+        held[i] = {"tf": {k: v for k, v in tf.items() if k != "per_step_max_abs_logit_diff"},
+                   "greedy_held": gh, "ok": tf["ok"] and gh["ok"]}
+    return held
+
+
+def tp_roles_slo_gates(ranks: list, mono: list, unsharded: dict) -> list:
+    """The gates of serve_1b_tp2's roles / SLO / router-clock legs over the
+    ranks' ``tp_roles_slo_legs`` (``mono``: the sharded int8 arm's tokens,
+    rank 0, by request: the roles' first TP_ROLES["requests"] and the SLO
+    leg's two; ``unsharded``: ``tp_roles_unsharded``'s holds)."""
+    bad = [f"roles: request {i} differs from the unsharded engine's and fails the "
+           f"teacher-forced gate: {h}" for i, h in unsharded.items() if not h["ok"]]
+    per = TP_LAYERS * 7 + 1
+    tpl = TP_STREAM["tokens_per_launch"]
+    whole_h, whole_s = ranks[0]["whole_handoff_bytes"], ranks[0]["whole_swap_bytes"]
+    r0 = ranks[0]["roles"]
+    off = [mono[TP_SLO["low"]], mono[TP_SLO["high"]]]
+    mono = mono[:TP_ROLES["requests"]]
+    for rank, legs in enumerate(ranks):
+        ro, slo = legs["roles"], legs["slo"]
+        for key in ("tokens", "served_by", "dispatches", "states", "transitions",
+                    "clock_broadcasts", "handoff_kv_heads"):
+            if ro[key] != r0[key]:
+                bad.append(f"roles rank {rank}: {key} differs from rank 0's")
+        for i, (got, want) in enumerate(zip(ro["tokens"], mono)):
+            if got != want and not (i in ro["paged_held"] and ro["paged_held"][i]["ok"]):
+                bad.append(f"roles rank {rank}: request {i} differs from the monolithic TP "
+                           f"engine's (paged held: {ro['paged_held'].get(i)})")
+        if ro["reasons"] != ["length"] * len(mono) or ro["ledger"] or ro[
+                "handoffs_moved"] != len(mono):
+            bad.append(f"roles rank {rank}: {ro['reasons']}, ledger {ro['ledger']}, "
+                       f"moved {ro['handoffs_moved']}")
+        if ro["prefill"]["host_syncs"] or ro["prefill"]["chains"]:
+            bad.append(f"roles rank {rank}: prefill side {ro['prefill']}")
+        for d in ro["decode"]:
+            if d["host_syncs"] != d["chains"] + d["handoffs_in"]:
+                bad.append(f"roles rank {rank}: decode side {d}")
+        for got, whole in zip(ro["handoff_bytes"], whole_h):
+            if abs(got / whole - 0.5) > 0.01:
+                bad.append(f"roles rank {rank}: handoff {got} B against the unsharded {whole}")
+        if ro["clock_broadcasts"] < 2 or ro["states"] != ["healthy"] * 3:
+            bad.append(f"roles rank {rank}: {ro['clock_broadcasts']} clock broadcasts, "
+                       f"states {ro['states']}")
+        lc = ro["launches"]
+        if (lc["int8"] != per * ro["forwards"] or lc["int8_tp"] != lc["int8"]
+                or lc["int8_routes"]["v1"] or lc["flash"] != TP_LAYERS * ro["prefill"]["prefills"]
+                or lc["flash_routes"]["sm80"] != lc["flash"]
+                or lc["paged"] != TP_LAYERS * ro["paged_chains"] * tpl or lc["paged_routes"]["v1"]):
+            bad.append(f"roles rank {rank}: launches {lc}, {ro['forwards']} forwards, "
+                       f"{ro['paged_chains']} paged chains")
+        if slo["tokens"] != off or slo["reasons"] != ["length", "length"]:
+            bad.append(f"slo rank {rank}: tokens differ from the SLO-off TP engine's (the "
+                       "int8 arm's)")
+        if slo["swaps_out"] < 1 or slo["swaps_in"] != slo["swaps_out"] or not slo["order"][0]:
+            bad.append(f"slo rank {rank}: swaps {slo['swaps_out']} / {slo['swaps_in']}, "
+                       f"class-0 first {slo['order']}")
+        if [r for r, _ in slo["swaps"]] != [r for r, _ in ranks[0]["slo"]["swaps"]]:
+            bad.append(f"slo rank {rank}: victims differ from rank 0's")
+        for (_, got), whole in zip(slo["swaps"], whole_s):
+            if abs(got / whole - 0.5) > 0.01:
+                bad.append(f"slo rank {rank}: swap {got} B against the unsharded {whole}")
+        if slo["host_syncs"] != slo["budget"]:
+            bad.append(f"slo rank {rank}: host syncs {slo['host_syncs']}, budget "
+                       f"{slo['budget']}")
+        if slo["tp_stats"]["tp_swap_agreements"] != slo["swaps_in"]:
+            bad.append(f"slo rank {rank}: {slo['tp_stats']['tp_swap_agreements']} agreements")
+        for what, s, syncs in (("roles", ro["sentry"], ro["host_syncs"]),
+                               ("slo", slo["sentry"], slo["host_syncs"])):
+            if (s["sentry_budget_violations"] or s["sentry_reuploads"]
+                    or s["sentry_steady_recompiles"]
+                    or not s["sentry_fetched"] == s["sentry_budgeted"] == syncs):
+                bad.append(f"{what} rank {rank}: sentry {s}, host syncs {syncs}")
+        lc = slo["launches"]
+        if lc["int8"] != per * slo["forwards"] or lc["int8_routes"]["v1"]:
+            bad.append(f"slo rank {rank}: int8 {lc}, {slo['forwards']} forwards")
+    return bad
+
+
+# the world of 4 (serve_1b_tp2_world4): gloo on card 0, {"data": 2,
+# "model": 2}; model group {0, 1} serves the int8 arm's requests
+# TP_WORLD4["picked"][0::2], {2, 3} its [1::2], each through a TP engine at
+# the 1b widths and TP_LAYERS with a default deadline (a clock feature:
+# one broadcast a step over the group's own decision group)
+TP_WORLD4 = dict(picked=(1, 2, 3, 5, 6, 7), deadline_s=600.0)
+
+
+def tp_world4_rank(world_tp) -> dict:
+    """One rank of serve_1b_tp2_world4 (spawned by ``spawn_tp``, world 4)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pytorch_distributed_training_tutorials_tpu_torch.models import (
+        TransformerConfig,
+        TransformerLM,
+        init_quantized_lm,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.ops import quant
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel import create_mesh
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel.tensor_parallel import (
+        TensorParallel,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import Request, ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    tp = TensorParallel(create_mesh({"data": 2, "model": 2}, device="cuda"))
+    arm = TP_ARMS["int8"]
+    cfg = TransformerConfig(**arm["preset"], quantized=True, attention_fn=fa.flash_attention)
+    params = init_quantized_lm(cfg, seed=0, device="cuda")
+    rng = np.random.Generator(np.random.PCG64(15))
+    prompts = [rng.integers(0, cfg.vocab_size, (arm["prompts"][i % len(arm["prompts"])],))
+               .tolist() for i in range(arm["requests"])]
+    eng = ServeEngine(TransformerLM(cfg), params, max_queue=64, device="cuda", strategy=tp,
+                      default_deadline_s=TP_WORLD4["deadline_s"], **TP_STREAM)
+    del params
+    mine = list(TP_WORLD4["picked"][tp.data_rank::2])
+    quant.int8_matmul_tp.launches = 0
+    t1 = time.perf_counter()
+    with native_sync_warnings():
+        ids = [eng.submit(Request(prompt=prompts[i], max_new_tokens=arm["new"], seed=i))
+               for i in mine]
+        done, steps = [], 0
+        while not eng.idle:
+            done += eng.step()
+            steps += 1
+    torch.cuda.synchronize()
+    by_id = {c.request_id: c for c in done}
+    return {
+        "rank": dist.get_rank(), "data_rank": tp.data_rank, "model_rank": tp.rank,
+        "requests": mine, "tokens": [by_id[i].tokens for i in ids],
+        "reasons": [by_id[i].finish_reason for i in ids], "steps": steps,
+        "broadcasts": eng.n_decision_broadcasts,
+        "group": dist.get_process_group_ranks(eng._dgroup), "host_syncs": eng.n_host_syncs,
+        "budget": eng.n_chains + eng.n_prefills + eng.n_splices,
+        "int8_tp": quant.int8_matmul_tp.launches,
+        "forwards": eng.n_prefills + eng.n_chains * TP_STREAM["tokens_per_launch"],
+        "serve_s": time.perf_counter() - t1, "rank_s": time.perf_counter() - t0,
+    }
+
+
+def phase_serve_tp_world4(torch, gpu: str, tp: dict) -> dict:
+    """``serve_1b_tp2_world4``: two TP-2 engines with deadlines in one gloo
+    world of 4 on card 0 (TP_WORLD4), spawned here, the decision groups of
+    both model groups made on every rank (``tp_world4_rank``). Gates: the
+    two ranks of each group complete the same requests with the same
+    tokens; each request's tokens equal the unsharded engine's, or where
+    the TP-2 world's differ from it (held teacher-forced there) the TP-2
+    world's; one broadcast a step in each group; host syncs the budget; 57
+    int8 shard calls a forward. Returns the int8 shard calls by rank."""
+    from pytorch_distributed_training_tutorials_tpu_torch.parallel.tensor_parallel import (
+        spawn_tp,
+    )
+
+    t0 = time.perf_counter()
+    ranks = spawn_tp(tp_world4_rank, 4, (), backend="gloo", device="cuda", join_timeout_s=300)
+    ranks = sorted(ranks, key=lambda r: r["rank"])
+    bad = []
+    rep, sharded = tp["replicated_tokens"], tp["sharded_tokens"]
+    per = TP_LAYERS * 7 + 1
+    for r in ranks:
+        peer = ranks[r["rank"] ^ 1]
+        if r["tokens"] != peer["tokens"] or r["steps"] != peer["steps"]:
+            bad.append(f"rank {r['rank']}: differs from its group's other rank")
+        if r["group"] != sorted((r["rank"], peer["rank"])):
+            bad.append(f"rank {r['rank']}: decision group {r['group']}")
+        for i, toks in zip(r["requests"], r["tokens"]):
+            if toks != rep[i] and toks != sharded[i]:
+                bad.append(f"rank {r['rank']}: request {i} equals neither the unsharded nor "
+                           "the TP-2 world's tokens")
+        if r["reasons"] != ["length"] * len(r["requests"]):
+            bad.append(f"rank {r['rank']}: {r['reasons']}")
+        if r["broadcasts"] != r["steps"] or r["host_syncs"] != r["budget"]:
+            bad.append(f"rank {r['rank']}: {r['broadcasts']} broadcasts in {r['steps']} steps, "
+                       f"host syncs {r['host_syncs']} of {r['budget']}")
+        if r["int8_tp"] != per * r["forwards"]:
+            bad.append(f"rank {r['rank']}: {r['int8_tp']} shard calls, {r['forwards']} forwards")
+    emit({"phase": "serve_1b_tp2_world4", "mesh": {"data": 2, "model": 2}, "backend": "gloo",
+          "layers": TP_LAYERS, "requests_by_group": [ranks[0]["requests"], ranks[2]["requests"]],
+          "tokens_equal_unsharded": [sum(t == rep[i] for i, t in zip(r["requests"], r["tokens"]))
+                                     for r in ranks],
+          "steps": [r["steps"] for r in ranks], "broadcasts": [r["broadcasts"] for r in ranks],
+          "groups": [r["group"] for r in ranks], "host_syncs": [r["host_syncs"] for r in ranks],
+          "int8_matmul_tp_launches": [r["int8_tp"] for r in ranks],
+          "serve_s": [r["serve_s"] for r in ranks], "rank_s": [r["rank_s"] for r in ranks],
+          "seconds": time.perf_counter() - t0, "timing_note": TP_NOTE,
+          "ok": not bad, "problems": bad, "gpu": gpu})
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return {"int8_tp": [r["int8_tp"] for r in ranks]}
 
 
 # train_760m_tp2: bench/lm_headline.py's 760m preset (vocab 32768, d_model
-# 1536, 24 layers, 16 heads of 96, d_ff 6144, seq 2048, batch 2, bf16,
+# 1536, 16 heads of 96, d_ff 6144, seq 2048, batch 2, bf16,
 # flash, remat "dots") with the fused loss, fused AdamW (3e-4, weight decay
 # 0.01) and the skip guard, through Trainer(strategy=TensorParallel(
 # create_mesh({"model": 2}))): 8 heads, 3072 of d_ff and 16384 vocabulary
 # columns a rank, both ranks on card 0 over gloo; beside the single-device
-# Trainer from the same seed. Full depth and width.
+# Trainer from the same seed. Full width at TP_TRAIN_LAYERS of the 24
+# layers, to keep the whole script inside the tool's time limit (a
+# rank's gloo-staged steps scale with the depth)
 TP_TRAIN_STEPS = 4
-TP_TRAIN_CFG = dict(PRESET_760M, max_seq_len=2048, remat=True, remat_policy="dots")
+TP_TRAIN_LAYERS = 8
+TP_TRAIN_CFG = dict(PRESET_760M, n_layers=TP_TRAIN_LAYERS, max_seq_len=2048, remat=True,
+                    remat_policy="dots")
 TP_TRAIN_BATCH = 2
 # the leaves whose first step is held against the single-device step's
 # slice: AdamW's first moment after one step is (1 - b1) g, the step's
 # gradient (an early and a late block's column and row shards, norms)
 TP_TRAIN_LEAVES = ("blocks.0.attn_norm.scale", "blocks.0.attn.q_proj.weight",
-                   "blocks.0.attn.o_proj.weight", "blocks.12.mlp_norm.scale",
-                   "blocks.12.attn.k_proj.weight", "blocks.23.attn.o_proj.weight",
-                   "final_norm.scale")
+                   "blocks.0.attn.o_proj.weight",
+                   f"blocks.{TP_TRAIN_LAYERS // 2}.mlp_norm.scale",
+                   f"blocks.{TP_TRAIN_LAYERS // 2}.attn.k_proj.weight",
+                   f"blocks.{TP_TRAIN_LAYERS - 1}.attn.o_proj.weight", "final_norm.scale")
 # the first step's gates against the single-device step: the loss within
 # 1e-3 of it (relative), and each named leaf's first moment within 10% of
 # the single-device one's (relative error norm). Both sides run bf16
@@ -4395,8 +5168,10 @@ TP_TRAIN_GRAD_TOL = 0.1
 # its backward reads, the down_proj's matmul: its sum is not redone), f
 # twice backward; the fused loss's MAX, SUM and dh; the guard's flag MIN
 TP_TRAIN_COLLECTIVES = {
-    "all_reduce": 0, "all_gather": 0, "g": 3 * PRESET_760M["n_layers"],
-    "f": 2 * PRESET_760M["n_layers"], "lse_max": 1, "lse_sum": 1, "dh": 1, "flag_min": 1}
+    "all_reduce": 0, "all_gather": 0, "g": 3 * TP_TRAIN_LAYERS,
+    "f": 2 * TP_TRAIN_LAYERS, "lse_max": 1, "lse_sum": 1, "dh": 1, "flag_min": 1}
+# flash launches a rank a step (FLASH_PER_STEP at the cut depth)
+TP_TRAIN_FLASH = {"fwd": 2 * TP_TRAIN_LAYERS, "dq": TP_TRAIN_LAYERS, "dkv": TP_TRAIN_LAYERS}
 
 
 def tp_train_batch():
@@ -4538,8 +5313,8 @@ def phase_train_tp(torch, gpu: str) -> dict:
     TP_TRAIN_LOSS_TOL of the single-device one's and each named leaf's
     first moment within TP_TRAIN_GRAD_TOL of its slice, and the planted
     fault (f's backward sum dropped) outside it, its gap printed; the
-    collectives a step exactly TP_TRAIN_COLLECTIVES; per rank a step 48 /
-    24 / 24 flash, 1 / 1 / 1 fused-loss and 1 AdamW launches, all sm90.
+    collectives a step exactly TP_TRAIN_COLLECTIVES; per rank a step
+    TP_TRAIN_FLASH flash, 1 / 1 / 1 fused-loss and 1 AdamW launches, all sm90.
     Step ms and peak memory a rank beside the single-device step's (with
     gloo not TP's speed)."""
     from pytorch_distributed_training_tutorials_tpu_torch.parallel.tensor_parallel import (
@@ -4555,7 +5330,7 @@ def phase_train_tp(torch, gpu: str) -> dict:
     ranks_s = time.perf_counter() - t0
     steps = TP_TRAIN_STEPS
     problems = []
-    want_flash = {k: n * steps for k, n in FLASH_PER_STEP.items()}
+    want_flash = {k: n * steps for k, n in TP_TRAIN_FLASH.items()}
     want_fused = {k: n * steps for k, n in FUSED_PER_STEP.items()}
     want_coll = {k: n * steps for k, n in TP_TRAIN_COLLECTIVES.items()}
     gaps = [tp_train_gaps(torch, r, ref, r["rank"]) for r in ranks]
@@ -4695,11 +5470,16 @@ def phase_train_card_vs_cpu(torch, gpu: str) -> None:
         torch.bfloat16: {"loss_rel": 2.0 ** -10, "grad_rel_norm": 2.0 ** -5},
     }
     lr = 3e-4
+    # dtype -> the weights both losses start from (the CPU's init is most
+    # of the phase's time)
+    inits = {}
     for (dtype, tol), loss_name in itertools.product(tols.items(), LOSSES):
         fused = loss_name == "fused_cross_entropy"
         cfg = TransformerConfig(**{**PRESET_760M, "n_layers": 2}, max_seq_len=seq, dtype=dtype,
                                 attention_fn=make_flash_attention(1024, 1024), quantized=False)
-        params = init_lm(cfg, seed=5, device="cpu")
+        if dtype not in inits:
+            inits[dtype] = init_lm(cfg, seed=5, device="cpu")
+        params = inits[dtype]
         loss_fn = _make_loss_fn(loss_name)
         out, stepped = {}, {}
         before = dict(flash_attention.launches)
@@ -4707,7 +5487,8 @@ def phase_train_card_vs_cpu(torch, gpu: str) -> None:
         adamw_before = fused_adamw.launches
         for dev in ("cuda", "cpu"):
             model = TransformerLM(cfg)
-            bind_params(model, {k: v.to(dev) for k, v in params.items()})
+            # copies on both sides: the fused arm's step updates them in place
+            bind_params(model, {k: v.to(dev, copy=True) for k, v in params.items()})
             batch = (toks[:, :-1].to(dev), toks[:, 1:].to(dev))
             named = list(model.named_parameters())
             loss = loss_fn(model, batch)
@@ -8258,7 +9039,8 @@ def main(argv=None) -> int:
     ap.add_argument("--slo-roles-only", action="store_true",
                     help="after the build, run the serving engine features' phases only "
                          "(serve_1b_slo with serve_1b_gqa_paged_slo, serve_1b_disagg, "
-                         "serve_1b_tp2 with its clock legs)")
+                         "serve_1b_sentry, serve_1b_tp2 with its clock, roles and SLO "
+                         "legs, serve_1b_tp2_world4, train_sentry)")
     ap.add_argument("--strategies-only", action="store_true",
                     help="after the build, run the model-parallel slice's phases only "
                          "(train_resnet50_pipeline, train_resnet50_gpipe, "
@@ -8368,7 +9150,11 @@ def main(argv=None) -> int:
     if args.slo_roles_only:
         run(phase_serve_slo, torch, quant, fa, pa, gpu)
         run(phase_serve_disagg, torch, quant, fa, pa, gpu)
-        emit({"kernels": [tp_kernel_row(run(phase_serve_tp, torch, quant, gpu))]})
+        run(phase_serve_sentry, torch, quant, fa, pa, gpu)
+        tp = run(phase_serve_tp, torch, quant, gpu)
+        tp["launches"]["world4"] = run(phase_serve_tp_world4, torch, gpu, tp)["int8_tp"]
+        run(phase_train_sentry, torch, gpu)
+        emit({"kernels": [tp_kernel_row(tp)]})
         emit({"phase": "phase_seconds", **seconds})
         return 0
     if args.lora_only:
@@ -8396,7 +9182,9 @@ def main(argv=None) -> int:
     faults, paged_faults, fleet = fault_phases()
     slo = run(phase_serve_slo, torch, quant, fa, pa, gpu)
     disagg = run(phase_serve_disagg, torch, quant, fa, pa, gpu)
+    sentry = run(phase_serve_sentry, torch, quant, fa, pa, gpu)
     tp = run(phase_serve_tp, torch, quant, gpu)
+    tp["launches"]["world4"] = run(phase_serve_tp_world4, torch, gpu, tp)["int8_tp"]
     load = run(phase_serve_1b_from_checkpoint, torch, quant, pa, gpu)
     train_tp = run(phase_train_tp, torch, gpu)
     run(phase_train_card_vs_cpu, torch, gpu)
@@ -8409,6 +9197,7 @@ def main(argv=None) -> int:
     ddp = run(phase_train_resnet_ddp, torch, gpu)
     run(phase_train_resnet_streaming, torch, gpu)
     guard = run(phase_train_guardrails, torch, gpu)
+    train_sentry = run(phase_train_sentry, torch, gpu)
     run(phase_bench_and_scaling, torch, gpu)
     strat = strategy_phases(run, torch, gpu)
     spep = spep_phases(run, torch, gpu)
@@ -8454,7 +9243,8 @@ def main(argv=None) -> int:
                              **{f"serve_1b_from_checkpoint_{a}": r["int8_matmul_launches"]
                                 for a, r in load.items()},
                              **{path: n["int8"] for path, n in slo.items()},
-                             **{path: n["int8"] for path, n in disagg.items()}},
+                             **{path: n["int8"] for path, n in disagg.items()},
+                             **{path: n["int8"] for path, n in sentry.items()}},
         "verify_forwards_by_path": {
             **{f"serve_1b_spec_{a}": n for a, n in spec["verify_forwards"].items() if n},
             "serve_1b_gqa_paged_spec": paged_serve["spec"]["n_verify_forwards"]},
@@ -8504,7 +9294,9 @@ def main(argv=None) -> int:
                 **{f"serve_1b_prefill_{a}": n for a, n in prefill["launches"].items()},
                 **{f"serve_1b_spec_{a}": n for a, n in spec["flash"].items()},
                 **faults["flash"],
-                **{path: n["flash"] for path, n in {**slo, **disagg}.items() if "flash" in n}}
+                **{path: n["flash"] for path, n in {**slo, **disagg, **sentry}.items()
+                   if "flash" in n},
+                "serve_1b_tp2_roles_rank0": tp["roles_launches"]["flash"]}
             kernels[-1]["serving"] = {
                 "launches_per_prefill": SERVE_LAYERS,
                 "whole_prefills": prefill["prefills"],
@@ -8547,6 +9339,7 @@ def main(argv=None) -> int:
                              "train_resnet_ddp_fused_adamw": ddp["fused_adamw"],
                              "train_guardrails_resnet18": guard["resnet_guarded_adamw_launches"],
                              "train_guardrails_760m": guard["guard_760m_adamw_launches"],
+                             "train_sentry_resnet18": train_sentry["fused_adamw"],
                              "train_lora_masked": train_lora["fused_adamw"],
                              "train_resnet50_pipeline_adamw": strat["pipeline"]["adamw_launches"],
                              "train_resnet18_fsdp_adamw_rank0": strat["fsdp"]["adamw_launches"],
@@ -8603,8 +9396,9 @@ def main(argv=None) -> int:
                              **{f"serve_1b_gqa_paged_faults_{a}": r["paged_attention_launches"]
                                 for a, r in paged_faults.items()},
                              "serve_1b_from_checkpoint_hf": load["hf"]["paged_attention_launches"],
-                             **{path: n["paged"] for path, n in {**slo, **disagg}.items()
-                                if "paged" in n}},
+                             **{path: n["paged"] for path, n in {**slo, **disagg, **sentry}.items()
+                                if "paged" in n},
+                             "serve_1b_tp2_roles_rank0": tp["roles_launches"]["paged"]},
         "verify": {k: paged["results"][("1b-gqa-verify", "f32", "f32")][k] * 16
                    for k in ("ms", "plain_ms", "bound_ms")}
         | {"bound_by": paged["results"][("1b-gqa-verify", "f32", "f32")]["bound_by"],

@@ -6,7 +6,8 @@ package's): the library is built with ``g++`` into the gitignored
 first gather (never at import). When ``g++``
 or the build is missing, :func:`gather_rows` uses numpy fancy indexing,
 as the JAX loader does: the native copy is a host throughput measure,
-never a correctness dependency.
+never a correctness dependency. A build or load is reported to the
+native listeners (:func:`..ops._build.add_native_listener`).
 """
 
 from __future__ import annotations
@@ -17,9 +18,12 @@ import os
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
+
+from pytorch_distributed_training_tutorials_tpu_torch.ops._build import notify_native
 
 _REPO = Path(__file__).resolve().parents[2]
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fastgather.cpp"
@@ -58,12 +62,16 @@ def _load() -> ctypes.CDLL | None:
             return None
         digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
         target = BUILD_DIR / f"fastgather-{digest}.so"
+        t0 = time.perf_counter()
+        built = not target.exists()
         try:
-            if not target.exists():
+            if built:
                 _build(target)
             lib = ctypes.CDLL(str(target))
         except (OSError, subprocess.SubprocessError):
             return None
+        notify_native("fastgather", (time.perf_counter() - t0) * 1e3,
+                      "built" if built else "loaded")
         lib.fg_gather_rows.argtypes = [
             ctypes.c_void_p,  # src
             ctypes.POINTER(ctypes.c_int64),  # indices

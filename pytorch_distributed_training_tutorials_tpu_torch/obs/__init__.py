@@ -2,7 +2,9 @@
 and the receipt every measurement is written through; and, exported
 lazily (PEP 562, as ``adapters/``), the serving flight recorder
 (:mod:`.flight`: events, spans, ``graft-flightlog/v1`` dumps, the fleet
-merge) and its streaming histograms (:mod:`.histogram`)."""
+merge), its streaming histograms (:mod:`.histogram`) and the runtime
+contract sentry (:mod:`.sentry`: native loads, fetches against the
+budget, leaves off the device)."""
 
 import importlib
 
@@ -30,6 +32,7 @@ _LAZY_EXPORTS = {
         ("flight", ("EVENT_KINDS", "FLIGHT_SCHEMA", "FlightRecorder", "load_flightlog",
                     "merge_snapshots", "summarize_merged", "validate_flightlog")),
         ("histogram", ("LogHistogram",)),
+        ("sentry", ("ContractSentry",)),
     )
     for name in names
 }

@@ -172,6 +172,9 @@ _LIBRARIES = {
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+# callables told of every native library made available: (library, ms,
+# "built" or "loaded") — the contract sentry's compile probe
+_listeners: list = []
 # name -> {"seconds": build time (0.0 when a cached library loaded),
 # "log": nvcc's output (-Xptxas -v: registers, shared memory, spills)}
 build_info: dict[str, dict] = {}
@@ -235,16 +238,42 @@ def _load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def add_native_listener(fn) -> None:
+    """Tell ``fn(library, ms, kind)`` of every native library made
+    available from now on: a kernel library here, the host gather in
+    :mod:`..data.native`; ``kind`` is ``"built"`` (compiled, then loaded)
+    or ``"loaded"`` (a cached build), ``ms`` the wall time it added to the
+    caller's wait (a parallel :func:`build_all` reports each library's
+    share once, so its reports sum to its wall time)."""
+    _listeners.append(fn)
+
+
+def remove_native_listener(fn) -> None:
+    if fn in _listeners:
+        _listeners.remove(fn)
+
+
+def notify_native(library: str, ms: float, kind: str) -> None:
+    for fn in list(_listeners):
+        fn(library, ms, kind)
+
+
 def build_all() -> dict[str, dict]:
     """Build every kernel source under ``csrc/`` in parallel and load it;
-    returns :data:`build_info`."""
+    returns :data:`build_info`. Each library made available is reported
+    to the native listeners once, with the wall time since the one before
+    it was ready."""
     with _lock:
         t0 = time.perf_counter()
         todo = [n for n in _LIBRARIES if n not in _libs]
         started = {n: _start(n) for n in todo}
+        last = t0
         for n in todo:
             _finish(n, started[n], t0)
             _libs[n] = _load(n)
+            now = time.perf_counter()
+            notify_native(n, (now - last) * 1e3, "loaded" if started[n] is None else "built")
+            last = now
     return build_info
 
 

@@ -6,7 +6,9 @@ the fleet front
 door over several engines, :class:`.router.FleetRouter` (with
 :class:`.router.DispatchLedger` and :func:`.router.affinity_hash`),
 exported lazily (PEP 562, as ``adapters/``): importing the router loads
-nothing but the scheduler and the standard library."""
+nothing but the scheduler and the standard library. The contract sentry
+every engine and router of a process may carry,
+:class:`..obs.sentry.ContractSentry`, is exported here too, lazily."""
 
 import importlib
 
@@ -77,6 +79,7 @@ _LAZY_EXPORTS = {
     "DispatchLedger": "pytorch_distributed_training_tutorials_tpu_torch.serve.router",
     "FleetRouter": "pytorch_distributed_training_tutorials_tpu_torch.serve.router",
     "affinity_hash": "pytorch_distributed_training_tutorials_tpu_torch.serve.router",
+    "ContractSentry": "pytorch_distributed_training_tutorials_tpu_torch.obs.sentry",
 }
 __all__ += sorted(_LAZY_EXPORTS)
 

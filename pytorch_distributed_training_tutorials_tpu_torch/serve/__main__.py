@@ -2,7 +2,8 @@
 --selftest [--paged [--paged-kernel] [--kv-bits 8|4]] [--prefix] [--chunk]
 [--flash] [--spec-k K [--spec-ngram N]] [--pipeline-depth D] [--adapters
 N] [--chaos] [--flight] [--router] [--tp N [--tp-backend gloo|nccl]]
-[--slo] [--device cpu]``: end-to-end smoke of the port's serving path.
+[--slo] [--sentry] [--device cpu]``: end-to-end smoke of the port's serving
+path.
 
 A toy int8 LM serves a staggered stream of mixed-length requests through
 :class:`.engine.ServeEngine` (2 slots, a queue bound of 2 so backpressure
@@ -102,16 +103,31 @@ run's count, its KV bytes below the unsharded engine's, and
 ``audit_decode()`` clean (an ``all_reduce`` per row-parallel projection
 and one logits ``all_gather`` per forward, nothing else).
 
-``--slo`` adds the SLO arm (the JAX selftest's twelfth, without its
-sentry half, which waits for the sentry): a ``priority_classes=2``
-engine decodes a class-1 request on its only slot when a class-0 request
-arrives; the engine must preempt (swap the victim out, ``n_swaps_out``),
-serve the class-0 request and swap the victim back in, both token-exact
-to ``generate``, with host syncs exactly chains + prefills + splices +
-swaps out. A chaos leg (``preempt_at_chain``) force-preempts a slot of a
-2-slot engine with no pressure: both requests' tokens equal a clean run's.
-A host leg: ``PriorityScheduler(n_classes=1)`` pops what ``FifoScheduler``
-pops over the same submissions.
+``--slo`` adds the SLO arm (the JAX selftest's twelfth): a
+``priority_classes=2`` engine decodes a class-1 request on its only slot
+when a class-0 request arrives; the engine must preempt (swap the victim
+out, ``n_swaps_out``), serve the class-0 request and swap the victim back
+in, both token-exact to ``generate``, with host syncs exactly chains +
+prefills + splices + swaps out — and its contract sentry balanced (no
+violation), its fetches equal to a ``Tensor.cpu`` spy laid under it and
+to those syncs. A chaos leg (``preempt_at_chain``) force-preempts a slot
+of a 2-slot engine with no pressure: both requests' tokens equal a clean
+run's. A host leg: ``PriorityScheduler(n_classes=1)`` pops what
+``FifoScheduler`` pops over the same submissions.
+
+``--sentry`` adds the contract-sentry arm (the JAX selftest's eleventh):
+an engine with a :class:`..obs.sentry.ContractSentry` and a dumping
+recorder serves the base stream (warmup), ``mark_steady``, then serves it
+again: tokens equal the base run's, no steady recompile, no violation,
+no re-upload, and the sentry's fetches equal a ``Tensor.cpu`` spy laid
+under it, its budgeted count and the engine's ``n_host_syncs`` (chains +
+prefills). Then three injected violations, each exactly one typed event
+and one ``graft-flightlog/v1`` dump naming its trigger: a post-steady
+native library load through the real loader (on a card a kernel library
+through ``ops/_build.py``, on the CPU the host gather through
+``data/native.py``), a stray fetch inside one step round through a leaky
+``_sweep`` (a ``.item()`` of a device tensor on a card, a ``.cpu()`` on
+the CPU), and a numpy leaf in a checked tree, its device twin silent.
 
 Prints one JSON line (``"ok": true`` when every check held) and exits 0,
 or 1 when a check failed. Runs on ``cuda`` unless ``--device`` names
@@ -121,6 +137,7 @@ another device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 
@@ -130,7 +147,8 @@ def selftest(device=None, paged: bool = False, paged_kernel: bool = False,
              flash: bool = False, spec_k: int = 0, spec_ngram: int = 3,
              pipeline_depth: int = 1, adapters: int = 0, chaos: bool = False,
              flight: bool = False, router: bool = False, tp: int = 0,
-             tp_backend: str | None = None, slo: bool = False) -> dict:
+             tp_backend: str | None = None, slo: bool = False,
+             sentry: bool = False) -> dict:
     import torch
 
     from pytorch_distributed_training_tutorials_tpu_torch._device import resolve_device
@@ -192,6 +210,8 @@ def selftest(device=None, paged: bool = False, paged_kernel: bool = False,
     tp_fields = (tp_arm(dev, tp, tp_backend, completions, engine.n_host_syncs, problems)
                  if tp > 1 else {})
     slo_fields = slo_arm(model, params, dev, prompts, completions, problems) if slo else {}
+    sentry_fields = (sentry_arm(model, params, dev, prompts, completions, problems)
+                     if sentry else {})
     return {
         "selftest": "serve_torch",
         "ok": not problems,
@@ -219,6 +239,7 @@ def selftest(device=None, paged: bool = False, paged_kernel: bool = False,
         **router_fields,
         **tp_fields,
         **slo_fields,
+        **sentry_fields,
         "problems": problems,
     }
 
@@ -317,6 +338,141 @@ def _budget(eng) -> int:
     return eng.n_chains + eng.n_prefills + eng.n_splices
 
 
+@contextlib.contextmanager
+def _cpu_spy():
+    """A ``Tensor.cpu`` spy for the block (laid under a sentry installed
+    inside it): yields ``{"n": calls}``, restores what it replaced."""
+    import torch
+
+    had, real = "cpu" in torch.Tensor.__dict__, torch.Tensor.cpu
+    count = {"n": 0}
+
+    def spy(t, *a, **k):
+        count["n"] += 1
+        return real(t, *a, **k)
+
+    torch.Tensor.cpu = spy
+    try:
+        yield count
+    finally:
+        if had:
+            torch.Tensor.cpu = real
+        else:
+            del torch.Tensor.cpu
+
+
+def _native_reload(dev) -> str:
+    """Load one native library again through its real loader: on a card a
+    kernel library (``ops/_build.py``, forgotten and loaded back by
+    ``library``), on the CPU the host gather (``data/native.py``, its
+    cached handle forgotten). Returns the library's name ("" when the
+    host gather cannot be built here)."""
+    if dev.type == "cuda":
+        from pytorch_distributed_training_tutorials_tpu_torch.ops import _build
+
+        _build._libs.pop("fused_adamw", None)
+        _build.library("fused_adamw")
+        return "fused_adamw"
+    from pytorch_distributed_training_tutorials_tpu_torch.data import native
+
+    native._tried, native._lib = False, None
+    return "fastgather" if native.native_available() else ""
+
+
+def sentry_arm(model, params, dev, prompts, completions, problems: list) -> dict:
+    """The ``--sentry`` checks (module docstring; the JAX selftest's
+    eleventh arm, ``serve/__main__.py:1315-1500``)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pytorch_distributed_training_tutorials_tpu_torch.obs.flight import (
+        FlightRecorder,
+        load_flightlog,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.obs.sentry import ContractSentry
+    from pytorch_distributed_training_tutorials_tpu_torch.serve import Request, ServeEngine
+
+    fd, dump = tempfile.mkstemp(suffix=".flightlog.jsonl")
+    os.close(fd)
+    fl = FlightRecorder(capacity=256, dump_path=dump)
+    sen = ContractSentry(flight=fl)
+    eng = ServeEngine(model, params, n_slots=2, tokens_per_launch=8, max_queue=2, device=dev,
+                      flight=fl, sentry=sen)
+    with _cpu_spy() as spy:
+        sen.install()  # ON the spy: every .cpu flows sentry -> spy -> real
+        try:
+            _base_stream(eng, prompts)  # warmup
+            # the injections' operands, made before the steady mark
+            stray = torch.zeros((), device=dev)
+            twin = {"w": torch.ones((4, 4), device=dev)}
+            sen.mark_steady()
+            got, _ = _base_stream(eng, prompts)
+            base = len(prompts)  # the warmup took ids 0 .. N-1
+            exact = all(got[base + rid].tokens == c.tokens for rid, c in completions.items())
+            if not exact:
+                problems.append("sentry arm: the instrumented engine changed greedy tokens")
+            if sen.n_steady_recompiles or sen.n_budget_violations or sen.n_reuploads:
+                problems.append(f"sentry arm: clean stream {sen.summary()}")
+            budget = eng.n_chains + eng.n_prefills
+            if not sen.n_fetched == spy["n"] == sen.n_budgeted == eng.n_host_syncs == budget:
+                problems.append(f"sentry arm: fetch accounting disagrees — sentry "
+                                f"{sen.n_fetched} fetched / {sen.n_budgeted} budgeted, spy "
+                                f"{spy['n']}, engine {eng.n_host_syncs}, budget {budget}")
+            clean = dict(sen.summary())
+            # violation 1: a post-steady native load through the real loader
+            library = _native_reload(dev)
+            recompile_caught = bool(library) and sen.n_steady_recompiles == 1
+            if not recompile_caught:
+                problems.append(f"sentry arm: a steady native load of {library!r} counted "
+                                f"{sen.n_steady_recompiles} times (want 1)")
+            # violation 2: a stray fetch inside ONE step round
+            orig = eng._sweep
+
+            def leaky_sweep():
+                stray.item() if dev.type == "cuda" else stray.cpu()
+                return orig()
+
+            eng.submit(Request(prompt=prompts[0][0], max_new_tokens=3))
+            eng._sweep = leaky_sweep
+            eng.step()
+            eng._sweep = orig
+            while not eng.idle:
+                eng.step()
+            budget_caught = sen.n_budget_violations == 1
+            if not budget_caught:
+                problems.append(f"sentry arm: the stray fetch flagged "
+                                f"{sen.n_budget_violations} rounds (want 1)")
+            # violation 3: a numpy leaf fires, its device twin is silent
+            sen.check_args({"w": np.ones((4, 4), np.float32)}, label="selftest_numpy",
+                           device=dev)
+            twin_bytes = sen.check_args(twin, label="selftest_numpy", device=dev)
+            reupload_caught = sen.n_reuploads == 1 and twin_bytes == 0
+            if not reupload_caught:
+                problems.append(f"sentry arm: {sen.n_reuploads} re-uploads, {twin_bytes} B "
+                                "on the device twin (want 1 and 0)")
+        finally:
+            sen.uninstall()
+    snaps = load_flightlog(dump)
+    os.unlink(dump)
+    for reason, check in (("compile", lambda t: t.get("steady") is True),
+                          ("budget_violation",
+                           lambda t: t.get("fetched", 0) > t.get("budgeted", 0)),
+                          ("reupload", lambda t: t.get("label") == "selftest_numpy")):
+        hits = [x for x in snaps if x["reason"] == reason]
+        if len(hits) != 1 or not check(hits[0].get("trigger") or {}):
+            problems.append(f"sentry arm: {len(hits)} {reason!r} dumps "
+                            f"({[x.get('trigger') for x in hits]}); want one naming it")
+    return {**clean, "sentry_token_exact": exact, "sentry_spy_fetches": spy["n"],
+            "sentry_injected_recompile_caught": recompile_caught,
+            "sentry_injected_library": library,
+            "sentry_injected_budget_caught": budget_caught,
+            "sentry_injected_reupload_caught": reupload_caught,
+            "sentry_dump_snapshots": len(snaps)}
+
+
 def slo_arm(model, params, dev, prompts, completions, problems: list) -> dict:
     """The ``--slo`` checks (module docstring; the JAX selftest's twelfth
     arm, ``serve/__main__.py:104-120``)."""
@@ -326,15 +482,18 @@ def slo_arm(model, params, dev, prompts, completions, problems: list) -> dict:
         Request,
         ServeEngine,
     )
+    from pytorch_distributed_training_tutorials_tpu_torch.obs.sentry import ContractSentry
     from pytorch_distributed_training_tutorials_tpu_torch.utils.chaos import ChaosConfig
 
     (lo_toks, lo_new), (hi_toks, hi_new) = prompts[4], prompts[3]  # 2 + 17, 12 + 6
+    sen = ContractSentry()
     eng = ServeEngine(model, params, n_slots=1, tokens_per_launch=8, priority_classes=2,
-                      device=dev)
-    lo = eng.submit(Request(prompt=lo_toks, max_new_tokens=lo_new, priority=1))
-    done = {c.request_id: c for c in eng.step()}  # its prefill and first chain
-    hi = eng.submit(Request(prompt=hi_toks, max_new_tokens=hi_new, priority=0))
-    done.update((c.request_id, c) for c in eng.run_until_idle())
+                      device=dev, sentry=sen)
+    with _cpu_spy() as spy, sen:
+        lo = eng.submit(Request(prompt=lo_toks, max_new_tokens=lo_new, priority=1))
+        done = {c.request_id: c for c in eng.step()}  # its prefill and first chain
+        hi = eng.submit(Request(prompt=hi_toks, max_new_tokens=hi_new, priority=0))
+        done.update((c.request_id, c) for c in eng.run_until_idle())
     if eng.n_swaps_out < 1 or eng.n_swaps_in < 1:
         problems.append(f"slo arm: no preemption (swaps out {eng.n_swaps_out}, in "
                         f"{eng.n_swaps_in})")
@@ -350,6 +509,11 @@ def slo_arm(model, params, dev, prompts, completions, problems: list) -> dict:
     if eng.n_host_syncs != budget:
         problems.append(f"slo arm: {eng.n_host_syncs} host syncs != {budget} (chains + "
                         "prefills + splices + swaps out)")
+    # the sentry half: every swap fetch went through the budgeted _fetch
+    if sen.n_budget_violations or not sen.n_fetched == spy["n"] == sen.n_budgeted == budget:
+        problems.append(f"slo arm: sentry {sen.n_fetched} fetched / {sen.n_budgeted} "
+                        f"budgeted ({sen.n_budget_violations} violations), spy {spy['n']}, "
+                        f"budget {budget}")
 
     def pair(**kw):
         e = ServeEngine(model, params, n_slots=2, tokens_per_launch=8, device=dev, **kw)
@@ -376,7 +540,9 @@ def slo_arm(model, params, dev, prompts, completions, problems: list) -> dict:
         problems.append(f"slo arm: one-class pop order {orders[1]} != FIFO {orders[0]}")
     return {"slo_swaps_out": eng.n_swaps_out, "slo_swaps_in": eng.n_swaps_in,
             "slo_token_exact": exact, "slo_host_syncs": eng.n_host_syncs,
-            "slo_chaos_exact": chaotic == clean, "slo_fifo_order": orders[0] == orders[1]}
+            "slo_chaos_exact": chaotic == clean, "slo_fifo_order": orders[0] == orders[1],
+            "slo_sentry_fetched": sen.n_fetched,
+            "slo_sentry_violations": sen.n_budget_violations}
 
 
 def chaos_arm(model, params, dev, prompts, problems: list) -> dict:
@@ -1008,7 +1174,12 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument(
         "--slo", action="store_true",
         help="add the SLO arm: a class-0 arrival preempts a class-1 request (KV swap "
-             "out and in), token-exact, and the chaos force-preempt",
+             "out and in), token-exact, its sentry balanced, and the chaos force-preempt",
+    )
+    ap.add_argument(
+        "--sentry", action="store_true",
+        help="add the contract-sentry arm: a clean steady stream whose fetches balance, "
+             "then an injected native load, stray fetch and numpy leaf, one dump each",
     )
     args = ap.parse_args(argv)
     if not args.selftest:
@@ -1022,7 +1193,8 @@ def main(argv: list[str] | None = None) -> int:
                        spec_k=args.spec_k, spec_ngram=args.spec_ngram,
                        pipeline_depth=args.pipeline_depth, adapters=args.adapters,
                        chaos=args.chaos, flight=args.flight, router=args.router,
-                       tp=args.tp, tp_backend=args.tp_backend, slo=args.slo)
+                       tp=args.tp, tp_backend=args.tp_backend, slo=args.slo,
+                       sentry=args.sentry)
     print(json.dumps(receipt))
     return 0 if receipt["ok"] else 1
 

@@ -160,8 +160,13 @@ configured or the engine is ``cancellable``, broadcasts its verdicts on
 the step's live requests in ONE message over a CPU gloo group beside the
 model group (:meth:`ServeEngine._decide`); the other ranks apply what they
 receive, never their own clock. With none of these on, no broadcast is
-issued. ``tp`` 1 (or no strategy) is the replicated engine: the same
-state, launches and syncs.
+issued. The decision groups of EVERY model group of the strategy's mesh
+are made at the first engine's construction, in mesh order, on every
+rank (``new_group`` is collective over the whole world), so a model group
+may be smaller than the world — two TP engines on ``{"data": 2, "model":
+2}`` — and every rank must construct its engines in the same order.
+``tp`` 1 (or no strategy) is the replicated engine: the same state,
+launches and syncs.
 
 Disaggregation (``role=``, the JAX engine's prefill/decode roles;
 DistServe, OSDI '24): a ``role="prefill"`` engine admits prompts and
@@ -176,7 +181,11 @@ slot from the segment — :func:`.slots.seed_cache` and
 :func:`.slots.copy_slot` + :func:`.slots.write_slot`, or the paged write —
 bitwise, since nothing is recomputed; the fetch of the first token is the
 handoff's one sync, so its budget is chains + handoffs accepted. A
-:class:`.router.FleetRouter` over such engines moves the handoffs.
+:class:`.router.FleetRouter` over such engines moves the handoffs. Under
+tensor parallelism both role engines run over the same model group: rank
+r's segment holds its own KV heads (about 1/tp of the unsharded bytes)
+and moves rank-locally; the first token (sampled from the all-gathered
+logits) and the generator state are the same on every rank.
 
 SLO preemption (``priority_classes`` N > 0): a
 :class:`.slo.PriorityScheduler` admits classes ``[0, N)`` and pops by
@@ -192,7 +201,19 @@ released) and it requeues at its arrival position with a
 buffer goes up through :func:`.slots.upload` (no fetch), the segment is
 spliced back (fresh pages when paged) and its budget, generator state and
 history restored verbatim, so it resumes token-exact. The budget is
-chains + prefills + splices + swaps out.
+chains + prefills + splices + swaps out. Under tensor parallelism every
+rank submits the same requests in the same step order, so the waiting
+classes, the slots, the free pages and the chaos chain count — hence
+every preemption decision — are alike on every rank, with no broadcast;
+each rank packs and fetches its own heads (its budget holds per rank),
+and a swap-in's rank-local failure is agreed before it completes.
+
+Contract sentry (``sentry=``, :class:`..obs.sentry.ContractSentry`): each
+:meth:`ServeEngine.step` is one of its accounting rounds, every budgeted
+fetch is declared to it (:meth:`ServeEngine._fetch`, the event wait of
+:meth:`ServeEngine._land`) and each chain's inputs are walked for leaves
+off the engine's device. Off, the engine makes the same syncs and
+launches as without it. Under tensor parallelism each rank has its own.
 """
 
 from __future__ import annotations
@@ -222,6 +243,7 @@ from pytorch_distributed_training_tutorials_tpu_torch.models.transformer import 
     rewind_cache_index,
     tp_layout,
 )
+from pytorch_distributed_training_tutorials_tpu_torch.parallel.mesh import MODEL_AXIS
 from pytorch_distributed_training_tutorials_tpu_torch.parallel.tensor_parallel import (
     TensorParallel,
     shard_params,
@@ -344,17 +366,46 @@ class _PendingPrefill:
         self.pages: list[int] = []
 
 
+# the decision groups of the current world: one CPU gloo group per model
+# group (its global ranks), shared by every engine over that group
+_DECISION_GROUPS: dict = {"world": None, "groups": {}}
+
+
+def _model_groups(tp: TensorParallel) -> list[tuple[int, ...]]:
+    """Every model group of ``tp``'s world, in mesh order: the rows of the
+    mesh's ``model`` axis, or (``tp`` over a bare group) that group, which
+    must then be the whole world."""
+    mesh = tp.mesh
+    if mesh is None or MODEL_AXIS not in mesh.mesh_dim_names:
+        ranks = tuple(dist.get_process_group_ranks(tp.group))
+        if len(ranks) != dist.get_world_size():
+            raise ValueError(
+                f"a model group {list(ranks)} smaller than the world "
+                f"({dist.get_world_size()} ranks) needs its mesh: pass "
+                "TensorParallel(create_mesh({..., 'model': n})), so that every rank can "
+                "make every model group's decision group")
+        return [ranks]
+    axis = mesh.mesh_dim_names.index(MODEL_AXIS)
+    grid = mesh.mesh.movedim(axis, -1).reshape(-1, mesh.mesh.shape[axis])
+    return [tuple(int(r) for r in row) for row in grid.tolist()]
+
+
 def _decision_group(tp: TensorParallel):
     """A CPU gloo group over ``tp``'s model group, and the global rank of
     its rank 0: the channel of rank 0's host decisions. ``new_group`` is
-    collective over the whole world, so the model group must be the whole
-    world (a serving world of ``tp`` ranks)."""
-    ranks = dist.get_process_group_ranks(tp.group)
-    if len(ranks) != dist.get_world_size():
-        raise NotImplementedError(
-            "rank 0's decisions under tensor parallelism need the model group to be the "
-            f"whole world (model group {ranks}, world {dist.get_world_size()})")
-    return dist.new_group(ranks, backend="gloo"), dist.get_global_rank(tp.group, 0)
+    collective over the whole world, so the first call makes the groups of
+    EVERY model group of the world, in mesh order, on every rank; later
+    calls (another engine over any of them) reuse them. Every rank must
+    therefore construct its engines in the same order."""
+    world = dist.group.WORLD
+    if _DECISION_GROUPS["world"] is not world:
+        _DECISION_GROUPS.update(world=world, groups={})
+    groups = _DECISION_GROUPS["groups"]
+    for ranks in _model_groups(tp):
+        if ranks not in groups:
+            groups[ranks] = dist.new_group(list(ranks), backend="gloo")
+    mine = tuple(dist.get_process_group_ranks(tp.group))
+    return groups[mine], dist.get_global_rank(tp.group, 0)
 
 
 def _base_cfg(cfg: TransformerConfig) -> TransformerConfig:
@@ -423,9 +474,11 @@ class ServeEngine:
     speculation and no pipelining, a decode engine no prefix cache and no
     chunked prefill. :meth:`take_handoff`, :meth:`accept` and :attr:`load`
     go with it. ``priority_classes`` (0: one FIFO class) turns on SLO
-    preemption (module docstring), not beside a role. Under tensor
-    parallelism both still raise ``NotImplementedError``, as does
-    ``sentry`` (the contract sentry is not ported yet)."""
+    preemption (module docstring), not beside a role. Both run under
+    tensor parallelism (module docstring). ``sentry`` (None: off) a
+    :class:`..obs.sentry.ContractSentry`; :meth:`sentry_stats` goes with
+    it. Under tensor parallelism engines are constructed in the same
+    order on every rank (their decision groups are made then)."""
 
     def __init__(
         self,
@@ -461,8 +514,6 @@ class ServeEngine:
         priority_classes: int = 0,
         sentry=None,
     ):
-        if sentry is not None:
-            raise NotImplementedError("sentry= (the contract sentry) is not ported yet")
         if n_slots < 1:
             raise ValueError("n_slots must be >= 1")
         if tokens_per_launch < 1:
@@ -529,11 +580,6 @@ class ServeEngine:
         self._tp = strategy if strategy is not None and strategy.tp_size > 1 else None
         self._tp_audit = None
         if self._tp is not None:
-            for on, what in ((role, "role="), (priority_classes, "priority_classes")):
-                if on:
-                    raise NotImplementedError(
-                        f"{what} under tensor parallelism (tp={self._tp.tp_size}) is not "
-                        "ported yet")
             model, params = self._sharded(model, params, self._tp)
         if params is not None:
             bind_params(
@@ -621,14 +667,20 @@ class ServeEngine:
         self._guard = bool(guard_nonfinite)
         self._chaos = chaos
         self._flight = flight
+        # the contract sentry (None: off, and nothing below changes): one
+        # accounting round a step, every budgeted fetch through _fetch
+        self._sentry = sentry
         self._cancelled: set[int] = set()
         # tensor parallel: rank 0's verdicts of this step (None: each rank
         # decides itself — replicated, or no clock feature on) and their
-        # gloo channel, made at the first broadcast
+        # gloo channel, made here (every model group's, in mesh order)
         self._cancellable = bool(cancellable)
         self._decided: dict[int, str] | None = None
-        self._dgroup = None
+        self._dgroup = self._dsrc = None
+        if self._tp is not None:
+            self._dgroup, self._dsrc = _decision_group(self._tp)
         self.n_decision_broadcasts = 0
+        self.n_swap_agreements = 0
         self.n_deadline_expired = 0
         self.n_cancelled = 0
         self.nonfinite_quarantined = 0
@@ -858,7 +910,17 @@ class ServeEngine:
         mid-chain — surplus chain tokens of a finished slot are
         discarded). A bank whose version moved since the last step (a
         register or an evict) is picked up first
-        (:meth:`refresh_adapters`)."""
+        (:meth:`refresh_adapters`). With a sentry the round is one of its
+        accounting windows (``begin_round`` / ``end_round``)."""
+        if self._sentry is None:
+            return self._step_impl()
+        self._sentry.begin_round(f"step:{self.n_chains}")
+        try:
+            return self._step_impl()
+        finally:
+            self._sentry.end_round()
+
+    def _step_impl(self) -> list[Completion]:
         if self._bank is not None and self._bank.version != self._merged_version:
             self.refresh_adapters()
         if self._tp is not None:
@@ -896,7 +958,8 @@ class ServeEngine:
         non-blocking copy of its token block into the next pinned ring
         buffer and an event after it. The chain joins the in-flight queue
         with the slot views of this moment. The recorder's ``chain_start``
-        and the chaos stall come first."""
+        and the chaos stall come first, then the sentry's walk of the
+        chain's inputs (its parameters, buffers and slot cache)."""
         chain_id = self.n_chains
         if self._flight is not None:
             self._flight.chain_start(self.active_slots, self.n_slots, chain=chain_id)
@@ -904,6 +967,13 @@ class ServeEngine:
             # under tensor parallelism the stall is rank 0's host alone:
             # the others wait for it in the next collective
             chaos_lib.maybe_stall(self._chaos, chain_id, flight=self._flight)
+        if self._sentry is not None:
+            # the re-upload probe over the chain's inputs: a leaf off the
+            # engine's device is copied up on every chain
+            self._sentry.check_args(
+                {"params": self._dec_model.state_dict(keep_vars=True),
+                 "cache": _cache_leaves(self._state.cache)},
+                label="decode_chain", device=self.device)
         block = self._spec_chain() if self._spec else self._chain()
         self.n_chains += 1
         if self._spec:
@@ -940,6 +1010,10 @@ class ServeEngine:
         if fl.event is None:
             return self._fetch(fl.block)
         self.n_host_syncs += 1
+        if self._sentry is not None:
+            # an event wait escapes the sentry's probes: counted here
+            self._sentry.budgeted_fetch()
+            self._sentry.note_fetch()
         fl.event.synchronize()
         return fl.block
 
@@ -1108,8 +1182,17 @@ class ServeEngine:
                 "n_preemptions": self.n_swaps_out, "n_swaps_out": self.n_swaps_out,
                 "n_swaps_in": self.n_swaps_in, "swapped_now": len(self._swapped)}
 
+    def sentry_stats(self) -> dict[str, int | float]:
+        """Contract-sentry fields (the JAX engine's keys): the sentry's
+        ``summary()``, or ``{"sentry": 0}`` when off. A fleet sharing one
+        sentry reports fleet-wide numbers; ``FleetRouter.stats()`` merges
+        by sentry identity. Host bookkeeping only."""
+        if self._sentry is None:
+            return {"sentry": 0}
+        return self._sentry.summary()
+
     _STATS_PARTS = ("prefix", "spec", "adapters", "fault", "flight", "pipeline", "pages",
-                    "tp", "role", "slo")
+                    "tp", "role", "sentry", "slo")
 
     def stats(self, *parts: str) -> dict[str, int | float]:
         """One dict over the per-subsystem stats (the JAX engine's parts
@@ -1124,7 +1207,7 @@ class ServeEngine:
                "adapters": self.adapter_stats, "fault": self.fault_stats,
                "flight": self.flight_stats, "pipeline": self.pipeline_stats,
                "pages": self.page_stats, "tp": self.tp_stats, "role": self.role_stats,
-               "slo": self.slo_stats}
+               "sentry": self.sentry_stats, "slo": self.slo_stats}
         out: dict[str, int | float] = {}
         for part in self._STATS_PARTS:
             if part in chosen:
@@ -1183,6 +1266,8 @@ class ServeEngine:
             "tp_kv_bytes_global": tree_nbytes(self._whole_cache()),
             "tp_decision_broadcasts": self.n_decision_broadcasts,
         }
+        if self._slo:
+            out["tp_swap_agreements"] = self.n_swap_agreements
         if self._tp_audit is not None:
             out["tp_collectives"] = sum(self._tp_audit["collectives"].values())
             out["tp_hlo_ok"] = self._tp_audit["ok"]
@@ -1277,8 +1362,8 @@ class ServeEngine:
         rank evaluates alike — rank 0 judges each live request
         (``"cancelled"``, ``"deadline"`` or nothing, on its own clock and
         its own cancels) and broadcasts the codes in ONE message over the
-        CPU gloo group (:func:`_decision_group`, made at the first
-        broadcast); every rank returns ``{request_id: verdict}`` from
+        CPU gloo group (:func:`_decision_group`, made at construction);
+        every rank returns ``{request_id: verdict}`` from
         it, applied by :meth:`_sweep` and :meth:`_bounced` this step. Else
         None: no broadcast, and the local checks (which then find nothing
         to do) stand."""
@@ -1296,8 +1381,6 @@ class ServeEngine:
                     codes[i] = 1
                 elif self._expired(r, now):
                     codes[i] = 2
-        if self._dgroup is None:
-            self._dgroup, self._dsrc = _decision_group(self._tp)
         dist.broadcast(codes, src=self._dsrc, group=self._dgroup)
         self.n_decision_broadcasts += 1
         return {r.request_id: _VERDICTS[code]
@@ -1479,8 +1562,12 @@ class ServeEngine:
         generator state and history are restored verbatim: it resumes
         token-exact. If this raises, the request completes ``"error"`` with
         the tokens it earned before the swap, the pages go back and the
-        slot parks, as for a raising prefill."""
+        slot parks, as for a raising prefill. Under tensor parallelism each
+        rank unpacks its own heads and a failure is rank-local: the ranks
+        agree on the outcome first (:meth:`_agree`), so every rank
+        completes the request ``"error"`` when any rank's swap-in raised."""
         act, st, pages = rec.active, self._state, []
+        ok = True
         try:
             parts = unpack(upload(rec.packed, torch.uint8, self.device),
                            self._swap_layout(rec.seg_len))
@@ -1506,6 +1593,10 @@ class ServeEngine:
         except Exception:
             _log.warning("request %d: swap-in into slot %d raised; completed 'error'",
                          req.request_id, slot, exc_info=True)
+            ok = False
+        if self._tp is not None:
+            ok = self._agree(ok)
+        if not ok:
             self._park_failed(slot, pages)
             self.n_prefill_errors += 1
             if self._flight is not None:
@@ -1518,6 +1609,16 @@ class ServeEngine:
             self._flight.resumed(req.request_id, slot=slot,
                                  wait_s=time.perf_counter() - rec.preempt_t)
         return []
+
+    def _agree(self, ok: bool) -> bool:
+        """Tensor parallel: the MIN of a rank-local ``ok`` over the model
+        group (one all_reduce of an int64 over the CPU decision group,
+        counted in ``n_swap_agreements``), so a rank-local failure is every
+        rank's."""
+        flag = torch.tensor([int(ok)], dtype=torch.int64)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=self._dgroup)
+        self.n_swap_agreements += 1
+        return bool(flag[0])
 
     @property
     def closed(self) -> bool:
@@ -1536,8 +1637,12 @@ class ServeEngine:
 
     def _fetch(self, t: torch.Tensor) -> torch.Tensor:
         """The budgeted device->host copy: every host sync of the request
-        loop goes through here and is counted."""
+        loop goes through here and is counted (the JAX engine's
+        ``_sentry_fetch``: with a sentry, declared to it first, so a sync
+        anywhere else in a round is what its accounting flags)."""
         self.n_host_syncs += 1
+        if self._sentry is not None:
+            self._sentry.budgeted_fetch()
         return t.cpu()
 
     # ------------------------------------------------------------------

@@ -56,11 +56,24 @@ prefill replicas only; each ``"handoff"`` completion's
 :class:`.scheduler.Handoff` (``take_handoff``) moves to the least-``load``
 healthy decode replica (:meth:`FleetRouter._move_handoffs`, ``accept``),
 recorded in the ledger as a ``"handoff"`` dispatch.
+
+Tensor parallelism: over engines that serve a model group's shards
+(``ServeEngine(strategy=)`` with tp > 1, all over one model group), the
+router runs on every rank of the group over the rank's engines, and its
+decisions must be identical on every rank — a rank that routes otherwise
+hangs the group's next collective. Its only rank-local input is the
+clock (health, probes and hedging read it). So when a clock feature is
+on — hedging, or a finite heartbeat or probe delay — the router reads the
+clock ONCE a round, at the top of :meth:`FleetRouter.step`, on the
+group's rank 0 and broadcasts it over the engines' CPU decision group;
+every rank decides on that value (a submission between rounds on the
+last one). With none on, no broadcast is issued.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -314,7 +327,9 @@ class FleetRouter:
         ``replica_health`` / ``redispatch`` / ``hedge`` / ``stall``
         events; replica engines carry their own recorders.
     clock: injectable monotonic clock (tests pin health/probe timing
-        with a fake; defaults to ``time.perf_counter``).
+        with a fake; defaults to ``time.perf_counter``). Over
+        tensor-parallel engines only rank 0's reading counts (module
+        docstring).
     """
 
     def __init__(self, engines: List[Any], *,
@@ -368,6 +383,25 @@ class FleetRouter:
         self._chaos = chaos
         self._flight = flight
         self._clock = clock if clock is not None else time.perf_counter
+        # tensor parallel: the engines' decision group, and the clock
+        # agreed on it once a round when a clock feature is on
+        groups = {}
+        for e in engines:
+            g = getattr(e, "_dgroup", None)
+            groups[id(g)] = (g, getattr(e, "_dsrc", None))
+        if len(groups) > 1:
+            raise ValueError("a FleetRouter's engines must all be replicated or all "
+                             "tensor-parallel over one model group")
+        self._dgroup, self._dsrc = next(iter(groups.values()))
+        self._agree_clock = self._dgroup is not None and (
+            hedge_after_s is not None
+            or any(math.isfinite(x) for x in (self._suspect_after_s, self._dead_after_s,
+                                              self._probe_after_s)))
+        self.n_clock_broadcasts = 0
+        if self._agree_clock:
+            self._local_clock = self._clock
+            self._round_now = self._agreed_now()
+            self._clock = lambda: self._round_now
         self.ledger = DispatchLedger()
         self._next_gid = 0
         self._requests: Dict[int, Request] = {}
@@ -526,7 +560,11 @@ class FleetRouter:
         apply health transitions, resolve dead replicas' outstanding
         work (re-dispatch queued, synthesize ``replica_dead`` for
         in-flight), then hedge stragglers. Returns completions with
-        GLOBAL ids, exactly one per accepted request ever."""
+        GLOBAL ids, exactly one per accepted request ever. Over
+        tensor-parallel engines with a clock feature on, the round's clock
+        is rank 0's, read once here (module docstring)."""
+        if self._agree_clock:
+            self._round_now = self._agreed_now()
         out: List[Completion] = []
         for rep in self._replicas:
             now = self._clock()
@@ -568,6 +606,18 @@ class FleetRouter:
             out.extend(self._move_handoffs(now))
         self._maybe_hedge(now)
         return out
+
+    def _agreed_now(self) -> float:
+        """Rank 0's clock, broadcast over the engines' decision group (one
+        float64 over the CPU gloo group; counted in
+        ``n_clock_broadcasts``)."""
+        import torch
+        import torch.distributed as dist
+
+        now = torch.tensor([self._local_clock()], dtype=torch.float64)
+        dist.broadcast(now, src=self._dsrc, group=self._dgroup)
+        self.n_clock_broadcasts += 1
+        return float(now[0])
 
     def run_until_idle(self, max_steps: int = 10_000) -> List[Completion]:
         out: List[Completion] = []

@@ -451,14 +451,21 @@ class Trainer:
     ``flight`` (a :class:`..obs.flight.FlightRecorder`, None: off) gets a
     ``step_skipped`` event for each skipped step when the metrics logger
     drains, and a ``rollback`` event at each rollback; neither adds a host
-    sync."""
+    sync.
+
+    ``sentry`` (a :class:`..obs.sentry.ContractSentry`, None: off): at each
+    epoch's start its phase becomes ``"epoch N"`` (native loads are
+    attributed to it) and the train state — parameters, buffers, optimizer
+    state — is walked once for leaves off the loader's device (the
+    re-upload probe). No sync, no change to the step."""
 
     def __init__(self, model: nn.Module, train_loader, optimizer, *, strategy=None,
                  loss: str = "cross_entropy", aux_loss_weight: float = 0.0,
                  grad_accum_steps: int = 1, seed: int = 0, quiet: bool = False,
                  skip_nonfinite: bool = False, chaos=None,
                  rollback_spike_factor: float | None = None, rollback_patience: int = 2,
-                 rollback_ema: float = 0.9, model_kwargs: dict | None = None, flight=None):
+                 rollback_ema: float = 0.9, model_kwargs: dict | None = None, flight=None,
+                 sentry=None):
         if rollback_spike_factor is not None and rollback_spike_factor <= 1:
             raise ValueError(f"rollback_spike_factor must be > 1 (None = off), got "
                              f"{rollback_spike_factor}")
@@ -502,6 +509,7 @@ class Trainer:
                                           skip_nonfinite=skip_nonfinite, chaos=chaos)
         self.metrics = MetricsLogger(quiet=quiet, flight=flight)
         self._flight = flight
+        self._sentry = sentry
         self.loss_name = loss
         self.last_epoch_metrics: dict = {}
         self.epoch = 0  # next epoch to run; advanced by train(), restored
@@ -608,6 +616,9 @@ class Trainer:
             }
             return self.last_epoch_metrics
         for epoch in range(self.epoch, max_epochs):
+            if self._sentry is not None:
+                self._sentry.set_phase(f"epoch {epoch}")
+                self._sentry.check_args(self.state, label="train_state", device=self.device)
             self.last_epoch_metrics = self._run_epoch(epoch)
             self.epoch = epoch + 1
         return self.last_epoch_metrics

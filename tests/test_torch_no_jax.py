@@ -60,7 +60,9 @@ def test_port_modules_import_no_jax():
            "parallel.pipeline_spmd", "parallel.ring_attention", "parallel.ulysses",
            "models.moe",
            # serving's SLO tiers: the port's own copy of the JAX slo module
-           "serve.slo")
+           "serve.slo",
+           # the contract sentry: the port's own copy of the JAX sentry
+           "obs.sentry")
     assert {f"{PORT}.{m}" for m in ddp} <= set(mods)
     code = (
         "import sys\n"

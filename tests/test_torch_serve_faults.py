@@ -285,13 +285,14 @@ def test_admission_cancel_and_close(stream):
         "deadline_s": 300.0, "guard_nonfinite": 0, "chaos": 0, "deadline_expired": 0,
         "cancelled": 0, "nonfinite_quarantined": 0, "prefill_errors": 0}
     assert eng.stats("fault", "flight") == {**eng.fault_stats(), "flight": 0}
-    # tensor-parallel serving's part (the replicated engine's), the roles'
-    # and the SLO tiers' off values; a part of a slice still to come (the
-    # contract sentry) stays unknown
+    # tensor-parallel serving's part (the replicated engine's), the roles',
+    # the SLO tiers' and the contract sentry's off values; an unknown part
+    # raises
     assert eng.stats("tp") == {"tp": 1}
     assert eng.stats("role", "slo") == {"role": 0, "priority_classes": 0}
+    assert eng.stats("sentry") == {"sentry": 0}
     with pytest.raises(ValueError):
-        eng.stats("sentry")
+        eng.stats("no_such_part")
 
 
 def test_poison_is_decided_on_the_host(stream, monkeypatch):

@@ -26,8 +26,9 @@ Every leg ends with identical completions (ids, reasons, tokens) on both
 ranks; with a feature on, one broadcast a step, none with every feature
 off; the counted model-group collectives equal across legs (the
 broadcasts ride their own gloo group). ``role=``, ``priority_classes``
-and ``sentry=`` stay refused under tensor parallelism, and a ``cancel``
-on an engine that is not ``cancellable`` raises.
+and ``sentry=`` construct under tensor parallelism (their streams are
+``tests/test_torch_tp_roles_slo.py``'s), and a ``cancel`` on an engine
+that is not ``cancellable`` raises.
 """
 
 import jax
@@ -170,9 +171,16 @@ def test_model_collectives_unchanged_by_the_broadcasts(world):
 
 
 def test_what_stays_refused_under_tp(world):
+    """``role=``, ``priority_classes`` and ``sentry=`` were refused under
+    tensor parallelism until they were ported: each now constructs a TP
+    engine with its stats part on; a ``cancel`` on an engine that is not
+    ``cancellable`` still raises."""
     for rank in world["ranks"]:
-        refused = rank["refused"]
-        for name in ("role", "role_decode", "priority_classes"):
-            assert "under tensor parallelism" in refused[name], name
-        assert "sentry" in refused["sentry"]
+        made = rank["refused"]
+        assert all(isinstance(made[name], dict) for name in made), made
+        assert made["role"]["role"] == "prefill" and made["role"]["tp"] == 2
+        assert made["role_decode"]["role"] == "decode"
+        assert made["priority_classes"]["priority_classes"] == 2
+        assert made["priority_classes"]["tp_swap_agreements"] == 0
+        assert made["sentry"]["sentry"] == 1
         assert "cancellable=True" in rank["not_cancellable"]

@@ -18,6 +18,7 @@ from pytorch_distributed_training_tutorials_tpu_torch.models import (
     TransformerLM,
 )
 from pytorch_distributed_training_tutorials_tpu_torch.obs.flight import FlightRecorder
+from pytorch_distributed_training_tutorials_tpu_torch.obs.sentry import ContractSentry
 from pytorch_distributed_training_tutorials_tpu_torch.serve import Request, ServeEngine
 from pytorch_distributed_training_tutorials_tpu_torch.utils.chaos import ChaosConfig
 
@@ -69,16 +70,18 @@ def deadline_cases(tp, workdir: str, reqs: list, legs: dict) -> dict:
         if "chaos" in leg:
             leg = {**leg, "engine": {**leg.get("engine", {}), "chaos": ChaosConfig(**leg["chaos"])}}
         out[name] = _leg(tp, cfg, params, reqs, leg)
-    # what stays refused under tensor parallelism
+    # what was refused under tensor parallelism before the roles, the SLO
+    # tiers and the sentry were ported: each now constructs (its stats
+    # parts, or the error's text)
     refused = {}
     for name, kw in (("role", dict(role="prefill")), ("role_decode", dict(role="decode")),
                      ("priority_classes", dict(priority_classes=2)),
-                     ("sentry", dict(sentry=object()))):
+                     ("sentry", dict(sentry=ContractSentry()))):
         try:
-            ServeEngine(TransformerLM(cfg), params, device="cpu", strategy=tp, **kw)
-            refused[name] = None
-        except NotImplementedError as e:
-            refused[name] = str(e)
+            eng = ServeEngine(TransformerLM(cfg), params, device="cpu", strategy=tp, **kw)
+            refused[name] = eng.stats("tp", "role", "sentry", "slo")
+        except Exception as e:  # noqa: BLE001 - the parent reports what raised
+            refused[name] = repr(e)
     out["refused"] = refused
     # what a cancel() on a TP engine that is not cancellable does
     engine = ServeEngine(TransformerLM(cfg), params, n_slots=2, device="cpu", strategy=tp)
