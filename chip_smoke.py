@@ -11,6 +11,7 @@
     python3 chip_smoke.py --strategies-only  # phases 0, 1 and the model-parallel phases
     python3 chip_smoke.py --slo-roles-only   # phases 0, 1, the engine features' and the sentry's
     python3 chip_smoke.py --load-only     # phases 0, 1 and serve_1b_from_checkpoint
+    python3 chip_smoke.py --obs-only      # phases 0, 1, 6, 7, 9 and obs
 
 It drives the port (``pytorch_distributed_training_tutorials_tpu_torch``)
 on the card and fails — non-zero exit, no result line — if a phase fails.
@@ -90,13 +91,26 @@ phase prints JSON lines:
    AdamW) for a warmup chain and 2 timed chains of 6 steps and one
    profiled step: finite, falling loss, exactly 48 / 24 / 24 flash
    forward / dq / dk-dv launches per step, every one on the sm90 route,
-   step time, MFU, peak memory;
+   step time, MFU, peak memory; the profiled step's trace classified by
+   ``obs.trace.StepReport`` (``step_report_gates``: the categories sum to
+   the total, the total is ``profile_step``'s busy time within 1%, at most
+   10% unclassified, every port kernel placed by the symbol table and its
+   launches in the trace equal to the counters over the step);
 7. its fused arm (``--fused``: the fused loss and ``fused_adamw``), the
    same chains in the same call: finite, falling loss, the first loss
    within one bf16 ulp of phase 6's, exactly 48 / 24 / 24 flash, 1 / 1 / 1
    fused-loss and 1 fused-AdamW launches per step, every flash forward,
    dq and dk/dv and every fused-loss forward, dh and dW launch on the sm90
-   route;
+   route; its profiled step through the same StepReport gates. Then
+   ``obs``: the observability selftest (``python -m ...obs --selftest
+   --json``) in a process of its own on the card (started beside phase
+   1's build: it launches no kernel of ``csrc/``), its receipt ``ok`` and
+   valid; the ``profile_decode`` twin over serve_1b_faults' 1b int8 model
+   (SERVE_LAYERS), whole-slot and paged with the kernel, every port launch
+   placed by the symbol table and equal to the counters; phase 6's result
+   written as an ``lm_headline`` receipt and ``bench.regress`` over it
+   (exit 0), then beside a later copy with ``tokens_per_s`` 10% lower at
+   ``--tolerance 0.05`` (nonzero exit, that key named);
 8. ``resnet_card_vs_cpu``: one train step of ``resnet18(stem="cifar")`` at
    batch 16, 28x28x1, in float32 (TF32 off) and bfloat16, on the card and
    on the CPU from the same weights — the loss, every gradient, the
@@ -112,10 +126,11 @@ phase prints JSON lines:
    above ``RESNET_ACC_FLOOR``, at most one host sync an epoch (sync debug
    mode); one step with BatchNorm synced and the gradients all-reduced on
    NCCL bitwise equal to the unsynced step; images/sec/GPU, step ms, peak
-   memory, idle share and the top device ops; then its fused-AdamW arm
-   for one epoch: one ``fused_adamw`` launch a step, loss falling, the
-   kernel bitwise the plain AdamW at the arm's own leaves, its time on
-   this path beside its bound;
+   memory, idle share and the top device ops, the profiled chain through
+   phase 6's StepReport gates; then its fused-AdamW arm for one epoch: one
+   ``fused_adamw`` launch a step, loss falling, the kernel bitwise the
+   plain AdamW at the arm's own leaves, its time on this path beside its
+   bound, its profiled chain through the same gates;
 10. ``train_resnet_streaming``: the headline in an NCCL world of one, one
    epoch in each of three arms under deterministic cuDNN — resident,
    ``ChunkedStreamingLoader`` (16 steps a chunk, 2 ahead) and
@@ -397,9 +412,10 @@ within TP_TRAIN_LOSS_TOL / TP_TRAIN_GRAD_TOL of the single-device
 Between ``serve_1b_tp2`` and ``train_760m_tp2``, the checkpoint-loading
 slice, ``serve_1b_from_checkpoint`` (``--load-only``: the build and this
 phase), under a temporary directory of ``build/`` (the disk's usage
-printed first, each arm's files removed when it ends). Arm ``port``: the
+printed first, each arm's files removed when it ends), both arms at
+SERVE_LAYERS (8) of the presets' 16 layers. Arm ``port``: the
 1b preset's float32 flax tree drawn on the card from a seed, written with
-``save_checkpoint`` one file a top-level subtree (4.82 GB), streamed back
+``save_checkpoint`` one file a top-level subtree (2.67 GB), streamed back
 with ``load_quantized_lm`` onto ``cuda:0``: every entry bitwise
 ``from_jax_params`` of the same tree; the card's allocated bytes after
 the load the state dict's within 1%; a child process's host peak RSS
@@ -477,6 +493,9 @@ FLASH_REPLACES = {
 }
 # products of B*H*S(S+1)/2*D multiply-adds each kernel runs (causal work)
 FLASH_PRODUCTS = {"fwd": 2, "dq": 3, "dkv": 4}
+# the plain flash versions' times are medians of this many calls (0.15–0.23 s
+# a call at the main shape: 25 of each took ~14 s of the phase)
+FLASH_PLAIN_REPS = 5
 
 # (N, D, V, dtype, a target out of range) of the fused loss checks; the
 # first is the loss of the 760m train step (B 2 x S 2048 rows)
@@ -978,7 +997,7 @@ def phase_flash(torch, fa, gpu: str) -> dict:
                                                          "dkv": ("dk_v1", "dv_v1")}[kind]}}
             else:
                 ms = time_ms(kern, torch, flush)
-            plain_ms = time_ms(plain, torch, flush)
+            plain_ms = time_ms(plain, torch, flush, reps=FLASH_PLAIN_REPS, warmup=1)
             lib_ms = time_ms(lib, torch, flush) if lib is not None else results[
                 (i, "dq")]["library_ms"]
             b_ms, b_by = flash_bound(kind, b, s, h, d, q.element_size(), flops)
@@ -5562,9 +5581,47 @@ def phase_train_card_vs_cpu(torch, gpu: str) -> None:
                 f"{dtype} {loss_name} training on the card disagrees with the CPU")
 
 
+# StepReport over a profiled step (bench.harness.trace_step): the
+# share of device time no table places, at most
+TRACE_UNCLASSIFIED = 0.10
+# the report's total against profile_step's busy time (the same events)
+TRACE_BUSY_TOL = 0.01
+TRACE_KEYS = ("trace_report", "trace_step_ms", "trace_mfu", "trace_port_launches",
+              "trace_counted_launches", "trace_unplaced_us", "trace_by_op_us",
+              "trace_lost_launches", "trace_report_s")
+
+
+def step_report_gates(r: dict) -> list:
+    """The gates over one profiled step's StepReport (``trace_step``'s
+    fields in ``r``): the categories sum to the total; the total is
+    ``profile_step``'s busy time within TRACE_BUSY_TOL; at most
+    TRACE_UNCLASSIFIED of it unclassified; every port kernel placed by the
+    symbol table (no port symbol unmatched) and its launches in the trace
+    equal to the launch counters over the step. Kernel records the
+    profiler lost (``trace_lost_launches``) are reported: a lost record
+    of a port kernel fails the launch gate."""
+    bad = []
+    total, cats = r["trace_total_us"], r["trace_category_sum_us"]
+    busy_us = r["trace"]["device_busy_ms"] * 1e3
+    rep = r["trace_report"]
+    if not math.isclose(cats, total, rel_tol=1e-9, abs_tol=1e-6):
+        bad.append(f"StepReport categories sum to {cats} us, its total {total}")
+    if not abs(total - busy_us) <= TRACE_BUSY_TOL * busy_us:
+        bad.append(f"StepReport total {total} us against profile_step's busy {busy_us}")
+    if not rep["unclassified_fraction"] <= TRACE_UNCLASSIFIED:
+        bad.append(f"StepReport: {rep['unclassified_fraction']} of device time unclassified")
+    if r["trace_port_unmatched"]:
+        bad.append(f"port kernels outside the symbol table: {r['trace_port_unmatched']}")
+    if r["trace_port_launches"] != r["trace_counted_launches"]:
+        bad.append(f"port launches in the trace {r['trace_port_launches']} != counted "
+                   f"{r['trace_counted_launches']}")
+    return bad
+
+
 def phase_train(torch, gpu: str) -> dict:
     """Phase 6: the 760m train step through the port's bench entry point,
-    with the flash launch counts of exactly this run."""
+    with the flash launch counts of exactly this run, and its profiled
+    step classified by StepReport (``step_report_gates``)."""
     from pytorch_distributed_training_tutorials_tpu_torch.bench import lm_headline
     from pytorch_distributed_training_tutorials_tpu_torch.ops.flash_attention import (
         flash_attention,
@@ -5593,6 +5650,7 @@ def phase_train(torch, gpu: str) -> dict:
         problems.append(f"flash routes {routes}: not all sm90")
     if r["n_params"] != N_PARAMS_760M:
         problems.append(f"n_params {r['n_params']} != {N_PARAMS_760M}")
+    problems += step_report_gates(r)
     emit({
         "phase": "train_760m", "arm": "baseline", "argv": argv,
         "note": "6 chained steps and 2 timed chains (the bench default is 12 and 3) "
@@ -5603,19 +5661,19 @@ def phase_train(torch, gpu: str) -> dict:
             "preset", "n_layers", "d_model", "seq", "batch", "attn", "remat_policy",
             "n_params", "steps_run", "losses_first_chain", "step_ms", "chain_ms_samples",
             "wall_s_samples", "tokens_per_s", "model_tflops_per_step", "mfu",
-            "peak_memory_bytes", "init_s", "trace")},
+            "peak_memory_bytes", "init_s", "trace", *TRACE_KEYS)},
         "ok": not problems, "problems": problems, "gpu": gpu,
     })
     if problems:
         raise AssertionError("; ".join(problems))
-    return {"flash": launches, "flash_routes": routes, "first_loss": losses[0]}
+    return {"flash": launches, "flash_routes": routes, "first_loss": losses[0], "result": r}
 
 
 def phase_train_fused(torch, gpu: str, baseline_first_loss: float) -> dict:
     """Phase 7: the fused arm of the 760m train step (``--fused``: the
     fused loss kernels and fused AdamW) through the port's bench entry
     point, the chains of phase 6, with the launch counts of exactly this
-    run."""
+    run, and its profiled step classified by StepReport."""
     from pytorch_distributed_training_tutorials_tpu_torch.bench import lm_headline
     from pytorch_distributed_training_tutorials_tpu_torch.ops.flash_attention import (
         flash_attention,
@@ -5665,6 +5723,7 @@ def phase_train_fused(torch, gpu: str, baseline_first_loss: float) -> dict:
                         f"more than one bf16 ulp ({ulp}) apart")
     if r["n_params"] != N_PARAMS_760M:
         problems.append(f"n_params {r['n_params']} != {N_PARAMS_760M}")
+    problems += step_report_gates(r)
     emit({
         "phase": "train_760m", "arm": "fused", "argv": argv,
         "note": "6 chained steps and 2 timed chains (the bench default is 12 and 3) "
@@ -5679,12 +5738,163 @@ def phase_train_fused(torch, gpu: str, baseline_first_loss: float) -> dict:
             "preset", "n_layers", "d_model", "seq", "batch", "attn", "remat_policy",
             "loss", "optimizer", "n_params", "steps_run", "losses_first_chain", "step_ms",
             "chain_ms_samples", "wall_s_samples", "tokens_per_s", "model_tflops_per_step",
-            "mfu", "peak_memory_bytes", "init_s", "trace")},
+            "mfu", "peak_memory_bytes", "init_s", "trace", *TRACE_KEYS)},
         "ok": not problems, "problems": problems, "gpu": gpu,
     })
     if problems:
         raise AssertionError("; ".join(problems))
     return {**launches, "routes": routes, "flash_routes": flash_routes}
+
+
+# the obs phase: the profile_decode twin's stream (4 requests of 32
+# prompt tokens, 9 new tokens each: one prefill and one 8-step decode chain)
+# and the planted drop the regression gate must name
+OBS_DECODE = dict(batch=4, prompt_len=32, new_tokens=9)
+REGRESS_DROP, REGRESS_TOL = 0.10, 0.05
+
+
+class ObsSelftest:
+    """``python -m ...obs --selftest --json`` in a process of its own,
+    started beside the kernels' build (it launches no kernel of ``csrc/``)
+    and read by ``phase_obs``; killed at exit if it still runs."""
+
+    def __init__(self):
+        import atexit
+        import tempfile
+        import threading
+
+        os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+        self.dir = tempfile.mkdtemp(prefix="obs_", dir=os.path.join(REPO, "build"))
+        self.path = os.path.join(self.dir, "obs_selftest.json")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", f"{PKG}.obs", "--selftest", "--json", self.path],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO,
+            env={**os.environ, "PYTHONPATH": REPO})
+        self.out, self.seconds = ("", ""), None
+        self.thread = threading.Thread(target=self._wait, daemon=True)
+        self.thread.start()
+        atexit.register(self.stop)
+
+    def _wait(self):
+        self.out = self.proc.communicate()
+        self.seconds = time.perf_counter() - self.t0
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        import shutil
+
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+    def result(self, timeout: float = 600) -> tuple:
+        """(exit code, stdout, stderr, seconds it ran)."""
+        self.thread.join(timeout)
+        if self.thread.is_alive():
+            self.stop()
+            raise AssertionError(f"the obs selftest ran past {timeout} s")
+        return self.proc.returncode, *self.out, self.seconds
+
+
+def phase_obs(torch, gpu: str, lm_result: dict, model=None, selftest=None) -> dict:
+    """``obs``: the observability layer on the card. (a) ``python -m
+    ...obs --selftest --json`` in a subprocess (``selftest``, an
+    ``ObsSelftest`` started beside the build; started here when None):
+    exit 0, its receipt ``ok`` and valid as ``obs_selftest``, stamped with
+    this card, its StepReport at most TRACE_UNCLASSIFIED unclassified. (b) the ``profile_decode``
+    twin over ``model`` (the 1b int8 model at SERVE_LAYERS that
+    serve_1b_faults built; built here when None), whole-slot and paged
+    with the kernel: each port kernel placed by the symbol table, its
+    launches in the trace equal to the counters (57 int8 calls a forward;
+    8 paged calls a decode step), at most TRACE_UNCLASSIFIED unclassified.
+    (c) phase 6's result written as an ``lm_headline`` receipt and
+    ``bench.regress`` run over its directory: exit 0; then beside a copy
+    (a later round) whose ``tokens_per_s`` is REGRESS_DROP lower, at
+    ``--tolerance`` REGRESS_TOL: nonzero exit, the regression on
+    ``tokens_per_s`` of the copy alone."""
+    import io
+    import tempfile
+
+    from pytorch_distributed_training_tutorials_tpu_torch.bench import regress
+    from pytorch_distributed_training_tutorials_tpu_torch.obs import (
+        make_receipt,
+        validate_receipt,
+        write_receipt,
+    )
+    from pytorch_distributed_training_tutorials_tpu_torch.scripts import profile_decode
+
+    bad = []
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="obs_", dir=os.path.join(REPO, "build")) as tmp:
+        # (a) the selftest, a process of its own on the card
+        t0 = time.perf_counter()
+        rc, stdout, stderr, selftest_s = (selftest or ObsSelftest()).result()
+        waited_s = time.perf_counter() - t0
+        receipt = json.loads(stdout.strip().splitlines()[-1]) if stdout.strip() else {}
+        if rc or not receipt.get("ok"):
+            bad.append(f"obs selftest exit {rc}: {receipt.get('problems')} {stderr[-1500:]}")
+        problems = validate_receipt(receipt, kind="obs_selftest")
+        if problems or receipt.get("env", {}).get("backend") != "cuda":
+            bad.append(f"obs selftest receipt: {problems}, env {receipt.get('env')}")
+        elif receipt["step_report"]["unclassified_fraction"] > TRACE_UNCLASSIFIED:
+            bad.append(f"obs selftest StepReport: {receipt['step_report']}")
+        out["selftest"] = {k: receipt.get(k) for k in (
+            "ok", "step_report", "timing", "host_fetches", "n_events", "flight")}
+        out["selftest"]["seconds"] = selftest_s
+        out["selftest"]["waited_s"] = waited_s
+
+        # (b) the profile_decode twin, whole-slot and paged
+        if model is None:
+            model = profile_decode.build("1b", SERVE_LAYERS, torch.device("cuda"))
+        for paged in (False, True):
+            rec, _ = profile_decode.run(model, device="cuda", paged=paged, **OBS_DECODE)
+            name = "paged" if paged else "whole_slot"
+            # a prefill forward each request, then the decode chain's
+            # forwards; 7 int8 projections a layer and the lm_head
+            want_int8 = (OBS_DECODE["batch"] + rec["decode_steps"]) * (7 * rec["n_layers"] + 1)
+            if (rec["port_unmatched"] or rec["port_launches"] != rec["counted_launches"]
+                    or rec["counted_launches"].get("int8_matmul.launches") != want_int8
+                    or rec["unclassified_fraction"] > TRACE_UNCLASSIFIED
+                    or rec["counted_launches"].get("paged_attention.launches", 0)
+                    != (rec["decode_steps"] * rec["n_layers"] if paged else 0)):
+                bad.append(f"profile_decode {name}: unmatched {rec['port_unmatched']}, lost "
+                           f"records {rec['lost_launches']}, traced "
+                           f"{rec['port_launches']}, counted {rec['counted_launches']} (int8 "
+                           f"{want_int8}), unclassified {rec['unclassified_fraction']}")
+            out[f"profile_decode_{name}"] = {k: rec[k] for k in (
+                "workload", "decode_steps", "device_ms_ops", "per_decode_step_ms_ops",
+                "by_class_ms", "unclassified_fraction", "port_launches", "counted_launches",
+                "port_kernel_ms", "unplaced_ms", "top_launching_ops_ms", "lost_launches",
+                "step_report")}
+
+        # (c) the regression gate over phase 6's receipt
+        rounds = os.path.join(tmp, "rounds")
+        os.makedirs(rounds)
+        base = write_receipt(os.path.join(rounds, "LM_HEADLINE_r01.json"),
+                             make_receipt("lm_headline", lm_result, device="cuda"))
+
+        def gate(*argv):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = regress.main([rounds, "--json", *argv])
+            return rc, json.loads(buf.getvalue())
+
+        clean_rc, clean = gate()
+        planted = dict(base, tokens_per_s=base["tokens_per_s"] * (1 - REGRESS_DROP))
+        write_receipt(os.path.join(rounds, "LM_HEADLINE_r02.json"), planted)
+        drop_rc, drop = gate("--tolerance", str(REGRESS_TOL))
+        named = [(r["metric"], os.path.basename(r["latest_path"])) for r in drop["regressions"]]
+        if clean_rc or clean["regressions"] or clean["n_groups"] != 1:
+            bad.append(f"regress over phase 6's receipt alone: exit {clean_rc}, {clean}")
+        if drop_rc == 0 or named != [("tokens_per_s", "LM_HEADLINE_r02.json")]:
+            bad.append(f"regress missed the planted drop: exit {drop_rc}, {drop['regressions']}")
+        out["regress"] = {"clean_exit": clean_rc, "planted_exit": drop_rc, "named": named,
+                          "device_key": regress._device(base), "drop": REGRESS_DROP,
+                          "tolerance": REGRESS_TOL}
+    emit({"phase": "obs", **out, "ok": not bad, "problems": bad, "gpu": gpu})
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return out
 
 
 # the DDP main path: ResNet-18 (cifar stem) on the MNIST surrogate, 512
@@ -5987,7 +6197,7 @@ def resnet_ddp_arms(torch, gpu: str) -> dict:
     from pytorch_distributed_training_tutorials_tpu_torch.bench import headline
     from pytorch_distributed_training_tutorials_tpu_torch.bench.harness import (
         count_host_syncs,
-        profile_step,
+        trace_step,
     )
     from pytorch_distributed_training_tutorials_tpu_torch.data import DeviceResidentLoader, mnist
     from pytorch_distributed_training_tutorials_tpu_torch.ops.fused_optim import fused_adamw
@@ -6035,7 +6245,9 @@ def resnet_ddp_arms(torch, gpu: str) -> dict:
     # fetch, CUDA events, min of 3; then one profiled chain
     chain = headline.time_chain(setup, chain_len=20, reps=3)
     prof_steps = 5
-    trace = profile_step(headline.make_step_chain(setup, prof_steps), torch)
+    traced = trace_step(headline.make_step_chain(setup, prof_steps), 0.0, None, prof_steps)
+    problems += step_report_gates(traced)
+    trace = traced["trace"]
     trace.pop("port_kernels_ms")  # no hand-written kernel on this arm
     sync = nccl_sync_check(torch, setup)
     if sync["elements_differ"] or sync["elements_differ_unsynced_repeat"]:
@@ -6056,8 +6268,9 @@ def resnet_ddp_arms(torch, gpu: str) -> dict:
           "epochs": epochs, "images_per_sec_per_gpu": epochs[-1]["images_per_sec"] / n_dev,
           **chain,
           "peak_memory_bytes": peak, "eval": ev, "accuracy_floor": RESNET_ACC_FLOOR,
-          "setup_s": setup_s, "trace": trace, "ok": not problems, "problems": problems,
-          "gpu": gpu})
+          "setup_s": setup_s, "trace": trace,
+          **{k: traced[k] for k in TRACE_KEYS if k != "trace_mfu"},
+          "ok": not problems, "problems": problems, "gpu": gpu})
     headline_problems, problems = problems, []
     dataset = setup.dataset
     del setup, trainer, test
@@ -6072,7 +6285,9 @@ def resnet_ddp_arms(torch, gpu: str) -> dict:
     losses = [ev["loss"] for ev in arm.trainer.metrics.step_events()]
     # the kernel's device time on this path, from a profiled chain, beside
     # its byte bound: p, g, m, v read and p, m, v written, 4 bytes each
-    arm_trace = profile_step(headline.make_step_chain(arm, prof_steps), torch)
+    arm_traced = trace_step(headline.make_step_chain(arm, prof_steps), 0.0, None, prof_steps)
+    problems += step_report_gates(arm_traced)
+    arm_trace = arm_traced["trace"]
     adamw_ms = sum(v for k, v in arm_trace["port_kernels_ms"].items()
                    if "adamw_kernel" in k) / prof_steps
     elements = sum(p.numel() for p in arm.trainer.state.params)
@@ -6096,6 +6311,7 @@ def resnet_ddp_arms(torch, gpu: str) -> dict:
           "adamw_kernel_ms_per_step": adamw_ms, "adamw_bound_ms": adamw_bound_ms,
           "adamw_leaves": len(arm.trainer.state.params), "adamw_elements": elements,
           "trace_idle_share": arm_trace["device_idle_share"],
+          **{k: arm_traced[k] for k in TRACE_KEYS if k != "trace_mfu"},
           "images_per_sec_per_gpu": r["images_per_sec"] / n_dev, "ok": not problems,
           "problems": problems, "gpu": gpu})
     # both arms run and print before either fails the phase
@@ -7965,7 +8181,7 @@ LOAD_CARD_TOL = 0.01
 # a load's host peak RSS growth, read in a child process (VmRSS sampled
 # every 2 ms, and getrusage's maxrss where the load raised it; the card's
 # machine has no VmHWM), as a share of the float32 tree it streams (one
-# leaf at a time: the largest, 262 MB, is 5.4% of it)
+# leaf at a time: the largest, 262 MB, is 9.8% of it at 8 layers)
 LOAD_RSS_SHARE = 0.2
 # int8 against float logits, teacher-forced: mean |difference| under this
 # share of the float logits' std (the JAX tests/test_hf_llama.py gate)
@@ -8152,7 +8368,7 @@ def load_port_arm(torch, quant, pa, gpu: str, tmp: str) -> dict:
         save_checkpoint,
     )
 
-    cfg = TransformerConfig(**PRESET_1B, quantized=True)
+    cfg = TransformerConfig(**{**PRESET_1B, "n_layers": SERVE_LAYERS}, quantized=True)
     ckpt = os.path.join(tmp, "1b")
     os.makedirs(ckpt)
     t0, f32_bytes = time.perf_counter(), 0
@@ -8340,7 +8556,7 @@ def load_hf_arm(torch, quant, pa, gpu: str, tmp: str) -> dict:
         load_hf_llama,
     )
 
-    spec = TransformerConfig(**PRESET_1B_GQA)
+    spec = TransformerConfig(**{**PRESET_1B_GQA, "n_layers": SERVE_LAYERS})
     tree = draw_flax_tree(torch, spec, torch.bfloat16)
     hf_dir = os.path.join(tmp, "hf")
     t0 = time.perf_counter()
@@ -9041,6 +9257,10 @@ def main(argv=None) -> int:
                          "(serve_1b_slo with serve_1b_gqa_paged_slo, serve_1b_disagg, "
                          "serve_1b_sentry, serve_1b_tp2 with its clock, roles and SLO "
                          "legs, serve_1b_tp2_world4, train_sentry)")
+    ap.add_argument("--obs-only", action="store_true",
+                    help="after the build, run the observability slice's phases only "
+                         "(train_760m baseline and fused with their StepReport gates, "
+                         "train_resnet_ddp, obs)")
     ap.add_argument("--strategies-only", action="store_true",
                     help="after the build, run the model-parallel slice's phases only "
                          "(train_resnet50_pipeline, train_resnet50_gpipe, "
@@ -9074,6 +9294,10 @@ def main(argv=None) -> int:
         "count": torch.cuda.device_count(),
     })
 
+    others = ("kernel_only", "ddp_only", "serve_only", "lora_only", "faults_only", "tp_only",
+              "load_only", "sp_ep_only", "slo_roles_only", "strategies_only")
+    selftest = (ObsSelftest() if args.obs_only or not any(getattr(args, f) for f in others)
+                else None)
     t0 = time.perf_counter()
     info = _build.build_all()
     emit({
@@ -9157,6 +9381,13 @@ def main(argv=None) -> int:
         emit({"kernels": [tp_kernel_row(tp)]})
         emit({"phase": "phase_seconds", **seconds})
         return 0
+    if args.obs_only:
+        base = run(phase_train, torch, gpu)
+        run(phase_train_fused, torch, gpu, base["first_loss"])
+        run(phase_train_resnet_ddp, torch, gpu)
+        run(phase_obs, torch, gpu, base["result"], None, selftest)
+        emit({"phase": "phase_seconds", **seconds})
+        return 0
     if args.lora_only:
         run(phase_serve_lora, torch, quant, fa, pa, gpu)
         run(phase_train_dots_attn, torch, gpu)
@@ -9191,6 +9422,7 @@ def main(argv=None) -> int:
     base = run(phase_train, torch, gpu)
     train_launches = base["flash"]
     fused_launches = run(phase_train_fused, torch, gpu, base["first_loss"])
+    run(phase_obs, torch, gpu, base["result"], faults["model"], selftest)
     dots_attn = run(phase_train_dots_attn, torch, gpu)
     train_lora = run(phase_train_lora, torch, gpu)
     run(phase_resnet_card_vs_cpu, torch, gpu)

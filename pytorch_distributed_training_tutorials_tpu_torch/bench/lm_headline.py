@@ -13,8 +13,8 @@ A chain is ``--steps`` eager steps, timed with CUDA events and closed with
 one ``.item()`` of the last loss; the first chain is the warmup, then
 ``--reps`` timed chains, min taken. MFU is the PaLM-convention model FLOPs
 (:func:`..models.utils.model_flops_per_token`) over the card's dense bf16
-peak, keyed by its ``nvidia-smi`` name (989 TFLOP/s for the H100 SXM data
-sheet; ``null`` for a card not in :data:`PEAK_BF16`). Peak memory is
+peak, keyed by its device name (989 TFLOP/s for the H100 SXM data sheet;
+``null`` for a card not in :data:`PEAK_BF16`). Peak memory is
 ``torch.cuda.max_memory_allocated`` over the timed chains.
 
 ``--fused`` also runs the fused-tail arm — the logits-free loss
@@ -24,6 +24,20 @@ weight) and ``fused_adamw`` (the one-pass kernel of
 :mod:`..ops.fused_optim`) — on the same model, batch and chains, and
 prints both arms, ``{"baseline": ..., "fused": ...}``, as the JAX bench
 does. Each arm records its kernels' launches.
+
+``--trace`` profiles one more step (:func:`..bench.harness.trace_step`:
+busy and idle share, kernels, the top kernels) and classifies that same
+trace with :class:`..obs.trace.StepReport`: ``trace_report`` (its
+``to_dict()``), ``trace_step_ms`` (the step's device time) and
+``trace_mfu`` (the model FLOPs over that time), as the JAX bench reports
+them; and beside them each port kernel's launches in the trace against
+the launch counters over the same step.
+
+The result goes out as a ``graft-receipt/v1`` envelope of kind
+``lm_headline`` (:func:`..obs.receipt.make_receipt`: the environment
+stamp carries the torch and CUDA versions and the card's ``nvidia-smi``
+name and power limit), printed as one JSON line and, with ``--json``,
+validated and written (:func:`..obs.receipt.write_receipt`).
 
 Runs on ``cuda`` unless ``--device cpu`` is given (then every number is a
 host number: no MFU, no device memory). ``--scan`` (the JAX ``nn.scan``
@@ -38,11 +52,10 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 
-from pytorch_distributed_training_tutorials_tpu_torch.bench.harness import profile_step
+from pytorch_distributed_training_tutorials_tpu_torch.bench.harness import trace_step
 
 PRESETS = {
     # name: (d_model, n_layers, n_heads, vocab)
@@ -52,26 +65,13 @@ PRESETS = {
     "760m": (1536, 24, 16, 32768),
 }
 
-# dense bf16 tensor-core peak by nvidia-smi name (NVIDIA data sheets)
+# dense bf16 tensor-core peak by device name (NVIDIA data sheets)
 PEAK_BF16 = {"NVIDIA H100 80GB HBM3": 989e12}
 
 BLOCK_NOTE = (
     "the CUDA flash kernels tile by 64 x 64 whatever --block_q/--block_k "
     "say; these set only the plain (CPU) version's blocks"
 )
-
-
-def gpu_line() -> str | None:
-    """``nvidia-smi --query-gpu=name,power.limit`` of the first card, or
-    None where there is no nvidia-smi."""
-    try:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, check=True, timeout=60,
-        )
-    except (OSError, subprocess.SubprocessError):
-        return None
-    return out.stdout.strip().splitlines()[0]
 
 
 def build(args, device):
@@ -174,7 +174,7 @@ def measure(args) -> dict:
     model_flops = model_flops_per_token(
         n_params - n_embed, d_model, n_layers, args.seq
     ) * tokens_per_step
-    peak = PEAK_BF16.get((gpu_line() or "").split(",")[0].strip()) if on_card else None
+    peak = PEAK_BF16.get(torch.cuda.get_device_name(dev)) if on_card else None
     out = {
         "preset": args.preset, "d_model": d_model, "n_layers": n_layers,
         "vocab": vocab, "seq": args.seq, "batch": args.batch,
@@ -241,7 +241,7 @@ def measure(args) -> dict:
     if args.trace:
         if not on_card:
             raise ValueError("--trace profiles the card; it needs --device cuda")
-        out["trace"] = profile_step(lambda: sync(one_step()), torch)
+        out.update(trace_step(lambda: sync(one_step()), model_flops, peak))
     out.update(kernel_launches())
     out["steps_run"] = steps_run
     return out
@@ -249,21 +249,6 @@ def measure(args) -> dict:
 
 def _delta(now: dict, before: dict) -> dict:
     return {k: now[k] - before[k] for k in now}
-
-
-def make_receipt(result: dict) -> dict:
-    """The result (one arm, or ``{"baseline": ..., "fused": ...}``)
-    stamped with the torch and CUDA versions and the card (``nvidia-smi``
-    name and power limit; null off the card)."""
-    import torch
-
-    arms = [result[k] for k in ("baseline", "fused") if k in result] or [result]
-    on_card = any(arm["device"] != "cpu" for arm in arms)
-    return {
-        "bench": "lm_headline", "torch": torch.__version__,
-        "cuda": torch.version.cuda, "gpu": gpu_line() if on_card else None,
-        "result": result,
-    }
 
 
 def parse(argv=None):
@@ -294,18 +279,19 @@ def parse(argv=None):
 
 
 def main(argv=None) -> None:
+    from pytorch_distributed_training_tutorials_tpu_torch.obs import make_receipt, write_receipt
+
     args = parse(argv)
     if args.fused:
         # side by side: the same model, batch and chains; only the loss and
         # optimizer tail differ between the arms
         base = argparse.Namespace(**{**vars(args), "fused": False})
-        r = make_receipt({"baseline": measure(base), "fused": measure(args)})
+        r = {"baseline": measure(base), "fused": measure(args)}
     else:
-        r = make_receipt(measure(args))
+        r = measure(args)
+    r = make_receipt("lm_headline", r, device=args.device or "cuda")
     print(json.dumps(r))
-    if args.json:
-        with open(args.json, "w") as f:
-            json.dump(r, f, indent=1)
+    write_receipt(args.json, r)
 
 
 if __name__ == "__main__":

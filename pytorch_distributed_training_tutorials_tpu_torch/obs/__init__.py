@@ -2,9 +2,11 @@
 and the receipt every measurement is written through; and, exported
 lazily (PEP 562, as ``adapters/``), the serving flight recorder
 (:mod:`.flight`: events, spans, ``graft-flightlog/v1`` dumps, the fleet
-merge), its streaming histograms (:mod:`.histogram`) and the runtime
+merge), its streaming histograms (:mod:`.histogram`), the runtime
 contract sentry (:mod:`.sentry`: native loads, fetches against the
-budget, leaves off the device)."""
+budget, leaves off the device) and the trace classifier (:mod:`.trace`:
+``StepReport``, where a traced step's device time went). ``python -m
+...obs --selftest`` drives them all (:mod:`.__main__`)."""
 
 import importlib
 
@@ -33,6 +35,7 @@ _LAZY_EXPORTS = {
                     "merge_snapshots", "summarize_merged", "validate_flightlog")),
         ("histogram", ("LogHistogram",)),
         ("sentry", ("ContractSentry",)),
+        ("trace", ("StepReport",)),
     )
     for name in names
 }

@@ -29,8 +29,11 @@ KINDS = frozenset({
 })
 
 _ENVELOPE_KEYS = ("schema", "kind", "env", "drift")
-# what every stamp carries
-_ENV_KEYS = ("torch_version", "backend", "device_count")
+# what every stamp carries, beside its framework's version: the port's
+# torch_version, or jax_version on a receipt of the JAX package (the
+# repo's receipt history starts there, and bench/regress.py reads it)
+_ENV_KEYS = ("backend", "device_count")
+_VERSION_KEYS = ("torch_version", "jax_version")
 
 
 def _git_sha() -> str | None:
@@ -113,8 +116,10 @@ def write_receipt(path: str | None, receipt: dict) -> dict:
 
 def validate_receipt(obj, kind: str | None = None) -> list[str]:
     """Problems with a receipt (an empty list: valid). A schema'd receipt
-    (``schema`` present) has its envelope checked in full; a legacy one
-    must be a non-empty dict carrying at least one number."""
+    (``schema`` present) has its envelope checked in full (a JAX-package
+    receipt's stamp carries ``jax_version`` where the port's carries
+    ``torch_version``); a legacy one must be a non-empty dict carrying at
+    least one number."""
     problems: list[str] = []
     if not isinstance(obj, dict):
         return ["receipt is not a dict"]
@@ -134,6 +139,8 @@ def validate_receipt(obj, kind: str | None = None) -> list[str]:
         for key in _ENV_KEYS:
             if key not in env:
                 problems.append(f"env stamp missing {key!r}")
+        if not any(key in env for key in _VERSION_KEYS):
+            problems.append("env stamp missing 'torch_version'")
     drift = obj.get("drift")
     if drift is not None and not isinstance(drift, dict):
         problems.append("drift must be a dict (DriftBracket.to_dict())")

@@ -39,6 +39,7 @@ from pytorch_distributed_training_tutorials_tpu_torch.parallel.hf_llama import (
 from pytorch_distributed_training_tutorials_tpu_torch.parallel.tensor_parallel import (
     shard_tensor,
 )
+from pytorch_distributed_training_tutorials_tpu_torch.utils.tree import keystr
 
 @dataclasses.dataclass(frozen=True)
 class LeafMeta:
@@ -93,7 +94,7 @@ def save_checkpoint(path: str | os.PathLike, tree) -> None:
     for kp, leaf in tree_leaves(tree):
         if any("/" in str(k) or not str(k) for k in kp):
             raise ValueError(f"key path {kp}: keys must be non-empty and hold no '/'")
-        flat["/".join(str(k) for k in kp)] = leaf
+        flat[keystr(kp)] = leaf
     path = os.path.abspath(path)
     fd, tmp = tempfile.mkstemp(prefix=".ckpt-", dir=os.path.dirname(path))
     os.close(fd)
@@ -121,7 +122,7 @@ def restore_leaf(path: str | os.PathLike, key_path: tuple, place=None, *,
     dimension-0 block reads only its rows' bytes. Pass an open ``file``
     when restoring many leaves in a loop (one header parse)."""
     f = file if file is not None else SafetensorsFile(path)
-    name = "/".join(str(k) for k in key_path)
+    name = keystr(key_path)
     if not isinstance(place, Shard):
         t = f.get(name)
         return t if place is None else t.to(place)
@@ -211,7 +212,7 @@ def load_quantized(path: str | os.PathLike, should_quantize=None, channel_axis: 
     out: dict = {}
     for kp, meta in checkpoint_leaf_metadata(path):
         place = dev if placement is None else placement(kp, meta)
-        if not should_quantize("/".join(kp), meta):
+        if not should_quantize(keystr(kp), meta):
             _set(out, kp, restore_leaf(path, kp, place, file=f))
             continue
         shard = place if isinstance(place, Shard) else None
@@ -238,7 +239,7 @@ def audit_placement(tree) -> list[str]:
 
     lines = []
     for kp, leaf in tree_leaves(tree):
-        name = "/".join(str(k) for k in kp)
+        name = keystr(kp)
         parts = ([(f"{name}/q", leaf.q), (f"{name}/scale", leaf.scale)]
                  if isinstance(leaf, Int8Param) else [(name, leaf)])
         for n, x in parts:

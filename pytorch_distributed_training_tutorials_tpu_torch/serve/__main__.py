@@ -2,8 +2,8 @@
 --selftest [--paged [--paged-kernel] [--kv-bits 8|4]] [--prefix] [--chunk]
 [--flash] [--spec-k K [--spec-ngram N]] [--pipeline-depth D] [--adapters
 N] [--chaos] [--flight] [--router] [--tp N [--tp-backend gloo|nccl]]
-[--slo] [--sentry] [--device cpu]``: end-to-end smoke of the port's serving
-path.
+[--slo] [--sentry] [--device cpu] [--json PATH]``: end-to-end smoke of the
+port's serving path.
 
 A toy int8 LM serves a staggered stream of mixed-length requests through
 :class:`.engine.ServeEngine` (2 slots, a queue bound of 2 so backpressure
@@ -129,9 +129,11 @@ through ``ops/_build.py``, on the CPU the host gather through
 ``_sweep`` (a ``.item()`` of a device tensor on a card, a ``.cpu()`` on
 the CPU), and a numpy leaf in a checked tree, its device twin silent.
 
-Prints one JSON line (``"ok": true`` when every check held) and exits 0,
-or 1 when a check failed. Runs on ``cuda`` unless ``--device`` names
-another device.
+Prints one JSON line, a ``graft-receipt/v1`` envelope of kind
+``serve_selftest`` validated before it is reported (``"ok": true`` when
+every check held), and exits 0, or 1 when a check failed; ``--json PATH``
+also writes it there. Runs on ``cuda`` unless ``--device`` names another
+device.
 """
 
 from __future__ import annotations
@@ -148,7 +150,7 @@ def selftest(device=None, paged: bool = False, paged_kernel: bool = False,
              pipeline_depth: int = 1, adapters: int = 0, chaos: bool = False,
              flight: bool = False, router: bool = False, tp: int = 0,
              tp_backend: str | None = None, slo: bool = False,
-             sentry: bool = False) -> dict:
+             sentry: bool = False, json_path: str | None = None) -> dict:
     import torch
 
     from pytorch_distributed_training_tutorials_tpu_torch._device import resolve_device
@@ -158,6 +160,7 @@ def selftest(device=None, paged: bool = False, paged_kernel: bool = False,
         generate,
         init_quantized_lm,
     )
+    from pytorch_distributed_training_tutorials_tpu_torch.obs import make_receipt, validate_receipt
     from pytorch_distributed_training_tutorials_tpu_torch.serve import ServeEngine
 
     dev = resolve_device(device)
@@ -212,7 +215,7 @@ def selftest(device=None, paged: bool = False, paged_kernel: bool = False,
     slo_fields = slo_arm(model, params, dev, prompts, completions, problems) if slo else {}
     sentry_fields = (sentry_arm(model, params, dev, prompts, completions, problems)
                      if sentry else {})
-    return {
+    payload = {
         "selftest": "serve_torch",
         "ok": not problems,
         "device": str(dev),
@@ -242,6 +245,16 @@ def selftest(device=None, paged: bool = False, paged_kernel: bool = False,
         **sentry_fields,
         "problems": problems,
     }
+    # the graft-receipt/v1 envelope, validated before it is reported
+    receipt = make_receipt("serve_selftest", payload, device=dev)
+    problems.extend(validate_receipt(receipt, kind="serve_selftest"))
+    receipt["ok"] = not problems
+    receipt["problems"] = problems
+    if json_path:
+        with open(json_path, "w") as f:
+            json.dump(receipt, f, indent=2)
+            f.write("\n")
+    return receipt
 
 
 # the toy int8 LM every arm serves (weights: init_quantized_lm, seed 0)
@@ -1109,6 +1122,9 @@ def main(argv: list[str] | None = None) -> int:
         help="device to run on (default cuda; 'cpu' for a CPU run)",
     )
     ap.add_argument(
+        "--json", default=None, help="also write the receipt to this path",
+    )
+    ap.add_argument(
         "--paged", action="store_true",
         help="add the paged-KV arm: an oversubscribed stream over a page pool",
     )
@@ -1194,7 +1210,7 @@ def main(argv: list[str] | None = None) -> int:
                        pipeline_depth=args.pipeline_depth, adapters=args.adapters,
                        chaos=args.chaos, flight=args.flight, router=args.router,
                        tp=args.tp, tp_backend=args.tp_backend, slo=args.slo,
-                       sentry=args.sentry)
+                       sentry=args.sentry, json_path=args.json)
     print(json.dumps(receipt))
     return 0 if receipt["ok"] else 1
 

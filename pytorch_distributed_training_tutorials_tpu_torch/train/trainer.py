@@ -431,8 +431,8 @@ class Trainer:
     (``DataParallel`` over the loader's mesh by default) broadcasts them
     from rank 0. Each epoch fetches its losses once, in one batched copy
     at its end (``MetricsLogger``); nothing inside an epoch syncs with the
-    host, guard on or off, unless ``rollback_spike_factor`` asks for its
-    loss fetches. ``host_syncs`` counts the trainer's fetches.
+    host, guard on or off, unless ``rollback_spike_factor`` or ``log_every``
+    asks for its loss fetches. ``host_syncs`` counts the trainer's fetches.
 
     A loader with ``iter_chunks`` (:class:`..data.ChunkedStreamingLoader`)
     trains chunk by chunk (:meth:`_run_epoch_chunked`), the next chunk's
@@ -453,6 +453,12 @@ class Trainer:
     drains, and a ``rollback`` event at each rollback; neither adds a host
     sync.
 
+    ``metrics`` (a :class:`..obs.metrics.MetricsLogger`; None: a quiet or
+    loud one of the trainer's own) receives every step and epoch event;
+    pass one with a ``jsonl_path`` to sink them. ``log_every`` (None: off)
+    prints every ``log_every``-th step's loss — one fetch each, the one
+    opt-in sync inside an epoch, counted in ``host_syncs``.
+
     ``sentry`` (a :class:`..obs.sentry.ContractSentry`, None: off): at each
     epoch's start its phase becomes ``"epoch N"`` (native loads are
     attributed to it) and the train state — parameters, buffers, optimizer
@@ -465,7 +471,8 @@ class Trainer:
                  skip_nonfinite: bool = False, chaos=None,
                  rollback_spike_factor: float | None = None, rollback_patience: int = 2,
                  rollback_ema: float = 0.9, model_kwargs: dict | None = None, flight=None,
-                 sentry=None):
+                 sentry=None, log_every: int | None = None,
+                 metrics: MetricsLogger | None = None):
         if rollback_spike_factor is not None and rollback_spike_factor <= 1:
             raise ValueError(f"rollback_spike_factor must be > 1 (None = off), got "
                              f"{rollback_spike_factor}")
@@ -507,7 +514,11 @@ class Trainer:
                                           grad_accum_steps=grad_accum_steps,
                                           model_kwargs=self.model_kwargs,
                                           skip_nonfinite=skip_nonfinite, chaos=chaos)
-        self.metrics = MetricsLogger(quiet=quiet, flight=flight)
+        self.log_every = log_every
+        self.metrics = metrics if metrics is not None else MetricsLogger(quiet=quiet,
+                                                                         flight=flight)
+        if flight is not None and self.metrics.flight is None:
+            self.metrics.flight = flight
         self._flight = flight
         self._sentry = sentry
         self.loss_name = loss
@@ -541,7 +552,8 @@ class Trainer:
             batch = chaos_lib.maybe_poison_batch(self.chaos, self._dispatches, batch)
         self.state, metrics = self.train_step(self.state, batch)
         extra = {"skipped": metrics["skipped"]} if "skipped" in metrics else None
-        self.metrics.log_step(steps, metrics["loss"], extra=extra)
+        self.metrics.log_step(steps, metrics["loss"], extra=extra,
+                              verbose=bool(self.log_every) and steps % self.log_every == 0)
         return metrics["loss"]
 
     def _monitored(self, loss: torch.Tensor) -> bool:

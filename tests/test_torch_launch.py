@@ -36,6 +36,9 @@ from pytorch_distributed_training_tutorials_tpu.data.resident import (
     DeviceResidentLoader as JaxResident,
 )
 from pytorch_distributed_training_tutorials_tpu.models import resnet18 as jax_resnet18
+from pytorch_distributed_training_tutorials_tpu.ops.debug import (
+    per_shard_shapes as jax_per_shard_shapes,
+)
 from pytorch_distributed_training_tutorials_tpu.parallel.mesh import create_mesh as jax_mesh
 from pytorch_distributed_training_tutorials_tpu.train import Trainer as JaxTrainer
 from pytorch_distributed_training_tutorials_tpu_torch.launch import coordinator_for_spawn, spawn
@@ -96,6 +99,16 @@ def test_two_rank_gloo_world_matches_jax_mesh(contract, jax_run):
     np.testing.assert_allclose(out[0]["losses"], jax_losses, rtol=1e-6)
     assert out[0]["losses"] == out[1]["losses"]
     assert out[0]["host_syncs"] == EPOCHS
+    # ops.debug: each rank's block, gathered over the world (or the mesh's
+    # data axis), as the JAX per_shard_shapes lists a batch's shards on the
+    # 2-device mesh
+    ds = jds._synthetic_images(64, (12, 12, 1), 10, template_seed=101, noise_seed=1, raw=True)
+    jx = next(iter(JaxResident(ds, PER_DEVICE, jax_mesh({"data": WORLD}))))[0]
+    want_shards = [tuple(s) for s in jax_per_shard_shapes(jx)]
+    for o in out:
+        assert o["per_shard_shapes"] == o["per_shard_shapes_mesh"] == want_shards
+    assert out[0]["describe_sharding"] == out[1]["describe_sharding"]
+    assert out[0]["describe_sharding"].startswith(f"global {tuple(jx.shape)} torch.float64")
 
 
 def test_max_restarts_reforks_after_a_crash(tmp_path):

@@ -62,7 +62,13 @@ def test_port_modules_import_no_jax():
            # serving's SLO tiers: the port's own copy of the JAX slo module
            "serve.slo",
            # the contract sentry: the port's own copy of the JAX sentry
-           "obs.sentry")
+           "obs.sentry",
+           # observability and receipts: the trace classifier, the obs
+           # selftest, the regression gate, the small helpers and the
+           # script twins
+           "obs.trace", "obs.__main__", "utils.profiling", "utils.tree", "ops.debug",
+           "bench.regress", "scripts.profile_step", "scripts.profile_decode",
+           "scripts.flight_view", "scripts.launch_overhead_probe")
     assert {f"{PORT}.{m}" for m in ddp} <= set(mods)
     code = (
         "import sys\n"

@@ -57,6 +57,7 @@ from pytorch_distributed_training_tutorials_tpu_torch.models import (
     from_jax_params,
     init_lm,
 )
+from pytorch_distributed_training_tutorials_tpu_torch.obs import validate_receipt
 from pytorch_distributed_training_tutorials_tpu_torch.ops.flash_attention import (
     make_flash_attention,
 )
@@ -439,8 +440,11 @@ def test_bench_cpu_smoke_prints_one_json_line(capsys):
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == 1
     r = json.loads(lines[0])
-    assert r["bench"] == "lm_headline" and r["gpu"] is None and r["torch"]
-    res = r["result"]
+    # the graft-receipt/v1 envelope: the payload flat beside schema, kind, env
+    assert validate_receipt(r, kind="lm_headline") == []
+    assert r["env"]["backend"] == "cpu" and r["env"]["nvidia_smi"] is None
+    assert r["env"]["torch_version"] == torch.__version__
+    res = r
     for key in ("preset", "n_params", "step_ms", "tokens_per_s", "mfu",
                 "model_tflops_per_step", "peak_memory_bytes", "losses_first_chain",
                 "flash_launches", "steps_run", "block_note", "attn"):
@@ -469,8 +473,10 @@ def test_bench_fused_cpu_smoke_prints_both_arms(capsys):
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == 1
     r = json.loads(lines[0])
-    assert r["gpu"] is None and set(r["result"]) == {"baseline", "fused"}
-    base, fused = r["result"]["baseline"], r["result"]["fused"]
+    assert validate_receipt(r, kind="lm_headline") == []
+    assert r["env"]["nvidia_smi"] is None
+    assert set(r) - {"schema", "kind", "env"} == {"baseline", "fused"}
+    base, fused = r["baseline"], r["fused"]
     assert (base["loss"], base["optimizer"]) == ("cross_entropy", "adamw")
     assert (fused["loss"], fused["optimizer"]) == ("fused_cross_entropy", "fused_adamw")
     for arm in (base, fused):

@@ -15,6 +15,10 @@ import torch.distributed as dist
 from pytorch_distributed_training_tutorials_tpu_torch.data import ArrayDataset, DeviceResidentLoader
 from pytorch_distributed_training_tutorials_tpu_torch.models import resnet18
 from pytorch_distributed_training_tutorials_tpu_torch.models.resnet import BatchNorm
+from pytorch_distributed_training_tutorials_tpu_torch.ops.debug import (
+    describe_sharding,
+    per_shard_shapes,
+)
 from pytorch_distributed_training_tutorials_tpu_torch.parallel import distributed
 from pytorch_distributed_training_tutorials_tpu_torch.parallel.mesh import create_mesh
 from pytorch_distributed_training_tutorials_tpu_torch.train import Trainer, sgd
@@ -50,9 +54,14 @@ def resnet_worker(rank: int, world: int, coordinator: str | None, workdir: str,
             v.copy_(init[k])
     rows = loader.epoch_index_array(0)
     trainer.train(epochs)
+    # the shape-print lesson over the world: each rank's block of a batch
+    x = next(iter(loader))[0]
     torch.save({"state": model.state_dict(), "rows": rows,
                 "losses": [e["loss"] for e in trainer.metrics.epoch_events()],
-                "host_syncs": trainer.host_syncs},
+                "host_syncs": trainer.host_syncs,
+                "per_shard_shapes": per_shard_shapes(x),
+                "per_shard_shapes_mesh": per_shard_shapes(x, mesh=loader.mesh, axis="data"),
+                "describe_sharding": describe_sharding(x)},
                os.path.join(workdir, f"rank{rank}.pt"))
     distributed.shutdown()
 
