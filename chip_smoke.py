@@ -20,8 +20,10 @@ on the card and fails — non-zero exit, no result line — if a phase fails.
 ``serve_1b_disagg`` and ``serve_1b_sentry`` serve the presets' widths at
 SERVE_LAYERS (8) of their 16 layers: where their text below counts 113
 int8 calls, or 16 flash or paged launches, a forward, read 57 and 8
-(``serve_1b_tp2`` and ``serve_1b_tp2_world4``: TP_LAYERS, also 8). Every
-phase prints JSON lines:
+(``serve_1b_tp2`` and ``serve_1b_tp2_world4``: TP_LAYERS, 2: read 15 and
+2). Phases 6, 7 and ``train_760m`` arm ``dots_attn`` train the 760m
+widths at TRAIN_760M_LAYERS (8) of its 24 layers: their flash launches a
+step are FLASH_PER_LAYER times that depth. Every phase prints JSON lines:
 
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 1. the build of every hand-written kernel from ``csrc/`` (one ``nvcc`` per
@@ -87,9 +89,9 @@ phase prints JSON lines:
    CPU (plain versions): the loss and every gradient, with cross entropy
    and with the fused loss (then also one ``fused_adamw`` step);
 6. the train slice: the port's ``bench.lm_headline`` default arm (760m at
-   full depth and width, seq 2048, batch 2, bf16, flash, remat "dots",
+   full width, seq 2048, batch 2, bf16, flash, remat "dots",
    AdamW) for a warmup chain and 2 timed chains of 6 steps and one
-   profiled step: finite, falling loss, exactly 48 / 24 / 24 flash
+   profiled step: finite, falling loss, exactly 16 / 8 / 8 flash
    forward / dq / dk-dv launches per step, every one on the sm90 route,
    step time, MFU, peak memory; the profiled step's trace classified by
    ``obs.trace.StepReport`` (``step_report_gates``: the categories sum to
@@ -98,7 +100,7 @@ phase prints JSON lines:
    launches in the trace equal to the counters over the step);
 7. its fused arm (``--fused``: the fused loss and ``fused_adamw``), the
    same chains in the same call: finite, falling loss, the first loss
-   within one bf16 ulp of phase 6's, exactly 48 / 24 / 24 flash, 1 / 1 / 1
+   within one bf16 ulp of phase 6's, exactly 16 / 8 / 8 flash, 1 / 1 / 1
    fused-loss and 1 fused-AdamW launches per step, every flash forward,
    dq and dk/dv and every fused-loss forward, dh and dW launch on the sm90
    route; its profiled step through the same StepReport gates. Then
@@ -237,7 +239,7 @@ paged launches all sm90, flash forwards on the f32 route, no page left.
 After phase 7, ``train_760m`` arm ``dots_attn``: the 760m model's loss
 and gradients under remat "dots" and "dots_attn" in turns, bitwise
 equal, with device ms and peak memory of each; the bench's default arm
-with ``--remat_policy dots_attn``: 24 / 24 / 24 flash launches a step,
+with ``--remat_policy dots_attn``: 8 / 8 / 8 flash launches a step,
 all sm90, its first loss bitwise "dots"'. Then ``train_lora``: phase 5's
 model as a LoRA model fine-tuned on row 1 by ``Trainer(model_kwargs=
 {"adapter_ids": 1})`` with ``fused_adamw(mask=lora_param_mask)`` for 5
@@ -302,7 +304,9 @@ and tok/s of the fleet and the monolithic engines.
 Then the tensor-parallel slice, ``serve_1b_tp2``: two ranks, NCCL where
 the machine has a card for each, else gloo with both ranks on card 0 (NCCL
 refuses two ranks on one device), the backend printed with the card
-count. First ``int8_matmul_tp`` against its plain version in this
+count. Its kernel check (``tp_kernel_checks``, run in a whole run with
+the other kernel checks, before anything else shares the card):
+``int8_matmul_tp`` against its plain version in this
 process, with no group, at the 1b shard shapes (q/k/v, gate/up and the
 lm_head split on N, o and down on K; M 1, 4 and 512): a column shard
 bitwise the unsharded kernel's columns, the row shards' partials summed
@@ -435,6 +439,40 @@ teacher-forced logits against the float model's with mean |difference|
 under LOAD_HF_GATE of their std, and a load with ``o_proj`` left
 untransposed failing that gate.
 
+The user surface (``--examples-only``: the build and these, one after
+the other and then side by side; a whole run places them among the other
+phases, below). ``example_serve_1b``: ``examples/serve_llm_int8.py``'s ``main`` at
+``--preset 1b`` (16 layers) in this process, under a temporary directory
+of ``build/``: the one-shot arm writes the synthetic checkpoint (the JAX
+writer's PCG64 draws, 4.8 GB), streams it back int8 and generates; the
+``--server`` arm (sentry on, ``--json``) and the ``--paged --paged-kernel
+--kv-bits 8`` arm reuse it. Gates: 113 int8 launches a forward, all sm90;
+16 paged launches a decode step in the paged arm, all sm90; 12 requests
+complete; the sentry's fetches equal to its budget, no violation; no page
+in use after the drain; each receipt valid and read by ``bench.regress``;
+the load's host RSS growth under EX_RSS_SHARE of the float32 checkpoint.
+In a whole run it works beside the build (its checkpoint's draws are
+host work; its first kernel launch waits for the build) and ends before
+anything else touches the card. The four whose work runs in spawned
+worlds or a child process run side by side (threads, each waiting on its
+own processes; none timed against a bound) beside the serving phases,
+from ``phase_model`` to ``serve_1b_from_checkpoint`` (this process's
+counters, sentry and sync mode stay the serving phases' own). Every
+kernel-against-plain timing, ``int8_matmul_tp``'s shard calls included,
+is taken before they start; the ``beside_world_examples`` line names the
+phases whose wall-clock numbers (tok/s, TTFT, load GB/s) were taken
+beside them, not comparable with a run that places those alone:
+``example_train_resnet_mnist`` (``--batch_size 512 --fsdp``, a gloo world
+of 2 on card 0, 2 epochs with ``--ckpt``, the same trainer on to epoch 3,
+then ``--max_epochs 3`` resumed at epoch 2: bitwise the uninterrupted run
+on each rank, eval accuracy above EX_RESNET_ACC_FLOOR),
+``example_train_llm_3d`` (``--mode pp --nprocs 4``, ``--mode tp_sp
+--nprocs 8``, 2 epochs: finite, falling loss, one fused AdamW launch a
+step, no flash launch), ``graft_dryrun`` (``dryrun_multichip`` at
+DRYRUN_WORLD ranks: every section of that world) and ``notebooks``
+(``build_notebooks.py --execute`` into a temporary directory: every
+lesson's proof strings; lesson 03's timing table printed).
+
 Every serving stream is also run under PyTorch's sync debug mode: its
 stream syncs (with their call sites) must not exceed the host syncs the
 engine budgets.
@@ -473,9 +511,16 @@ F32_FLOPS = 67e12
 # the 760m preset of bench/lm_headline.py
 PRESET_760M = dict(vocab_size=32768, d_model=1536, n_layers=24, n_heads=16)
 N_PARAMS_760M = 1_006_708_224
-# flash launches per 760m train step: 24 layers, the forward run twice
-# (remat "dots" recomputes it in the backward), one dq and one dk/dv
-FLASH_PER_STEP = {"fwd": 48, "dq": 24, "dkv": 24}
+# train_760m (phases 6, 7 and arm dots_attn) trains the 760m widths at
+# TRAIN_760M_LAYERS of the preset's 24 layers (``lm_headline --n_layers``):
+# its parameter count and flash launches a step are the depth's
+TRAIN_760M_LAYERS = 8
+PARAMS_760M_LAYER = 37_751_808  # 4 d^2 attention + 3 d ff MLP + 2 d norms, d 1536, ff 6144
+N_PARAMS_TRAIN = N_PARAMS_760M - (24 - TRAIN_760M_LAYERS) * PARAMS_760M_LAYER
+TRAIN_DEPTH = ["--n_layers", str(TRAIN_760M_LAYERS)]
+# flash launches a layer a step: remat "dots" runs the forward twice (the
+# recompute), "dots_attn" keeps its outputs
+FLASH_PER_LAYER = {"dots": {"fwd": 2, "dq": 1, "dkv": 1}, "dots_attn": {"fwd": 1, "dq": 1, "dkv": 1}}
 # (B, S, H, D, dtype, strided) of the flash checks; the first is the main
 # shape of the 760m train step
 FLASH_SHAPES = [
@@ -711,8 +756,15 @@ def replay_spec(prompt: list, tokens: list, new: int, k: int, ngram: int) -> tup
     return steps, lo, hi
 
 
+_EMIT = __import__("threading").Lock()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line, written whole (phases may run side by side)."""
+    line = json.dumps(obj) + "\n"
+    with _EMIT:
+        sys.stdout.write(line)
+        sys.stdout.flush()
 
 
 def gpu_line() -> str:
@@ -4126,11 +4178,11 @@ def phase_train_sentry(torch, gpu: str) -> dict:
 TP = 2
 TP_REPLACES = "pytorch_distributed_training_tutorials_tpu/ops/quant.py:262"
 TP_STREAM = dict(n_slots=4, tokens_per_launch=8)
-# the served depth of the TP arms: the 1b widths at 8 of their 16 layers
-# (cut in PR 19 to make room for that slice's phases; each rank's
-# teacher-forced decode of every request, through gloo's staged
-# all_reduces, was most of the phase)
-TP_LAYERS = 8
+# the served depth of the TP arms: the 1b widths at 2 of their 16 layers
+# (cut to 8 to make room for the sequence-parallel slice's phases, then to
+# 2 for the examples'; each rank's teacher-forced decode of every request,
+# through gloo's staged all_reduces, was most of the phase)
+TP_LAYERS = 2
 # arm -> preset, engine options and stream: the 1b int8 stream (flash
 # prefill, whole-slot cache) and the 1b-gqa paged-kernel arm (2 of the 4
 # KV heads a rank)
@@ -4544,11 +4596,12 @@ def tp_clock_gates(ranks: list) -> list:
     return bad
 
 
-def phase_serve_tp(torch, quant, gpu: str) -> dict:
+def phase_serve_tp(torch, quant, gpu: str, kern: dict) -> dict:
     """``serve_1b_tp2``: tensor-parallel serving at TP 2. The backend
     (NCCL with a card per rank, else gloo on card 0) is printed with the
-    card count. ``int8_matmul_tp`` against its plain version at the shard
-    shapes (``tp_kernel_checks``); each TP_ARMS arm replicated, here, then
+    card count. ``kern``: ``tp_kernel_checks``' result (``int8_matmul_tp``
+    against its plain version at the shard shapes, run by the caller
+    before anything shares the card); each TP_ARMS arm replicated, here, then
     sharded on TP spawned ranks. Gates: every rank's tokens equal and its
     teacher-forced logits bitwise equal; tokens equal the replicated
     engine's, except requests held teacher-forced against it within 4% of
@@ -4569,7 +4622,6 @@ def phase_serve_tp(torch, quant, gpu: str) -> dict:
     backend = "nccl" if cards >= TP else "gloo"
     emit({"phase": "serve_1b_tp2_world", "tp": TP, "backend": backend, "cards": cards,
           "note": TP_NOTE if backend == "gloo" else None, "gpu": gpu})
-    kern = tp_kernel_checks(torch, quant, gpu)
     one = TensorParallel()
     replicated = {name: tp_serve_arm(torch, one, name, keep=True) for name in TP_ARMS}
     torch.cuda.synchronize()
@@ -5189,8 +5241,8 @@ TP_TRAIN_GRAD_TOL = 0.1
 TP_TRAIN_COLLECTIVES = {
     "all_reduce": 0, "all_gather": 0, "g": 3 * TP_TRAIN_LAYERS,
     "f": 2 * TP_TRAIN_LAYERS, "lse_max": 1, "lse_sum": 1, "dh": 1, "flag_min": 1}
-# flash launches a rank a step (FLASH_PER_STEP at the cut depth)
-TP_TRAIN_FLASH = {"fwd": 2 * TP_TRAIN_LAYERS, "dq": TP_TRAIN_LAYERS, "dkv": TP_TRAIN_LAYERS}
+# flash launches a rank a step (remat "dots" at the cut depth)
+TP_TRAIN_FLASH = {k: n * TP_TRAIN_LAYERS for k, n in FLASH_PER_LAYER["dots"].items()}
 
 
 def tp_train_batch():
@@ -5627,7 +5679,7 @@ def phase_train(torch, gpu: str) -> dict:
         flash_attention,
     )
 
-    argv = ["--steps", "6", "--reps", "2", "--trace"]
+    argv = ["--steps", "6", "--reps", "2", "--trace", *TRAIN_DEPTH]
     args = lm_headline.parse(argv)
     for counts in (flash_attention.launches, *flash_attention.routes.values()):
         for k in counts:
@@ -5642,19 +5694,20 @@ def phase_train(torch, gpu: str) -> dict:
         problems.append("a loss is not finite")
     if not losses[-1] < losses[0]:
         problems.append(f"loss did not fall over the first chain: {losses}")
-    want = {k: n * steps for k, n in FLASH_PER_STEP.items()}
+    want = {k: n * TRAIN_760M_LAYERS * steps for k, n in FLASH_PER_LAYER["dots"].items()}
     if launches != want:
         problems.append(f"flash launches {launches} != {want} ({steps} steps)")
     # every flash launch of the bf16 760m step takes the sm90 route
     if routes != {k: {"sm90": n, "sm80": 0} for k, n in launches.items()}:
         problems.append(f"flash routes {routes}: not all sm90")
-    if r["n_params"] != N_PARAMS_760M:
-        problems.append(f"n_params {r['n_params']} != {N_PARAMS_760M}")
+    if r["n_params"] != N_PARAMS_TRAIN:
+        problems.append(f"n_params {r['n_params']} != {N_PARAMS_TRAIN}")
     problems += step_report_gates(r)
     emit({
         "phase": "train_760m", "arm": "baseline", "argv": argv,
-        "note": "6 chained steps and 2 timed chains (the bench default is 12 and 3) "
-                "to fit the smoke's time",
+        "note": f"{TRAIN_760M_LAYERS} of the 760m preset's 24 layers, 6 chained steps and 2 "
+                "timed chains (the bench default is 24 layers, 12 and 3) to fit the smoke's "
+                "time",
         "flash_launches": launches, "flash_routes": routes, "launches_per_step": {
             k: v / steps for k, v in launches.items()},
         **{k: r[k] for k in (
@@ -5683,7 +5736,7 @@ def phase_train_fused(torch, gpu: str, baseline_first_loss: float) -> dict:
     )
     from pytorch_distributed_training_tutorials_tpu_torch.ops.fused_optim import fused_adamw
 
-    argv = ["--steps", "6", "--reps", "2", "--trace", "--fused"]
+    argv = ["--steps", "6", "--reps", "2", "--trace", "--fused", *TRAIN_DEPTH]
     args = lm_headline.parse(argv)
     for counts in (flash_attention.launches, *flash_attention.routes.values(),
                    fused_cross_entropy.launches, *fused_cross_entropy.routes.values()):
@@ -5703,7 +5756,8 @@ def phase_train_fused(torch, gpu: str, baseline_first_loss: float) -> dict:
         problems.append("a loss is not finite")
     if not losses[-1] < losses[0]:
         problems.append(f"loss did not fall over the first chain: {losses}")
-    want = {"flash": {k: n * steps for k, n in FLASH_PER_STEP.items()},
+    want = {"flash": {k: n * TRAIN_760M_LAYERS * steps
+                      for k, n in FLASH_PER_LAYER["dots"].items()},
             "fused_loss": {k: n * steps for k, n in FUSED_PER_STEP.items()},
             "fused_adamw": ADAMW_PER_STEP * steps}
     if launches != want:
@@ -5721,13 +5775,14 @@ def phase_train_fused(torch, gpu: str, baseline_first_loss: float) -> dict:
     if not abs(losses[0] - baseline_first_loss) <= ulp:
         problems.append(f"first loss {losses[0]} vs the baseline's {baseline_first_loss}: "
                         f"more than one bf16 ulp ({ulp}) apart")
-    if r["n_params"] != N_PARAMS_760M:
-        problems.append(f"n_params {r['n_params']} != {N_PARAMS_760M}")
+    if r["n_params"] != N_PARAMS_TRAIN:
+        problems.append(f"n_params {r['n_params']} != {N_PARAMS_TRAIN}")
     problems += step_report_gates(r)
     emit({
         "phase": "train_760m", "arm": "fused", "argv": argv,
-        "note": "6 chained steps and 2 timed chains (the bench default is 12 and 3) "
-                "to fit the smoke's time",
+        "note": f"{TRAIN_760M_LAYERS} of the 760m preset's 24 layers, 6 chained steps and 2 "
+                "timed chains (the bench default is 24 layers, 12 and 3) to fit the smoke's "
+                "time",
         "launches": launches, "routes": routes, "flash_routes": flash_routes,
         "launches_per_step": {
             "flash": {k: v / steps for k, v in launches["flash"].items()},
@@ -6799,10 +6854,6 @@ LORA_TRAIN = dict(steps=5, lr=5e-2, weight_decay=0.01, batch=2, tenant=1)
 # logits; in bfloat16 each side rounds to 2^-8 of a value and a logit of
 # 4.5 has an ulp of 2^-5, so the bf16 pair is reported, not gated
 LORA_MERGE_F32_SHARE = 1e-4
-# flash launches per 760m train step under each remat policy: "dots"
-# recomputes the flash forward in the backward, "dots_attn" keeps its
-# outputs (O and lse)
-FLASH_PER_STEP_BY_POLICY = {"dots": FLASH_PER_STEP, "dots_attn": {"fwd": 24, "dq": 24, "dkv": 24}}
 
 
 def lora_rows(bank, rng, std: float = LORA_FACTOR_STD) -> dict:
@@ -7340,7 +7391,7 @@ def phase_train_dots_attn(torch, gpu: str) -> dict:
     )
     from pytorch_distributed_training_tutorials_tpu_torch.train.trainer import _make_loss_fn
 
-    args = lm_headline.parse([])
+    args = lm_headline.parse(TRAIN_DEPTH)
     model, _, batch, _, _, _ = lm_headline.build(args, torch.device("cuda"))
     loss_fn = _make_loss_fn("cross_entropy")
     params = [p for p in model.parameters()]
@@ -7376,10 +7427,10 @@ def phase_train_dots_attn(torch, gpu: str) -> dict:
     if not same:
         problems.append("dots_attn's loss or gradients differ from dots'")
     for t in turns:
-        want = {"fwd": 24 if t["policy"] == "dots_attn" else 48, "dq": 24, "dkv": 24}
+        want = {k: n * TRAIN_760M_LAYERS for k, n in FLASH_PER_LAYER[t["policy"]].items()}
         if t["flash"] != want:
             problems.append(f"{t['policy']}: flash launches {t['flash']} != {want}")
-    argv = ["--steps", "6", "--reps", "2", "--remat_policy", "dots_attn"]
+    argv = ["--steps", "6", "--reps", "2", "--remat_policy", "dots_attn", *TRAIN_DEPTH]
     for counts in (flash_attention.launches, *flash_attention.routes.values()):
         for key in counts:
             counts[key] = 0
@@ -7388,7 +7439,7 @@ def phase_train_dots_attn(torch, gpu: str) -> dict:
     routes = {k: dict(c) for k, c in flash_attention.routes.items()}
     steps = r["steps_run"]
     losses = r["losses_first_chain"]
-    want = {k: n * steps for k, n in FLASH_PER_STEP_BY_POLICY["dots_attn"].items()}
+    want = {k: n * TRAIN_760M_LAYERS * steps for k, n in FLASH_PER_LAYER["dots_attn"].items()}
     if launches != want:
         problems.append(f"flash launches {launches} != {want} ({steps} steps)")
     if routes != {k: {"sm90": n, "sm80": 0} for k, n in launches.items()}:
@@ -9205,6 +9256,342 @@ def phase_train_moe_ep(torch, gpu: str) -> dict:
     return {"flash": r0["flash"], "fused_adamw": r0["fused_adamw"]}
 
 
+# the user surface: the examples, the dry run and the notebooks, each
+# driven through its own entry point
+EX_SERVE_ARMS = {
+    "one_shot": [],
+    "server": ["--server"],
+    "paged": ["--server", "--paged", "--paged-kernel", "--kv-bits", "8"],
+}
+EX_SERVE_REQUESTS = 12  # the example's --requests default
+EX_RSS_SHARE = 0.2  # the load's host RSS growth, a share of the f32 checkpoint
+EX_RESNET = ["--batch_size", "512", "--fsdp"]
+EX_RESNET_EPOCHS = (2, 3)
+EX_RESNET_ACC_FLOOR = 0.9
+EX_LLM = {"pp": 4, "tp_sp": 8}  # mode: ranks
+EX_LLM_EPOCHS = 2
+# the dry run's world: 4 ranks (the JAX dry run's 8 run its two n >= 8
+# sections, dp x tp x sp with the Ulysses cross-check and int8 x tp, too;
+# at 8 the side-by-side examples overran the script's time)
+DRYRUN_WORLD = 4
+
+
+def example_serve_gates(r: dict, arm: str, layers: int) -> list:
+    """A serving example run's launch, route and stream gates."""
+    bad = []
+    k = r["kernels"]
+    per_forward = 7 * layers + 1
+    if k["int8_matmul_launches"] != per_forward * r["forwards"]:
+        bad.append(f"{arm}: {k['int8_matmul_launches']} int8 launches, want {per_forward} x "
+                   f"{r['forwards']} forwards")
+    if k["int8_matmul_routes"] != {"sm90": k["int8_matmul_launches"], "v1": 0}:
+        bad.append(f"{arm}: int8 routes {k['int8_matmul_routes']}, not all sm90")
+    want_paged = layers * r.get("decode_steps", 0) if r.get("paged") else 0
+    if k["paged_attention_launches"] != want_paged:
+        bad.append(f"{arm}: {k['paged_attention_launches']} paged launches, want {want_paged}")
+    if k["paged_attention_routes"] != {"sm90": want_paged, "v1": 0}:
+        bad.append(f"{arm}: paged routes {k['paged_attention_routes']}, not all sm90")
+    if arm != "one_shot":
+        if r["server_completed"] != EX_SERVE_REQUESTS or r["server_finish_reasons"] != ["length"]:
+            bad.append(f"{arm}: {r['server_completed']} of {EX_SERVE_REQUESTS} requests, "
+                       f"reasons {r['server_finish_reasons']}")
+        if not r.get("checkpoint_reused"):
+            bad.append(f"{arm}: the checkpoint was not reused")
+        if not (r["sentry"] == 1 and r["sentry_fetched"] == r["sentry_budgeted"] > 0
+                and not r["sentry_budget_violations"] and not r["sentry_steady_recompiles"]
+                and not r["sentry_reuploads"]):
+            bad.append(f"{arm}: sentry {({k_: v for k_, v in r.items() if 'sentry' in k_})}")
+        if r.get("paged") and r.get("pages_in_use"):
+            bad.append(f"{arm}: {r['pages_in_use']} pages in use after the drain")
+    return bad
+
+
+def phase_example_serve_1b(torch, gpu: str) -> dict:
+    """``example_serve_1b``: ``examples/serve_llm_int8.py``'s ``main`` at
+    ``--preset 1b`` in this process (so the launch counters are read):
+    the one-shot arm writes the synthetic checkpoint (the JAX writer's
+    PCG64 values), streams it back int8 and generates; the ``--server``
+    arm (sentry on, ``--json``) and the paged arm (``--paged
+    --paged-kernel --kv-bits 8``) reuse it through its ``COMPLETE``
+    marker. Gates: kernel 1 at 113 launches a forward, all sm90; kernel 2
+    at 16 a decode step in the paged arm, all sm90; every request
+    complete; the sentry's fetches equal to its budget with no violation;
+    no page left in use; the receipt valid and read by ``bench.regress``;
+    the load's host RSS growth (VmRSS sampled) under a fifth of the f32
+    checkpoint."""
+    import shutil
+    import tempfile
+
+    from pytorch_distributed_training_tutorials_tpu_torch.bench import regress
+    from pytorch_distributed_training_tutorials_tpu_torch.examples import serve_llm_int8 as ex
+    from pytorch_distributed_training_tutorials_tpu_torch.obs import load_receipt, validate_receipt
+
+    layers = ex.PRESETS["1b"]["n_layers"]
+    root = os.path.join(REPO, "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="example_1b_", dir=root)
+    out, problems = {}, []
+    try:
+        ck = os.path.join(tmp, "ck")
+        for arm, extra in EX_SERVE_ARMS.items():
+            path = os.path.join(tmp, f"{arm}.json")
+            r = ex.main(["--preset", "1b", "--ckpt_dir", ck, *extra, "--json", path])
+            torch.cuda.empty_cache()
+            problems += example_serve_gates(r, arm, layers)
+            if validate_receipt(load_receipt(path), kind="serving"):
+                problems.append(f"{arm}: receipt {validate_receipt(load_receipt(path))}")
+            groups, skipped = regress.collect([path])
+            if skipped or len(groups) != 1:
+                problems.append(f"{arm}: bench.regress read {len(groups)} groups, skipped "
+                                f"{skipped}")
+            growth, bound = r["load_rss_growth_bytes"], EX_RSS_SHARE * 4 * r["n_params"]
+            if growth is None or growth >= bound:
+                problems.append(f"{arm}: load RSS growth {growth} bytes, bound {bound}")
+            keep = ("checkpoint_write_s", "checkpoint_reused", "n_params", "load_s",
+                    "load_gb_per_s", "resident_gb", "load_rss_growth_bytes", "peak_rss_gb",
+                    "decode_tok_per_s", "decode_s_samples", "first_call_incl_compile_s",
+                    "sample", "forwards", "decode_steps", "kernels", "server_tok_per_s",
+                    "server_wall_s", "server_ttft_p50_s", "server_ttft_p95_s",
+                    "server_p50_latency_s", "server_p95_latency_s", "server_compile_s",
+                    "server_host_syncs", "server_completed", "hbm_high_water_bytes",
+                    "pages_in_use", "pool_pages", "sentry_fetched", "sentry_budgeted",
+                    "sentry_budget_violations", "regress_groups")
+            r["regress_groups"] = [list(k) for k in groups]
+            out[arm] = {k: r[k] for k in keep if k in r}
+            emit({"phase": "example_serve_1b", "arm": arm, **out[arm], "gpu": gpu})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return out
+
+
+def resnet_example_rank(world, ckpt: str) -> dict:
+    """One rank of ``example_train_resnet_mnist`` (a gloo world of 2 on
+    card 0): the example's ``--max_epochs 2 --ckpt`` run, then that same
+    trainer on to epoch 3 uninterrupted (never restored); then the
+    ``--max_epochs 3`` run, which resumes from the epoch-2 checkpoint, and
+    its evaluation. Returns both epoch-3 states (the rank's shards)."""
+    import torch
+
+    from pytorch_distributed_training_tutorials_tpu_torch.examples import train_resnet_mnist as ex
+
+    # cuDNN's deterministic algorithms: the bitwise comparison needs them
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    first, second = EX_RESNET_EPOCHS
+    args = ex.build_parser().parse_args([*EX_RESNET, "--max_epochs", str(first), "--ckpt", ckpt])
+    trainer, _ = ex.build(args)
+    fresh, last = ex.fit(trainer, args)
+    trainer.train(second)
+    straight = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+    del trainer
+    args = ex.build_parser().parse_args([*EX_RESNET, "--max_epochs", str(second), "--ckpt", ckpt])
+    resumed, test = ex.build(args)
+    resumed_at, last2 = ex.fit(resumed, args)
+    return {"fresh": fresh, "resumed_at": resumed_at, "epoch": resumed.epoch,
+            "straight": straight,
+            "resumed": {k: v.detach().cpu() for k, v in resumed.model.state_dict().items()},
+            "eval": resumed.evaluate(test),
+            "images_per_s": [last["samples_per_sec"], last2["samples_per_sec"]],
+            "steps": [last["steps"], last2["steps"]]}
+
+
+def phase_example_train_resnet_mnist(torch, gpu: str) -> dict:
+    """``example_train_resnet_mnist``: ``examples/train_resnet_mnist.py``
+    at ``--batch_size 512 --fsdp`` (cuDNN deterministic) in a gloo world of 2 on
+    card 0 (the example's ``--nprocs 2`` world; the state really is
+    sharded), ``--max_epochs 2 --ckpt``, then ``--max_epochs 3`` on the same
+    checkpoint. Gates: the second run ``resumed at epoch 2``; its eval
+    accuracy above EX_RESNET_ACC_FLOOR; its epoch-3 parameters and
+    statistics, on each rank, bitwise those of the first run's trainer
+    carried on to epoch 3 without a restore (the uninterrupted run, in the
+    same processes)."""
+    import shutil
+    import tempfile
+
+    from pytorch_distributed_training_tutorials_tpu_torch.examples import run_world
+
+    root = os.path.join(REPO, "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="example_resnet_", dir=root)
+    try:
+        t0 = time.perf_counter()
+        ranks = run_world(resnet_example_rank, 2, (os.path.join(tmp, "ckpt"),), device="cuda")
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    problems = []
+    for rank, r in enumerate(ranks):
+        if r["fresh"] is not None or r["resumed_at"] != EX_RESNET_EPOCHS[0]:
+            problems.append(f"rank {rank}: fresh {r['fresh']}, resumed at {r['resumed_at']}")
+        diff = sorted(k for k in r["straight"] if not torch.equal(r["straight"][k],
+                                                                  r["resumed"][k]))
+        if diff:
+            problems.append(f"rank {rank}: {len(diff)} entries differ from the uninterrupted "
+                            f"run's: {diff[:4]}")
+        if not r["eval"]["accuracy"] > EX_RESNET_ACC_FLOOR:
+            problems.append(f"rank {rank}: eval {r['eval']}")
+    sharded = sum(".parametrizations." in k for k in ranks[0]["resumed"])
+    if not sharded:
+        problems.append("no leaf is sharded")
+    emit({"phase": "example_train_resnet_mnist", "argv": [*EX_RESNET, "--ckpt", "<tmp>"],
+          "epochs": EX_RESNET_EPOCHS, "ranks": 2, "sharded_leaves": sharded,
+          "resumed_at": [r["resumed_at"] for r in ranks], "eval": ranks[0]["eval"],
+          "bitwise_uninterrupted": not any("differ" in p for p in problems),
+          "images_per_s_last_epochs": ranks[0]["images_per_s"], "steps": ranks[0]["steps"],
+          "wall_s": wall, "note": STRATEGY_NOTE, "ok": not problems, "problems": problems,
+          "gpu": gpu})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"eval": ranks[0]["eval"], "images_per_s": ranks[0]["images_per_s"]}
+
+
+def phase_example_train_llm_3d(torch, gpu: str) -> dict:
+    """``example_train_llm_3d``: ``examples/train_llm_3d.py``'s ``main`` at
+    ``--mode pp --nprocs 4`` (``{"data": 2, "stage": 2}``) and ``--mode
+    tp_sp --nprocs 8`` (``{"data": 2, "seq": 2, "model": 2}``), gloo worlds
+    on card 0, ``--max_epochs 2``. Gates on every rank: finite losses,
+    the second epoch's mean loss below the first's, one fused AdamW
+    launch a step, and no flash launch (the pp mode's attention is the
+    float model's dense one, tp_sp's the ring's plain fold)."""
+    from pytorch_distributed_training_tutorials_tpu_torch.examples import train_llm_3d as ex
+
+    out, problems = {}, []
+    for mode, n in EX_LLM.items():
+        t0 = time.perf_counter()
+        ranks = ex.main(["--mode", mode, "--nprocs", str(n), "--max_epochs",
+                         str(EX_LLM_EPOCHS)])
+        wall = time.perf_counter() - t0
+        for rank, r in enumerate(ranks):
+            losses = r["losses"]
+            half = len(losses) // 2
+            if not all(math.isfinite(x) for x in losses):
+                problems.append(f"{mode} rank {rank}: a loss is not finite")
+            if not statistics.mean(losses[half:]) < statistics.mean(losses[:half]):
+                problems.append(f"{mode} rank {rank}: the loss did not fall "
+                                f"({r['epoch_losses']})")
+            if r["fused_adamw_launches"] != len(losses) or r["flash_launches"]:
+                problems.append(f"{mode} rank {rank}: {r['fused_adamw_launches']} fused AdamW "
+                                f"launches for {len(losses)} steps, {r['flash_launches']} flash")
+        out[mode] = {"ranks": n, "axes": ex.mesh_axes(mode, n), "steps": len(ranks[0]["losses"]),
+                     "epoch_losses": ranks[0]["epoch_losses"],
+                     "fused_adamw_launches_rank0": ranks[0]["fused_adamw_launches"],
+                     "flash_launches_rank0": ranks[0]["flash_launches"], "wall_s": wall}
+        emit({"phase": "example_train_llm_3d", "mode": mode, **out[mode], "gpu": gpu})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return out
+
+
+def phase_graft_dryrun(torch, gpu: str) -> dict:
+    """``graft_dryrun``: ``graft_entry.dryrun_multichip(DRYRUN_WORLD)`` on
+    the card (gloo on card 0): every section of that world printed
+    (``graft_entry.sections``), its asserts held in the ranks (a failed
+    one fails the world, and the call)."""
+    from pytorch_distributed_training_tutorials_tpu_torch import graft_entry
+
+    t0 = time.perf_counter()
+    lines = graft_entry.dryrun_multichip(DRYRUN_WORLD)
+    wall = time.perf_counter() - t0
+    heads = [ln.split(":")[0].removeprefix("dryrun ") for ln in lines
+             if ln.startswith("dryrun ")]
+    problems = [] if heads == graft_entry.sections(DRYRUN_WORLD) else [f"sections {heads}"]
+    emit({"phase": "graft_dryrun", "world": DRYRUN_WORLD, "sections": heads,
+          "lines": [ln for ln in lines if ln.startswith("dryrun ")], "wall_s": wall,
+          "ok": not problems, "problems": problems, "gpu": gpu})
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"sections": heads}
+
+
+def phase_notebooks(torch, gpu: str) -> dict:
+    """``notebooks``: ``notebooks/build_notebooks.py --execute`` on the card
+    into a temporary directory (not over the committed notebooks): every
+    lesson's proof strings present (the builder checks them and fails
+    without them; checked again here). Prints lesson 03's timing table."""
+    import shutil
+    import tempfile
+
+    from pytorch_distributed_training_tutorials_tpu_torch.notebooks import build_notebooks as bn
+
+    root = os.path.join(REPO, "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="notebooks_", dir=root)
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", f"{PKG}.notebooks.build_notebooks",
+                               "--execute", "--out", tmp, "--device", "cuda"],
+                              capture_output=True, text=True, timeout=900, cwd=REPO)
+        wall = time.perf_counter() - t0
+        if proc.returncode:
+            raise AssertionError(f"notebooks: exit {proc.returncode}: {proc.stderr[-3000:]}")
+        texts = {name: bn.outputs_text(os.path.join(tmp, name)) for name in bn.NOTEBOOKS}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    missing = {n: [p for p in bn.PROOFS[n] if p not in t] for n, t in texts.items()}
+    missing = {n: m for n, m in missing.items() if m}
+    table = [ln for ln in texts["03_model_parallel.ipynb"].splitlines()
+             if ln.startswith(("|", "ResNet-50 train step"))]
+    emit({"phase": "notebooks", "wall_s": wall, "lesson_03_timing": table,
+          "proofs": {n: bn.PROOFS[n] for n in bn.NOTEBOOKS}, "ok": not missing,
+          "problems": missing, "gpu": gpu})
+    for ln in table:
+        print(ln, flush=True)
+    if missing:
+        raise AssertionError(f"notebooks: proofs missing {missing}")
+    return {"timing": table}
+
+
+class Beside:
+    """``phases`` (name -> phase(torch, gpu)) started at once, each in a
+    thread of its own, while the caller goes on; every phase's seconds
+    kept by ``run``. :meth:`join` waits for all and returns their results,
+    re-raising the first failure. A phase run so must not share this
+    process's launch counters, sentry or sync mode with what runs beside
+    it: the spawned-world phases do their work in their own processes."""
+
+    def __init__(self, run, phases: dict, torch, gpu: str):
+        import threading
+
+        self.out, self.errors = {}, []
+
+        def one(name, phase):
+            try:
+                self.out[name] = run(phase, torch, gpu)
+            except BaseException as e:  # re-raised by join
+                self.errors.append(e)
+
+        self.threads = [threading.Thread(target=one, args=item, name=item[0])
+                        for item in phases.items()]
+        for t in self.threads:
+            t.start()
+
+    def join(self) -> dict:
+        for t in self.threads:
+            t.join()
+        if self.errors:
+            raise self.errors[0]
+        return self.out
+
+
+# the phases whose work runs in spawned worlds or a child process: side by
+# side with each other, and beside the serving phases in a whole run
+WORLD_EXAMPLES = {"resnet": phase_example_train_resnet_mnist,
+                  "llm_3d": phase_example_train_llm_3d,
+                  "dryrun": phase_graft_dryrun, "notebooks": phase_notebooks}
+
+
+def example_phases(run, torch, gpu: str) -> dict:
+    """The user surface's phases alone (``--examples-only``):
+    ``example_serve_1b`` in this process, then the four spawned-world
+    phases side by side. A whole run places them otherwise (``main``):
+    ``example_serve_1b`` beside the build, the four beside the serving
+    phases."""
+    out = {"serve": run(phase_example_serve_1b, torch, gpu)}
+    out.update(Beside(run, WORLD_EXAMPLES, torch, gpu).join())
+    return out
+
+
 def spep_phases(run, torch, gpu: str) -> dict:
     """The sequence-, pipeline- and expert-parallel slice's three phases
     (``--sp-ep-only`` runs these after the build)."""
@@ -9261,6 +9648,10 @@ def main(argv=None) -> int:
                     help="after the build, run the observability slice's phases only "
                          "(train_760m baseline and fused with their StepReport gates, "
                          "train_resnet_ddp, obs)")
+    ap.add_argument("--examples-only", action="store_true",
+                    help="after the build, run the user surface's phases only "
+                         "(example_serve_1b, example_train_resnet_mnist, "
+                         "example_train_llm_3d, graft_dryrun, notebooks)")
     ap.add_argument("--strategies-only", action="store_true",
                     help="after the build, run the model-parallel slice's phases only "
                          "(train_resnet50_pipeline, train_resnet50_gpipe, "
@@ -9295,9 +9686,24 @@ def main(argv=None) -> int:
     })
 
     others = ("kernel_only", "ddp_only", "serve_only", "lora_only", "faults_only", "tp_only",
-              "load_only", "sp_ep_only", "slo_roles_only", "strategies_only")
+              "load_only", "sp_ep_only", "slo_roles_only", "strategies_only", "examples_only")
     selftest = (ObsSelftest() if args.obs_only or not any(getattr(args, f) for f in others)
                 else None)
+    seconds = {}
+
+    def run(phase, *a):
+        """``phase(*a)``, its wall seconds kept under its name."""
+        t = time.perf_counter()
+        out = phase(*a)
+        seconds[phase.__name__] = time.perf_counter() - t
+        return out
+
+    # a whole run writes and serves the 1b example beside the build: its
+    # checkpoint's draws are host work, and its first kernel launch waits
+    # for the build's lock; it ends before anything else touches the card
+    whole = not any(getattr(args, f) for f in others)
+    serve_example = (Beside(run, {"serve": phase_example_serve_1b}, torch, gpu)
+                     if whole else None)
     t0 = time.perf_counter()
     info = _build.build_all()
     emit({
@@ -9312,15 +9718,8 @@ def main(argv=None) -> int:
         },
     })
 
+    user = serve_example.join() if serve_example is not None else {}
     emit({"phase": "warm_card", "seconds": warm_card(torch), "gpu": gpu})
-    seconds = {}
-
-    def run(phase, *a):
-        """``phase(*a)``, its wall seconds kept under its name."""
-        t = time.perf_counter()
-        out = phase(*a)
-        seconds[phase.__name__] = time.perf_counter() - t
-        return out
 
     if args.ddp_only:
         run(phase_adamw, torch, gpu)
@@ -9345,11 +9744,12 @@ def main(argv=None) -> int:
         run(phase_serve_spec, torch, fa, gpu)
         run(phase_serve_lora, torch, quant, fa, pa, gpu)
         fault_phases()
-        run(phase_serve_tp, torch, quant, gpu)
+        run(phase_serve_tp, torch, quant, gpu, run(tp_kernel_checks, torch, quant, gpu))
         emit({"phase": "phase_seconds", **seconds})
         return 0
     if args.tp_only:
-        tp_row = tp_kernel_row(run(phase_serve_tp, torch, quant, gpu))
+        tp_row = tp_kernel_row(run(phase_serve_tp, torch, quant, gpu,
+                                   run(tp_kernel_checks, torch, quant, gpu)))
         ce_tp = run(phase_fused_ce_tp, torch, fl, gpu)
         train_tp = run(phase_train_tp, torch, gpu)
         emit({"kernels": [tp_row, fused_ce_tp_row(ce_tp, train_tp)]})
@@ -9367,6 +9767,10 @@ def main(argv=None) -> int:
         spep_phases(run, torch, gpu)
         emit({"phase": "phase_seconds", **seconds})
         return 0
+    if args.examples_only:
+        example_phases(run, torch, gpu)
+        emit({"phase": "phase_seconds", **seconds})
+        return 0
     if args.load_only:
         run(phase_serve_1b_from_checkpoint, torch, quant, pa, gpu)
         emit({"phase": "phase_seconds", **seconds})
@@ -9375,7 +9779,7 @@ def main(argv=None) -> int:
         run(phase_serve_slo, torch, quant, fa, pa, gpu)
         run(phase_serve_disagg, torch, quant, fa, pa, gpu)
         run(phase_serve_sentry, torch, quant, fa, pa, gpu)
-        tp = run(phase_serve_tp, torch, quant, gpu)
+        tp = run(phase_serve_tp, torch, quant, gpu, run(tp_kernel_checks, torch, quant, gpu))
         tp["launches"]["world4"] = run(phase_serve_tp_world4, torch, gpu, tp)["int8_tp"]
         run(phase_train_sentry, torch, gpu)
         emit({"kernels": [tp_kernel_row(tp)]})
@@ -9401,9 +9805,17 @@ def main(argv=None) -> int:
     adamw_row = run(phase_adamw, torch, gpu)
     paged = run(phase_paged, torch, pa, gpu)
     flash_serving = run(phase_flash_serving, torch, fa, gpu)
+    tp_kern = run(tp_kernel_checks, torch, quant, gpu)
     if args.kernel_only:
         emit({"phase": "phase_seconds", **seconds})
         return 0
+    # the examples' spawned worlds and child process beside the serving
+    # phases (gates without a speed bound; their work is in other
+    # processes, so this process's counters, sentry and sync mode stay the
+    # serving phases' own). No kernel is timed against its plain version
+    # while they run: every such check is above.
+    worlds = Beside(run, WORLD_EXAMPLES, torch, gpu)
+    before_worlds = set(seconds)
     run(phase_model, torch, gpu)
     serve = run(phase_serve, torch, quant, gpu)
     paged_serve = run(phase_serve_paged, torch, pa, gpu)
@@ -9414,9 +9826,19 @@ def main(argv=None) -> int:
     slo = run(phase_serve_slo, torch, quant, fa, pa, gpu)
     disagg = run(phase_serve_disagg, torch, quant, fa, pa, gpu)
     sentry = run(phase_serve_sentry, torch, quant, fa, pa, gpu)
-    tp = run(phase_serve_tp, torch, quant, gpu)
+    tp = run(phase_serve_tp, torch, quant, gpu, tp_kern)
     tp["launches"]["world4"] = run(phase_serve_tp_world4, torch, gpu, tp)["int8_tp"]
     load = run(phase_serve_1b_from_checkpoint, torch, quant, pa, gpu)
+    world_names = [fn.__name__ for fn in WORLD_EXAMPLES.values()]
+    beside = [k for k in seconds if k not in before_worlds and k not in world_names]
+    t_join = time.perf_counter()
+    user.update(worlds.join())
+    seconds["wait_for_world_examples"] = time.perf_counter() - t_join
+    emit({"phase": "beside_world_examples", "phases": beside, "world_examples": world_names,
+          "note": "these phases ran while the world examples' processes shared the card "
+                  "and the host's cores: their wall-clock numbers (tok/s, TTFT, load s and "
+                  "GB/s, wall seconds) are not comparable with a run that places them alone; "
+                  "no kernel was timed against its plain version in this window"})
     train_tp = run(phase_train_tp, torch, gpu)
     run(phase_train_card_vs_cpu, torch, gpu)
     base = run(phase_train, torch, gpu)
@@ -9476,14 +9898,18 @@ def main(argv=None) -> int:
                                 for a, r in load.items()},
                              **{path: n["int8"] for path, n in slo.items()},
                              **{path: n["int8"] for path, n in disagg.items()},
-                             **{path: n["int8"] for path, n in sentry.items()}},
+                             **{path: n["int8"] for path, n in sentry.items()},
+                             **{f"example_serve_1b_{a}": r["kernels"]["int8_matmul_launches"]
+                                for a, r in user["serve"].items()}},
         "verify_forwards_by_path": {
             **{f"serve_1b_spec_{a}": n for a, n in spec["verify_forwards"].items() if n},
             "serve_1b_gqa_paged_spec": paged_serve["spec"]["n_verify_forwards"]},
     }]
-    # the flash kernels: one 760m train step's launches at the main shape
-    # (FLASH_SHAPES[0]), times, bound and library time summed over them
-    for kind, per_step in FLASH_PER_STEP.items():
+    # the flash kernels: one train_760m step's launches (TRAIN_760M_LAYERS
+    # layers) at the main shape (FLASH_SHAPES[0]), times, bound and library
+    # time summed over them
+    for kind, per_layer in FLASH_PER_LAYER["dots"].items():
+        per_step = per_layer * TRAIN_760M_LAYERS
         row = flash["results"][(0, kind)]
         redesign = {
             "design": "wgmma+tma", "route_counts": base["flash_routes"][kind],
@@ -9494,18 +9920,22 @@ def main(argv=None) -> int:
             "source": f"{PKG}/csrc/flash_attention_sm90.cu",
             "replaces": FLASH_REPLACES[kind], **redesign,
             "launches": train_launches[kind], "max_abs_err": flash["max_abs_err"][kind],
+            "launches_note": f"train_760m at {TRAIN_760M_LAYERS} of its 24 layers; ms, "
+                             "plain_ms, bound_ms and library_ms: one such step's calls",
             "worst_ratio": flash["worst_ratio"][kind],
             "ms": row["ms"] * per_step, "plain_ms": row["plain_ms"] * per_step,
             "bound_ms": row["bound_ms"] * per_step, "bound_by": row["bound_by"],
             "library_ms": row["library_ms"] * per_step,
-            "work": f"one 760m train step: {per_step} calls at B=2 S=2048 H=16 D=96 bf16",
+            "work": f"one train_760m step ({TRAIN_760M_LAYERS} layers): {per_step} calls "
+                    "at B=2 S=2048 H=16 D=96 bf16",
             "library_note": "F.scaled_dot_product_attention(is_causal=True) "
                             + ("forward" if kind == "fwd" else
                                "backward, one number for flash_dq and flash_dkv "
                                "together (it computes dq, dk and dv in one call)"),
             # remat "dots_attn" keeps the flash op's outputs: one forward a
             # layer a step
-            "per_step_by_policy": {p: n[kind] for p, n in FLASH_PER_STEP_BY_POLICY.items()},
+            "per_step_by_policy": {p: n[kind] * TRAIN_760M_LAYERS
+                                   for p, n in FLASH_PER_LAYER.items()},
             "launches_train_760m_dots_attn": dots_attn["flash"][kind],
             # HybridFSDP at 2 layers, a rank's launches in its 2 steps
             "launches_train_lm_hybrid_fsdp_rank0": strat["hybrid"]["flash"][kind],
@@ -9579,7 +10009,9 @@ def main(argv=None) -> int:
                              "train_760m_spmd_pipeline_m2_rank0": spep["pipeline"]["fused_adamw"],
                              "train_760m_seq_ring_rank0": spep["seq"]["ring"]["fused_adamw"],
                              "train_760m_seq_ulysses_rank0": spep["seq"]["ulysses"]["fused_adamw"],
-                             "train_moe_ep_rank0": spep["moe"]["fused_adamw"]},
+                             "train_moe_ep_rank0": spep["moe"]["fused_adamw"],
+                             **{f"example_train_llm_3d_{m}_rank0": r["fused_adamw_launches_rank0"]
+                                for m, r in user["llm_3d"].items()}},
         "fsdp_shards": {**strat["fsdp"]["adamw_shards"],
                         "work": "one FSDP rank's update at world 2: 1 launch over its ResNet-18 "
                                 "shards and the replicated leaves"},
@@ -9630,7 +10062,9 @@ def main(argv=None) -> int:
                              "serve_1b_from_checkpoint_hf": load["hf"]["paged_attention_launches"],
                              **{path: n["paged"] for path, n in {**slo, **disagg, **sentry}.items()
                                 if "paged" in n},
-                             "serve_1b_tp2_roles_rank0": tp["roles_launches"]["paged"]},
+                             "serve_1b_tp2_roles_rank0": tp["roles_launches"]["paged"],
+                             "example_serve_1b_paged":
+                                 user["serve"]["paged"]["kernels"]["paged_attention_launches"]},
         "verify": {k: paged["results"][("1b-gqa-verify", "f32", "f32")][k] * 16
                    for k in ("ms", "plain_ms", "bound_ms")}
         | {"bound_by": paged["results"][("1b-gqa-verify", "f32", "f32")]["bound_by"],

@@ -25,7 +25,8 @@ weight) and ``fused_adamw`` (the one-pass kernel of
 prints both arms, ``{"baseline": ..., "fused": ...}``, as the JAX bench
 does. Each arm records its kernels' launches.
 
-``--trace`` profiles one more step (:func:`..bench.harness.trace_step`:
+``--n_layers`` keeps the preset's widths at another depth (a shorter
+run). ``--trace`` profiles one more step (:func:`..bench.harness.trace_step`:
 busy and idle share, kernels, the top kernels) and classifies that same
 trace with :class:`..obs.trace.StepReport`: ``trace_report`` (its
 ``to_dict()``), ``trace_step_ms`` (the step's device time) and
@@ -74,6 +75,13 @@ BLOCK_NOTE = (
 )
 
 
+def _shape(args) -> tuple[int, int, int, int]:
+    """(d_model, n_layers, n_heads, vocab): the preset's, its depth cut to
+    ``--n_layers`` when given."""
+    d_model, n_layers, n_heads, vocab = PRESETS[args.preset]
+    return d_model, getattr(args, "n_layers", None) or n_layers, n_heads, vocab
+
+
 def build(args, device):
     import numpy as np
     import torch
@@ -94,7 +102,7 @@ def build(args, device):
         _train_step_fn,
     )
 
-    d_model, n_layers, n_heads, vocab = PRESETS[args.preset]
+    d_model, n_layers, n_heads, vocab = _shape(args)
     attention_fn = None
     if args.attn == "flash":
         attention_fn = make_flash_attention(args.block_q, args.block_k)
@@ -169,7 +177,7 @@ def measure(args) -> dict:
     def sync(loss):
         return float(loss.item())  # the one real sync of a chain
 
-    d_model, n_layers, _, vocab = PRESETS[args.preset]
+    d_model, n_layers, _, vocab = _shape(args)
     tokens_per_step = args.batch * args.seq
     model_flops = model_flops_per_token(
         n_params - n_embed, d_model, n_layers, args.seq
@@ -254,6 +262,8 @@ def _delta(now: dict, before: dict) -> dict:
 def parse(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--preset", choices=sorted(PRESETS), default="760m")
+    p.add_argument("--n_layers", type=int, default=None,
+                   help="the preset's widths at this depth (default: the preset's)")
     p.add_argument("--seq", type=int, default=2048)
     p.add_argument("--batch", type=int, default=2)
     p.add_argument("--attn", choices=["dense", "flash"], default="flash")

@@ -8,7 +8,9 @@ from pytorch_distributed_training_tutorials_tpu_torch.launch._spawn import (
     coordinator_for_spawn,
     pick_unused_port,
     spawn,
+    world_backend,
 )
 from pytorch_distributed_training_tutorials_tpu_torch.launch.pod import launch_pod, pod_run_command
 
-__all__ = ["coordinator_for_spawn", "launch_pod", "pick_unused_port", "pod_run_command", "spawn"]
+__all__ = ["coordinator_for_spawn", "launch_pod", "pick_unused_port", "pod_run_command", "spawn",
+           "world_backend"]

@@ -38,6 +38,18 @@ def coordinator_for_spawn(port: int | None = None) -> str:
     return f"localhost:{port if port is not None else pick_unused_port()}"
 
 
+def world_backend(nprocs: int, device) -> str:
+    """The group's backend for ``nprocs`` ranks on ``device``: NCCL when
+    every rank has a card of its own; gloo on the CPU, and on a card
+    shared by several ranks (NCCL refuses two ranks on one device: gloo
+    stages CUDA tensors through host memory)."""
+    import torch
+
+    if torch.device(device).type == "cuda" and nprocs <= torch.cuda.device_count():
+        return "nccl"
+    return "gloo"
+
+
 def _worker_env(rank: int, nprocs: int, coordinator: str, env_contract: bool) -> dict[str, str]:
     """The environment one child adds (the torchrun agent's variables)."""
     if not env_contract:

@@ -7,7 +7,8 @@ lr 1e-2, ``--loss mse`` by default). ``--nprocs N`` forks an N-process
 world with an explicit rendezvous (the ``mp.spawn`` contract); each
 process holds one device's rows. ``--device cpu`` runs the world on the
 CPU with gloo (the hardware-free harness); without it every process takes
-a CUDA device (``rank % device_count``) and the group is NCCL.
+a CUDA device (``rank % device_count``) and the group is NCCL, or gloo
+when the ranks outnumber the cards (``launch.world_backend``).
 
     python -m pytorch_distributed_training_tutorials_tpu_torch.launch.train_ddp \\
         --max_epochs 10 --batch_size 32
@@ -19,7 +20,9 @@ from __future__ import annotations
 
 import argparse
 
+from pytorch_distributed_training_tutorials_tpu_torch._device import resolve_device
 from pytorch_distributed_training_tutorials_tpu_torch.data import ShardedLoader, synthetic_regression
+from pytorch_distributed_training_tutorials_tpu_torch.launch._spawn import world_backend
 from pytorch_distributed_training_tutorials_tpu_torch.models import LinearRegressor
 from pytorch_distributed_training_tutorials_tpu_torch.parallel import distributed
 from pytorch_distributed_training_tutorials_tpu_torch.parallel.mesh import create_mesh
@@ -34,7 +37,8 @@ def main(rank: int, world_size: int, max_epochs: int, batch_size: int,
     """Per-process entry: setup -> dataset -> sharded loader ->
     Linear(20, 1) -> SGD -> Trainer -> train -> teardown."""
     if world_size > 1:
-        distributed.init(coordinator, num_processes=world_size, process_id=rank, device=device)
+        distributed.init(coordinator, num_processes=world_size, process_id=rank, device=device,
+                         backend=world_backend(world_size, resolve_device(device)))
     mesh = create_mesh(device=device)
     loader = ShardedLoader(synthetic_regression(DATASET_SIZE), batch_size, mesh)
     Trainer(LinearRegressor(), loader, sgd(LEARNING_RATE), loss=loss).train(max_epochs)
@@ -50,7 +54,7 @@ def build_parser(launch_flags: bool = True) -> argparse.ArgumentParser:
         p.add_argument("--nprocs", type=int, default=1,
                        help="processes to fork (>1: a multi-process world, the mp.spawn twin)")
     p.add_argument("--device", choices=("cuda", "cpu"), default=None,
-                   help="cuda (NCCL, the default) or cpu (gloo)")
+                   help="cuda (the default: NCCL, gloo where ranks share a card) or cpu (gloo)")
     p.add_argument("--loss", choices=("mse", "cross_entropy"), default="mse")
     return p
 

@@ -188,8 +188,7 @@ class _Gathered(nn.Module):
         return _Gather.apply(shard, self.fsdp, self.dim)
 
     def right_inverse(self, full: torch.Tensor) -> torch.Tensor:
-        n = full.shape[self.dim] // self.fsdp.num_devices
-        return full.narrow(self.dim, self.fsdp.rank * n, n).contiguous()
+        return self.fsdp.shard_of(full, self.dim)
 
 
 class FSDP:
@@ -240,7 +239,8 @@ class FSDP:
 
     @property
     def sharded(self) -> bool:
-        """True when the state is split across ranks (checkpoints refuse)."""
+        """True when the state is split across ranks (a checkpoint gathers
+        it)."""
         return self.num_devices > 1
 
     def __repr__(self) -> str:
@@ -334,9 +334,26 @@ class FSDP:
     # -- collectives --------------------------------------------------------
     def gather(self, shard: torch.Tensor, dim: int) -> torch.Tensor:
         """Every rank's shard concatenated along ``dim`` in rank order."""
+        self._count(self.route[0])
+        return self._all_gather(shard, dim)
+
+    def unshard(self, shard: torch.Tensor, dim: int) -> torch.Tensor:
+        """A checkpoint's whole leaf from every rank's ``shard`` (a
+        parameter's or one of its optimizer moments'), outside autograd;
+        counted as ``checkpoint_gather``, apart from the step's gathers."""
+        self._count("checkpoint_gather")
+        with torch.no_grad():
+            return self._all_gather(shard.detach(), dim)
+
+    def shard_of(self, full: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's block of a whole leaf along ``dim`` (what a restore
+        keeps of a checkpoint's leaf)."""
+        n = full.shape[dim] // self.num_devices
+        return full.narrow(dim, self.rank * n, n).contiguous()
+
+    def _all_gather(self, shard: torch.Tensor, dim: int) -> torch.Tensor:
         w = self.num_devices
         x = shard.movedim(dim, 0).contiguous()
-        self._count(self.route[0])
         if self.route is TENSOR_ROUTE:
             out = x.new_empty((w * x.shape[0], *x.shape[1:]))
             dist.all_gather_into_tensor(out, x, group=self.group)

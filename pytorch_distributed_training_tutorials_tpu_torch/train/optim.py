@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 from collections.abc import Mapping
+from typing import ClassVar
 
 import numpy as np
 import torch
@@ -61,6 +62,10 @@ class AdamWState:
     for every count ``t`` the state can reach; ``calls`` (host) counts
     updates so far, an upper bound of ``count``, and grows the table before
     the count could pass its end."""
+
+    # the fields holding one tensor a trained parameter, in its shape (a
+    # checkpoint of an FSDP state gathers these and no other field)
+    PER_PARAM: ClassVar[tuple[str, ...]] = ("mu", "nu")
 
     count: torch.Tensor  # int32, 0-dim, on the parameters' device
     mu: list[torch.Tensor]
@@ -183,6 +188,8 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 @dataclasses.dataclass
 class SGDState:
     """optax's ``TraceState``: the momentum trace (None without momentum)."""
+
+    PER_PARAM: ClassVar[tuple[str, ...]] = ("trace",)
 
     trace: list[torch.Tensor] | None
 

@@ -58,7 +58,11 @@ BatchNorm synced over ``data`` as under ``DataParallel``;
 ``strategy=HybridFSDP(mesh, TP_RULES)`` on a ``{"data": d, "model": tp}``
 mesh builds the model as the rank's tensor-parallel shard (on the
 strategy's ``tp``) and shards over ``data`` what the rules leave whole.
-Checkpoints of a sharded state raise ``NotImplementedError`` too.
+A checkpoint of an FSDP state (and of a ``HybridFSDP`` one whose model
+axis is one wide) gathers each sharded leaf and its moments, rank 0
+writes the layout a whole state writes, and a restore keeps each rank's
+block: the files do not depend on the sharding that wrote them. With a
+wider model axis it is tensor-parallel, and refused as above.
 
 ``model_kwargs`` (e.g. ``{"adapter_ids": tenant}`` for a LoRA fine-tune)
 are forwarded to every model call, evaluation's too. An optimizer with a
@@ -101,7 +105,11 @@ from pytorch_distributed_training_tutorials_tpu_torch.ops.fused_loss import (
 )
 from pytorch_distributed_training_tutorials_tpu_torch.parallel.data_parallel import DataParallel
 from pytorch_distributed_training_tutorials_tpu_torch.parallel.distributed import is_primary
-from pytorch_distributed_training_tutorials_tpu_torch.parallel.fsdp import FSDP, HybridFSDP
+from pytorch_distributed_training_tutorials_tpu_torch.parallel.fsdp import (
+    FSDP,
+    HybridFSDP,
+    param_names,
+)
 from pytorch_distributed_training_tutorials_tpu_torch.parallel.pipeline_spmd import (
     PipelinedTransformerLM,
 )
@@ -329,8 +337,9 @@ def _accum_step_fn(n: int, loss: str, has_batch_stats: bool, aux_loss_weight: fl
             loss_val = loss_fn(state.model, tuple(a[m::n] for a in batch))
             grads = torch.autograd.grad(loss_val, params)
             torch._foreach_add_(g_sum, grads)
-            with torch.no_grad():
-                torch._foreach_add_(s_sum, stats)
+            if stats:  # a model without BatchNorm has none (foreach refuses empty lists)
+                with torch.no_grad():
+                    torch._foreach_add_(s_sum, stats)
             l_sum = l_sum + loss_val.detach()
         inv = 1.0 / n
         with torch.no_grad():
@@ -417,6 +426,33 @@ def _init_weights(model: nn.Module, seed: int, device: torch.device) -> None:
         bind_params(model, model.stage_params(init_lm(model.cfg, seed, device)))
     else:
         model.load_state_dict(init_params(model, seed, device), assign=True)
+
+
+def _unsharded_name(key: str) -> str:
+    """A state-dict key as before FSDP sharding: a parametrized leaf's
+    ``prefix.parametrizations.leaf.original`` is ``prefix.leaf``."""
+    if ".parametrizations." not in key:
+        return key
+    return key.replace(".parametrizations.", ".").removesuffix(".original")
+
+
+def _per_param(opt, dims: list) -> list[str]:
+    """The optimizer-state fields of ``opt`` holding one tensor a trained
+    parameter, as its class names them (``PER_PARAM``; a field set to None,
+    SGD's trace without momentum, is left out). An FSDP checkpoint gathers
+    and reorders these and no other field, so a state class that does not
+    name them, or a named field of another length, is refused."""
+    names = getattr(type(opt), "PER_PARAM", None)
+    if names is None:
+        raise NotImplementedError(
+            f"{type(opt).__name__} does not name its per-parameter fields (PER_PARAM): "
+            "its checkpoint under FSDP cannot tell moments from other lists")
+    fields = [k for k in names if getattr(opt, k) is not None]
+    bad = [k for k in fields if len(getattr(opt, k)) != len(dims)]
+    if bad:
+        raise ValueError(f"{type(opt).__name__} fields {bad} do not hold one tensor for each "
+                         f"of the {len(dims)} trained parameters")
+    return fields
 
 
 class Trainer:
@@ -693,30 +729,57 @@ class Trainer:
         return int(sum(e.get("skipped", 0) for e in self.metrics.step_events()))
 
     # -- checkpoint / resume ----------------------------------------------
+    def _fsdp_leaves(self) -> tuple[list[int | None], list[int]] | None:
+        """Under an FSDP state split over ranks: each trained parameter's
+        sharded dimension (None: whole on every rank), in ``state.params``
+        order, and for each position of the checkpoint's order — the
+        unsharded model's, which parametrizing a leaf changes — the
+        ``state.params`` index it holds. None for a state every rank holds
+        whole."""
+        s = self.strategy
+        if not (isinstance(s, FSDP) and s.group is not None):
+            return None
+        model = self.state.model
+        names = [n for n, p in zip(param_names(model), model.parameters()) if p.requires_grad]
+        where = {n: i for i, n in enumerate(names)}
+        return [s.plan[n].dim for n in names], [where[n] for n in s.plan if n in where]
+
     def _state_tree(self) -> dict:
+        """The checkpoint's tree, in the layout of a state every rank holds
+        whole: under FSDP each sharded leaf and its optimizer moments are
+        gathered over the data group (every rank takes part; rank 0
+        writes) and the moments put in the unsharded model's order, so the
+        files do not depend on the sharding that wrote them."""
         opt = self.state.opt_state
-        return {
-            "step": self.state.step,
-            "model": self.state.model.state_dict(),
-            "opt_state": {f.name: getattr(opt, f.name) for f in dataclasses.fields(opt)},
-            "epoch": self.epoch,
-        }
+        model = self.state.model.state_dict()
+        opt_tree = {f.name: getattr(opt, f.name) for f in dataclasses.fields(opt)}
+        leaves = self._fsdp_leaves()
+        if leaves is not None:
+            fsdp, (dims, order) = self.strategy, leaves
+            whole = {}
+            for key, t in model.items():
+                name = _unsharded_name(key)
+                whole[name] = t if name == key else fsdp.unshard(t, fsdp.plan[name].dim)
+            model = whole
+            for k in _per_param(opt, dims):
+                full = [t if d is None else fsdp.unshard(t, d) for t, d in zip(opt_tree[k], dims)]
+                opt_tree[k] = [full[i] for i in order]
+        return {"step": self.state.step, "model": model, "opt_state": opt_tree,
+                "epoch": self.epoch}
 
     def _check_checkpointable(self) -> None:
-        if isinstance(self.strategy, TensorParallel) and self.strategy.tp_size > 1:
+        tp = self.strategy.tp if isinstance(self.strategy, HybridFSDP) else self.strategy
+        if isinstance(tp, TensorParallel) and tp.tp_size > 1:
             raise NotImplementedError(
                 "checkpoints of a tensor-parallel train state (each model rank holds "
                 "its own shards) are not supported by the PyTorch port")
-        if isinstance(self.strategy, FSDP) and self.strategy.sharded:
-            raise NotImplementedError(
-                "checkpoints of an FSDP-sharded train state (each rank holds its own "
-                "shards) are not supported by the PyTorch port")
 
-    def _write(self, target: str) -> None:
-        """Rank 0 writes ``target/state.pt`` (the state is replicated)."""
+    @staticmethod
+    def _write(target: str, tree: dict) -> None:
+        """Rank 0 writes ``target/state.pt``."""
         if is_primary():
             os.makedirs(target)
-            torch.save(self._state_tree(), os.path.join(target, "state.pt"))
+            torch.save(tree, os.path.join(target, "state.pt"))
 
     def save(self, path, keep: int | None = None) -> None:
         """Checkpoint of the parameters, BatchNorm statistics, optimizer
@@ -730,9 +793,11 @@ class Trainer:
         (:meth:`restore` falls back to ``.old`` when ``path`` is missing).
         ``keep=K``: ``path`` is a rotation directory of
         ``ckpt-{step:08d}`` children, each written to a tmp name and
-        renamed; all but the newest K are pruned. Rank 0 writes; every rank
-        waits for it."""
+        renamed; all but the newest K are pruned. Under FSDP every rank
+        gathers its shards first (:meth:`_state_tree`). Rank 0 writes;
+        every rank waits for it."""
         self._check_checkpointable()
+        tree = self._state_tree()
         path = os.path.abspath(os.fspath(path))
         primary = is_primary()
         if keep is not None:
@@ -745,7 +810,7 @@ class Trainer:
                 tmp = target + ".tmp"
                 if os.path.exists(tmp):
                     shutil.rmtree(tmp)  # stale crash residue
-                self._write(tmp)
+                self._write(tmp, tree)
                 if os.path.exists(target):
                     shutil.rmtree(target)  # re-save at the same step
                 os.rename(tmp, target)
@@ -758,7 +823,7 @@ class Trainer:
             for stale in (tmp, old):
                 if os.path.exists(stale):
                     shutil.rmtree(stale)  # crash residue from a prior save
-            self._write(tmp)
+            self._write(tmp, tree)
             if os.path.exists(path):
                 os.rename(path, old)
             os.rename(tmp, path)
@@ -785,7 +850,10 @@ class Trainer:
     def restore(self, path) -> None:
         """Restore in place (the same tensors the optimizer holds): a plain
         checkpoint, a ``save(keep=K)`` rotation directory (newest child),
-        or a crash-windowed single path (``.old``).
+        or a crash-windowed single path (``.old``). Under FSDP each rank
+        keeps its block of every sharded leaf and moment, so a checkpoint
+        written under FSDP restores under ``DataParallel`` and the
+        reverse.
 
         A checkpoint whose optimizer state kept its count on the host (an
         int, and a ``count`` in SGD's state) loads too: the int fills the
@@ -795,9 +863,23 @@ class Trainer:
         self._check_checkpointable()
         tree = torch.load(os.path.join(self._resolve_ckpt(path), "state.pt"),
                           map_location=self.device, weights_only=True)
-        self.state.model.load_state_dict(tree["model"])
-        opt = self.state.opt_state
         saved = tree["opt_state"]
+        leaves = self._fsdp_leaves()
+        if leaves is None:
+            self.state.model.load_state_dict(tree["model"])
+        else:  # each rank keeps its block of every sharded leaf
+            fsdp, (dims, order) = self.strategy, leaves
+            mine = {}
+            for key in self.state.model.state_dict():
+                name = _unsharded_name(key)
+                full = tree["model"][name]
+                mine[key] = full if name == key else fsdp.shard_of(full, fsdp.plan[name].dim)
+            self.state.model.load_state_dict(mine)
+            for k in _per_param(self.state.opt_state, dims):
+                at = dict(zip(order, saved[k]))  # state.params index -> its whole moment
+                saved[k] = [at[i] if d is None else fsdp.shard_of(at[i], d)
+                            for i, d in enumerate(dims)]
+        opt = self.state.opt_state
         with torch.no_grad():
             self.state.step.copy_(tree["step"])
             for name, value in saved.items():

@@ -17,8 +17,8 @@ in a gloo world of 2 (``{"data": 2}``) on the CPU.
   the same world within the same bounds; a planted fault that drops the
   gradient's reduce-scatter (each rank keeps its own block) must miss;
 - the collectives a step, the skip flag's agreement, ``Trainer(strategy=
-  FSDP)`` converging and staying sharded, the audit lines and the
-  checkpoint refusals.
+  FSDP)`` converging and staying sharded, the audit lines and a
+  checkpoint's round trip.
 """
 
 import jax
@@ -196,8 +196,8 @@ def test_trainer_with_fsdp_converges_and_stays_sharded(setup):
         t = r["trainer"]
         assert t["last"] < t["first"] * 0.5, t
         assert t["kernel_shard"] == (32, 16) and t["moment"] == (32, 16) and t["sharded"]
-        assert len(t["refusals"]) == 2
-        assert all("FSDP-sharded train state" in m for m in t["refusals"])
+        # a sharded state's checkpoint saves and restores (it was refused)
+        assert t["refusals"] == [] and t["restored"]
 
 
 def test_audit_lines_and_variable_shardings(setup):

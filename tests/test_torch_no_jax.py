@@ -68,7 +68,14 @@ def test_port_modules_import_no_jax():
            # script twins
            "obs.trace", "obs.__main__", "utils.profiling", "utils.tree", "ops.debug",
            "bench.regress", "scripts.profile_step", "scripts.profile_decode",
-           "scripts.flight_view", "scripts.launch_overhead_probe")
+           "scripts.flight_view", "scripts.launch_overhead_probe",
+           # the user surface: the examples, the remaining script twins, the
+           # dry-run entry and the notebooks' builder
+           "examples", "examples.serve_llm_int8", "examples.train_llm_3d",
+           "examples.train_resnet_mnist", "scripts.receipt_session",
+           "scripts.step_time_experiment", "scripts.int8_decode_sweep", "scripts.flash_bench",
+           "scripts.train_llm_mfu", "scripts.accuracy_demo", "graft_entry",
+           "notebooks.build_notebooks")
     assert {f"{PORT}.{m}" for m in ddp} <= set(mods)
     code = (
         "import sys\n"

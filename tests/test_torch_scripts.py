@@ -1,6 +1,16 @@
 """The port's script twins (``scripts/``), ``ops/debug.py`` and
 ``utils/tree.py``, on the CPU.
 
+- ``receipt_session``: the plan of the fourteen arms re-targeted at the
+  port's serving example and LM bench (the JAX script's order, flag
+  deltas and output names), ``--dry-run`` printing it and creating
+  nothing, ``--only`` refusing an unknown arm;
+- ``step_time_experiment``, ``int8_decode_sweep`` and ``flash_bench`` at
+  toy sizes with ``--device cpu``: their output stamped ``cpu``;
+  ``train_llm_mfu`` at the smoke preset: a valid ``lm_headline`` receipt;
+  ``accuracy_demo`` built on a small split, not run (its run is 14
+  epochs); without a GPU and without ``--device cpu`` each raises.
+
 - ``profile_step``, ``profile_decode`` (whole-slot and paged) and
   ``launch_overhead_probe`` at toy sizes with ``--device cpu``: each prints
   a valid receipt of its kind (``profile_step``, ``profile_decode``,
@@ -30,10 +40,16 @@ from pytorch_distributed_training_tutorials_tpu_torch.ops.debug import (
     per_shard_shapes,
 )
 from pytorch_distributed_training_tutorials_tpu_torch.scripts import (
+    accuracy_demo,
+    flash_bench,
     flight_view,
+    int8_decode_sweep,
     launch_overhead_probe,
     profile_decode,
     profile_step,
+    receipt_session,
+    step_time_experiment,
+    train_llm_mfu,
 )
 from pytorch_distributed_training_tutorials_tpu_torch.utils.tree import keystr
 
@@ -175,3 +191,102 @@ def test_keystr_is_the_jax_slash_path():
         assert keystr(kp) == jax_keystr(kp)
     assert keystr("blocks.0.attn.q_proj.weight") == "blocks/0/attn/q_proj/weight"
     assert keystr(("layer_groups", 1, "qt")) == "layer_groups/1/qt"
+
+
+def test_receipt_session_plans_the_fourteen_arms_of_the_port():
+    plan = receipt_session.build_session(6, "/ckpt", "/out")
+    names = [n for n, _ in plan]
+    assert names == list(receipt_session.ARM_NAMES) and len(names) == 14
+    cmds = dict(plan)
+    serve_arms = [n for n in names if n != "fused_mfu"]
+    assert serve_arms[0] == "base"
+    for n in serve_arms:
+        cmd = cmds[n]
+        assert cmd[1:3] == ["-m", "pytorch_distributed_training_tutorials_tpu_torch.examples."
+                                  "serve_llm_int8"]
+        assert "--server" in cmd and cmd[cmd.index("--preset") + 1] == "1b"
+        assert cmd[cmd.index("--ckpt_dir") + 1] == "/ckpt"
+        assert cmd[cmd.index("--json") + 1] == f"/out/SERVING_r06_{n}.json"
+    fused = cmds["fused_mfu"]
+    assert fused[2].endswith("bench.lm_headline") and "--fused" in fused
+    assert fused[-1] == "/out/TRAIN_LLM_r06_fused.json"
+
+    def flag(arm, name):
+        return cmds[arm][cmds[arm].index(name) + 1]
+
+    assert flag("prefix", "--prefix-overlap") == "0.7" and flag("spec", "--spec-k") == "4"
+    assert flag("deadline", "--deadline-s") == "2"
+    assert flag("flight", "--flight-log") == "/out/FLIGHT_r06.jsonl"
+    assert flag("paged", "--max_seq_len") == "4096" and "--paged" in cmds["paged"]
+    assert flag("paged_int4", "--kv-bits") == "4" and "--paged-kernel" in cmds["paged_int4"]
+    assert flag("tp", "--tp") == "4" and flag("disagg", "--disaggregate") == "1p2d"
+    assert "--slo" in cmds["slo"] and "--replicas" not in cmds["slo"]
+
+
+def test_receipt_session_dry_run_prints_the_plan_and_creates_nothing(tmp_path, capsys):
+    out_dir = tmp_path / "receipts"
+    assert receipt_session.main(["--round", "99", "--dry-run", "--out-dir",
+                                 str(out_dir)]) == 0
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("[")]
+    assert len(lines) == 14 and any("SERVING_r99_slo.json" in ln for ln in lines)
+    assert not out_dir.exists()
+    assert receipt_session.main(["--round", "99", "--dry-run", "--only", "tp,slo"]) == 0
+    assert len([ln for ln in capsys.readouterr().out.splitlines()
+                if ln.startswith("[")]) == 2
+    with pytest.raises(SystemExit):
+        receipt_session.main(["--round", "7", "--dry-run", "--only", "nonesuch"])
+
+
+def test_step_time_and_int8_sweep_stamp_the_cpu(capsys):
+    assert step_time_experiment.main(["8", "--chain_len", "2", "--rows", "32",
+                                      "--device", "cpu"]) == 0
+    (r,) = _receipts(capsys.readouterr().out)
+    assert r["device_name"] == "cpu" and r["timer"] == "host_clock" and r["ms_per_step"] > 0
+    assert int8_decode_sweep.main(["--m", "4", "--shapes", "64x128", "--lens", "2", "4",
+                                   "--device", "cpu"]) == 0
+    (row,) = _receipts(capsys.readouterr().out)
+    assert row["shape"] == [4, 64, 128] and row["route"] == "plain (cpu)"
+    assert row["device_name"] == "cpu" and row["fit"]["lens"] == [2, 4]
+
+
+def test_flash_bench_writes_a_table_stamped_cpu(tmp_path, capsys):
+    out = tmp_path / "flash.md"
+    assert flash_bench.main(["--seqs", "16", "32", "--b", "1", "--h", "2", "--d", "8",
+                             "--device", "cpu", "--out", str(out)]) == 0
+    text = out.read_text()
+    assert text.startswith("# Flash attention against dense causal attention — cpu")
+    rows = [ln for ln in text.splitlines() if ln.startswith("| 16 ") or ln.startswith("| 32 ")]
+    assert len(rows) == 2 and all("not measured" in ln for ln in rows)
+    assert all(float(ln.split("|")[-2]) < 1e-5 for ln in rows)  # flash == dense
+
+
+def test_train_llm_mfu_writes_an_lm_headline_receipt(tmp_path, capsys):
+    path = tmp_path / "mfu.json"
+    r = train_llm_mfu.main(["--preset", "smoke", "--seq", "32", "--batch", "2", "--steps",
+                            "2", "--reps", "1", "--attn", "dense", "--device", "cpu",
+                            "--json", str(path)])
+    assert validate_receipt(json.loads(path.read_text()), kind="lm_headline") == []
+    assert r["preset"] == "smoke" and r["all_losses_finite"] and r["env"]["backend"] == "cpu"
+    assert len(train_llm_mfu.SWEEP) == 7
+
+
+def test_accuracy_demo_builds_its_configs():
+    from pytorch_distributed_training_tutorials_tpu_torch.data import ArrayDataset, mnist
+
+    small = ArrayDataset(tuple(a[:64] for a in mnist("test", raw=True).arrays))
+    trainer, test = accuracy_demo.build(10.0, "cpu", train=small, test=small)
+    assert trainer.state.tx.lr == 10.0 and trainer.state.tx.momentum == 0.9
+    assert trainer.loader.per_device_batch == test.per_device_batch == accuracy_demo.BATCH
+    assert (accuracy_demo.EPOCHS, accuracy_demo.TARGET) == (7, 0.99)
+
+
+def test_new_scripts_refuse_without_a_gpu_unless_asked():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a GPU")
+    for main, argv in ((step_time_experiment.main, ["8", "--rows", "8"]),
+                       (int8_decode_sweep.main, ["--shapes", "64x128"]),
+                       (flash_bench.main, ["--seqs", "16"]),
+                       (train_llm_mfu.main, ["--preset", "smoke"]),
+                       (accuracy_demo.main, [])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(argv)

@@ -158,8 +158,8 @@ def fsdp_case(world_tp, workdir: str, steps: int) -> dict:
 
 def _trainer_case(mesh, saved, workdir: str) -> dict:
     """``Trainer(strategy=FSDP)`` on the class-separable set: first and
-    last epoch losses, the kernel's shape after training, the
-    checkpoint refusals."""
+    last epoch losses, the kernel's shape after training, and a
+    checkpoint's round trip (saved, the shard overwritten, restored)."""
     fsdp = FSDP(mesh, min_size=64)
     loader = ShardedLoader(ArrayDataset((saved["train_x"].numpy(), saved["train_y"].numpy())), 8,
                            mesh)
@@ -170,16 +170,18 @@ def _trainer_case(mesh, saved, workdir: str) -> dict:
     trainer.epoch = 1
     last = trainer.train(5)["loss"]
     refusals = []
-    for call in (lambda: trainer.save(os.path.join(workdir, f"ckpt{fsdp.rank}")),
-                 lambda: trainer.restore(os.path.join(workdir, f"ckpt{fsdp.rank}"))):
-        try:
-            call()
-        except NotImplementedError as e:
-            refusals.append(str(e))
     kernel = trainer.model.denses[0].parametrizations.weight.original
+    before = kernel.detach().clone()
+    try:
+        trainer.save(os.path.join(workdir, "trainer_ckpt"))
+        with torch.no_grad():
+            kernel.zero_()
+        trainer.restore(os.path.join(workdir, "trainer_ckpt"))
+    except NotImplementedError as e:
+        refusals.append(str(e))
     return {"first": first, "last": last, "kernel_shard": tuple(kernel.shape),
             "moment": tuple(trainer.state.opt_state.mu[0].shape), "refusals": refusals,
-            "sharded": fsdp.sharded}
+            "restored": torch.equal(kernel, before), "sharded": fsdp.sharded}
 
 
 # -- HybridFSDP -----------------------------------------------------------------
